@@ -1,0 +1,75 @@
+"""Import hygiene of the port: torcheasyrec_tpu_torch and chip_smoke.py
+import neither JAX nor the JAX package, and both packages' protos load
+side by side and parse the same config text."""
+
+import ast
+import inspect
+import os
+import subprocess
+import sys
+
+from google.protobuf import text_format
+
+from torch_port_helpers import hstu_synth_config_text
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _is_forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "torcheasyrec_tpu"
+            or name.startswith("torcheasyrec_tpu."))
+
+
+def test_forbidden_prefix_spares_the_port():
+    assert _is_forbidden("jax") and _is_forbidden("jax.numpy")
+    assert _is_forbidden("torcheasyrec_tpu")
+    assert _is_forbidden("torcheasyrec_tpu.ops.hstu")
+    assert not _is_forbidden("torcheasyrec_tpu_torch")
+    assert not _is_forbidden("torcheasyrec_tpu_torch.ops.hstu")
+    assert not _is_forbidden("jaxlib_like_name")
+
+
+def test_port_imports_no_jax():
+    code = inspect.getsource(_is_forbidden) + """
+import importlib, pkgutil, sys
+import torcheasyrec_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert len(names) > 20, names
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if _is_forbidden(m))
+assert not bad, bad
+print(len(names))
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "torcheasyrec_tpu_torch" in names
+    bad = [n for n in names if _is_forbidden(n)]
+    assert not bad, bad
+
+
+def test_both_packages_protos_parse_one_text():
+    from torcheasyrec_tpu.protos import pipeline_pb2 as jax_pb2
+    from torcheasyrec_tpu_torch.protos import pipeline_pb2 as port_pb2
+
+    text = hstu_synth_config_text(8)
+    a = text_format.Parse(text, jax_pb2.EasyRecConfig())
+    b = text_format.Parse(text, port_pb2.EasyRecConfig())
+    assert b.DESCRIPTOR.full_name == "tzrec_tpu_torch.protos.EasyRecConfig"
+    assert a.SerializePartialToString() == b.SerializePartialToString()
+    assert b.model_config.dlrm_hstu.hstu.stu.embedding_dim == 128

@@ -1,0 +1,16 @@
+"""Model registry: importing this package registers the ported models so
+``create_model`` resolves a ModelConfig by its proto message name."""
+
+from torcheasyrec_tpu_torch.models.dlrm_hstu import DlrmHSTU  # noqa: F401
+from torcheasyrec_tpu_torch.models.model import BaseModel
+
+
+def create_model(model_config, features, labels, sample_weights=None,
+                 **kwargs) -> BaseModel:
+    """ModelConfig proto -> model instance; unported models raise
+    NotImplementedError."""
+    which = model_config.WhichOneof("model")
+    if which is None:
+        raise ValueError("model_config.model oneof is not set")
+    cls = BaseModel.create_class(type(getattr(model_config, which)).__name__)
+    return cls(model_config, features, labels, sample_weights, **kwargs)
