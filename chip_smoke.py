@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py
 
-Drives the port's DLRM-HSTU serving path (torcheasyrec_tpu_torch) at the
-full width of the repo's DLRM-HSTU lane (benchmark/bench_dlrm_hstu.py:
-batch 32, STU 512/128/128, 4 heads, 3 layers, histories up to 4000 tokens
-and 16 candidates, max_seq_len 4032, BF16) with seeded random weights.
-Phases, one JSON line each:
+Drives the port's DLRM-HSTU serving and training paths
+(torcheasyrec_tpu_torch) at the full width of the repo's DLRM-HSTU lane
+(benchmark/bench_dlrm_hstu.py: batch 32, tables 10k x 256 and
+100k x 256, STU 512/128/128, 4 heads, 3 layers, histories up to 4000
+tokens and 16 candidates, max_seq_len 4032, BF16, sparse rowwise_adagrad
+lr 0.01, dense adam lr 0.001) with seeded random weights. Phases, one
+JSON line each:
 
-1. env: the card, CUDA and torch versions; every CUDA kernel of the path
-   is built from the sources here (one nvcc per source, in parallel).
-2. kernel: each kernel against its plain PyTorch version on the card, at
-   the slice's shapes and over a sweep of every mask variant, fp32 and
-   bf16. Tolerance: max|kernel - plain| <= 1e-4 * max|plain| in fp32 (TF32
-   off), <= 2e-2 * max|plain| in bf16 (bf16 keeps ~3 significant digits
-   and the sums run in another order).
+1. env: the card, CUDA and torch versions; every CUDA kernel of the
+   paths is built from the sources here (one nvcc per source, in
+   parallel).
+2. kernel, kernel_bwd: each kernel against its plain PyTorch version on
+   the card, at the slice's shapes and over a sweep of every mask
+   variant, fp32 and bf16. Tolerance: max|kernel - plain| <=
+   1e-4 * max|plain| in fp32 (TF32 off), <= 2e-2 * max|plain| in bf16
+   (bf16 keeps ~3 significant digits and the sums run in another order),
+   per output or gradient. kernel_bwd also holds both kernels, through
+   the autograd Function, against autograd of the plain forward.
 3. slice: 4 requests of 32 through the port's eval step, then 2 of them
    again through ``predict_checkpoint`` (parquet in, parquet out), with
    the kernel launch counts set to 0 just before and read just after;
@@ -23,8 +28,25 @@ Phases, one JSON line each:
    points must agree, and the whole model with the kernel must match the
    whole model with the plain attention on a batch of 8 at the bf16
    tolerance.
-4. timing: median request time, and the kernel's time beside the plain
-   version's and the card's bound at the slice's shapes.
+4. train: 6 steps of 32 through ``make_train_step``, then 2 steps through
+   ``train_and_evaluate`` from a parquet file and a
+   ``predict_checkpoint`` of its checkpoint, again with the launch counts
+   set to 0 just before and read just after. Every loss must be finite,
+   the loss on a repeated batch must fall (all dropout ratios are 0),
+   rows the batches never touched must keep their bits and their
+   accumulator its initial value, touched rows must change, each kernel
+   must launch once per STU layer and step. On a batch of 8 the dense
+   gradients of the whole model with the kernels are held against those
+   with the plain attention: in fp32 within 1e-4 of each gradient's max;
+   in bf16 against the noise floor, since two bf16 forwards that differ
+   only in rounding already move these gradients by several percent (ReLU
+   gates flip, sums of random signs cancel): each gradient's distance
+   from the fp32 gradient must be at most three times the plain bf16
+   model's (the two are equal within a factor of 1.5 when the kernels are
+   right, tens apart when they are not).
+5. timing, timing_train: median request and step time, each kernel's time
+   beside the plain version's and the card's bound at the slice's shapes,
+   and a profile of one forward and of one train step by device kernel.
 
 Then a ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and as the last line the device record. Any failure raises
@@ -48,6 +70,8 @@ N_CAND = 16
 VOCAB = 100_000
 N_USERS = 10_000
 N_REQUESTS = 4
+N_TRAIN_STEPS = 6
+N_FILE_STEPS = 2
 SEED = 7
 
 # published dense peaks of one H100 SXM (bf16 tensor cores, HBM3)
@@ -57,13 +81,24 @@ PEAK_HBM_BYTES = 3.35e12
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 
-KERNELS = ["hstu_attention_fwd"]
+KERNELS = ["hstu_attention_fwd", "hstu_attention_bwd"]
 
 _CONFIG = """
-train_input_path: "unused"
+train_input_path: "{train_path}"
 eval_input_path: "unused"
-model_dir: "unused"
-train_config {{ mixed_precision: "BF16" }}
+model_dir: "{model_dir}"
+train_config {{
+    sparse_optimizer {{
+        rowwise_adagrad_optimizer {{ lr: 0.01 }}
+        constant_learning_rate {{}}
+    }}
+    dense_optimizer {{
+        adam_optimizer {{ lr: 0.001 }}
+        constant_learning_rate {{}}
+    }}
+    num_steps: {num_steps}
+    mixed_precision: "{mixed_precision}"
+}}
 data_config {{
     batch_size: {batch}
     dataset_type: ParquetDataset
@@ -140,7 +175,10 @@ model_config {{
                 attention_dim: 128
                 num_heads: 4
                 num_layers: 3
+                recompute_uvqk: false
+                recompute_y: false
             }}
+            input_dropout_ratio: {input_dropout}
             positional_encoder {{
                 num_position_buckets: 8192
                 num_time_buckets: 2048
@@ -166,11 +204,13 @@ model_config {{
                 task_name: "is_click"
                 label_name: "item_action_weight"
                 task_bitmask: 1
+                losses {{ binary_cross_entropy {{}} }}
             }}
             task_configs {{
                 task_name: "is_like"
                 label_name: "item_action_weight"
                 task_bitmask: 2
+                losses {{ binary_cross_entropy {{}} }}
             }}
         }}
         max_seq_len: {total_seq}
@@ -198,10 +238,19 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def config_text(kernel: str) -> str:
+def config_text(kernel: str, input_dropout: float = 0.2,
+                model_dir: str = "unused", train_path: str = "unused",
+                num_steps: int = 1, mixed_precision: str = "BF16") -> str:
+    """The lane's config. ``input_dropout`` defaults to the proto's 0.2;
+    the training phases set it to 0 (the STU's output dropout and the
+    MLP's are 0 in the lane already). An empty ``mixed_precision`` runs
+    the dense stack in fp32."""
     return _CONFIG.format(
         batch=BATCH, users=N_USERS, vocab=VOCAB, max_seq=MAX_SEQ,
         n_cand=N_CAND, total_seq=MAX_SEQ + N_CAND * 2, kernel=kernel,
+        input_dropout=input_dropout, model_dir=model_dir,
+        train_path=train_path, num_steps=num_steps,
+        mixed_precision=mixed_precision,
     )
 
 
@@ -289,6 +338,40 @@ def slice_attention_inputs():
                        seed=SEED)
 
 
+def slice_upstream_grad(v):
+    """A seeded upstream gradient of the attention output, at the scale
+    the loss sends back (small against the activations)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    return (torch.randn(v.shape, device="cuda", generator=g) * 0.01).to(
+        v.dtype)
+
+
+def mask_sweep():
+    """(name, tolerance, q, k, v, lengths, targets, mask arguments) over
+    every mask variant and head-dim pair, in fp32 then bf16, at
+    B=3, N=300, H=2 with ragged lengths."""
+    sweep = [(case, 64, 64) for case in MASK_CASES] + [
+        (dict(causal=True, contextual_seq_len=1, targets=True), d, vd)
+        for d, vd in ((32, 32), (128, 128), (32, 128), (128, 64))
+    ]
+    r = np.random.default_rng(1)
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        for i, (case, d, vd) in enumerate(sweep):
+            b, n = 3, 300
+            lens = r.integers(1, n + 1, b)
+            lens[0] = n
+            tg = (np.minimum(lens // 4 + 1, lens) if case.get("targets")
+                  else None)
+            q, k, v, lengths, targets = attn_inputs(b, n, 2, d, vd, dtype,
+                                                    lens, tg, seed=100 + i)
+            m = {key: case.get(key, 0) for key in (
+                "max_attn_len", "contextual_seq_len",
+                "min_full_attn_seq_len", "sla_k1", "sla_k2")}
+            m["causal"] = case.get("causal", True)
+            yield (f"{dtype} D={d} V={vd} {case}", tol, q, k, v, lengths,
+                   targets, m)
+
+
 def phase_env():
     from torcheasyrec_tpu_torch.ops import cuda_build
 
@@ -334,46 +417,100 @@ def phase_kernel():
           "tol_rel": BF16_TOL})
     del ref
 
-    sweep = [(case, 64, 64) for case in MASK_CASES] + [
-        (dict(causal=True, contextual_seq_len=1, targets=True), d, vd)
-        for d, vd in ((32, 32), (128, 128), (32, 128), (128, 64))
-    ]
     worst = {}
-    r = np.random.default_rng(1)
-    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        for i, (case, d, vd) in enumerate(sweep):
-            case = dict(case)
-            b, n = 3, 300
-            lens = r.integers(1, n + 1, b)
-            lens[0] = n
-            tg = np.minimum(lens // 4 + 1, lens) if case.pop("targets", False) else None
-            q, k, v, lengths, targets = attn_inputs(b, n, 2, d, vd, dtype,
-                                                    lens, tg, seed=100 + i)
-            args = dict(causal=case.get("causal", True),
-                        max_attn_len=case.get("max_attn_len", 0),
-                        contextual_seq_len=case.get("contextual_seq_len", 0),
-                        min_full_attn_seq_len=case.get(
-                            "min_full_attn_seq_len", 0),
-                        sla_k1=case.get("sla_k1", 0),
-                        sla_k2=case.get("sla_k2", 0))
-            got = hstu.hstu_attention_fwd(
-                q, k, v, lengths, targets, 0.1, args["causal"],
-                args["max_attn_len"], args["contextual_seq_len"],
-                args["min_full_attn_seq_len"], 500, args["sla_k1"],
-                args["sla_k2"])
-            ref = hstu._torch_hstu_mha(
-                q, k, v, lengths, 0.1, args["causal"], targets,
-                args["max_attn_len"], args["contextual_seq_len"],
-                args["min_full_attn_seq_len"], 500, args["sla_k1"],
-                args["sla_k2"])
-            name = f"{dtype} D={d} V={vd} {case}"
-            err = check(name, got, ref, tol)
-            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+    n_cases = 0
+    for name, tol, q, k, v, lengths, targets, m in mask_sweep():
+        got = hstu.hstu_attention_fwd(
+            q, k, v, lengths, targets, 0.1, m["causal"], m["max_attn_len"],
+            m["contextual_seq_len"], m["min_full_attn_seq_len"], 500,
+            m["sla_k1"], m["sla_k2"])
+        ref = hstu._torch_hstu_mha(
+            q, k, v, lengths, 0.1, m["causal"], targets, m["max_attn_len"],
+            m["contextual_seq_len"], m["min_full_attn_seq_len"], 500,
+            m["sla_k1"], m["sla_k2"])
+        err = check(name, got, ref, tol)
+        worst[str(q.dtype)] = max(worst.get(str(q.dtype), 0.0), err)
+        n_cases += 1
     torch.cuda.synchronize()
-    emit({"phase": "kernel", "case": "mask sweep", "cases": len(sweep),
+    emit({"phase": "kernel", "case": "mask sweep", "cases": n_cases // 2,
           "shape": [3, 300, 2, "D", "V"], "max_abs_err": worst,
           "tol_rel": {"fp32": FP32_TOL, "bf16": BF16_TOL}})
     return slice_err
+
+
+def phase_kernel_bwd():
+    """hstu_attention_bwd against _torch_hstu_mha_bwd on the card."""
+    from torcheasyrec_tpu_torch.ops import hstu
+
+    alpha = 128 ** -0.5
+    scale = MAX_SEQ + 2 * N_CAND
+    q, k, v, lengths, targets = slice_attention_inputs()
+    do = slice_upstream_grad(v)
+    got = hstu.hstu_attention_bwd(q, k, v, do, lengths, targets, alpha,
+                                  True, 0, 1, 0, scale)
+    torch.cuda.synchronize()
+    n_cmp, chunk = 8, 4  # the plain version holds [B, H, N, N] several times
+    slice_errs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    plain_max = dict(slice_errs)
+    for s in range(0, n_cmp, chunk):
+        e = s + chunk
+        ref = hstu._torch_hstu_mha_bwd(
+            q[s:e], k[s:e], v[s:e], do[s:e], lengths[s:e], alpha, True,
+            targets[s:e], 0, 1, 0, scale)
+        for name, g, r_ in zip(("dq", "dk", "dv"), got, ref):
+            err = check(f"slice shapes bf16 {name}", g[s:e], r_, BF16_TOL)
+            slice_errs[name] = max(slice_errs[name], err)
+            plain_max[name] = max(plain_max[name], rel_err(r_, r_)[1])
+        del ref
+    emit({"phase": "kernel_bwd", "case": "slice", "shape": list(q.shape),
+          "dtype": "bf16", "samples_compared": n_cmp,
+          "max_abs_err": slice_errs, "max_abs_plain": plain_max,
+          "tol_rel": BF16_TOL})
+
+    worst = {}
+    n_cases = 0
+    for name, tol, q, k, v, lengths, targets, m in mask_sweep():
+        g = torch.Generator(device="cuda").manual_seed(n_cases)
+        do = torch.randn(v.shape, device="cuda", generator=g).to(v.dtype)
+        args = (m["causal"], m["max_attn_len"], m["contextual_seq_len"],
+                m["min_full_attn_seq_len"], 500, m["sla_k1"], m["sla_k2"])
+        got = hstu.hstu_attention_bwd(q, k, v, do, lengths, targets, 0.1,
+                                      *args)
+        ref = hstu._torch_hstu_mha_bwd(q, k, v, do, lengths, 0.1,
+                                       m["causal"], targets, *args[1:])
+        for gname, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+            err = check(f"{name} {gname}", g_, r_, tol)
+            key = f"{q.dtype} {gname}"
+            worst[key] = max(worst.get(key, 0.0), err)
+        n_cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_bwd", "case": "mask sweep", "cases": n_cases // 2,
+          "shape": [3, 300, 2, "D", "V"], "max_abs_err": worst,
+          "tol_rel": {"fp32": FP32_TOL, "bf16": BF16_TOL}})
+
+    # both kernels through the autograd Function against autograd of the
+    # plain forward, at a small shape
+    fn_errs = {}
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, k, v, lengths, targets = attn_inputs(
+            2, 200, 2, 64, 64, dtype, [200, 131], [5, 3], seed=11)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = hstu.hstu_mha(*leaves, lengths, 0.1, num_targets=targets,
+                            contextual_seq_len=1, scaling_seqlen=256)
+        do = torch.randn_like(out)
+        got = torch.autograd.grad(out, leaves, do)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref_out = hstu._torch_hstu_mha(*leaves, lengths, 0.1, True, targets,
+                                       0, 1, 0, 256)
+        ref = torch.autograd.grad(ref_out, leaves, do)
+        for gname, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+            fn_errs[f"{dtype} {gname}"] = check(
+                f"Function {dtype} {gname}", g_, r_, tol)
+    emit({"phase": "kernel_bwd", "case": "autograd Function vs autograd of "
+          "the plain forward", "shape": [2, 200, 2, 64, 64],
+          "max_abs_err": fn_errs,
+          "tol_rel": {"fp32": FP32_TOL, "bf16": BF16_TOL}})
+    return max(slice_errs.values())
 
 
 def phase_slice():
@@ -476,6 +613,261 @@ def phase_slice():
     return launches, float(np.median(times))
 
 
+def build_trainer(cfg, seed=SEED):
+    """(model, features, dense optimizer, state, train step) of the port
+    on the card, from the config's optimizers."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.optim.optimizer_builder import (
+        create_dense_optimizer,
+    )
+
+    model, features, sparse_sched = port_main._build_model_and_optim(
+        cfg, "cuda", for_train=True, seed=seed)
+    tx, dense_sched = create_dense_optimizer(
+        cfg.train_config.dense_optimizer,
+        [p for p in model.parameters() if p.requires_grad])
+    state = port_main._init_state(model)
+    step = port_main.make_train_step(model, tx, sparse_sched, dense_sched)
+    return model, features, tx, state, step
+
+
+def dense_grads(model, batch):
+    """Loss and gradients of the dense parameters, by the train step's own
+    forward (lookup, assemble, predict, loss) without any update."""
+    eg = model.embedding_group
+    model.train()
+    with torch.no_grad():
+        emb_out, _ = eg.lookup(batch)
+    preds = model.predict(eg.assemble(emb_out, batch, model.compute_dtype),
+                          batch)
+    total = model.total_loss(model.loss(preds, batch))
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    return (float(total.detach()),
+            {n: g for n, g in zip(names, grads) if g is not None})
+
+
+def batch_row_ids(model, batch) -> torch.Tensor:
+    """Rows of the model's one fused table that ``batch`` looks up."""
+    with torch.no_grad():
+        _, residuals = model.embedding_group.lookup(batch)
+    (flat_ids, _), = residuals.values()
+    return flat_ids[flat_ids >= 0]
+
+
+def phase_train():
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.ops import hstu
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(config_text("PALLAS", input_dropout=0.0))
+    model, features, tx, state, train_step = build_trainer(cfg)
+    parser = DataParser(features, labels=["unused_label"])
+    n_layers = len(model.transducer.stack.layers)
+    # three different batches, then the first one again and again: its
+    # loss must fall
+    cols = [synth_cols(BATCH, SEED + 200 + i) for i in range(3)]
+    order = [0, 1, 2] + [0] * (N_TRAIN_STEPS - 3)
+    batches = [parser.parse_to_batch(c).to("cuda") for c in cols]
+    (gk, table), = model.embedding_group.engine_tables().items()
+    table_before = table.clone()
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
+    for b in batches:
+        touched[batch_row_ids(model, b)] = True
+    acc_init = float(state["sparse_opt"][gk]["acc"][0, 0])
+    torch.cuda.synchronize()
+
+    hstu.hstu_attention_fwd.launches = 0
+    hstu.hstu_attention_bwd.launches = 0
+    losses, step_ms = [], []
+    for i in order:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    step_launches = (hstu.hstu_attention_fwd.launches,
+                     hstu.hstu_attention_bwd.launches)
+
+    # the trainer entry point: 2 steps from a parquet file, then a batch
+    # predict of the checkpoint it wrote
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = os.path.join(tmp, "train.parquet")
+        pq.write_table(pa.concat_tables([pa.table(c) for c in cols[:2]]), inp)
+        cfg_path = os.path.join(tmp, "pipeline.config")
+        with open(cfg_path, "w") as f:
+            f.write(config_text(
+                "PALLAS", input_dropout=0.0, train_path=inp,
+                model_dir=os.path.join(tmp, "model"), num_steps=N_FILE_STEPS))
+        result = port_main.train_and_evaluate(cfg_path, device="cuda")
+        ckpt = port_main.latest_checkpoint(os.path.join(tmp, "model"))
+        out_path = os.path.join(tmp, "predictions.parquet")
+        n_rows = port_main.predict_checkpoint(cfg_path, inp, out_path,
+                                              device="cuda")
+        written = pq.read_table(out_path)
+    fwd_launches = hstu.hstu_attention_fwd.launches
+    bwd_launches = hstu.hstu_attention_bwd.launches
+
+    n_steps = N_TRAIN_STEPS + N_FILE_STEPS
+    n_predict = n_rows // BATCH
+    if step_launches != (n_layers * N_TRAIN_STEPS,) * 2:
+        raise AssertionError(
+            f"(forward, backward) kernels launched {step_launches} times in "
+            f"{N_TRAIN_STEPS} steps of {n_layers} STU layers")
+    if (bwd_launches != n_layers * n_steps
+            or fwd_launches != n_layers * (n_steps + n_predict)):
+        raise AssertionError(
+            f"kernels launched {fwd_launches} (forward) and {bwd_launches} "
+            f"(backward) times for {n_steps} steps and {n_predict} predict "
+            f"batches of {n_layers} STU layers")
+    if result["step"] != N_FILE_STEPS or not ckpt or n_rows != 2 * BATCH:
+        raise AssertionError(
+            f"train_and_evaluate: {result}, checkpoint {ckpt}, {n_rows} "
+            "rows predicted")
+    for key in ("probs_is_click", "probs_is_like"):
+        col = np.stack(written[key].to_numpy(zero_copy_only=False))
+        if col.shape != (2 * BATCH, N_CAND) or not (
+                np.isfinite(col).all() and (col > 0).all() and (col < 1).all()):
+            raise AssertionError(f"predict_checkpoint {key}: bad values")
+    flat = [v for step in losses for v in step.values()] + [
+        v for k, v in result.items() if k != "step"]
+    if not np.isfinite(flat).all():
+        raise AssertionError(f"non-finite loss: {losses} {result}")
+    repeated = [l["total_loss"] for l, i in zip(losses, order) if i == 0]
+    if not repeated[-1] < repeated[0]:
+        raise AssertionError(f"loss on the repeated batch did not fall: "
+                             f"{repeated}")
+
+    same = (table == table_before).all(dim=1)
+    acc = state["sparse_opt"][gk]["acc"][:, 0]
+    changed_share = float((~same[touched]).float().mean())
+    if not same[~touched].all() or not (acc[~touched] == acc_init).all():
+        raise AssertionError("rows no batch touched changed, or their "
+                             "accumulator did")
+    if changed_share < 0.999 or not (acc[touched] > acc_init).all():
+        raise AssertionError(
+            f"only {changed_share} of the touched rows changed")
+    del table_before
+
+    # the whole model's dense gradients on a batch of 8: kernels against
+    # plain attention, same weights, fp32 then bf16
+    weights = model.state_dict()
+    small_cols = synth_cols(8, SEED + 300)
+    hstu_counts = (hstu.hstu_attention_fwd.launches,
+                   hstu.hstu_attention_bwd.launches)
+
+    def grads_of(kernel: str, mixed_precision: str):
+        m, feats, _, _, _ = build_trainer(parse_pipeline_config(config_text(
+            kernel, input_dropout=0.0, mixed_precision=mixed_precision)))
+        m.load_state_dict(weights)
+        small = DataParser(feats, labels=["unused_label"]).parse_to_batch(
+            small_cols).to("cuda")
+        return dense_grads(m, small)
+
+    loss32_k, g32_k = grads_of("PALLAS", "")
+    loss32_p, g32_p = grads_of("PYTORCH", "")
+    loss16_k, g16_k = grads_of("PALLAS", "BF16")
+    loss16_p, g16_p = grads_of("PYTORCH", "BF16")
+    hstu.hstu_attention_fwd.launches, hstu.hstu_attention_bwd.launches = (
+        hstu_counts)  # comparisons do not count
+    if not set(g32_k) == set(g32_p) == set(g16_k) == set(g16_p):
+        raise AssertionError("the models' gradients differ in names")
+    fp32_errs = {
+        n: check(f"fp32 dense gradient {n}", g32_k[n], g32_p[n], FP32_TOL)
+        / max(rel_err(g32_p[n], g32_p[n])[1], 1e-30) for n in g32_p}
+
+    def dist(a, b):  # relative L2 distance from the fp32 gradient b
+        return float((a.float() - b).norm() / b.norm().clamp(min=1e-30))
+
+    noise = {n: (dist(g16_k[n], g32_p[n]), dist(g16_p[n], g32_p[n]))
+             for n in g32_p}
+    for n, (d_kernel, d_plain) in noise.items():
+        if not d_kernel <= 3.0 * d_plain + 1e-3:
+            raise AssertionError(
+                f"bf16 dense gradient {n}: {d_kernel} from the fp32 gradient "
+                f"with the kernels, {d_plain} with the plain attention")
+    worst32 = max(fp32_errs, key=fp32_errs.get)
+    worst16 = max(noise, key=lambda n: noise[n][0] / max(noise[n][1], 1e-30))
+    grad_report = {
+        "batch": 8, "tensors": len(noise),
+        "fp32": {"loss_kernels": loss32_k, "loss_plain": loss32_p,
+                 "worst_err_rel_to_max": fp32_errs[worst32],
+                 "worst_tensor": worst32, "tol_rel": FP32_TOL},
+        "bf16": {"loss_kernels": loss16_k, "loss_plain": loss16_p,
+                 "l2_distance_from_fp32_gradient": {
+                     "kernels_median": float(np.median(
+                         [v[0] for v in noise.values()])),
+                     "plain_median": float(np.median(
+                         [v[1] for v in noise.values()])),
+                     "worst_ratio_tensor": worst16,
+                     "worst_ratio": noise[worst16][0]
+                     / max(noise[worst16][1], 1e-30)},
+                 "kernels_vs_plain_worst_err_rel_to_max": max(
+                     rel_err(g16_k[n], g16_p[n])[0]
+                     / max(rel_err(g16_p[n], g16_p[n])[1], 1e-30)
+                     for n in g16_p),
+                 "bound": "kernels <= 3 x plain + 1e-3, per tensor"}}
+    del g32_k, g32_p, g16_k, g16_p, weights
+
+    emit({"phase": "train", "steps": N_TRAIN_STEPS, "batch": BATCH,
+          "batch_order": order, "losses": losses, "step_ms": step_ms,
+          "repeated_batch_total_loss": repeated,
+          "kernel_launches": {"forward": fwd_launches,
+                              "backward": bwd_launches},
+          "train_and_evaluate": result, "predict_checkpoint_rows": n_rows,
+          "rows_touched": int(touched.sum()), "rows": int(table.shape[0]),
+          "touched_rows_changed_share": changed_share,
+          "untouched_rows_bit_equal": True,
+          "dense_gradients_vs_plain": grad_report})
+    return (fwd_launches, bwd_launches, float(np.median(step_ms[1:])),
+            (model, state, train_step, batches))
+
+
+def phase_timing_train(trainer, step_median_ms):
+    from torcheasyrec_tpu_torch.ops import hstu
+
+    model, state, train_step, batches = trainer
+    q, k, v, lengths, targets = slice_attention_inputs()
+    do = slice_upstream_grad(v)
+    alpha, scale = 128 ** -0.5, MAX_SEQ + 2 * N_CAND
+    args = (alpha, True, 0, 1, 0, scale)
+    kernel_ms = cuda_ms(
+        lambda: hstu.hstu_attention_bwd(q, k, v, do, lengths, targets, *args),
+        10)
+
+    # the plain version materializes [B, H, N, N] several times over: run
+    # it in chunks of 4 samples and sum
+    def plain():
+        for s in range(0, BATCH, 4):
+            e = s + 4
+            hstu._torch_hstu_mha_bwd(q[s:e], k[s:e], v[s:e], do[s:e],
+                                     lengths[s:e], alpha, True, targets[s:e],
+                                     0, 1, 0, scale)
+    plain_ms = cuda_ms(plain, 2)
+    # work this run's data needs: five products over the unmasked (row,
+    # column) pairs; bytes: q, k, v, do read once, dq, dk, dv written once
+    pairs = unmasked_pairs(q.shape[1], lengths, targets)
+    h, d, vd = q.shape[2], q.shape[3], v.shape[3]
+    flops = 2.0 * pairs * h * (3 * d + 2 * vd)
+    nbytes = 2.0 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
+    bound_ms, bound_by = card_bound(flops, nbytes)
+
+    def one_step():
+        train_step(state, batches[0])
+    emit({"phase": "timing_train", "median_step_ms": step_median_ms,
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "plain_note": "8 calls of 4 samples", "flops": flops,
+          "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+          "kernel_tflops": flops / kernel_ms / 1e9,
+          "dq": "fp32 atomics into a zeroed buffer, cast afterwards",
+          "step_profile": profile_forward(one_step)})
+    return kernel_ms, plain_ms, bound_ms, bound_by
+
+
 def profile_forward(fn) -> dict:
     """Device time of one call by kernel, from torch.profiler's CUDA
     activity; busy share = summed kernel time / host wall time."""
@@ -503,6 +895,26 @@ def profile_forward(fn) -> dict:
             "top_kernels_ms": {k[:80]: v for k, v in top}}
 
 
+def unmasked_pairs(n, lengths, targets) -> int:
+    """Unmasked (row, column) pairs of the slice's mask (causal, one
+    contextual token, num_targets) summed over the samples."""
+    from torcheasyrec_tpu_torch.ops import hstu
+
+    return sum(
+        int(hstu.valid_attn_mask(n, lengths[s:s + 1], True,
+                                 targets[s:s + 1], 0, 1).sum())
+        for s in range(lengths.shape[0])
+    )
+
+
+def card_bound(flops: float, nbytes: float):
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the bf16 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
 def phase_timing():
     from torcheasyrec_tpu_torch.ops import hstu
 
@@ -521,16 +933,11 @@ def phase_timing():
     plain_ms = cuda_ms(plain, 2)
     # work this run's data needs: the two products over the unmasked
     # (row, column) pairs; bytes: q, k, v read once, out written once
-    pairs = sum(
-        int(hstu.valid_attn_mask(q.shape[1], lengths[s:s + 1], True,
-                                 targets[s:s + 1], 0, 1).sum())
-        for s in range(BATCH)
-    )
+    pairs = unmasked_pairs(q.shape[1], lengths, targets)
     h, d, vd = q.shape[2], q.shape[3], v.shape[3]
     flops = 2.0 * pairs * h * (d + vd)
     nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + v.numel())
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES else "bytes"
+    bound_ms, bound_by = card_bound(flops, nbytes)
     emit({"phase": "timing", "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "plain_note": "4 calls of 8 samples", "flops": flops,
           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -552,23 +959,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_env()
-    max_err = phase_kernel()
-    launches, _ = phase_slice()
-    kernel_ms, plain_ms, bound_ms, bound_by = phase_timing()
-    emit({"kernels": [{
-        "name": "hstu_attention_fwd",
-        "route": "cuda",
-        "source": "torcheasyrec_tpu_torch/ops/csrc/hstu_attention_fwd.cu",
-        "replaces": "torcheasyrec_tpu/ops/pallas/hstu_attention.py:114",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        # no single PyTorch call computes SiLU (softmax-free) attention
-        "library_ms": None,
-    }]})
+    fwd_err = phase_kernel()
+    bwd_err = phase_kernel_bwd()
+    serve_launches, _ = phase_slice()
+    train_fwd_launches, bwd_launches, step_ms, trainer = phase_train()
+    fwd_timing = phase_timing()
+    bwd_timing = phase_timing_train(trainer, step_ms)
+
+    def kernel_row(name, line, launches, err, timing, **extra):
+        kernel_ms, plain_ms, bound_ms, bound_by = timing
+        return {
+            "name": name, "route": "cuda",
+            "source": f"torcheasyrec_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": f"torcheasyrec_tpu/ops/pallas/hstu_attention.py:{line}",
+            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes SiLU (softmax-free) attention
+            # or its backward
+            "library_ms": None, **extra,
+        }
+
+    emit({"kernels": [
+        kernel_row("hstu_attention_fwd", 114,
+                   serve_launches + train_fwd_launches, fwd_err, fwd_timing,
+                   launches_by_path={"serving": serve_launches,
+                                     "training": train_fwd_launches}),
+        kernel_row("hstu_attention_bwd", 207, bwd_launches, bwd_err,
+                   bwd_timing),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

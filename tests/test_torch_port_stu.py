@@ -104,12 +104,21 @@ def test_stu_layer_matches(kw):
 
 
 def test_stu_layer_training_with_dropout_raises():
+    """Output dropout runs in training mode (it raised while the port
+    only served): two calls draw two masks, eval is deterministic. What
+    still raises is attention-probability dropout, which bypasses the
+    kernel in the JAX package too and which the STU never asks for."""
     layer = pstu.STULayer(E, LD, AD, _gen(), num_heads=H,
                           output_dropout_ratio=0.1)
-    x = torch.zeros(B, N, E)
+    x = torch.from_numpy(_np(_rng(9).normal(size=(B, N, E))))
+    lengths = torch.full((B,), N, dtype=torch.int32)
+    a, b = layer(x, lengths), layer(x, lengths)
+    assert torch.isfinite(a).all() and not torch.equal(a, b)
+    layer.eval()
+    assert torch.equal(layer(x, lengths), layer(x, lengths))
+    q = torch.zeros(B, N, H, AD)
     with pytest.raises(NotImplementedError):
-        layer(x, torch.full((B,), N, dtype=torch.int32))
-    layer.eval()(x, torch.full((B,), N, dtype=torch.int32))
+        pops.hstu_mha(q, q, q, lengths, alpha=0.1, dropout_pr=0.1)
 
 
 def test_hstu_transducer_matches():

@@ -77,3 +77,42 @@ def converted_state(jax_model, dense, tables, table_names):
         for name in table_names
     }
     return from_jax_state(jax.device_get(dense), canon)
+
+
+def hstu_synth_train_config_text(batch_size: int = 4, num_layers: int = 2,
+                                 stu_extra: str = "", kernel: str = "",
+                                 input_dropout: float = 0.0) -> str:
+    """The hstu_synth config cut to ``num_layers`` STU layers for the
+    training tests, with the input dropout set explicitly (the proto's
+    default is 0.2) and ``stu_extra`` spliced into the STU block."""
+    text = hstu_synth_config_text(batch_size, kernel)
+    text = text.replace("num_layers: 3", f"num_layers: {num_layers}\n{stu_extra}")
+    assert "    hstu {" in text
+    return text.replace(
+        "    hstu {", f"    hstu {{\n input_dropout_ratio: {input_dropout}", 1)
+
+
+def jax_train_setup(cfg_text: str):
+    """(cfg, model, features, state, jitted train step) of the JAX
+    package in fp32; the state holds dense, tables, sparse_opt,
+    dense_opt and step."""
+    import jax
+    import jax.numpy as jnp
+    from google.protobuf import text_format
+
+    from torcheasyrec_tpu import main as jax_main
+    from torcheasyrec_tpu.optim.optimizer_builder import (
+        create_dense_optimizer,
+    )
+    from torcheasyrec_tpu.protos import pipeline_pb2
+
+    cfg = text_format.Parse(cfg_text, pipeline_pb2.EasyRecConfig())
+    model, features, sparse_sched = jax_main._build_model_and_optim(cfg, None)
+    dense, tables, sparse_opt = jax_main._init_state(model, cfg)
+    tx, dense_sched = create_dense_optimizer(
+        cfg.train_config.dense_optimizer, dense)
+    state = {"dense": dense, "tables": tables, "sparse_opt": sparse_opt,
+             "dense_opt": tx.init(dense), "step": jnp.zeros((), jnp.int32)}
+    step = jax.jit(jax_main.make_train_step(
+        model, tx, sparse_sched, dense_sched, jnp.float32))
+    return cfg, model, features, state, step

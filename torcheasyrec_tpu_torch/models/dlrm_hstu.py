@@ -1,14 +1,16 @@
-"""DLRM-HSTU generative ranking model, inference.
+"""DLRM-HSTU generative ranking model.
 
-Counterpart of torcheasyrec_tpu/models/dlrm_hstu.py (``__init__`` and
-``predict``): uih + candidate sequences -> HSTUTransducer -> per-candidate
-item MLP -> fusion multi-task heads. Feature-group contract as in the JAX
+Counterpart of torcheasyrec_tpu/models/dlrm_hstu.py (``__init__``,
+``predict``, ``_task_labels`` and ``loss``): uih + candidate sequences ->
+HSTUTransducer -> per-candidate item MLP -> fusion multi-task heads. Feature-group contract as in the JAX
 package: ``contextual`` (DEEP, optional), ``uih`` and ``candidate``
 (sequence groups), and optional ``uih_action`` / ``uih_watchtime`` /
 ``uih_timestamp`` / ``candidate_timestamp`` sequence groups carrying one
 scalar per step. ``model_config.kernel`` picks the attention: PALLAS (the
 default), CUTLASS or TRITON run the CUDA kernel on the card, PYTORCH or
-JAX the plain version. Losses and metrics arrive with training.
+JAX the plain version. The loss is a per-task BCE over the real
+candidates; labels come from a per-candidate sequence column, optionally
+through ``task_bitmask``. Metrics are not ported.
 """
 
 from typing import Dict
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from torcheasyrec_tpu_torch.datasets.utils import Batch
+from torcheasyrec_tpu_torch.losses import binary_cross_entropy
 from torcheasyrec_tpu_torch.models.model import BaseModel
 from torcheasyrec_tpu_torch.modules.gr.encoders import (
     OutputPostprocessor,
@@ -186,3 +189,46 @@ class DlrmHSTU(BaseModel):
             preds[f"logits_{t.task_name}"] = logits
             preds[f"probs_{t.task_name}"] = torch.sigmoid(logits)
         return preds
+
+    def _task_labels(self, t, batch: Batch, lc_max: int) -> torch.Tensor:
+        """Per-candidate labels [B, Lc] from a sequence feature column."""
+        name = t.label_name
+        if name in batch.sequence_dense_features:
+            vals = batch.sequence_dense_features[name].values[..., 0]
+        elif name in batch.sequence_sparse_features:
+            vals = batch.sequence_sparse_features[name].values
+        elif name in batch.labels:
+            vals = batch.labels[name]
+            if vals.dim() == 1:
+                vals = vals[:, None]
+        else:
+            raise KeyError(f"label {name} not found in batch")
+        # align to the candidates' padded length
+        cur = vals.shape[1]
+        if cur < lc_max:
+            vals = F.pad(vals, (0, lc_max - cur))
+        elif cur > lc_max:
+            vals = vals[:, :lc_max]
+        if t.task_bitmask:
+            vals = (vals.to(torch.int32) & int(t.task_bitmask)) > 0
+        return vals.float()
+
+    def loss(self, predictions: Dict[str, torch.Tensor],
+             batch: Batch) -> Dict[str, torch.Tensor]:
+        """``bce_<task>``: task weight x mean BCE over the real
+        candidates of the batch."""
+        cand_len = predictions["__candidate_lengths"]
+        losses = {}
+        for t in self._task_cfgs:
+            logits = predictions[f"logits_{t.task_name}"]
+            lc_max = logits.shape[1]
+            labels = self._task_labels(t, batch, lc_max)
+            mask = (
+                torch.arange(lc_max, device=logits.device)[None, :]
+                < cand_len.to(torch.int32)[:, None]
+            ).float()
+            per = binary_cross_entropy(logits, labels) * mask
+            denom = mask.sum().clamp(min=1.0)
+            losses[f"bce_{t.task_name}"] = (
+                float(t.weight or 1.0) * per.sum() / denom)
+        return losses

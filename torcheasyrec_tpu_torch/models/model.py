@@ -1,9 +1,12 @@
-"""BaseModel: model registry and the forward used for eval and predict.
+"""BaseModel: model registry, the forward used for eval and predict, and
+the loss surface of the train step.
 
 Counterpart of torcheasyrec_tpu/models/model.py. A model is an
 ``nn.Module`` that builds its EmbeddingGroup and dense submodules in
-``__init__`` and implements ``predict(grouped, batch)``. Losses and
-metrics arrive with training.
+``__init__`` and implements ``predict(grouped, batch)`` and
+``loss(predictions, batch)``. Its parameters are the dense ones only;
+the embedding tables live in the EmbeddingGroup's engine and are updated
+by the sparse optimizer. Metrics are not ported.
 """
 
 from typing import Any, Dict, List, Optional
@@ -14,6 +17,7 @@ from torch import nn
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.features.feature import BaseFeature
 from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
+from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 from torcheasyrec_tpu_torch.utils.load_class import get_register_class_meta
 
 _MODEL_CLASS_MAP: Dict[str, type] = {}
@@ -29,6 +33,7 @@ class BaseModel(nn.Module, metaclass=_meta):
         sample_weights: Optional[List[str]] = None,
         compute_dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        sparse_optimizer: Optional[SparseOptimizer] = None,
     ) -> None:
         super().__init__()
         if model_config.HasField("variational_dropout"):
@@ -37,6 +42,7 @@ class BaseModel(nn.Module, metaclass=_meta):
         self._features = features
         self.compute_dtype = compute_dtype
         self._generator = generator or torch.Generator()
+        self._sparse_optimizer = sparse_optimizer
         which = model_config.WhichOneof("model")
         self._model_config = getattr(model_config, which) if which else None
         self.embedding_group: Optional[EmbeddingGroup] = None
@@ -44,12 +50,20 @@ class BaseModel(nn.Module, metaclass=_meta):
     def _build_embedding_group(self) -> None:
         self.embedding_group = EmbeddingGroup(
             self._features, list(self._base_model_config.feature_groups),
-            self._generator,
+            self._generator, sparse_optimizer=self._sparse_optimizer,
         )
 
     def predict(self, grouped: Dict[str, torch.Tensor],
                 batch: Batch) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
+
+    def loss(self, predictions: Dict[str, torch.Tensor],
+             batch: Batch) -> Dict[str, torch.Tensor]:
+        """{loss name: scalar} from ``predict``'s output."""
+        raise NotImplementedError
+
+    def total_loss(self, losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return sum(losses.values())
 
     def forward(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """Full forward for eval/predict."""

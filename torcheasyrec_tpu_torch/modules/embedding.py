@@ -1,24 +1,34 @@
 """EmbeddingGroup: feature groups -> table lookups -> group assembly.
 
 Counterpart of the parts of torcheasyrec_tpu/modules/embedding.py that
-DEEP and (JAGGED_)SEQUENCE groups use (``__init__`` and ``assemble``).
-Each table is one plain fp32 ``[num_buckets, dim]`` parameter in
-canonical layout; features sharing an ``embedding_name`` share one
-table. Lookups are gathers: id -1 (padding) reads a zero row, pooled
-features sum (or average) their rows. The JAX package's sharded
-embedding engine (packed megatable, sparse optimizers) arrives with
-training. WIDE groups, sequence encoders, dense embeddings, table init
-functions and non-fp32 or host-offloaded tables raise
+DEEP and (JAGGED_)SEQUENCE groups use (``__init__``, ``lookup`` and
+``assemble``). The tables live in the embedding engine's fused
+per-(dim, dtype) groups (``parallel/emb_engine.py``), held here as
+buffers and not as parameters: the dense optimizer never sees them, and
+the train step updates their touched rows in place through
+``engine.update`` from the gradients of ``lookup``'s outputs. Features
+sharing an ``embedding_name`` share one table. Lookups are gathers: id
+-1 (padding) reads a zero row, pooled features sum (or average) their
+rows. In the ``state_dict`` each table keeps its own entry
+``tables.<name>`` in canonical ``[num_buckets, dim]`` layout, whatever
+the grouping. WIDE groups, sequence encoders, dense embeddings, table
+init functions and non-fp32 or host-offloaded tables raise
 NotImplementedError.
 """
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from torcheasyrec_tpu_torch.datasets.utils import Batch, SparseField
+from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.features.feature import BaseFeature
+from torcheasyrec_tpu_torch.parallel.emb_engine import (
+    EmbeddingEngine,
+    LookupSpec,
+    TableSpec,
+)
+from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 from torcheasyrec_tpu_torch.protos import model_pb2
 
 Slot = Tuple[str, str, int]  # ("emb", lookup key, dim) | ("dense"|"seq_dense", feature, dim)
@@ -26,12 +36,12 @@ Slot = Tuple[str, str, int]  # ("emb", lookup key, dim) | ("dense"|"seq_dense", 
 
 class EmbeddingGroup(nn.Module):
     def __init__(self, features: List[BaseFeature], feature_groups: List[Any],
-                 generator: torch.Generator) -> None:
+                 generator: torch.Generator,
+                 sparse_optimizer: Optional[SparseOptimizer] = None) -> None:
         super().__init__()
         self._name_to_feature = {f.name: f for f in features}
         shapes: Dict[str, Tuple[int, int]] = {}
-        # lookup key -> (feature name, table name, combiner, is_sequence)
-        self._lookups: Dict[str, Tuple[str, str, str, bool]] = {}
+        lookups: Dict[str, LookupSpec] = {}
         self._group_slots: Dict[str, List[Slot]] = {}
         self._seq_groups: Dict[str, Dict[str, Any]] = {}
 
@@ -61,9 +71,9 @@ class EmbeddingGroup(nn.Module):
         def _emb_slot(feat: BaseFeature, suffix: str, is_sequence: bool) -> Slot:
             table = _add_table(feat, suffix)
             key = f"{table}:{feat.name}" + (":seq" if is_sequence else "")
-            self._lookups[key] = (
-                feat.name, table, "none" if is_sequence else feat.pooling,
-                is_sequence,
+            lookups[key] = LookupSpec(
+                key, feat.name, table,
+                "none" if is_sequence else feat.pooling, is_sequence,
             )
             return ("emb", key, shapes[table][1])
 
@@ -120,14 +130,65 @@ class EmbeddingGroup(nn.Module):
                 )
             self._group_slots[gname] = slots
 
-        # default init uniform(+-1/sqrt(rows)), as the JAX package's
-        # default_emb_init
-        self.tables = nn.ParameterDict()
-        for name, (rows, dim) in shapes.items():
-            t = torch.empty(rows, dim, device=generator.device)
+        self.engine = EmbeddingEngine(
+            [TableSpec(name, rows, dim) for name, (rows, dim) in shapes.items()],
+            list(lookups.values()), optimizer=sparse_optimizer,
+        )
+        # one fused table per group, a buffer named after the group; each
+        # table's slice gets the default init uniform(+-1/sqrt(rows)), as
+        # the JAX package's default_emb_init
+        for gk, g in self.engine.groups.items():
+            self.register_buffer(
+                f"group_{gk}",
+                torch.empty(g.total_rows, g.dim, device=generator.device),
+                persistent=False,
+            )
+        for name, (rows, _) in shapes.items():
             bound = 1.0 / max(rows, 1) ** 0.5
-            t.uniform_(-bound, bound, generator=generator)
-            self.tables[name] = nn.Parameter(t)
+            self.tables[name].uniform_(-bound, bound, generator=generator)
+
+    # -- tables ------------------------------------------------------------
+
+    def engine_tables(self) -> Dict[str, torch.Tensor]:
+        """{group key: fused [rows, dim] table}, as the engine takes them."""
+        return {gk: getattr(self, f"group_{gk}") for gk in self.engine.groups}
+
+    @property
+    def tables(self) -> Dict[str, torch.Tensor]:
+        """{table name: [num_buckets, dim] view into its fused group}."""
+        fused = self.engine_tables()
+        return {name: self.engine.extract_table(fused, name)
+                for name in self.engine._specs}
+
+    def init_opt_state(self) -> Dict[str, Any]:
+        device = next(iter(self.engine_tables().values())).device
+        return self.engine.init_opt_state(device)
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars) -> None:
+        for name, t in self.tables.items():
+            destination[f"{prefix}tables.{name}"] = (
+                t if keep_vars else t.detach())
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs) -> None:
+        tables = self.tables
+        for name, t in tables.items():
+            key = f"{prefix}tables.{name}"
+            if key not in state_dict:
+                missing_keys.append(key)
+            elif state_dict[key].shape != t.shape:
+                error_msgs.append(
+                    f"size mismatch for {key}: {tuple(state_dict[key].shape)}"
+                    f" in the checkpoint, {tuple(t.shape)} in the model")
+            else:
+                with torch.no_grad():
+                    t.copy_(state_dict[key])
+        if strict:
+            unexpected_keys.extend(
+                k for k in state_dict
+                if k.startswith(prefix)
+                and k[len(prefix) + len("tables."):] not in tables)
 
     # -- dims API ----------------------------------------------------------
 
@@ -151,56 +212,28 @@ class EmbeddingGroup(nn.Module):
 
     # -- forward -----------------------------------------------------------
 
-    def _gather(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        """Rows of ``table`` for ``ids`` of any shape; id -1 reads zeros."""
-        rows = table[ids.clamp(min=0).long()]
-        return torch.where((ids >= 0)[..., None], rows, rows.new_zeros(()))
-
-    def lookup(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        """fp32 lookups: [B, L, D] per sequence feature, [B, D] pooled."""
-        out = {}
-        for key, (fname, tname, combiner, is_seq) in self._lookups.items():
-            table = self.tables[tname]
-            if is_seq:
-                field = batch.sequence_sparse_features[fname]
-                rows = self._gather(table, field.values)
-                # multi-value steps [B, L, K] sum-pool their K ids
-                out[key] = rows.sum(dim=2) if field.values.dim() == 3 else rows
-                continue
-            out[key] = self._pool(table, batch.sparse_features[fname],
-                                  combiner)
-        return out
-
-    def _pool(self, table: torch.Tensor, field: SparseField,
-              combiner: str) -> torch.Tensor:
-        rows = self._gather(table, field.values)
-        if field.weights is not None:
-            rows = rows * field.weights[..., None]
-        if field.is_fixed:
-            b, length = field.values.shape
-            pooled = rows.sum(dim=1)
-            counts = torch.full((b,), float(length), device=rows.device)
-        else:
-            b = field.lengths.shape[0]
-            n = field.values.shape[0]
-            seg = torch.repeat_interleave(
-                torch.arange(b, device=rows.device), field.lengths.long()
-            )
-            seg = torch.cat([seg, seg.new_full((n - seg.shape[0],), b)])
-            pooled = rows.new_zeros(b + 1, rows.shape[-1]).index_add_(
-                0, seg, rows
-            )[:b]
-            counts = field.lengths.float()
-        if combiner == "mean":
-            pooled = pooled / counts.clamp(min=1.0)[:, None]
-        return pooled
+    def lookup(self, batch: Batch
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        """Engine lookup only: (emb_out, residuals). emb_out holds fp32
+        lookups, [B, L, D] per sequence feature and [B, D] pooled. The
+        train step takes gradients with respect to emb_out and routes
+        them, with the residuals, to ``engine.update``."""
+        return self.engine.lookup(
+            self.engine_tables(), batch.sparse_features,
+            batch.sequence_sparse_features,
+        )
 
     def forward(self, batch: Batch,
                 compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-        """Lookup + group concat: ``{group}`` [B, D] for DEEP groups;
-        ``{g}.query``, ``{g}.sequence`` and ``{g}.sequence_length`` for
-        sequence groups. Values are cast to ``compute_dtype``."""
-        emb_out = self.lookup(batch)
+        """Lookup + ``assemble``, for eval and predict."""
+        return self.assemble(self.lookup(batch)[0], batch, compute_dtype)
+
+    def assemble(self, emb_out: Dict[str, torch.Tensor], batch: Batch,
+                 compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        """Group concat, a pure function of ``emb_out``: ``{group}``
+        [B, D] for DEEP groups; ``{g}.query``, ``{g}.sequence`` and
+        ``{g}.sequence_length`` for sequence groups. Values are cast to
+        ``compute_dtype``."""
 
         def _slot_value(slot: Slot) -> torch.Tensor:
             kind, key, _ = slot

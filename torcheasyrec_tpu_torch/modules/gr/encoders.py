@@ -7,6 +7,7 @@ import math
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from torcheasyrec_tpu_torch.modules.module import LayerNorm, linear, linear_apply
@@ -76,7 +77,10 @@ class PositionalEncoder(nn.Module):
         b, n, _ = x.shape
         pos = torch.arange(n, device=x.device)[None, :]
         rel = (lengths.long()[:, None] - 1 - pos).clamp(0, self.pos_buckets - 1)
-        out = x + self.pos[rel].to(x.dtype)
+        # F.embedding, not self.pos[rel]: the backward of an advanced index
+        # serializes over duplicate indices, and a few time buckets hold
+        # almost every token
+        out = x + F.embedding(rel, self.pos).to(x.dtype)
         if self.use_time and timestamps is not None:
             ts = timestamps.float()
             last_idx = (lengths.long() - 1).clamp(min=0)
@@ -84,7 +88,7 @@ class PositionalEncoder(nn.Module):
             delta = (last_ts - ts).clamp(min=0.0)
             bucket = torch.floor(torch.log2(delta + 1.0)).to(torch.int32)
             bucket = bucket.clamp(0, self.time_buckets - 1).long()
-            out = out + self.time[bucket].to(x.dtype)
+            out = out + F.embedding(bucket, self.time).to(x.dtype)
         return out
 
 

@@ -3,8 +3,12 @@
 Counterpart of torcheasyrec_tpu/modules/gr/hstu_transducer.py. The
 combined [contextual | uih | candidates] sequence is one gather with
 per-sample index arithmetic, so each sample's tokens are contiguous and
-"valid = position < length" holds for the attention masks. Attention
-truncation (``attn_truncation_split_layer`` > 0) is not ported.
+"valid = position < length" holds for the attention masks. In training
+mode the preprocessor drops input tokens' features with
+``input_dropout_ratio``. Attention truncation
+(``attn_truncation_split_layer`` > 0), the content/action-MLP
+preprocessors (and the contextual dropout inside their parameterized
+MLP) and ``cached_forward`` are not ported.
 """
 
 from typing import Optional, Tuple
@@ -19,7 +23,7 @@ from torcheasyrec_tpu_torch.modules.gr.encoders import (
 )
 from torcheasyrec_tpu_torch.modules.gr.stu import STUStack
 from torcheasyrec_tpu_torch.modules.module import (
-    check_no_training,
+    dropout,
     linear,
     linear_apply,
 )
@@ -85,6 +89,7 @@ class ContextualPreprocessor(nn.Module):
         input_dropout_ratio: float = 0.0,
     ) -> None:
         super().__init__()
+        self._generator = generator
         self.e = embedding_dim
         self.n_ctx = n_contextual_tokens if contextual_dim > 0 else 0
         self.dropout = input_dropout_ratio
@@ -114,7 +119,6 @@ class ContextualPreprocessor(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                Optional[torch.Tensor]]:
         """-> (x [B, N, E], lengths [B], num_targets [B], timestamps)."""
-        check_no_training(self, self.dropout)
         b, lu_max, _ = uih_emb.shape
         lc_max = cand_emb.shape[1]
         uih_in = uih_emb
@@ -131,6 +135,7 @@ class ContextualPreprocessor(nn.Module):
             pieces.insert(0, ctx_tok.reshape(b, self.n_ctx, self.e))
         x = compact_concat(torch.cat(pieces, dim=1), self.n_ctx, lu_max,
                            uih_lengths)
+        x = dropout(x, self.dropout, self.training, self._generator)
         lengths = (self.n_ctx + uih_lengths.to(torch.int32)
                    + cand_lengths.to(torch.int32))
         timestamps = None

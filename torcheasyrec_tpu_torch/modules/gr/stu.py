@@ -1,9 +1,13 @@
-"""STU layer and stack: the HSTU transformer core, forward only.
+"""STU layer and stack: the HSTU transformer core.
 
 Counterpart of torcheasyrec_tpu/modules/gr/stu.py (STULayer, STUStack).
 Per layer: LayerNorm -> fused uvqk projection (SiLU on u) -> pointwise
-SiLU attention (the CUDA kernel on the card) -> Norm(attn) * u -> output
-projection -> residual. The KV-cached decode (``cached_forward``) and
+SiLU attention (the CUDA kernels on the card, forward and backward) ->
+Norm(attn) * u -> dropout in training mode -> output projection ->
+residual. In training mode ``recompute_uvqk`` and ``recompute_y``
+rematerialize the projection stage and the output stage in the backward
+(``torch.utils.checkpoint``, non-reentrant); the attention never re-runs,
+as in the JAX package. The KV-cached decode (``cached_forward``) and
 ``truncate_uih`` are not ported.
 """
 
@@ -11,8 +15,9 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from torcheasyrec_tpu_torch.modules.module import LayerNorm, check_no_training
+from torcheasyrec_tpu_torch.modules.module import LayerNorm, dropout_keep_mask
 from torcheasyrec_tpu_torch.ops import Kernel
 from torcheasyrec_tpu_torch.ops.hstu import (
     hstu_compute_output,
@@ -34,11 +39,16 @@ class STULayer(nn.Module):
         use_group_norm: bool = False,
         attn_alpha: float = 0.0,
         contextual_seq_len: int = 0,
+        recompute: bool = True,
+        recompute_y: bool = True,
         kernel: Kernel = Kernel.PALLAS,
         sla_k1: int = 0,
         sla_k2: int = 0,
     ) -> None:
         super().__init__()
+        self._generator = generator
+        self.recompute = recompute
+        self.recompute_y = recompute_y
         dev = generator.device
         e, h, ld, ad = embedding_dim, num_heads, linear_hidden_dim, attention_dim
         self.h, self.ld, self.ad = h, ld, ad
@@ -63,11 +73,34 @@ class STULayer(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 num_targets: Optional[torch.Tensor] = None,
                 scaling_seqlen: int = -1) -> torch.Tensor:
-        check_no_training(self, self.dropout)
-        u, v, q, k = hstu_compute_uqvk(
-            x, self.input_ln.weight, self.input_ln.bias, self.uvqk_weight,
-            self.uvqk_bias, self.h, self.ld, self.ad,
-        )
+        def uqvk_fn(x_in):
+            return hstu_compute_uqvk(
+                x_in, self.input_ln.weight, self.input_ln.bias,
+                self.uvqk_weight, self.uvqk_bias, self.h, self.ld, self.ad,
+            )
+
+        # the dropout mask is drawn here, outside the rematerialized stage,
+        # so the recompute in the backward sees the same mask
+        keep = None
+        if self.training and self.dropout > 0.0:
+            keep = dropout_keep_mask(
+                x.shape[:2] + (self.h * self.ld,), self.dropout, x.device,
+                self._generator)
+
+        def out_fn(attn_in, u_in, x_in):
+            return hstu_compute_output(
+                attn_in, u_in, x_in, self.output_ln.weight,
+                self.output_ln.bias, self.output_weight,
+                group_norm=self.use_group_norm, num_heads=self.h,
+                linear_dim=self.ld, dropout_pr=self.dropout,
+                dropout_keep=keep,
+            )
+
+        remat = self.training and torch.is_grad_enabled()
+        if remat and self.recompute:
+            u, v, q, k = checkpoint(uqvk_fn, x, use_reentrant=False)
+        else:
+            u, v, q, k = uqvk_fn(x)
         attn = hstu_mha(
             q, k, v, lengths,
             alpha=self.alpha,
@@ -80,11 +113,9 @@ class STULayer(nn.Module):
             sla_k1=self.sla_k1,
             sla_k2=self.sla_k2,
         )
-        return hstu_compute_output(
-            attn, u, x, self.output_ln.weight, self.output_ln.bias,
-            self.output_weight, group_norm=self.use_group_norm,
-            num_heads=self.h, linear_dim=self.ld,
-        )
+        if remat and self.recompute_y:
+            return checkpoint(out_fn, attn, u, x, use_reentrant=False)
+        return out_fn(attn, u, x)
 
 
 class STUStack(nn.Module):
@@ -124,6 +155,8 @@ def stu_from_config(cfg: Dict[str, Any], generator: torch.Generator,
             contextual_seq_len=max(
                 int(cfg.get("contextual_seq_len", 0) or 0), 0
             ),
+            recompute=bool(cfg.get("recompute_uvqk", True)),
+            recompute_y=bool(cfg.get("recompute_y", True)),
             kernel=kernel,
             sla_k1=int(cfg.get("sla_k1", 0) or 0),
             sla_k2=int(cfg.get("sla_k2", 0) or 0),

@@ -1,7 +1,8 @@
 """MLP stack: per layer Linear -> [LayerNorm] -> activation -> dropout.
 
 Counterpart of torcheasyrec_tpu/modules/mlp.py. Batch norm is not
-ported. Dropout is the identity in eval and raises in training mode.
+ported. Dropout is the identity in eval and draws its mask from the
+module's generator in training mode.
 """
 
 from typing import Optional, Sequence
@@ -12,7 +13,7 @@ from torch import nn
 from torcheasyrec_tpu_torch.modules.activation import get_activation
 from torcheasyrec_tpu_torch.modules.module import (
     LayerNorm,
-    check_no_training,
+    dropout,
     linear,
     linear_apply,
 )
@@ -41,6 +42,7 @@ class MLP(nn.Module):
         super().__init__()
         if use_bn:
             raise NotImplementedError("MLP batch norm is not ported")
+        self._generator = generator
         self.in_features = in_features
         self.hidden_units = list(hidden_units)
         self.act = get_activation(activation)
@@ -60,11 +62,11 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor,
                 compute_dtype: torch.dtype) -> torch.Tensor:
         for layer, dr in zip(self.layers, self.dropout_ratio):
-            check_no_training(self, dr)
             x = linear_apply(layer.linear, x, compute_dtype)
             if layer.ln is not None:
                 x = layer.ln(x)
             x = self.act(x)
+            x = dropout(x, dr, self.training, self._generator)
         return x
 
 

@@ -1,4 +1,4 @@
-"""Linear and layer-norm semantics of the dense stack.
+"""Linear, layer-norm and dropout semantics of the dense stack.
 
 Counterpart of torcheasyrec_tpu/modules/module.py. Parameters live in
 fp32 ``nn.Module``s and are cast at use: ``linear_apply`` multiplies in
@@ -9,8 +9,10 @@ bf16, cuBLAS rounds its fp32 sums to bf16 before the bias is added, one
 rounding more than the JAX path. Casts are explicit; there is no
 ``torch.autocast``. Initializers draw from an explicit
 ``torch.Generator``; they follow the JAX package's distributions, not
-its numbers.
+its numbers. Dropout draws from the same kind of generator.
 """
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,11 +56,26 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def check_no_training(module: nn.Module, dropout: float) -> None:
-    """The port serves only: dropout, a training-time op, is the identity
-    in eval (as in the JAX package) and raises in training mode."""
-    if module.training and dropout > 0.0:
-        raise NotImplementedError(
-            f"{type(module).__name__}: training (dropout {dropout}) is not "
-            "ported; call .eval()"
-        )
+def dropout_keep_mask(shape, p: float, device,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Bool mask that keeps each entry with probability 1 - p, drawn from
+    ``generator`` (which lives on ``device``)."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    return torch.rand(shape, device=device, generator=generator) < 1.0 - p
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor,
+                  p: float) -> torch.Tensor:
+    """Kept entries scaled by 1 / (1 - p), the others zero."""
+    return torch.where(keep, x / (1.0 - p), x.new_zeros(()))
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as the JAX package's ``dropout``: the identity in
+    eval or at p <= 0."""
+    if not training or p <= 0.0:
+        return x
+    return apply_dropout(
+        x, dropout_keep_mask(x.shape, p, x.device, generator), p)

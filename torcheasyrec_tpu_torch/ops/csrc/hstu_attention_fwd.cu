@@ -54,62 +54,15 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hstu_attention_common.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace hstu;
 
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 64;           // key/value rows per tile
 constexpr int NUM_THREADS = 128;  // 4 warps
-
-struct MaskParams {
-  int causal;
-  int has_targets;
-  int max_attn_len;
-  int contextual_seq_len;
-  int min_full_attn_seq_len;
-  int sla_k1;
-  int sla_k2;
-};
-
-// _mask_block of the Pallas kernel, one element at a time.
-__device__ __forceinline__ bool valid_attn(int row, int col, int seq_len,
-                                           int n_t, const MaskParams& p) {
-  if (row >= seq_len || col >= seq_len) return false;
-  if (p.sla_k1 > 0 || p.sla_k2 > 0) {
-    const int eff_k2 = max(p.sla_k2, p.contextual_seq_len);
-    const int h_bound = seq_len - n_t;
-    const bool hist = (col < min(eff_k2, row + 1)) ||
-                      (col >= max(eff_k2, row - p.sla_k1 + 1) && col <= row);
-    return row < h_bound ? hist : (col < h_bound);
-  }
-  int ids_r = row, ids_c = col, max_ids = seq_len;
-  if (p.contextual_seq_len > 0) {
-    ids_r = max(ids_r - p.contextual_seq_len + 1, 0);
-    ids_c = max(ids_c - p.contextual_seq_len + 1, 0);
-    max_ids = max_ids - p.contextual_seq_len + 1;
-  }
-  if (p.has_targets) {
-    max_ids -= n_t;
-    ids_r = min(ids_r, max_ids);
-    ids_c = min(ids_c, max_ids);
-  }
-  int dist = ids_r - ids_c;
-  if (!p.causal) dist = abs(dist);
-  bool m = (row == col) || dist > 0;
-  if (p.max_attn_len > 0) {
-    if (p.min_full_attn_seq_len > 0) {
-      m = m && (dist <= p.max_attn_len ||
-                ids_r >= max_ids - p.min_full_attn_seq_len);
-    } else {
-      m = m && dist <= p.max_attn_len;
-    }
-  }
-  if (p.contextual_seq_len > 0) m = m || (ids_r == 0 && ids_c < max_ids);
-  return m;
-}
-
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
 // Number of key/value tiles the query tile starting at q0 must visit.
 __device__ __forceinline__ int kv_tiles(int q0, int seq_len,
@@ -122,104 +75,6 @@ __device__ __forceinline__ int kv_tiles(int q0, int seq_len,
   }
   return end;
 }
-
-// Copy rows [r0, r0 + R) x COLS of a [N, H, COLS] head slice into shared
-// memory with leading dimension ld; rows at or past `rows_valid` read as 0.
-template <typename T, int R, int COLS>
-__device__ __forceinline__ void load_tile(T* smem, int ld, const T* base,
-                                          int row_stride, int r0,
-                                          int rows_valid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = COLS / VEC;
-  constexpr int ITERS = R * PER_ROW / NUM_THREADS;
-  uint4 vals[ITERS];
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {  // all loads in flight at once
-    const int i = threadIdx.x + it * NUM_THREADS;
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    vals[it] = make_uint4(0, 0, 0, 0);
-    if (r0 + r < rows_valid) {
-      vals[it] = *reinterpret_cast<const uint4*>(
-          base + (size_t)(r0 + r) * row_stride + c);
-    }
-  }
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int i = threadIdx.x + it * NUM_THREADS;
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    const T* src = reinterpret_cast<const T*>(&vals[it]);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) smem[r * ld + c + e] = src[e];
-  }
-}
-
-// 16-byte global -> shared copy that bypasses registers; src_bytes 0 fills
-// the destination with zeros.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Asynchronous counterpart of load_tile for bf16 tiles (ld a multiple of 8).
-template <int R, int COLS>
-__device__ __forceinline__ void load_tile_async(bf16* smem, int ld,
-                                                const bf16* base,
-                                                int row_stride, int r0,
-                                                int rows_valid) {
-  constexpr int PER_ROW = COLS / 8;
-  constexpr int ITERS = R * PER_ROW / NUM_THREADS;
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int i = threadIdx.x + it * NUM_THREADS;
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    const bool valid = r0 + r < rows_valid;
-    cp_async_16(smem + r * ld + c,
-                base + (size_t)(valid ? r0 + r : 0) * row_stride + c, valid);
-  }
-}
-
-// True when the whole [BQ, BK] tile is unmasked under the plain causal mask
-// (no SLA, no window): every column lies before every row and in the
-// history (before the targets), and every row is within the length. Holds
-// with or without a contextual prefix or targets (see `valid_attn`).
-__device__ __forceinline__ bool tile_unmasked(int q0, int k0, int seq_len,
-                                              int n_t, const MaskParams& p) {
-  return p.causal && p.max_attn_len == 0 && p.sla_k1 == 0 && p.sla_k2 == 0 &&
-         k0 + BK <= q0 && k0 + BK <= seq_len - n_t && q0 + BQ <= seq_len;
-}
-
-// SiLU with the fast exp and division: bf16 keeps far fewer bits than
-// these lose.
-__device__ __forceinline__ float silu_fast(float x) {
-  return __fdividef(x, 1.0f + __expf(-x));
-}
-
-// Rows [q0, min(q0 + BQ, N)) of a dead query tile are written as zeros.
-template <typename T, int V>
-__device__ __forceinline__ void zero_rows(T* o_base, int row_stride, int q0,
-                                          int n) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = V / VEC;
-  const int rows = min(BQ, n - q0);
-  for (int i = threadIdx.x; i < rows * PER_ROW; i += NUM_THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    *reinterpret_cast<uint4*>(o_base + (size_t)(q0 + r) * row_stride + c) =
-        make_uint4(0, 0, 0, 0);
-  }
-}
-
-constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 
 // ---------------------------------------------------------------------------
 // bf16: WMMA tensor-core tiles
@@ -272,7 +127,7 @@ hstu_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* o_base = out + head * V;
 
   if (q0 >= seq_len) {
-    zero_rows<bf16, V>(o_base, v_stride, q0, n);
+    zero_rows<NUM_THREADS, BQ, bf16, V>(o_base, v_stride, q0, n);
     return;
   }
 
@@ -287,9 +142,9 @@ hstu_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   const int n_kv = kv_tiles(q0, seq_len, p);
 
-  load_tile_async<BQ, D>(qs, L::LDQ, q_base, qk_stride, q0, seq_len);
-  load_tile_async<BK, D>(k_stage(0), L::LDK, k_base, qk_stride, 0, seq_len);
-  load_tile_async<BK, V>(v_stage(0), L::LDV, v_base, v_stride, 0, seq_len);
+  load_tile_async<NUM_THREADS, BQ, D>(qs, L::LDQ, q_base, qk_stride, q0, seq_len);
+  load_tile_async<NUM_THREADS, BK, D>(k_stage(0), L::LDK, k_base, qk_stride, 0, seq_len);
+  load_tile_async<NUM_THREADS, BK, V>(v_stage(0), L::LDV, v_base, v_stride, 0, seq_len);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -309,9 +164,9 @@ hstu_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* ks = k_stage(kt & 1);
     const bf16* vs = v_stage(kt & 1);
     if (kt + 1 < n_kv) {  // prefetch the next tile into the other stage
-      load_tile_async<BK, D>(k_stage((kt + 1) & 1), L::LDK, k_base,
+      load_tile_async<NUM_THREADS, BK, D>(k_stage((kt + 1) & 1), L::LDK, k_base,
                              qk_stride, k0 + BK, seq_len);
-      load_tile_async<BK, V>(v_stage((kt + 1) & 1), L::LDV, v_base,
+      load_tile_async<NUM_THREADS, BK, V>(v_stage((kt + 1) & 1), L::LDV, v_base,
                              v_stride, k0 + BK, seq_len);
       cp_async_commit();
     }
@@ -334,7 +189,7 @@ hstu_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // P = mask * SiLU(alpha * S) / scale, cast to v's type; each lane
     // takes two neighbouring columns of a row
-    const bool unmasked = tile_unmasked(q0, k0, seq_len, n_t, p);
+    const bool unmasked = tile_unmasked(q0, k0, BQ, BK, seq_len, n_t, p);
 #pragma unroll 4
     for (int r = 0; r < 16; ++r) {
       const int c = 2 * lane;
@@ -431,14 +286,14 @@ hstu_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* o_base = out + head * V;
 
   if (q0 >= seq_len) {
-    zero_rows<float, V>(o_base, v_stride, q0, n);
+    zero_rows<NUM_THREADS, BQ, float, V>(o_base, v_stride, q0, n);
     return;
   }
 
   // thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 8*j
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
 
-  load_tile<float, BQ, D>(qs, L::LDQ, q_base, qk_stride, q0, seq_len);
+  load_tile<NUM_THREADS, float, BQ, D>(qs, L::LDQ, q_base, qk_stride, q0, seq_len);
 
   float acc[4][VC];
 #pragma unroll
@@ -450,8 +305,8 @@ hstu_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    load_tile<float, BK, D>(ks, L::LDK, k_base, qk_stride, k0, seq_len);
-    load_tile<float, BK, V>(vs, L::LDV, v_base, v_stride, k0, seq_len);
+    load_tile<NUM_THREADS, float, BK, D>(ks, L::LDK, k_base, qk_stride, k0, seq_len);
+    load_tile<NUM_THREADS, float, BK, V>(vs, L::LDV, v_base, v_stride, k0, seq_len);
     __syncthreads();
 
     float s[4][8];

@@ -3,7 +3,8 @@
 Each ``ops/csrc/<name>.cu`` has a plain C interface. On first use it is
 compiled by ``nvcc`` for ``sm_90a`` into
 ``torcheasyrec_tpu_torch/build/lib<name>-<source hash>.so`` and loaded
-with ctypes; a source edit changes the hash and so rebuilds. Nothing
+with ctypes; an edit of the source or of a shared ``csrc/*.cuh`` header
+changes the hash and so rebuilds. Nothing
 here runs at import time, so the package imports where there is no
 ``nvcc`` and no card.
 """
@@ -38,6 +39,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

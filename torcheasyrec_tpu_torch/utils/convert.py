@@ -13,11 +13,19 @@
 - ``tables`` ({table name: [rows, dim]}, canonical layout) become
   ``embedding_group.tables.<name>``.
 
+The optimizer state crosses too, so the two packages can be held
+together after step k and not only at step 0:
+``sparse_opt_state_from_jax`` takes each table's state as the JAX
+engine's ``extract_table_state`` gives it and lays it into this
+package's per-group state; ``dense_opt_state_from_jax`` takes optax
+adam's ``mu``, ``nu`` and ``count`` and gives a ``DenseOptimizer``
+state dict.
+
 This module never imports JAX.
 """
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -61,3 +69,35 @@ def from_jax_state(dense_params: Mapping[str, Any],
             np.array(arr, dtype=np.float32)
         )
     return state
+
+
+def sparse_opt_state_from_jax(
+    engine, table_states: Mapping[str, Mapping[str, Any]], device=None,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{table name: {state name: array}} (row state [rows, width] and
+    scalars, as ``extract_table_state`` returns them) -> the engine's
+    per-group sparse optimizer state."""
+    state = engine.init_opt_state(device)
+    for name, st in table_states.items():
+        gk, off, rows = engine.table_rows(name)
+        for key, arr in st.items():
+            val = torch.from_numpy(np.array(arr))
+            cur = state[gk].get(key)
+            if cur is not None and cur.dim() >= 1:
+                cur[off:off + rows] = val.reshape(rows, -1).to(cur)
+            else:
+                state[gk][key] = val.to(device)
+    return state
+
+
+def dense_opt_state_from_jax(mu: Mapping[str, Any], nu: Mapping[str, Any],
+                             count, param_names: Sequence[str]
+                             ) -> Dict[str, Any]:
+    """optax adam moments (pytrees shaped like the dense params) and step
+    count -> ``DenseOptimizer.load_state_dict`` input, with the moments
+    in the order of ``param_names`` (the model's parameter names)."""
+    mu_sd, nu_sd = from_jax_state(mu, {}), from_jax_state(nu, {})
+    return {
+        "count": int(count),
+        "state": [{"mu": mu_sd[n], "nu": nu_sd[n]} for n in param_names],
+    }
