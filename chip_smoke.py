@@ -3,24 +3,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's DLRM-HSTU serving and training paths
-(torcheasyrec_tpu_torch) at the full width of the repo's DLRM-HSTU lane
-(benchmark/bench_dlrm_hstu.py: batch 32, tables 10k x 256 and
-100k x 256, STU 512/128/128, 4 heads, 3 layers, histories up to 4000
-tokens and 16 candidates, max_seq_len 4032, BF16, sparse rowwise_adagrad
-lr 0.01, dense adam lr 0.001) with seeded random weights. Phases, one
+Drives the port's paths (torcheasyrec_tpu_torch) with seeded random
+weights: DLRM-HSTU serving and training at the full width of the repo's
+DLRM-HSTU lane (benchmark/bench_dlrm_hstu.py: batch 32, tables
+10k x 256 and 100k x 256, STU 512/128/128, 4 heads, 3 layers, histories
+up to 4000 tokens and 16 candidates, max_seq_len 4032, BF16, sparse
+rowwise_adagrad lr 0.01, dense adam lr 0.001), and DeepFM training on
+Criteo-shaped data (the config of the repo's train benchmark, bench.py:
+26 id features at dim 16 plus their WIDE copies at dim 4, 13 dense
+features, batch 8192, deep 512-256-128, final 128-64, BF16, sparse
+rowwise_adagrad and dense adam at lr 0.001) with the tables at the
+reference's real bucket sizes, uncapped, fp32 and packed. Phases, one
 JSON line each:
 
 1. env: the card, CUDA and torch versions; every CUDA kernel of the
    paths is built from the sources here (one nvcc per source, in
    parallel).
-2. kernel, kernel_bwd: each kernel against its plain PyTorch version on
-   the card, at the slice's shapes and over a sweep of every mask
-   variant, fp32 and bf16. Tolerance: max|kernel - plain| <=
+2. kernel, kernel_bwd: each attention kernel against its plain PyTorch
+   version on the card, at the slice's shapes and over a sweep of every
+   mask variant, fp32 and bf16. Tolerance: max|kernel - plain| <=
    1e-4 * max|plain| in fp32 (TF32 off), <= 2e-2 * max|plain| in bf16
    (bf16 keeps ~3 significant digits and the sums run in another order),
    per output or gradient. kernel_bwd also holds both kernels, through
    the autograd Function, against autograd of the plain forward.
+   kernel_row_write: the row-write kernel against its plain version,
+   bit-equal over the whole table (a copy has no tolerance), at the
+   DeepFM step's shape (the dim-16 group's table of 29.2 M physical rows
+   of 128 lanes, 73 728 rows written) and over a sweep: unique ids, many
+   duplicates on the scratch row, negative and too-large ids, one row,
+   a row count that is no multiple of the block, the last real row
+   (past the 2^32-byte line), int32 ids, a 2-row table, 256 lanes; with
+   the times of the kernel, the plain version and ``index_copy_``.
 3. slice: 4 requests of 32 through the port's eval step, then 2 of them
    again through ``predict_checkpoint`` (parquet in, parquet out), with
    the kernel launch counts set to 0 just before and read just after;
@@ -47,6 +60,29 @@ JSON line each:
 5. timing, timing_train: median request and step time, each kernel's time
    beside the plain version's and the card's bound at the slice's shapes,
    and a profile of one forward and of one train step by device kernel.
+6. train_deepfm: warm-up and 30 timed steps on a resident batch through
+   ``make_train_step`` at the uncapped sizes (19.1 GB of packed tables
+   with their in-row accumulators), the same with the dense lane off;
+   then, with the five 40 M-row tables capped at 10 M so that several
+   models fit side by side and the checkpoint stays at 5 GB, 3 steps over
+   distinct batches from a parquet file, an eval pass and the checkpoint
+   through ``train_and_evaluate``, ``evaluate`` of that checkpoint, and a
+   restore into a fresh model. The row-write launch count is set to 0
+   before the driven steps and read after them. Checks: finite losses;
+   the loss on the repeated batch falls; exactly 2 row-write launches
+   per step; sampled physical rows that the batch did not touch keep
+   their bits and touched ones change; in fp32 steps from the same
+   weights and batches the packed engine agrees with the unpacked one,
+   and the dense lane on with off, per table through ``extract_table``
+   and ``extract_table_state``: within 1e-5 of each table's largest
+   magnitude after 1 step; after 3 steps within 1e-3 of it, with at
+   most 1e-5 of all elements beyond 1e-5 (atomic sums make even two
+   runs of one layout differ, and rowwise adagrad's first update of a
+   row amplifies that where a gradient nearly cancels; a second run of
+   the packed engine is reported beside the other layouts; fp32 so that
+   bf16 rounding flips add nothing); ``evaluate`` reproduces the AUC of
+   ``train_and_evaluate``; the restored model holds the checkpoint's
+   tables and row state bit for bit.
 
 Then a ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and as the last line the device record. Any failure raises
@@ -81,7 +117,22 @@ PEAK_HBM_BYTES = 3.35e12
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 
-KERNELS = ["hstu_attention_fwd", "hstu_attention_bwd"]
+KERNELS = ["hstu_attention_fwd", "hstu_attention_bwd", "row_write"]
+
+# --- the DeepFM lane: the config of the repo's train benchmark --------------
+# Criteo-Terabyte bucket sizes of the reference config, uncapped
+CRITEO_RAW = [
+    40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 40000000,
+    3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14, 40000000, 40000000,
+    40000000, 590152, 12973, 108, 36,
+]
+CRITEO_CAP = 10_000_000  # for the phases that hold several models
+DEEPFM_BATCH = 8192
+DEEPFM_DIM = 16
+DEEPFM_WARMUP = 5
+DEEPFM_STEPS = 30
+LAYOUT_TOL = 1e-5
+LAYOUT_TOL_3_STEPS = 1e-3
 
 _CONFIG = """
 train_input_path: "{train_path}"
@@ -525,7 +576,7 @@ def phase_slice():
     cfg = parse_pipeline_config(config_text("PALLAS"))
     model, features = port_main.build_model(cfg, "cuda", seed=SEED)
     parser = DataParser(features, labels=["unused_label"])
-    eval_step = port_main.make_eval_step(model)
+    eval_step = port_main.make_eval_step(model, with_loss=False)
     requests = [synth_cols(BATCH, SEED + i) for i in range(N_REQUESTS + 1)]
     n_tokens = [
         sum(len(s.as_py().split(";")) for s in c["video_id"]) for c in requests
@@ -533,7 +584,7 @@ def phase_slice():
 
     def answer(cols):
         batch = parser.parse_to_batch(cols).to("cuda")
-        preds = eval_step(batch)
+        preds, _ = eval_step(batch)
         return {k: v.float().cpu() for k, v in preds.items()}
 
     answer(requests[0])  # warm-up: cuBLAS handles, allocator
@@ -613,16 +664,17 @@ def phase_slice():
     return launches, float(np.median(times))
 
 
-def build_trainer(cfg, seed=SEED):
+def build_trainer(cfg, seed=SEED, **engine_options):
     """(model, features, dense optimizer, state, train step) of the port
-    on the card, from the config's optimizers."""
+    on the card, from the config's optimizers; ``engine_options`` are the
+    embedding engine's (``packed``, ``dense_lane_rows``)."""
     from torcheasyrec_tpu_torch import main as port_main
     from torcheasyrec_tpu_torch.optim.optimizer_builder import (
         create_dense_optimizer,
     )
 
     model, features, sparse_sched = port_main._build_model_and_optim(
-        cfg, "cuda", for_train=True, seed=seed)
+        cfg, "cuda", for_train=True, seed=seed, **engine_options)
     tx, dense_sched = create_dense_optimizer(
         cfg.train_config.dense_optimizer,
         [p for p in model.parameters() if p.requires_grad])
@@ -945,6 +997,514 @@ def phase_timing():
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 
+# --- the DeepFM lane: config, data, and the row-write kernel ----------------
+
+def deepfm_config_text(buckets, model_dir: str = "unused",
+                       train_path: str = "unused", eval_path: str = "unused",
+                       num_steps: int = 0, mixed_precision: str = "BF16"):
+    """The Criteo DeepFM config of the repo's train benchmark (the port's
+    own copy of bench.py:build_config), with ``buckets`` rows per id
+    feature."""
+    lines = [
+        f'train_input_path: "{train_path}"',
+        f'eval_input_path: "{eval_path}"',
+        f'model_dir: "{model_dir}"',
+        "train_config {",
+        "  sparse_optimizer { rowwise_adagrad_optimizer { lr: 0.001 }"
+        " constant_learning_rate {} }",
+        "  dense_optimizer { adam_optimizer { lr: 0.001 }"
+        " constant_learning_rate {} }",
+        f"  num_steps: {num_steps}" if num_steps else "  num_epochs: 1",
+        f'  mixed_precision: "{mixed_precision}"',
+        "}",
+        "data_config {",
+        f"  batch_size: {DEEPFM_BATCH}",
+        "  dataset_type: ParquetDataset",
+        "  fg_mode: FG_NONE",
+        '  label_fields: "label"',
+        "}",
+    ]
+    for i in range(13):
+        lines.append(
+            f'feature_configs {{ raw_feature {{ feature_name: "int_{i}" }} }}')
+    for i, n in enumerate(buckets):
+        lines.append(
+            f'feature_configs {{ id_feature {{ feature_name: "cat_{i}" '
+            f"num_buckets: {n} embedding_dim: {DEEPFM_DIM} }} }}")
+    cat_names = "".join(
+        f'    feature_names: "cat_{i}"\n' for i in range(len(buckets)))
+    int_names = "".join(f'    feature_names: "int_{i}"\n' for i in range(13))
+    lines.append(
+        "model_config {\n"
+        '  feature_groups {\n    group_name: "wide"\n' + cat_names +
+        "    group_type: WIDE\n  }\n"
+        '  feature_groups {\n    group_name: "fm"\n' + cat_names +
+        "    group_type: DEEP\n  }\n"
+        '  feature_groups {\n    group_name: "deep"\n' + cat_names + int_names +
+        "    group_type: DEEP\n  }\n"
+        "  deepfm {\n"
+        "    deep { hidden_units: [512, 256, 128] }\n"
+        "    final { hidden_units: [128, 64] }\n"
+        "    wide_embedding_dim: 4\n"
+        "  }\n"
+        "  num_class: 1\n"
+        "  losses { binary_cross_entropy {} }\n"
+        "  metrics { auc {} }\n"
+        "}")
+    return "\n".join(lines)
+
+
+def criteo_cols(buckets, seed: int, n: int = DEEPFM_BATCH):
+    """Criteo-shaped Arrow columns (bench.py's synthetic batch): a coin
+    label, 13 normal dense features, 26 uniform ids."""
+    import pyarrow as pa
+
+    r = np.random.default_rng(seed)
+    cols = {"label": pa.array((r.random(n) > 0.5).astype(np.float32))}
+    for i in range(13):
+        cols[f"int_{i}"] = pa.array(r.normal(size=n).astype(np.float32))
+    for i, b in enumerate(buckets):
+        cols[f"cat_{i}"] = pa.array(r.integers(0, b, n))
+    return cols
+
+
+def slice_row_write_shape():
+    """(physical rows of the dim-16 group's packed table, rows one step
+    writes) of the DeepFM lane, from the engine's own layout: slot 17,
+    7 logical rows per physical row, the 9 tables above the dense lane's
+    32768 rows times the batch."""
+    from torcheasyrec_tpu_torch.parallel.emb_engine import (
+        EmbeddingEngine,
+        TableSpec,
+    )
+    from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
+
+    eng = EmbeddingEngine(
+        [TableSpec(f"cat_{i}", n, DEEPFM_DIM) for i, n in enumerate(CRITEO_RAW)],
+        [], SparseOptimizer("rowwise_adagrad", {"lr": 0.001}))
+    (g,) = eng.groups.values()
+    n_big = sum(1 for n in CRITEO_RAW if n > 32768)
+    return g.p_rows, n_big * DEEPFM_BATCH
+
+
+def phase_kernel_row_write():
+    """write_rows (the CUDA kernel) against _torch_write_rows on the card,
+    bit-equal over the whole table."""
+    from torcheasyrec_tpu_torch.ops.row_write import (
+        _torch_write_rows,
+        write_rows,
+    )
+
+    p_rows, k = slice_row_write_shape()
+    scratch = p_rows - 1
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    table = torch.empty(p_rows, 128, device="cuda").uniform_(generator=g)
+    ref = table.clone()
+    if (p_rows - 2) * 512 <= 2 ** 32:
+        raise AssertionError("the slice's table does not cross 2^32 bytes")
+
+    def rand_rows(n, lanes=128):
+        return torch.randn(n, lanes, device="cuda", generator=g)
+
+    def unique_ids(n, hi):
+        return torch.randperm(hi, device="cuda", generator=g)[:n]
+
+    def same_row_per_target(ids, lanes=128):
+        """Rows that are a function of the target, so that targets that
+        repeat carry equal rows and the result does not depend on which
+        write wins."""
+        base = ids.clamp(min=0).float()[:, None]
+        return (base * 1e-3 + torch.arange(lanes, device="cuda")).contiguous()
+
+    # the step's shape: sorted physical rows, the duplicates of a step
+    # (later slots of one physical row) sent to the scratch row
+    step_ids = torch.sort(torch.randint(
+        0, scratch, (k,), device="cuda", generator=g))[0]
+    dup = torch.zeros(k, dtype=torch.bool, device="cuda")
+    dup[1:] = step_ids[1:] == step_ids[:-1]
+    dup |= torch.rand(k, device="cuda", generator=g) < 0.3
+    step_ids = torch.where(dup, step_ids.new_full((), scratch), step_ids)
+    step_rows = rand_rows(k)
+    step_rows[dup] = 0.5  # equal rows on the racing target
+
+    ids_many_dups = unique_ids(5000, scratch)
+    ids_many_dups[torch.rand(5000, device="cuda", generator=g) < 0.9] = scratch
+    ids_bad = unique_ids(4000, scratch)
+    ids_bad[::3] = -1
+    ids_bad[1::5] = p_rows
+    ids_bad[2::7] = p_rows + 12345
+    ids_bad[3::11] = -(2 ** 40)
+    cases = {
+        "slice": (step_ids, step_rows),
+        "unique": (unique_ids(k, scratch), None),
+        "duplicates_on_scratch": (ids_many_dups, None),
+        "negative_and_too_large": (ids_bad, None),
+        "k_1": (torch.tensor([scratch // 2], device="cuda"), None),
+        "k_not_a_block_multiple": (unique_ids(1003, scratch), None),
+        "last_real_row": (torch.tensor([scratch - 1, 0, scratch, scratch],
+                                       device="cuda"), None),
+        "int32_ids": (unique_ids(2048, scratch).int(), None),
+    }
+    launches = write_rows.launches
+    checked = []
+    for name, (ids, rows) in cases.items():
+        rows = same_row_per_target(ids) if rows is None else rows
+        write_rows(table, ids, rows)
+        _torch_write_rows(ref, ids, rows)
+        torch.cuda.synchronize()
+        if not torch.equal(table, ref):
+            raise AssertionError(f"row_write {name}: kernel != plain version")
+        checked.append(name)
+    last_real = scratch - 1
+    if not torch.equal(table[last_real], same_row_per_target(
+            torch.tensor([last_real], device="cuda"))[0]):
+        raise AssertionError("row_write: the last real row was not written")
+
+    # racing writes of different rows to the scratch row: every other row
+    # is as the plain version leaves it, the scratch row's neighbour too
+    race_ids = torch.cat([unique_ids(3000, scratch),
+                          torch.full((20000,), scratch, device="cuda")])
+    race_rows = rand_rows(race_ids.shape[0])
+    write_rows(table, race_ids, race_rows)
+    _torch_write_rows(ref, race_ids, race_rows)
+    torch.cuda.synchronize()
+    if not torch.equal(table[:scratch], ref[:scratch]):
+        raise AssertionError("row_write: racing scratch writes reached "
+                             "another row")
+    checked.append("racing_scratch_row")
+    ref[scratch] = table[scratch]
+    written_err = float((table[step_ids.clamp(max=scratch)]
+                         - ref[step_ids.clamp(max=scratch)]).abs().max())
+
+    # small tables: 2 rows, and 256 lanes
+    for name, p, lanes, ids in (
+            ("two_row_table", 2, 128, torch.tensor([1, 0, 1], device="cuda")),
+            ("256_lanes", 300, 256, unique_ids(200, 300))):
+        a = torch.randn(p, lanes, device="cuda", generator=g)
+        b = a.clone()
+        rows = same_row_per_target(ids, lanes)
+        write_rows(a, ids, rows)
+        _torch_write_rows(b, ids, rows)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"row_write {name}: kernel != plain version")
+        checked.append(name)
+    n_checked = write_rows.launches - launches
+    before = write_rows.launches
+    write_rows(table, step_ids[:0], step_rows[:0])
+    if write_rows.launches != before:
+        raise AssertionError("row_write: K = 0 launched the kernel")
+
+    # times at the step's shape; the rows (38 MB) fit the L2 cache, as
+    # they do in the step, where they were just computed
+    kernel_ms = cuda_ms(lambda: write_rows(table, step_ids, step_rows), 50)
+    plain_ms = cuda_ms(
+        lambda: _torch_write_rows(table, step_ids, step_rows), 20)
+    library_ms = cuda_ms(
+        lambda: table.index_copy_(0, step_ids, step_rows), 50)
+    one_id = step_ids[:1].contiguous()
+    one_row = step_rows[:1].contiguous()
+    bare_launch_ms = cuda_ms(lambda: write_rows(table, one_id, one_row), 200)
+    write_rows.launches = launches + n_checked  # timing does not count
+    # bytes the function must move: K rows read, K rows written, the ids
+    nbytes = 2.0 * k * 128 * 4 + k * step_ids.element_size()
+    bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    emit({"phase": "kernel_row_write", "table": [p_rows, 128],
+          "table_gb": p_rows * 512 / 1e9, "rows_written": k,
+          "cases_bit_equal": checked, "launches_checked": n_checked,
+          "max_abs_err_on_written_rows": written_err,
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "library_ms": library_ms, "library": "Tensor.index_copy_",
+          "bare_launch_ms": bare_launch_ms, "bytes": nbytes,
+          "bound_ms": bound_ms, "bound_by": "bytes",
+          "kernel_gb_per_s": nbytes / kernel_ms / 1e6})
+    del table, ref
+    torch.cuda.empty_cache()
+    return written_err, (kernel_ms, plain_ms, bound_ms, "bytes"), library_ms
+
+
+# --- DeepFM training ---------------------------------------------------------
+
+def timed_steps(train_step, state, batch, n_warmup, n_steps):
+    """(losses of every step, ms of each timed step with a synchronise
+    after it, ms per step of a second window of ``n_steps`` that
+    synchronises only at its end)."""
+    losses, step_ms = [], []
+    for i in range(n_warmup + n_steps):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        if i >= n_warmup:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["total_loss"]))
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, metrics = train_step(state, batch)
+    losses.append(float(metrics["total_loss"]))  # waits for the window
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    return losses, step_ms, window_ms
+
+
+def phase_train_deepfm():
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    cfg = parse_pipeline_config(deepfm_config_text(CRITEO_RAW))
+    model, features, _, state, train_step = build_trainer(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
+    eg = model.embedding_group
+    groups = {gk: {"dim": g.dim, "slot": g.slot, "rows_per_physical_row": g.spr,
+                   "physical_rows": g.p_rows, "dense_lane_rows": g.dense_rows,
+                   "gb": g.p_rows * 512 / 1e9}
+              for gk, g in eg.engine.groups.items()}
+    if not all(g.packed for g in eg.engine.groups.values()):
+        raise AssertionError("a DeepFM group did not pack")
+    batch = DataParser(features, labels=["label"]).parse_to_batch(
+        criteo_cols(CRITEO_RAW, 0)).to("cuda")
+
+    # sampled physical rows, to see after the steps which ones changed
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        _, residuals = eg.lookup(batch)
+    samples = {}
+    for gk, store in eg.engine_tables().items():
+        g = eg.engine.groups[gk]
+        flat_ids = residuals[gk][0]
+        touched = torch.div(flat_ids[flat_ids >= 0], g.spr,
+                            rounding_mode="floor")
+        # half random rows, half the batch's own rows and their neighbours
+        idx = torch.cat([
+            torch.randint(0, g.p_rows - 1, (100_000,), device="cuda",
+                          generator=gen),
+            touched[:50_000], (touched[:50_000] + 1).clamp(max=g.p_rows - 2),
+        ])
+        is_touched = torch.isin(idx, touched)
+        samples[gk] = (idx, is_touched, store[idx].clone())
+    torch.cuda.synchronize()
+
+    write_rows.launches = 0
+    losses, step_ms, window_ms = timed_steps(
+        train_step, state, batch, DEEPFM_WARMUP, DEEPFM_STEPS)
+    n_driven = DEEPFM_WARMUP + 2 * DEEPFM_STEPS
+    step_launches = write_rows.launches
+    if step_launches != 2 * n_driven:
+        raise AssertionError(
+            f"row_write launched {step_launches} times in {n_driven} steps "
+            "of 2 packed groups")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"DeepFM losses on the repeated batch: {losses}")
+    sample_report = {}
+    for gk, store in eg.engine_tables().items():
+        idx, is_touched, before = samples[gk]
+        same = (store[idx] == before).all(dim=1)
+        if not same[~is_touched].all():
+            raise AssertionError(f"{gk}: physical rows the batch did not "
+                                 "touch changed")
+        changed = float((~same[is_touched]).float().mean())
+        if changed < 0.999:
+            raise AssertionError(f"{gk}: only {changed} of the touched "
+                                 "physical rows changed")
+        sample_report[gk] = {
+            "sampled": int(idx.shape[0]),
+            "untouched_bit_equal": int((~is_touched).sum()),
+            "touched_changed": int(is_touched.sum())}
+    del samples
+
+    def one_step():
+        train_step(state, batch)
+    step_profile = profile_forward(one_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model, state, train_step, eg
+    torch.cuda.empty_cache()
+
+    # the same steps with the dense lane off (every table's ids sorted)
+    model_off, _, _, state_off, step_off = build_trainer(
+        cfg, dense_lane_rows=0)
+    _, off_ms, off_window_ms = timed_steps(
+        step_off, state_off, batch, DEEPFM_WARMUP, DEEPFM_STEPS // 2)
+    del model_off, state_off, step_off
+    torch.cuda.empty_cache()
+    main_launches = write_rows.launches  # lane off: 2 a step as well
+
+    # --- capped sizes: several models side by side --------------------------
+    capped = [min(n, CRITEO_CAP) for n in CRITEO_RAW]
+    cols = [criteo_cols(capped, 10 + i) for i in range(5)]
+    cfg32 = parse_pipeline_config(deepfm_config_text(capped,
+                                                     mixed_precision=""))
+    variants = {
+        "packed": build_trainer(cfg32),
+        "packed_again": build_trainer(cfg32),
+        "unpacked": build_trainer(cfg32, packed=False),
+        "dense_lane_off": build_trainer(cfg32, dense_lane_rows=0),
+    }
+    ref_model = variants["packed"][0]
+    weights = ref_model.state_dict()
+    for name, (m, _, _, _, _) in variants.items():
+        if name != "packed":
+            m.load_state_dict(weights)
+    del weights
+    batches = [DataParser(variants["packed"][1], labels=["label"])
+               .parse_to_batch(c).to("cuda") for c in cols[:3]]
+    table_names = list(ref_model.embedding_group.engine._specs)
+
+    def per_table(variant):
+        m, _, _, st, _ = variants[variant]
+        eng = m.embedding_group.engine
+        fused = m.embedding_group.engine_tables()
+        for name in table_names:
+            yield (name, eng.extract_table(fused, name),
+                   eng.extract_table_state(fused, st["sparse_opt"], name))
+
+    def layout_err(other):
+        """(largest |packed - other| over every table and its row state,
+        relative to that tensor's largest magnitude; the share of all
+        elements farther apart than LAYOUT_TOL of that magnitude)."""
+        worst, beyond, total = 0.0, 0, 0
+        for (name, w_a, st_a), (_, w_b, st_b) in zip(per_table("packed"),
+                                                     per_table(other)):
+            if set(st_a) != set(st_b):
+                raise AssertionError(f"{name}: state names differ")
+            for a, b in [(w_a, w_b)] + [(st_a[k], st_b[k]) for k in st_a]:
+                diff = (a.float() - b.float()).abs()
+                scale = max(float(b.float().abs().max()), 1e-30)
+                worst = max(worst, float(diff.max()) / scale)
+                beyond += int((diff > LAYOUT_TOL * scale).sum())
+                total += diff.numel()
+        return worst, beyond / total
+
+    # After 1 step the variants differ only by the layouts' rounding and
+    # the order of the atomic sums over duplicate ids: 1e-5 holds as it
+    # stands. By step 3 even a second run of the same packed engine is
+    # farther away than that in a few hundred elements (measured between
+    # 8e-6 and 1.2e-4 from run to run): rowwise adagrad's first update of a
+    # row is lr * g / (|g| + 1e-10), and a sample whose gradient nearly
+    # cancels turns a rounding difference into one of up to lr / 4. So
+    # after step 3 the bound is 1e-3 of the table's largest weight (a row
+    # updated once too often or not at all is off by lr = 1e-3, about 0.45
+    # of that magnitude), and at most 1e-5 of all elements may be farther
+    # apart than 1e-5.
+    layout_errs = {}
+    for i, b in enumerate(batches):
+        for m, _, _, st, step in variants.values():
+            step(st, b)
+        if i not in (0, len(batches) - 1):
+            continue
+        limit = LAYOUT_TOL if i == 0 else LAYOUT_TOL_3_STEPS
+        errs = {}
+        for other in variants:
+            if other == "packed":
+                continue
+            err, share = layout_err(other)
+            errs[other] = {"max_err": err, "share_beyond_1e-5": share}
+            if not (err <= limit and share <= LAYOUT_TOL):
+                raise AssertionError(
+                    f"packed vs {other} after step {i + 1}: {err} of the "
+                    f"table's max (limit {limit}), {share} of the elements "
+                    f"beyond {LAYOUT_TOL} (limit {LAYOUT_TOL})")
+        layout_errs[f"after_step_{i + 1}"] = errs
+    launches_after_compare = write_rows.launches
+    del variants, ref_model, batches
+    torch.cuda.empty_cache()
+    write_rows.launches = main_launches  # comparisons do not count
+
+    # the trainer entry point: 3 steps over distinct batches from a parquet
+    # file, an eval pass, the checkpoint; then evaluate() and a restore
+    with tempfile.TemporaryDirectory() as tmp:
+        train_path = os.path.join(tmp, "train.parquet")
+        eval_path = os.path.join(tmp, "eval.parquet")
+        pq.write_table(pa.concat_tables([pa.table(c) for c in cols[:3]]),
+                       train_path)
+        pq.write_table(pa.concat_tables([pa.table(c) for c in cols[3:]]),
+                       eval_path)
+        model_dir = os.path.join(tmp, "model")
+        text = deepfm_config_text(capped, model_dir=model_dir,
+                                  train_path=train_path, eval_path=eval_path,
+                                  num_steps=3)
+        cfg_path = os.path.join(tmp, "pipeline.config")
+        with open(cfg_path, "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        result = port_main.train_and_evaluate(cfg_path, device="cuda")
+        file_launches = write_rows.launches - main_launches
+        train_eval_s = time.perf_counter() - t0
+        ckpt = port_main.latest_checkpoint(model_dir)
+        ckpt_gb = os.path.getsize(ckpt) / 1e9
+        t0 = time.perf_counter()
+        again = port_main.evaluate(cfg_path, device="cuda")
+        fresh, _, tx, _, _ = build_trainer(
+            parse_pipeline_config(text), seed=SEED + 1)
+        restored = port_main.restore_checkpoint(ckpt, fresh, tx)
+        saved = torch.load(ckpt, map_location="cuda", weights_only=True)
+        reload_s = time.perf_counter() - t0
+    if file_launches != 2 * 3 or result["step"] != 3:
+        raise AssertionError(
+            f"train_and_evaluate: {result}, {file_launches} row-write "
+            "launches for 3 steps")
+    wanted = ("total_loss", "auc", "loss_binary_cross_entropy")
+    if not all(np.isfinite(result.get(k, np.nan)) for k in wanted) or not (
+            0.0 < result["auc"] < 1.0):
+        raise AssertionError(f"train_and_evaluate: {result}")
+    if again["auc"] != result["auc"]:
+        raise AssertionError(
+            f"evaluate() of the checkpoint: auc {again['auc']} against "
+            f"{result['auc']} at the end of training")
+    feg = fresh.embedding_group
+    for name in table_names:
+        w = feg.engine.extract_table(feg.engine_tables(), name)
+        acc = feg.engine.extract_table_state(
+            feg.engine_tables(), restored["sparse_opt"], name)["acc"]
+        if not (torch.equal(w, saved["model"][f"embedding_group.tables.{name}"])
+                and torch.equal(acc, saved["sparse_opt"][name]["acc"])):
+            raise AssertionError(f"{name}: the restored model does not hold "
+                                 "the checkpoint's bits")
+    if restored["step"] != 3 or tx.count != 3:
+        raise AssertionError("the restored step counts are not 3")
+    del fresh, saved, restored
+    torch.cuda.empty_cache()
+
+    launches = write_rows.launches
+    step_median = float(np.median(step_ms))
+    emit({"phase": "train_deepfm", "batch": DEEPFM_BATCH,
+          "buckets": "uncapped", "total_rows": int(sum(CRITEO_RAW)),
+          "groups": groups, "init_s": init_s, "losses_first_last":
+          [losses[0], losses[-1]], "steps_driven": n_driven,
+          "step_ms_median": step_median,
+          "step_ms_range": [min(step_ms), max(step_ms)],
+          "window_step_ms": window_ms,
+          "examples_per_s": DEEPFM_BATCH / window_ms * 1e3,
+          "max_memory_allocated_gb": peak_gb,
+          "row_write_launches_per_step": step_launches / n_driven,
+          "sampled_physical_rows": sample_report,
+          "step_profile": step_profile,
+          "dense_lane_off": {"step_ms_median": float(np.median(off_ms)),
+                             "step_ms_range": [min(off_ms), max(off_ms)],
+                             "window_step_ms": off_window_ms},
+          "capped_at": CRITEO_CAP,
+          "layout_max_err_rel_to_table_max": layout_errs,
+          "layout_tol": {"after_step_1": LAYOUT_TOL,
+                         "after_step_3": LAYOUT_TOL_3_STEPS,
+                         "share_beyond_1e-5": LAYOUT_TOL},
+          "layout_dtype": "fp32",
+          "layout_compare_launches_not_counted":
+          launches_after_compare - main_launches,
+          "train_and_evaluate": result, "train_and_evaluate_s": train_eval_s,
+          "checkpoint_gb": ckpt_gb, "evaluate_auc": again["auc"],
+          "evaluate_and_restore_s": reload_s,
+          "restored_bit_equal_tables": len(table_names),
+          "row_write_launches": launches})
+    return launches, step_median
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -961,31 +1521,39 @@ def main() -> int:
     smi = phase_env()
     fwd_err = phase_kernel()
     bwd_err = phase_kernel_bwd()
+    write_err, write_timing, write_library_ms = phase_kernel_row_write()
     serve_launches, _ = phase_slice()
     train_fwd_launches, bwd_launches, step_ms, trainer = phase_train()
     fwd_timing = phase_timing()
     bwd_timing = phase_timing_train(trainer, step_ms)
+    del trainer
+    torch.cuda.empty_cache()
+    write_launches, _ = phase_train_deepfm()
 
-    def kernel_row(name, line, launches, err, timing, **extra):
+    def kernel_row(name, replaces, launches, err, timing, library_ms=None,
+                   **extra):
         kernel_ms, plain_ms, bound_ms, bound_by = timing
         return {
             "name": name, "route": "cuda",
             "source": f"torcheasyrec_tpu_torch/ops/csrc/{name}.cu",
-            "replaces": f"torcheasyrec_tpu/ops/pallas/hstu_attention.py:{line}",
+            "replaces": f"torcheasyrec_tpu/ops/pallas/{replaces}",
             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            # no single PyTorch call computes SiLU (softmax-free) attention
-            # or its backward
-            "library_ms": None, **extra,
+            "library_ms": library_ms, **extra,
         }
 
     emit({"kernels": [
-        kernel_row("hstu_attention_fwd", 114,
+        # no single PyTorch call computes SiLU (softmax-free) attention or
+        # its backward: library_ms is null for both
+        kernel_row("hstu_attention_fwd", "hstu_attention.py:114",
                    serve_launches + train_fwd_launches, fwd_err, fwd_timing,
                    launches_by_path={"serving": serve_launches,
                                      "training": train_fwd_launches}),
-        kernel_row("hstu_attention_bwd", 207, bwd_launches, bwd_err,
-                   bwd_timing),
+        kernel_row("hstu_attention_bwd", "hstu_attention.py:207",
+                   bwd_launches, bwd_err, bwd_timing),
+        # Tensor.index_copy_ computes the same function
+        kernel_row("row_write", "row_write.py:35", write_launches, write_err,
+                   write_timing, write_library_ms),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -3,11 +3,13 @@ import neither JAX nor the JAX package, and both packages' protos load
 side by side and parse the same config text."""
 
 import ast
+import importlib.util
 import inspect
 import os
 import subprocess
 import sys
 
+import pytest
 from google.protobuf import text_format
 
 from torch_port_helpers import hstu_synth_config_text
@@ -49,8 +51,8 @@ print(len(names))
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_chip_smoke_imports_no_jax():
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+def _imported_names(path):
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = []
     for node in ast.walk(tree):
@@ -58,8 +60,43 @@ def test_chip_smoke_imports_no_jax():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
+    return names
+
+
+# the modules of the DeepFM slice: each is found by the walk above (it is
+# a module of the package) and names no forbidden import, and not the
+# repo's JAX benchmark script either, anywhere in its source
+DEEPFM_SLICE_MODULES = [
+    "ops.row_write", "parallel.emb_engine", "modules.embedding",
+    "modules.fm", "models.rank_model", "models.deepfm", "metrics", "losses",
+    "main", "eval", "train_eval", "utils.convert",
+]
+
+
+@pytest.mark.parametrize("module", DEEPFM_SLICE_MODULES)
+def test_deepfm_slice_module_imports_no_jax(module):
+    spec = importlib.util.find_spec(f"torcheasyrec_tpu_torch.{module}")
+    assert spec is not None and spec.origin
+    names = _imported_names(spec.origin)
+    bad = [n for n in names if _is_forbidden(n) or n == "bench"]
+    assert not bad, bad
+
+
+def test_row_write_kernel_source_ships_with_the_package():
+    """The wrapper builds ``csrc/row_write.cu`` at first use; its C entry
+    point carries 64-bit row counts (a 30 M-row table of 512-byte rows
+    passes 2^32 bytes)."""
+    from torcheasyrec_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "row_write.cu").read_text()
+    assert 'extern "C" int row_write(' in src
+    assert "long long k, long long p" in src and "size_t" in src
+
+
+def test_chip_smoke_imports_no_jax():
+    names = _imported_names(os.path.join(REPO, "chip_smoke.py"))
     assert "torcheasyrec_tpu_torch" in names
-    bad = [n for n in names if _is_forbidden(n)]
+    bad = [n for n in names if _is_forbidden(n) or n == "bench"]
     assert not bad, bad
 
 

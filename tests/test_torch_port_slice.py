@@ -57,7 +57,7 @@ def test_predict_matches_jax_eval_step(slice_setup):
     _, _, model, features, cols, jpreds = slice_setup
     launches = port_hstu.hstu_attention_fwd.launches
     batch = DataParser(features).parse_to_batch(cols)
-    preds = port_main.make_eval_step(model)(batch)
+    preds, _ = port_main.make_eval_step(model, with_loss=False)(batch)
     _assert_preds_match({k: v.numpy() for k, v in preds.items()}, jpreds)
     # CPU tensors take the plain attention: the kernel never launched
     assert port_hstu.hstu_attention_fwd.launches == launches

@@ -5,7 +5,10 @@ against the JAX package (fp32, CPU).
 ``SparseOptimizer`` over 3 steps at rtol 1e-5 / atol 1e-7 (the same
 formulas in another library's fp32 arithmetic); the engine's dedup
 handles duplicate ids, -1 ids and an empty batch, and leaves untouched
-rows bit-equal."""
+rows bit-equal. The engine tests that look at the storage itself build
+the engine unpacked (``packed=False``); those that go through
+``extract_table[_state]`` run under both layouts. The packed update has
+its own file, test_torch_port_packed_engine.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,7 +120,7 @@ def test_unknown_kind_raises():
         SparseOptimizer("nope", {})
 
 
-def _engine(kind="rowwise_adagrad"):
+def _engine(kind="rowwise_adagrad", packed=False):
     tables = [TableSpec("a", 10, DIM), TableSpec("b", 20, DIM),
               TableSpec("c", 5, 4)]
     lookups = [
@@ -126,10 +129,13 @@ def _engine(kind="rowwise_adagrad"):
         LookupSpec("b:s1:seq", "s1", "b", "none", True),
         LookupSpec("c:f3", "f3", "c", "sum"),
     ]
-    eng = EmbeddingEngine(tables, lookups, SparseOptimizer(kind, CFGS[kind]))
+    eng = EmbeddingEngine(tables, lookups, SparseOptimizer(kind, CFGS[kind]),
+                          packed=packed)
     g = torch.Generator().manual_seed(0)
-    fused = {gk: torch.randn(grp.total_rows, grp.dim, generator=g)
-             for gk, grp in eng.groups.items()}
+    fused = eng.init_tables(g)
+    for t in tables:
+        eng.write_table(fused, t.name,
+                        torch.randn(t.rows, t.dim, generator=g))
     return eng, fused
 
 
@@ -159,8 +165,10 @@ def test_engine_groups_tables_by_dim():
     assert eng.extract_table(fused, "b").data_ptr() == fused[f"d{DIM}"][10:].data_ptr()
 
 
-def test_engine_lookup_pools_and_masks_padding():
-    eng, fused = _engine()
+@pytest.mark.parametrize("packed", [False, True])
+def test_engine_lookup_pools_and_masks_padding(packed):
+    eng, fused = _engine(packed=packed)
+    assert eng.groups[f"d{DIM}"].packed == packed
     sparse, seq = _batch()
     out, res = eng.lookup(fused, sparse, seq)
     a, b = eng.extract_table(fused, "a"), eng.extract_table(fused, "b")
@@ -178,7 +186,9 @@ def test_engine_lookup_pools_and_masks_padding():
     flat_ids, _ = res[f"d{DIM}"]
     # ids are offset into the fused table; padding stays -1
     assert flat_ids.tolist()[:6] == [1, 1, -1, 3, 9, 1]
-    assert flat_ids.tolist()[6:10] == [10, 15, 15, 29]
+    off_b = eng.table_rows("b")[1]  # 10 unpacked, 14 packed (spr-aligned)
+    assert flat_ids.tolist()[6:10] == [off_b, off_b + 5, off_b + 5,
+                                       off_b + 19]
 
 
 @pytest.mark.parametrize("kind", PORTED_KINDS)
@@ -222,8 +232,9 @@ def test_engine_update_equals_dense_gradient_step(kind):
                 assert torch.equal(v[~touched], state_before[gk][k][~touched])
 
 
-def test_engine_update_with_only_padding_ids_changes_nothing():
-    eng, fused = _engine("adagrad")
+@pytest.mark.parametrize("packed", [False, True])
+def test_engine_update_with_only_padding_ids_changes_nothing(packed):
+    eng, fused = _engine("adagrad", packed)
     sparse = {
         "f1": SparseField(torch.full((2, 3), -1, dtype=torch.int32)),
         "f2": SparseField(torch.full((8,), -1, dtype=torch.int32),
@@ -240,11 +251,14 @@ def test_engine_update_with_only_padding_ids_changes_nothing():
                {k: torch.ones_like(v) for k, v in out.items()}, 1.0)
     for k in fused:
         assert torch.equal(fused[k], before[k])
-        assert (state[k]["acc"] == 0.1).all()
+    for name in "abc":
+        acc = eng.extract_table_state(fused, state, name)["acc"]
+        assert (acc == 0.1).all()
 
 
-def test_engine_update_without_output_gradients_is_a_no_op():
-    eng, fused = _engine("adam")
+@pytest.mark.parametrize("packed", [False, True])
+def test_engine_update_without_output_gradients_is_a_no_op(packed):
+    eng, fused = _engine("adam", packed)
     sparse, seq = _batch()
     state = eng.init_opt_state()
     before = {k: v.clone() for k, v in fused.items()}
@@ -255,10 +269,11 @@ def test_engine_update_without_output_gradients_is_a_no_op():
         assert int(state[k]["step"]) == 0
 
 
-def test_extract_table_state_slices_rows_and_keeps_scalars():
-    eng, fused = _engine("adam")
+@pytest.mark.parametrize("packed", [False, True])
+def test_extract_table_state_slices_rows_and_keeps_scalars(packed):
+    eng, fused = _engine("adam", packed)
     state = eng.init_opt_state()
-    state[f"d{DIM}"]["m"][10:30] = 1.0
+    eng.write_table_state(fused, state, "b", {"m": torch.ones(20, DIM)})
     st = eng.extract_table_state(fused, state, "b")
     assert st["m"].shape == (20, DIM) and (st["m"] == 1).all()
     assert (eng.extract_table_state(fused, state, "a")["m"] == 0).all()

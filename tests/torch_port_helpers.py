@@ -116,3 +116,91 @@ def jax_train_setup(cfg_text: str):
     step = jax.jit(jax_main.make_train_step(
         model, tx, sparse_sched, dense_sched, jnp.float32))
     return cfg, model, features, state, step
+
+
+# --- DeepFM on Criteo-shaped data, at a small size --------------------------
+DEEPFM_BUCKETS = (3000, 50, 7, 2000, 120, 3)
+DEEPFM_N_DENSE = 3
+
+
+def deepfm_config_text(batch_size: int = 64, buckets=DEEPFM_BUCKETS,
+                       emb_dim: int = 8, sparse_opt: str =
+                       "rowwise_adagrad_optimizer { lr: 0.05 }",
+                       model_dir: str = "unused", num_steps: int = 0,
+                       mixed_precision: str = "") -> str:
+    """The Criteo DeepFM config of the repo's train benchmark (WIDE, fm
+    and deep groups over the same id features, dense features in deep,
+    deep and final MLPs, BCE, AUC) with small tables and narrow MLPs."""
+    lines = [
+        'train_input_path: "unused"',
+        'eval_input_path: "unused"',
+        f'model_dir: "{model_dir}"',
+        "train_config {",
+        f"  sparse_optimizer {{ {sparse_opt} constant_learning_rate {{}} }}",
+        "  dense_optimizer { adam_optimizer { lr: 0.01 }"
+        " constant_learning_rate {} }",
+        f"  num_steps: {num_steps}" if num_steps else "  num_epochs: 1",
+        f'  mixed_precision: "{mixed_precision}"',
+        "}",
+        "data_config {",
+        f"  batch_size: {batch_size}",
+        "  dataset_type: ParquetDataset",
+        "  fg_mode: FG_NONE",
+        '  label_fields: "label"',
+        "}",
+    ]
+    for i in range(DEEPFM_N_DENSE):
+        lines.append(
+            f'feature_configs {{ raw_feature {{ feature_name: "int_{i}" }} }}')
+    for i, n in enumerate(buckets):
+        lines.append(
+            f'feature_configs {{ id_feature {{ feature_name: "cat_{i}" '
+            f"num_buckets: {n} embedding_dim: {emb_dim} }} }}")
+    cat_names = "".join(
+        f'    feature_names: "cat_{i}"\n' for i in range(len(buckets)))
+    int_names = "".join(
+        f'    feature_names: "int_{i}"\n' for i in range(DEEPFM_N_DENSE))
+    lines.append(
+        "model_config {\n"
+        '  feature_groups {\n    group_name: "wide"\n' + cat_names +
+        "    group_type: WIDE\n  }\n"
+        '  feature_groups {\n    group_name: "fm"\n' + cat_names +
+        "    group_type: DEEP\n  }\n"
+        '  feature_groups {\n    group_name: "deep"\n' + cat_names + int_names +
+        "    group_type: DEEP\n  }\n"
+        "  deepfm {\n"
+        "    deep { hidden_units: [32, 16] }\n"
+        "    final { hidden_units: [16, 8] }\n"
+        "    wide_embedding_dim: 4\n"
+        "  }\n"
+        "  num_class: 1\n"
+        "  losses { binary_cross_entropy {} }\n"
+        "  metrics { auc {} }\n"
+        "}")
+    return "\n".join(lines)
+
+
+def deepfm_table_names(buckets=DEEPFM_BUCKETS):
+    return ([f"cat_{i}_emb" for i in range(len(buckets))]
+            + [f"cat_{i}_emb__wide" for i in range(len(buckets))])
+
+
+def deepfm_cols(n: int, seed: int, buckets=DEEPFM_BUCKETS):
+    """Criteo-shaped Arrow columns whose label depends on the features:
+    a fixed random score per id of the two small tables plus one dense
+    feature decides the click probability."""
+    r = np.random.default_rng(seed)
+    w = np.random.default_rng(1234)  # the same hidden scores for every seed
+    score_1 = w.normal(size=buckets[1])
+    score_4 = w.normal(size=buckets[4])
+    cats = [r.integers(0, b, n) for b in buckets]
+    ints = [r.normal(size=n).astype(np.float32)
+            for _ in range(DEEPFM_N_DENSE)]
+    logit = 1.5 * score_1[cats[1]] + score_4[cats[4]] + ints[0]
+    label = (r.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+    cols = {"label": pa.array(label)}
+    for i, v in enumerate(ints):
+        cols[f"int_{i}"] = pa.array(v)
+    for i, v in enumerate(cats):
+        cols[f"cat_{i}"] = pa.array(v)
+    return cols

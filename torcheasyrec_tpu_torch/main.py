@@ -3,10 +3,10 @@ predict.
 
 Counterpart of torcheasyrec_tpu/main.py (``_create_features``,
 ``_compute_dtype``, ``_build_model_and_optim``, ``_init_state``,
-``make_train_step``, ``make_eval_step``, a reduced ``train_and_evaluate``
-and ``predict_checkpoint``). Entry points take ``device`` (default
-``"cuda"``) and raise when CUDA is absent unless the caller asked for
-``"cpu"``.
+``make_train_step``, ``make_eval_step``, reduced ``train_and_evaluate``,
+``_run_eval`` and ``evaluate``, and ``predict_checkpoint``). Entry
+points take ``device`` (default ``"cuda"``) and raise when CUDA is
+absent unless the caller asked for ``"cpu"``.
 
 PyTorch updates in place, so the train state is not a pytree threaded
 through the step: the dense parameters and the tables live in the model,
@@ -14,11 +14,13 @@ the dense optimizer holds its own state, and ``state`` carries the sparse
 optimizer state and the step counter. Not ported, and raising where a
 config asks for them: the FP16 grad scaler, gradient accumulation,
 gradient clipping, the multi-step scan dispatch, ZCH and host-offloaded
-tables, train metrics, the eval loop, resume and fine-tune restore, and
-the JAX package's data loaders (the trainer reads parquet directly).
+tables, train metrics, evals in the middle of training, resume and
+fine-tune restore, and the JAX package's data loaders (the trainer and
+the eval loop read parquet directly).
 """
 
 import glob
+import json
 import os
 import re
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -34,6 +36,7 @@ from torcheasyrec_tpu_torch.optim.optimizer_builder import (
     create_dense_optimizer,
     create_sparse_optimizer,
 )
+from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 from torcheasyrec_tpu_torch.utils import config_util
 
 
@@ -68,20 +71,25 @@ def _compute_dtype(train_config) -> torch.dtype:
 
 
 def _build_model_and_optim(pipeline_config, device="cuda", for_train=True,
-                           seed: int = 42):
+                           seed: int = 42, packed: bool = True,
+                           dense_lane_rows: int = 32768):
     """(model on ``device``, features, sparse lr schedule). Weights are
     drawn from a ``torch.Generator`` seeded with ``seed``; the same
     generator later draws the dropout masks. With ``for_train`` the
     config's sparse optimizer is built into the model's embedding engine
     and the model is left in training mode; without, the model is in eval
-    mode and the schedule is None."""
+    mode, its engine keeps no optimizer row state and the schedule is
+    None. ``packed`` and ``dense_lane_rows`` go to the embedding engine
+    (``parallel/emb_engine.py``)."""
     dev = resolve_device(device)
     features = _create_features(pipeline_config)
     train_config = pipeline_config.train_config
-    sparse_opt = sparse_sched = None
     if for_train:
         sparse_opt, sparse_sched = create_sparse_optimizer(
             train_config.sparse_optimizer)
+    else:
+        # no optimizer row state: packed rows hold weights only
+        sparse_opt, sparse_sched = SparseOptimizer("sgd", {"lr": 0.0}), None
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     model = create_model(
@@ -92,6 +100,8 @@ def _build_model_and_optim(pipeline_config, device="cuda", for_train=True,
         compute_dtype=_compute_dtype(train_config),
         generator=generator,
         sparse_optimizer=sparse_opt,
+        packed=packed,
+        dense_lane_rows=dense_lane_rows,
     )
     return model.train(for_train), features, sparse_sched
 
@@ -161,12 +171,18 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
     return train_step
 
 
-def make_eval_step(model: BaseModel) -> Callable[[Batch], Dict[str, torch.Tensor]]:
-    """batch on the model's device -> predictions (no losses)."""
+def make_eval_step(model: BaseModel, with_loss: bool = True
+                   ) -> Callable[[Batch], Tuple[Dict[str, torch.Tensor],
+                                                Dict[str, torch.Tensor]]]:
+    """batch on the model's device -> (predictions, losses); the losses
+    are empty without ``with_loss`` (predict has no labels)."""
 
-    def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
+    def eval_step(batch: Batch):
+        model.eval()
         with torch.inference_mode():
-            return model(batch)
+            preds = model(batch)
+            losses = model.loss(preds, batch) if with_loss else {}
+        return preds, losses
 
     return eval_step
 
@@ -197,6 +213,77 @@ def latest_checkpoint(model_dir: str) -> Optional[str]:
     return best
 
 
+def _save_checkpoint(model_dir: str, model: BaseModel, tx: DenseOptimizer,
+                     state: Dict[str, Any]) -> str:
+    """``<model_dir>/model.ckpt-<step>.pt``: the model's ``state_dict``
+    (tables in canonical layout), the sparse optimizer state per table
+    (row state of packed groups read out of their rows), the dense
+    optimizer state and the step. Neither depends on the engine's
+    layout, so a checkpoint written packed loads unpacked and back."""
+    path = os.path.join(model_dir, f"model.ckpt-{state['step']}.pt")
+    torch.save(
+        {"model": model.state_dict(),
+         "sparse_opt": model.embedding_group.opt_state_dict(
+             state["sparse_opt"]),
+         "dense_opt": tx.state_dict(), "step": state["step"]},
+        path,
+    )
+    return path
+
+
+def load_model_weights(path: str, model: BaseModel) -> Dict[str, Any]:
+    """Load the model's weights from a checkpoint of ``_save_checkpoint``
+    or a bare state_dict; returns what the file held."""
+    dev = next(iter(model.embedding_group.engine_tables().values())).device
+    ckpt = torch.load(path, map_location=dev, weights_only=True)
+    model.load_state_dict(ckpt.get("model", ckpt))
+    return ckpt
+
+
+def restore_checkpoint(path: str, model: BaseModel,
+                       tx: Optional[DenseOptimizer] = None) -> Dict[str, Any]:
+    """Load a checkpoint of ``_save_checkpoint`` into a model built for
+    training (and into ``tx``); returns the train state beside the model:
+    ``sparse_opt`` and ``step``."""
+    ckpt = load_model_weights(path, model)
+    if tx is not None:
+        tx.load_state_dict(ckpt["dense_opt"])
+    return {"sparse_opt": model.embedding_group.load_opt_state_dict(
+        ckpt["sparse_opt"]), "step": int(ckpt["step"])}
+
+
+def _run_eval(model: BaseModel, eval_step, parser, paths: List[str],
+              batch_size: int, dev, num_steps: int = 0) -> Dict[str, float]:
+    """One pass over the eval input (the remainder batch included, as the
+    JAX package's eval mode keeps it; ``num_steps`` > 0 stops early):
+    the model's metrics, and every loss averaged over the batches as
+    ``loss_<name>``."""
+    metrics = model.init_metrics()
+    loss_sums: Dict[str, float] = {}
+    n = 0
+    for cols in _iter_parquet(paths, batch_size):
+        batch = parser.parse_to_batch(cols).to(dev)
+        preds, losses = eval_step(batch)
+        model.update_metrics(metrics, preds, batch)
+        for k, v in losses.items():
+            loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
+        n += 1
+        if num_steps and n >= num_steps:
+            break
+    result = model.compute_metrics(metrics)
+    result.update({f"loss_{k}": v / max(n, 1) for k, v in loss_sums.items()})
+    return result
+
+
+def _data_parser(pipeline_config, features):
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+
+    data_config = pipeline_config.data_config
+    return DataParser(
+        features, labels=list(data_config.label_fields),
+        sample_weights=list(data_config.sample_weight_fields))
+
+
 def train_and_evaluate(
     pipeline_config_path: str,
     train_input_path: Optional[str] = None,
@@ -206,18 +293,20 @@ def train_and_evaluate(
     edit_config_json: Optional[str] = None,
     device="cuda",
 ) -> Dict[str, float]:
-    """Train from parquet input and write one checkpoint.
+    """Train from parquet input, write one checkpoint, evaluate.
 
     Reads ``train_input_path`` (one parquet file or a comma-separated
     list) in batches of ``data_config.batch_size``,
     dropping the remainder, for ``train_config.num_steps`` steps (or
     ``num_epochs`` passes) on ``device``, then writes
-    ``<model_dir>/model.ckpt-<step>.pt`` with ``torch.save``: the model's
-    ``state_dict``, the sparse and dense optimizer state and the step.
-    ``predict_checkpoint`` loads that file. Returns the step count and
-    the last step's losses. The eval loop is not ported
-    (``eval_input_path`` is accepted and unused); resume, fine-tune and
-    config edits raise."""
+    ``<model_dir>/model.ckpt-<step>.pt`` (see ``_save_checkpoint``), which
+    ``predict_checkpoint`` and ``evaluate`` load. When ``eval_input_path``
+    (the argument, else the config's) names existing files, the trained
+    model is evaluated on them once, after the checkpoint, and the result
+    is appended to ``<model_dir>/train_eval_result_v2.txt``. Returns the step
+    count, the last step's losses and the eval result. Evals in the
+    middle of training are not ported; resume, fine-tune and config edits
+    raise."""
     if continue_train or fine_tune_checkpoint or edit_config_json:
         raise NotImplementedError(
             "continue_train, fine_tune_checkpoint and edit_config_json are "
@@ -225,6 +314,8 @@ def train_and_evaluate(
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
     if train_input_path:
         pipeline_config.train_input_path = train_input_path
+    if eval_input_path:
+        pipeline_config.eval_input_path = eval_input_path
     train_config = pipeline_config.train_config
     for field, what in (("grad_scaler", "the FP16 grad scaler"),
                         ("grad_clipping", "gradient clipping"),
@@ -236,8 +327,6 @@ def train_and_evaluate(
     if (train_config.steps_per_dispatch or 1) > 1:
         raise NotImplementedError("the multi-step dispatch is not ported")
 
-    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
-
     dev = resolve_device(device)
     model, features, sparse_sched = _build_model_and_optim(
         pipeline_config, dev, for_train=True)
@@ -246,8 +335,7 @@ def train_and_evaluate(
         [p for p in model.parameters() if p.requires_grad])
     state = _init_state(model)
     train_step = make_train_step(model, tx, sparse_sched, dense_sched)
-    parser = DataParser(
-        features, labels=list(pipeline_config.data_config.label_fields))
+    parser = _data_parser(pipeline_config, features)
     batch_size = int(pipeline_config.data_config.batch_size)
     paths = pipeline_config.train_input_path.split(",")
 
@@ -272,13 +360,55 @@ def train_and_evaluate(
 
     with open(os.path.join(model_dir, "pipeline.config"), "w") as f:
         f.write(text_format.MessageToString(pipeline_config))
-    torch.save(
-        {"model": model.state_dict(), "sparse_opt": state["sparse_opt"],
-         "dense_opt": tx.state_dict(), "step": state["step"]},
-        os.path.join(model_dir, f"model.ckpt-{state['step']}.pt"),
-    )
+    _save_checkpoint(model_dir, model, tx, state)
     result = {"step": float(state["step"])}
     result.update({k: float(v) for k, v in metrics.items()})
+
+    eval_paths = [p for p in pipeline_config.eval_input_path.split(",") if p]
+    missing = [p for p in eval_paths if not os.path.exists(p)]
+    if eval_input_path and missing:
+        raise FileNotFoundError(f"eval_input_path: {missing} not found")
+    if eval_paths and not missing:
+        eval_result = _run_eval(
+            model, make_eval_step(model), parser, eval_paths, batch_size, dev,
+            pipeline_config.eval_config.num_steps or 0)
+        with open(os.path.join(model_dir, "train_eval_result_v2.txt"),
+                  "a") as f:
+            f.write(json.dumps({"global_step": state["step"],
+                                **eval_result}) + "\n")
+        result.update(eval_result)
+    return result
+
+
+def evaluate(
+    pipeline_config_path: str,
+    checkpoint_path: Optional[str] = None,
+    eval_input_path: Optional[str] = None,
+    eval_result_filename: str = "eval_result.txt",
+    device="cuda",
+) -> Dict[str, float]:
+    """Evaluate a checkpoint (``checkpoint_path``, else the latest of the
+    config's ``model_dir``, else the seeded init) on ``eval_input_path``
+    (else the config's); writes the result as JSON to
+    ``<model_dir>/<eval_result_filename>`` and returns it."""
+    dev = resolve_device(device)
+    pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
+    if eval_input_path:
+        pipeline_config.eval_input_path = eval_input_path
+    model_dir = pipeline_config.model_dir
+    model, features = build_model(pipeline_config, dev)
+    ckpt = checkpoint_path or latest_checkpoint(model_dir)
+    if ckpt:
+        load_model_weights(ckpt, model)
+    result = _run_eval(
+        model, make_eval_step(model), _data_parser(pipeline_config, features),
+        pipeline_config.eval_input_path.split(","),
+        int(pipeline_config.data_config.batch_size), dev,
+        pipeline_config.eval_config.num_steps or 0)
+    if model_dir:
+        os.makedirs(model_dir, exist_ok=True)
+        with open(os.path.join(model_dir, eval_result_filename), "w") as f:
+            f.write(json.dumps(result))
     return result
 
 
@@ -315,16 +445,14 @@ def predict_checkpoint(
     checkpoint_path = checkpoint_path or latest_checkpoint(
         pipeline_config.model_dir)
     if checkpoint_path:
-        ckpt = torch.load(checkpoint_path, map_location=dev,
-                          weights_only=True)
-        model.load_state_dict(ckpt.get("model", ckpt))
+        load_model_weights(checkpoint_path, model)
     elif glob.glob(os.path.join(pipeline_config.model_dir, "model.ckpt-*")):
         raise NotImplementedError(
             f"{pipeline_config.model_dir} holds JAX checkpoints; convert "
             "them with utils/convert.from_jax_state and pass checkpoint_path"
         )
     parser = DataParser(features)
-    eval_step = make_eval_step(model)
+    eval_step = make_eval_step(model, with_loss=False)
     reserved = [c.strip() for c in (reserved_columns or "").split(",")
                 if c.strip()]
     out_cols = [c.strip() for c in (output_columns or "").split(",")
@@ -333,7 +461,7 @@ def predict_checkpoint(
     n = 0
     try:
         for cols in _iter_parquet(predict_input_path.split(","), bs):
-            preds = eval_step(parser.parse_to_batch(cols).to(dev))
+            preds, _ = eval_step(parser.parse_to_batch(cols).to(dev))
             out: Dict[str, pa.Array] = {k: cols[k] for k in reserved}
             for k, v in preds.items():
                 if k.startswith("__") or (out_cols and k not in out_cols):

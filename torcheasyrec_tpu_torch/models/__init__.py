@@ -1,6 +1,7 @@
 """Model registry: importing this package registers the ported models so
 ``create_model`` resolves a ModelConfig by its proto message name."""
 
+from torcheasyrec_tpu_torch.models.deepfm import DeepFM  # noqa: F401
 from torcheasyrec_tpu_torch.models.dlrm_hstu import DlrmHSTU  # noqa: F401
 from torcheasyrec_tpu_torch.models.model import BaseModel
 

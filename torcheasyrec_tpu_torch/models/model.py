@@ -6,7 +6,9 @@ Counterpart of torcheasyrec_tpu/models/model.py. A model is an
 ``__init__`` and implements ``predict(grouped, batch)`` and
 ``loss(predictions, batch)``. Its parameters are the dense ones only;
 the embedding tables live in the EmbeddingGroup's engine and are updated
-by the sparse optimizer. Metrics are not ported.
+by the sparse optimizer. Eval metrics accumulate on the host
+(``init_metrics`` / ``update_metrics`` / ``compute_metrics``); train
+metrics and variational dropout are not ported.
 """
 
 from typing import Any, Dict, List, Optional
@@ -34,12 +36,21 @@ class BaseModel(nn.Module, metaclass=_meta):
         compute_dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
         sparse_optimizer: Optional[SparseOptimizer] = None,
+        packed: bool = True,
+        dense_lane_rows: int = 32768,
     ) -> None:
         super().__init__()
         if model_config.HasField("variational_dropout"):
             raise NotImplementedError("variational_dropout is not ported")
         self._base_model_config = model_config
         self._features = features
+        self._labels = list(labels)
+        self._sample_weights = list(sample_weights or [])
+        self._num_class = int(model_config.num_class or 1)
+        self._loss_cfgs = list(model_config.losses)
+        self._metric_cfgs = list(model_config.metrics)
+        self._engine_options = {"packed": packed,
+                                "dense_lane_rows": dense_lane_rows}
         self.compute_dtype = compute_dtype
         self._generator = generator or torch.Generator()
         self._sparse_optimizer = sparse_optimizer
@@ -47,10 +58,13 @@ class BaseModel(nn.Module, metaclass=_meta):
         self._model_config = getattr(model_config, which) if which else None
         self.embedding_group: Optional[EmbeddingGroup] = None
 
-    def _build_embedding_group(self) -> None:
+    def _build_embedding_group(self, wide_embedding_dim=None,
+                               wide_init_fn=None) -> None:
         self.embedding_group = EmbeddingGroup(
             self._features, list(self._base_model_config.feature_groups),
             self._generator, sparse_optimizer=self._sparse_optimizer,
+            wide_embedding_dim=wide_embedding_dim, wide_init_fn=wide_init_fn,
+            **self._engine_options,
         )
 
     def predict(self, grouped: Dict[str, torch.Tensor],
@@ -64,6 +78,40 @@ class BaseModel(nn.Module, metaclass=_meta):
 
     def total_loss(self, losses: Dict[str, torch.Tensor]) -> torch.Tensor:
         return sum(losses.values())
+
+    def _reduce(self, per_sample: torch.Tensor, batch: Batch,
+                sample_weight_name: Optional[str] = None) -> torch.Tensor:
+        """Weighted mean of per-sample losses."""
+        if per_sample.dim() == 0:
+            return per_sample
+        w = batch.sample_weights.get(sample_weight_name or "")
+        if w is None:
+            return per_sample.mean()
+        w = w.float()
+        return (per_sample * w).sum() / w.sum().clamp(min=1e-12)
+
+    # -- metrics (host side) -------------------------------------------------
+
+    def init_metrics(self) -> List[Dict[str, Any]]:
+        from torcheasyrec_tpu_torch.metrics import create_metric
+
+        return [create_metric(c) for c in self._metric_cfgs]
+
+    def update_metrics(self, metrics: List[Dict[str, Any]],
+                       predictions: Dict[str, torch.Tensor],
+                       batch: Batch) -> None:
+        """Feed one batch's predictions and labels to the accumulators."""
+        if not metrics:
+            return
+        label = batch.labels[self._labels[0]].cpu().numpy()
+        preds = predictions.get("probs", predictions.get("y"))
+        preds = preds.float().cpu().numpy()
+        for m in metrics:
+            m["metric"].update(preds, label)
+
+    def compute_metrics(self, metrics: List[Dict[str, Any]]
+                        ) -> Dict[str, float]:
+        return {m["name"]: m["metric"].compute() for m in metrics}
 
     def forward(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """Full forward for eval/predict."""

@@ -1,17 +1,23 @@
 """EmbeddingGroup: feature groups -> table lookups -> group assembly.
 
 Counterpart of the parts of torcheasyrec_tpu/modules/embedding.py that
-DEEP and (JAGGED_)SEQUENCE groups use (``__init__``, ``lookup`` and
-``assemble``). The tables live in the embedding engine's fused
-per-(dim, dtype) groups (``parallel/emb_engine.py``), held here as
-buffers and not as parameters: the dense optimizer never sees them, and
-the train step updates their touched rows in place through
-``engine.update`` from the gradients of ``lookup``'s outputs. Features
-sharing an ``embedding_name`` share one table. Lookups are gathers: id
--1 (padding) reads a zero row, pooled features sum (or average) their
-rows. In the ``state_dict`` each table keeps its own entry
-``tables.<name>`` in canonical ``[num_buckets, dim]`` layout, whatever
-the grouping. WIDE groups, sequence encoders, dense embeddings, table
+WIDE, DEEP and (JAGGED_)SEQUENCE groups use (``__init__``, ``lookup``
+and ``assemble``). The tables live in the embedding engine's
+per-(dim, dtype) groups (``parallel/emb_engine.py``), unpacked or in the
+packed 128-lane layout, held here as buffers and not as parameters: the
+dense optimizer never sees them, and the train step updates their
+touched rows in place through ``engine.update`` from the gradients of
+``lookup``'s outputs. Features sharing an ``embedding_name`` share one
+table; a WIDE group gets tables of its own, ``<name>__wide`` of
+``wide_embedding_dim`` (default 4) columns. Lookups are gathers: id -1
+(padding) reads a zero row, pooled features sum (or average) their rows.
+
+In the ``state_dict`` each table keeps its own entry ``tables.<name>``
+in canonical ``[num_buckets, dim]`` layout, whatever the grouping and
+the layout, so a checkpoint written unpacked loads packed and the other
+way round. ``tables`` gives views into unpacked groups but copies out of
+packed ones: write through ``engine.write_table``, as
+``load_state_dict`` does. Sequence encoders, dense embeddings, table
 init functions and non-fp32 or host-offloaded tables raise
 NotImplementedError.
 """
@@ -37,15 +43,21 @@ Slot = Tuple[str, str, int]  # ("emb", lookup key, dim) | ("dense"|"seq_dense", 
 class EmbeddingGroup(nn.Module):
     def __init__(self, features: List[BaseFeature], feature_groups: List[Any],
                  generator: torch.Generator,
-                 sparse_optimizer: Optional[SparseOptimizer] = None) -> None:
+                 sparse_optimizer: Optional[SparseOptimizer] = None,
+                 wide_embedding_dim: Optional[int] = None,
+                 wide_init_fn: Optional[str] = None,
+                 packed: bool = True, dense_lane_rows: int = 32768) -> None:
         super().__init__()
+        if wide_init_fn:
+            raise NotImplementedError("wide_init_fn is not ported")
         self._name_to_feature = {f.name: f for f in features}
         shapes: Dict[str, Tuple[int, int]] = {}
         lookups: Dict[str, LookupSpec] = {}
         self._group_slots: Dict[str, List[Slot]] = {}
         self._seq_groups: Dict[str, Dict[str, Any]] = {}
 
-        def _add_table(feat: BaseFeature, suffix: str) -> str:
+        def _add_table(feat: BaseFeature, suffix: str,
+                       dim_override: Optional[int] = None) -> str:
             cfg = feat.emb_config()
             if cfg.init_fn:
                 raise NotImplementedError(
@@ -60,7 +72,7 @@ class EmbeddingGroup(nn.Module):
                     f"table {cfg.name}: host_offload tables are not ported"
                 )
             name = cfg.name + suffix
-            shape = (cfg.num_embeddings, cfg.embedding_dim)
+            shape = (cfg.num_embeddings, dim_override or cfg.embedding_dim)
             if shapes.setdefault(name, shape) != shape:
                 raise ValueError(
                     f"shared embedding {name}: conflicting shapes "
@@ -68,8 +80,9 @@ class EmbeddingGroup(nn.Module):
                 )
             return name
 
-        def _emb_slot(feat: BaseFeature, suffix: str, is_sequence: bool) -> Slot:
-            table = _add_table(feat, suffix)
+        def _emb_slot(feat: BaseFeature, suffix: str, is_sequence: bool,
+                      dim_override: Optional[int] = None) -> Slot:
+            table = _add_table(feat, suffix, dim_override)
             key = f"{table}:{feat.name}" + (":seq" if is_sequence else "")
             lookups[key] = LookupSpec(
                 key, feat.name, table,
@@ -112,10 +125,12 @@ class EmbeddingGroup(nn.Module):
                     "length_feature": length_feature,
                 }
                 continue
-            if group.group_type != model_pb2.DEEP:
+            if group.group_type not in (model_pb2.DEEP, model_pb2.WIDE):
                 raise NotImplementedError(
-                    f"group {gname}: only DEEP and sequence groups are ported"
+                    f"group {gname}: only WIDE, DEEP and sequence groups "
+                    "are ported"
                 )
+            is_wide = group.group_type == model_pb2.WIDE
             slots: List[Slot] = []
             for fname in group.feature_names:
                 feat = self._name_to_feature[fname]
@@ -124,38 +139,40 @@ class EmbeddingGroup(nn.Module):
                         f"sequence feature {fname} must be in a SEQUENCE "
                         f"group (group {gname})"
                     )
-                slots.append(
-                    _emb_slot(feat, suffix, False) if feat.is_sparse
-                    else ("dense", fname, max(feat.value_dim, 1))
-                )
+                if is_wide and not feat.is_sparse:
+                    raise ValueError(
+                        f"dense feature {fname} should not be configured "
+                        f"in wide group {gname}"
+                    )
+                if not feat.is_sparse:
+                    slots.append(("dense", fname, max(feat.value_dim, 1)))
+                elif is_wide:
+                    slots.append(_emb_slot(feat, suffix + "__wide", False,
+                                           wide_embedding_dim or 4))
+                else:
+                    slots.append(_emb_slot(feat, suffix, False))
             self._group_slots[gname] = slots
 
         self.engine = EmbeddingEngine(
             [TableSpec(name, rows, dim) for name, (rows, dim) in shapes.items()],
             list(lookups.values()), optimizer=sparse_optimizer,
+            packed=packed, dense_lane_rows=dense_lane_rows,
         )
-        # one fused table per group, a buffer named after the group; each
-        # table's slice gets the default init uniform(+-1/sqrt(rows)), as
-        # the JAX package's default_emb_init
-        for gk, g in self.engine.groups.items():
-            self.register_buffer(
-                f"group_{gk}",
-                torch.empty(g.total_rows, g.dim, device=generator.device),
-                persistent=False,
-            )
-        for name, (rows, _) in shapes.items():
-            bound = 1.0 / max(rows, 1) ** 0.5
-            self.tables[name].uniform_(-bound, bound, generator=generator)
+        # one storage tensor per group, a buffer named after the group,
+        # initialised in place by the engine
+        for gk, store in self.engine.init_tables(generator).items():
+            self.register_buffer(f"group_{gk}", store, persistent=False)
 
     # -- tables ------------------------------------------------------------
 
     def engine_tables(self) -> Dict[str, torch.Tensor]:
-        """{group key: fused [rows, dim] table}, as the engine takes them."""
+        """{group key: the group's storage}, as the engine takes them."""
         return {gk: getattr(self, f"group_{gk}") for gk in self.engine.groups}
 
     @property
     def tables(self) -> Dict[str, torch.Tensor]:
-        """{table name: [num_buckets, dim] view into its fused group}."""
+        """{table name: [num_buckets, dim]}: a view into an unpacked
+        group, a copy out of a packed one."""
         fused = self.engine_tables()
         return {name: self.engine.extract_table(fused, name)
                 for name in self.engine._specs}
@@ -163,6 +180,25 @@ class EmbeddingGroup(nn.Module):
     def init_opt_state(self) -> Dict[str, Any]:
         device = next(iter(self.engine_tables().values())).device
         return self.engine.init_opt_state(device)
+
+    def opt_state_dict(self, opt_state: Dict[str, Any]
+                       ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The sparse optimizer state per table, whatever the layout:
+        {table name: ``engine.extract_table_state``}. Row state of packed
+        groups comes out of their rows."""
+        fused = self.engine_tables()
+        return {name: self.engine.extract_table_state(fused, opt_state, name)
+                for name in self.engine._specs}
+
+    def load_opt_state_dict(self, per_table: Dict[str, Dict[str, Any]]
+                            ) -> Dict[str, Any]:
+        """Inverse of ``opt_state_dict``: a fresh engine state with every
+        table's state written in (into the rows of packed groups)."""
+        fused = self.engine_tables()
+        opt_state = self.init_opt_state()
+        for name, st in per_table.items():
+            self.engine.write_table_state(fused, opt_state, name, st)
+        return opt_state
 
     def _save_to_state_dict(self, destination, prefix, keep_vars) -> None:
         for name, t in self.tables.items():
@@ -172,23 +208,24 @@ class EmbeddingGroup(nn.Module):
     def _load_from_state_dict(self, state_dict, prefix, local_metadata,
                               strict, missing_keys, unexpected_keys,
                               error_msgs) -> None:
-        tables = self.tables
-        for name, t in tables.items():
+        fused = self.engine_tables()
+        specs = self.engine._specs
+        for name, spec in specs.items():
             key = f"{prefix}tables.{name}"
+            shape = (spec.rows, spec.dim)
             if key not in state_dict:
                 missing_keys.append(key)
-            elif state_dict[key].shape != t.shape:
+            elif tuple(state_dict[key].shape) != shape:
                 error_msgs.append(
                     f"size mismatch for {key}: {tuple(state_dict[key].shape)}"
-                    f" in the checkpoint, {tuple(t.shape)} in the model")
+                    f" in the checkpoint, {shape} in the model")
             else:
-                with torch.no_grad():
-                    t.copy_(state_dict[key])
+                self.engine.write_table(fused, name, state_dict[key])
         if strict:
             unexpected_keys.extend(
                 k for k in state_dict
                 if k.startswith(prefix)
-                and k[len(prefix) + len("tables."):] not in tables)
+                and k[len(prefix) + len("tables."):] not in specs)
 
     # -- dims API ----------------------------------------------------------
 

@@ -10,14 +10,18 @@
 - the STU's ``uvqk_w`` [E, F] and ``output_w`` [H*ld, E] become
   ``uvqk_weight`` [F, E] and ``output_weight`` [E, H*ld], ``uvqk_b``
   becomes ``uvqk_bias``;
-- ``tables`` ({table name: [rows, dim]}, canonical layout) become
-  ``embedding_group.tables.<name>``.
+- ``tables`` ({table name: [rows, dim]}, canonical layout, as the JAX
+  engine's ``extract_table`` gives them) become
+  ``embedding_group.tables.<name>``; ``load_state_dict`` lays them into
+  the port's groups, packed or not. DeepFM's dense parameters
+  (``deep_mlp``, ``final_mlp``, ``output``) need no rule of their own.
 
 The optimizer state crosses too, so the two packages can be held
 together after step k and not only at step 0:
 ``sparse_opt_state_from_jax`` takes each table's state as the JAX
 engine's ``extract_table_state`` gives it and lays it into this
-package's per-group state; ``dense_opt_state_from_jax`` takes optax
+package's state (into the rows of packed groups, whose tables it
+therefore takes too); ``dense_opt_state_from_jax`` takes optax
 adam's ``mu``, ``nu`` and ``count`` and gives a ``DenseOptimizer``
 state dict.
 
@@ -72,21 +76,20 @@ def from_jax_state(dense_params: Mapping[str, Any],
 
 
 def sparse_opt_state_from_jax(
-    engine, table_states: Mapping[str, Mapping[str, Any]], device=None,
+    engine, table_states: Mapping[str, Mapping[str, Any]],
+    tables: Mapping[str, torch.Tensor],
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """{table name: {state name: array}} (row state [rows, width] and
     scalars, as ``extract_table_state`` returns them) -> the engine's
-    per-group sparse optimizer state."""
+    sparse optimizer state. ``tables`` is the engine's storage
+    (``EmbeddingGroup.engine_tables()``): the row state of packed groups
+    is written into it in place, the rest into the returned state."""
+    device = next(iter(tables.values())).device
     state = engine.init_opt_state(device)
     for name, st in table_states.items():
-        gk, off, rows = engine.table_rows(name)
-        for key, arr in st.items():
-            val = torch.from_numpy(np.array(arr))
-            cur = state[gk].get(key)
-            if cur is not None and cur.dim() >= 1:
-                cur[off:off + rows] = val.reshape(rows, -1).to(cur)
-            else:
-                state[gk][key] = val.to(device)
+        engine.write_table_state(
+            tables, state, name,
+            {k: torch.from_numpy(np.array(v)) for k, v in st.items()})
     return state
 
 
