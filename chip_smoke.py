@@ -18,10 +18,15 @@ JSON line each:
 
 1. env: the card, CUDA and torch versions; every CUDA kernel of the
    paths is built from the sources here (one nvcc per source, in
-   parallel).
+   parallel), with each kernel's registers, static shared memory and
+   spills as ``ptxas -v`` reports them.
 2. kernel, kernel_bwd: each attention kernel against its plain PyTorch
    version on the card, at the slice's shapes and over a sweep of every
-   mask variant, fp32 and bf16. Tolerance: max|kernel - plain| <=
+   mask variant, head-dim pair, lengths at the 64- and 128-row tile
+   edges, an SLA window shorter than a tile and batches wider than the
+   card, fp32 and bf16; and with NaN in the padded rows of every input,
+   where the result must be finite and equal to the plain version's on
+   the inputs with those rows zero. Tolerance: max|kernel - plain| <=
    1e-4 * max|plain| in fp32 (TF32 off), <= 2e-2 * max|plain| in bf16
    (bf16 keeps ~3 significant digits and the sums run in another order),
    per output or gradient. kernel_bwd also holds both kernels, through
@@ -58,8 +63,10 @@ JSON line each:
    model's (the two are equal within a factor of 1.5 when the kernels are
    right, tens apart when they are not).
 5. timing, timing_train: median request and step time, each kernel's time
-   beside the plain version's and the card's bound at the slice's shapes,
-   and a profile of one forward and of one train step by device kernel.
+   beside the plain version's and the card's bound at the slice's shapes
+   (with its TFLOP/s, its share of the bound and the time of the WMMA
+   kernel it replaced), and a profile of one forward and of one train step
+   by device kernel.
 6. train_deepfm: warm-up and 30 timed steps on a resident batch through
    ``make_train_step`` at the uncapped sizes (19.1 GB of packed tables
    with their in-row accumulators), the same with the dense lane off;
@@ -118,6 +125,10 @@ FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 
 KERNELS = ["hstu_attention_fwd", "hstu_attention_bwd", "row_write"]
+# the attention kernels' times at the slice's shapes before their Hopper
+# redesign (WMMA fragments, scores through shared memory), as this script
+# read them on an NVIDIA H100 80GB HBM3 at 700 W, for the timing lines
+WMMA_FWD_MS, WMMA_BWD_MS = 2.18, 6.76
 
 # --- the DeepFM lane: the config of the repo's train benchmark --------------
 # Criteo-Terabyte bucket sizes of the reference config, uncapped
@@ -398,29 +409,65 @@ def slice_upstream_grad(v):
 
 
 def mask_sweep():
-    """(name, tolerance, q, k, v, lengths, targets, mask arguments) over
-    every mask variant and head-dim pair, in fp32 then bf16, at
-    B=3, N=300, H=2 with ragged lengths."""
-    sweep = [(case, 64, 64) for case in MASK_CASES] + [
-        (dict(causal=True, contextual_seq_len=1, targets=True), d, vd)
+    """(name, tolerance, q, k, v, lengths, targets, mask arguments), in fp32
+    then bf16: every mask variant and head-dim pair at B=3, N=300, H=2 with
+    ragged lengths; then at the bf16 kernels' 128-row tile edges and the
+    fp32 kernels' 64-row ones, lengths 127, 128, 129, 255, 256 and 1000 in
+    N=1000; an SLA window shorter than a tile (sla_k1=64, sla_k2=16, with
+    targets) at N=1000; 70 samples x 2 heads (more blocks per tile index
+    than the card has SMs) and 300 samples (more than the kernels' in-block
+    ranking by length takes)."""
+    ctx_tg = dict(causal=True, contextual_seq_len=1, targets=True)
+    sweep = [(case, 64, 64, 3, 300, 2, None) for case in MASK_CASES] + [
+        (ctx_tg, d, vd, 3, 300, 2, None)
         for d, vd in ((32, 32), (128, 128), (32, 128), (128, 64))
+    ] + [
+        (ctx_tg, 128, 128, 6, 1000, 2, [127, 128, 129, 255, 256, 1000]),
+        (dict(causal=True, sla_k1=64, sla_k2=16, targets=True), 128, 128, 3,
+         1000, 2, None),
+        (ctx_tg, 64, 64, 70, 200, 2, None),
+        (dict(causal=True), 32, 32, 300, 130, 1, None),
     ]
     r = np.random.default_rng(1)
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        for i, (case, d, vd) in enumerate(sweep):
-            b, n = 3, 300
-            lens = r.integers(1, n + 1, b)
-            lens[0] = n
+        for i, (case, d, vd, b, n, h, lens) in enumerate(sweep):
+            if lens is None:
+                lens = r.integers(1, n + 1, b)
+                lens[0] = n
+            lens = np.asarray(lens)
             tg = (np.minimum(lens // 4 + 1, lens) if case.get("targets")
                   else None)
-            q, k, v, lengths, targets = attn_inputs(b, n, 2, d, vd, dtype,
+            q, k, v, lengths, targets = attn_inputs(b, n, h, d, vd, dtype,
                                                     lens, tg, seed=100 + i)
             m = {key: case.get(key, 0) for key in (
                 "max_attn_len", "contextual_seq_len",
                 "min_full_attn_seq_len", "sla_k1", "sla_k2")}
             m["causal"] = case.get("causal", True)
-            yield (f"{dtype} D={d} V={vd} {case}", tol, q, k, v, lengths,
-                   targets, m)
+            yield (f"{dtype} B={b} N={n} H={h} D={d} V={vd} {case}", tol, q,
+                   k, v, lengths, targets, m)
+
+
+def nan_padded_inputs(dtype):
+    """q, k, v, do at B=3, N=1000, H=2, D=V=128 with lengths 1000, 700,
+    129 and targets, whose rows at or past the length hold NaN; and the
+    same with those rows zero, for the plain version."""
+    lens = np.array([1000, 700, 129])
+    q, k, v, lengths, targets = attn_inputs(3, 1000, 2, 128, 128, dtype,
+                                            lens, lens // 8 + 1, seed=77)
+    do = torch.randn(v.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(78)
+                     ).to(dtype)
+    padded = (torch.arange(1000, device="cuda")[None, :]
+              >= lengths[:, None])[:, :, None, None]
+    nan = [t.masked_fill(padded, float("nan")) for t in (q, k, v, do)]
+    zero = [t.masked_fill(padded, 0.0) for t in (q, k, v, do)]
+    return nan, zero, lengths, targets
+
+
+def check_finite(name: str, *tensors) -> None:
+    for t in tensors:
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"{name}: non-finite values")
 
 
 def phase_env():
@@ -432,11 +479,18 @@ def phase_env():
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     seconds = cuda_build.build(KERNELS)
+    build_s = time.perf_counter() - t0
+    # registers per thread, static shared memory and spills of every kernel,
+    # as ptxas -v reported them (dynamic shared memory is set at launch)
+    ptxas = {
+        row.pop("kernel"): row
+        for name in KERNELS for row in cuda_build.ptxas_usage(name)
+    }
     emit({
         "phase": "env", "nvidia_smi": smi,
         "device": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
-        "nvcc_s": seconds, "build_s": time.perf_counter() - t0,
+        "nvcc_s": seconds, "build_s": build_s, "ptxas": ptxas,
     })
     return smi
 
@@ -484,7 +538,24 @@ def phase_kernel():
         n_cases += 1
     torch.cuda.synchronize()
     emit({"phase": "kernel", "case": "mask sweep", "cases": n_cases // 2,
-          "shape": [3, 300, 2, "D", "V"], "max_abs_err": worst,
+          "shapes": "B=3 N=300 H=2 over D, V; B=6, 3 N=1000; B=70 N=200; "
+                    "B=300 N=130", "max_abs_err": worst,
+          "tol_rel": {"fp32": FP32_TOL, "bf16": BF16_TOL}})
+
+    # padded rows of q, k and v hold NaN: the output must be finite and
+    # equal to the plain version's on the same inputs with those rows zero
+    nan_errs = {}
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        nan, zero, lengths, targets = nan_padded_inputs(dtype)
+        args = (0.1, True, 0, 1, 0, 1000)
+        got = hstu.hstu_attention_fwd(*nan[:3], lengths, targets, *args)
+        check_finite(f"NaN-padded {dtype}", got)
+        ref = hstu._torch_hstu_mha(*zero[:3], lengths, 0.1, True, targets,
+                                   0, 1, 0, 1000)
+        nan_errs[str(dtype)] = check(f"NaN-padded {dtype}", got, ref, tol)
+    emit({"phase": "kernel", "case": "NaN in padded rows of q, k, v",
+          "shape": [3, 1000, 2, 128, 128], "lengths": [1000, 700, 129],
+          "max_abs_err": nan_errs,
           "tol_rel": {"fp32": FP32_TOL, "bf16": BF16_TOL}})
     return slice_err
 
@@ -536,7 +607,26 @@ def phase_kernel_bwd():
         n_cases += 1
     torch.cuda.synchronize()
     emit({"phase": "kernel_bwd", "case": "mask sweep", "cases": n_cases // 2,
-          "shape": [3, 300, 2, "D", "V"], "max_abs_err": worst,
+          "shapes": "B=3 N=300 H=2 over D, V; B=6, 3 N=1000; B=70 N=200; "
+                    "B=300 N=130", "max_abs_err": worst,
+          "tol_rel": {"fp32": FP32_TOL, "bf16": BF16_TOL}})
+
+    # padded rows of q, k, v and do hold NaN: finite gradients, equal to
+    # the plain version's on the same inputs with those rows zero
+    nan_errs = {}
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        nan, zero, lengths, targets = nan_padded_inputs(dtype)
+        args = (0.1, True, 0, 1, 0, 1000)
+        got = hstu.hstu_attention_bwd(*nan, lengths, targets, *args)
+        check_finite(f"NaN-padded {dtype}", *got)
+        ref = hstu._torch_hstu_mha_bwd(*zero, lengths, 0.1, True, targets,
+                                       0, 1, 0, 1000)
+        for gname, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+            nan_errs[f"{dtype} {gname}"] = check(
+                f"NaN-padded {dtype} {gname}", g_, r_, tol)
+    emit({"phase": "kernel_bwd", "case": "NaN in padded rows of q, k, v, do",
+          "shape": [3, 1000, 2, 128, 128], "lengths": [1000, 700, 129],
+          "max_abs_err": nan_errs,
           "tol_rel": {"fp32": FP32_TOL, "bf16": BF16_TOL}})
 
     # both kernels through the autograd Function against autograd of the
@@ -915,6 +1005,8 @@ def phase_timing_train(trainer, step_median_ms):
           "plain_note": "8 calls of 4 samples", "flops": flops,
           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
           "kernel_tflops": flops / kernel_ms / 1e9,
+          "bound_share": bound_ms / kernel_ms,
+          "wmma_kernel_ms": WMMA_BWD_MS,
           "dq": "fp32 atomics into a zeroed buffer, cast afterwards",
           "step_profile": profile_forward(one_step)})
     return kernel_ms, plain_ms, bound_ms, bound_by
@@ -993,7 +1085,9 @@ def phase_timing():
     emit({"phase": "timing", "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "plain_note": "4 calls of 8 samples", "flops": flops,
           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-          "kernel_tflops": flops / kernel_ms / 1e9})
+          "kernel_tflops": flops / kernel_ms / 1e9,
+          "bound_share": bound_ms / kernel_ms,
+          "wmma_kernel_ms": WMMA_FWD_MS})
     return kernel_ms, plain_ms, bound_ms, bound_by
 
 

@@ -161,6 +161,13 @@ def _bad_inputs(kind):
         q = q[:, :, 0]
     elif kind == "head dim 48":
         q, k = q[..., :24].repeat(1, 1, 1, 2), k[..., :24].repeat(1, 1, 1, 2)
+    elif kind == "head dim 16":
+        q, k = q[..., :16].contiguous(), k[..., :16].contiguous()
+    elif kind == "v head dim 256":
+        v = torch.cat([v] * 8, -1)
+    elif kind == "misaligned k":  # 4 bytes past a 16-byte boundary
+        buf = torch.zeros(k.numel() + 4)
+        k = buf[1:1 + k.numel()].view(k.shape).copy_(k)
     elif kind == "non-contiguous":
         k = k.transpose(1, 2).contiguous().transpose(1, 2)
     elif kind == "int64 lengths":
@@ -173,6 +180,8 @@ def _bad_inputs(kind):
 @pytest.mark.parametrize("kind,match", [
     ("fp16", "fp32 or bf16"), ("mixed dtypes", "share one dtype"),
     ("3-d q", r"\[B, N, H, D\]"), ("head dim 48", "head dims"),
+    ("head dim 16", "head dims"), ("v head dim 256", "head dims"),
+    ("misaligned k", "16-byte aligned"),
     ("non-contiguous", "contiguous"), ("int64 lengths", "lengths"),
     ("targets of another batch", "num_targets"),
     ("cpu", "CUDA tensors only"),
@@ -192,3 +201,80 @@ def test_kernel_build_failure_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
         cuda_build.load("hstu_attention_fwd")
     assert not target.exists()
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that says it lies on the card, to reach the CUDA route's
+    input checks and build step where there is no card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _fake_cuda_inputs(dtype, d, vd, b=2, n=24, h=2):
+    rng = np.random.default_rng(7)
+    q, k = (torch.from_numpy(rng.normal(size=(b, n, h, d))).to(dtype)
+            for _ in range(2))
+    v = torch.from_numpy(rng.normal(size=(b, n, h, vd))).to(dtype)
+    lengths = torch.tensor([n, n // 2], dtype=torch.int32)
+    targets = torch.tensor([2, 1], dtype=torch.int32)
+    fake = [t.as_subclass(_FakeCuda) for t in (q, k, v)]
+    return fake, lengths, targets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,vd", [(d, vd) for d in (32, 64, 128)
+                                  for vd in (32, 64, 128)])
+def test_kernels_take_every_head_dim_pair(dtype, d, vd):
+    """The wrappers take what they took before the Hopper redesign: fp32
+    and bf16, D and V each in {32, 64, 128}, contiguous and 16-byte
+    aligned, int32 lengths and targets."""
+    (q, k, v), lengths, targets = _fake_cuda_inputs(dtype, d, vd)
+    port.check_kernel_inputs(q, k, v, lengths, targets)
+    port.check_kernel_inputs(q, k, v, lengths, None)
+
+
+def test_ptxas_usage_reads_the_build_log(tmp_path, monkeypatch):
+    """phase env of chip_smoke.py reports registers, shared memory and
+    spills per kernel from the log nvcc -Xptxas -v leaves beside the
+    library."""
+    from torcheasyrec_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    assert "-v" in cuda_build.NVCC_FLAGS
+    mangled = ("_ZN54_GLOBAL__N__bf2e810d_21_hstu_attention_bwd_cu_ed097d2213"
+               "hstu_bwd_bf16ILi128ELi64EEEv14CUtensorMap_stS1_PfiiffE")
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {mangled}",
+        "    528 bytes stack frame, 2308 bytes spill stores, 2328 bytes "
+        "spill loads",
+        "ptxas info    : Used 168 registers, used 3 barriers, 528 bytes "
+        "cumulative stack size, 128 bytes smem",
+        "ptxas info    : Compiling entry function '_Z9row_writePfPKlii' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _Z9row_writePfPKlii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 24 registers, used 0 barriers",
+    ])
+    cuda_build.library_path("hstu_attention_bwd").with_suffix(".log") \
+        .write_text(log)
+    assert cuda_build.ptxas_usage("hstu_attention_bwd") == [
+        {"kernel": "hstu_bwd_bf16<128,64>", "registers": 168,
+         "static_smem_bytes": 128, "spill_store_bytes": 2308,
+         "spill_load_bytes": 2328},
+        {"kernel": "row_write", "registers": 24, "static_smem_bytes": 0,
+         "spill_store_bytes": 0, "spill_load_bytes": 0},
+    ]
+    assert cuda_build.ptxas_usage("hstu_attention_fwd") == []
+
+
+def test_library_name_follows_the_flags(monkeypatch):
+    """A change of nvcc's flags renames the library, so it rebuilds."""
+    from torcheasyrec_tpu_torch.ops import cuda_build
+
+    first = cuda_build.library_path("hstu_attention_fwd")
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS",
+                        [f for f in cuda_build.NVCC_FLAGS if f != "-v"])
+    assert cuda_build.library_path("hstu_attention_fwd") != first

@@ -21,7 +21,7 @@ from torcheasyrec_tpu.ops.pallas.hstu_attention import pallas_hstu_mha
 from torcheasyrec_tpu_torch.ops import Kernel, cuda_build
 from torcheasyrec_tpu_torch.ops import hstu as port
 
-from test_torch_port_hstu_attention import MASK_CASES, _inputs, _kw
+from test_torch_port_hstu_attention import MASK_CASES, _FakeCuda, _inputs, _kw
 
 TOL = dict(rtol=5e-4, atol=5e-5)
 ALPHA = 0.08
@@ -181,15 +181,6 @@ def test_bwd_wrapper_refuses_cpu_tensors():
         port.hstu_attention_bwd(q, k, v, torch.zeros_like(v), lengths, None,
                                 0.1, True, 0, 0, 0, 128)
     assert port.hstu_attention_bwd.launches == before
-
-
-class _FakeCuda(torch.Tensor):
-    """A CPU tensor that says it lies on the card, to reach the CUDA
-    route's build step where there is no card."""
-
-    @property
-    def is_cuda(self):
-        return True
 
 
 def test_cuda_route_raises_when_the_build_fails(monkeypatch):

@@ -15,93 +15,79 @@
 // with fp32 sums and s, dz cast to the inputs' type before the second
 // products, for the whole mask family of `_mask_block` (:47-102). Nothing of
 // size N x N reaches device memory: the forward saved q, k, v only, and the
-// scores are recomputed tile by tile.
+// scores are recomputed tile by tile. The query tiles a key tile visits are
+// the Pallas kernel's (`q_schedule`): under SLA only the window and the
+// target rows.
 //
 // What bounds it on the H100: operations. Five products over the unmasked
 // (row, column) pairs, 2 * pairs * H * (3 D + 2 V) FLOP, against q, k, v, do
 // read and dq, dk, dv written once (chip_smoke.py counts both for its run).
 // At the DLRM-HSTU training shapes (B=32, N=4017, H=4, D=V=128, bf16,
-// histories of 512..3899 tokens) that is about 526 GFLOP against 0.92 GB.
-// On an H100 80GB HBM3 at 700 W it ran 6.9 ms against a 0.53 ms bound
-// (chip_smoke.py). Not profiled inside the kernel yet; the likely limits
-// are one block per SM (154 KB of shared memory at D=V=128), the score
-// tiles' trip through shared memory and the dq atomics.
+// histories of 512..3899 tokens) that is about 526 GFLOP against 0.92 GB,
+// a 0.53 ms bound. On an H100 80GB HBM3 at 700 W the first kernel (WMMA
+// fragments, scores through shared memory in fp32) ran 6.95 ms; this one
+// runs 2.22 ms, 237 TFLOP/s, 24% of the bound (chip_smoke.py).
 //
-// Design (a simple, correct first kernel; wgmma and TMA come later):
-// - one thread block of 8 warps per (key tile of 64 rows, head, sample). The
-//   block keeps its k and v tiles in shared memory and its dk and dv sums in
-//   registers for the whole loop, and walks the query tiles that can attend
-//   its columns: tiles from the diagonal on under causality, plus the tiles
-//   that hold contextual rows (they attend every column), up to
-//   ceil(len / 64). Key tiles at or past the length write zeros.
-// - dq: the Pallas kernel walks one (sample, head)'s key blocks in order and
-//   adds into a [N, D] fp32 block resident in VMEM. CUDA blocks run in no
-//   order, so each block adds its [64, D] dq tiles into a zeroed fp32
-//   [B, N, H, D] buffer with 16-byte vector atomics (red.global.add.v4.f32);
-//   the wrapper casts that buffer to q's type afterwards, as the Pallas
-//   wrapper does (:504). Five products instead of the seven a separate dq
-//   pass needs; the price is that dq's sums are taken in an order that
-//   changes from run to run (fp32, so the spread is a few ulp).
-// - bf16: q and do tiles arrive by cp.async into two stages (rows at or past
-//   the length zero-filled, so padded rows of do never meet the products),
-//   the next tile loading while this one is worked on. Phase A: warp
-//   (wr, wc) computes rows [16 wr, +16) x columns [32 wc, +32) of z and of
-//   do v^T with WMMA 16x16x16 bf16 fragments, applies SiLU, its derivative,
-//   the scale and the mask in fp32, and leaves s and dz as bf16 in shared
-//   memory. Phase B (after one barrier): the warp adds s^T do and dz^T q into
-//   its [16 key rows, half of V / D] share of dv and dk, and computes its
-//   [16 query rows, half of D] share of dz k for the atomics.
-// - fp32: the same tiles with fp32 FMAs on the CUDA cores (no TF32) and the
-//   exact expf, so the fp32 result holds to the plain version's precision.
+// bf16 design, one block per (key tile of 128 rows, head, sample). Blocks
+// start sample by sample, longest first, and within a head in rising key
+// tile order, so that the heaviest (the low key tiles of the longest
+// samples, which most query tiles attend) start first and the blocks in
+// flight share one or two heads' q and do in L2:
+// - two warpgroups of 4 warps, each owning 64 key rows; thread 0 issues the
+//   TMA loads: the block's k and v tiles once, then the query tiles' q and
+//   do into a two-stage ring under full/empty mbarriers, each stage refilled
+//   as soon as all 8 warps are done with it, so two query tiles are always
+//   in flight. No separate producer warp: a ninth warp would put three
+//   warps on one of the SM's four register files and cut every thread to
+//   168 registers; ptxas compiled the consumers within that limit even
+//   under setmaxnreg (spills, serialised wgmma, several times slower),
+//   while two warpgroups alone get 255 registers and no spills (dk and dv
+//   take 128).
+// - scores stay in registers: each warpgroup computes S^T = K Q^T and
+//   dP^T = V dO^T with wgmma (key rows as M, 64 query rows as N, fp32
+//   accumulators), applies SiLU, SiLU', alpha, 1/scaling_seqlen and the mask
+//   to the accumulator registers (the row and column of each register follow
+//   from the lane; wholly unmasked tiles skip the mask), and casts P^T and
+//   dS^T to bf16 in the A-fragment layout of the next products:
+//   dV += P^T dO and dK += dS^T Q are wgmma with A from registers. dk and dv
+//   stay in registers for the whole loop.
+// - dq: only dS^T (bf16, 16 KB) goes to shared memory, once per step, double
+//   buffered; after one barrier between the two warpgroups each computes
+//   dQ = dS K for half of the head dim (wgmma, A and B MN-major from shared
+//   memory) and adds it into a zeroed fp32 [B, N, H, D] buffer with 8-byte
+//   atomics (red.global.add); rows past the length add nothing. The wrapper
+//   casts the buffer to q's type. Five products in one kernel; dq's sums
+//   are taken in an order that changes from run to run (fp32, a few ulp).
+//   128 key rows per block halve the dq additions of the first kernel.
+// - padding never meets a product: TMA reads whatever device memory holds,
+//   so a tile that crosses the sample's length has its rows at or past the
+//   length zeroed in shared memory before any wgmma reads it. Key rows past
+//   the length write zeros to dk and dv.
+// fp32 (the parity path): the same tiles with fp32 FMAs on the CUDA cores
+// (no TF32) and the exact expf, 64 key rows per block.
 //
 // Plain C interface, built by nvcc into a shared library and called through
-// ctypes (torcheasyrec_tpu_torch/ops/cuda_build.py). The launch goes on the
-// caller's stream and the function returns cudaGetLastError().
+// ctypes (torcheasyrec_tpu_torch/ops/cuda_build.py). The tensor maps are
+// encoded on the host for each call. The launch goes on the caller's
+// stream and the function returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "hstu_attention_common.cuh"
 
 namespace {
 
 using namespace hstu;
+using namespace hopper;
 
 constexpr int BQ = 64;            // query rows per step of the loop
-constexpr int BK = 64;            // key/value rows per block
-constexpr int NUM_THREADS = 256;  // 8 warps
-
-// The query tiles a key tile must visit, as a sequence of tile indices:
-// `n_pre` contextual tiles [0, n_pre), then [first, end).
-struct QTiles {
-  int n_pre, first, end;
-  __device__ __forceinline__ int count() const {
-    return n_pre + max(end - first, 0);
-  }
-  __device__ __forceinline__ int tile(int i) const {
-    return i < n_pre ? i : first + (i - n_pre);
-  }
-};
-
-__device__ __forceinline__ QTiles q_tiles(int kt, int seq_len,
-                                          const MaskParams& p) {
-  QTiles t;
-  t.end = (seq_len + BQ - 1) / BQ;
-  t.n_pre = 0;
-  t.first = 0;
-  const bool sla = p.sla_k1 > 0 || p.sla_k2 > 0;
-  if (sla || p.causal) {
-    // rows before this tile's first column cannot attend it, except the
-    // contextual rows of the plain mask (under SLA they are history rows)
-    t.first = kt;  // BQ == BK
-    if (!sla && p.contextual_seq_len > 0) {
-      t.n_pre = min((p.contextual_seq_len + BQ - 1) / BQ, kt);
-    }
-  }
-  return t;
-}
+constexpr int BK = 64;            // fp32: key rows per block
+constexpr int NUM_THREADS = 256;  // 8 warps (bf16: two warpgroups)
+constexpr int HBK = 128;          // bf16: key rows per block
 
 // SiLU(z) and SiLU'(z) from one sigmoid.
 template <bool FAST>
@@ -113,268 +99,257 @@ __device__ __forceinline__ void silu_and_grad(float z, float* s, float* ds) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: WMMA tensor-core tiles
+// bf16: TMA, wgmma
 // ---------------------------------------------------------------------------
 
 template <int D, int V>
-struct Bf16Smem {
-  static constexpr int LDQ = D + 8, LDK = D + 8, LDV = V + 8;
-  static constexpr int LDS = BK + 4, LDP = BK + 8;
-  static constexpr int LDOV = V + 4, LDOK = D + 4;
-  static constexpr int K_BYTES = align128(BK * LDK * 2);
-  static constexpr int V_BYTES = align128(BK * LDV * 2);
-  static constexpr int Q_BYTES = align128(BQ * LDQ * 2);
-  static constexpr int DO_BYTES = align128(BQ * LDV * 2);
-  static constexpr int S_BYTES = align128(BQ * LDS * 4);
-  static constexpr int P_BYTES = align128(BQ * LDP * 2);
+struct HopperSmem {
+  using KT = Tile<HBK, D>;
+  using VT = Tile<HBK, V>;
+  using QT = Tile<BQ, D>;
+  using OT = Tile<BQ, V>;   // do
+  using ST = Tile<HBK, BQ>;  // dS^T
   static constexpr int K_OFF = 0;
-  static constexpr int V_OFF = K_OFF + K_BYTES;
-  static constexpr int REST_OFF = V_OFF + V_BYTES;
-  // inside the loop: two (q, do) stages, fp32 z and do v^T, bf16 s and dz
-  static constexpr int STAGE = Q_BYTES + DO_BYTES;
-  static constexpr int S_OFF = REST_OFF + 2 * STAGE;
-  static constexpr int DA_OFF = S_OFF + S_BYTES;
-  static constexpr int P_OFF = DA_OFF + S_BYTES;
-  static constexpr int DZ_OFF = P_OFF + P_BYTES;
-  static constexpr int LOOP_END = DZ_OFF + P_BYTES;
-  // after the loop: the fp32 dv and dk tiles on their way out
-  static constexpr int DV_OFF = REST_OFF;
-  static constexpr int DK_OFF = DV_OFF + align128(BK * LDOV * 4);
-  static constexpr int OUT_END = DK_OFF + align128(BK * LDOK * 4);
-  static constexpr int BYTES = LOOP_END > OUT_END ? LOOP_END : OUT_END;
+  static constexpr int V_OFF = K_OFF + align1024(KT::BYTES);
+  static constexpr int DO_IN_STAGE = align1024(QT::BYTES);
+  static constexpr int STAGE = DO_IN_STAGE + align1024(OT::BYTES);
+  static constexpr int STAGE_OFF = V_OFF + align1024(VT::BYTES);
+  static constexpr int DS_STAGE = align1024(ST::BYTES);
+  static constexpr int DS_OFF = STAGE_OFF + 2 * STAGE;
+  static constexpr int BAR_OFF = DS_OFF + 2 * DS_STAGE;
+  // 5 mbarriers, and room to align the dynamic buffer to 1024 bytes
+  static constexpr int BYTES = BAR_OFF + 64 + 1024;
 };
 
-// fp32 [64, COLS] tile in shared memory -> bf16 rows [r0, r0 + 64) of a
-// [N, H, COLS] head slice, rows at or past n left alone.
-template <int COLS>
-__device__ __forceinline__ void store_tile_bf16(bf16* base, int row_stride,
-                                                int r0, int n,
-                                                const float* tile, int ld) {
-  constexpr int PER_ROW = COLS / 8;
-  for (int i = threadIdx.x; i < BK * PER_ROW; i += NUM_THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    if (r0 + r >= n) continue;
-    const float* src = tile + r * ld + c;
-    __align__(16) bf16 packed[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) packed[e] = __float2bfloat16(src[e]);
-    *reinterpret_cast<uint4*>(base + (size_t)(r0 + r) * row_stride + c) =
-        *reinterpret_cast<const uint4*>(packed);
-  }
-}
-
 template <int D, int V>
-__global__ void __launch_bounds__(NUM_THREADS)
-hstu_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ d_out,
+__global__ void __launch_bounds__(NUM_THREADS, 1)
+hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
+              const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map,
+              const __grid_constant__ CUtensorMap do_map,
               float* __restrict__ dq, bf16* __restrict__ dk,
               bf16* __restrict__ dv, const int* __restrict__ lengths,
               const int* __restrict__ num_targets, int n, int h_count,
               float alpha, float inv_scale, MaskParams p) {
-  using namespace nvcuda;
-  using L = Bf16Smem<D, V>;
-  constexpr int DH = D / 2, VH = V / 2;  // this warp's share of the columns
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
-  float* ss = reinterpret_cast<float*>(smem + L::S_OFF);
-  float* das = reinterpret_cast<float*>(smem + L::DA_OFF);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  bf16* dzs = reinterpret_cast<bf16*>(smem + L::DZ_OFF);
+  using L = HopperSmem<D, V>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * BK;
+  const int b = sample_of_rank(lengths, gridDim.z, blockIdx.z, n);
+  const int h = blockIdx.y, k0 = blockIdx.x * HBK;
   const int seq_len = min(lengths[b], n);
   const int n_t = p.has_targets ? num_targets[b] : 0;
   const size_t head = (size_t)b * n * h_count + h;
   const int qk_stride = h_count * D, v_stride = h_count * V;
-  const bf16* q_base = q + head * D;
-  const bf16* k_base = k + head * D;
-  const bf16* v_base = v + head * V;
-  const bf16* do_base = d_out + head * V;
   float* dq_base = dq + head * D;
   bf16* dk_base = dk + head * D;
   bf16* dv_base = dv + head * V;
 
   if (k0 >= seq_len) {
-    zero_rows<NUM_THREADS, BK, bf16, D>(dk_base, qk_stride, k0, n);
-    zero_rows<NUM_THREADS, BK, bf16, V>(dv_base, v_stride, k0, n);
+    zero_rows<NUM_THREADS, HBK, bf16, D>(dk_base, qk_stride, k0, n);
+    zero_rows<NUM_THREADS, HBK, bf16, V>(dv_base, v_stride, k0, n);
     return;
   }
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wrow = (warp & 3) * 16;  // this warp's 16 rows inside a tile
-  const int wc = warp >> 2;          // and its half of the columns
-  auto q_stage = [&](int stage) {
-    return reinterpret_cast<bf16*>(smem + L::REST_OFF + stage * L::STAGE);
-  };
-  auto do_stage = [&](int stage) {
-    return reinterpret_cast<bf16*>(smem + L::REST_OFF + stage * L::STAGE +
-                                   L::Q_BYTES);
-  };
-  const QTiles tiles = q_tiles(kt, seq_len, p);
-  const int n_q = tiles.count();
-
-  load_tile_async<NUM_THREADS, BK, D>(ks, L::LDK, k_base, qk_stride, k0,
-                                      seq_len);
-  load_tile_async<NUM_THREADS, BK, V>(vs, L::LDV, v_base, v_stride, k0,
-                                      seq_len);
-  load_tile_async<NUM_THREADS, BQ, D>(q_stage(0), L::LDQ, q_base, qk_stride,
-                                      tiles.tile(0) * BQ, seq_len);
-  load_tile_async<NUM_THREADS, BQ, V>(do_stage(0), L::LDV, do_base, v_stride,
-                                      tiles.tile(0) * BQ, seq_len);
-  cp_async_commit();
-  cp_async_wait_all();
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;   // [2]: q and do of a stage landed
+  uint64_t* empty = kv_full + 3;  // [2]: every consumer warp is done with it
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dv_acc[VH / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[DH / 16];
-#pragma unroll
-  for (int f = 0; f < VH / 16; ++f) wmma::fill_fragment(dv_acc[f], 0.0f);
-#pragma unroll
-  for (int f = 0; f < DH / 16; ++f) wmma::fill_fragment(dk_acc[f], 0.0f);
+  const TileRanges tiles = q_schedule<BQ, HBK>(k0, seq_len, n_t, p);
+  const int n_q = tiles.count();
+  unsigned char* ks = smem + L::K_OFF;
+  unsigned char* vs = smem + L::V_OFF;
+  const int tid = threadIdx.x;
+  // q and do of query tile `it` into stage it % 2, by thread 0
+  auto load_stage = [&](int it) {
+    unsigned char* stage = smem + L::STAGE_OFF + (it & 1) * L::STAGE;
+    uint64_t* bar = &full[it & 1];
+    const int q0 = tiles.tile(it) * BQ;
+    mbar_expect_tx(bar, L::QT::BYTES + L::OT::BYTES);
+    tma_load_tile<BQ, D>(stage, &q_map, bar, h, q0, b);
+    tma_load_tile<BQ, V>(stage + L::DO_IN_STAGE, &do_map, bar, h, q0, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(kv_full, L::KT::BYTES + L::VT::BYTES);
+    tma_load_tile<HBK, D>(ks, &k_map, kv_full, h, k0, b);
+    tma_load_tile<HBK, V>(vs, &v_map, kv_full, h, k0, b);
+    for (int it = 0; it < min(n_q, 2); ++it) load_stage(it);
+  }
+
+  // ---- warpgroup wg owns key rows [k0 + kw, k0 + kw + 64) ----
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int kw = wg * 64;
+  const int r_lo = 16 * warp + lane / 4;  // accumulator rows r_lo, r_lo + 8
+  const int c_lo = 2 * (lane % 4);        // columns 8 i + c_lo (+ 1)
   const float dz_scale = alpha * inv_scale;
 
+  mbar_wait(kv_full, 0);
+  if (k0 + HBK > seq_len) {  // rows past the length read as zero
+    zero_tile_rows<HBK, D, NUM_THREADS>(ks, seq_len - k0, tid);
+    zero_tile_rows<HBK, V, NUM_THREADS>(vs, seq_len - k0, tid);
+    fence_async_smem();
+    named_barrier(1, NUM_THREADS);
+  }
+
+  float dk_acc[D / 2], dv_acc[V / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) dv_acc[i] = 0.0f;
+
   for (int it = 0; it < n_q; ++it) {
+    const int s = it & 1;
     const int q0 = tiles.tile(it) * BQ;
-    const bf16* qs = q_stage(it & 1);
-    const bf16* dos = do_stage(it & 1);
-    if (it + 1 < n_q) {  // prefetch the next tile into the other stage
-      const int q_next = tiles.tile(it + 1) * BQ;
-      load_tile_async<NUM_THREADS, BQ, D>(q_stage((it + 1) & 1), L::LDQ,
-                                          q_base, qk_stride, q_next, seq_len);
-      load_tile_async<NUM_THREADS, BQ, V>(do_stage((it + 1) & 1), L::LDV,
-                                          do_base, v_stride, q_next, seq_len);
-      cp_async_commit();
+    unsigned char* qs = smem + L::STAGE_OFF + s * L::STAGE;
+    unsigned char* dos = qs + L::DO_IN_STAGE;
+    unsigned char* dss = smem + L::DS_OFF + s * L::DS_STAGE;
+    mbar_wait(&full[s], (it >> 1) & 1);
+    if (q0 + BQ > seq_len) {
+      zero_tile_rows<BQ, D, NUM_THREADS>(qs, seq_len - q0, tid);
+      zero_tile_rows<BQ, V, NUM_THREADS>(dos, seq_len - q0, tid);
+      fence_async_smem();
+      named_barrier(1, NUM_THREADS);
     }
 
-    // ---- phase A: z = q k^T and da = do v^T for this warp's 16 x 32 ----
+    // S^T = K Q^T and dP^T = V dO^T: [64 key rows, 64 query rows]
+    float st[BQ / 2], dpt[BQ / 2];
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb) {
-      const int col = wc * 32 + nb * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> z, da;
-      wmma::fill_fragment(z, 0.0f);
-      wmma::fill_fragment(da, 0.0f);
+    for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.0f;
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-        wmma::load_matrix_sync(a, qs + wrow * L::LDQ + kk * 16, L::LDQ);
-        wmma::load_matrix_sync(bk, ks + col * L::LDK + kk * 16, L::LDK);
-        wmma::mma_sync(z, a, bk, z);
-      }
-#pragma unroll
-      for (int kk = 0; kk < V / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bv;
-        wmma::load_matrix_sync(a, dos + wrow * L::LDV + kk * 16, L::LDV);
-        wmma::load_matrix_sync(bv, vs + col * L::LDV + kk * 16, L::LDV);
-        wmma::mma_sync(da, a, bv, da);
-      }
-      wmma::store_matrix_sync(ss + wrow * L::LDS + col, z, L::LDS,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(das + wrow * L::LDS + col, da, L::LDS,
-                              wmma::mem_row_major);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<BQ, 0, 0>::ss(st, desc_k_major<HBK, D>(ks, kw, 16 * kk),
+                          desc_k_major<BQ, D>(qs, 0, 16 * kk), kk > 0);
     }
-    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < V / 16; ++kk) {
+      Wgmma<BQ, 0, 0>::ss(dpt, desc_k_major<HBK, V>(vs, kw, 16 * kk),
+                          desc_k_major<BQ, V>(dos, 0, 16 * kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
 
-    // s = mask * SiLU(z) / scale and dz = mask * da * SiLU'(z) * alpha /
-    // scale, cast to the inputs' type; each lane takes one column
-    const bool unmasked = tile_unmasked(q0, k0, BQ, BK, seq_len, n_t, p);
-#pragma unroll 4
-    for (int r = 0; r < 16; ++r) {
-      const int c = wc * 32 + lane;
+    // P^T and dS^T in the accumulator registers; the mask as one bit per
+    // register, computed in a rolled loop where the tile needs it
+    uint32_t valid = 0xffffffffu;
+    if (!tile_unmasked(q0, k0 + kw, BQ, 64, seq_len, n_t, p)) {
+      valid = 0;
+#pragma unroll 1
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int key = k0 + kw + r_lo + ((i & 2) ? 8 : 0);
+        const int row = q0 + 8 * (i / 4) + c_lo + (i & 1);
+        valid |= (uint32_t)valid_attn(row, key, seq_len, n_t, p) << i;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
       float s_val, ds_val;
-      silu_and_grad<true>(ss[(wrow + r) * L::LDS + c] * alpha, &s_val,
-                          &ds_val);
-      s_val *= inv_scale;
-      float dz_val = das[(wrow + r) * L::LDS + c] * ds_val * dz_scale;
-      if (!unmasked && !valid_attn(q0 + wrow + r, k0 + c, seq_len, n_t, p)) {
-        s_val = 0.0f;
-        dz_val = 0.0f;
-      }
-      ps[(wrow + r) * L::LDP + c] = __float2bfloat16(s_val);
-      dzs[(wrow + r) * L::LDP + c] = __float2bfloat16(dz_val);
+      silu_and_grad<true>(st[i] * alpha, &s_val, &ds_val);
+      const bool keep = (valid >> i) & 1;
+      st[i] = keep ? s_val * inv_scale : 0.0f;
+      dpt[i] = keep ? dpt[i] * ds_val * dz_scale : 0.0f;
     }
-    __syncthreads();  // s and dz of all 64 query rows are in place
-
-    // ---- phase B: dv += s^T do, dk += dz^T q over the 64 query rows ----
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
-    for (int qq = 0; qq < BQ / 16; ++qq) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pt;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> dzt;
-      wmma::load_matrix_sync(pt, ps + qq * 16 * L::LDP + wrow, L::LDP);
-      wmma::load_matrix_sync(dzt, dzs + qq * 16 * L::LDP + wrow, L::LDP);
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      acc_to_a(st, kk, pa[kk]);
+      acc_to_a(dpt, kk, da[kk]);
+    }
+    // dS^T to shared memory for dQ, the same bf16 values
 #pragma unroll
-      for (int f = 0; f < VH / 16; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bo;
-        wmma::load_matrix_sync(
-            bo, dos + qq * 16 * L::LDV + wc * VH + f * 16, L::LDV);
-        wmma::mma_sync(dv_acc[f], pt, bo, dv_acc[f]);
-      }
+    for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
-      for (int f = 0; f < DH / 16; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bq;
-        wmma::load_matrix_sync(
-            bq, qs + qq * 16 * L::LDQ + wc * DH + f * 16, L::LDQ);
-        wmma::mma_sync(dk_acc[f], dzt, bq, dk_acc[f]);
+      for (int e = 0; e < 4; ++e) {
+        const int row = kw + r_lo + ((e & 1) ? 8 : 0);
+        const int col = 16 * kk + 8 * (e >> 1) + c_lo;
+        *reinterpret_cast<uint32_t*>(dss + tile_offset<HBK, BQ>(row, col)) =
+            da[kk][e];
       }
     }
 
-    // dq tile = dz k: 16 query rows x this warp's half of D, one 16 x 16
-    // fragment at a time through the warp's own corner of the z buffer
-    float* stage = ss + wrow * L::LDS + wc * 32;
+    // dV += P^T dO, dK += dS^T Q
+    wgmma_fence();
 #pragma unroll
-    for (int f = 0; f < DH / 16; ++f) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq_acc;
-      wmma::fill_fragment(dq_acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk;
-        wmma::load_matrix_sync(a, dzs + wrow * L::LDP + kk * 16, L::LDP);
-        wmma::load_matrix_sync(
-            bk, ks + kk * 16 * L::LDK + wc * DH + f * 16, L::LDK);
-        wmma::mma_sync(dq_acc, a, bk, dq_acc);
-      }
-      wmma::store_matrix_sync(stage, dq_acc, L::LDS, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int i = lane + 32 * t;
-        const int r = i / 4, c = (i % 4) * 4;
-        const int row = q0 + wrow + r;
-        if (row < seq_len) {  // rows past the length carry zeros
-          const float4 val =
-              *reinterpret_cast<const float4*>(stage + r * L::LDS + c);
-          atomicAdd(reinterpret_cast<float4*>(
-                        dq_base + (size_t)row * qk_stride + wc * DH + f * 16 +
-                        c),
-                    val);
-        }
-      }
-      __syncwarp();
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      Wgmma<V, 0, 1>::rs(dv_acc, pa[kk], desc_mn_major<BQ, V>(dos, 16 * kk, 0),
+                         1);
+      Wgmma<D, 0, 1>::rs(dk_acc, da[kk], desc_mn_major<BQ, D>(qs, 16 * kk, 0),
+                         1);
     }
-    cp_async_wait_all();
-    __syncthreads();  // next stage landed; every warp is done with this one
+    wgmma_commit();
+
+    // dQ = dS K for this warpgroup's half of the head dim
+    fence_async_smem();
+    named_barrier(2, NUM_THREADS);  // both halves of dS^T are in place
+    float dq_acc[D / 4];
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) dq_acc[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HBK / 16; ++kk) {
+      Wgmma<D / 2, 1, 1>::ss(dq_acc, desc_mn_major<HBK, BQ>(dss, 16 * kk, 0),
+                             desc_mn_major<HBK, D>(ks, 16 * kk, wg * (D / 2)),
+                             kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(dq_acc);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      fence_regs(pa[kk]);
+      fence_regs(da[kk]);
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);  // q and do of this stage are free
+
+#pragma unroll
+    for (int i = 0; i < D / 4; i += 2) {
+      const int row = q0 + r_lo + ((i & 2) ? 8 : 0);
+      const int col = wg * (D / 2) + 8 * (i / 4) + c_lo;
+      if (row < seq_len) {  // rows past the length carry zeros
+        atomicAdd(
+            reinterpret_cast<float2*>(dq_base + (size_t)row * qk_stride + col),
+            make_float2(dq_acc[i], dq_acc[i + 1]));
+      }
+    }
+    if (tid == 0 && it + 2 < n_q) {  // refill the stage once all are done
+      mbar_wait(&empty[s], (it >> 1) & 1);
+      load_stage(it + 2);
+    }
   }
 
-  // ---- dv and dk leave through shared memory as bf16 ----
-  float* dvs = reinterpret_cast<float*>(smem + L::DV_OFF);
-  float* dks = reinterpret_cast<float*>(smem + L::DK_OFF);
+  // ---- dk and dv from the registers, as bf16 ----
 #pragma unroll
-  for (int f = 0; f < VH / 16; ++f) {
-    wmma::store_matrix_sync(dvs + wrow * L::LDOV + wc * VH + f * 16,
-                            dv_acc[f], L::LDOV, wmma::mem_row_major);
+  for (int i = 0; i < V / 2; i += 2) {
+    const int row = k0 + kw + r_lo + ((i & 2) ? 8 : 0);
+    if (row < n) {
+      *reinterpret_cast<uint32_t*>(dv_base + (size_t)row * v_stride + 8 * (i / 4) +
+                                   c_lo) = pack_bf16(dv_acc[i], dv_acc[i + 1]);
+    }
   }
 #pragma unroll
-  for (int f = 0; f < DH / 16; ++f) {
-    wmma::store_matrix_sync(dks + wrow * L::LDOK + wc * DH + f * 16,
-                            dk_acc[f], L::LDOK, wmma::mem_row_major);
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = k0 + kw + r_lo + ((i & 2) ? 8 : 0);
+    if (row < n) {
+      *reinterpret_cast<uint32_t*>(dk_base + (size_t)row * qk_stride +
+                                   8 * (i / 4) + c_lo) =
+          pack_bf16(dk_acc[i], dk_acc[i + 1]);
+    }
   }
-  __syncthreads();
-  store_tile_bf16<V>(dv_base, v_stride, k0, n, dvs, L::LDOV);
-  store_tile_bf16<D>(dk_base, qk_stride, k0, n, dks, L::LDOK);
 }
 
 // ---------------------------------------------------------------------------
@@ -450,7 +425,7 @@ hstu_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DC; ++c) dk_acc[i][c] = 0.0f;
   }
   const float dz_scale = alpha * inv_scale;
-  const QTiles tiles = q_tiles(kt, seq_len, p);
+  const TileRanges tiles = q_schedule<BQ, BK>(k0, seq_len, n_t, p);
   const int n_q = tiles.count();
 
   for (int it = 0; it < n_q; ++it) {
@@ -593,24 +568,32 @@ struct Args {
 
 template <int D, int V>
 cudaError_t launch_dv(int is_bf16, const Args& a) {
-  const dim3 grid((a.n + BK - 1) / BK, a.h, a.b);
   if (is_bf16) {
+    CUtensorMap q_map, k_map, v_map, do_map;
+    cudaError_t err = make_map(&q_map, a.q, a.b, a.n, a.h, D, BQ);
+    if (err == cudaSuccess) err = make_map(&k_map, a.k, a.b, a.n, a.h, D, HBK);
+    if (err == cudaSuccess) err = make_map(&v_map, a.v, a.b, a.n, a.h, V, HBK);
+    if (err == cudaSuccess) {
+      err = make_map(&do_map, a.d_out, a.b, a.n, a.h, V, BQ);
+    }
+    if (err != cudaSuccess) return err;
     auto kern = hstu_bwd_bf16<D, V>;
-    constexpr int smem_bytes = Bf16Smem<D, V>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
+    constexpr int smem_bytes = HopperSmem<D, V>::BYTES;
+    err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
+    const dim3 grid((a.n + HBK - 1) / HBK, a.h, a.b);
     kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.d_out),
-        a.dq, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.lengths,
-        a.num_targets, a.n, a.h, a.alpha, a.inv_scale, a.p);
+        q_map, k_map, v_map, do_map, a.dq, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.lengths, a.num_targets, a.n, a.h, a.alpha,
+        a.inv_scale, a.p);
   } else {
     auto kern = hstu_bwd_f32<D, V>;
     constexpr int smem_bytes = F32Smem<D, V>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
+    const dim3 grid((a.n + BK - 1) / BK, a.h, a.b);
     kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.d_out),

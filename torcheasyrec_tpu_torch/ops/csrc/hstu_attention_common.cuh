@@ -1,7 +1,9 @@
 // Shared device code of the HSTU attention kernels (forward and backward):
 // the mask family of the Pallas kernels' `_mask_block`
-// (torcheasyrec_tpu/ops/pallas/hstu_attention.py:47-102), SiLU, and the
-// global -> shared tile loads. NT is the block's thread count.
+// (torcheasyrec_tpu/ops/pallas/hstu_attention.py:47-102), the tile
+// schedules that take the Pallas kernels' loop bounds (:128-198 forward,
+// :229-321 backward), SiLU, and the fp32 kernels' tile loads. NT is the
+// block's thread count.
 
 #pragma once
 
@@ -72,6 +74,94 @@ __device__ __forceinline__ bool tile_unmasked(int q0, int k0, int bq, int bk,
          k0 + bk <= q0 && k0 + bk <= seq_len - n_t && q0 + bq <= seq_len;
 }
 
+// The tiles a loop visits: [lo0, hi0) then [lo1, hi1), empty ranges
+// skipped.
+struct TileRanges {
+  int lo0, hi0, lo1, hi1;
+  __device__ __forceinline__ int count() const {
+    return max(hi0 - lo0, 0) + max(hi1 - lo1, 0);
+  }
+  __device__ __forceinline__ int tile(int i) const {
+    const int n0 = max(hi0 - lo0, 0);
+    return i < n0 ? lo0 + i : lo1 + (i - n0);
+  }
+};
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// Key tiles of BK rows that the query tile [q0, q0 + BQ) must visit, the
+// bounds of `_fwd_kernel`: none past the length; under causality none past
+// the tile's last row unless it holds contextual rows (they attend every
+// column; under SLA they are history rows). Under SLA the prefix tiles,
+// then the window from the tile's first row back k1 - 1 columns, or every
+// causal tile when the query tile holds target rows.
+template <int BQ, int BK>
+__device__ __forceinline__ TileRanges kv_schedule(int q0, int seq_len,
+                                                  int n_t,
+                                                  const MaskParams& p) {
+  int end = (seq_len + BK - 1) / BK;
+  const bool sla = p.sla_k1 > 0 || p.sla_k2 > 0;
+  if (sla || (p.causal && q0 >= p.contextual_seq_len)) {
+    const int last_row = min(q0 + BQ, seq_len) - 1;
+    end = min(end, last_row / BK + 1);
+  }
+  if (!sla) return TileRanges{0, end, 0, 0};
+  const int eff_k2 = max(p.sla_k2, p.contextual_seq_len);
+  const int n_pref = min((eff_k2 + BK - 1) / BK, end);
+  int start = max(floor_div(q0 - p.sla_k1 + 1, BK), n_pref);
+  if (q0 + BQ > seq_len - n_t) start = n_pref;
+  return TileRanges{0, n_pref, start, end};
+}
+
+// Query tiles of BQ rows that can attend the key tile [k0, k0 + BK), the
+// bounds of `_bwd_dv_dk_kernel`: none past the length; under causality
+// from the tile holding row k0 on, plus the tiles of the contextual rows.
+// Under SLA the window (rows within k1 - 1 of the columns; every row when
+// a column lies in the prefix), then the tiles of the target rows (they
+// attend all history).
+template <int BQ, int BK>
+__device__ __forceinline__ TileRanges q_schedule(int k0, int seq_len, int n_t,
+                                                 const MaskParams& p) {
+  const int end = (seq_len + BQ - 1) / BQ;
+  const bool sla = p.sla_k1 > 0 || p.sla_k2 > 0;
+  if (!sla && !p.causal) return TileRanges{0, end, 0, 0};
+  const int first = min(k0 / BQ, end);
+  if (!sla) {
+    const int n_pre = p.contextual_seq_len > 0
+                          ? min((p.contextual_seq_len + BQ - 1) / BQ, first)
+                          : 0;
+    return TileRanges{0, n_pre, first, end};
+  }
+  const int eff_k2 = max(p.sla_k2, p.contextual_seq_len);
+  const int win_end =
+      k0 < eff_k2 ? end : min((k0 + BK - 1 + p.sla_k1) / BQ + 1, end);
+  const int tgt_start = max(floor_div(seq_len - n_t, BQ), win_end);
+  return TileRanges{first, win_end, tgt_start, end};
+}
+
+// The sample of rank `rank` among the batch ordered by length, longest
+// first (ties by index), so that blocks taken in rank order start the
+// longest samples first. Batches of more than 256 samples keep their
+// order. Every thread of the block calls it.
+__device__ __forceinline__ int sample_of_rank(const int* lengths, int b_count,
+                                              int rank, int n) {
+  if (b_count > 256) return rank;
+  __shared__ int found;
+  for (int i = threadIdx.x; i < b_count; i += blockDim.x) {
+    const int li = min(lengths[i], n);
+    int r = 0;
+    for (int j = 0; j < b_count; ++j) {
+      const int lj = min(lengths[j], n);
+      r += lj > li || (lj == li && j < i);
+    }
+    if (r == rank) found = i;
+  }
+  __syncthreads();
+  return found;
+}
+
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
 // SiLU with the fast exp and division: bf16 keeps far fewer bits than
@@ -108,43 +198,6 @@ __device__ __forceinline__ void load_tile(T* smem, int ld, const T* base,
     const T* src = reinterpret_cast<const T*>(&vals[it]);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) smem[r * ld + c + e] = src[e];
-  }
-}
-
-// 16-byte global -> shared copy that bypasses registers; src_bytes 0 fills
-// the destination with zeros.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Asynchronous counterpart of load_tile for bf16 tiles (ld a multiple of 8).
-template <int NT, int R, int COLS>
-__device__ __forceinline__ void load_tile_async(bf16* smem, int ld,
-                                                const bf16* base,
-                                                int row_stride, int r0,
-                                                int rows_valid) {
-  constexpr int PER_ROW = COLS / 8;
-  constexpr int ITERS = R * PER_ROW / NT;
-  static_assert(R * PER_ROW % NT == 0, "tile does not divide over the block");
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int i = threadIdx.x + it * NT;
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    const bool valid = r0 + r < rows_valid;
-    cp_async_16(smem + r * ld + c,
-                base + (size_t)(valid ? r0 + r : 0) * row_stride + c, valid);
   }
 }
 

@@ -10,236 +10,238 @@
 // product, and zeros for rows at or past the sample's length. `mask` is the
 // whole family of `_mask_block` (:47-102): causal or not, the max_attn_len
 // window with its min_full_attn_seq_len escape, the contextual prefix,
-// num_targets isolation and Semi-Local Attention (sla_k1 / sla_k2).
+// num_targets isolation and Semi-Local Attention (sla_k1 / sla_k2). The key
+// tiles a query tile visits are the Pallas kernel's (`kv_schedule`): under
+// SLA only the prefix and the window, or all history for target rows.
 //
 // What bounds it on the H100: operations. At the DLRM-HSTU serving shapes
 // (B=32, N=4017, H=4, D=V=128, bf16, histories of 512..3899 tokens) the two
 // products over the unmasked (row, column) pairs are about 210 GFLOP
-// against 0.53 GB of q, k, v and out (chip_smoke.py counts both), some 400
-// FLOP per byte, above the card's ~295 FLOP/byte balance point.
-// Softmax-free attention needs no running max or rescale, so the kernel is a
-// plain blockwise accumulation: it keeps the [BQ, BK] score tile in shared
-// memory and the [BQ, V] output in registers, so nothing of size N x N ever
-// reaches device memory. On an H100 80GB HBM3 at 700 W it ran 2.19 ms
-// against a 0.21 ms bound (chip_smoke.py). Not profiled inside the kernel
-// yet; the likely limit is the score tile's trip through shared memory and
-// the per-element SiLU rather than the tensor cores.
+// against 0.53 GB of q, k, v and out (chip_smoke.py counts both), a 0.21 ms
+// bound. Softmax-free attention needs no running max or rescale, so the
+// kernel is a plain blockwise accumulation. On an H100 80GB HBM3 at 700 W
+// the first kernel (WMMA fragments, scores through shared memory in fp32)
+// ran 2.19 ms; this one runs 1.06-1.08 ms, 195-199 TFLOP/s, 20% of the
+// bound (chip_smoke.py).
 //
-// Design (a simple, correct first kernel; wgmma and TMA come later):
-// - one thread block of 4 warps per (query tile of 64 rows, head, sample);
-//   query tiles run longest-first to even out the tail of the grid;
-// - a loop over 64-row key/value tiles bounded by ceil(len / 64), and by
-//   causality when no row of the query tile is a contextual row (contextual
-//   rows attend every valid column; under SLA every row is causal);
-// - bf16: q, k, v tiles reach shared memory by cp.async (16 bytes a thread,
-//   rows at or past the length zero-filled, so padding never meets the
-//   products); the k/v tiles are double-buffered, the next one loading while
-//   the tensor cores work on this one. S = Q K^T and O += P V run through
-//   WMMA 16x16x16 bf16 fragments with fp32 accumulators; warp w owns query
-//   rows [16w, 16w + 16), so between tile loads the warps need no barrier;
-// - a tile whose every column lies before every row, in the history and
-//   within the length is wholly unmasked under the plain causal mask and
-//   skips the per-element mask;
-// - fp32: the same tiles with fp32 FMAs on the CUDA cores (no TF32), so the
-//   fp32 result holds to the plain version's precision;
-// - SiLU, alpha, 1/scaling_seqlen and the mask (a __device__ copy of
-//   `_mask_block`) are applied to the fp32 scores before the cast to v's type.
+// bf16 design, one block per (query tile of 128 rows, head, sample). Blocks
+// start sample by sample, longest first, and within a head from the last
+// query tile (the one that visits the most key tiles) down, to even out the
+// tail of the grid while the blocks in flight share one or two heads' k and
+// v in L2:
+// - warp specialised: one producer warp, one thread of which issues TMA
+//   loads: the block's q tile once, then the k and v tiles into a
+//   two-stage ring under full/empty mbarriers. Warpgroups 0 and 1 each own
+//   64 query rows, so every k/v tile serves 128 rows (half the k/v traffic
+//   per row of a 64-row tile). A ninth warp caps every thread at 168
+//   registers (three warps on one of the SM's four register files); the
+//   consumers need about 160 (O and S 64 each, P 32) and ptxas reports no
+//   spills. A version that ran the next tile's S during this tile's SiLU
+//   (two S accumulators, 256 threads for 255 registers) was slower: ptxas
+//   serialised its wgmma for want of registers.
+// - scores stay in registers: S = Q K^T by wgmma (64 rows x 128 key
+//   columns, fp32 accumulators); SiLU, alpha, 1/scaling_seqlen and the mask
+//   are applied to the accumulator registers (row and column from the lane;
+//   wholly unmasked tiles skip the mask); P is cast to bf16 in registers and
+//   is the A operand of O += P V (wgmma with A from registers, V MN-major
+//   from shared memory). O stays in registers and leaves as bf16.
+// - padding never meets a product: a v tile that crosses the sample's
+//   length has its rows at or past the length zeroed in shared memory before
+//   the product (a masked score is 0, and 0 times NaN is NaN); scores of
+//   padded q or k rows are masked by selection, never by multiplication.
+// fp32 (the parity path): one block of 4 warps per 64-row query tile, fp32
+// FMAs on the CUDA cores (no TF32), so the fp32 result holds to the plain
+// version's precision.
 //
 // Plain C interface, built by nvcc into a shared library and called through
-// ctypes (torcheasyrec_tpu_torch/ops/cuda_build.py). The launch goes on the
-// caller's stream and the function returns cudaGetLastError().
+// ctypes (torcheasyrec_tpu_torch/ops/cuda_build.py). The tensor maps are
+// encoded on the host for each call. The launch goes on the caller's
+// stream and the function returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "hstu_attention_common.cuh"
 
 namespace {
 
 using namespace hstu;
+using namespace hopper;
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // key/value rows per tile
-constexpr int NUM_THREADS = 128;  // 4 warps
-
-// Number of key/value tiles the query tile starting at q0 must visit.
-__device__ __forceinline__ int kv_tiles(int q0, int seq_len,
-                                        const MaskParams& p) {
-  int end = (seq_len + BK - 1) / BK;
-  const bool sla = p.sla_k1 > 0 || p.sla_k2 > 0;
-  if (sla || (p.causal && q0 >= p.contextual_seq_len)) {
-    const int last_row = min(q0 + BQ, seq_len) - 1;
-    end = min(end, last_row / BK + 1);
-  }
-  return end;
-}
+constexpr int BQ = 64;            // fp32: query rows per block
+constexpr int BK = 64;            // fp32: key/value rows per tile
+constexpr int NUM_THREADS = 128;  // fp32: 4 warps
+constexpr int HBQ = 128;          // bf16: query rows per block
+constexpr int HBK = 128;          // bf16: key/value rows per tile
+constexpr int CONSUMERS = 256;    // bf16: two consumer warpgroups
+constexpr int H_THREADS = CONSUMERS + 32;  // bf16: and the producer warp
 
 // ---------------------------------------------------------------------------
-// bf16: WMMA tensor-core tiles
+// bf16: TMA, wgmma, warp specialisation
 // ---------------------------------------------------------------------------
 
 template <int D, int V>
-struct Bf16Smem {
-  static constexpr int LDQ = D + 8, LDK = D + 8, LDV = V + 8;
-  static constexpr int LDS = BK + 4, LDP = BK + 8, LDO = V + 4;
-  static constexpr int Q_BYTES = align128(BQ * LDQ * 2);
-  static constexpr int S_BYTES = align128(BQ * LDS * 4);
-  static constexpr int K_BYTES = align128(BK * LDK * 2);
-  static constexpr int V_BYTES = align128(BK * LDV * 2);
-  // the q tile is read once into registers; the score tile reuses it
-  static constexpr int Q_OFF = 0, S_OFF = 0;
-  static constexpr int P_OFF = Q_BYTES > S_BYTES ? Q_BYTES : S_BYTES;
-  static constexpr int KV_OFF = P_OFF + align128(BQ * LDP * 2);
-  static constexpr int KV_STAGE = K_BYTES + V_BYTES;  // two stages
-  static constexpr int END = KV_OFF + 2 * KV_STAGE;
-  // the fp32 output tile reuses the buffer from offset 0 after the loop
-  static constexpr int O_BYTES = BQ * LDO * 4;
-  static constexpr int BYTES = END > O_BYTES ? END : O_BYTES;
+struct HopperSmem {
+  using QT = Tile<HBQ, D>;
+  using KT = Tile<HBK, D>;
+  using VT = Tile<HBK, V>;
+  static constexpr int Q_OFF = 0;
+  static constexpr int V_IN_STAGE = align1024(KT::BYTES);
+  static constexpr int STAGE = V_IN_STAGE + align1024(VT::BYTES);
+  static constexpr int STAGE_OFF = Q_OFF + align1024(QT::BYTES);
+  static constexpr int BAR_OFF = STAGE_OFF + 2 * STAGE;
+  // 5 mbarriers, and room to align the dynamic buffer to 1024 bytes
+  static constexpr int BYTES = BAR_OFF + 64 + 1024;
 };
 
 template <int D, int V>
-__global__ void __launch_bounds__(NUM_THREADS)
-hstu_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ out,
-              const int* __restrict__ lengths,
+__global__ void __launch_bounds__(H_THREADS, 1)
+hstu_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
+              const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map,
+              bf16* __restrict__ out, const int* __restrict__ lengths,
               const int* __restrict__ num_targets, int n, int h_count,
               float alpha, float inv_scale, MaskParams p) {
-  using namespace nvcuda;
-  using L = Bf16Smem<D, V>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  float* ss = reinterpret_cast<float*>(smem + L::S_OFF);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  float* os = reinterpret_cast<float*>(smem);
+  using L = HopperSmem<D, V>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * BQ;
+  const int b = sample_of_rank(lengths, gridDim.z, blockIdx.z, n);
+  const int h = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * HBQ;
   const int seq_len = min(lengths[b], n);
   const int n_t = p.has_targets ? num_targets[b] : 0;
   const size_t head = (size_t)b * n * h_count + h;
-  const int qk_stride = h_count * D, v_stride = h_count * V;
-  const bf16* q_base = q + head * D;
-  const bf16* k_base = k + head * D;
-  const bf16* v_base = v + head * V;
+  const int v_stride = h_count * V;
   bf16* o_base = out + head * V;
 
   if (q0 >= seq_len) {
-    zero_rows<NUM_THREADS, BQ, bf16, V>(o_base, v_stride, q0, n);
+    zero_rows<H_THREADS, HBQ, bf16, V>(o_base, v_stride, q0, n);
     return;
   }
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wrow = warp * 16;  // this warp's first row inside the tile
-  auto k_stage = [&](int stage) {
-    return reinterpret_cast<bf16*>(smem + L::KV_OFF + stage * L::KV_STAGE);
-  };
-  auto v_stage = [&](int stage) {
-    return reinterpret_cast<bf16*>(smem + L::KV_OFF + stage * L::KV_STAGE +
-                                   L::K_BYTES);
-  };
-  const int n_kv = kv_tiles(q0, seq_len, p);
-
-  load_tile_async<NUM_THREADS, BQ, D>(qs, L::LDQ, q_base, qk_stride, q0, seq_len);
-  load_tile_async<NUM_THREADS, BK, D>(k_stage(0), L::LDK, k_base, qk_stride, 0, seq_len);
-  load_tile_async<NUM_THREADS, BK, V>(v_stage(0), L::LDV, v_base, v_stride, 0, seq_len);
-  cp_async_commit();
-  cp_async_wait_all();
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;   // [2]: k and v of a stage landed
+  uint64_t* empty = q_full + 3;  // [2]: every consumer warp is done with it
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], qs + wrow * L::LDQ + kk * 16, L::LDQ);
+  const TileRanges tiles = kv_schedule<HBQ, HBK>(q0, seq_len, n_t, p);
+  const int n_kv = tiles.count();
+  unsigned char* qs = smem + L::Q_OFF;
+  if (threadIdx.x >= CONSUMERS) {  // ---- producer ----
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, L::QT::BYTES);
+      tma_load_tile<HBQ, D>(qs, &q_map, q_full, h, q0, b);
+      for (int it = 0; it < n_kv; ++it) {
+        const int s = it & 1;
+        unsigned char* stage = smem + L::STAGE_OFF + s * L::STAGE;
+        mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::KT::BYTES + L::VT::BYTES);
+        const int k0 = tiles.tile(it) * HBK;
+        tma_load_tile<HBK, D>(stage, &k_map, &full[s], h, k0, b);
+        tma_load_tile<HBK, V>(stage + L::V_IN_STAGE, &v_map, &full[s], h, k0,
+                              b);
+      }
+    }
+    return;
   }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[V / 16];
-#pragma unroll
-  for (int nb = 0; nb < V / 16; ++nb) wmma::fill_fragment(acc[nb], 0.0f);
-  __syncthreads();  // the score tile overwrites the q tile
 
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    const bf16* ks = k_stage(kt & 1);
-    const bf16* vs = v_stage(kt & 1);
-    if (kt + 1 < n_kv) {  // prefetch the next tile into the other stage
-      load_tile_async<NUM_THREADS, BK, D>(k_stage((kt + 1) & 1), L::LDK, k_base,
-                             qk_stride, k0 + BK, seq_len);
-      load_tile_async<NUM_THREADS, BK, V>(v_stage((kt + 1) & 1), L::LDV, v_base,
-                             v_stride, k0 + BK, seq_len);
-      cp_async_commit();
+  // ---- consumers: warpgroup wg owns query rows [q0 + qw, q0 + qw + 64) ----
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int qw = wg * 64;
+  const int r_lo = 16 * warp + lane / 4;  // accumulator rows r_lo, r_lo + 8
+  const int c_lo = 2 * (lane % 4);        // columns 8 i + c_lo (+ 1)
+
+  float o_acc[V / 2];
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) o_acc[i] = 0.0f;
+  mbar_wait(q_full, 0);
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it & 1;
+    const int k0 = tiles.tile(it) * HBK;
+    unsigned char* ks = smem + L::STAGE_OFF + s * L::STAGE;
+    unsigned char* vs = ks + L::V_IN_STAGE;
+    mbar_wait(&full[s], (it >> 1) & 1);
+    if (k0 + HBK > seq_len) {  // v rows past the length read as zero
+      zero_tile_rows<HBK, V, CONSUMERS>(vs, seq_len - k0, tid);
+      fence_async_smem();
+      named_barrier(1, CONSUMERS);
     }
 
-    // S = Q K^T for this warp's 16 rows
+    // S = Q K^T: [64 query rows, 128 key columns]
+    float sacc[HBK / 2];
 #pragma unroll
-    for (int nb = 0; nb < BK / 16; ++nb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.0f);
+    for (int i = 0; i < HBK / 2; ++i) sacc[i] = 0.0f;
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, ks + nb * 16 * L::LDK + kk * 16, L::LDK);
-        wmma::mma_sync(s, qa[kk], kb, s);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<HBK, 0, 0>::ss(sacc, desc_k_major<HBQ, D>(qs, qw, 16 * kk),
+                           desc_k_major<HBK, D>(ks, 0, 16 * kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+
+    // P = mask * SiLU(alpha S) / scale, cast to bf16 as the A operand; the
+    // mask as one bit per register, computed in a rolled loop where the
+    // tile needs it
+    uint64_t valid = ~0ull;
+    if (!tile_unmasked(q0 + qw, k0, 64, HBK, seq_len, n_t, p)) {
+      valid = 0;
+#pragma unroll 1
+      for (int i = 0; i < HBK / 2; ++i) {
+        const int row = q0 + qw + r_lo + ((i & 2) ? 8 : 0);
+        const int col = k0 + 8 * (i / 4) + c_lo + (i & 1);
+        valid |= (uint64_t)valid_attn(row, col, seq_len, n_t, p) << i;
       }
-      wmma::store_matrix_sync(ss + wrow * L::LDS + nb * 16, s, L::LDS,
-                              wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // P = mask * SiLU(alpha * S) / scale, cast to v's type; each lane
-    // takes two neighbouring columns of a row
-    const bool unmasked = tile_unmasked(q0, k0, BQ, BK, seq_len, n_t, p);
-#pragma unroll 4
-    for (int r = 0; r < 16; ++r) {
-      const int c = 2 * lane;
-      const float2 sv =
-          *reinterpret_cast<const float2*>(ss + (wrow + r) * L::LDS + c);
-      float v0 = silu_fast(sv.x * alpha) * inv_scale;
-      float v1 = silu_fast(sv.y * alpha) * inv_scale;
-      if (!unmasked) {
-        const int row = q0 + wrow + r, col = k0 + c;
-        if (!valid_attn(row, col, seq_len, n_t, p)) v0 = 0.0f;
-        if (!valid_attn(row, col + 1, seq_len, n_t, p)) v1 = 0.0f;
-      }
-      *reinterpret_cast<__nv_bfloat162*>(ps + (wrow + r) * L::LDP + c) =
-          __floats2bfloat162_rn(v0, v1);
+#pragma unroll
+    for (int i = 0; i < HBK / 2; ++i) {
+      const float val = silu_fast(sacc[i] * alpha) * inv_scale;
+      sacc[i] = (valid >> i) & 1 ? val : 0.0f;
     }
-    __syncwarp();
+    uint32_t pa[HBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HBK / 16; ++kk) acc_to_a(sacc, kk, pa[kk]);
 
     // O += P V
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, ps + wrow * L::LDP + kk * 16, L::LDP);
-#pragma unroll
-      for (int nb = 0; nb < V / 16; ++nb) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, vs + kk * 16 * L::LDV + nb * 16, L::LDV);
-        wmma::mma_sync(acc[nb], pa, vb, acc[nb]);
-      }
+    for (int kk = 0; kk < HBK / 16; ++kk) {
+      Wgmma<V, 0, 1>::rs(o_acc, pa[kk], desc_mn_major<HBK, V>(vs, 16 * kk, 0),
+                         1);
     }
-    cp_async_wait_all();
-    __syncthreads();  // next stage landed; every warp is done with this one
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+#pragma unroll
+    for (int kk = 0; kk < HBK / 16; ++kk) fence_regs(pa[kk]);
+    if (lane == 0) mbar_arrive(&empty[s]);  // k and v of this stage are free
   }
 
+  // ---- out from the registers, as bf16 (rows past the length hold 0) ----
 #pragma unroll
-  for (int nb = 0; nb < V / 16; ++nb) {
-    wmma::store_matrix_sync(os + wrow * L::LDO + nb * 16, acc[nb], L::LDO,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  constexpr int PER_ROW = V / 8;
-  for (int i = lane; i < 16 * PER_ROW; i += 32) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    const int row = q0 + wrow + r;
-    if (row >= n) continue;
-    const float* src = os + (wrow + r) * L::LDO + c;
-    __align__(16) bf16 packed[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) packed[e] = __float2bfloat16(src[e]);
-    *reinterpret_cast<uint4*>(o_base + (size_t)row * v_stride + c) =
-        *reinterpret_cast<const uint4*>(packed);
+  for (int i = 0; i < V / 2; i += 2) {
+    const int row = q0 + qw + r_lo + ((i & 2) ? 8 : 0);
+    if (row < n) {
+      *reinterpret_cast<uint32_t*>(o_base + (size_t)row * v_stride +
+                                   8 * (i / 4) + c_lo) =
+          pack_bf16(o_acc[i], o_acc[i + 1]);
+    }
   }
 }
 
@@ -301,9 +303,10 @@ hstu_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < VC; ++c) acc[i][c] = 0.0f;
 
-  const int n_kv = kv_tiles(q0, seq_len, p);
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
+  const TileRanges tiles = kv_schedule<BQ, BK>(q0, seq_len, n_t, p);
+  const int n_kv = tiles.count();
+  for (int it = 0; it < n_kv; ++it) {
+    const int k0 = tiles.tile(it) * BK;
     __syncthreads();
     load_tile<NUM_THREADS, float, BK, D>(ks, L::LDK, k_base, qk_stride, k0, seq_len);
     load_tile<NUM_THREADS, float, BK, V>(vs, L::LDV, v_base, v_stride, k0, seq_len);
@@ -379,16 +382,20 @@ struct Args {
 
 template <int D, int V>
 cudaError_t launch_dv(int is_bf16, const Args& a) {
-  const dim3 grid((a.n + BQ - 1) / BQ, a.h, a.b);
   if (is_bf16) {
+    CUtensorMap q_map, k_map, v_map;
+    cudaError_t err = make_map(&q_map, a.q, a.b, a.n, a.h, D, HBQ);
+    if (err == cudaSuccess) err = make_map(&k_map, a.k, a.b, a.n, a.h, D, HBK);
+    if (err == cudaSuccess) err = make_map(&v_map, a.v, a.b, a.n, a.h, V, HBK);
+    if (err != cudaSuccess) return err;
     auto kern = hstu_fwd_bf16<D, V>;
-    constexpr int smem_bytes = Bf16Smem<D, V>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
+    constexpr int smem_bytes = HopperSmem<D, V>::BYTES;
+    err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
-    kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lengths,
+    const dim3 grid((a.n + HBQ - 1) / HBQ, a.h, a.b);
+    kern<<<grid, H_THREADS, smem_bytes, a.stream>>>(
+        q_map, k_map, v_map, static_cast<bf16*>(a.out), a.lengths,
         a.num_targets, a.n, a.h, a.alpha, a.inv_scale, a.p);
   } else {
     auto kern = hstu_fwd_f32<D, V>;
@@ -396,6 +403,7 @@ cudaError_t launch_dv(int is_bf16, const Args& a) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
+    const dim3 grid((a.n + BQ - 1) / BQ, a.h, a.b);
     kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<float*>(a.out),

@@ -3,8 +3,10 @@
 Each ``ops/csrc/<name>.cu`` has a plain C interface. On first use it is
 compiled by ``nvcc`` for ``sm_90a`` into
 ``torcheasyrec_tpu_torch/build/lib<name>-<source hash>.so`` and loaded
-with ctypes; an edit of the source or of a shared ``csrc/*.cuh`` header
-changes the hash and so rebuilds. Nothing
+with ctypes; an edit of the source, of a shared ``csrc/*.cuh`` header or
+of the flags changes the hash and so rebuilds. nvcc's output (with
+``ptxas``'s registers, shared memory and spills per kernel) is kept
+beside the library as ``.log``; ``ptxas_usage`` reads it. Nothing
 here runs at import time, so the package imports where there is no
 ``nvcc`` and no card.
 """
@@ -12,17 +14,18 @@ here runs at import time, so the package imports where there is no
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -68,6 +71,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
@@ -82,3 +86,45 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)' for")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def _short(mangled: str) -> str:
+    """The kernel's own name of an Itanium-mangled symbol, with its integer
+    template arguments: ``hstu_bwd_bf16<128,128>``."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = re.match(r"I((?:Li\d+E)+)", mangled[i:])
+    if args:
+        values = re.findall(r"Li(\d+)E", args.group(1))
+        name += "<" + ",".join(values) + ">"
+    return name
+
+
+def ptxas_usage(name: str) -> List[dict]:
+    """Per kernel of library ``name`` (built): registers per thread, static
+    shared memory and spill bytes as ``ptxas -v`` reported them. Dynamic
+    shared memory is set at launch and is not in ptxas's report."""
+    log = library_path(name).with_suffix(".log")
+    rows, entry, spills = [], None, (0, 0)
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if m := _ENTRY.search(line):
+            entry, spills = _short(m.group(1)), (0, 0)
+        elif (m := _SPILLS.search(line)) and entry:
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := _USED.search(line)) and entry:
+            rows.append({"kernel": entry, "registers": int(m.group(1)),
+                         "static_smem_bytes": int(m.group(2) or 0),
+                         "spill_store_bytes": spills[0],
+                         "spill_load_bytes": spills[1]})
+            entry = None
+    return rows
