@@ -13,6 +13,16 @@
 // thousands of rows the work is tens of microseconds, so the launch
 // itself is a large share of the time.
 //
+// Two Hopper designs were timed against this one in turns
+// (tools/row_write_turns/, with their sources): a persistent grid whose
+// warps take 8 to 32 rows at a time, and a bulk-copy ring. Neither was
+// faster once the engine stopped writing the scratch row (it passes the
+// table without that row, so those writes fall past p and are dropped):
+// what is left, 512-byte writes scattered over a table of many GB, this
+// kernel moves at about 76% of the memory rate at the DeepFM step's
+// targets (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py, phase
+// kernel_row_write), and it is the fastest at small K.
+//
 // Contract (the embedding engine's packed update relies on each point):
 // - ids < 0 or >= p are dropped, not clamped;
 // - duplicate targets race: which row wins is undefined, and 16-byte

@@ -90,12 +90,14 @@ def load(name: str) -> ctypes.CDLL:
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)' for")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_INT_TYPES = {"i": "int", "x": "long long"}
 _USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 
 
 def _short(mangled: str) -> str:
     """The kernel's own name of an Itanium-mangled symbol, with its integer
-    template arguments: ``hstu_bwd_bf16<128,128>``."""
+    and integer-type template arguments: ``hstu_bwd_bf16<128,128>``,
+    ``row_write_kernel<long long>``."""
     i = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -103,9 +105,10 @@ def _short(mangled: str) -> str:
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
-    args = re.match(r"I((?:Li\d+E)+)", mangled[i:])
+    args = re.match(r"I((?:Li\d+E|[ix])+)E", mangled[i:])
     if args:
-        values = re.findall(r"Li(\d+)E", args.group(1))
+        values = [value or _INT_TYPES[t] for value, t in
+                  re.findall(r"Li(\d+)E|([ix])", args.group(1))]
         name += "<" + ",".join(values) + ">"
     return name
 

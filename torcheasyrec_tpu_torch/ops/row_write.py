@@ -16,7 +16,9 @@ Semantics, both versions: ids outside ``[0, P)`` are dropped, not
 clamped (the JAX ``.at[ids].set(mode="drop")`` wraps negative ids
 numpy-style first; the engine never sends one). Duplicate targets race,
 so which row wins is undefined: the engine points every duplicate at one
-scratch row that is never read. ids may be int32 (as in the JAX package)
+scratch row that is never read, the table's last, and passes the table
+without it (``table[:-1]``, a view), so that those writes are dropped as
+ids past P. ids may be int32 (as in the JAX package)
 or int64 (as torch indexing gives them); the kernel reads either as it
 is, no conversion pass.
 """

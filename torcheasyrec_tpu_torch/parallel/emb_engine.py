@@ -498,7 +498,8 @@ class EmbeddingEngine:
         gathered row. ``fl(x + fl(y - x))`` may differ from ``y`` by 1 ulp,
         which is what sets the packed result 1 ulp from the unpacked one.
         The first entry of each physical row carries the merged row to
-        its place; every later entry writes the scratch row."""
+        its place; every later entry targets the scratch row, whose writes
+        are dropped."""
         from torcheasyrec_tpu_torch.ops.row_write import write_rows
 
         if g.dense_rows:
@@ -533,7 +534,10 @@ class EmbeddingEngine:
         merged = phys + torch.zeros_like(phys).index_add_(0, first, spread)
         scratch = g.p_rows - 1
         tgt = torch.where(head, pid, pid.new_full((), scratch))
-        write_rows(table, tgt, merged)
+        # the scratch row is the last: through the view without it, every
+        # write to it falls past the end and is dropped (thousands of
+        # 512-byte writes to one address would serialise on the card)
+        write_rows(table[:scratch], tgt, merged)
         scalar_state.update(new_scalar)
 
     # -- per-table access ------------------------------------------------------
