@@ -51,7 +51,9 @@ JSON line each:
    version, ``index_copy_`` (on the targets less the scratch entries) and
    a one-row launch at the real dim-16 targets.
 3. slice: 4 requests of 32 through the port's eval step, then 2 of them
-   again through ``predict_checkpoint`` (parquet in, parquet out), with
+   again through ``predict_checkpoint`` (parquet in, parquet out, through
+   the predict-mode loader; the reserved column ``user_id`` must come
+   through unchanged), with
    the kernel launch counts set to 0 just before and read just after;
    outputs must be finite with probabilities in (0, 1), the two entry
    points must agree, and the whole model with the kernel must match the
@@ -104,6 +106,30 @@ JSON line each:
    bf16 rounding flips add nothing); ``evaluate`` reproduces the AUC of
    ``train_and_evaluate``; the restored model holds the checkpoint's
    tables and row state bit for bit.
+7. train_loader: the uncapped DeepFM trained from a directory of nine
+   parquet files of uneven row counts (330 811 rows, row groups of
+   10 000, ids drawn below the 10 M cap) through the port's loader and
+   the training loop's body (``main.train_epoch``): two epochs with the
+   thread prefetch, two with 4 worker processes (one with a synchronise
+   after every step for the median, one timed as a window). It prints
+   the loader alone (examples/s, batches only read, parsed, pinned and
+   copied), one batch's host-to-device copy (per tensor as the loader
+   copies, from pageable memory, and as one coalesced buffer of the same
+   bytes), the loader-fed and the resident-batch step of the same model,
+   and the device's idle share over 10 profiled loader-fed steps.
+   Checks: each epoch consumes every row once but each shard's final
+   remainder (by a row-id column carried as a reserved column), exactly
+   2 row-write launches a step. Then, at the capped tables,
+   ``train_and_evaluate`` for 10 steps with a save and an eval every 4
+   steps, 2 checkpoints kept, a glob as the eval input and an
+   ``eval_batch_size`` of 6 000; a second model dir trains 4 steps
+   (``edit_config_json``) and resumes with ``continue_train`` to 10.
+   Checks: the kept files, one eval line per save, the eval batches, the
+   step counts, the watermark of the step-4 checkpoint (mid-file), the
+   rows the resumed run reads (those of the straight run's steps 5-10),
+   and the resumed tables and row state against the straight run's within
+   3x the run-to-run noise (a third run of the same steps in memory),
+   floored at 1e-3 of each table's max and 1e-5 of the elements.
 
 Then a ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and as the last line the device record. Any failure raises
@@ -721,7 +747,8 @@ def phase_slice():
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         n_rows = port_main.predict_checkpoint(
-            cfg_path, inp, out_path, checkpoint_path=ckpt, device="cuda")
+            cfg_path, inp, out_path, checkpoint_path=ckpt,
+            reserved_columns="user_id", device="cuda")
         launches = hstu.hstu_attention_fwd.launches
         written = pq.read_table(out_path)
 
@@ -732,6 +759,13 @@ def phase_slice():
             f"kernel launched {launches} times for {n_batches} batches of "
             f"{n_layers} STU layers ({n_rows} rows through predict_checkpoint)"
         )
+    # the predict-mode loader carries the reserved column through unchanged
+    user_ids = np.concatenate([requests[1]["user_id"].to_numpy(),
+                               requests[2]["user_id"].to_numpy()])
+    if written.column_names[0] != "user_id" or not np.array_equal(
+            written["user_id"].to_numpy(), user_ids):
+        raise AssertionError("predict_checkpoint: the reserved column "
+                             "user_id did not come through unchanged")
     predict_errs = {}
     for key in ("probs_is_click", "probs_is_like"):
         col = torch.from_numpy(
@@ -769,6 +803,7 @@ def phase_slice():
           "median_request_ms": float(np.median(times)),
           "forward_ms": fwd_ms, "kernel_launches": launches,
           "predict_checkpoint_rows": n_rows,
+          "predict_checkpoint_reserved_column": "user_id, unchanged",
           "predict_checkpoint_vs_eval_step_max_abs_err": predict_errs,
           "model_vs_plain_max_abs_err": errs, "tol_rel": BF16_TOL,
           "forward_profile": profile_forward(lambda: eval_step(dev_batch))})
@@ -825,6 +860,7 @@ def phase_train():
     from torcheasyrec_tpu_torch import main as port_main
     from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
     from torcheasyrec_tpu_torch.ops import hstu
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
     from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
 
     cfg = parse_pipeline_config(config_text("PALLAS", input_dropout=0.0))
@@ -867,7 +903,7 @@ def phase_train():
                 "PALLAS", input_dropout=0.0, train_path=inp,
                 model_dir=os.path.join(tmp, "model"), num_steps=N_FILE_STEPS))
         result = port_main.train_and_evaluate(cfg_path, device="cuda")
-        ckpt = port_main.latest_checkpoint(os.path.join(tmp, "model"))
+        ckpt = checkpoint_util.latest_checkpoint(os.path.join(tmp, "model"))
         out_path = os.path.join(tmp, "predictions.parquet")
         n_rows = port_main.predict_checkpoint(cfg_path, inp, out_path,
                                               device="cuda")
@@ -1128,10 +1164,12 @@ def phase_timing():
 
 def deepfm_config_text(buckets, model_dir: str = "unused",
                        train_path: str = "unused", eval_path: str = "unused",
-                       num_steps: int = 0, mixed_precision: str = "BF16"):
+                       num_steps: int = 0, mixed_precision: str = "BF16",
+                       train_extra: str = "", data_extra: str = ""):
     """The Criteo DeepFM config of the repo's train benchmark (the port's
     own copy of bench.py:build_config), with ``buckets`` rows per id
-    feature."""
+    feature; ``train_extra`` and ``data_extra`` are lines added to
+    ``train_config`` and ``data_config``."""
     lines = [
         f'train_input_path: "{train_path}"',
         f'eval_input_path: "{eval_path}"',
@@ -1143,12 +1181,14 @@ def deepfm_config_text(buckets, model_dir: str = "unused",
         " constant_learning_rate {} }",
         f"  num_steps: {num_steps}" if num_steps else "  num_epochs: 1",
         f'  mixed_precision: "{mixed_precision}"',
+        train_extra,
         "}",
         "data_config {",
         f"  batch_size: {DEEPFM_BATCH}",
         "  dataset_type: ParquetDataset",
         "  fg_mode: FG_NONE",
         '  label_fields: "label"',
+        data_extra,
         "}",
     ]
     for i in range(13):
@@ -1594,6 +1634,7 @@ def phase_train_deepfm():
     from torcheasyrec_tpu_torch import main as port_main
     from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
     from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
     from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
 
     torch.cuda.synchronize()
@@ -1778,13 +1819,13 @@ def phase_train_deepfm():
         result = port_main.train_and_evaluate(cfg_path, device="cuda")
         file_launches = write_rows.launches - main_launches
         train_eval_s = time.perf_counter() - t0
-        ckpt = port_main.latest_checkpoint(model_dir)
+        ckpt = checkpoint_util.latest_checkpoint(model_dir)
         ckpt_gb = os.path.getsize(ckpt) / 1e9
         t0 = time.perf_counter()
         again = port_main.evaluate(cfg_path, device="cuda")
         fresh, _, tx, _, _ = build_trainer(
             parse_pipeline_config(text), seed=SEED + 1)
-        restored = port_main.restore_checkpoint(ckpt, fresh, tx)
+        restored = checkpoint_util.restore_checkpoint(ckpt, fresh, tx)
         saved = torch.load(ckpt, map_location="cuda", weights_only=True)
         reload_s = time.perf_counter() - t0
     if file_launches != 2 * 3 or result["step"] != 3:
@@ -1846,6 +1887,432 @@ def phase_train_deepfm():
     return launches, step_median
 
 
+# --- phase train_loader: DeepFM from a directory of parquet files -----------
+# uneven files (none a multiple of the batch) of about 40 batches in all;
+# row groups of 10 000 rows, so a batch spans row groups and files
+LOADER_FILE_ROWS = (36_001, 41_377, 29_513, 38_211, 45_055, 30_307, 36_919,
+                    42_229, 31_199)
+LOADER_ROW_GROUP = 10_000
+LOADER_WORKERS = 4
+# batches before a rate window opens: one from each worker, and one more
+LOADER_WARMUP = LOADER_WORKERS + 1
+PROFILED_STEPS = 10
+EVAL_FILE_ROWS = (9_000, 8_000)
+EVAL_BATCH = 6_000  # eval_batch_size, not the train batch: 3 eval batches
+RESUME_STEPS, RESUME_AT, SAVE_STEPS, KEEP_MAX = 10, 4, 4, 2
+
+
+def write_criteo_dir(directory, sizes, buckets, seed: int,
+                     row_group_size=None) -> None:
+    """``part-<i>.parquet`` files of ``sizes`` rows of ``criteo_cols``, each
+    row with a global row id ``rid`` (in file order)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(directory, exist_ok=True)
+    start = 0
+    for i, n in enumerate(sizes):
+        cols = criteo_cols(buckets, seed + i, n)
+        cols["rid"] = pa.array(np.arange(start, start + n, dtype=np.int64))
+        pq.write_table(pa.table(cols),
+                       os.path.join(directory, f"part-{i:02d}.parquet"),
+                       row_group_size=row_group_size)
+        start += n
+
+
+def expected_rids(sizes, batch: int, workers: int) -> np.ndarray:
+    """The row ids one train epoch consumes, sorted: each shard (whole
+    files, file i to shard i % workers, one shard without workers) reads
+    its rows in order and drops its own final remainder."""
+    k = max(workers, 1)
+    starts = np.cumsum((0,) + tuple(sizes))
+    kept = []
+    for w in range(k):
+        rows = np.concatenate([np.arange(starts[i], starts[i + 1])
+                               for i in range(len(sizes)) if i % k == w])
+        kept.append(rows[:len(rows) // batch * batch])
+    return np.sort(np.concatenate(kept))
+
+
+def check_rids(what: str, rids, want: np.ndarray) -> int:
+    got = np.concatenate(rids) if rids else np.zeros(0, np.int64)
+    if len(got) != len(np.unique(got)) or not np.array_equal(np.sort(got),
+                                                              want):
+        raise AssertionError(
+            f"{what}: consumed {len(got)} rows ({len(np.unique(got))} "
+            f"distinct), want each of {len(want)} rows once")
+    return len(got)
+
+
+def loader_epoch(port_main, train_step, state, dl, synced: bool,
+                 n_batches: int):
+    """One epoch of ``n_batches`` batches through the training loop's body
+    (``main.train_epoch``) fed by the loader ``dl``: (state, row ids
+    consumed, per-step ms with a synchronise after each step when
+    ``synced``, else the ms per step of the window from step
+    LOADER_WARMUP (every worker has started) to the last, synchronised at
+    both ends). The loop stops at the last batch, so the workers' exit
+    stays out of the window."""
+    rids, step_ms, marks = [], [], []
+    t = [time.perf_counter()]
+
+    def after_step(st, info):
+        rids.append(info.reserved["rid"].to_numpy())
+        if synced:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_ms.append((now - t[0]) * 1e3)
+            t[0] = now
+        elif len(rids) == LOADER_WARMUP:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+    batches = dl()
+    try:
+        state, _, _ = port_main.train_epoch(
+            train_step, state, batches, {}, state["step"] + n_batches,
+            after_step)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        batches.close()
+    if not synced:
+        step_ms = [(end - marks[0]) * 1e3 / (len(rids) - LOADER_WARMUP)]
+    return state, rids, step_ms
+
+
+def loader_alone(dl, n_batches: int) -> dict:
+    """Examples/s of the loader alone: ``n_batches`` batches read, parsed,
+    pinned and copied to the card, timed from batch LOADER_WARMUP (a
+    worker pool's start-up left out) to the last copy's end (its exit
+    left out)."""
+    batches = dl()
+    try:
+        for _ in range(LOADER_WARMUP):
+            next(batches)
+        torch.cuda.synchronize()
+        t0, rows = time.perf_counter(), 0
+        for _, info in itertools.islice(batches, n_batches - LOADER_WARMUP):
+            rows += info.batch_size
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        batches.close()
+    return {"examples_per_s": rows / seconds, "rows": rows,
+            "seconds": seconds}
+
+
+def copy_times(batch_cpu) -> dict:
+    """One batch's host-to-device copy: from pinned memory one tensor at a
+    time as the loader copies it (device ms from CUDA events, and the
+    host's ms to issue the copies), from pageable memory, and as one
+    coalesced pinned buffer of the same bytes (what ``pack.py`` does for
+    the TPU)."""
+    pinned = batch_cpu.pin_memory()
+    nbytes = pinned.nbytes()
+    flat = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+
+    def host_ms(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        return host
+
+    per_tensor = lambda: pinned.to("cuda", non_blocking=True)  # noqa: E731
+    coalesced = lambda: flat.to("cuda", non_blocking=True)  # noqa: E731
+    return {
+        "pinned_bytes_per_batch": nbytes,
+        "tensors_per_batch": len(list(pinned.tensors())),
+        "copy_ms_per_batch": cuda_ms(per_tensor, 20),
+        "copy_host_ms_per_batch": host_ms(per_tensor),
+        "pageable_copy_ms_per_batch": cuda_ms(
+            lambda: batch_cpu.to("cuda"), 20),
+        "coalesced_copy_ms": cuda_ms(coalesced, 20),
+        "coalesced_copy_host_ms": host_ms(coalesced),
+        "copy_gb_per_s": nbytes / cuda_ms(per_tensor, 20) / 1e6,
+    }
+
+
+def table_err(a: dict, b: dict, names) -> tuple:
+    """(largest |a - b| over the tables and their row state, relative to
+    that tensor's largest magnitude; the share of elements farther apart
+    than LAYOUT_TOL of it) between two checkpoints' contents."""
+    worst, beyond, total = 0.0, 0, 0
+    for name in names:
+        pairs = [(a["model"][f"embedding_group.tables.{name}"],
+                  b["model"][f"embedding_group.tables.{name}"])]
+        pairs += [(a["sparse_opt"][name][k], b["sparse_opt"][name][k])
+                  for k in a["sparse_opt"][name]]
+        for x, y in pairs:
+            x, y = x.cuda().float(), y.cuda().float()
+            diff = (x - y).abs()
+            scale = max(float(y.abs().max()), 1e-30)
+            worst = max(worst, float(diff.max()) / scale)
+            beyond += int((diff > LAYOUT_TOL * scale).sum())
+            total += diff.numel()
+    return worst, beyond / total
+
+
+def phase_train_loader():
+    """DeepFM at full width trained from a directory of parquet files
+    through the port's loader, with the thread prefetch and with worker
+    processes; then the checkpointed ``train_and_evaluate`` and its resume
+    at the capped sizes."""
+    import shutil
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    capped = [min(n, CRITEO_CAP) for n in CRITEO_RAW]
+    out = {"phase": "train_loader", "batch": DEEPFM_BATCH,
+           "files": len(LOADER_FILE_ROWS), "rows": sum(LOADER_FILE_ROWS),
+           "row_group_rows": LOADER_ROW_GROUP, "buckets": "uncapped",
+           "ids_drawn_below": CRITEO_CAP}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["tmp_free_gb"] = shutil.disk_usage(tmp).free / 1e9
+        data_dir = os.path.join(tmp, "train")
+        eval_dir = os.path.join(tmp, "eval")
+        t0 = time.perf_counter()
+        # ids below the cap, so the capped tables below read the same files
+        write_criteo_dir(data_dir, LOADER_FILE_ROWS, capped, 100,
+                         LOADER_ROW_GROUP)
+        write_criteo_dir(eval_dir, EVAL_FILE_ROWS, capped, 200)
+        out["write_s"] = time.perf_counter() - t0
+
+        # --- full width: the uncapped tables ------------------------------
+        cfg = parse_pipeline_config(deepfm_config_text(CRITEO_RAW))
+        model, features, _, state, train_step = build_trainer(cfg)
+        state["epoch"] = 0
+        with_workers = parse_pipeline_config(deepfm_config_text(
+            CRITEO_RAW, data_extra=f"  num_workers: {LOADER_WORKERS}"))
+        modes = {"thread": cfg.data_config,
+                 "workers": with_workers.data_config}
+
+        def loader(data_config, **kw):
+            return create_dataloader(data_config, features, data_dir,
+                                     mode="train", reserved_columns=["rid"],
+                                     device="cuda", **kw)
+
+        dls = {m: loader(dc) for m, dc in modes.items()}
+        if [dl.mp_workers for dl in dls.values()] != [0, LOADER_WORKERS]:
+            raise AssertionError("the loaders' worker counts are wrong")
+        wants = {m: expected_rids(LOADER_FILE_ROWS, DEEPFM_BATCH,
+                                  LOADER_WORKERS if m == "workers" else 0)
+                 for m in modes}
+        n_batches = {m: len(w) // DEEPFM_BATCH for m, w in wants.items()}
+        out["loader_alone"] = {m: loader_alone(dl, n_batches[m])
+                               for m, dl in dls.items()}
+        batch_cpu = DataParser(features, labels=["label"]).parse_to_batch(
+            criteo_cols(capped, 300))
+        out["copy"] = copy_times(batch_cpu)
+
+        write_rows.launches = 0
+        fed, steps = {}, 0
+        for m, dl in dls.items():
+            runs = {}
+            for synced in (True, False):
+                state, rids, ms = loader_epoch(port_main, train_step, state,
+                                               dl, synced, n_batches[m])
+                check_rids(f"{m} loader", rids, wants[m])
+                runs[synced] = ms
+                steps += len(rids)
+            fed[m] = {"steps_per_epoch": n_batches[m],
+                      "rows_per_epoch": len(wants[m]),
+                      "step_ms_median": float(np.median(runs[True])),
+                      "step_ms_range": [min(runs[True]), max(runs[True])],
+                      "window_step_ms": runs[False][0],
+                      "examples_per_s": DEEPFM_BATCH / runs[False][0] * 1e3}
+        out["loader_fed"] = fed
+
+        # the device's idle share over loader-fed steps (thread loader)
+        batches = dls["thread"]()
+        try:
+            for _ in range(LOADER_WARMUP):
+                batch, _ = next(batches)
+                train_step(state, batch)
+            resident = batch
+
+            def loader_fed_steps():
+                for b, _ in itertools.islice(batches, PROFILED_STEPS):
+                    train_step(state, b)
+            out["loader_fed_profile"] = profile_forward(loader_fed_steps)
+            steps += LOADER_WARMUP + PROFILED_STEPS
+        finally:
+            batches.close()
+        launches = write_rows.launches
+        if launches != 2 * steps:
+            raise AssertionError(f"row_write launched {launches} times in "
+                                 f"{steps} loader-fed steps")
+        out["row_write_launches_per_step"] = launches / steps
+        # the resident-batch step of the same model, side by side
+        losses, res_ms, res_window = timed_steps(
+            train_step, state, resident, DEEPFM_WARMUP, DEEPFM_STEPS)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"non-finite losses: {losses}")
+        out["resident"] = {"step_ms_median": float(np.median(res_ms)),
+                           "step_ms_range": [min(res_ms), max(res_ms)],
+                           "window_step_ms": res_window,
+                           "examples_per_s": DEEPFM_BATCH / res_window * 1e3}
+        del model, state, train_step, dls, batches, resident
+        torch.cuda.empty_cache()
+
+        # --- checkpoints, evals and the resume, capped tables -------------
+        eval_glob = os.path.join(eval_dir, "part-*.parquet")
+
+        def trainer_config(name):
+            model_dir = os.path.join(tmp, name)
+            path = os.path.join(tmp, f"{name}.config")
+            with open(path, "w") as f:
+                f.write(deepfm_config_text(
+                    capped, model_dir=model_dir, train_path=data_dir,
+                    eval_path=eval_glob, num_steps=RESUME_STEPS,
+                    train_extra=f"  save_checkpoints_steps: {SAVE_STEPS}\n"
+                    f"  keep_checkpoint_max: {KEEP_MAX}",
+                    data_extra=f"  eval_batch_size: {EVAL_BATCH}"))
+            return path, model_dir
+
+        def eval_steps(model_dir):
+            with open(os.path.join(model_dir,
+                                   "train_eval_result_v2.txt")) as f:
+                return [json.loads(line)["global_step"] for line in f]
+
+        def kept(model_dir):
+            return checkpoint_util.list_checkpoints(model_dir)
+
+        write_rows.launches = 0
+        t0 = time.perf_counter()
+        straight_cfg, straight_dir = trainer_config("straight")
+        straight = port_main.train_and_evaluate(straight_cfg, device="cuda")
+        out["straight_s"] = time.perf_counter() - t0
+        resumed_cfg, resumed_dir = trainer_config("resumed")
+        first = port_main.train_and_evaluate(
+            resumed_cfg, device="cuda", edit_config_json=json.dumps(
+                {"train_config.num_steps": RESUME_AT}))
+        mid = torch.load(checkpoint_util.checkpoint_path(resumed_dir,
+                                                         RESUME_AT),
+                         map_location="cpu", weights_only=True)
+        t0 = time.perf_counter()
+        resumed = port_main.train_and_evaluate(resumed_cfg, device="cuda",
+                                               continue_train=True)
+        out["resume_s"] = time.perf_counter() - t0
+        trainer_launches = write_rows.launches
+        a = torch.load(checkpoint_util.checkpoint_path(straight_dir,
+                                                       RESUME_STEPS),
+                       map_location="cpu", weights_only=True)
+        b = torch.load(checkpoint_util.checkpoint_path(resumed_dir,
+                                                       RESUME_STEPS),
+                       map_location="cpu", weights_only=True)
+        out["checkpoint_gb"] = os.path.getsize(checkpoint_util.checkpoint_path(
+            straight_dir, RESUME_STEPS)) / 1e9
+        checks = {
+            "straight steps": (straight["step"], RESUME_STEPS),
+            "first steps": (first["step"], RESUME_AT),
+            "resumed steps": (resumed["step"], RESUME_STEPS),
+            "resumed step and adam count": ((b["step"], b["dense_opt"][
+                "count"]), (RESUME_STEPS, RESUME_STEPS)),
+            "straight kept": (kept(straight_dir), [8, 10]),
+            "resumed kept": (kept(resumed_dir), [8, 10]),
+            "straight evals": (eval_steps(straight_dir), [4, 8, 10]),
+            "resumed evals": (eval_steps(resumed_dir), [4, 4, 8, 10]),
+            "watermark at the end": (b["dataloader_state"],
+                                     a["dataloader_state"]),
+            # step 4 stops inside the first file (36 001 rows)
+            "watermark at the resume": (mid["dataloader_state"],
+                                        {0: RESUME_AT * DEEPFM_BATCH - 1}),
+            "row_write launches": (trainer_launches, 2 * 2 * RESUME_STEPS),
+        }
+        # the rows the resumed run reads: those of the straight run's steps
+        # after RESUME_AT, read with the checkpoint's watermark
+        rcfg = parse_pipeline_config(open(resumed_cfg).read())
+        from torcheasyrec_tpu_torch.features import create_features
+
+        cfeatures = create_features(list(rcfg.feature_configs))
+
+        def rids_of(resume_state, skip):
+            dl = create_dataloader(rcfg.data_config, cfeatures, data_dir,
+                                   mode="train", reserved_columns=["rid"],
+                                   resume_state=resume_state, device="cpu")
+            batches = dl()
+            try:
+                return [info.reserved["rid"].to_numpy() for _, info in
+                        itertools.islice(batches, skip, skip + RESUME_STEPS
+                                         - RESUME_AT)]
+            finally:
+                batches.close()
+        after = np.concatenate(rids_of(None, RESUME_AT))
+        checks["rows after the resume"] = (
+            np.concatenate(rids_of(mid["dataloader_state"], 0)).tolist(),
+            after.tolist())
+        eval_dl = create_dataloader(rcfg.data_config, cfeatures, eval_glob,
+                                    mode="eval", device="cpu")
+        batches = eval_dl()
+        n_eval = sum(EVAL_FILE_ROWS)
+        checks["eval batch sizes"] = (
+            [i.batch_size for _, i in batches],
+            [EVAL_BATCH] * (n_eval // EVAL_BATCH) + [n_eval % EVAL_BATCH])
+        batches.close()
+        for what, (got, want) in checks.items():
+            if got != want:
+                raise AssertionError(f"train_and_evaluate {what}: {got}, "
+                                     f"want {want}")
+        wanted = ("total_loss", "auc", "loss_binary_cross_entropy")
+        for result in (straight, resumed):
+            if not all(np.isfinite(result.get(k, np.nan)) for k in wanted):
+                raise AssertionError(f"train_and_evaluate: {result}")
+
+        # run-to-run noise: the straight run's steps again, in memory
+        # (train_and_evaluate builds its model with seed 42)
+        noise_model, noise_features, _, noise_state, noise_step = (
+            build_trainer(rcfg, seed=42))
+        noise_dl = create_dataloader(rcfg.data_config, noise_features,
+                                     data_dir, mode="train", device="cuda")
+        batches = noise_dl()
+        try:
+            noise_state["epoch"] = 0
+            noise_state, _, _ = port_main.train_epoch(
+                noise_step, noise_state, batches, {}, RESUME_STEPS)
+        finally:
+            batches.close()
+        eg = noise_model.embedding_group
+        noise = {"model": noise_model.state_dict(),
+                 "sparse_opt": eg.opt_state_dict(noise_state["sparse_opt"])}
+        names = list(eg.engine._specs)
+        noise_err, noise_share = table_err(noise, a, names)
+        del noise_model, noise_state, noise_step, noise, eg
+        torch.cuda.empty_cache()
+        err, share = table_err(b, a, names)
+        limit = max(3 * noise_err, LAYOUT_TOL_3_STEPS)
+        share_limit = max(3 * noise_share, LAYOUT_TOL)
+        if not (err <= limit and share <= share_limit):
+            raise AssertionError(
+                f"resumed vs straight after {RESUME_STEPS} steps: {err} of "
+                f"the table's max (limit {limit}), {share} of the elements "
+                f"beyond {LAYOUT_TOL} (limit {share_limit})")
+        out["resume"] = {
+            "steps": RESUME_STEPS, "resumed_at": RESUME_AT,
+            "capped_at": CRITEO_CAP, "save_checkpoints_steps": SAVE_STEPS,
+            "keep_checkpoint_max": KEEP_MAX, "eval_batch_size": EVAL_BATCH,
+            "kept": kept(resumed_dir), "evals": eval_steps(resumed_dir),
+            "watermark_at_resume": mid["dataloader_state"],
+            "max_err_rel_to_table_max": err, "share_beyond_1e-5": share,
+            "noise_max_err": noise_err, "noise_share_beyond_1e-5": noise_share,
+            "limit": limit, "share_limit": share_limit,
+            "straight": straight, "resumed": resumed,
+            "row_write_launches": trainer_launches}
+        del a, b, mid
+    out["row_write_launches"] = launches + trainer_launches
+    emit(out)
+    return launches + trainer_launches, fed
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1877,7 +2344,8 @@ def main() -> int:
     bwd_timing = phase_timing_train(trainer, step_ms)
     del trainer
     torch.cuda.empty_cache()
-    write_launches, _ = phase_train_deepfm()
+    deepfm_launches, _ = phase_train_deepfm()
+    loader_launches, _ = phase_train_loader()
 
     def kernel_row(name, replaces, launches, err, timing, library_ms=None,
                    **extra):
@@ -1905,8 +2373,11 @@ def main() -> int:
         # the same writes (the scratch entries taken out beforehand);
         # slice_ms: the slice's shape over the whole table, as the kernel
         # was first timed
-        kernel_row("row_write", "row_write.py:35", write_launches, write_err,
-                   write_timing, write_library_ms, slice_ms=write_slice_ms),
+        kernel_row("row_write", "row_write.py:35",
+                   deepfm_launches + loader_launches, write_err,
+                   write_timing, write_library_ms, slice_ms=write_slice_ms,
+                   launches_by_path={"train_deepfm": deepfm_launches,
+                                     "train_loader": loader_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

@@ -42,13 +42,14 @@ from torcheasyrec_tpu.modules.fm import FactorizationMachine as JaxFM
 from torcheasyrec_tpu_torch import main as port_main
 from torcheasyrec_tpu_torch import metrics as port_metrics
 from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
 from torcheasyrec_tpu_torch.models.deepfm import DeepFM
 from torcheasyrec_tpu_torch.modules.fm import FactorizationMachine
 from torcheasyrec_tpu_torch.optim.optimizer_builder import (
     create_dense_optimizer,
 )
 from torcheasyrec_tpu_torch.protos import metric_pb2
-from torcheasyrec_tpu_torch.utils import convert
+from torcheasyrec_tpu_torch.utils import checkpoint_util, convert
 from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -292,7 +293,8 @@ def trained(tmp_path_factory):
     jauc = jax_metrics._auc(jprobs, eval_cols["label"].to_numpy())
     return dict(jmodel=jmodel, jstate=jstate, jlosses=jlosses, model=model,
                 state=state, losses=losses, parser=parser, jauc=jauc,
-                eval_path=eval_path, train_cols=train_cols, tmp=tmp)
+                eval_path=eval_path, train_cols=train_cols, tmp=tmp,
+                cfg=cfg, features=features)
 
 
 def test_training_losses_track_jax(trained):
@@ -304,16 +306,19 @@ def test_training_losses_track_jax(trained):
 
 
 def test_eval_auc_within_0_003_of_jax(trained):
+    eval_dl = create_dataloader(trained["cfg"].data_config,
+                                trained["features"], trained["eval_path"],
+                                mode="eval", device="cpu")
     result = port_main._run_eval(
         trained["model"], port_main.make_eval_step(trained["model"]),
-        trained["parser"], [trained["eval_path"]], BATCH, "cpu")
+        eval_dl)
     assert set(result) == {"auc", "loss_binary_cross_entropy"}
     assert trained["jauc"] > 0.6  # the model ranks better than chance
     assert abs(result["auc"] - trained["jauc"]) <= 0.003
     # num_steps stops the pass early
     short = port_main._run_eval(
         trained["model"], port_main.make_eval_step(trained["model"]),
-        trained["parser"], [trained["eval_path"]], BATCH, "cpu", num_steps=2)
+        eval_dl, num_steps=2)
     assert short["auc"] != result["auc"]
 
 
@@ -380,13 +385,13 @@ def test_train_and_evaluate_without_eval_input_skips_eval(trained, tmp_path):
 def test_checkpoint_crosses_between_packed_and_unpacked(trained, tmp_path):
     text, _, model_dir, _ = _train_and_evaluate(
         str(tmp_path), trained["train_cols"][:3], None)
-    ckpt = port_main.latest_checkpoint(model_dir)
+    ckpt = checkpoint_util.latest_checkpoint(model_dir)
     saved = torch.load(ckpt, weights_only=True)
     assert set(saved["sparse_opt"]) == set(TABLES)
 
     def restored(packed):
         _, model, _, _ = _port_model(text, packed=packed)
-        state = port_main.restore_checkpoint(ckpt, model)
+        state = checkpoint_util.restore_checkpoint(ckpt, model)
         assert state["step"] == 3
         eg = model.embedding_group
         assert all(g.packed == packed for g in eg.engine.groups.values())
@@ -411,10 +416,11 @@ def test_checkpoint_crosses_between_packed_and_unpacked(trained, tmp_path):
     tx, _ = create_dense_optimizer(
         parse_pipeline_config(text).train_config.dense_optimizer,
         list(unpacked_model.parameters()))
-    back = port_main._save_checkpoint(str(tmp_path), unpacked_model, tx,
-                                      unpacked_state)
+    back = checkpoint_util.save_checkpoint(str(tmp_path), unpacked_model, tx,
+                                           unpacked_state)
     _, model, _, _ = _port_model(text, packed=True)
-    assert_holds_checkpoint(model, port_main.restore_checkpoint(back, model))
+    assert_holds_checkpoint(model,
+                            checkpoint_util.restore_checkpoint(back, model))
     # both layouts predict the same
     batch = trained["parser"].parse_to_batch(trained["train_cols"][5])
     a = port_main.make_eval_step(packed_model)(batch)[0]["probs"]

@@ -70,6 +70,9 @@ DEEPFM_SLICE_MODULES = [
     "ops.row_write", "parallel.emb_engine", "modules.embedding",
     "modules.fm", "models.rank_model", "models.deepfm", "metrics", "losses",
     "main", "eval", "train_eval", "utils.convert",
+    # the data layer and the checkpointed training loop
+    "datasets.utils", "datasets.dataset", "datasets.parquet_dataset",
+    "utils.checkpoint_util", "utils.config_util", "predict",
 ]
 
 

@@ -31,7 +31,7 @@ from torcheasyrec_tpu_torch.ops import hstu as port_hstu
 from torcheasyrec_tpu_torch.optim.optimizer_builder import (
     create_dense_optimizer,
 )
-from torcheasyrec_tpu_torch.utils import convert
+from torcheasyrec_tpu_torch.utils import checkpoint_util, convert
 from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
 
 BATCH = 4
@@ -291,7 +291,7 @@ def test_train_and_evaluate_checkpoint_round_trip(tmp_path):
     result = port_main.train_and_evaluate(cfg_path, train_input_path=inp,
                                           device="cpu")
     assert result["step"] == 2.0 and np.isfinite(result["total_loss"])
-    ckpt = port_main.latest_checkpoint(str(tmp_path / "model"))
+    ckpt = checkpoint_util.latest_checkpoint(str(tmp_path / "model"))
     assert ckpt.endswith("model.ckpt-2.pt")
     saved = torch.load(ckpt, weights_only=True)
     assert saved["step"] == 2 and saved["dense_opt"]["count"] == 2

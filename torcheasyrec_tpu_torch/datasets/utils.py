@@ -1,18 +1,36 @@
-"""Batch of torch tensors and the padding helpers that shape it.
+"""Batch of torch tensors, the per-batch host metadata beside it, and the
+padding helpers that shape it.
 
 Counterpart of torcheasyrec_tpu/datasets/utils.py. Shapes stay those of
 the JAX package: a sparse feature is either fixed-length
 (``values [B, L]``, ``lengths`` None) or jagged (``values [N_pad]`` with
 ``N_pad`` rounded up to a power of two, ``lengths [B]``); sequence
 features are padded to their configured length. Padding ids are -1 and
-gather zero rows. Every container moves to a device with ``.to(device)``.
+gather zero rows. A ``Batch`` moves to a device with ``.to(device)``
+and into page-locked host memory with ``.pin_memory()``.
 """
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+# checkpoint-position side columns the readers inject (source id: the
+# file's index in the expanded path list; row index within that file)
+CKPT_SOURCE_ID = "__ckpt_source_id__"
+CKPT_ROW_IDX = "__ckpt_row_idx__"
+DATA_TIMESTAMP = "__data_timestamp__"
+HARD_NEG_INDICES = "__hard_neg_indices__"
+
+
+def pa_from_numpy(arr: np.ndarray):
+    """numpy -> pyarrow Array for null-free integer or bool columns, on
+    the zero-copy path (``pa.array(ndarray)`` takes the generic converter;
+    ``from_pandas`` maps float NaN to null, hence integers only)."""
+    import pyarrow as pa
+
+    return pa.Array.from_pandas(arr)
 
 
 def bucketize_size(n: int, minimum: int = 16) -> int:
@@ -21,8 +39,29 @@ def bucketize_size(n: int, minimum: int = 16) -> int:
     return 1 << (m - 1).bit_length()
 
 
-def _to(x: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
-    return None if x is None else x.to(device, non_blocking=True)
+def _map(obj, fn: Callable[[Any], Any]):
+    """``obj`` (a field dataclass, a dict of them or of tensors, a tensor
+    or None) with ``fn`` applied to every tensor (or numpy array, where
+    ``to_numpy`` put one)."""
+    if obj is None:
+        return None
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map(v, fn) for k, v in obj.items()}
+    return type(obj)(*(_map(getattr(obj, f.name), fn)
+                       for f in dataclasses.fields(obj)))
+
+
+def _tensors(obj) -> Iterator[torch.Tensor]:
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
 
 
 @dataclasses.dataclass
@@ -39,19 +78,12 @@ class SparseField:
     def is_fixed(self) -> bool:
         return self.lengths is None
 
-    def to(self, device) -> "SparseField":
-        return SparseField(_to(self.values, device), _to(self.lengths, device),
-                           _to(self.weights, device))
-
 
 @dataclasses.dataclass
 class DenseField:
     """One dense feature: float32 values [B, D]."""
 
     values: torch.Tensor
-
-    def to(self, device) -> "DenseField":
-        return DenseField(_to(self.values, device))
 
 
 @dataclasses.dataclass
@@ -60,10 +92,6 @@ class SequenceDenseField:
 
     values: torch.Tensor
     lengths: torch.Tensor
-
-    def to(self, device) -> "SequenceDenseField":
-        return SequenceDenseField(_to(self.values, device),
-                                  _to(self.lengths, device))
 
 
 @dataclasses.dataclass
@@ -83,15 +111,44 @@ class Batch:
         default_factory=dict
     )
 
-    def to(self, device) -> "Batch":
-        return Batch(
-            {k: v.to(device) for k, v in self.dense_features.items()},
-            {k: v.to(device) for k, v in self.sparse_features.items()},
-            {k: v.to(device) for k, v in self.sequence_sparse_features.items()},
-            {k: v.to(device) for k, v in self.sequence_dense_features.items()},
-            {k: _to(v, device) for k, v in self.labels.items()},
-            {k: _to(v, device) for k, v in self.sample_weights.items()},
-        )
+    def to(self, device, non_blocking: bool = False) -> "Batch":
+        """The batch on ``device``; with ``non_blocking`` the copies from
+        pinned memory are queued on the current stream."""
+        return _map(self, lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "Batch":
+        """The batch in page-locked host memory, from tensors or from the
+        numpy arrays of ``to_numpy`` (``DataLoader``'s pin-memory thread
+        calls this too)."""
+        return _map(self, lambda t: torch.as_tensor(t).pin_memory())
+
+    def to_numpy(self) -> "Batch":
+        """The batch with numpy arrays in place of its CPU tensors (no
+        copy); ``from_numpy`` reverses it."""
+        return _map(self, lambda t: t.numpy())
+
+    def from_numpy(self) -> "Batch":
+        return _map(self, torch.as_tensor)
+
+    def tensors(self) -> Iterator[torch.Tensor]:
+        """Every tensor of the batch."""
+        return _tensors(self)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tensors())
+
+
+@dataclasses.dataclass
+class BatchInfo:
+    """Host-side metadata of one batch: ``checkpoint_info`` maps each
+    source id to the largest row index the batch holds of it;
+    ``reserved`` holds the reserved input columns (Arrow arrays) that
+    predict carries to its output."""
+
+    checkpoint_info: Dict[int, int] = dataclasses.field(default_factory=dict)
+    data_timestamp: Optional[int] = None
+    batch_size: int = 0
+    reserved: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def pad_jagged_np(

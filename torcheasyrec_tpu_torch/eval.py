@@ -1,7 +1,9 @@
 """CLI: ``python -m torcheasyrec_tpu_torch.eval --pipeline_config_path
-<cfg> [--checkpoint_path model.ckpt-N.pt] [--eval_input_path x.parquet]
+<cfg> [--checkpoint_path model.ckpt-N.pt] [--eval_input_path data/]
 [--device cpu]``. Evaluates the checkpoint (default: the latest of the
-config's ``model_dir``) and prints the metrics as one JSON line."""
+config's ``model_dir``) on parquet files, directories or globs, in
+batches of ``eval_batch_size``, and prints the metrics as one JSON
+line."""
 
 import argparse
 import json

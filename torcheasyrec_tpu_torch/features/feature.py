@@ -18,8 +18,6 @@ import pyarrow.compute as pc
 
 from torcheasyrec_tpu_torch.utils.load_class import get_register_class_meta
 
-_UNSET = object()  # _id_bound_cache sentinel (None is a valid value)
-
 _FEATURE_CLASS_MAP: Dict[str, type] = {}
 _meta_cls = get_register_class_meta(_FEATURE_CLASS_MAP)
 
@@ -318,7 +316,9 @@ class BaseFeature(metaclass=_meta_cls):
         self._oneof_name = oneof
         self._is_seq_oneof = oneof.startswith("sequence_")
         self._multival_sep = fg_encoded_multival_sep or chr(3)
-        self._id_bound_cache = _UNSET
+        # a tuple once computed; None (not a sentinel object) until then,
+        # so that a pickled feature (a loader worker's) compares right
+        self._id_bound_cache = None
         for f in ("zch", "dynamicemb"):
             if _has_field_safe(self.config, f):
                 raise NotImplementedError(
@@ -462,7 +462,7 @@ class BaseFeature(metaclass=_meta_cls):
     def _id_bound(self):
         """Range guard for pre-encoded ids: an id past its table's rows
         is wrapped (hash buckets) or clipped (everything else)."""
-        if self._id_bound_cache is not _UNSET:
+        if self._id_bound_cache is not None:
             return self._id_bound_cache
         c = self.config
         if getattr(c, "hash_bucket_size", 0):

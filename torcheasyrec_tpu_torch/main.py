@@ -3,31 +3,36 @@ predict.
 
 Counterpart of torcheasyrec_tpu/main.py (``_create_features``,
 ``_compute_dtype``, ``_build_model_and_optim``, ``_init_state``,
-``make_train_step``, ``make_eval_step``, reduced ``train_and_evaluate``,
-``_run_eval`` and ``evaluate``, and ``predict_checkpoint``). Entry
+``make_train_step``, ``make_eval_step``, ``train_and_evaluate`` on one
+device, ``_run_eval``, ``evaluate`` and ``predict_checkpoint``). Entry
 points take ``device`` (default ``"cuda"``) and raise when CUDA is
-absent unless the caller asked for ``"cpu"``.
+absent unless the caller asked for ``"cpu"``. Every entry point reads
+its input through the dataloader of ``datasets/dataset.py``.
 
 PyTorch updates in place, so the train state is not a pytree threaded
 through the step: the dense parameters and the tables live in the model,
 the dense optimizer holds its own state, and ``state`` carries the sparse
-optimizer state and the step counter. Not ported, and raising where a
+optimizer state, the step and the epoch. Not ported, and raising where a
 config asks for them: the FP16 grad scaler, gradient accumulation,
 gradient clipping, the multi-step scan dispatch, ZCH and host-offloaded
-tables, train metrics, evals in the middle of training, resume and
-fine-tune restore, and the JAX package's data loaders (the trainer and
-the eval loop read parquet directly).
+tables. Train metrics are not computed.
 """
 
 import glob
 import json
+import logging
 import os
-import re
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
-from torcheasyrec_tpu_torch.datasets.utils import Batch
+from torcheasyrec_tpu_torch.datasets.dataset import (
+    create_dataloader,
+    create_writer,
+)
+from torcheasyrec_tpu_torch.datasets.parquet_dataset import _expand_paths
+from torcheasyrec_tpu_torch.datasets.utils import Batch, BatchInfo
 from torcheasyrec_tpu_torch.features import create_features
 from torcheasyrec_tpu_torch.models import create_model
 from torcheasyrec_tpu_torch.models.model import BaseModel
@@ -37,7 +42,9 @@ from torcheasyrec_tpu_torch.optim.optimizer_builder import (
     create_sparse_optimizer,
 )
 from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
-from torcheasyrec_tpu_torch.utils import config_util
+from torcheasyrec_tpu_torch.utils import checkpoint_util, config_util
+
+logger = logging.getLogger("tzrec_tpu_torch")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -187,101 +194,116 @@ def make_eval_step(model: BaseModel, with_loss: bool = True
     return eval_step
 
 
-def _iter_parquet(paths: List[str], batch_size: int):
-    import pyarrow.parquet as pq
-
-    for path in paths:
-        for rb in pq.ParquetFile(path).iter_batches(batch_size=batch_size):
-            yield {name: rb.column(i) for i, name in enumerate(rb.schema.names)}
-
-
-def _iter_train_batches(paths: List[str], batch_size: int):
-    """Full batches of every file in turn; the remainder of each file is
-    dropped, as the JAX package's train mode does."""
-    for cols in _iter_parquet(paths, batch_size):
-        if len(next(iter(cols.values()))) == batch_size:
-            yield cols
-
-
-def latest_checkpoint(model_dir: str) -> Optional[str]:
-    """The ``model.ckpt-<step>.pt`` of the highest step in ``model_dir``."""
-    best, best_step = None, -1
-    for path in glob.glob(os.path.join(model_dir, "model.ckpt-*.pt")):
-        m = re.search(r"model\.ckpt-(\d+)\.pt$", path)
-        if m and int(m.group(1)) > best_step:
-            best, best_step = path, int(m.group(1))
-    return best
-
-
-def _save_checkpoint(model_dir: str, model: BaseModel, tx: DenseOptimizer,
-                     state: Dict[str, Any]) -> str:
-    """``<model_dir>/model.ckpt-<step>.pt``: the model's ``state_dict``
-    (tables in canonical layout), the sparse optimizer state per table
-    (row state of packed groups read out of their rows), the dense
-    optimizer state and the step. Neither depends on the engine's
-    layout, so a checkpoint written packed loads unpacked and back."""
-    path = os.path.join(model_dir, f"model.ckpt-{state['step']}.pt")
-    torch.save(
-        {"model": model.state_dict(),
-         "sparse_opt": model.embedding_group.opt_state_dict(
-             state["sparse_opt"]),
-         "dense_opt": tx.state_dict(), "step": state["step"]},
-        path,
-    )
-    return path
+def train_epoch(
+    train_step,
+    state: Dict[str, Any],
+    batches: Iterable[Tuple[Batch, BatchInfo]],
+    dataloader_state: Dict[int, int],
+    num_steps: int = 0,
+    after_step: Optional[Callable[[Dict[str, Any], BatchInfo], None]] = None,
+    log_every: int = 0,
+) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor], bool]:
+    """The body of the training loop over one epoch's (batch, info)
+    items: a train step per batch, the dataloader watermark
+    (``dataloader_state``, {source_id: last row consumed}) raised to the
+    batch's ``checkpoint_info``, a log line every ``log_every`` steps,
+    then ``after_step(state, info)``. Stops after step ``num_steps``
+    (when > 0). Returns (state, the last step's metrics, whether it
+    stopped at ``num_steps``). Writes nothing itself."""
+    metrics: Dict[str, torch.Tensor] = {}
+    t0, examples = time.perf_counter(), 0
+    for batch, info in batches:
+        state, metrics = train_step(state, batch)
+        examples += info.batch_size
+        for sid, row in info.checkpoint_info.items():
+            dataloader_state[sid] = max(dataloader_state.get(sid, -1), row)
+        step = state["step"]
+        if log_every and step % log_every == 0:
+            rate = examples / max(time.perf_counter() - t0, 1e-9)
+            losses = " ".join(f"{k}={float(v):.5f}"
+                              for k, v in metrics.items())
+            logger.info(f"step {step}: {losses} ({rate:.0f} ex/s)")
+        if after_step is not None:
+            after_step(state, info)
+        if num_steps and step >= num_steps:
+            return state, metrics, True
+    return state, metrics, False
 
 
-def load_model_weights(path: str, model: BaseModel) -> Dict[str, Any]:
-    """Load the model's weights from a checkpoint of ``_save_checkpoint``
-    or a bare state_dict; returns what the file held."""
-    dev = next(iter(model.embedding_group.engine_tables().values())).device
-    ckpt = torch.load(path, map_location=dev, weights_only=True)
-    model.load_state_dict(ckpt.get("model", ckpt))
-    return ckpt
-
-
-def restore_checkpoint(path: str, model: BaseModel,
-                       tx: Optional[DenseOptimizer] = None) -> Dict[str, Any]:
-    """Load a checkpoint of ``_save_checkpoint`` into a model built for
-    training (and into ``tx``); returns the train state beside the model:
-    ``sparse_opt`` and ``step``."""
-    ckpt = load_model_weights(path, model)
-    if tx is not None:
-        tx.load_state_dict(ckpt["dense_opt"])
-    return {"sparse_opt": model.embedding_group.load_opt_state_dict(
-        ckpt["sparse_opt"]), "step": int(ckpt["step"])}
-
-
-def _run_eval(model: BaseModel, eval_step, parser, paths: List[str],
-              batch_size: int, dev, num_steps: int = 0) -> Dict[str, float]:
-    """One pass over the eval input (the remainder batch included, as the
-    JAX package's eval mode keeps it; ``num_steps`` > 0 stops early):
+def _run_eval(model: BaseModel, eval_step, eval_dl, num_steps: int = 0,
+              model_dir: Optional[str] = None, step: int = 0
+              ) -> Dict[str, float]:
+    """One pass over the eval loader (``num_steps`` > 0 stops early):
     the model's metrics, and every loss averaged over the batches as
-    ``loss_<name>``."""
+    ``loss_<name>``. Batch N-1's metrics are updated on the host while
+    batch N computes on the device. With ``model_dir``, the result is
+    appended to ``<model_dir>/train_eval_result_v2.txt`` as a
+    ``{"global_step": step, ...}`` line."""
     metrics = model.init_metrics()
     loss_sums: Dict[str, float] = {}
     n = 0
-    for cols in _iter_parquet(paths, batch_size):
-        batch = parser.parse_to_batch(cols).to(dev)
-        preds, losses = eval_step(batch)
+
+    def _drain(pending) -> None:
+        preds, losses, batch = pending
         model.update_metrics(metrics, preds, batch)
         for k, v in losses.items():
             loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
-        n += 1
-        if num_steps and n >= num_steps:
-            break
+
+    pending = None
+    batches = eval_dl()
+    try:
+        for batch, _ in batches:
+            preds, losses = eval_step(batch)
+            if pending is not None:
+                _drain(pending)
+            pending = (preds, losses, batch)
+            n += 1
+            if num_steps and n >= num_steps:
+                break
+    finally:
+        batches.close()
+    if pending is not None:
+        _drain(pending)
     result = model.compute_metrics(metrics)
     result.update({f"loss_{k}": v / max(n, 1) for k, v in loss_sums.items()})
+    if model_dir:
+        with open(os.path.join(model_dir, "train_eval_result_v2.txt"),
+                  "a") as f:
+            f.write(json.dumps({"global_step": step, **result}) + "\n")
+    logger.info(f"eval @ step {step}: {result}")
     return result
 
 
-def _data_parser(pipeline_config, features):
-    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+def _check_train_options(train_config) -> None:
+    for field, what in (("grad_scaler", "the FP16 grad scaler"),
+                        ("grad_clipping", "gradient clipping")):
+        if train_config.HasField(field):
+            raise NotImplementedError(f"{what} is not ported")
+    if (train_config.gradient_accumulation_steps or 1) > 1:
+        raise NotImplementedError("gradient accumulation is not ported")
+    if (train_config.steps_per_dispatch or 1) > 1:
+        raise NotImplementedError("the multi-step dispatch is not ported")
 
-    data_config = pipeline_config.data_config
-    return DataParser(
-        features, labels=list(data_config.label_fields),
-        sample_weights=list(data_config.sample_weight_fields))
+
+def _eval_input(pipeline_config, explicit: bool) -> Optional[str]:
+    """The eval input of ``train_and_evaluate``: the config's
+    ``eval_input_path`` (files, directories, globs) when it names files
+    that exist. Where it does not, an explicit argument raises; a path
+    from the config is skipped with a warning, as before directories and
+    globs were read."""
+    path = pipeline_config.eval_input_path
+    if not path:
+        return None
+    try:
+        missing = [p for p in _expand_paths(path) if not os.path.exists(p)]
+    except FileNotFoundError:
+        missing = [path]
+    if not missing:
+        return path
+    if explicit:
+        raise FileNotFoundError(f"eval_input_path: {missing} not found")
+    logger.warning(f"eval_input_path {path}: {missing} not found; no eval")
+    return None
 
 
 def train_and_evaluate(
@@ -293,39 +315,35 @@ def train_and_evaluate(
     edit_config_json: Optional[str] = None,
     device="cuda",
 ) -> Dict[str, float]:
-    """Train from parquet input, write one checkpoint, evaluate.
+    """Train from parquet input with checkpoints and evals; returns the
+    step count, the last step's losses and the last eval's result.
 
-    Reads ``train_input_path`` (one parquet file or a comma-separated
-    list) in batches of ``data_config.batch_size``,
-    dropping the remainder, for ``train_config.num_steps`` steps (or
-    ``num_epochs`` passes) on ``device``, then writes
-    ``<model_dir>/model.ckpt-<step>.pt`` (see ``_save_checkpoint``), which
-    ``predict_checkpoint`` and ``evaluate`` load. When ``eval_input_path``
-    (the argument, else the config's) names existing files, the trained
-    model is evaluated on them once, after the checkpoint, and the result
-    is appended to ``<model_dir>/train_eval_result_v2.txt``. Returns the step
-    count, the last step's losses and the eval result. Evals in the
-    middle of training are not ported; resume, fine-tune and config edits
-    raise."""
-    if continue_train or fine_tune_checkpoint or edit_config_json:
-        raise NotImplementedError(
-            "continue_train, fine_tune_checkpoint and edit_config_json are "
-            "not ported")
+    ``edit_config_json`` ({path: value}, ``config_util.edit_config``) is
+    applied first. The input paths (files, directories, globs, comma
+    lists) default to the config's. Trains for ``train_config.num_steps``
+    steps (or ``num_epochs`` passes) on ``device`` through the
+    dataloader (remainder dropped, ``shuffle`` and ``num_workers`` as
+    ``data_config`` says). Saves ``<model_dir>/model.ckpt-<step>.pt``
+    every ``save_checkpoints_steps`` steps, after every
+    ``save_checkpoints_epochs`` epochs and at the end, keeping the last
+    ``keep_checkpoint_max``; each save is followed by an eval on the eval
+    input (where there is one; see ``_eval_input``), which appends a line
+    to ``<model_dir>/train_eval_result_v2.txt``. ``continue_train``
+    resumes from the latest checkpoint of ``model_dir``: weights,
+    optimizer states, step, epoch, and the rows of that epoch already
+    consumed. ``fine_tune_checkpoint`` (else the config's) starts from a
+    checkpoint or a bare state_dict, restoring what it holds."""
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
+    if edit_config_json:
+        config_util.edit_config(pipeline_config, json.loads(edit_config_json))
     if train_input_path:
         pipeline_config.train_input_path = train_input_path
     if eval_input_path:
         pipeline_config.eval_input_path = eval_input_path
     train_config = pipeline_config.train_config
-    for field, what in (("grad_scaler", "the FP16 grad scaler"),
-                        ("grad_clipping", "gradient clipping"),
-                        ("fine_tune_checkpoint", "fine-tune restore")):
-        if train_config.HasField(field):
-            raise NotImplementedError(f"{what} is not ported")
-    if (train_config.gradient_accumulation_steps or 1) > 1:
-        raise NotImplementedError("gradient accumulation is not ported")
-    if (train_config.steps_per_dispatch or 1) > 1:
-        raise NotImplementedError("the multi-step dispatch is not ported")
+    data_config = pipeline_config.data_config
+    _check_train_options(train_config)
+    eval_path = _eval_input(pipeline_config, bool(eval_input_path))
 
     dev = resolve_device(device)
     model, features, sparse_sched = _build_model_and_optim(
@@ -334,49 +352,91 @@ def train_and_evaluate(
         train_config.dense_optimizer,
         [p for p in model.parameters() if p.requires_grad])
     state = _init_state(model)
-    train_step = make_train_step(model, tx, sparse_sched, dense_sched)
-    parser = _data_parser(pipeline_config, features)
-    batch_size = int(pipeline_config.data_config.batch_size)
-    paths = pipeline_config.train_input_path.split(",")
-
-    num_steps = train_config.num_steps or 0
-    num_epochs = train_config.num_epochs or (1 if not num_steps else 10 ** 9)
-    metrics: Dict[str, torch.Tensor] = {}
-    for epoch in range(num_epochs):
-        state["epoch"] = epoch
-        before = state["step"]
-        for cols in _iter_train_batches(paths, batch_size):
-            batch = parser.parse_to_batch(cols).to(dev)
-            state, metrics = train_step(state, batch)
-            if num_steps and state["step"] >= num_steps:
-                break
-        if (num_steps and state["step"] >= num_steps) or (
-                state["step"] == before):  # done, or the input is empty
-            break
-
+    state["epoch"] = 0
     model_dir = pipeline_config.model_dir
-    os.makedirs(model_dir, exist_ok=True)
+    ckpt_manager = checkpoint_util.CheckpointManager(
+        model_dir,
+        save_checkpoints_steps=train_config.save_checkpoints_steps,
+        save_checkpoints_epochs=train_config.save_checkpoints_epochs,
+        keep_checkpoint_max=train_config.keep_checkpoint_max,
+        save_checkpoints_timestamp_interval=(
+            train_config.save_checkpoints_timestamp_interval),
+        save_checkpoints_timestamps=list(
+            train_config.save_checkpoints_timestamps),
+    )
+    dataloader_state: Dict[int, int] = {}
+    latest = checkpoint_util.latest_checkpoint(model_dir)
+    resumed = bool(continue_train and latest)
+    fine_tune = fine_tune_checkpoint or train_config.fine_tune_checkpoint
+    if resumed or fine_tune:
+        restored = checkpoint_util.restore_checkpoint(
+            latest if resumed else fine_tune, model, tx, strict=resumed)
+        if resumed:
+            dataloader_state = restored["dataloader_state"]
+        del restored["dataloader_state"]
+        state.update(restored)
     from google.protobuf import text_format
 
     with open(os.path.join(model_dir, "pipeline.config"), "w") as f:
         f.write(text_format.MessageToString(pipeline_config))
-    _save_checkpoint(model_dir, model, tx, state)
+
+    train_dl = create_dataloader(
+        data_config, features, pipeline_config.train_input_path,
+        mode="train", resume_state=dataloader_state, device=dev)
+    eval_dl = None
+    if eval_path:
+        eval_dl = create_dataloader(data_config, features, eval_path,
+                                    mode="eval", device=dev)
+    train_step = make_train_step(model, tx, sparse_sched, dense_sched)
+    eval_step = make_eval_step(model)
+    eval_result: Dict[str, float] = {}
+
+    def save_and_eval() -> None:
+        nonlocal eval_result
+        ckpt_manager.save(model, tx, state, dataloader_state)
+        if eval_dl is not None:
+            eval_result = _run_eval(
+                model, eval_step, eval_dl,
+                pipeline_config.eval_config.num_steps or 0, model_dir,
+                state["step"])
+
+    def after_step(state, info: BatchInfo) -> None:
+        if ckpt_manager.should_save(state["step"],
+                                    data_timestamp=info.data_timestamp):
+            save_and_eval()
+
+    num_steps = train_config.num_steps or 0
+    num_epochs = train_config.num_epochs or (1 if not num_steps else 10 ** 9)
+    # a resume continues the epoch its checkpoint was taken in
+    start_epoch = min(state["epoch"], max(num_epochs - 1, 0)) if resumed else 0
+    metrics: Dict[str, torch.Tensor] = {}
+    for epoch in range(start_epoch, num_epochs):
+        if epoch > start_epoch:
+            # the positions belong to one pass: the next replays all rows
+            dataloader_state.clear()
+        state["epoch"] = epoch
+        before = state["step"]
+        batches = train_dl()
+        try:
+            state, epoch_metrics, stop = train_epoch(
+                train_step, state, batches, dataloader_state, num_steps,
+                after_step, train_config.log_step_count_steps)
+        finally:
+            batches.close()
+        metrics = epoch_metrics or metrics
+        # done, or the input is empty (a resumed epoch may have no rows
+        # left: the next one replays them all)
+        if stop or (state["step"] == before
+                    and not (resumed and epoch == start_epoch)):
+            break
+        if train_config.save_checkpoints_epochs and (
+                (epoch + 1) % train_config.save_checkpoints_epochs == 0):
+            save_and_eval()
+
+    save_and_eval()
     result = {"step": float(state["step"])}
     result.update({k: float(v) for k, v in metrics.items()})
-
-    eval_paths = [p for p in pipeline_config.eval_input_path.split(",") if p]
-    missing = [p for p in eval_paths if not os.path.exists(p)]
-    if eval_input_path and missing:
-        raise FileNotFoundError(f"eval_input_path: {missing} not found")
-    if eval_paths and not missing:
-        eval_result = _run_eval(
-            model, make_eval_step(model), parser, eval_paths, batch_size, dev,
-            pipeline_config.eval_config.num_steps or 0)
-        with open(os.path.join(model_dir, "train_eval_result_v2.txt"),
-                  "a") as f:
-            f.write(json.dumps({"global_step": state["step"],
-                                **eval_result}) + "\n")
-        result.update(eval_result)
+    result.update(eval_result)
     return result
 
 
@@ -389,22 +449,25 @@ def evaluate(
 ) -> Dict[str, float]:
     """Evaluate a checkpoint (``checkpoint_path``, else the latest of the
     config's ``model_dir``, else the seeded init) on ``eval_input_path``
-    (else the config's); writes the result as JSON to
-    ``<model_dir>/<eval_result_filename>`` and returns it."""
+    (else the config's; files, directories, globs) in batches of
+    ``eval_batch_size`` (else ``batch_size``); writes the result as JSON
+    to ``<model_dir>/<eval_result_filename>`` and returns it."""
     dev = resolve_device(device)
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
     if eval_input_path:
         pipeline_config.eval_input_path = eval_input_path
     model_dir = pipeline_config.model_dir
     model, features = build_model(pipeline_config, dev)
-    ckpt = checkpoint_path or latest_checkpoint(model_dir)
+    ckpt = checkpoint_path or checkpoint_util.latest_checkpoint(model_dir)
+    step = 0
     if ckpt:
-        load_model_weights(ckpt, model)
-    result = _run_eval(
-        model, make_eval_step(model), _data_parser(pipeline_config, features),
-        pipeline_config.eval_input_path.split(","),
-        int(pipeline_config.data_config.batch_size), dev,
-        pipeline_config.eval_config.num_steps or 0)
+        step = int(checkpoint_util.load_model_weights(ckpt, model).get(
+            "step", 0))
+    eval_dl = create_dataloader(
+        pipeline_config.data_config, features,
+        pipeline_config.eval_input_path, mode="eval", device=dev)
+    result = _run_eval(model, make_eval_step(model), eval_dl,
+                       pipeline_config.eval_config.num_steps or 0, None, step)
     if model_dir:
         os.makedirs(model_dir, exist_ok=True)
         with open(os.path.join(model_dir, eval_result_filename), "w") as f:
@@ -422,58 +485,114 @@ def predict_checkpoint(
     batch_size: Optional[int] = None,
     device="cuda",
 ) -> int:
-    """Batch inference over parquet input; writes ``probs_*`` and
-    ``logits_*`` (plus reserved input columns) to a parquet file.
+    """Batch inference over parquet input (files, directories, globs);
+    writes ``probs_*`` and ``logits_*`` (after the ``reserved_columns`` of
+    the input, carried through unchanged) to ``predict_output_path`` (a
+    ``.parquet`` file, else ``<path>/part-0.parquet``).
 
     ``checkpoint_path`` is a file written by ``train_and_evaluate``, or a
     bare state_dict saved with ``torch.save`` (for example
     ``utils/convert.from_jax_state``'s output). Without one, the latest
     ``model.ckpt-<step>.pt`` of the config's ``model_dir`` is taken, and
     where there is none the model runs from its seeded init.
-    ``predict_input_path`` is one parquet file or a comma-separated list.
-    Returns the rows predicted.
+    ``batch_size`` replaces ``data_config.batch_size`` (as in the JAX
+    package, ``eval_batch_size`` takes precedence where set). Batches
+    come from the predict-mode loader; a writer thread converts and
+    writes batch N while batch N+1 computes. Returns the rows predicted.
     """
     import pyarrow as pa
-    import pyarrow.parquet as pq
-
-    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
 
     dev = resolve_device(device)
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
-    bs = int(batch_size or pipeline_config.data_config.batch_size)
+    if batch_size:
+        pipeline_config.data_config.batch_size = batch_size
     model, features = build_model(pipeline_config, dev)
-    checkpoint_path = checkpoint_path or latest_checkpoint(
+    checkpoint_path = checkpoint_path or checkpoint_util.latest_checkpoint(
         pipeline_config.model_dir)
     if checkpoint_path:
-        load_model_weights(checkpoint_path, model)
+        checkpoint_util.load_model_weights(checkpoint_path, model)
     elif glob.glob(os.path.join(pipeline_config.model_dir, "model.ckpt-*")):
         raise NotImplementedError(
             f"{pipeline_config.model_dir} holds JAX checkpoints; convert "
             "them with utils/convert.from_jax_state and pass checkpoint_path"
         )
-    parser = DataParser(features)
-    eval_step = make_eval_step(model, with_loss=False)
     reserved = [c.strip() for c in (reserved_columns or "").split(",")
                 if c.strip()]
     out_cols = [c.strip() for c in (output_columns or "").split(",")
                 if c.strip()]
-    writer = None
+    dl = create_dataloader(pipeline_config.data_config, features,
+                           predict_input_path, mode="predict",
+                           reserved_columns=reserved, device=dev)
+    eval_step = make_eval_step(model, with_loss=False)
+
+    def convert(preds, reserved_cols) -> Dict[str, pa.Array]:
+        # the reserved input columns first, so predictions stay joinable
+        out: Dict[str, pa.Array] = dict(reserved_cols)
+        for k, v in preds.items():
+            if k.startswith("__") or (out_cols and k not in out_cols):
+                continue
+            v = v.float().cpu().numpy()
+            out[k] = pa.array(v) if v.ndim == 1 else pa.array(list(v))
+        return out
+
+    writer = _AsyncPredictWriter(
+        create_writer(predict_output_path, "ParquetWriter"), convert)
     n = 0
+    batches = dl()
     try:
-        for cols in _iter_parquet(predict_input_path.split(","), bs):
-            preds, _ = eval_step(parser.parse_to_batch(cols).to(dev))
-            out: Dict[str, pa.Array] = {k: cols[k] for k in reserved}
-            for k, v in preds.items():
-                if k.startswith("__") or (out_cols and k not in out_cols):
-                    continue
-                v = v.float().cpu().numpy()
-                out[k] = pa.array(v) if v.ndim == 1 else pa.array(list(v))
-            table = pa.table(out)
-            if writer is None:
-                writer = pq.ParquetWriter(predict_output_path, table.schema)
-            writer.write_table(table)
-            n += len(next(iter(cols.values())))
+        for batch, info in batches:
+            preds, _ = eval_step(batch)
+            writer.put(preds, info.reserved)
+            n += info.batch_size
     finally:
-        if writer is not None:
-            writer.close()
+        batches.close()
+        writer.close()
     return n
+
+
+class _AsyncPredictWriter:
+    """Converts and writes predictions on a thread, so the device computes
+    the next batch meanwhile; the bounded queue keeps at most ``maxsize``
+    batches of predictions in flight. A failure in the thread is raised
+    by the next ``put`` or by ``close``."""
+
+    def __init__(self, writer, convert, maxsize: int = 4) -> None:
+        import queue
+        import threading
+
+        self._writer = writer
+        self._convert = convert
+        self._q: Any = queue.Queue(maxsize=maxsize)
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if self._err is not None:
+                continue  # drain the rest after a failure
+            try:
+                self._writer.write(self._convert(*item))
+            except BaseException as e:  # noqa: BLE001 - raised by put/close
+                self._err = e
+
+    def put(self, *item: Any) -> None:
+        if self._err is not None:
+            raise self._err
+        self._q.put(item)
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._thread.join()
+        try:
+            self._writer.close()
+        except BaseException:  # noqa: BLE001
+            # a writer broken mid-write may fail to close as well; the
+            # first failure is the one to raise
+            if self._err is None:
+                raise
+        if self._err is not None:
+            raise self._err

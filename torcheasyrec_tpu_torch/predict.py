@@ -1,8 +1,12 @@
 """Predict CLI: batch inference from a pipeline config over parquet input.
 
     python -m torcheasyrec_tpu_torch.predict \
-        --pipeline_config_path cfg.config --predict_input_path in.parquet \
-        --predict_output_path out.parquet [--checkpoint_path model.pt]
+        --pipeline_config_path cfg.config --predict_input_path data/ \
+        --predict_output_path out.parquet [--checkpoint_path model.pt] \
+        [--reserved_columns request_id]
+
+The input is parquet files, directories or globs; the reserved columns
+are copied from it beside the predictions.
 """
 
 import argparse

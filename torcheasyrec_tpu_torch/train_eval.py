@@ -1,15 +1,24 @@
-"""Train CLI: train a model from a pipeline config over parquet input.
+"""Train CLI: train and evaluate a model from a pipeline config.
 
     python -m torcheasyrec_tpu_torch.train_eval \
-        --pipeline_config_path cfg.config [--train_input_path in.parquet] \
-        [--device cpu]
+        --pipeline_config_path cfg.config [--train_input_path data/] \
+        [--eval_input_path 'eval/part-*.parquet'] [--continue_train] \
+        [--fine_tune_checkpoint model.pt] \
+        [--edit_config_json '{"train_config.num_steps": 100}'] [--device cpu]
+
+Input paths are parquet files, directories (every ``*.parquet`` below
+them), globs, or comma-separated lists of these; they default to the
+config's. ``--continue_train`` resumes from the latest checkpoint of the
+config's ``model_dir``, mid-epoch where it was taken.
 """
 
 import argparse
+import logging
 
 from torcheasyrec_tpu_torch.main import train_and_evaluate
 
 if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
     parser = argparse.ArgumentParser()
     parser.add_argument("--pipeline_config_path", type=str, required=True)
     parser.add_argument("--train_input_path", type=str, default=None)
