@@ -13,8 +13,13 @@ Criteo-shaped data (the config of the repo's train benchmark, bench.py:
 26 id features at dim 16 plus their WIDE copies at dim 4, 13 dense
 features, batch 8192, deep 512-256-128, final 128-64, BF16, sparse
 rowwise_adagrad and dense adam at lr 0.001) with the tables at the
-reference's real bucket sizes, uncapped, fp32 and packed. Phases, one
-JSON line each:
+reference's real bucket sizes, uncapped, fp32 and packed; and the
+Criteo ranking and multi-task zoo: the port's copies of seven of the JAX
+package's criteo_synth quality-benchmark configs (Wide&Deep, DLRM,
+DCN-v2, MaskNet, MMoE, PLE, DBMTL; batch 4096, 26 tables of dim 16 at
+the configs' buckets, BF16, sparse rowwise_adagrad lr 0.01, dense adam
+lr 0.001) on the JAX package's synthetic Criteo data. Phases, one JSON
+line each:
 
 1. env: the card, CUDA and torch versions; every CUDA kernel of the
    paths is built from the sources here (one nvcc per source, in
@@ -131,7 +136,31 @@ JSON line each:
    3x the run-to-run noise (a third run of the same steps in memory),
    floored at 1e-3 of each table's max and 1e-5 of the elements.
 
-Then a ``kernels`` line, the card's name and power limit as nvidia-smi
+8. train_zoo: the criteo_synth data written by the port's generator
+   (``benchmark/synthetic.ensure_dataset``: 262 144 train rows from seed
+   1, 65 536 eval rows from seed 2), then for each of the seven configs,
+   its paths redirected: one epoch through ``train_and_evaluate`` (64
+   steps of 4096 through the loader, an eval pass at the end), with the
+   row-write count set to 0 just before and read just after; ``evaluate``
+   and ``predict_checkpoint`` (the first 2 eval batches) of its
+   checkpoint; then its step on a resident batch (median of 20
+   synchronised steps after 5 of warm-up, a 20-step window, the idle
+   share of 10 profiled steps, peak memory). Checks: exactly 64 steps and
+   one row-write launch a step per packed group with tables past the
+   dense lane (2 for Wide&Deep, 1 for the others), the timed steps too;
+   finite losses; every AUC of the config's pinned labels
+   (``benchmark/configs/base_eval_metric.json``, from the JAX package on
+   a TPU) within 0.02 of its label, the bound the JAX package's own run
+   off the TPU uses (the distance to the pinned 0.005/0.006 threshold is
+   printed, not checked); ``evaluate`` reproduces the trainer's AUCs; the
+   predicted ``probs_*`` finite in (0, 1) and every column equal to the
+   eval step's outputs on those rows. For DLRM, the ``write_rows`` calls
+   of one real train step are captured, and the kernel and the plain
+   version applied to copies of the table before it must leave tables
+   equal bit for bit to each other and to the step's.
+
+Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
+card's name and power limit as nvidia-smi
 prints them, and as the last line the device record. Any failure raises
 and exits non-zero; without CUDA it exits non-zero before any result.
 """
@@ -2313,6 +2342,251 @@ def phase_train_loader():
     return launches + trainer_launches, fed
 
 
+# --- phase train_zoo: the criteo_synth ranking and multi-task configs ------
+# the port's copies of the JAX package's quality benchmark configs, each
+# at its published width, on the JAX package's synthetic Criteo data
+ZOO_CONFIGS = ["wide_and_deep", "dlrm", "dcn_v2", "masknet", "mmoe", "ple",
+               "dbmtl"]
+ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS = 262_144, 65_536  # ensure_dataset's sizes
+ZOO_AUC_BOUND = 0.02  # the JAX package's bound for a run off the TPU
+ZOO_PREDICT_BATCHES = 2
+ZOO_WARMUP, ZOO_TIMED_STEPS, ZOO_PROFILED_STEPS = 5, 20, 10
+ZOO_BATCH = 4096
+ZOO_SUMMARY = ("metrics", "step_ms_median", "examples_per_s",
+               "idle_share_profiled_steps", "max_memory_allocated_gb",
+               "evaluate_s", "train_and_evaluate_s", "row_write_launches")
+
+
+def zoo_config_dir() -> str:
+    import torcheasyrec_tpu_torch
+
+    return os.path.join(os.path.dirname(torcheasyrec_tpu_torch.__file__),
+                        "benchmark", "configs")
+
+
+def write_targets(model, step, state, batch):
+    """(table before the write, targets, rows, table after) of every
+    ``write_rows`` call of one real train step, in call order."""
+    from torcheasyrec_tpu_torch.ops import row_write
+
+    calls, real = [], row_write.write_rows
+
+    def capture(table, ids, rows):
+        before = table.clone()
+        real(table, ids, rows)  # counts on the module's name, ``capture``
+        calls.append((before, ids.clone(), rows.clone(), table.clone()))
+        return table
+
+    capture.launches = real.launches
+    row_write.write_rows = capture
+    try:
+        step(state, batch)
+    finally:
+        row_write.write_rows = real
+        real.launches = capture.launches
+    return calls
+
+
+def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
+    """One criteo_synth config through the entry points: an epoch of
+    ``train_and_evaluate``, ``evaluate`` and ``predict_checkpoint`` of its
+    checkpoint; then the step timed on a resident batch."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+    from torcheasyrec_tpu_torch.ops.row_write import (
+        _torch_write_rows,
+        write_rows,
+    )
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    model_dir = os.path.join(tmp, name)
+    edits = json.dumps({"model_dir": model_dir})
+    src = os.path.join(zoo_config_dir(), "criteo_synth", f"{name}.config")
+    write_rows.launches = 0
+    t0 = time.perf_counter()
+    result = port_main.train_and_evaluate(
+        src, train_input_path=paths["train"], eval_input_path=paths["eval"],
+        edit_config_json=edits, device="cuda")
+    torch.cuda.synchronize()
+    train_eval_s = time.perf_counter() - t0
+    launches = write_rows.launches
+    cfg_path = os.path.join(model_dir, "pipeline.config")
+    cfg = parse_pipeline_config(open(cfg_path).read())
+    batch_size = cfg.data_config.batch_size
+    steps = ZOO_TRAIN_ROWS // batch_size
+    if result["step"] != steps:
+        raise AssertionError(f"{name}: {result['step']} steps, not {steps}")
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError(f"{name}: not finite: {result}")
+
+    # the pinned labels, from the JAX package's run on a TPU
+    metrics = {}
+    for m, spec in labels["metrics"].items():
+        if m not in result:
+            raise AssertionError(f"{name}: no metric {m} in {result}")
+        dist = result[m] - spec["value"]
+        metrics[m] = {"value": result[m], "label": spec["value"],
+                      "distance": dist, "threshold": spec["threshold"],
+                      "within_threshold": abs(dist) <= spec["threshold"]}
+        if abs(dist) > ZOO_AUC_BOUND:
+            raise AssertionError(
+                f"{name}: {m} {result[m]} is {dist:+.4f} from its label "
+                f"{spec['value']} (bound {ZOO_AUC_BOUND})")
+
+    t0 = time.perf_counter()
+    again = port_main.evaluate(cfg_path, eval_input_path=paths["eval"],
+                               device="cuda")
+    eval_s = time.perf_counter() - t0
+    for m in metrics:
+        if again[m] != result[m]:
+            raise AssertionError(f"{name}: evaluate() {m} {again[m]} against "
+                                 f"{result[m]} at the end of training")
+
+    pred_out = os.path.join(tmp, f"{name}_pred.parquet")
+    t0 = time.perf_counter()
+    n_pred = port_main.predict_checkpoint(cfg_path, pred_in, pred_out,
+                                          device="cuda")
+    predict_s = time.perf_counter() - t0
+    pred = pq.read_table(pred_out)
+    model, features = port_main.build_model(cfg, "cuda")
+    checkpoint_util.load_model_weights(
+        checkpoint_util.latest_checkpoint(model_dir), model)
+    eval_step = port_main.make_eval_step(model, with_loss=False)
+    dl = create_dataloader(cfg.data_config, features, pred_in, mode="eval",
+                           device="cuda")
+    outs = {}
+    for batch, _ in dl():
+        for k, v in eval_step(batch)[0].items():
+            outs.setdefault(k, []).append(v.float().cpu().numpy())
+    outs = {k: np.concatenate(v) for k, v in outs.items()}
+    probs = [k for k in outs if k.startswith("probs")]
+    if n_pred != ZOO_PREDICT_BATCHES * batch_size or not probs or (
+            sorted(pred.column_names) != sorted(outs)):
+        raise AssertionError(f"{name}: predicted {n_pred} rows, columns "
+                             f"{pred.column_names} against {sorted(outs)}")
+    for k, v in outs.items():
+        col = pred.column(k).to_numpy()
+        if not np.array_equal(col, v):
+            raise AssertionError(f"{name}: predict_checkpoint {k} differs "
+                                 "from the eval step's")
+        if k in probs and not (np.isfinite(col).all() and (col > 0).all()
+                               and (col < 1).all()):
+            raise AssertionError(f"{name}: {k} not finite in (0, 1)")
+    del model, eval_step
+
+    # the step on a resident batch: groups, timing, idle share, memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, features, tx, state, step = build_trainer(cfg)
+    eng = model.embedding_group.engine
+    written = sorted(gk for gk, g in eng.groups.items() if g.packed and any(
+        t.name not in g.dense_tables for t in g.specs))
+    if launches != steps * len(written):
+        raise AssertionError(
+            f"{name}: {launches} row-write launches in {steps} steps of "
+            f"{len(written)} written packed groups {written}")
+    train_dl = create_dataloader(cfg.data_config, features, paths["train"],
+                                 mode="train", device="cuda")
+    batches = train_dl()
+    batch = next(iter(batches))[0]
+    batches.close()
+    before = write_rows.launches
+    losses, step_ms, window_ms = timed_steps(step, state, batch, ZOO_WARMUP,
+                                             ZOO_TIMED_STEPS)
+
+    def profiled_steps():
+        for _ in range(ZOO_PROFILED_STEPS):
+            step(state, batch)
+
+    profile = profile_forward(profiled_steps)
+    driven = ZOO_WARMUP + 2 * ZOO_TIMED_STEPS + ZOO_PROFILED_STEPS
+    timed_launches = write_rows.launches - before
+    if timed_launches != driven * len(written):
+        raise AssertionError(f"{name}: {timed_launches} row-write launches "
+                             f"in {driven} timed steps")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: timed losses not finite: {losses}")
+    out = {
+        "config": os.path.relpath(src), "batch": batch_size,
+        "steps": steps, "train_and_evaluate_s": train_eval_s,
+        "train_and_evaluate": result, "metrics": metrics,
+        "evaluate_s": eval_s, "predict_rows": n_pred, "predict_s": predict_s,
+        "written_packed_groups": written,
+        "groups": {gk: {"packed": g.packed, "slot": g.slot,
+                        "physical_rows": g.p_rows}
+                   for gk, g in eng.groups.items()},
+        "row_write_launches": launches,
+        "timed_row_write_launches_not_counted": timed_launches,
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_range": [min(step_ms), max(step_ms)],
+        "window_step_ms": window_ms,
+        "examples_per_s": batch_size / window_ms * 1e3,
+        "idle_share_profiled_steps": profile.get("device_idle_share"),
+        "step_profile": profile,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if name == "dlrm":
+        # one real step's writes, the kernel against the plain version on
+        # copies of the table: a copy has no tolerance
+        calls = write_targets(model, step, state, batch)
+        kept = write_rows.launches
+        for before_t, tgt, rows, after_t in calls:
+            a, b = before_t.clone(), before_t.clone()
+            write_rows(a, tgt, rows)
+            _torch_write_rows(b, tgt, rows)
+            if not (torch.equal(a, b) and torch.equal(a, after_t)):
+                raise AssertionError(
+                    "dlrm: the row write and its plain version leave "
+                    "different tables at a real step's targets")
+        write_rows.launches = kept  # comparisons do not count
+        out["row_write_at_step_targets"] = {
+            "calls": len(calls), "bit_equal": True,
+            "targets": [int(c[1].shape[0]) for c in calls],
+            "table_rows": [int(c[0].shape[0]) for c in calls]}
+    del model, tx, state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_zoo():
+    """The seven criteo_synth configs through the port's entry points."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+
+    with open(os.path.join(zoo_config_dir(), "base_eval_metric.json")) as f:
+        pinned = json.load(f)
+    out = {"phase": "train_zoo", "models": {}}
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = synthetic.ensure_dataset(tmp, ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
+        out["data_s"] = time.perf_counter() - t0
+        pred_in = os.path.join(tmp, "predict_in.parquet")
+        pq.write_table(pq.read_table(paths["eval"]).slice(
+            0, ZOO_PREDICT_BATCHES * ZOO_BATCH), pred_in)
+        for name in ZOO_CONFIGS:
+            t0 = time.perf_counter()
+            key = ("torcheasyrec_tpu_torch/benchmark/configs/criteo_synth/"
+                   f"{name}.config")
+            res = zoo_model(name, paths, pred_in, tmp, pinned[key])
+            if res["batch"] != ZOO_BATCH:
+                raise AssertionError(f"{name}: batch {res['batch']}")
+            res["model_s"] = time.perf_counter() - t0
+            launches += res["row_write_launches"]
+            out["models"][name] = res
+            emit({"phase": "train_zoo_model", "model": name, **res})
+    out["row_write_launches"] = launches
+    emit({"phase": "train_zoo", "data_s": out["data_s"],
+          "row_write_launches": launches,
+          "models": {n: {k: r[k] for k in ZOO_SUMMARY}
+                     for n, r in out["models"].items()}})
+    return launches
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2333,19 +2607,31 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = phase_env()
-    fwd_err = phase_kernel()
-    bwd_err = phase_kernel_bwd()
-    write_err, write_timing, write_library_ms, write_slice_ms = (
-        phase_kernel_row_write(smi))
-    serve_launches, _ = phase_slice()
-    train_fwd_launches, bwd_launches, step_ms, trainer = phase_train()
-    fwd_timing = phase_timing()
-    bwd_timing = phase_timing_train(trainer, step_ms)
+    start, seconds = time.perf_counter(), {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("env", phase_env)
+    fwd_err = timed("kernel", phase_kernel)
+    bwd_err = timed("kernel_bwd", phase_kernel_bwd)
+    write_err, write_timing, write_library_ms, write_slice_ms = timed(
+        "kernel_row_write", phase_kernel_row_write, smi)
+    serve_launches, _ = timed("slice", phase_slice)
+    train_fwd_launches, bwd_launches, step_ms, trainer = timed(
+        "train", phase_train)
+    fwd_timing = timed("timing", phase_timing)
+    bwd_timing = timed("timing_train", phase_timing_train, trainer, step_ms)
     del trainer
     torch.cuda.empty_cache()
-    deepfm_launches, _ = phase_train_deepfm()
-    loader_launches, _ = phase_train_loader()
+    deepfm_launches, _ = timed("train_deepfm", phase_train_deepfm)
+    loader_launches, _ = timed("train_loader", phase_train_loader)
+    zoo_launches = timed("train_zoo", phase_train_zoo)
+    emit({"phase": "timeline", "seconds": seconds,
+          "total_s": time.perf_counter() - start})
 
     def kernel_row(name, replaces, launches, err, timing, library_ms=None,
                    **extra):
@@ -2374,10 +2660,12 @@ def main() -> int:
         # slice_ms: the slice's shape over the whole table, as the kernel
         # was first timed
         kernel_row("row_write", "row_write.py:35",
-                   deepfm_launches + loader_launches, write_err,
-                   write_timing, write_library_ms, slice_ms=write_slice_ms,
+                   deepfm_launches + loader_launches + zoo_launches,
+                   write_err, write_timing, write_library_ms,
+                   slice_ms=write_slice_ms,
                    launches_by_path={"train_deepfm": deepfm_launches,
-                                     "train_loader": loader_launches}),
+                                     "train_loader": loader_launches,
+                                     "train_zoo": zoo_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

@@ -38,6 +38,9 @@ import importlib, pkgutil, sys
 import torcheasyrec_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 assert len(names) > 20, names
+for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
+             "modules.extraction_net", "modules.interaction"):
+    assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if _is_forbidden(m))
@@ -73,6 +76,11 @@ DEEPFM_SLICE_MODULES = [
     # the data layer and the checkpointed training loop
     "datasets.utils", "datasets.dataset", "datasets.parquet_dataset",
     "utils.checkpoint_util", "utils.config_util", "predict",
+    # the Criteo ranking and multi-task zoo
+    "benchmark.synthetic", "models.wide_and_deep", "models.dlrm",
+    "models.dcn", "models.masknet", "models.multi_task_rank",
+    "models.mmoe", "models.ple", "models.dbmtl", "modules.interaction",
+    "modules.masknet", "modules.mmoe", "modules.extraction_net",
 ]
 
 

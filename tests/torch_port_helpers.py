@@ -204,3 +204,159 @@ def deepfm_cols(n: int, seed: int, buckets=DEEPFM_BUCKETS):
     for i, v in enumerate(cats):
         cols[f"cat_{i}"] = pa.array(v)
     return cols
+
+
+# --- the Criteo ranking and multi-task zoo, at a small size ----------------
+# narrowed copies of the criteo_synth configs: 6 id features (tables on
+# both sides of ZOO_DENSE_LANE), 3 raw features, batch 64, MLPs of 8-32
+ZOO_BUCKETS = (500, 50, 7, 300, 120, 3)
+ZOO_N_DENSE = 3
+ZOO_EMB_DIM = 8
+ZOO_DENSE_LANE = 100  # the tables of more rows take the sorted row write
+ZOO_GROUPING_KEY = "cat_1"
+
+_CATS = [f"cat_{i}" for i in range(len(ZOO_BUCKETS))]
+_INTS = [f"int_{i}" for i in range(ZOO_N_DENSE)]
+
+
+def _group(name, feats, kind="DEEP"):
+    names = "".join(f'    feature_names: "{f}"\n' for f in feats)
+    return (f'  feature_groups {{\n    group_name: "{name}"\n{names}'
+            f"    group_type: {kind}\n  }}\n")
+
+
+_RANK_HEAD = (
+    "  num_class: 1\n  losses { binary_cross_entropy {} }\n"
+    "  metrics { auc {} }\n"
+    f'  metrics {{ grouped_auc {{ grouping_key: "{ZOO_GROUPING_KEY}" }} }}\n')
+
+
+def _tasks(relation: str = "") -> str:
+    return (
+        '  task_towers { tower_name: "ctr" label_name: "label"\n'
+        "    mlp { hidden_units: [16, 8] }\n"
+        "    losses { binary_cross_entropy {} } metrics { auc {} }\n"
+        f'    metrics {{ grouped_auc {{ grouping_key: "{ZOO_GROUPING_KEY}" '
+        "} } }\n"
+        '  task_towers { tower_name: "cvr" label_name: "conversion"\n'
+        f"{relation}"
+        "    mlp { hidden_units: [16, 8] } weight: 0.5\n"
+        "    losses { binary_cross_entropy {} } metrics { auc {} } }\n")
+
+
+_DBMTL = ("    bottom_mlp { hidden_units: [32] }\n"
+          "    expert_mlp { hidden_units: [32, 16] }\n    num_expert: 3\n"
+          + _tasks('    relation_tower_names: "ctr"\n'
+                   "    relation_mlp { hidden_units: [8] }\n"))
+_MASK = ("n_mask_blocks: 3 mask_block { hidden_dim: 32 aggregation_dim: 16 }"
+         " top_mlp { hidden_units: [32, 16] }")
+
+# model key -> (groups, model block, head); the key names the parity case
+ZOO_MODELS = {
+    "wide_and_deep": (
+        _group("wide", _CATS, "WIDE") + _group("fm", _CATS)
+        + _group("deep", _CATS + _INTS),
+        "wide_and_deep { deep { hidden_units: [32, 16] }"
+        " final { hidden_units: [16, 8] } wide_embedding_dim: 4 }",
+        _RANK_HEAD),
+    "dlrm": (
+        _group("sparse", _CATS) + _group("dense", _INTS),
+        "dlrm { dense_mlp { hidden_units: [16, 8] }"
+        " final { hidden_units: [32, 16] } }", _RANK_HEAD),
+    "dcn_v1": (
+        _group("all", _CATS + _INTS),
+        "dcn_v1 { cross { cross_num: 2 } deep { hidden_units: [32, 16] }"
+        " final { hidden_units: [16, 8] } }", _RANK_HEAD),
+    "dcn_v2": (
+        _group("all", _CATS + _INTS),
+        "dcn_v2 { backbone { hidden_units: [32] }"
+        " cross { cross_num: 3 low_rank: 8 } deep { hidden_units: [32, 16] }"
+        " final { hidden_units: [16, 8] } }", _RANK_HEAD),
+    "mask_net": (
+        _group("all", _CATS + _INTS),
+        f"mask_net {{ mask_net_module {{ {_MASK} }} }}", _RANK_HEAD),
+    "mask_net_serial": (
+        _group("all", _CATS + _INTS),
+        "mask_net { mask_net_module { n_mask_blocks: 2 use_parallel: false"
+        " mask_block { hidden_dim: 16 reduction_ratio: 0.5 }"
+        " top_mlp { hidden_units: [16] } } }", _RANK_HEAD),
+    "simple_multi_task": (
+        _group("all", _CATS + _INTS),
+        "simple_multi_task {\n" + _tasks() + "}", ""),
+    "mmoe": (
+        _group("all", _CATS + _INTS),
+        "mmoe {\n    expert_mlp { hidden_units: [32, 16] }\n"
+        "    gate_mlp { hidden_units: [8] }\n    num_expert: 3\n"
+        + _tasks() + "}", ""),
+    "ple": (
+        _group("all", _CATS + _INTS),
+        "ple {\n"
+        '    extraction_networks { network_name: "l1"\n'
+        "      expert_num_per_task: 2 share_num: 2\n"
+        "      task_expert_net { hidden_units: [32, 16] }\n"
+        "      share_expert_net { hidden_units: [32, 16] } }\n"
+        '    extraction_networks { network_name: "l2"\n'
+        "      expert_num_per_task: 1 share_num: 1\n"
+        "      task_expert_net { hidden_units: [16] } }\n"
+        + _tasks() + "}", ""),
+    "dbmtl": (_group("all", _CATS + _INTS), "dbmtl {\n" + _DBMTL + "}", ""),
+    "dbmtl_masknet": (
+        _group("all", _CATS + _INTS),
+        f"dbmtl {{\n    mask_net {{ {_MASK} }}\n" + _DBMTL + "}", ""),
+}
+
+
+def zoo_config_text(model: str, batch_size: int = 64,
+                    model_dir: str = "unused", num_steps: int = 0,
+                    train_path: str = "unused", eval_path: str = "unused",
+                    train_extra: str = "") -> str:
+    """The criteo_synth config of ``model`` (a ``ZOO_MODELS`` key) at the
+    small size, fp32, labels ``label`` and ``conversion``."""
+    groups, block, head = ZOO_MODELS[model]
+    lines = [
+        f'train_input_path: "{train_path}"',
+        f'eval_input_path: "{eval_path}"',
+        f'model_dir: "{model_dir}"',
+        "train_config {",
+        "  sparse_optimizer { rowwise_adagrad_optimizer { lr: 0.01 }"
+        " constant_learning_rate {} }",
+        "  dense_optimizer { adam_optimizer { lr: 0.001 }"
+        " constant_learning_rate {} }",
+        f"  num_steps: {num_steps}" if num_steps else "  num_epochs: 1",
+        train_extra,
+        "}",
+        "data_config {",
+        f"  batch_size: {batch_size}",
+        "  dataset_type: ParquetDataset",
+        "  fg_mode: FG_NONE",
+        '  label_fields: "label"',
+        '  label_fields: "conversion"',
+        "}",
+    ]
+    lines += [f'feature_configs {{ raw_feature {{ feature_name: "{f}" }} }}'
+              for f in _INTS]
+    lines += [f'feature_configs {{ id_feature {{ feature_name: "cat_{i}" '
+              f"num_buckets: {n} embedding_dim: {ZOO_EMB_DIM} }} }}"
+              for i, n in enumerate(ZOO_BUCKETS)]
+    lines.append("model_config {\n" + groups + "  " + block + "\n" + head
+                 + "}")
+    return "\n".join(lines)
+
+
+def zoo_table_names(model: str):
+    names = [f"cat_{i}_emb" for i in range(len(ZOO_BUCKETS))]
+    if model == "wide_and_deep":
+        names += [f"{n}__wide" for n in names]
+    return names
+
+
+def zoo_cols(n: int, seed: int):
+    """``deepfm_cols`` at the zoo's buckets, with a ``conversion`` label
+    that fires only on clicks, more often for some ids of ``cat_4``."""
+    cols = deepfm_cols(n, seed, ZOO_BUCKETS)
+    r = np.random.default_rng(seed + 7)
+    w = np.random.default_rng(4321).normal(size=ZOO_BUCKETS[4])
+    p = 1.0 / (1.0 + np.exp(-(w[cols["cat_4"].to_numpy()] - 0.5)))
+    cols["conversion"] = pa.array(
+        (cols["label"].to_numpy() * (r.random(n) < p)).astype(np.float32))
+    return cols

@@ -1,0 +1,104 @@
+"""DBMTL: a shared bottom (optional MaskNet, MLP and MMoE), one MLP
+tower per task, and relation towers: a task with
+``relation_tower_names`` concatenates its hidden output with those
+towers' (their fused outputs where already computed) and runs it
+through its relation MLP.
+
+Counterpart of torcheasyrec_tpu/models/dbmtl.py. Parameters as the JAX
+tree: ``masknet``, ``bottom``, ``mmoe``, and per tower name
+``towers.<name>``, ``relations.<name>``, ``outputs.<name>``.
+"""
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from torcheasyrec_tpu_torch.datasets.utils import Batch
+from torcheasyrec_tpu_torch.models.multi_task_rank import MultiTaskRank
+from torcheasyrec_tpu_torch.modules.masknet import masknet_from_config
+from torcheasyrec_tpu_torch.modules.mlp import mlp_from_config
+from torcheasyrec_tpu_torch.modules.mmoe import MMoE as MMoEModule
+from torcheasyrec_tpu_torch.modules.module import linear, linear_apply
+from torcheasyrec_tpu_torch.utils.config_util import config_to_kwargs
+
+
+class DBMTL(MultiTaskRank):
+    def __init__(self, model_config, features, labels, sample_weights=None,
+                 **kwargs) -> None:
+        super().__init__(model_config, features, labels, sample_weights,
+                         **kwargs)
+        g = self._generator
+        mc = self._model_config
+        dim = self.embedding_group.group_total_dim(self._main_group())
+        self.masknet = self.bottom = self.mmoe = None
+        if mc.HasField("mask_net"):
+            self.masknet = masknet_from_config(
+                dim, config_to_kwargs(mc.mask_net), g)
+            dim = self.masknet.output_dim()
+        if mc.HasField("bottom_mlp"):
+            self.bottom = mlp_from_config(
+                dim, config_to_kwargs(mc.bottom_mlp), g)
+            dim = self.bottom.output_dim()
+        if mc.HasField("expert_mlp"):
+            self.mmoe = MMoEModule(
+                in_features=dim,
+                expert_mlp=config_to_kwargs(mc.expert_mlp),
+                num_expert=int(mc.num_expert),
+                num_task=len(self._task_tower_cfgs),
+                generator=g,
+                gate_mlp=(config_to_kwargs(mc.gate_mlp)
+                          if mc.HasField("gate_mlp") else None),
+            )
+            dim = self.mmoe.output_dim()
+        self.towers = nn.ModuleDict()
+        hidden = {}
+        for t in self._task_tower_cfgs:
+            hidden[t.tower_name] = dim
+            if t.HasField("mlp"):
+                self.towers[t.tower_name] = mlp_from_config(
+                    dim, config_to_kwargs(t.mlp), g)
+                hidden[t.tower_name] = self.towers[t.tower_name].output_dim()
+        self.relations = nn.ModuleDict()
+        self.outputs = nn.ModuleDict()
+        for t in self._task_tower_cfgs:
+            name = t.tower_name
+            out_in = hidden[name]
+            if len(t.relation_tower_names) and t.HasField("relation_mlp"):
+                rel_in = hidden[name] + sum(
+                    hidden[r] for r in t.relation_tower_names)
+                self.relations[name] = mlp_from_config(
+                    rel_in, config_to_kwargs(t.relation_mlp), g)
+                out_in = self.relations[name].output_dim()
+            self.outputs[name] = linear(out_in, int(t.num_class), g)
+
+    def predict(self, grouped: Dict[str, torch.Tensor],
+                batch: Batch) -> Dict[str, torch.Tensor]:
+        dt = self.compute_dtype
+        x = grouped[self._main_group()]
+        if self.masknet is not None:
+            x = self.masknet(x, dt)
+        if self.bottom is not None:
+            x = self.bottom(x, dt)
+        if self.mmoe is not None:
+            task_inputs = self.mmoe(x, dt)
+        else:
+            task_inputs = [x] * len(self._task_tower_cfgs)
+        hidden = {}
+        for t, h in zip(self._task_tower_cfgs, task_inputs):
+            if t.tower_name in self.towers:
+                h = self.towers[t.tower_name](h, dt)
+            hidden[t.tower_name] = h
+        preds, fused = {}, {}
+        for t in self._task_tower_cfgs:
+            name = t.tower_name
+            h = hidden[name]
+            if len(t.relation_tower_names):
+                rel = [fused.get(r, hidden[r]) for r in t.relation_tower_names]
+                h = torch.cat([h] + rel, dim=-1)
+                if name in self.relations:
+                    h = self.relations[name](h, dt)
+            fused[name] = h
+            preds.update(self._task_output_to_prediction(
+                t, linear_apply(self.outputs[name], h, dt)))
+        return preds

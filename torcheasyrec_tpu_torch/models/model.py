@@ -7,12 +7,14 @@ Counterpart of torcheasyrec_tpu/models/model.py. A model is an
 ``loss(predictions, batch)``. Its parameters are the dense ones only;
 the embedding tables live in the EmbeddingGroup's engine and are updated
 by the sparse optimizer. Eval metrics accumulate on the host
-(``init_metrics`` / ``update_metrics`` / ``compute_metrics``); train
+(``init_metrics`` / ``update_metrics`` / ``compute_metrics``; a grouped
+metric reads its grouping column through ``_grouping_value``); train
 metrics and variational dropout are not ported.
 """
 
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -67,6 +69,12 @@ class BaseModel(nn.Module, metaclass=_meta):
             **self._engine_options,
         )
 
+    def _main_group(self) -> str:
+        """The model's input group: "all" where the config has one, else
+        the first non-sequence group, as in the JAX package."""
+        names = self.embedding_group.group_names()
+        return "all" if "all" in names or not names else names[0]
+
     def predict(self, grouped: Dict[str, torch.Tensor],
                 batch: Batch) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -107,7 +115,11 @@ class BaseModel(nn.Module, metaclass=_meta):
         preds = predictions.get("probs", predictions.get("y"))
         preds = preds.float().cpu().numpy()
         for m in metrics:
-            m["metric"].update(preds, label)
+            kw = {}
+            gk = m["config"].get("grouping_key")
+            if gk:
+                kw["grouping_key"] = _grouping_value(batch, gk)
+            m["metric"].update(preds, label, **kw)
 
     def compute_metrics(self, metrics: List[Dict[str, Any]]
                         ) -> Dict[str, float]:
@@ -117,3 +129,27 @@ class BaseModel(nn.Module, metaclass=_meta):
         """Full forward for eval/predict."""
         grouped = self.embedding_group(batch, self.compute_dtype)
         return self.predict(grouped, batch)
+
+
+def _grouping_value(batch: Batch, key: str) -> np.ndarray:
+    """The grouping column of a grouped metric, on the host: a label or
+    sample weight, the first id of a sparse feature (0 where a jagged
+    row has none) or the first value of a dense one."""
+    if key in batch.labels:
+        return batch.labels[key].cpu().numpy()
+    if key in batch.sample_weights:
+        return batch.sample_weights[key].cpu().numpy()
+    if key in batch.sparse_features:
+        f = batch.sparse_features[key]
+        vals = f.values.cpu().numpy()
+        if f.is_fixed:
+            return vals[:, 0]
+        lengths = f.lengths.cpu().numpy()
+        starts = np.concatenate([[0], np.cumsum(lengths)])[:-1]
+        out = np.zeros(len(lengths), vals.dtype)
+        has = lengths > 0
+        out[has] = vals[np.minimum(starts[has], max(len(vals) - 1, 0))]
+        return out
+    if key in batch.dense_features:
+        return batch.dense_features[key].values[:, 0].cpu().numpy()
+    raise KeyError(f"grouping key {key} not found in batch")

@@ -1,0 +1,142 @@
+"""MultiTaskRank: base of the multi-task ranking models, and
+SimpleMultiTask.
+
+Counterpart of torcheasyrec_tpu/models/multi_task_rank.py. Each task
+tower has its label (``label_name``, else the label fields by order),
+losses, metrics, weight and sample weight. Per tower ``<t>``: outputs
+``logits_<t>`` and ``probs_<t>``, losses ``<loss>_<t>`` (times the
+task's weight), metrics ``<metric>_<t>`` on ``probs_<t>``. Pareto loss
+weights and ``task_space_indicator_label`` raise NotImplementedError.
+"""
+
+from typing import Any, Dict, List
+
+import torch
+from torch import nn
+
+from torcheasyrec_tpu_torch.datasets.utils import Batch
+from torcheasyrec_tpu_torch.losses import create_loss_fn
+from torcheasyrec_tpu_torch.metrics import create_metric
+from torcheasyrec_tpu_torch.models.model import _grouping_value
+from torcheasyrec_tpu_torch.models.rank_model import RankModel
+from torcheasyrec_tpu_torch.modules.mlp import mlp_from_config
+from torcheasyrec_tpu_torch.modules.module import linear, linear_apply
+from torcheasyrec_tpu_torch.utils.config_util import config_to_kwargs
+
+
+class MultiTaskRank(RankModel):
+    def __init__(self, model_config, features, labels, sample_weights=None,
+                 **kwargs) -> None:
+        super().__init__(model_config, features, labels, sample_weights,
+                         **kwargs)
+        if model_config.use_pareto_loss_weight:
+            raise NotImplementedError("Pareto loss weights are not ported")
+        self._task_tower_cfgs = list(self._model_config.task_towers)
+        self._task_loss_fns: Dict[str, List[Dict[str, Any]]] = {}
+        for t in self._task_tower_cfgs:
+            if t.task_space_indicator_label:
+                raise NotImplementedError(
+                    f"task tower {t.tower_name}: task_space_indicator_label "
+                    "is not ported")
+            fns = [create_loss_fn(c) for c in t.losses]
+            for lf in fns:
+                if lf["num_class"] > max(int(t.num_class or 1), 1):
+                    raise ValueError(
+                        f"task tower '{t.tower_name}': loss {lf['name']} "
+                        f"needs num_class >= {lf['num_class']}, config has "
+                        f"{t.num_class}")
+            self._task_loss_fns[t.tower_name] = fns
+
+    def _task_label(self, t, idx: int) -> str:
+        return t.label_name if t.label_name else self._labels[idx]
+
+    def _task_output_to_prediction(self, t, output: torch.Tensor
+                                   ) -> Dict[str, torch.Tensor]:
+        suffix = f"_{t.tower_name}"
+        num_class = int(t.num_class or 1)
+        output = output.float()
+        use_softmax = any(lf["name"] == "softmax_cross_entropy"
+                          for lf in self._task_loss_fns[t.tower_name])
+        if num_class == 1 and not use_softmax:
+            logits = output[..., 0] if output.dim() > 1 else output
+            return {f"logits{suffix}": logits,
+                    f"probs{suffix}": torch.sigmoid(logits)}
+        probs = torch.softmax(output, dim=-1)
+        return {f"logits{suffix}": output,
+                f"probs{suffix}": probs[..., 1] if num_class <= 2 else probs}
+
+    def _task_towers(self, in_dim: int) -> None:
+        """``towers`` (each tower's MLP from ``in_dim``, None where it has
+        none) and ``outputs`` (one linear per tower to its classes)."""
+        g = self._generator
+        self.towers = nn.ModuleList(
+            mlp_from_config(in_dim, config_to_kwargs(t.mlp), g)
+            if t.HasField("mlp") else None for t in self._task_tower_cfgs)
+        self.outputs = nn.ModuleList(
+            linear(mlp.output_dim() if mlp is not None else in_dim,
+                   int(t.num_class), g)
+            for t, mlp in zip(self._task_tower_cfgs, self.towers))
+
+    def _towers_predict(self, task_inputs) -> Dict[str, torch.Tensor]:
+        """Each task's input through its tower and output linear."""
+        dt = self.compute_dtype
+        preds = {}
+        for t, h, mlp, out in zip(self._task_tower_cfgs, task_inputs,
+                                  self.towers, self.outputs):
+            if mlp is not None:
+                h = mlp(h, dt)
+            preds.update(self._task_output_to_prediction(
+                t, linear_apply(out, h, dt)))
+        return preds
+
+    def loss(self, predictions: Dict[str, torch.Tensor],
+             batch: Batch) -> Dict[str, torch.Tensor]:
+        losses = {}
+        for i, t in enumerate(self._task_tower_cfgs):
+            label = batch.labels[self._task_label(t, i)]
+            task_w = float(t.weight)
+            logits = predictions[f"logits_{t.tower_name}"]
+            for lf in self._task_loss_fns[t.tower_name]:
+                losses[f"{lf['name']}_{t.tower_name}"] = task_w * self._reduce(
+                    lf["fn"](logits, label), batch,
+                    t.sample_weight_name or None)
+        return losses
+
+    def init_metrics(self) -> List[Dict[str, Any]]:
+        out = []
+        for i, t in enumerate(self._task_tower_cfgs):
+            for c in t.metrics:
+                m = create_metric(c)
+                m["name"] = f"{m['name']}_{t.tower_name}"
+                m["tower"] = t.tower_name
+                m["label"] = self._task_label(t, i)
+                out.append(m)
+        return out
+
+    def update_metrics(self, metrics: List[Dict[str, Any]],
+                       predictions: Dict[str, torch.Tensor],
+                       batch: Batch) -> None:
+        for m in metrics:
+            kw = {}
+            gk = m["config"].get("grouping_key")
+            if gk:
+                kw["grouping_key"] = _grouping_value(batch, gk)
+            preds = predictions[f"probs_{m['tower']}"].float().cpu().numpy()
+            m["metric"].update(preds, batch.labels[m["label"]].cpu().numpy(),
+                               **kw)
+
+
+class SimpleMultiTask(MultiTaskRank):
+    """The main group into one MLP tower per task."""
+
+    def __init__(self, model_config, features, labels, sample_weights=None,
+                 **kwargs) -> None:
+        super().__init__(model_config, features, labels, sample_weights,
+                         **kwargs)
+        self._task_towers(
+            self.embedding_group.group_total_dim(self._main_group()))
+
+    def predict(self, grouped: Dict[str, torch.Tensor],
+                batch: Batch) -> Dict[str, torch.Tensor]:
+        x = grouped[self._main_group()]
+        return self._towers_predict([x] * len(self._task_tower_cfgs))

@@ -244,6 +244,10 @@ class EmbeddingGroup(nn.Module):
             out[f"{name}.sequence"] = sum(d for _, _, d in sg["sequence"])
         return out
 
+    def group_names(self) -> List[str]:
+        """The non-sequence groups' names, in config order."""
+        return list(self._group_slots)
+
     def has_group(self, group_name: str) -> bool:
         return group_name in self._group_slots or group_name in self._seq_groups
 

@@ -4,9 +4,15 @@
 (numpy arrays, e.g. after ``jax.device_get``) onto this package's
 ``state_dict`` names:
 
-- pytree paths join with "."; ``layer_<i>`` becomes ``layers.<i>``;
+- pytree paths join with "."; list entries by their index (the experts
+  and gates of MMoE and PLE, nested for PLE's task experts, the towers
+  and outputs of the multi-task models); dicts keyed by tower name
+  (DBMTL's ``towers``, ``relations``, ``outputs``) by that name;
+  ``layer_<i>`` (MLP layers, cross layers) becomes ``layers.<i>`` and
+  MaskNet's ``block_<i>`` becomes ``blocks.<i>``;
 - linear ``kernel`` [in, out] becomes ``weight`` [out, in], LayerNorm
-  ``scale`` becomes ``weight``;
+  ``scale`` becomes ``weight``; a DCN v1 cross layer's ``w`` and ``b``
+  become ``weight`` and ``bias``;
 - the STU's ``uvqk_w`` [E, F] and ``output_w`` [H*ld, E] become
   ``uvqk_weight`` [F, E] and ``output_weight`` [E, H*ld], ``uvqk_b``
   becomes ``uvqk_bias``;
@@ -36,13 +42,17 @@ import torch
 
 _TRANSPOSED = {"kernel": "weight", "uvqk_w": "uvqk_weight",
                "output_w": "output_weight"}
-_RENAMED = {"scale": "weight", "uvqk_b": "uvqk_bias"}
+# "w" and "b": the DCN v1 cross layers, the only parameters so named
+_RENAMED = {"scale": "weight", "uvqk_b": "uvqk_bias", "w": "weight",
+            "b": "bias"}
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = ""):
-    for key, val in tree.items():
+def _flatten(tree, prefix: str = ""):
+    items = (tree.items() if isinstance(tree, Mapping)
+             else enumerate(tree))
+    for key, val in items:
         path = f"{prefix}{key}"
-        if isinstance(val, Mapping):
+        if isinstance(val, (Mapping, list, tuple)):
             yield from _flatten(val, path + ".")
         else:
             yield path, val
@@ -58,7 +68,7 @@ def from_jax_state(dense_params: Mapping[str, Any],
                 f"{path}: sequence encoders and dense embeddings are not "
                 "ported"
             )
-        parts = re.sub(r"(^|\.)layer_(\d+)(?=\.)", r"\1layers.\2",
+        parts = re.sub(r"(^|\.)(layer|block)_(\d+)(?=\.)", r"\1\2s.\3",
                        path).split(".")
         leaf = parts[-1]
         val = np.array(arr, dtype=np.float32)
