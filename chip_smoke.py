@@ -2344,9 +2344,17 @@ def phase_train_loader():
 
 # --- phase train_zoo: the criteo_synth ranking and multi-task configs ------
 # the port's copies of the JAX package's quality benchmark configs, each
-# at its published width, on the JAX package's synthetic Criteo data
+# at its published width, on the JAX package's synthetic Criteo data; the
+# last four add target attention over the click history (DIN), a
+# sequence group the model ignores, the booster and light nets, and the
+# session-wise JRC loss
 ZOO_CONFIGS = ["wide_and_deep", "dlrm", "dcn_v2", "masknet", "mmoe", "ple",
-               "dbmtl"]
+               "dbmtl", "multi_tower_din", "mmoe_has_sequence",
+               "rocket_launching", "dbmtl_jrc"]
+# packed groups with tables past the dense lane, each one row write a step
+ZOO_WRITTEN_GROUPS = {"wide_and_deep": 2}
+# one real step's writes held bit for bit against the plain version
+ZOO_CAPTURED = ("dlrm", "multi_tower_din")
 ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS = 262_144, 65_536  # ensure_dataset's sizes
 ZOO_AUC_BOUND = 0.02  # the JAX package's bound for a run off the TPU
 ZOO_PREDICT_BATCHES = 2
@@ -2385,6 +2393,24 @@ def write_targets(model, step, state, batch):
         row_write.write_rows = real
         real.launches = capture.launches
     return calls
+
+
+def item_emb_traffic(eng, batch, calls) -> dict:
+    """What the shared ``item_emb`` table (``tgt_item`` and ``click_seq``)
+    brings to one step's row writes: its ids in the batch, the distinct
+    ones, and the written targets that fall in its physical rows (none
+    where the table takes the dense lane)."""
+    gk, off, rows = eng.table_rows("item_emb")
+    g = eng.groups[gk]
+    ids = torch.cat([batch.sparse_features["tgt_item"].values.reshape(-1),
+                     batch.sequence_sparse_features["click_seq"]
+                     .values.reshape(-1)])
+    ids = ids[ids >= 0]
+    lo, hi = off // g.spr, -(-(off + rows) // g.spr)
+    targets = sum(int(((c[1] >= lo) & (c[1] < hi)).sum()) for c in calls)
+    return {"ids": int(ids.numel()), "distinct_ids": int(ids.unique().numel()),
+            "table_rows": rows, "dense_lane": "item_emb" in g.dense_tables,
+            "row_write_targets": targets}
 
 
 def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
@@ -2460,7 +2486,8 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
     outs = {}
     for batch, _ in dl():
         for k, v in eval_step(batch)[0].items():
-            outs.setdefault(k, []).append(v.float().cpu().numpy())
+            if not k.startswith("__"):  # predict writes no hidden layer
+                outs.setdefault(k, []).append(v.float().cpu().numpy())
     outs = {k: np.concatenate(v) for k, v in outs.items()}
     probs = [k for k in outs if k.startswith("probs")]
     if n_pred != ZOO_PREDICT_BATCHES * batch_size or not probs or (
@@ -2468,7 +2495,9 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
         raise AssertionError(f"{name}: predicted {n_pred} rows, columns "
                              f"{pred.column_names} against {sorted(outs)}")
     for k, v in outs.items():
-        col = pred.column(k).to_numpy()
+        col = pred.column(k).to_numpy(zero_copy_only=False)
+        if v.ndim > 1:  # [B, C] logits: a list column
+            col = np.stack(col)
         if not np.array_equal(col, v):
             raise AssertionError(f"{name}: predict_checkpoint {k} differs "
                                  "from the eval step's")
@@ -2484,6 +2513,8 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
     eng = model.embedding_group.engine
     written = sorted(gk for gk, g in eng.groups.items() if g.packed and any(
         t.name not in g.dense_tables for t in g.specs))
+    if len(written) != ZOO_WRITTEN_GROUPS.get(name, 1):
+        raise AssertionError(f"{name}: written packed groups {written}")
     if launches != steps * len(written):
         raise AssertionError(
             f"{name}: {launches} row-write launches in {steps} steps of "
@@ -2528,7 +2559,7 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
         "step_profile": profile,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    if name == "dlrm":
+    if name in ZOO_CAPTURED:
         # one real step's writes, the kernel against the plain version on
         # copies of the table: a copy has no tolerance
         calls = write_targets(model, step, state, batch)
@@ -2539,20 +2570,23 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
             _torch_write_rows(b, tgt, rows)
             if not (torch.equal(a, b) and torch.equal(a, after_t)):
                 raise AssertionError(
-                    "dlrm: the row write and its plain version leave "
+                    f"{name}: the row write and its plain version leave "
                     "different tables at a real step's targets")
         write_rows.launches = kept  # comparisons do not count
         out["row_write_at_step_targets"] = {
             "calls": len(calls), "bit_equal": True,
             "targets": [int(c[1].shape[0]) for c in calls],
             "table_rows": [int(c[0].shape[0]) for c in calls]}
+        if "item_emb" in eng._specs:
+            out["row_write_at_step_targets"]["item_emb"] = item_emb_traffic(
+                eng, batch, calls)
     del model, tx, state, step, batch
     torch.cuda.empty_cache()
     return out
 
 
 def phase_train_zoo():
-    """The seven criteo_synth configs through the port's entry points."""
+    """The eleven criteo_synth configs through the port's entry points."""
     import pyarrow.parquet as pq
 
     from torcheasyrec_tpu_torch.benchmark import synthetic

@@ -190,10 +190,11 @@ def test_rank_model_heads_and_weighted_losses_match_jax(head):
 
 @pytest.mark.parametrize("text,match", [
     (deepfm_config_text().replace(
-        "binary_cross_entropy {}", "jrc_loss {}"),
-     "jrc_loss"),
+        "  num_class: 1", "  variational_dropout {}\n  num_class: 1"),
+     "variational_dropout"),
     (deepfm_config_text().replace(
-        "binary_cross_entropy {}", "binary_focal_loss {}"), "focal"),
+        "deep { hidden_units: [32, 16] }",
+        "deep { hidden_units: [32, 16] use_bn: true }"), "batch norm"),
     (deepfm_config_text().replace(
         "wide_embedding_dim: 4", 'wide_embedding_dim: 4\n'
         '    wide_init_fn: "nn.init.zeros_"'), "wide_init_fn"),

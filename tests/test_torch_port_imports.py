@@ -39,7 +39,9 @@ import torcheasyrec_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 assert len(names) > 20, names
 for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
-             "modules.extraction_net", "modules.interaction"):
+             "modules.extraction_net", "modules.interaction",
+             "modules.sequence", "models.multi_tower",
+             "models.rocket_launching"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -81,6 +83,8 @@ DEEPFM_SLICE_MODULES = [
     "models.dcn", "models.masknet", "models.multi_task_rank",
     "models.mmoe", "models.ple", "models.dbmtl", "modules.interaction",
     "modules.masknet", "modules.mmoe", "modules.extraction_net",
+    # the sequence layer and the rest of the criteo_synth zoo
+    "modules.sequence", "models.multi_tower", "models.rocket_launching",
 ]
 
 

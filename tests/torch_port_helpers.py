@@ -214,6 +214,9 @@ ZOO_N_DENSE = 3
 ZOO_EMB_DIM = 8
 ZOO_DENSE_LANE = 100  # the tables of more rows take the sorted row write
 ZOO_GROUPING_KEY = "cat_1"
+# the sequence configs' target item and click history, one table
+ZOO_ITEMS, ZOO_SEQ_LEN = 200, 6
+ZOO_SESSION_KEY = "cat_2"  # jrc_loss's sessions: 7 ids
 
 _CATS = [f"cat_{i}" for i in range(len(ZOO_BUCKETS))]
 _INTS = [f"int_{i}" for i in range(ZOO_N_DENSE)]
@@ -231,11 +234,21 @@ _RANK_HEAD = (
     f'  metrics {{ grouped_auc {{ grouping_key: "{ZOO_GROUPING_KEY}" }} }}\n')
 
 
-def _tasks(relation: str = "") -> str:
+def _seq_group(encoders: str = "") -> str:
+    return ('  feature_groups {\n    group_name: "seq"\n'
+            '    feature_names: "tgt_item"\n    feature_names: "click_seq"\n'
+            f"    group_type: SEQUENCE\n{encoders}  }}\n")
+
+
+_DIN_MLP = "attn_mlp { hidden_units: [16, 8] }"
+
+
+def _tasks(relation: str = "",
+           ctr_loss: str = "losses { binary_cross_entropy {} }") -> str:
     return (
         '  task_towers { tower_name: "ctr" label_name: "label"\n'
         "    mlp { hidden_units: [16, 8] }\n"
-        "    losses { binary_cross_entropy {} } metrics { auc {} }\n"
+        f"    {ctr_loss} metrics {{ auc {{}} }}\n"
         f'    metrics {{ grouped_auc {{ grouping_key: "{ZOO_GROUPING_KEY}" '
         "} } }\n"
         '  task_towers { tower_name: "cvr" label_name: "conversion"\n'
@@ -305,14 +318,69 @@ ZOO_MODELS = {
         f"dbmtl {{\n    mask_net {{ {_MASK} }}\n" + _DBMTL + "}", ""),
 }
 
+# the sequence layer and the rest of the criteo_synth zoo; apart from
+# ZOO_MODELS, whose parity tests take every output as [B]
+ZOO_SEQ_MODELS = {
+    # a DEEP group with a nested sequence group and two encoders on it
+    "multi_tower": (
+        _group("user", _CATS[:3]).replace(
+            "    group_type: DEEP\n",
+            '    group_type: DEEP\n    sequence_groups { group_name: "hist"\n'
+            '      feature_names: "tgt_item" feature_names: "click_seq" }\n'
+            f'    sequence_encoders {{ din_encoder {{ input: "hist" '
+            f"{_DIN_MLP} }} }}\n"
+            '    sequence_encoders { pooling_encoder { input: "hist"'
+            ' pooling_type: "sum" } }\n')
+        + _group("item", _CATS[3:] + _INTS),
+        'multi_tower { towers { input: "user" mlp { hidden_units: [16] } }'
+        ' towers { input: "item" mlp { hidden_units: [16, 8] } }'
+        " final { hidden_units: [16, 8] } }", _RANK_HEAD),
+    "multi_tower_din": (
+        _group("all", _CATS + _INTS) + _seq_group(),
+        'multi_tower_din { towers { input: "all" mlp { hidden_units: [32, 16] } }'
+        f' din_towers {{ input: "seq" {_DIN_MLP} }}'
+        " final { hidden_units: [16, 8] } }", _RANK_HEAD),
+    "rocket_launching": (
+        _group("all", _CATS + _INTS),
+        "rocket_launching { share_mlp { hidden_units: [32] }"
+        " booster_mlp { hidden_units: [16, 8] } light_mlp { hidden_units: [6] }"
+        " feature_based_distillation: true }", _RANK_HEAD),
+    "rocket_launching_logits": (
+        _group("all", _CATS + _INTS),
+        "rocket_launching { booster_mlp { hidden_units: [16, 8] }"
+        " light_mlp { hidden_units: [8] } }", _RANK_HEAD),
+    # the DIN encoder on the SEQUENCE group is never built (the JAX
+    # package's behaviour): MMoE reads the "all" group only
+    "mmoe_has_sequence": (
+        _group("all", _CATS + _INTS) + _seq_group(
+            f'    sequence_encoders {{ din_encoder {{ input: "seq" '
+            f"{_DIN_MLP} }} }}\n"),
+        "mmoe {\n    expert_mlp { hidden_units: [32, 16] }\n    num_expert: 3\n"
+        + _tasks() + "}", ""),
+    "dbmtl_jrc": (
+        _group("all", _CATS + _INTS),
+        "dbmtl {\n    bottom_mlp { hidden_units: [32] }\n"
+        "    expert_mlp { hidden_units: [32, 16] }\n    num_expert: 3\n"
+        + _tasks('    relation_tower_names: "ctr"\n'
+                 "    relation_mlp { hidden_units: [8] }\n",
+                 "num_class: 2\n    losses { jrc_loss { session_name: "
+                 f'"{ZOO_SESSION_KEY}" }} }}')
+        + "}", ""),
+}
+
+
+def _zoo_spec(model: str):
+    return ZOO_MODELS[model] if model in ZOO_MODELS else ZOO_SEQ_MODELS[model]
+
 
 def zoo_config_text(model: str, batch_size: int = 64,
                     model_dir: str = "unused", num_steps: int = 0,
                     train_path: str = "unused", eval_path: str = "unused",
                     train_extra: str = "") -> str:
-    """The criteo_synth config of ``model`` (a ``ZOO_MODELS`` key) at the
-    small size, fp32, labels ``label`` and ``conversion``."""
-    groups, block, head = ZOO_MODELS[model]
+    """The criteo_synth config of ``model`` (a ``ZOO_MODELS`` or
+    ``ZOO_SEQ_MODELS`` key) at the small size, fp32, labels ``label`` and
+    ``conversion``."""
+    groups, block, head = _zoo_spec(model)
     lines = [
         f'train_input_path: "{train_path}"',
         f'eval_input_path: "{eval_path}"',
@@ -338,6 +406,15 @@ def zoo_config_text(model: str, batch_size: int = 64,
     lines += [f'feature_configs {{ id_feature {{ feature_name: "cat_{i}" '
               f"num_buckets: {n} embedding_dim: {ZOO_EMB_DIM} }} }}"
               for i, n in enumerate(ZOO_BUCKETS)]
+    if "click_seq" in groups:
+        lines += [
+            'feature_configs { id_feature { feature_name: "tgt_item" '
+            f"num_buckets: {ZOO_ITEMS} embedding_dim: {ZOO_EMB_DIM} "
+            'embedding_name: "item_emb" } }',
+            'feature_configs { sequence_id_feature { feature_name: '
+            f'"click_seq" num_buckets: {ZOO_ITEMS} embedding_dim: '
+            f"{ZOO_EMB_DIM} sequence_length: {ZOO_SEQ_LEN} "
+            'embedding_name: "item_emb" } }']
     lines.append("model_config {\n" + groups + "  " + block + "\n" + head
                  + "}")
     return "\n".join(lines)
@@ -347,6 +424,8 @@ def zoo_table_names(model: str):
     names = [f"cat_{i}_emb" for i in range(len(ZOO_BUCKETS))]
     if model == "wide_and_deep":
         names += [f"{n}__wide" for n in names]
+    if "click_seq" in _zoo_spec(model)[0]:
+        names.append("item_emb")
     return names
 
 
@@ -359,4 +438,9 @@ def zoo_cols(n: int, seed: int):
     p = 1.0 / (1.0 + np.exp(-(w[cols["cat_4"].to_numpy()] - 0.5)))
     cols["conversion"] = pa.array(
         (cols["label"].to_numpy() * (r.random(n) < p)).astype(np.float32))
+    # histories of 0 to ZOO_SEQ_LEN + 2 items (cut to ZOO_SEQ_LEN)
+    cols["tgt_item"] = pa.array(r.integers(0, ZOO_ITEMS, n))
+    cols["click_seq"] = pa.array([
+        ";".join(map(str, r.integers(0, ZOO_ITEMS, k)))
+        for k in r.integers(0, ZOO_SEQ_LEN + 3, n)])
     return cols

@@ -1,10 +1,9 @@
 """Loss functions.
 
 Counterpart of torcheasyrec_tpu/losses/__init__.py. All return
-per-sample losses [B]; the reduction (with sample weights) happens in
-the model base. Ported: ``binary_cross_entropy``,
-``softmax_cross_entropy`` and ``l2_loss``; the focal and JRC losses
-raise NotImplementedError in ``create_loss_fn``.
+per-sample losses [B], in fp32; the reduction (with sample weights)
+happens in the model base. ``jrc_loss`` also reads each sample's
+session id, which the models pass as ``session_ids``.
 """
 
 from typing import Any, Dict
@@ -44,18 +43,68 @@ def l2_loss(preds: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return 0.5 * d * d
 
 
+def binary_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      gamma: float = 2.0, alpha: float = 0.5) -> torch.Tensor:
+    """Focal loss: alpha_t (1 - p_t)^gamma BCE."""
+    labels = labels.float()
+    p = torch.sigmoid(logits.float())
+    ce = binary_cross_entropy(logits, labels)
+    p_t = p * labels + (1 - p) * (1 - labels)
+    alpha_t = alpha * labels + (1 - alpha) * (1 - labels)
+    return alpha_t * (1 - p_t) ** gamma * ce
+
+
+def jrc_loss(logits: torch.Tensor, labels: torch.Tensor,
+             session_ids: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
+    """Joint Ranking and Calibration loss on two-class logits [B, 2]:
+    alpha times the two-class CE plus (1 - alpha) times the session-wise
+    listwise term. In the listwise term each sample competes, per class,
+    with itself and with the samples of the same session and of the
+    other label; it is the log-softmax of the class's logit over that
+    set, read at the sample. Builds [B, B] fp32 tensors."""
+    logits = logits.float()
+    labels_i = labels.long()
+    ce = softmax_cross_entropy(logits, labels_i)
+    same_sess = session_ids[:, None] == session_ids[None, :]
+    eye = torch.eye(logits.shape[0], dtype=torch.bool, device=logits.device)
+    y = labels_i.float()
+
+    def listwise(sample_logits, indicator, other_class):
+        allow = same_sess & (eye | (other_class[None, :] > 0))
+        masked = torch.where(allow, sample_logits[None, :],
+                             sample_logits.new_full((), float("-inf")))
+        diag = torch.log_softmax(masked, dim=-1).diagonal()
+        return -(diag * indicator)
+
+    ge = listwise(logits[:, 1], y, 1.0 - y) + listwise(logits[:, 0], 1.0 - y, y)
+    return alpha * ce + (1 - alpha) * ge
+
+
 def create_loss_fn(loss_config) -> Dict[str, Any]:
-    """LossConfig proto -> {name, num_class, fn(logits or preds, labels)}."""
+    """LossConfig proto -> {name, num_class, fn(logits or preds, labels,
+    **kw)}; ``jrc_loss`` also names its ``session_name`` feature, whose
+    values the model passes to ``fn`` as ``session_ids``."""
     which = loss_config.WhichOneof("loss")
     cfg = getattr(loss_config, which)
     if which == "binary_cross_entropy":
         ls = cfg.label_smoothing
         return {"name": which, "num_class": 1,
-                "fn": lambda x, y: binary_cross_entropy(x, y, ls)}
+                "fn": lambda x, y, **kw: binary_cross_entropy(x, y, ls)}
     if which == "softmax_cross_entropy":
         ls = cfg.label_smoothing
         return {"name": which, "num_class": 2,
-                "fn": lambda x, y: softmax_cross_entropy(x, y, ls)}
+                "fn": lambda x, y, **kw: softmax_cross_entropy(x, y, ls)}
     if which == "l2_loss":
-        return {"name": which, "num_class": 1, "fn": l2_loss}
-    raise NotImplementedError(f"loss {which} is not ported")
+        return {"name": which, "num_class": 1,
+                "fn": lambda x, y, **kw: l2_loss(x, y)}
+    if which == "binary_focal_loss":
+        g, a = cfg.gamma, cfg.alpha
+        return {"name": which, "num_class": 1,
+                "fn": lambda x, y, **kw: binary_focal_loss(x, y, g, a)}
+    if which == "jrc_loss":
+        a = cfg.alpha
+        return {"name": which, "num_class": 2,
+                "session_name": cfg.session_name,
+                "fn": lambda x, y, session_ids, **kw: jrc_loss(
+                    x, y, session_ids, a)}
+    raise ValueError(f"unsupported loss {which}")

@@ -11,7 +11,14 @@ from torcheasyrec_tpu_torch.models.mmoe import MMoE  # noqa: F401
 from torcheasyrec_tpu_torch.models.multi_task_rank import (  # noqa: F401
     SimpleMultiTask,
 )
+from torcheasyrec_tpu_torch.models.multi_tower import (  # noqa: F401
+    MultiTower,
+    MultiTowerDIN,
+)
 from torcheasyrec_tpu_torch.models.ple import PLE  # noqa: F401
+from torcheasyrec_tpu_torch.models.rocket_launching import (  # noqa: F401
+    RocketLaunching,
+)
 from torcheasyrec_tpu_torch.models.wide_and_deep import WideAndDeep  # noqa: F401
 from torcheasyrec_tpu_torch.models.model import BaseModel
 

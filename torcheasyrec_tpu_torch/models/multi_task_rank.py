@@ -18,7 +18,11 @@ from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.losses import create_loss_fn
 from torcheasyrec_tpu_torch.metrics import create_metric
 from torcheasyrec_tpu_torch.models.model import _grouping_value
-from torcheasyrec_tpu_torch.models.rank_model import RankModel
+from torcheasyrec_tpu_torch.models.rank_model import (
+    SOFTMAX_LOSSES,
+    RankModel,
+    loss_kwargs,
+)
 from torcheasyrec_tpu_torch.modules.mlp import mlp_from_config
 from torcheasyrec_tpu_torch.modules.module import linear, linear_apply
 from torcheasyrec_tpu_torch.utils.config_util import config_to_kwargs
@@ -55,7 +59,7 @@ class MultiTaskRank(RankModel):
         suffix = f"_{t.tower_name}"
         num_class = int(t.num_class or 1)
         output = output.float()
-        use_softmax = any(lf["name"] == "softmax_cross_entropy"
+        use_softmax = any(lf["name"] in SOFTMAX_LOSSES
                           for lf in self._task_loss_fns[t.tower_name])
         if num_class == 1 and not use_softmax:
             logits = output[..., 0] if output.dim() > 1 else output
@@ -98,7 +102,7 @@ class MultiTaskRank(RankModel):
             logits = predictions[f"logits_{t.tower_name}"]
             for lf in self._task_loss_fns[t.tower_name]:
                 losses[f"{lf['name']}_{t.tower_name}"] = task_w * self._reduce(
-                    lf["fn"](logits, label), batch,
+                    lf["fn"](logits, label, **loss_kwargs(lf, batch)), batch,
                     t.sample_weight_name or None)
         return losses
 

@@ -5,10 +5,11 @@ Counterpart of torcheasyrec_tpu/models/rank_model.py
 the model's ``wide_embedding_dim``; the output head gives ``logits`` and
 ``probs`` (sigmoid for one class, softmax otherwise); the loss is each
 configured loss reduced over the batch with the sample weights.
-``jrc_loss`` raises NotImplementedError.
+``jrc_loss`` reads its session ids through ``_grouping_value_dev`` and
+needs a head of two classes or more.
 """
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
@@ -26,6 +27,13 @@ class RankModel(BaseModel):
         self._sample_weight_name = (
             self._sample_weights[0] if self._sample_weights else None)
         self._loss_fns = [create_loss_fn(c) for c in self._loss_cfgs]
+        if self._num_class < 2 and any(lf["name"] == "jrc_loss"
+                                       for lf in self._loss_fns):
+            # the JAX package reads logits[:, 1] of a one-wide head as
+            # column 0, clamped, and the listwise term then trains nothing
+            raise ValueError(
+                f"loss jrc_loss needs num_class >= 2, config has "
+                f"{self._num_class}")
         self._build_embedding_group(
             wide_embedding_dim=getattr(
                 self._model_config, "wide_embedding_dim", None),
@@ -37,7 +45,7 @@ class RankModel(BaseModel):
         """Output head: logits [B] (num_class == 1) or [B, C], in fp32."""
         preds = {}
         output = output.float()
-        use_softmax_ce = any(lf["name"] == "softmax_cross_entropy"
+        use_softmax_ce = any(lf["name"] in SOFTMAX_LOSSES
                              for lf in self._loss_fns)
         if self._num_class == 1 and not use_softmax_ce:
             logits = output[..., 0] if output.dim() > 1 else output
@@ -61,6 +69,40 @@ class RankModel(BaseModel):
             inp = predictions["logits"]
             if name == "l2_loss":
                 inp = predictions.get("y", predictions["probs"])
-            losses[name] = self._reduce(lf["fn"](inp, label), batch,
-                                        self._sample_weight_name)
+            losses[name] = self._reduce(
+                lf["fn"](inp, label, **loss_kwargs(lf, batch)), batch,
+                self._sample_weight_name)
         return losses
+
+
+# losses over class logits: the head keeps [B, C] logits and its probs are
+# the softmax's (class 1's for two classes)
+SOFTMAX_LOSSES = ("softmax_cross_entropy", "jrc_loss")
+
+
+def loss_kwargs(lf: Dict[str, Any], batch: Batch) -> Dict[str, Any]:
+    """The keyword arguments of a loss beside logits and labels: JRC's
+    session ids."""
+    if lf["name"] == "jrc_loss":
+        return {"session_ids": _grouping_value_dev(batch, lf["session_name"])}
+    return {}
+
+
+def _grouping_value_dev(batch: Batch, key: str) -> torch.Tensor:
+    """A grouping column on the device: a label, the first id of a sparse
+    feature (-1 where a jagged row has none) or the first value of a
+    dense one."""
+    if key in batch.labels:
+        return batch.labels[key]
+    if key in batch.sparse_features:
+        f = batch.sparse_features[key]
+        if f.is_fixed:
+            return f.values[:, 0]
+        lengths = f.lengths.long()
+        starts = (torch.cumsum(lengths, 0) - lengths).clamp(
+            max=f.values.shape[0] - 1)
+        return torch.where(lengths > 0, f.values[starts],
+                           f.values.new_full((), -1))
+    if key in batch.dense_features:
+        return batch.dense_features[key].values[:, 0]
+    raise KeyError(f"grouping key {key} not in batch")

@@ -2,10 +2,14 @@
 
 Counterpart of the parts of torcheasyrec_tpu/modules/embedding.py that
 WIDE, DEEP and (JAGGED_)SEQUENCE groups use (``__init__``, ``lookup``
-and ``assemble``). The tables live in the embedding engine's
-per-(dim, dtype) groups (``parallel/emb_engine.py``), unpacked or in the
-packed 128-lane layout, held here as buffers and not as parameters: the
-dense optimizer never sees them, and the train step updates their
+and ``assemble``), with the ``sequence_groups`` nested in a WIDE or DEEP
+group and the ``sequence_encoders`` hung on it (``modules/sequence.py``;
+their outputs follow the group's own slots). As in the JAX package, a
+SEQUENCE group's own ``sequence_encoders`` are not built. The tables
+live in the embedding engine's per-(dim, dtype) groups
+(``parallel/emb_engine.py``), unpacked or in the packed 128-lane
+layout, held here as buffers and not as parameters: the dense optimizer
+never sees them, and the train step updates their
 touched rows in place through ``engine.update`` from the gradients of
 ``lookup``'s outputs. Features sharing an ``embedding_name`` share one
 table; a WIDE group gets tables of its own, ``<name>__wide`` of
@@ -17,7 +21,8 @@ in canonical ``[num_buckets, dim]`` layout, whatever the grouping and
 the layout, so a checkpoint written unpacked loads packed and the other
 way round. ``tables`` gives views into unpacked groups but copies out of
 packed ones: write through ``engine.write_table``, as
-``load_state_dict`` does. Sequence encoders, dense embeddings, table
+``load_state_dict`` does. The encoders' parameters are the model's
+dense parameters, ``encoders.<group>.<i>``. Dense embeddings, table
 init functions and non-fp32 or host-offloaded tables raise
 NotImplementedError.
 """
@@ -29,6 +34,7 @@ from torch import nn
 
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.features.feature import BaseFeature
+from torcheasyrec_tpu_torch.modules.sequence import create_seq_encoder
 from torcheasyrec_tpu_torch.parallel.emb_engine import (
     EmbeddingEngine,
     LookupSpec,
@@ -90,40 +96,44 @@ class EmbeddingGroup(nn.Module):
             )
             return ("emb", key, shapes[table][1])
 
+        def _build_seq_group(seq_name: str, feature_names, suffix: str
+                             ) -> None:
+            if seq_name in self._seq_groups:
+                raise ValueError(
+                    f"duplicate sequence group name {seq_name!r}: encoders "
+                    "would read another group's layout")
+            q_slots, s_slots, length_feature = [], [], None
+            for fname in feature_names:
+                feat = self._name_to_feature[fname]
+                if feat.is_sequence:
+                    s_slots.append(
+                        _emb_slot(feat, suffix, True) if feat.is_sparse
+                        else ("seq_dense", fname, max(feat.value_dim, 1))
+                    )
+                    length_feature = length_feature or fname
+                else:
+                    q_slots.append(
+                        _emb_slot(feat, suffix, False) if feat.is_sparse
+                        else ("dense", fname, max(feat.value_dim, 1))
+                    )
+            if length_feature is None:
+                raise ValueError(
+                    f"sequence group {seq_name} has no sequence feature"
+                )
+            self._seq_groups[seq_name] = {
+                "query": q_slots, "sequence": s_slots,
+                "length_feature": length_feature,
+            }
+
+        encoders: Dict[str, nn.ModuleList] = {}
         for group in feature_groups:
             gname = group.group_name
             suffix = getattr(group, "embedding_name_suffix", "") or ""
-            if len(group.sequence_groups) or len(group.sequence_encoders):
-                raise NotImplementedError(
-                    f"group {gname}: sequence_groups / sequence_encoders "
-                    "are not ported"
-                )
             if group.group_type in (model_pb2.SEQUENCE,
                                     model_pb2.JAGGED_SEQUENCE):
-                if gname in self._seq_groups:
-                    raise ValueError(f"duplicate sequence group name {gname!r}")
-                q_slots, s_slots, length_feature = [], [], None
-                for fname in group.feature_names:
-                    feat = self._name_to_feature[fname]
-                    if feat.is_sequence:
-                        s_slots.append(
-                            _emb_slot(feat, suffix, True) if feat.is_sparse
-                            else ("seq_dense", fname, max(feat.value_dim, 1))
-                        )
-                        length_feature = length_feature or fname
-                    else:
-                        q_slots.append(
-                            _emb_slot(feat, suffix, False) if feat.is_sparse
-                            else ("dense", fname, max(feat.value_dim, 1))
-                        )
-                if length_feature is None:
-                    raise ValueError(
-                        f"sequence group {gname} has no sequence feature"
-                    )
-                self._seq_groups[gname] = {
-                    "query": q_slots, "sequence": s_slots,
-                    "length_feature": length_feature,
-                }
+                # as in the JAX package, the group's own sequence_groups
+                # and sequence_encoders are not built
+                _build_seq_group(gname, group.feature_names, suffix)
                 continue
             if group.group_type not in (model_pb2.DEEP, model_pb2.WIDE):
                 raise NotImplementedError(
@@ -137,7 +147,7 @@ class EmbeddingGroup(nn.Module):
                 if feat.is_sequence:
                     raise ValueError(
                         f"sequence feature {fname} must be in a SEQUENCE "
-                        f"group (group {gname})"
+                        f"group or sequence_groups (group {gname})"
                     )
                 if is_wide and not feat.is_sparse:
                     raise ValueError(
@@ -152,6 +162,20 @@ class EmbeddingGroup(nn.Module):
                 else:
                     slots.append(_emb_slot(feat, suffix, False))
             self._group_slots[gname] = slots
+            for sg in group.sequence_groups:
+                _build_seq_group(sg.group_name or gname, sg.feature_names,
+                                 sg.embedding_name_suffix or suffix)
+            if len(group.sequence_encoders):
+                default_input = (
+                    group.sequence_groups[0].group_name or gname
+                    if len(group.sequence_groups) == 1 else "")
+                dims = self.seq_group_dims()
+                encoders[gname] = nn.ModuleList(
+                    create_seq_encoder(c, dims, generator, default_input)
+                    for c in group.sequence_encoders)
+        # the encoders' parameters are dense parameters of the model,
+        # under ``encoders.<group>.<i>``
+        self.encoders = nn.ModuleDict(encoders)
 
         self.engine = EmbeddingEngine(
             [TableSpec(name, rows, dim) for name, (rows, dim) in shapes.items()],
@@ -222,17 +246,27 @@ class EmbeddingGroup(nn.Module):
             else:
                 self.engine.write_table(fused, name, state_dict[key])
         if strict:
-            unexpected_keys.extend(
-                k for k in state_dict
-                if k.startswith(prefix)
-                and k[len(prefix) + len("tables."):] not in specs)
+            # the encoders' keys are their own modules'
+            for k in state_dict:
+                if not k.startswith(prefix):
+                    continue
+                head, _, rest = k[len(prefix):].partition(".")
+                if (rest not in specs if head == "tables"
+                        else head not in self._modules):
+                    unexpected_keys.append(k)
 
     # -- dims API ----------------------------------------------------------
 
     def group_dims(self, group_name: str) -> List[int]:
+        """A sequence group's sequence slots; a WIDE or DEEP group's slots,
+        then its encoders' outputs."""
         if group_name in self._seq_groups:
             return [d for _, _, d in self._seq_groups[group_name]["sequence"]]
-        return [d for _, _, d in self._group_slots[group_name]]
+        return [d for _, _, d in self._group_slots[group_name]] + [
+            enc.output_dim() for enc in self._encoders(group_name)]
+
+    def _encoders(self, group_name: str):
+        return self.encoders[group_name] if group_name in self.encoders else []
 
     def group_total_dim(self, group_name: str) -> int:
         return sum(self.group_dims(group_name))
@@ -250,6 +284,15 @@ class EmbeddingGroup(nn.Module):
 
     def has_group(self, group_name: str) -> bool:
         return group_name in self._group_slots or group_name in self._seq_groups
+
+    def groups_closure(self, group_names) -> List[str]:
+        """The group names, then the sequence groups their encoders read."""
+        out = list(dict.fromkeys(group_names))
+        for g in group_names:
+            for enc in self._encoders(g):
+                if enc.input not in out:
+                    out.append(enc.input)
+        return out
 
     # -- forward -----------------------------------------------------------
 
@@ -271,10 +314,11 @@ class EmbeddingGroup(nn.Module):
 
     def assemble(self, emb_out: Dict[str, torch.Tensor], batch: Batch,
                  compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-        """Group concat, a pure function of ``emb_out``: ``{group}``
-        [B, D] for DEEP groups; ``{g}.query``, ``{g}.sequence`` and
-        ``{g}.sequence_length`` for sequence groups. Values are cast to
-        ``compute_dtype``."""
+        """Group concat and sequence encoders, a function of ``emb_out``:
+        ``{g}.query``, ``{g}.sequence`` and ``{g}.sequence_length`` for
+        sequence groups first, then ``{group}`` [B, D] for WIDE and DEEP
+        groups, each its slots followed by its encoders' outputs. Values
+        are cast to ``compute_dtype``."""
 
         def _slot_value(slot: Slot) -> torch.Tensor:
             kind, key, _ = slot
@@ -302,5 +346,8 @@ class EmbeddingGroup(nn.Module):
             )
             result[f"{name}.sequence_length"] = lengths
         for gname, slots in self._group_slots.items():
-            result[gname] = torch.cat([_slot_value(s) for s in slots], dim=-1)
+            vals = [_slot_value(s) for s in slots]
+            vals += [enc(result, compute_dtype)
+                     for enc in self._encoders(gname)]
+            result[gname] = torch.cat(vals, dim=-1)
         return result

@@ -6,8 +6,12 @@
 
 - pytree paths join with "."; list entries by their index (the experts
   and gates of MMoE and PLE, nested for PLE's task experts, the towers
-  and outputs of the multi-task models); dicts keyed by tower name
-  (DBMTL's ``towers``, ``relations``, ``outputs``) by that name;
+  and outputs of the multi-task models, MultiTowerDIN's ``din``, the
+  sequence encoders ``embedding_group.encoders.<group>.<i>``); dicts
+  keyed by tower or group name (DBMTL's ``towers``, ``relations``,
+  ``outputs``; MultiTower's ``towers``) by that name; RocketLaunching's
+  ``share``, ``booster``, ``light``, ``booster_out`` and ``light_out``
+  keep their names;
   ``layer_<i>`` (MLP layers, cross layers) becomes ``layers.<i>`` and
   MaskNet's ``block_<i>`` becomes ``blocks.<i>``;
 - linear ``kernel`` [in, out] becomes ``weight`` [out, in], LayerNorm
@@ -63,11 +67,9 @@ def from_jax_state(dense_params: Mapping[str, Any],
     """JAX dense params + canonical tables -> a torch state_dict (fp32)."""
     state: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(dense_params):
-        if path.startswith("embedding_group."):
+        if path.startswith("embedding_group.dense_emb."):
             raise NotImplementedError(
-                f"{path}: sequence encoders and dense embeddings are not "
-                "ported"
-            )
+                f"{path}: dense embeddings are not ported")
         parts = re.sub(r"(^|\.)(layer|block)_(\d+)(?=\.)", r"\1\2s.\3",
                        path).split(".")
         leaf = parts[-1]
