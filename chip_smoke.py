@@ -14,12 +14,14 @@ Criteo-shaped data (the config of the repo's train benchmark, bench.py:
 features, batch 8192, deep 512-256-128, final 128-64, BF16, sparse
 rowwise_adagrad and dense adam at lr 0.001) with the tables at the
 reference's real bucket sizes, uncapped, fp32 and packed; and the
-Criteo ranking and multi-task zoo: the port's copies of seven of the JAX
-package's criteo_synth quality-benchmark configs (Wide&Deep, DLRM,
-DCN-v2, MaskNet, MMoE, PLE, DBMTL; batch 4096, 26 tables of dim 16 at
-the configs' buckets, BF16, sparse rowwise_adagrad lr 0.01, dense adam
-lr 0.001) on the JAX package's synthetic Criteo data. Phases, one JSON
-line each:
+Criteo ranking, multi-task and retrieval zoo: the port's copies of
+twelve of the JAX package's criteo_synth quality-benchmark configs
+(Wide&Deep, DLRM, DCN-v2, MaskNet, MMoE, PLE, DBMTL; batch 4096, 26
+tables of dim 16 at the configs' buckets, BF16, sparse rowwise_adagrad
+lr 0.01, dense adam lr 0.001; MultiTowerDIN, MMoE with a sequence
+group, RocketLaunching, DBMTL with the JRC loss; and DSSM two-tower
+retrieval with 32 sampled negatives a batch) on the JAX package's
+synthetic Criteo data. Phases, one JSON line each:
 
 1. env: the card, CUDA and torch versions; every CUDA kernel of the
    paths is built from the sources here (one nvcc per source, in
@@ -138,26 +140,38 @@ line each:
 
 8. train_zoo: the criteo_synth data written by the port's generator
    (``benchmark/synthetic.ensure_dataset``: 262 144 train rows from seed
-   1, 65 536 eval rows from seed 2), then for each of the seven configs,
-   its paths redirected: one epoch through ``train_and_evaluate`` (64
-   steps of 4096 through the loader, an eval pass at the end), with the
+   1, 65 536 eval rows from seed 2, and the sampler's 2 000-item
+   table), then for each of the twelve configs, its paths redirected:
+   one epoch through ``train_and_evaluate`` (64 steps of 4096 through
+   the loader, an eval pass at the end), with the
    row-write count set to 0 just before and read just after; ``evaluate``
    and ``predict_checkpoint`` (the first 2 eval batches) of its
    checkpoint; then its step on a resident batch (median of 20
    synchronised steps after 5 of warm-up, a 20-step window, the idle
    share of 10 profiled steps, peak memory). Checks: exactly 64 steps and
    one row-write launch a step per packed group with tables past the
-   dense lane (2 for Wide&Deep, 1 for the others), the timed steps too;
-   finite losses; every AUC of the config's pinned labels
+   dense lane (2 for Wide&Deep, 0 for DSSM, 1 for the others), the timed
+   steps too; finite losses; every AUC of the config's pinned labels
    (``benchmark/configs/base_eval_metric.json``, from the JAX package on
    a TPU) within 0.02 of its label, the bound the JAX package's own run
    off the TPU uses (the distance to the pinned 0.005/0.006 threshold is
-   printed, not checked); ``evaluate`` reproduces the trainer's AUCs; the
+   printed, not checked); DSSM's recall@1 and recall@5 too, and since
+   they swing with the initial weights by far more than 0.02, DSSM's
+   card run starts from weights drawn on the CPU and is also trained on
+   the CPU from them: each recall on the card within 0.02 of the CPU's;
+   ``evaluate`` reproduces the trainer's metrics; the
    predicted ``probs_*`` finite in (0, 1) and every column equal to the
-   eval step's outputs on those rows. For DLRM, the ``write_rows`` calls
-   of one real train step are captured, and the kernel and the plain
-   version applied to copies of the table before it must leave tables
-   equal bit for bit to each other and to the step's.
+   eval step's outputs on those rows (through predict's loader: no
+   sampler). For DLRM and MultiTowerDIN, the ``write_rows`` calls of one
+   real train step are captured, and the kernel and the plain version
+   applied to copies of the table before it must leave tables equal bit
+   for bit to each other and to the step's; so must they at one DSSM
+   step with the dense lane off (its two packed groups, counted under
+   their own path in the ``kernels`` line). Last, DSSMV2 with hard
+   negatives and MIND, which no published config runs: one loader batch
+   through the forward and backward of the same weights on the CPU and
+   on the card, the outputs, loss and dense gradients within 1e-4 of
+   each one's max.
 
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
@@ -2342,19 +2356,34 @@ def phase_train_loader():
     return launches + trainer_launches, fed
 
 
-# --- phase train_zoo: the criteo_synth ranking and multi-task configs ------
-# the port's copies of the JAX package's quality benchmark configs, each
-# at its published width, on the JAX package's synthetic Criteo data; the
-# last four add target attention over the click history (DIN), a
-# sequence group the model ignores, the booster and light nets, and the
-# session-wise JRC loss
+# --- phase train_zoo: the criteo_synth ranking, multi-task and retrieval
+# configs: the port's copies of the JAX package's quality benchmark
+# configs, each at its published width, on the JAX package's synthetic
+# Criteo data; multi_tower_din to dbmtl_jrc add target attention over the
+# click history (DIN), a sequence group the model ignores, the booster
+# and light nets, and the session-wise JRC loss; dssm is two-tower
+# retrieval with 32 sampled negatives a batch and recall@k
 ZOO_CONFIGS = ["wide_and_deep", "dlrm", "dcn_v2", "masknet", "mmoe", "ple",
                "dbmtl", "multi_tower_din", "mmoe_has_sequence",
-               "rocket_launching", "dbmtl_jrc"]
-# packed groups with tables past the dense lane, each one row write a step
-ZOO_WRITTEN_GROUPS = {"wide_and_deep": 2}
+               "rocket_launching", "dbmtl_jrc", "dssm"]
+# packed groups with tables past the dense lane, each one row write a
+# step; dssm's three tables (at most 2 000 rows) all take the dense lane
+ZOO_WRITTEN_GROUPS = {"wide_and_deep": 2, "dssm": 0}
 # one real step's writes held bit for bit against the plain version
 ZOO_CAPTURED = ("dlrm", "multi_tower_din")
+# the same, at one step of a model built with the dense lane off: every
+# packed group then takes the row write (dssm: its two groups)
+ZOO_LANE_OFF = ("dssm",)
+# dssm's recall after its one epoch moves with the initial weights far
+# more than 0.02 (PERF.md §6: recall@1 sd 0.06 over seeds on the CPU), so
+# its label alone cannot tell a wrong device path. Its card run starts
+# from weights drawn on the CPU and is held, beside its labels, against a
+# CPU run of the same weights within ZOO_CPU_BOUND. At the default seed
+# five card runs read at most 0.009 from the CPU's (sums over duplicate
+# ids differ run to run); over 22 seeds the gap reached 0.025 at one, so
+# the bound is this seed's, not any seed's (PERF.md §6)
+ZOO_CPU_REFERENCE = ("dssm",)
+ZOO_CPU_BOUND = 0.02
 ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS = 262_144, 65_536  # ensure_dataset's sizes
 ZOO_AUC_BOUND = 0.02  # the JAX package's bound for a run off the TPU
 ZOO_PREDICT_BATCHES = 2
@@ -2413,6 +2442,109 @@ def item_emb_traffic(eng, batch, calls) -> dict:
             "row_write_targets": targets}
 
 
+def check_step_writes(name, calls) -> None:
+    """The kernel against the plain version at one real step's captured
+    row writes, on copies of each table before the write: a copy has no
+    tolerance. These launches do not count."""
+    from torcheasyrec_tpu_torch.ops.row_write import (
+        _torch_write_rows,
+        write_rows,
+    )
+
+    kept = write_rows.launches
+    for before_t, tgt, rows, after_t in calls:
+        a, b = before_t.clone(), before_t.clone()
+        write_rows(a, tgt, rows)
+        _torch_write_rows(b, tgt, rows)
+        if not (torch.equal(a, b) and torch.equal(a, after_t)):
+            raise AssertionError(
+                f"{name}: the row write and its plain version leave "
+                "different tables at a real step's targets")
+    write_rows.launches = kept
+
+
+def lane_off_step(name, cfg, batch) -> dict:
+    """One real train step of the config's model built with the dense lane
+    off, every packed group through the row write: its launches, and per
+    call the group's ids in the batch, the distinct ones and the written
+    targets, the writes held bit for bit against the plain version."""
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
+    model, _, _, state, step = build_trainer(cfg, dense_lane_rows=0)
+    eng = model.embedding_group.engine
+    with torch.no_grad():
+        _, residuals = model.embedding_group.lookup(batch)
+    groups = [gk for gk in residuals if eng.groups[gk].packed]
+    write_rows.launches = 0
+    calls = write_targets(model, step, state, batch)
+    torch.cuda.synchronize()
+    launches = write_rows.launches
+    if launches != len(groups) or len(calls) != len(groups):
+        raise AssertionError(f"{name}: {launches} row writes at a lane-off "
+                             f"step of the packed groups {groups}")
+    check_step_writes(name, calls)
+    per_call = []
+    for gk, call in zip(groups, calls):
+        ids = residuals[gk][0]
+        ids = ids[ids >= 0]
+        per_call.append({
+            "group": gk, "tables": [t.name for t in eng.groups[gk].specs],
+            "ids": int(ids.numel()), "distinct_ids": int(ids.unique().numel()),
+            "targets": int(call[1].shape[0]),
+            "table_rows": int(call[0].shape[0])})
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "bit_equal": True, "calls": per_call}
+
+
+def zoo_edits(src, model_dir, paths) -> str:
+    """``edit_config_json`` for a zoo config: its model_dir, and where it
+    has a negative sampler, the sampler's item file."""
+    from torcheasyrec_tpu_torch.utils.config_util import load_pipeline_config
+
+    edits = {"model_dir": model_dir}
+    sampler = load_pipeline_config(src).data_config.WhichOneof("sampler")
+    if sampler is not None:
+        edits[f"data_config.{sampler}.input_path"] = paths["items"]
+    return json.dumps(edits)
+
+
+def cpu_init(src, path) -> str:
+    """The config's initial weights (the default seed), drawn on the CPU
+    and saved as a state_dict file for ``fine_tune_checkpoint``."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.utils.config_util import load_pipeline_config
+
+    model, _ = port_main.build_model(load_pipeline_config(src), "cpu")
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def cpu_reference(name, src, paths, tmp, init, result, labels) -> dict:
+    """The config trained on the CPU from the card run's initial weights
+    ``init``; each metric of the card's ``result`` must lie within
+    ZOO_CPU_BOUND of the CPU run's."""
+    from torcheasyrec_tpu_torch import main as port_main
+
+    t0 = time.perf_counter()
+    cpu = port_main.train_and_evaluate(
+        src, train_input_path=paths["train"], eval_input_path=paths["eval"],
+        edit_config_json=zoo_edits(src, os.path.join(tmp, f"{name}_cpu"),
+                                   paths),
+        fine_tune_checkpoint=init, device="cpu")
+    out = {"train_and_evaluate_cpu_s": time.perf_counter() - t0,
+           "bound": ZOO_CPU_BOUND}
+    for m in labels["metrics"]:
+        dist = result[m] - cpu[m]
+        out[m] = {"card": result[m], "cpu": cpu[m], "card_minus_cpu": dist}
+        if not abs(dist) <= ZOO_CPU_BOUND:
+            raise AssertionError(
+                f"{name}: {m} {result[m]} on the card is {dist:+.4f} from "
+                f"{cpu[m]} on the CPU from the same weights (bound "
+                f"{ZOO_CPU_BOUND})")
+    return out
+
+
 def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
     """One criteo_synth config through the entry points: an epoch of
     ``train_and_evaluate``, ``evaluate`` and ``predict_checkpoint`` of its
@@ -2421,21 +2553,21 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
 
     from torcheasyrec_tpu_torch import main as port_main
     from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
-    from torcheasyrec_tpu_torch.ops.row_write import (
-        _torch_write_rows,
-        write_rows,
-    )
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
     from torcheasyrec_tpu_torch.utils import checkpoint_util
     from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
 
     model_dir = os.path.join(tmp, name)
-    edits = json.dumps({"model_dir": model_dir})
     src = os.path.join(zoo_config_dir(), "criteo_synth", f"{name}.config")
+    init = None
+    if name in ZOO_CPU_REFERENCE:
+        init = cpu_init(src, os.path.join(tmp, f"{name}_init.pt"))
     write_rows.launches = 0
     t0 = time.perf_counter()
     result = port_main.train_and_evaluate(
         src, train_input_path=paths["train"], eval_input_path=paths["eval"],
-        edit_config_json=edits, device="cuda")
+        edit_config_json=zoo_edits(src, model_dir, paths),
+        fine_tune_checkpoint=init, device="cuda")
     torch.cuda.synchronize()
     train_eval_s = time.perf_counter() - t0
     launches = write_rows.launches
@@ -2481,8 +2613,9 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
     checkpoint_util.load_model_weights(
         checkpoint_util.latest_checkpoint(model_dir), model)
     eval_step = port_main.make_eval_step(model, with_loss=False)
-    dl = create_dataloader(cfg.data_config, features, pred_in, mode="eval",
-                           device="cuda")
+    # predict's loader: no negative sampler, one item row a user
+    dl = create_dataloader(cfg.data_config, features, pred_in,
+                           mode="predict", device="cuda")
     outs = {}
     for batch, _ in dl():
         for k, v in eval_step(batch)[0].items():
@@ -2490,7 +2623,8 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
                 outs.setdefault(k, []).append(v.float().cpu().numpy())
     outs = {k: np.concatenate(v) for k, v in outs.items()}
     probs = [k for k in outs if k.startswith("probs")]
-    if n_pred != ZOO_PREDICT_BATCHES * batch_size or not probs or (
+    scores = probs or [k for k in outs if k == "similarity"]
+    if n_pred != ZOO_PREDICT_BATCHES * batch_size or not scores or (
             sorted(pred.column_names) != sorted(outs)):
         raise AssertionError(f"{name}: predicted {n_pred} rows, columns "
                              f"{pred.column_names} against {sorted(outs)}")
@@ -2505,6 +2639,10 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
                                and (col < 1).all()):
             raise AssertionError(f"{name}: {k} not finite in (0, 1)")
     del model, eval_step
+
+    cpu_ref = None
+    if init is not None:
+        cpu_ref = cpu_reference(name, src, paths, tmp, init, result, labels)
 
     # the step on a resident batch: groups, timing, idle share, memory
     torch.cuda.synchronize()
@@ -2559,20 +2697,14 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
         "step_profile": profile,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if "similarity" in outs:
+        out["predict_similarity_shape"] = list(outs["similarity"].shape)
+    if cpu_ref is not None:
+        out["cpu_reference"] = cpu_ref
     if name in ZOO_CAPTURED:
-        # one real step's writes, the kernel against the plain version on
-        # copies of the table: a copy has no tolerance
+        # one real step's writes, the kernel against the plain version
         calls = write_targets(model, step, state, batch)
-        kept = write_rows.launches
-        for before_t, tgt, rows, after_t in calls:
-            a, b = before_t.clone(), before_t.clone()
-            write_rows(a, tgt, rows)
-            _torch_write_rows(b, tgt, rows)
-            if not (torch.equal(a, b) and torch.equal(a, after_t)):
-                raise AssertionError(
-                    f"{name}: the row write and its plain version leave "
-                    "different tables at a real step's targets")
-        write_rows.launches = kept  # comparisons do not count
+        check_step_writes(name, calls)
         out["row_write_at_step_targets"] = {
             "calls": len(calls), "bit_equal": True,
             "targets": [int(c[1].shape[0]) for c in calls],
@@ -2580,21 +2712,208 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
         if "item_emb" in eng._specs:
             out["row_write_at_step_targets"]["item_emb"] = item_emb_traffic(
                 eng, batch, calls)
-    del model, tx, state, step, batch
+    del model, tx, state, step
     torch.cuda.empty_cache()
+    if name in ZOO_LANE_OFF:
+        out["dense_lane_off_step"] = lane_off_step(name, cfg, batch)
+    del batch
+    return out
+
+
+# retrieval models that the published configs do not run, each one
+# forward and backward on the card against the same model and batch on
+# the CPU: DSSMV2 with hard negatives (their scatter into the similarity)
+# and MIND (capsule routing, masked softmax, label-aware attention)
+MATCH_ON_CARD_BATCH, MATCH_ON_CARD_ITEMS, MATCH_ON_CARD_SEQ = 512, 2000, 20
+MATCH_ON_CARD_TOL = 1e-4  # fp32: max abs error over the CPU's max abs
+# a gradient below this share of the largest one is at rounding level
+MATCH_ZERO_GRAD = 1e-5
+_MATCH_SAMPLER = ('num_sample: 32 attr_fields: "item_id" attr_fields: '
+                  '"item_cluster" item_id_field: "item_id"')
+MATCH_ON_CARD = {
+    "dssm_v2_hard": (
+        "hard_negative_sampler_v2 { user_input_path: \"unused\" "
+        "item_input_path: \"{items}\" pos_edge_input_path: \"{pos}\" "
+        "hard_neg_edge_input_path: \"{hard}\" num_hard_sample: 4 "
+        + _MATCH_SAMPLER + ' user_id_field: "user_taste" }',
+        'dssm_v2 { user_tower { input: "user" mlp { hidden_units: [64, 32] '
+        '} } item_tower { input: "item" mlp { hidden_units: [64, 32] } } '
+        "output_dim: 16 temperature: 0.2 }"),
+    "mind": (
+        "negative_sampler { input_path: \"{items}\" " + _MATCH_SAMPLER + " }",
+        'mind { user_tower { input: "user" history_input: "hist" '
+        "user_mlp { hidden_units: [32] } user_seq_combine: CONCAT "
+        "capsule_config { max_k: 4 max_seq_len: "
+        f"{MATCH_ON_CARD_SEQ} high_dim: 16 }} "
+        "concat_mlp { hidden_units: [32] } } "
+        'item_tower { input: "item" mlp { hidden_units: [32] } } '
+        "output_dim: 16 simi_pow: 10 temperature: 0.2 }"),
+}
+
+
+def match_on_card_files(root) -> dict:
+    """Retrieval data from a seed: the sampler's item table (id, weight,
+    ``id:cluster`` attrs), positive and hard-negative edge files, and a
+    parquet of user taste, a dense feature, the positive item, its
+    cluster and a click history."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    r = np.random.default_rng(SEED)
+    n, n_items = 2 * MATCH_ON_CARD_BATCH, MATCH_ON_CARD_ITEMS
+    ids = np.arange(n_items)
+    paths = {k: os.path.join(root, f"match_{k}.parquet")
+             for k in ("items", "pos", "hard", "data")}
+    pq.write_table(pa.table({
+        "id": ids, "weight": r.uniform(0.5, 2.0, n_items),
+        "attrs": [f"{i}:{i // 40}" for i in ids]}), paths["items"])
+    users = np.repeat(np.arange(50), 20)
+    pq.write_table(pa.table({
+        "user": users, "item": r.integers(0, n_items, users.size),
+        "weight": np.ones(users.size)}), paths["pos"])
+    hard_u = np.repeat(np.arange(0, 50, 2), 3)
+    pq.write_table(pa.table({
+        "user": hard_u, "item": r.integers(0, n_items, hard_u.size),
+        "weight": np.ones(hard_u.size)}), paths["hard"])
+    taste = r.integers(0, 50, n)
+    item = np.where(r.random(n) < 0.8, taste * 40 + r.integers(0, 40, n),
+                    r.integers(0, n_items, n))
+    lens = r.integers(1, MATCH_ON_CARD_SEQ + 5, n)
+    pq.write_table(pa.table({
+        "user_taste": taste, "int_0": r.normal(size=n).astype(np.float32),
+        "item_id": item, "item_cluster": item // 40,
+        "click_seq": [";".join(map(str, taste[i] * 40 + r.integers(0, 40, k)))
+                      for i, k in enumerate(lens)],
+        "pos_label": np.ones(n, np.float32)}), paths["data"])
+    return paths
+
+
+def match_on_card_config(sampler, block, paths):
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    seq = "hist" in block
+    groups = [("user", ["user_taste", "int_0"], "DEEP"),
+              ("item", ["item_id", "item_cluster"], "DEEP")]
+    if seq:
+        groups.append(("hist", ["click_seq"], "SEQUENCE"))
+    feats = [
+        'id_feature { feature_name: "user_taste" expression: '
+        '"user:user_taste" num_buckets: 50 embedding_dim: 16 }',
+        'raw_feature { feature_name: "int_0" expression: "user:int_0" }',
+        'id_feature { feature_name: "item_id" expression: "item:item_id" '
+        f"num_buckets: {MATCH_ON_CARD_ITEMS} embedding_dim: 16 }}",
+        'id_feature { feature_name: "item_cluster" expression: '
+        '"item:item_cluster" num_buckets: 50 embedding_dim: 8 }']
+    if seq:
+        feats.append(
+            'sequence_id_feature { feature_name: "click_seq" expression: '
+            '"user:click_seq" num_buckets: '
+            f"{MATCH_ON_CARD_ITEMS} embedding_dim: 16 sequence_length: "
+            f'{MATCH_ON_CARD_SEQ} embedding_name: "item_id_emb" }}')
+    text = "\n".join(
+        ["train_config {",
+         "  sparse_optimizer { adagrad_optimizer { lr: 0.05 }"
+         " constant_learning_rate {} }",
+         "  dense_optimizer { adam_optimizer { lr: 0.001 }"
+         " constant_learning_rate {} }", "}",
+         "data_config {", f"  batch_size: {MATCH_ON_CARD_BATCH}",
+         "  dataset_type: ParquetDataset", "  fg_mode: FG_NONE",
+         '  label_fields: "pos_label"',
+         "  " + sampler.replace("{items}", paths["items"]).replace(
+             "{pos}", paths["pos"]).replace("{hard}", paths["hard"]), "}"]
+        + [f"feature_configs {{ {f} }}" for f in feats]
+        + ["model_config {"]
+        + [f'  feature_groups {{ group_name: "{g}" '
+           + " ".join(f'feature_names: "{f}"' for f in fs)
+           + f" group_type: {kind} }}" for g, fs, kind in groups]
+        + ["  " + block, "  metrics { recall_at_k { top_k: 1 } }",
+           "  losses { softmax_cross_entropy {} }", "}"])
+    return parse_pipeline_config(text)
+
+
+def match_models_on_card(tmp) -> dict:
+    """``MATCH_ON_CARD``'s models: one batch from the loader (its sampled
+    negatives, hard ones included) through the forward and the backward
+    of the same weights on the CPU and on the card; predictions, losses
+    and the dense gradients must agree within MATCH_ON_CARD_TOL of the
+    CPU's max abs value, but a gradient at rounding level on the CPU
+    (MATCH_ZERO_GRAD), which must be so on the card too. Launches no row
+    write (no update)."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+
+    paths = match_on_card_files(tmp)
+    out = {}
+    for name, (sampler, block) in MATCH_ON_CARD.items():
+        cfg = match_on_card_config(sampler, block, paths)
+        cpu_model, features, _ = port_main._build_model_and_optim(cfg, "cpu")
+        card_model, _, _ = port_main._build_model_and_optim(cfg, "cuda")
+        card_model.load_state_dict(cpu_model.state_dict())
+        batches = create_dataloader(cfg.data_config, features, paths["data"],
+                                    mode="train", device="cpu")()
+        batch = next(iter(batches))[0]
+        batches.close()
+        card_batch = batch.to("cuda")
+        errs = {}
+
+        def compare(key, ref, got):
+            ref, got = ref.detach().float().cpu(), got.detach().float().cpu()
+            if ref.shape != got.shape:
+                raise AssertionError(f"{name}: {key} {tuple(got.shape)} on "
+                                     f"the card, {tuple(ref.shape)} on the CPU")
+            scale = float(ref.abs().max()) or 1.0
+            errs[key] = float((got - ref).abs().max()) / scale
+            if not errs[key] <= MATCH_ON_CARD_TOL:
+                raise AssertionError(f"{name}: {key} off by {errs[key]:.3g} "
+                                     "of its max on the card")
+
+        with torch.no_grad():
+            ref_preds = cpu_model.eval()(batch)
+            preds = card_model.eval()(card_batch)
+        for k in ref_preds:
+            compare(k, ref_preds[k], preds[k])
+        ref_loss, ref_grads = dense_grads(cpu_model, batch)
+        loss, grads = dense_grads(card_model, card_batch)
+        compare("loss", torch.tensor(ref_loss), torch.tensor(loss))
+        if set(grads) != set(ref_grads):
+            raise AssertionError(f"{name}: gradients of {sorted(grads)} on "
+                                 f"the card, {sorted(ref_grads)} on the CPU")
+        # a gradient at rounding level on the CPU is 0 by construction
+        # (the item tower's output bias under a softmax over item rows):
+        # the card's must be at rounding level too, not equal
+        top = max(float(g.abs().max()) for g in ref_grads.values())
+        card_top = max(float(g.abs().max()) for g in grads.values())
+        zero = []
+        for k in ref_grads:
+            if float(ref_grads[k].abs().max()) <= MATCH_ZERO_GRAD * top:
+                zero.append(k)
+                if float(grads[k].abs().max()) > MATCH_ZERO_GRAD * card_top:
+                    raise AssertionError(f"{name}: {k}'s gradient is 0 on "
+                                         "the CPU, not on the card")
+            else:
+                compare(f"grad:{k}", ref_grads[k], grads[k])
+        sim = ref_preds["similarity"]
+        out[name] = {"similarity_shape": list(sim.shape),
+                     "item_rows": int(ref_preds["item_tower_emb"].shape[0]),
+                     "max_rel_err": max(errs.values()), "compared": len(errs),
+                     "zero_gradients": zero, "tol": MATCH_ON_CARD_TOL}
     return out
 
 
 def phase_train_zoo():
-    """The eleven criteo_synth configs through the port's entry points."""
+    """The twelve criteo_synth configs through the port's entry points,
+    then ``MATCH_ON_CARD``'s models on the card against the CPU; returns
+    the row-write launches of the epochs and those of the dense-lane-off
+    steps (``ZOO_LANE_OFF``)."""
     import pyarrow.parquet as pq
 
     from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
 
     with open(os.path.join(zoo_config_dir(), "base_eval_metric.json")) as f:
         pinned = json.load(f)
     out = {"phase": "train_zoo", "models": {}}
-    launches = 0
+    launches, lane_off = 0, 0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         paths = synthetic.ensure_dataset(tmp, ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
@@ -2611,14 +2930,23 @@ def phase_train_zoo():
                 raise AssertionError(f"{name}: batch {res['batch']}")
             res["model_s"] = time.perf_counter() - t0
             launches += res["row_write_launches"]
+            if "dense_lane_off_step" in res:
+                lane_off += res["dense_lane_off_step"]["launches"]
             out["models"][name] = res
             emit({"phase": "train_zoo_model", "model": name, **res})
+        before = write_rows.launches
+        out["match_on_card"] = match_models_on_card(tmp)
+        if write_rows.launches != before:
+            raise AssertionError("the retrieval models' card checks launched "
+                                 "row writes")
     out["row_write_launches"] = launches
     emit({"phase": "train_zoo", "data_s": out["data_s"],
           "row_write_launches": launches,
+          "match_on_card": out["match_on_card"],
+          "dense_lane_off_row_write_launches": lane_off,
           "models": {n: {k: r[k] for k in ZOO_SUMMARY}
                      for n, r in out["models"].items()}})
-    return launches
+    return launches, lane_off
 
 
 def device_record() -> dict:
@@ -2663,7 +2991,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     deepfm_launches, _ = timed("train_deepfm", phase_train_deepfm)
     loader_launches, _ = timed("train_loader", phase_train_loader)
-    zoo_launches = timed("train_zoo", phase_train_zoo)
+    zoo_launches, lane_off_launches = timed("train_zoo", phase_train_zoo)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -2694,12 +3022,15 @@ def main() -> int:
         # slice_ms: the slice's shape over the whole table, as the kernel
         # was first timed
         kernel_row("row_write", "row_write.py:35",
-                   deepfm_launches + loader_launches + zoo_launches,
+                   deepfm_launches + loader_launches + zoo_launches
+                   + lane_off_launches,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
-                   launches_by_path={"train_deepfm": deepfm_launches,
-                                     "train_loader": loader_launches,
-                                     "train_zoo": zoo_launches}),
+                   launches_by_path={
+                       "train_deepfm": deepfm_launches,
+                       "train_loader": loader_launches,
+                       "train_zoo": zoo_launches,
+                       "train_zoo_dssm_dense_lane_off": lane_off_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

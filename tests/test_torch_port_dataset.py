@@ -216,14 +216,24 @@ def test_dataset_batches_and_info_equal_jax(deepfm_dir, mode):
 
 
 def test_sampler_raises():
-    text = deepfm_config_text(BATCH).replace(
-        '  label_fields: "label"',
-        '  label_fields: "label"\n  negative_sampler { input_path: "x" '
-        'num_sample: 2 attr_fields: "cat_0" item_id_field: "cat_0" }')
-    cfg = parse_pipeline_config(text)
-    reader = ParquetReader("unused.parquet", BATCH)
-    with pytest.raises(NotImplementedError, match="sampler"):
-        port_dataset.BaseDataset(cfg.data_config, [], reader)
+    """The TDM sampler is not ported: asking for it raises. The negative
+    samplers are (tests/test_torch_port_match.py): the loader builds one
+    for train and eval, none for predict."""
+    def config(sampler):
+        return parse_pipeline_config(deepfm_config_text(BATCH).replace(
+            '  label_fields: "label"',
+            f'  label_fields: "label"\n  {sampler}')).data_config
+
+    tdm = config('tdm_sampler { item_input_path: "x" edge_input_path: "x" '
+                 'predict_edge_input_path: "x" attr_fields: "cat_0" '
+                 'item_id_field: "cat_0" }')
+    with pytest.raises(NotImplementedError, match="TDMSampler"):
+        port_dataset.create_sampler(tdm, "train")
+    neg = config('negative_sampler { input_path: "x" num_sample: 2 '
+                 'attr_fields: "cat_0" item_id_field: "cat_0" }')
+    assert type(port_dataset.create_sampler(neg, "train")).__name__ == (
+        "NegativeSampler")
+    assert port_dataset.create_sampler(neg, "predict") is None
 
 
 def test_csv_input_raises():

@@ -41,7 +41,9 @@ assert len(names) > 20, names
 for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "modules.extraction_net", "modules.interaction",
              "modules.sequence", "models.multi_tower",
-             "models.rocket_launching"):
+             "models.rocket_launching", "datasets.sampler",
+             "models.match_model", "models.dssm", "models.dat",
+             "modules.capsule", "models.mind"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -85,6 +87,9 @@ DEEPFM_SLICE_MODULES = [
     "modules.masknet", "modules.mmoe", "modules.extraction_net",
     # the sequence layer and the rest of the criteo_synth zoo
     "modules.sequence", "models.multi_tower", "models.rocket_launching",
+    # two-tower retrieval and the negative samplers
+    "datasets.sampler", "models.match_model", "models.dssm", "models.dat",
+    "modules.capsule", "models.mind",
 ]
 
 

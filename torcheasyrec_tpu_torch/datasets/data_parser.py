@@ -3,8 +3,10 @@
 Counterpart of torcheasyrec_tpu/datasets/data_parser.py, with the same
 padded shapes: jagged value counts round up to power-of-two buckets
 (``bucketize_size``, ``pad_jagged_np``) and sequences pad to their
-configured ``sequence_length`` keeping the most recent steps. The tensors
-are built on the CPU; ``Batch.to(device)`` moves them. The JAX parser's
+configured ``sequence_length`` keeping the most recent steps. Each
+feature keeps its own row count: after a negative sampler, the item-side
+features hold B + num_sample rows and the others B; labels stay at B.
+The tensors are built on the CPU; ``Batch.to(device)`` moves them. The JAX parser's
 vectorised shortcut for plain id columns, the native FG DAG, INPUT_TILE
 serving and list-valued labels are not ported.
 """

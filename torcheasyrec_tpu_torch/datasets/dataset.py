@@ -29,6 +29,7 @@ from torcheasyrec_tpu_torch.datasets.utils import (
     CKPT_ROW_IDX,
     CKPT_SOURCE_ID,
     DATA_TIMESTAMP,
+    HARD_NEG_INDICES,
     Batch,
     BatchInfo,
     pa_from_numpy,
@@ -199,7 +200,9 @@ class BaseDataset:
     The parser takes labels outside predict only. The JAX parser's
     ``is_training`` steers only the FG DAG (not ported, as FG_NORMAL is
     not), and its ``force_base_data_group`` is stored and never read, so
-    neither reaches this parser."""
+    neither reaches this parser. A ``sampler`` (``create_sampler``)
+    appends its negatives to each batch's columns before the parse; the
+    hard negatives' indices go to ``batch.additional``."""
 
     def __init__(
         self,
@@ -210,10 +213,10 @@ class BaseDataset:
         worker_id: int = 0,
         num_workers: int = 1,
         reserved_columns: Optional[List[str]] = None,
+        sampler: Optional[Any] = None,
     ) -> None:
-        if data_config.WhichOneof("sampler") is not None:
-            raise NotImplementedError("negative samplers are not ported")
         self._reader = reader
+        self._sampler = sampler
         self._mode = mode
         self._worker_id = worker_id
         self._num_workers = num_workers
@@ -225,6 +228,8 @@ class BaseDataset:
         )
 
     def __iter__(self) -> Iterator[Tuple[Batch, BatchInfo]]:
+        if self._sampler is not None:
+            self._sampler.init()
         for columns in self._reader.to_batches(
             worker_id=self._worker_id, num_workers=self._num_workers
         ):
@@ -247,7 +252,15 @@ class BaseDataset:
             if col in columns:
                 info.reserved[col] = columns[col]
         info.batch_size = len(next(iter(columns.values())))
-        return self._parser.parse_to_batch(columns), info
+        hard_neg_indices = None
+        if self._sampler is not None:
+            columns = self._sampler.process(columns)
+            hard_neg_indices = columns.pop(HARD_NEG_INDICES, None)
+        batch = self._parser.parse_to_batch(columns)
+        if hard_neg_indices is not None:
+            batch.additional["hard_neg_indices"] = torch.from_numpy(
+                hard_neg_indices)
+        return batch, info
 
 
 class _DeviceCopy:
@@ -352,7 +365,7 @@ class _WorkerShards(torch.utils.data.IterableDataset):
 
     def __init__(self, data_config, features, input_path, mode,
                  reserved_columns, selected_cols, batch_size, base_wid,
-                 base_nw) -> None:
+                 base_nw, sampler=None) -> None:
         super().__init__()
         self.data_config = data_config
         self.features = features
@@ -363,6 +376,7 @@ class _WorkerShards(torch.utils.data.IterableDataset):
         self.batch_size = batch_size
         self.base_wid = base_wid
         self.base_nw = base_nw
+        self.sampler = sampler
 
     def __iter__(self) -> Iterator[Tuple[Batch, BatchInfo]]:
         info = torch.utils.data.get_worker_info()
@@ -372,7 +386,7 @@ class _WorkerShards(torch.utils.data.IterableDataset):
         dataset = BaseDataset(
             self.data_config, self.features, reader, self.mode,
             worker_id=self.base_wid * k + w, num_workers=self.base_nw * k,
-            reserved_columns=self.reserved_columns)
+            reserved_columns=self.reserved_columns, sampler=self.sampler)
         # numpy arrays reach the parent pickled through the worker's pipe,
         # a batch in one piece; tensors would go as one shared-memory file
         # descriptor each, fetched over a socket connection per descriptor,
@@ -467,6 +481,20 @@ def _reader_for(data_config, input_path: str, batch_size: int, selected_cols,
     return r
 
 
+def create_sampler(data_config: Any, mode: str) -> Optional[Any]:
+    """The negative sampler ``data_config`` names, for train and eval
+    (``num_eval_sample`` outside train); None in predict or where it
+    names none."""
+    which = data_config.WhichOneof("sampler")
+    if which is None or mode == "predict":
+        return None
+    from torcheasyrec_tpu_torch.datasets import sampler as sampler_mod
+
+    cfg = getattr(data_config, which)
+    return sampler_mod.BaseSampler.create_class(type(cfg).__name__)(
+        cfg, is_training=mode == "train")
+
+
 def num_loader_workers(data_config: Any, mode: str = "train") -> int:
     """Worker processes the loader runs, 0 for the thread loader. Opt-in:
     the proto's default ``num_workers`` (8) does not turn them on; an
@@ -516,7 +544,9 @@ def create_dataloader(
     pin-memory threads, CUDA's own), and a fork copies their locks in
     whatever state they are; a spawned worker starts from a fresh
     interpreter and never touches CUDA (its tensors stay on the CPU; the
-    parent pins and copies them)."""
+    parent pins and copies them). A negative sampler (``create_sampler``)
+    is built here, one for the loader: each worker draws from its pickled
+    copy."""
     batch_size = int(data_config.batch_size)
     if mode != "train" and data_config.HasField("eval_batch_size"):
         batch_size = int(data_config.eval_batch_size)
@@ -524,9 +554,10 @@ def create_dataloader(
                                       reserved_columns)
     reader = _reader_for(data_config, input_path, batch_size, selected_cols,
                          mode, resume_state)
+    sampler = create_sampler(data_config, mode)
     dataset = BaseDataset(data_config, features, reader, mode,
                           worker_id=worker_id, num_workers=num_workers,
-                          reserved_columns=reserved_columns)
+                          reserved_columns=reserved_columns, sampler=sampler)
     mp_workers = num_loader_workers(data_config, mode)
     dev = torch.device(device) if device is not None else torch.device("cpu")
     resumed_epoch_pending = [bool(resume_state) and mp_workers > 1]
@@ -537,7 +568,7 @@ def create_dataloader(
             loader = torch.utils.data.DataLoader(
                 _WorkerShards(data_config, features, input_path, mode,
                               list(reserved_columns or []), selected_cols,
-                              batch_size, worker_id, num_workers),
+                              batch_size, worker_id, num_workers, sampler),
                 batch_size=None, num_workers=mp_workers,
                 pin_memory=copy is not None, timeout=WORKER_TIMEOUT_S,
                 multiprocessing_context="spawn", prefetch_factor=PREFETCH)

@@ -21,7 +21,15 @@ import torch
 CKPT_SOURCE_ID = "__ckpt_source_id__"
 CKPT_ROW_IDX = "__ckpt_row_idx__"
 DATA_TIMESTAMP = "__data_timestamp__"
+# the hard-negative sampler's int32 [B * num_hard_sample, 2] (user row,
+# hard column) pairs, popped from its output into
+# ``Batch.additional["hard_neg_indices"]``; an empty slot's user row is B
 HARD_NEG_INDICES = "__hard_neg_indices__"
+# the data groups of the negative sampler: a NEG_DATA_GROUP feature's
+# input gets the sampled items appended (B + num_sample rows), the
+# BASE_DATA_GROUP ones keep the batch's B rows
+BASE_DATA_GROUP = "__BASE__"
+NEG_DATA_GROUP = "__NEG__"
 
 
 def pa_from_numpy(arr: np.ndarray):
@@ -108,6 +116,10 @@ class Batch:
     )
     labels: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     sample_weights: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict
+    )
+    # other per-batch tensors, e.g. the hard negatives' "hard_neg_indices"
+    additional: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict
     )
 

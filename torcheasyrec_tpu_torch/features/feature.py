@@ -3,7 +3,8 @@
 Counterpart of torcheasyrec_tpu/features/feature.py, cut to what id and
 raw features (plain and sequence) need in FG_NONE mode, where the input
 columns are already encoded. Host-side only (pyarrow/numpy): it turns
-Arrow columns into numpy ids, lengths and dense values. FG_NORMAL
+Arrow columns into numpy ids, lengths and dense values, and marks the
+features a negative sampler appends rows to (``data_group``). FG_NORMAL
 feature generation, grouped ``sequence_feature`` configs, vocab files,
 zero-collision hashing and dynamic embeddings are not ported and raise
 NotImplementedError.
@@ -16,6 +17,10 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
+from torcheasyrec_tpu_torch.datasets.utils import (
+    BASE_DATA_GROUP,
+    NEG_DATA_GROUP,
+)
 from torcheasyrec_tpu_torch.utils.load_class import get_register_class_meta
 
 _FEATURE_CLASS_MAP: Dict[str, type] = {}
@@ -319,6 +324,7 @@ class BaseFeature(metaclass=_meta_cls):
         # a tuple once computed; None (not a sentinel object) until then,
         # so that a pickled feature (a loader worker's) compares right
         self._id_bound_cache = None
+        self._data_group = BASE_DATA_GROUP
         for f in ("zch", "dynamicemb"):
             if _has_field_safe(self.config, f):
                 raise NotImplementedError(
@@ -408,6 +414,30 @@ class BaseFeature(metaclass=_meta_cls):
         return [self.name]
 
     @property
+    def side_inputs(self) -> List[Tuple[str, str]]:
+        """[(side, column)] of the config's ``expression``s, written
+        ``side:column`` (side "user", "item" or "context"; "" where the
+        expression names a column alone)."""
+        expr = getattr(self.config, "expression", None)
+        exprs = ([expr] if expr else []) if isinstance(expr, str) else list(
+            expr or [])
+        return [tuple(e.split(":", 1)) if ":" in e else ("", e)
+                for e in exprs]
+
+    @property
+    def is_item_side(self) -> bool:
+        return any(side == "item" for side, _ in self.side_inputs)
+
+    @property
+    def data_group(self) -> str:
+        """``NEG_DATA_GROUP`` where the negative sampler appends rows to
+        this feature's input, else ``BASE_DATA_GROUP``."""
+        return self._data_group
+
+    def set_data_group(self, group: str) -> None:
+        self._data_group = group
+
+    @property
     def effective_sequence_delim(self) -> str:
         return getattr(self.config, "sequence_delim", ";") or ";"
 
@@ -488,8 +518,11 @@ def create_features(
     feature_configs: List[Any],
     fg_mode: int = FG_NONE,
     fg_encoded_multival_sep: Optional[str] = None,
+    neg_fields: Optional[List[str]] = None,
 ) -> List[BaseFeature]:
-    """Build feature objects from FeatureConfig protos."""
+    """Build feature objects from FeatureConfig protos. With ``neg_fields``
+    (the negative sampler's attr fields), item-side features and those
+    whose input is one of the fields join ``NEG_DATA_GROUP``."""
     features: List[BaseFeature] = []
     for cfg in feature_configs:
         oneof = cfg.WhichOneof("feature")
@@ -502,6 +535,10 @@ def create_features(
         features.append(BaseFeature.create_class(cls_name)(
             cfg, fg_mode, fg_encoded_multival_sep
         ))
+    if neg_fields:
+        for feat in features:
+            if feat.is_item_side or set(feat.inputs) & set(neg_fields):
+                feat.set_data_group(NEG_DATA_GROUP)
     return features
 
 

@@ -58,13 +58,21 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def _create_features(pipeline_config):
+    """The config's features; with a negative sampler, those it appends
+    to (its ``attr_fields``, else its ``item_id_field``) and the item-side
+    ones join ``NEG_DATA_GROUP``."""
     data_config = pipeline_config.data_config
-    if data_config.WhichOneof("sampler") is not None:
-        raise NotImplementedError("negative samplers are not ported")
+    neg_fields = None
+    sampler_type = data_config.WhichOneof("sampler")
+    if sampler_type is not None:
+        sampler_cfg = getattr(data_config, sampler_type)
+        neg_fields = list(sampler_cfg.attr_fields) or [
+            sampler_cfg.item_id_field]
     return create_features(
         list(pipeline_config.feature_configs),
         fg_mode=data_config.fg_mode,
         fg_encoded_multival_sep=data_config.fg_encoded_multival_sep or None,
+        neg_fields=neg_fields,
     )
 
 

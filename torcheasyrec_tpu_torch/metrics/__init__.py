@@ -4,8 +4,8 @@ Counterpart of torcheasyrec_tpu/metrics/__init__.py: exact accumulation
 on the host, in numpy (predictions are tiny beside the model's work; the
 eval loop copies each batch's outputs to the host once). Ported: ``auc``
 and ``grouped_auc`` (named ``grouped_auc_<grouping_key>``, as the JAX
-package names it). The other metrics raise NotImplementedError in
-``create_metric``.
+package names it) and ``recall_at_k`` (named ``recall@<top_k>``). The
+other metrics raise NotImplementedError in ``create_metric``.
 """
 
 from typing import Any, Dict, List
@@ -111,7 +111,34 @@ class GroupedAUC:
                             np.concatenate(self._keys))
 
 
-_METRIC_CLASSES = {"auc": AUC, "grouped_auc": GroupedAUC}
+class RecallAtK:
+    """recall@k of retrieval: a row of ``preds`` is one user's similarity
+    [1 + negatives] with the positive in column 0; the row is a hit when
+    fewer than ``top_k`` negatives score at least as high (a tie counts
+    against the positive)."""
+
+    def __init__(self, top_k: int = 5, **kw) -> None:
+        self.top_k = top_k
+        self.reset()
+
+    def reset(self) -> None:
+        self._hit = 0.0
+        self._n = 0
+
+    def update(self, preds, labels=None, **kw) -> None:
+        p = np.asarray(preds)
+        if p.ndim == 1:
+            p = p[None, :]
+        rank = (p[:, 1:] >= p[:, 0:1]).sum(axis=1)
+        self._hit += float((rank < self.top_k).sum())
+        self._n += p.shape[0]
+
+    def compute(self) -> float:
+        return float(self._hit / max(self._n, 1))
+
+
+_METRIC_CLASSES = {"auc": AUC, "grouped_auc": GroupedAUC,
+                   "recall_at_k": RecallAtK}
 
 
 def create_metric(metric_config) -> Dict[str, Any]:
@@ -127,5 +154,7 @@ def create_metric(metric_config) -> Dict[str, Any]:
     name = which
     if which == "grouped_auc":
         name = f"{which}_{cfg.grouping_key}"
+    elif which == "recall_at_k":
+        name = f"recall@{cfg.top_k}"
     return {"name": name, "metric": _METRIC_CLASSES[which](**kwargs),
             "config": kwargs}

@@ -1,12 +1,15 @@
 """Model registry: importing this package registers the ported models so
 ``create_model`` resolves a ModelConfig by its proto message name."""
 
+from torcheasyrec_tpu_torch.models.dat import DAT  # noqa: F401
 from torcheasyrec_tpu_torch.models.dbmtl import DBMTL  # noqa: F401
 from torcheasyrec_tpu_torch.models.dcn import DCNV1, DCNV2  # noqa: F401
 from torcheasyrec_tpu_torch.models.deepfm import DeepFM  # noqa: F401
 from torcheasyrec_tpu_torch.models.dlrm import DLRM  # noqa: F401
 from torcheasyrec_tpu_torch.models.dlrm_hstu import DlrmHSTU  # noqa: F401
+from torcheasyrec_tpu_torch.models.dssm import DSSM, DSSMV2  # noqa: F401
 from torcheasyrec_tpu_torch.models.masknet import MaskNet  # noqa: F401
+from torcheasyrec_tpu_torch.models.mind import MIND  # noqa: F401
 from torcheasyrec_tpu_torch.models.mmoe import MMoE  # noqa: F401
 from torcheasyrec_tpu_torch.models.multi_task_rank import (  # noqa: F401
     SimpleMultiTask,

@@ -108,17 +108,21 @@ class BaseModel(nn.Module, metaclass=_meta):
     def update_metrics(self, metrics: List[Dict[str, Any]],
                        predictions: Dict[str, torch.Tensor],
                        batch: Batch) -> None:
-        """Feed one batch's predictions and labels to the accumulators."""
+        """Feed one batch's predictions and labels to the accumulators; a
+        ``recall@`` metric reads ``similarity`` where there is one."""
         if not metrics:
             return
         label = batch.labels[self._labels[0]].cpu().numpy()
-        preds = predictions.get("probs", predictions.get("y"))
-        preds = preds.float().cpu().numpy()
+        probs = predictions.get("probs", predictions.get("y"))
+        probs = None if probs is None else probs.float().cpu().numpy()
         for m in metrics:
             kw = {}
             gk = m["config"].get("grouping_key")
             if gk:
                 kw["grouping_key"] = _grouping_value(batch, gk)
+            preds = probs
+            if m["name"].startswith("recall@") and "similarity" in predictions:
+                preds = predictions["similarity"].float().cpu().numpy()
             m["metric"].update(preds, label, **kw)
 
     def compute_metrics(self, metrics: List[Dict[str, Any]]

@@ -11,7 +11,10 @@
   keyed by tower or group name (DBMTL's ``towers``, ``relations``,
   ``outputs``; MultiTower's ``towers``) by that name; RocketLaunching's
   ``share``, ``booster``, ``light``, ``booster_out`` and ``light_out``
-  keep their names;
+  keep their names, and so do the retrieval models' ``user_tower``,
+  ``item_tower`` (each ``mlp`` and ``output``), MIND's ``user_mlp``,
+  ``hist_mlp``, ``concat_mlp`` and ``user_out``, and its capsule's
+  ``bilinear`` [in, high] and ``routing_logits`` (not transposed);
   ``layer_<i>`` (MLP layers, cross layers) becomes ``layers.<i>`` and
   MaskNet's ``block_<i>`` becomes ``blocks.<i>``;
 - linear ``kernel`` [in, out] becomes ``weight`` [out, in], LayerNorm
