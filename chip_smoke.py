@@ -21,7 +21,11 @@ tables of dim 16 at the configs' buckets, BF16, sparse rowwise_adagrad
 lr 0.01, dense adam lr 0.001; MultiTowerDIN, MMoE with a sequence
 group, RocketLaunching, DBMTL with the JRC loss; and DSSM two-tower
 retrieval with 32 sampled negatives a batch) on the JAX package's
-synthetic Criteo data. Phases, one JSON line each:
+synthetic Criteo data; and the training loop's options (FP16 with the
+grad scaler, clipping and accumulation on DLRM-HSTU, the six further
+sparse optimizers and BF16/FP16 tables on DeepFM, part optimizers,
+train metrics and every eval metric on DBMTL). Phases, one JSON line
+each:
 
 1. env: the card, CUDA and torch versions; every CUDA kernel of the
    paths is built from the sources here (one nvcc per source, in
@@ -173,6 +177,36 @@ synthetic Criteo data. Phases, one JSON line each:
    on the card, the outputs, loss and dense gradients within 1e-4 of
    each one's max.
 
+9. train_options: the training loop's options. (a) Both attention
+   kernels in fp16 against their plain versions (5e-3 of the plain max:
+   fp16 keeps 11 bits, the sums run in another order) at the slice's
+   shapes and over the mask sweep, and the backward under an upstream
+   gradient that overflows fp16 in dz and dv: inf or NaN exactly where
+   the plain version has them; their fp16 times beside the plain
+   versions' and the bound. The lane's DLRM-HSTU in FP16 with the grad
+   scaler, norm clipping at 1.0 and accumulation over 2 steps: 8 steps
+   through the options' train step, exactly 3 forward and 3 backward
+   launches a step (counts set to 0 just before, read just after), 4
+   dense updates, finite losses; the whole model with the kernels
+   against the plain attention at the fp16 bound; then ``init_scale``
+   2^30 on one repeated batch: the overflowing steps skipped with every
+   table bit-equal across each, the scale backing off to finite steps,
+   the loss falling. (b) criteo_synth DeepFM at its published width
+   (buckets capped at 100 000, batch 4096, fp32 compute so that card and
+   CPU can be held close) under each of the six new sparse kinds, with
+   rowwise adagrad (the slot-17 reference) and with BF16 and FP16 tables:
+   each group's (slot, rows per physical row), 5 steps with one row write
+   a step per packed group, one real step's writes bit-equal to the plain
+   version, the tables after step 1 within 1e-5 of each table's max of a
+   CPU step from the same weights (one unit in the last place for BF16
+   and FP16 tables); the row write timed at the slot-48 layout (lamb)
+   beside the slot-17 one. (c) criteo_synth DBMTL through
+   ``train_and_evaluate`` for one epoch (8 batches of 4096) with part
+   optimizers on its towers, train metrics (logged), every eval metric
+   kind (a third tower of 3 classes for those that read [B, C]) and a
+   table ``init_fn``: each eval metric equal to its recomputation in
+   numpy from the predictions ``predict_checkpoint`` writes.
+
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
 prints them, and as the last line the device record. Any failure raises
@@ -201,7 +235,7 @@ N_TRAIN_STEPS = 6
 N_FILE_STEPS = 2
 SEED = 7
 
-# published dense peaks of one H100 SXM (bf16 tensor cores, HBM3)
+# published dense peaks of one H100 SXM (bf16 and fp16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -245,6 +279,7 @@ train_config {{
     }}
     num_steps: {num_steps}
     mixed_precision: "{mixed_precision}"
+{train_extra}
 }}
 data_config {{
     batch_size: {batch}
@@ -387,17 +422,18 @@ def emit(obj) -> None:
 
 def config_text(kernel: str, input_dropout: float = 0.2,
                 model_dir: str = "unused", train_path: str = "unused",
-                num_steps: int = 1, mixed_precision: str = "BF16") -> str:
+                num_steps: int = 1, mixed_precision: str = "BF16",
+                train_extra: str = "") -> str:
     """The lane's config. ``input_dropout`` defaults to the proto's 0.2;
     the training phases set it to 0 (the STU's output dropout and the
     MLP's are 0 in the lane already). An empty ``mixed_precision`` runs
-    the dense stack in fp32."""
+    the dense stack in fp32. ``train_extra`` adds train_config fields."""
     return _CONFIG.format(
         batch=BATCH, users=N_USERS, vocab=VOCAB, max_seq=MAX_SEQ,
         n_cand=N_CAND, total_seq=MAX_SEQ + N_CAND * 2, kernel=kernel,
         input_dropout=input_dropout, model_dir=model_dir,
         train_path=train_path, num_steps=num_steps,
-        mixed_precision=mixed_precision,
+        mixed_precision=mixed_precision, train_extra=train_extra,
     )
 
 
@@ -474,15 +510,14 @@ def attn_inputs(b, n, h, d, vd, dtype, lengths, targets, seed):
     return q, k, v, lengths, targets
 
 
-def slice_attention_inputs():
+def slice_attention_inputs(dtype=torch.bfloat16):
     """q, k, v at the slice's shapes, lengths drawn like the request
     data: 1 contextual token + 512..3899 history + 4..15 candidates."""
     r = np.random.default_rng(SEED)
     lc = r.integers(4, N_CAND, BATCH)
     lengths = 1 + r.integers(512, MAX_SEQ - 100, BATCH) + lc
     n = 1 + MAX_SEQ + N_CAND
-    return attn_inputs(BATCH, n, 4, 128, 128, torch.bfloat16, lengths, lc,
-                       seed=SEED)
+    return attn_inputs(BATCH, n, 4, 128, 128, dtype, lengths, lc, seed=SEED)
 
 
 def slice_upstream_grad(v):
@@ -493,9 +528,10 @@ def slice_upstream_grad(v):
         v.dtype)
 
 
-def mask_sweep():
-    """(name, tolerance, q, k, v, lengths, targets, mask arguments), in fp32
-    then bf16: every mask variant and head-dim pair at B=3, N=300, H=2 with
+def mask_sweep(dtypes=((torch.float32, FP32_TOL),
+                       (torch.bfloat16, BF16_TOL))):
+    """(name, tolerance, q, k, v, lengths, targets, mask arguments), in each
+    of ``dtypes`` (fp32 then bf16): every mask variant and head-dim pair at B=3, N=300, H=2 with
     ragged lengths; then at the bf16 kernels' 128-row tile edges and the
     fp32 kernels' 64-row ones, lengths 127, 128, 129, 255, 256 and 1000 in
     N=1000; an SLA window shorter than a tile (sla_k1=64, sla_k2=16, with
@@ -514,7 +550,7 @@ def mask_sweep():
         (dict(causal=True), 32, 32, 300, 130, 1, None),
     ]
     r = np.random.default_rng(1)
-    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+    for dtype, tol in dtypes:
         for i, (case, d, vd, b, n, h, lens) in enumerate(sweep):
             if lens is None:
                 lens = r.integers(1, n + 1, b)
@@ -853,22 +889,23 @@ def phase_slice():
     return launches, float(np.median(times))
 
 
-def build_trainer(cfg, seed=SEED, **engine_options):
+def build_trainer(cfg, seed=SEED, device="cuda", **engine_options):
     """(model, features, dense optimizer, state, train step) of the port
-    on the card, from the config's optimizers; ``engine_options`` are the
-    embedding engine's (``packed``, ``dense_lane_rows``)."""
+    on the card (or ``device``), from the config's optimizers and train
+    options (clipping, part optimizers, accumulation, the grad scaler);
+    ``engine_options`` are the embedding engine's (``packed``,
+    ``dense_lane_rows``)."""
     from torcheasyrec_tpu_torch import main as port_main
-    from torcheasyrec_tpu_torch.optim.optimizer_builder import (
-        create_dense_optimizer,
-    )
 
+    tc = cfg.train_config
     model, features, sparse_sched = port_main._build_model_and_optim(
-        cfg, "cuda", for_train=True, seed=seed, **engine_options)
-    tx, dense_sched = create_dense_optimizer(
-        cfg.train_config.dense_optimizer,
-        [p for p in model.parameters() if p.requires_grad])
-    state = port_main._init_state(model)
-    step = port_main.make_train_step(model, tx, sparse_sched, dense_sched)
+        cfg, device, for_train=True, seed=seed, **engine_options)
+    tx, dense_sched = port_main._dense_optimizer(model, tc)
+    accum = int(tc.gradient_accumulation_steps or 1)
+    scaler = tc.grad_scaler if tc.HasField("grad_scaler") else None
+    state = port_main._init_state(model, tx, accum, scaler)
+    step = port_main.make_train_step(model, tx, sparse_sched, dense_sched,
+                                     accum, scaler)
     return model, features, tx, state, step
 
 
@@ -1081,11 +1118,12 @@ def phase_train():
             (model, state, train_step, batches))
 
 
-def phase_timing_train(trainer, step_median_ms):
+def bwd_times(dtype=torch.bfloat16) -> dict:
+    """The backward kernel at the slice's shapes in ``dtype``: its time,
+    the plain version's and the card's bound for this data's work."""
     from torcheasyrec_tpu_torch.ops import hstu
 
-    model, state, train_step, batches = trainer
-    q, k, v, lengths, targets = slice_attention_inputs()
+    q, k, v, lengths, targets = slice_attention_inputs(dtype)
     do = slice_upstream_grad(v)
     alpha, scale = 128 ** -0.5, MAX_SEQ + 2 * N_CAND
     args = (alpha, True, 0, 1, 0, scale)
@@ -1109,19 +1147,28 @@ def phase_timing_train(trainer, step_median_ms):
     flops = 2.0 * pairs * h * (3 * d + 2 * vd)
     nbytes = 2.0 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
     bound_ms, bound_by = card_bound(flops, nbytes)
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "plain_note": "8 calls of 4 samples", "flops": flops,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_tflops": flops / kernel_ms / 1e9,
+            "bound_share": bound_ms / kernel_ms}
+
+
+def timing_tuple(t: dict):
+    return t["kernel_ms"], t["plain_ms"], t["bound_ms"], t["bound_by"]
+
+
+def phase_timing_train(trainer, step_median_ms):
+    model, state, train_step, batches = trainer
+    times = bwd_times()
 
     def one_step():
         train_step(state, batches[0])
     emit({"phase": "timing_train", "median_step_ms": step_median_ms,
-          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "plain_note": "8 calls of 4 samples", "flops": flops,
-          "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-          "kernel_tflops": flops / kernel_ms / 1e9,
-          "bound_share": bound_ms / kernel_ms,
-          "wmma_kernel_ms": WMMA_BWD_MS,
+          **times, "wmma_kernel_ms": WMMA_BWD_MS,
           "dq": "fp32 atomics into a zeroed buffer, cast afterwards",
           "step_profile": profile_forward(one_step)})
-    return kernel_ms, plain_ms, bound_ms, bound_by
+    return timing_tuple(times)
 
 
 def profile_forward(fn) -> dict:
@@ -1171,10 +1218,12 @@ def card_bound(flops: float, nbytes: float):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def phase_timing():
+def fwd_times(dtype=torch.bfloat16) -> dict:
+    """The forward kernel at the slice's shapes in ``dtype``: its time,
+    the plain version's and the card's bound for this data's work."""
     from torcheasyrec_tpu_torch.ops import hstu
 
-    q, k, v, lengths, targets = slice_attention_inputs()
+    q, k, v, lengths, targets = slice_attention_inputs(dtype)
     alpha, scale = 128 ** -0.5, MAX_SEQ + 2 * N_CAND
     args = (alpha, True, 0, 1, 0, scale)
     kernel_ms = cuda_ms(
@@ -1194,13 +1243,17 @@ def phase_timing():
     flops = 2.0 * pairs * h * (d + vd)
     nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + v.numel())
     bound_ms, bound_by = card_bound(flops, nbytes)
-    emit({"phase": "timing", "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "plain_note": "4 calls of 8 samples", "flops": flops,
-          "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-          "kernel_tflops": flops / kernel_ms / 1e9,
-          "bound_share": bound_ms / kernel_ms,
-          "wmma_kernel_ms": WMMA_FWD_MS})
-    return kernel_ms, plain_ms, bound_ms, bound_by
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "plain_note": "4 calls of 8 samples", "flops": flops,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_tflops": flops / kernel_ms / 1e9,
+            "bound_share": bound_ms / kernel_ms}
+
+
+def phase_timing():
+    times = fwd_times()
+    emit({"phase": "timing", **times, "wmma_kernel_ms": WMMA_FWD_MS})
+    return timing_tuple(times)
 
 
 # --- the DeepFM lane: config and data ----------------------------------------
@@ -2949,6 +3002,567 @@ def phase_train_zoo():
     return launches, lane_off
 
 
+# --- train_options: the training loop's options ----------------------------
+FP16_TOL = 5e-3  # the fp16 kernels: max|kernel - plain| <= tol * max|plain|
+OPTIONS_STEPS = 8
+# the lane's training with the loop options the DLRM-HSTU path can take
+OPTIONS_EXTRA = """    grad_scaler {}
+    grad_clipping { clipping_type: "norm" max_gradient: 1.0 }
+    gradient_accumulation_steps: 2"""
+OVERFLOW_SCALE = 2.0 ** 30
+OVERFLOW_MAX_STEPS = 40
+OVERFLOW_FINITE_STEPS = 6  # finite steps wanted after the backoff
+OVERFLOW_DO_SCALE = 1e3  # an upstream gradient whose dz and dv pass 65504
+OPTIONS_ROWS = 8 * 4096, 2 * 4096  # criteo_synth rows: train, eval
+OPTIONS_KIND_STEPS = 5
+# the six sparse kinds of the optimizer slice, as the CPU tests run them
+# (rmsprop at eps 1e-4: rows whose gradient nearly cancels would take
+# lr-sized steps of rounding noise at 1e-8, which no two summation
+# orders share)
+OPTIONS_KINDS = {
+    "lars_sgd": "lars_sgd_optimizer { lr: 0.5 momentum: 0.8 eta: 0.01 }",
+    "lamb": "lamb_optimizer { lr: 0.01 }",
+    "partial_rowwise_lamb":
+        "partial_rowwise_lamb_optimizer { lr: 0.01 weight_decay: 0.01 }",
+    "partial_rowwise_adam":
+        "partial_rowwise_adam_optimizer { lr: 0.01 weight_decay: 0.01 }",
+    "adadelta": "adadelta_optimizer { lr: 1.0 rho: 0.9 }",
+    "rmsprop": "rmsprop_optimizer { lr: 0.01 alpha: 0.9 eps: 1e-4 }",
+}
+# card against CPU tables after 1 step (fp32 compute), relative to each
+# table's max: 1e-5 for fp32 tables; for BF16 and FP16 tables one unit in
+# the last place at the max (a flip of the rounding to nearest where the
+# two fp32 updates differ by an ulp); the slot-17 run (rowwise adagrad,
+# the row write's timing reference) is not compared: its first update
+# divides each row by its own gradient's norm, which lifts the two
+# devices' rounding far above 1e-5 of the max where a row's gradient
+# nearly cancels (the run prints the distance)
+OPTIONS_CPU_TOL = {"BF16_tables": 2.0 ** -7, "FP16_tables": 2.0 ** -10,
+                   "rowwise_adagrad_slot_17": None}
+OPTIONS_CPU_TOL_FP32 = 1e-5
+# the row write timed at the slot-48 layout beside the slot-17 one
+SLOT_TIMED = ("lamb", "rowwise_adagrad_slot_17")
+# every eval metric kind: on the binary ctr tower, and on a third tower of
+# 3 classes (softmax) for the ones that read [B, C] predictions
+_CTR_METRICS = (
+    'metrics { auc {} } metrics { grouped_auc { grouping_key: "cat_12" } }'
+    ' metrics { xauc { sample_ratio: 0.01 } }'
+    ' metrics { grouped_xauc { grouping_key: "cat_12" } }'
+    " metrics { normalized_entropy {} } metrics { accuracy {} }"
+    " metrics { mean_absolute_error {} } metrics { mean_squared_error {} }"
+    " train_metrics { auc {} decay_step: 4 }"
+    " train_metrics { mean_squared_error {} decay_step: 4 }")
+_CLS3_TOWER = (
+    '  task_towers { tower_name: "cls3" label_name: "conversion"\n'
+    "    num_class: 3 mlp { hidden_units: [64] }\n"
+    "    losses { softmax_cross_entropy {} } metrics { multiclass_auc {} }"
+    " metrics { accuracy {} } metrics { recall_at_k { top_k: 1 } }"
+    " }\n")
+_PARTS = (
+    '  part_optimizers { adagrad_optimizer { lr: 0.01 }'
+    ' regex_pattern: "towers/ctr/.*" }\n'
+    '  part_optimizers { sgd_optimizer { lr: 0.01 }'
+    ' regex_pattern: "towers/cvr/.*" exponential_decay_learning_rate'
+    " { decay_size: 4 decay_factor: 0.5 } }\n")
+
+
+def scale_of(state) -> float:
+    return float(state["scaler"]["scale"])
+
+
+def fp16_kernel_checks() -> dict:
+    """Both attention kernels in fp16 against their plain versions: at the
+    slice's shapes (8 samples), over the mask sweep, and the backward
+    under an upstream gradient that overflows fp16 in dz and dv, where
+    the kernel must give inf or NaN exactly where the plain version does.
+    These launches do not count."""
+    from torcheasyrec_tpu_torch.ops import hstu
+
+    counts = (hstu.hstu_attention_fwd.launches,
+              hstu.hstu_attention_bwd.launches)
+    f16 = torch.float16
+    alpha, scale = 128 ** -0.5, MAX_SEQ + 2 * N_CAND
+    q, k, v, lengths, targets = slice_attention_inputs(f16)
+    do = slice_upstream_grad(v)
+    n_cmp = min(8, BATCH)
+    out = hstu.hstu_attention_fwd(q[:n_cmp], k[:n_cmp], v[:n_cmp],
+                                  lengths[:n_cmp], targets[:n_cmp], alpha,
+                                  True, 0, 1, 0, scale)
+    ref = hstu._torch_hstu_mha(q[:n_cmp], k[:n_cmp], v[:n_cmp],
+                               lengths[:n_cmp], alpha, True, targets[:n_cmp],
+                               0, 1, 0, scale)
+    errs = {"slice fwd": check("fp16 slice fwd", out, ref, FP16_TOL)
+            / rel_err(ref, ref)[1]}
+    for s in range(0, n_cmp, 4):
+        e = s + 4
+        got = hstu.hstu_attention_bwd(q[s:e], k[s:e], v[s:e], do[s:e],
+                                      lengths[s:e], targets[s:e], alpha, True,
+                                      0, 1, 0, scale)
+        ref = hstu._torch_hstu_mha_bwd(q[s:e], k[s:e], v[s:e], do[s:e],
+                                       lengths[s:e], alpha, True,
+                                       targets[s:e], 0, 1, 0, scale)
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            errs[f"slice bwd {name}"] = max(
+                errs.get(f"slice bwd {name}", 0.0),
+                check(f"fp16 slice bwd {name}", g, r, FP16_TOL)
+                / rel_err(r, r)[1])
+    del q, k, v, do, out, ref, got
+    n_cases = 0
+    for name, tol, q, k, v, lengths, targets, m in mask_sweep(
+            ((f16, FP16_TOL),)):
+        args = (m["causal"], m["max_attn_len"], m["contextual_seq_len"],
+                m["min_full_attn_seq_len"], 500, m["sla_k1"], m["sla_k2"])
+        got = hstu.hstu_attention_fwd(q, k, v, lengths, targets, 0.1, *args)
+        ref = hstu._torch_hstu_mha(q, k, v, lengths, 0.1, args[0], targets,
+                                   *args[1:])
+        errs["sweep fwd"] = max(errs.get("sweep fwd", 0.0), check(
+            name, got, ref, tol) / rel_err(ref, ref)[1])
+        do = torch.randn(v.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(n_cases)).to(f16)
+        got = hstu.hstu_attention_bwd(q, k, v, do, lengths, targets, 0.1,
+                                      *args)
+        ref = hstu._torch_hstu_mha_bwd(q, k, v, do, lengths, 0.1, args[0],
+                                       targets, *args[1:])
+        for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+            errs[f"sweep bwd {gname}"] = max(
+                errs.get(f"sweep bwd {gname}", 0.0),
+                check(f"{name} {gname}", g, r, tol) / rel_err(r, r)[1])
+        n_cases += 1
+    # overflow: alpha 1, no 1/N, an upstream gradient of thousands
+    lens = np.array([300, 200, 77])
+    q, k, v, lengths, targets = attn_inputs(3, 300, 2, 64, 64, f16, lens,
+                                            lens // 8 + 1, seed=5)
+    do = (torch.randn(v.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(9)) * OVERFLOW_DO_SCALE).to(f16)
+    got = hstu.hstu_attention_bwd(q, k, v, do, lengths, targets, 1.0, True,
+                                  0, 1, 0, 1)
+    ref = hstu._torch_hstu_mha_bwd(q, k, v, do, lengths, 1.0, True, targets,
+                                   0, 1, 0, 1)
+    overflow = {}
+    for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+        fg, fr = torch.isfinite(g), torch.isfinite(r)
+        if not torch.equal(fg, fr) or fr.all():
+            raise AssertionError(
+                f"fp16 overflow {gname}: {int((~fg).sum())} non-finite "
+                f"values from the kernel, {int((~fr).sum())} from the plain "
+                f"version, {int((fg != fr).sum())} apart")
+        both = fg & fr
+        err = float((g.float() - r.float())[both].abs().max())
+        mx = float(r.float()[fr].abs().max())
+        if not err <= FP16_TOL * mx:
+            raise AssertionError(f"fp16 overflow {gname}: finite values "
+                                 f"{err} apart, max {mx}")
+        overflow[gname] = {"non_finite": int((~fr).sum()),
+                           "elements": fr.numel(),
+                           "finite_err_rel": err / mx}
+    torch.cuda.synchronize()
+    hstu.hstu_attention_fwd.launches, hstu.hstu_attention_bwd.launches = (
+        counts)
+    return {"max_abs_err_rel": errs, "sweep_cases": n_cases,
+            "overflow": {"shape": [3, 300, 2, 64, 64],
+                         "do_scale": OVERFLOW_DO_SCALE,
+                         "non_finite_equal": True, **overflow},
+            "tol_rel": FP16_TOL}
+
+
+def hstu_options_run(parser, batches) -> dict:
+    """The lane's DLRM-HSTU in FP16 with the grad scaler, norm clipping
+    and accumulation over 2 steps: OPTIONS_STEPS steps through the
+    options' train step (3 batches, then the first again), the attention
+    launches counted; then the whole model with the kernels against the
+    plain attention on a batch of 8 at the fp16 bound."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.ops import hstu
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(config_text(
+        "PALLAS", input_dropout=0.0, mixed_precision="FP16",
+        train_extra=OPTIONS_EXTRA))
+    model, features, tx, state, step = build_trainer(cfg)
+    n_layers = len(model.transducer.stack.layers)
+    order = [0, 1, 2] + [0] * (OPTIONS_STEPS - 3)
+    torch.cuda.synchronize()
+    hstu.hstu_attention_fwd.launches = 0
+    hstu.hstu_attention_bwd.launches = 0
+    losses, scales, step_ms = [], [], []
+    for i in order:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["total_loss"]))
+        scales.append(scale_of(state))
+    launches = (hstu.hstu_attention_fwd.launches,
+                hstu.hstu_attention_bwd.launches)
+    if launches != (n_layers * OPTIONS_STEPS,) * 2:
+        raise AssertionError(f"FP16 options run: (forward, backward) kernels "
+                             f"launched {launches} times in {OPTIONS_STEPS} "
+                             f"steps of {n_layers} STU layers")
+    if not np.isfinite(losses).all() or tx.count > OPTIONS_STEPS // 2:
+        raise AssertionError(f"FP16 options run: losses {losses}, "
+                             f"{tx.count} dense updates")
+
+    # the same weights with the plain attention, on a batch of 8
+    plain, _ = port_main.build_model(parse_pipeline_config(config_text(
+        "PYTORCH", input_dropout=0.0, mixed_precision="FP16")), "cuda",
+        seed=SEED)
+    plain.load_state_dict(model.state_dict())
+    small = parser(features).parse_to_batch(
+        synth_cols(8, SEED + 100)).to("cuda")
+    with torch.inference_mode():
+        got, ref = model.eval()(small), plain(small)
+    model_errs = {k: check(f"FP16 model {k}", got[k], ref[k], FP16_TOL)
+                  / rel_err(ref[k], ref[k])[1]
+                  for k in got if k.startswith(("probs_", "logits_"))}
+    return {"steps": OPTIONS_STEPS, "batch_order": order, "losses": losses,
+            "scales": scales, "dense_updates": tx.count,
+            "step_ms_median": float(np.median(step_ms[1:])),
+            "kernel_launches": {"forward": launches[0],
+                                "backward": launches[1]},
+            "model_vs_plain_err_rel": model_errs, "tol_rel": FP16_TOL}
+
+
+def hstu_overflow_run(batch) -> dict:
+    """The same FP16 trainer with ``init_scale`` 2^30 on one repeated
+    batch: the overflowing steps (the first, and any later one) are
+    skipped with every table bit-equal across each, the scale backs off
+    until steps are finite, and the loss then falls."""
+    from torcheasyrec_tpu_torch.ops import hstu
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(config_text(
+        "PALLAS", input_dropout=0.0, mixed_precision="FP16",
+        train_extra=OPTIONS_EXTRA.replace(
+            "grad_scaler {}", f"grad_scaler {{ init_scale: {OVERFLOW_SCALE} }}")))
+    model, _, tx, state, step = build_trainer(cfg)
+    counts = (hstu.hstu_attention_fwd.launches,
+              hstu.hstu_attention_bwd.launches)
+    eg = model.embedding_group
+    skipped, finite_losses, scales = 0, [], [scale_of(state)]
+    for _ in range(OVERFLOW_MAX_STEPS):
+        before = {gk: t.clone() for gk, t in eg.engine_tables().items()}
+        scale = scale_of(state)
+        state, metrics = step(state, batch)
+        scales.append(scale_of(state))
+        if scales[-1] < scale:  # backed off: the step was skipped
+            skipped += 1
+            for gk, t in eg.engine_tables().items():
+                if not torch.equal(t, before[gk]):
+                    raise AssertionError(f"overflow run: table group {gk} "
+                                         "changed on a skipped step")
+        else:
+            finite_losses.append(float(metrics["total_loss"]))
+            if len(finite_losses) == OVERFLOW_FINITE_STEPS:
+                break
+        del before
+    hstu.hstu_attention_fwd.launches, hstu.hstu_attention_bwd.launches = (
+        counts)  # this run is a check, not the main path
+    if (not skipped or len(finite_losses) < OVERFLOW_FINITE_STEPS
+            or not finite_losses[-1] < finite_losses[0]
+            or not np.isfinite(finite_losses).all()):
+        raise AssertionError(f"overflow run: {skipped} skipped steps, "
+                             f"finite losses {finite_losses}, scales {scales}")
+    return {"init_scale": OVERFLOW_SCALE, "skipped_steps": skipped,
+            "tables_bit_equal_across_skipped_steps": True,
+            "scales": scales, "finite_losses": finite_losses,
+            "dense_updates": tx.count}
+
+
+def criteo_text(name: str, model_dir: str, paths, replace=(), add="") -> str:
+    """A criteo_synth config's text with its paths, ``replace`` (pairs of
+    old, new) applied, and ``add`` at the end of its train_config."""
+    with open(os.path.join(zoo_config_dir(), "criteo_synth",
+                           f"{name}.config")) as f:
+        text = f.read()
+    text = text.replace("criteo_synth_data/criteo_synth_train_262144_v3"
+                        ".parquet", paths["train"])
+    text = text.replace("criteo_synth_data/criteo_synth_eval_65536_v3"
+                        ".parquet", paths["eval"])
+    text = text.replace(f"criteo_synth_model/{name}", model_dir)
+    for old, new in replace:
+        if old not in text:
+            raise AssertionError(f"{name}.config has no {old!r}")
+        text = text.replace(old, new)
+    return text.replace("train_config {", "train_config {\n" + add, 1)
+
+
+def parquet_batches(path, features, n, batch_size):
+    """The first ``n`` batches of a parquet file, parsed on the CPU."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+
+    table = pq.read_table(path)
+    parser = DataParser(features, labels=["label", "conversion"])
+    out = []
+    for i in range(n):
+        part = table.slice(i * batch_size, batch_size)
+        out.append(parser.parse_to_batch(
+            {c: part[c].combine_chunks() for c in part.column_names}))
+    return out
+
+
+def deepfm_kind_run(label, text, batches_cpu) -> dict:
+    """criteo_synth DeepFM (fp32 compute, so that the card and the CPU may
+    be held within 1e-5) under one sparse optimizer or table dtype:
+    OPTIONS_KIND_STEPS steps on the card with the row writes counted,
+    the writes of step 1 held against the plain version bit for bit, and
+    the tables after step 1 against a CPU step from the same weights."""
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(text)
+    model, _, _, state, step = build_trainer(cfg)
+    cpu_model, _, _, cpu_state, cpu_step = build_trainer(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    eng = model.embedding_group.engine
+    layouts = {gk: {"slot": g.slot, "spr": g.spr, "packed": g.packed,
+                    "dtype": str(g.store_dtype).replace("torch.", "")}
+               for gk, g in eng.groups.items()}
+    batches = [b.to("cuda") for b in batches_cpu]
+    torch.cuda.synchronize()
+    write_rows.launches = 0
+    calls = write_targets(model, step, state, batches[0])
+    cpu_step(cpu_state, batches_cpu[0])
+    torch.cuda.synchronize()
+    first_launches = write_rows.launches
+    check_step_writes(label, calls)
+    write_rows.launches = first_launches
+    errs = {}
+    tol = OPTIONS_CPU_TOL.get(label, OPTIONS_CPU_TOL_FP32)
+    card, cpu = model.embedding_group.tables, cpu_model.embedding_group.tables
+    for name, t in card.items():
+        ref = cpu[name].float()
+        err = float((t.float().cpu() - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1e-30)
+        errs[name] = err / scale
+        if tol is not None and not err <= tol * scale:
+            raise AssertionError(f"{label}: table {name} after 1 step is "
+                                 f"{err} from the CPU's (max {scale})")
+    losses = []
+    for i in range(1, OPTIONS_KIND_STEPS):
+        state, metrics = step(state, batches[i % len(batches)])
+        losses.append(float(metrics["total_loss"]))
+    torch.cuda.synchronize()
+    launches = write_rows.launches
+    packed = sum(g.packed for g in eng.groups.values())
+    if launches != packed * OPTIONS_KIND_STEPS or not np.isfinite(
+            losses).all():
+        raise AssertionError(f"{label}: {launches} row writes in "
+                             f"{OPTIONS_KIND_STEPS} steps of {packed} packed "
+                             f"groups, losses {losses}")
+    worst = max(errs, key=errs.get)
+    out = {"layouts": layouts, "row_write_launches": launches,
+           "row_writes_bit_equal": True, "writes_step_1": len(calls),
+           "card_vs_cpu_tables_1_step": {"worst_table": worst,
+                                         "err_rel_to_max": errs[worst],
+                                         "tol_rel": tol},
+           "losses": losses}
+    if label in SLOT_TIMED:  # the dim-16 group's write, for its timing
+        out["slot_write"] = max(calls, key=lambda c: c[0].shape[0])[:3]
+    del calls, model, cpu_model, state, cpu_state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def dbmtl_options_epoch(paths, tmp) -> dict:
+    """criteo_synth DBMTL through ``train_and_evaluate`` for one epoch with
+    part optimizers on its towers, train metrics, every eval metric kind
+    (a third tower of 3 classes reads the [B, C] ones) and a table
+    ``init_fn``; the eval metrics must equal a recomputation in numpy
+    from the predictions ``predict_checkpoint`` writes for the eval file."""
+    import logging
+
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.metrics import create_metric
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    model_dir = os.path.join(tmp, "dbmtl_options")
+    text = criteo_text(
+        "dbmtl", model_dir, paths, replace=(
+            ("losses { binary_cross_entropy {} } metrics { auc {} } }\n"
+             "  task_towers { tower_name: \"cvr\"",
+             "losses { binary_cross_entropy {} } " + _CTR_METRICS + " }\n"
+             "  task_towers { tower_name: \"cvr\""),
+            ("    losses { binary_cross_entropy {} } metrics { auc {} } }\n"
+             "  }",
+             "    losses { binary_cross_entropy {} } metrics { auc {} } }\n"
+             + _CLS3_TOWER + "  }"),
+            ("adam_optimizer { lr: 0.001 } constant_learning_rate {}",
+             "adam_optimizer { lr: 0.001 } constant_learning_rate {}\n"
+             + _PARTS),
+            ('feature_name: "cat_0" num_buckets: 100000 embedding_dim: 16',
+             'feature_name: "cat_0" num_buckets: 100000 embedding_dim: 16 '
+             'init_fn: "nn.init.normal_,std=0.01"'),
+            ("log_step_count_steps: 20", "log_step_count_steps: 4")))
+    cfg_path = os.path.join(tmp, "dbmtl_options.config")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: logged.append(rec.getMessage())
+    log = logging.getLogger("tzrec_tpu_torch")
+    log.addHandler(handler)
+    old_level = log.level
+    log.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        result = port_main.train_and_evaluate(cfg_path, device="cuda")
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(old_level)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    steps = (OPTIONS_ROWS[0]
+             // parse_pipeline_config(text).data_config.batch_size)
+    train_lines = [x for x in logged if x.startswith("step ")]
+    if result["step"] != steps or len(train_lines) != steps // 4 or not all(
+            "train_auc_ctr=" in x and "train_mean_squared_error_ctr=" in x
+            for x in train_lines):
+        raise AssertionError(f"DBMTL options epoch: {result['step']} steps, "
+                             f"log lines {train_lines}")
+    if not all(np.isfinite(v) for k, v in result.items()
+               if not k.startswith("recall")):
+        raise AssertionError(f"DBMTL options epoch: {result}")
+    pred_out = os.path.join(tmp, "dbmtl_options_pred.parquet")
+    port_main.predict_checkpoint(
+        os.path.join(model_dir, "pipeline.config"), paths["eval"], pred_out,
+        reserved_columns="label,conversion,cat_12", device="cuda")
+    pred = pq.read_table(pred_out)
+    cols = {c: pred.column(c).to_numpy(zero_copy_only=False)
+            for c in pred.column_names}
+    # fed batch by batch as the eval loop feeds them (float32 sums of a
+    # batch then float64 across batches), the values are equal
+    cfg = parse_pipeline_config(text)
+    bs = cfg.data_config.eval_batch_size or cfg.data_config.batch_size
+    recomputed = {}
+    for t in cfg.model_config.dbmtl.task_towers:
+        probs = cols[f"probs_{t.tower_name}"]
+        if probs.dtype == object:
+            probs = np.stack(probs)
+        for mc in t.metrics:
+            m = create_metric(mc)
+            for i in range(0, len(probs), bs):
+                m["metric"].update(probs[i:i + bs],
+                                   cols[t.label_name][i:i + bs],
+                                   grouping_key=cols["cat_12"][i:i + bs])
+            name = f"{m['name']}_{t.tower_name}"
+            recomputed[name] = m["metric"].compute()
+            if result[name] != recomputed[name]:
+                raise AssertionError(
+                    f"DBMTL options epoch: {name} {result[name]} from the "
+                    f"eval, {recomputed[name]} recomputed")
+    return {"steps": result["step"], "epoch_s": epoch_s,
+            "eval_metrics": {k: v for k, v in result.items()
+                             if k in recomputed},
+            "eval_equals_recomputed": True,
+            "train_log_lines": len(train_lines),
+            "last_train_log_line": train_lines[-1],
+            "part_optimizers": ["towers/ctr/.*", "towers/cvr/.*"],
+            "init_fn": {"cat_0_emb": "nn.init.normal_,std=0.01"}}
+
+
+def phase_train_options():
+    """The training loop's options on the card: (a) the lane's DLRM-HSTU
+    in FP16 with the grad scaler, clipping and accumulation, the fp16
+    kernels checked and timed; (b) criteo_synth DeepFM under the six new
+    sparse kinds and BF16/FP16 tables; (c) criteo_synth DBMTL with part
+    optimizers, train metrics, every eval metric kind and an init_fn.
+    Returns the fp16 attention launches, the kernels' fp16 times and the
+    row-write launches of (b)."""
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    out = {"phase": "train_options"}
+    t0 = time.perf_counter()
+    out["fp16_kernels"] = fp16_kernel_checks()
+    out["fp16_kernels_s"] = time.perf_counter() - t0
+    emit({"phase": "train_options_fp16_kernels", **out["fp16_kernels"],
+          "seconds": out["fp16_kernels_s"]})
+
+    def parser(features):
+        return DataParser(features, labels=["unused_label"])
+
+    t0 = time.perf_counter()
+    cfg = parse_pipeline_config(config_text("PALLAS", input_dropout=0.0))
+    from torcheasyrec_tpu_torch.main import _create_features
+    features = _create_features(cfg)
+    batches = [parser(features).parse_to_batch(
+        synth_cols(BATCH, SEED + 400 + i)).to("cuda") for i in range(3)]
+    out["hstu_fp16"] = hstu_options_run(parser, batches)
+    fp16_launches = (out["hstu_fp16"]["kernel_launches"]["forward"],
+                     out["hstu_fp16"]["kernel_launches"]["backward"])
+    out["hstu_overflow"] = hstu_overflow_run(batches[0])
+    del batches
+    torch.cuda.empty_cache()
+    out["hstu_s"] = time.perf_counter() - t0
+    emit({"phase": "train_options_hstu", "fp16": out["hstu_fp16"],
+          "overflow": out["hstu_overflow"], "seconds": out["hstu_s"]})
+
+    t0 = time.perf_counter()
+    fwd16, bwd16 = fwd_times(torch.float16), bwd_times(torch.float16)
+    out["fp16_times"] = {"forward": fwd16, "backward": bwd16}
+    out["fp16_times_s"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = synthetic.ensure_dataset(tmp, *OPTIONS_ROWS)
+        out["data_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        base = criteo_text("deepfm", os.path.join(tmp, "deepfm"), paths,
+                           replace=(('mixed_precision: "BF16"',
+                                     'mixed_precision: ""'),))
+        base_cfg = parse_pipeline_config(base)
+        from torcheasyrec_tpu_torch.main import _create_features
+        feats = _create_features(base_cfg)
+        batches_cpu = parquet_batches(paths["train"], feats, 2, 4096)
+        runs = {}
+        sparse_line = ("rowwise_adagrad_optimizer { lr: 0.01 }")
+        variants = [(k, base.replace(sparse_line, v))
+                    for k, v in OPTIONS_KINDS.items()]
+        variants += [("rowwise_adagrad_slot_17", base)]
+        variants += [(f"{dt}_tables", base.replace(
+            "embedding_dim: 16 }", f'embedding_dim: 16 data_type: "{dt}" }}'))
+            for dt in ("BF16", "FP16")]
+        kind_launches = 0
+        for label, text in variants:
+            runs[label] = deepfm_kind_run(label, text, batches_cpu)
+            kind_launches += runs[label]["row_write_launches"]
+            emit({"phase": "train_options_deepfm", "variant": label,
+                  **{k: v for k, v in runs[label].items()
+                     if k != "slot_write"}})
+        # the row write at the slot-48 layout (lamb) beside the slot-17 one
+        # (rowwise adagrad) at one real step's targets of the dim-16 group
+        slot_ms = {}
+        for label in SLOT_TIMED:
+            table, tgt, rows = runs[label].pop("slot_write")
+            kept = write_rows.launches
+            slot_ms[label] = {
+                "ms": device_ms(lambda: write_rows(table, tgt, rows), 20),
+                "targets": int(tgt.shape[0]),
+                "table_rows": int(table.shape[0]),
+                "bytes": row_write_bytes(table, tgt)}
+            write_rows.launches = kept
+            del table, tgt, rows
+        out["deepfm"] = {k: {"layouts": r["layouts"],
+                             "row_write_launches": r["row_write_launches"],
+                             "err_rel_to_max": r["card_vs_cpu_tables_1_step"][
+                                 "err_rel_to_max"]}
+                         for k, r in runs.items()}
+        out["row_write_slot_ms"] = slot_ms
+        out["deepfm_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dbmtl"] = dbmtl_options_epoch(paths, tmp)
+        out["dbmtl_s"] = time.perf_counter() - t0
+    emit(out)
+    return fp16_launches, (fwd16, bwd16), kind_launches
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2992,6 +3606,8 @@ def main() -> int:
     deepfm_launches, _ = timed("train_deepfm", phase_train_deepfm)
     loader_launches, _ = timed("train_loader", phase_train_loader)
     zoo_launches, lane_off_launches = timed("train_zoo", phase_train_zoo)
+    (fp16_fwd_launches, fp16_bwd_launches), (fwd16, bwd16), options_writes = (
+        timed("train_options", phase_train_options))
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -3007,15 +3623,31 @@ def main() -> int:
             "library_ms": library_ms, **extra,
         }
 
+    def fp16_row(times: dict) -> dict:
+        return {k: times[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
+
     emit({"kernels": [
         # no single PyTorch call computes SiLU (softmax-free) attention or
-        # its backward: library_ms is null for both
+        # its backward: library_ms is null for both. ms, plain_ms and
+        # bound_ms are bf16's; fp16 has its own beside them
         kernel_row("hstu_attention_fwd", "hstu_attention.py:114",
-                   serve_launches + train_fwd_launches, fwd_err, fwd_timing,
+                   serve_launches + train_fwd_launches + fp16_fwd_launches,
+                   fwd_err, fwd_timing,
                    launches_by_path={"serving": serve_launches,
-                                     "training": train_fwd_launches}),
+                                     "training": train_fwd_launches,
+                                     "train_options": fp16_fwd_launches},
+                   launches_by_dtype={
+                       "bf16": serve_launches + train_fwd_launches,
+                       "fp16": fp16_fwd_launches},
+                   fp16=fp16_row(fwd16)),
         kernel_row("hstu_attention_bwd", "hstu_attention.py:207",
-                   bwd_launches, bwd_err, bwd_timing),
+                   bwd_launches + fp16_bwd_launches, bwd_err, bwd_timing,
+                   launches_by_path={"training": bwd_launches,
+                                     "train_options": fp16_bwd_launches},
+                   launches_by_dtype={"bf16": bwd_launches,
+                                      "fp16": fp16_bwd_launches},
+                   fp16=fp16_row(bwd16)),
         # at the real step's dim-16 targets, through the table less its
         # scratch row as the engine calls it; library_ms: index_copy_ of
         # the same writes (the scratch entries taken out beforehand);
@@ -3023,14 +3655,15 @@ def main() -> int:
         # was first timed
         kernel_row("row_write", "row_write.py:35",
                    deepfm_launches + loader_launches + zoo_launches
-                   + lane_off_launches,
+                   + lane_off_launches + options_writes,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
                        "train_deepfm": deepfm_launches,
                        "train_loader": loader_launches,
                        "train_zoo": zoo_launches,
-                       "train_zoo_dssm_dense_lane_off": lane_off_launches}),
+                       "train_zoo_dssm_dense_lane_off": lane_off_launches,
+                       "train_options": options_writes}),
     ]})
     print(smi, flush=True)
     emit(device_record())

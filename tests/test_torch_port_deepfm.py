@@ -196,8 +196,8 @@ def test_rank_model_heads_and_weighted_losses_match_jax(head):
         "deep { hidden_units: [32, 16] }",
         "deep { hidden_units: [32, 16] use_bn: true }"), "batch norm"),
     (deepfm_config_text().replace(
-        "wide_embedding_dim: 4", 'wide_embedding_dim: 4\n'
-        '    wide_init_fn: "nn.init.zeros_"'), "wide_init_fn"),
+        "deep { hidden_units: [32, 16] }",
+        'deep { hidden_units: [32, 16] activation: "nn.Dice" }'), "Dice"),
 ])
 def test_unported_rank_options_raise(text, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -244,14 +244,17 @@ def test_auc_matches_jax_bit_for_bit(case):
 
 
 def test_create_metric_ports_auc_and_raises_on_the_rest():
+    """Every metric of the oneof is ported now (test_torch_port_metrics.py
+    holds each against the JAX package); none raises."""
     cfg = text_format.Parse("auc {}", metric_pb2.MetricConfig())
     made = port_metrics.create_metric(cfg)
     assert made["name"] == "auc" and isinstance(made["metric"],
                                                 port_metrics.AUC)
     cfg = text_format.Parse("mean_squared_error {}",
                             metric_pb2.MetricConfig())
-    with pytest.raises(NotImplementedError, match="mean_squared_error"):
-        port_metrics.create_metric(cfg)
+    made = port_metrics.create_metric(cfg)
+    assert made["name"] == "mean_squared_error" and isinstance(
+        made["metric"], port_metrics.MeanSquaredError)
 
 
 N_TRAIN_STEPS = 40

@@ -1,9 +1,13 @@
-"""HSTU attention in the port against the JAX package (fp32, CPU).
+"""HSTU attention in the port against the JAX package (fp32 and fp16,
+CPU).
 
 The port's plain ``hstu_mha`` (what the CUDA kernel is held against on
 the card) must match ``_jax_hstu_mha`` and the Pallas kernel run in
 interpret mode, over the whole mask family, at the tolerance of
-tests/test_hstu_ops.py. ``valid_attn_mask`` must match bit for bit.
+tests/test_hstu_ops.py in fp32; in fp16 (the inputs, the scores cast
+before the second product and the output in fp16) within the fp16
+tolerance of the kernels, 5e-3 of the largest output.
+``valid_attn_mask`` must match bit for bit.
 """
 
 import jax.numpy as jnp
@@ -115,6 +119,58 @@ def test_plain_matches_pallas_interpret(case, vd):
     np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-4, atol=2e-5)
 
 
+FP16_TOL = 5e-3
+
+
+def _fp16(*arrays):
+    return [x.astype(np.float16) for x in arrays]
+
+
+def _assert_fp16_close(got, ref, name=""):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert np.array_equal(np.isfinite(got), np.isfinite(ref)), name
+    fin = np.isfinite(ref)
+    scale = max(float(np.abs(ref[fin]).max()), 1e-30) if fin.any() else 1.0
+    err = float(np.abs(got[fin] - ref[fin]).max()) if fin.any() else 0.0
+    assert err <= FP16_TOL * scale, f"{name}: {err} > {FP16_TOL} * {scale}"
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_plain_fp16_matches_jax_reference(case):
+    q, k, v, lengths, nt = _inputs(seed=2, targets=case.get("num_targets", False))
+    q, k, v = _fp16(q, k, v)
+    kw = _kw(case)
+    alpha, scale = 0.08, 160
+    ref = _jax_hstu_mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        alpha, kw["causal"], None if nt is None else jnp.asarray(nt),
+        kw["max_attn_len"], kw["contextual_seq_len"],
+        kw["min_full_attn_seq_len"], scale,
+        sla_k1=kw["sla_k1"], sla_k2=kw["sla_k2"],
+    )
+    got = _port_plain(q, k, v, lengths, nt, alpha, scale, kw)
+    assert got.dtype == np.float16 and ref.dtype == jnp.float16
+    _assert_fp16_close(got, ref)
+
+
+@pytest.mark.parametrize("case", [MASK_CASES[0], MASK_CASES[7], MASK_CASES[9]])
+def test_plain_fp16_matches_pallas_interpret(case):
+    q, k, v, lengths, nt = _inputs(seed=3, targets=case.get("num_targets",
+                                                             False))
+    q, k, v = _fp16(q, k, v)
+    kw = _kw(case)
+    alpha, n = 0.08, q.shape[1]
+    with pltpu.force_tpu_interpret_mode():
+        ref = pallas_hstu_mha(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lengths), alpha=alpha,
+            num_targets=None if nt is None else jnp.asarray(nt),
+            scaling_seqlen=n, **kw,
+        )
+    got = _port_plain(q, k, v, lengths, nt, alpha, n, kw)
+    _assert_fp16_close(got, ref)
+
+
 def test_cpu_tensors_never_launch_the_kernel():
     q, k, v, lengths, _ = _inputs(seed=4)
     before = port.hstu_attention_fwd.launches
@@ -153,8 +209,8 @@ def test_kernel_enum_keeps_the_proto_order():
 def _bad_inputs(kind):
     q, k, v, lengths, nt = (torch.from_numpy(x) for x in
                             _inputs(seed=6, targets=True))
-    if kind == "fp16":
-        q, k, v = q.half(), k.half(), v.half()
+    if kind == "fp64":
+        q, k, v = q.double(), k.double(), v.double()
     elif kind == "mixed dtypes":
         v = v.to(torch.bfloat16)
     elif kind == "3-d q":
@@ -178,7 +234,7 @@ def _bad_inputs(kind):
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("fp16", "fp32 or bf16"), ("mixed dtypes", "share one dtype"),
+    ("fp64", "fp32, bf16 or fp16"), ("mixed dtypes", "share one dtype"),
     ("3-d q", r"\[B, N, H, D\]"), ("head dim 48", "head dims"),
     ("head dim 16", "head dims"), ("v head dim 256", "head dims"),
     ("misaligned k", "16-byte aligned"),
@@ -223,13 +279,14 @@ def _fake_cuda_inputs(dtype, d, vd, b=2, n=24, h=2):
     return fake, lengths, targets
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d,vd", [(d, vd) for d in (32, 64, 128)
                                   for vd in (32, 64, 128)])
 def test_kernels_take_every_head_dim_pair(dtype, d, vd):
-    """The wrappers take what they took before the Hopper redesign: fp32
-    and bf16, D and V each in {32, 64, 128}, contiguous and 16-byte
-    aligned, int32 lengths and targets."""
+    """The wrappers take what they took before the Hopper redesign, and
+    fp16: fp32, bf16 and fp16, D and V each in {32, 64, 128}, contiguous
+    and 16-byte aligned, int32 lengths and targets."""
     (q, k, v), lengths, targets = _fake_cuda_inputs(dtype, d, vd)
     port.check_kernel_inputs(q, k, v, lengths, targets)
     port.check_kernel_inputs(q, k, v, lengths, None)

@@ -1,12 +1,16 @@
-"""HSTU attention backward in the port against the JAX package (fp32,
-CPU).
+"""HSTU attention backward in the port against the JAX package (fp32
+and fp16, CPU).
 
 The port's plain backward ``_torch_hstu_mha_bwd`` (what the CUDA backward
 kernel is held against on the card) must match autograd of the port's
 plain forward, ``jax.grad`` of ``_jax_hstu_mha`` and the Pallas backward
 kernel run in interpret mode, over the whole mask family, at the
 tolerance of tests/test_hstu_ops.py's gradient test (rtol 5e-4 /
-atol 5e-5: the sums run in another order)."""
+atol 5e-5: the sums run in another order). In fp16 it must match the
+Pallas backward in interpret mode within the kernels' fp16 tolerance
+(5e-3 of each gradient's largest finite value), and under an upstream
+gradient large enough that dz and dv pass fp16's range (as a loss scale
+makes it), be inf or NaN exactly where the Pallas kernel's is."""
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +25,14 @@ from torcheasyrec_tpu.ops.pallas.hstu_attention import pallas_hstu_mha
 from torcheasyrec_tpu_torch.ops import Kernel, cuda_build
 from torcheasyrec_tpu_torch.ops import hstu as port
 
-from test_torch_port_hstu_attention import MASK_CASES, _FakeCuda, _inputs, _kw
+from test_torch_port_hstu_attention import (
+    MASK_CASES,
+    _assert_fp16_close,
+    _FakeCuda,
+    _fp16,
+    _inputs,
+    _kw,
+)
 
 TOL = dict(rtol=5e-4, atol=5e-5)
 ALPHA = 0.08
@@ -107,6 +118,51 @@ def test_plain_bwd_matches_pallas_interpret(case, vd):
         ref = vjp(jnp.asarray(do))
     got = _port_bwd(q, k, v, do, lengths, nt, n, kw)
     _assert_grads_close([g.numpy() for g in got], ref)
+
+
+@pytest.mark.parametrize("alpha,scale,do_scale", [
+    (ALPHA, None, 1.0),
+    # alpha 1, no 1/N and an upstream gradient of thousands: dz and dv
+    # overflow fp16
+    (1.0, 1, 3e3),
+])
+@pytest.mark.parametrize("case", [MASK_CASES[0], MASK_CASES[7], MASK_CASES[9]])
+def test_plain_bwd_fp16_matches_pallas_interpret(case, alpha, scale,
+                                                 do_scale):
+    q, k, v, lengths, nt = _fp16_inputs(case)
+    kw, n = _kw(case), q.shape[1]
+    scale = scale or n
+    do = np.clip(_upstream(v.shape, 16) * do_scale, -6e4, 6e4).astype(
+        np.float16)
+
+    def fwd(q_, k_, v_):
+        return pallas_hstu_mha(
+            q_, k_, v_, jnp.asarray(lengths), alpha=alpha,
+            num_targets=None if nt is None else jnp.asarray(nt),
+            scaling_seqlen=scale, **kw,
+        )
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(fwd, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        ref = vjp(jnp.asarray(do))
+    t = torch.from_numpy
+    got = port._torch_hstu_mha_bwd(
+        t(q), t(k), t(v), t(do), t(lengths), alpha, kw["causal"],
+        None if nt is None else t(nt), kw["max_attn_len"],
+        kw["contextual_seq_len"], kw["min_full_attn_seq_len"], scale,
+        kw["sla_k1"], kw["sla_k2"])
+    n_inf = 0
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.float16
+        _assert_fp16_close(g.float().numpy(), r, name)
+        n_inf += int((~np.isfinite(np.asarray(r, np.float32))).sum())
+    assert (n_inf > 0) == (do_scale > 1)
+
+
+def _fp16_inputs(case):
+    q, k, v, lengths, nt = _inputs(seed=15,
+                                   targets=case.get("num_targets", False))
+    return (*_fp16(q, k, v), lengths, nt)
 
 
 def test_padded_rows_of_the_upstream_gradient_do_not_leak():

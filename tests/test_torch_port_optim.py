@@ -140,13 +140,18 @@ def test_sparse_optimizer_builder_matches_jax():
 
 
 def test_unported_optimizer_options_raise():
+    """Per-part optimizers and clipping are ported now
+    (test_torch_port_train_options.py holds them against the JAX
+    package): part optimizers need the parameters' paths, no clipping
+    config gives no clipper, and an unset optimizer still raises."""
     _, pcfg = _both(
         "adam_optimizer { lr: 0.1 } part_optimizers { regex_pattern: '.*' "
         "adam_optimizer { lr: 0.2 } }", "DenseOptimizer")
-    with pytest.raises(NotImplementedError, match="per-part"):
+    with pytest.raises(ValueError, match="paths"):
         port_builder.create_dense_optimizer(pcfg, [])
-    with pytest.raises(NotImplementedError, match="clipping"):
-        port_builder.create_grad_clipper(None)
+    tx, _ = port_builder.create_dense_optimizer(pcfg, [], [])
+    assert [k for k, _ in tx.kinds] == ["adam_optimizer"] * 2
+    assert port_builder.create_grad_clipper(None) is None
     _, empty = _both("", "SparseOptimizer")
     with pytest.raises(ValueError, match="not set"):
         port_builder.create_sparse_optimizer(empty)

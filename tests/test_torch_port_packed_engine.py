@@ -42,6 +42,12 @@ CFGS = {
     "adagrad": {"lr": 0.1, "initial_accumulator_value": 0.1},
     "rowwise_adagrad": {"lr": 0.1, "initial_accumulator_value": 0.05},
     "adam": {"lr": 0.01},
+    "partial_rowwise_adam": {"lr": 0.01, "weight_decay": 0.01},
+    "lamb": {"lr": 0.01},
+    "partial_rowwise_lamb": {"lr": 0.01, "weight_decay": 0.01},
+    "lars_sgd": {"lr": 0.5, "momentum": 0.8, "eta": 0.01},
+    "adadelta": {"lr": 1.0, "rho": 0.9},
+    "rmsprop": {"lr": 0.01, "alpha": 0.9, "weight_decay": 0.001},
 }
 # (name, rows, dim): two dims, tables on both sides of the dense-lane line
 TABLES = [("big_a", 700, 8), ("small_a", 23, 8), ("big_b", 301, 8),
@@ -142,7 +148,7 @@ def test_packed_layout_matches_jax(kind, dense_lane, monkeypatch):
         assert pg.dense_tables == jg.dense_tables
         assert [t.name for t in pg.specs] == [t.name for t in jg.specs]
         assert all(off % pg.spr == 0 for off in pg.offsets.values())
-    if dense_lane and kind != "adam":
+    if dense_lane and kind in EmbeddingEngine._DENSE_LANE_OPTS:
         assert peng.groups["d8"].dense_tables == {"small_a", "small_b"}
         assert peng.groups["d8"].offsets["small_a"] == 0
     else:

@@ -36,6 +36,12 @@ CFGS = {
     "adagrad": {"lr": 0.1, "initial_accumulator_value": 0.1},
     "rowwise_adagrad": {"lr": 0.1, "eps": 1e-8},
     "adam": {"lr": 0.01, "weight_decay": 0.01},
+    "partial_rowwise_adam": {"lr": 0.01, "weight_decay": 0.01},
+    "lamb": {"lr": 0.01},
+    "partial_rowwise_lamb": {"lr": 0.01, "weight_decay": 0.01},
+    "lars_sgd": {"lr": 0.5, "momentum": 0.8, "eta": 0.01},
+    "adadelta": {"lr": 1.0, "rho": 0.9},
+    "rmsprop": {"lr": 0.01, "alpha": 0.9, "weight_decay": 0.001},
 }
 
 
@@ -111,8 +117,12 @@ def test_apply_matches_jax_over_3_steps(kind):
                                   "partial_rowwise_adam", "adadelta",
                                   "rmsprop"])
 def test_queued_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SparseOptimizer(kind, {"lr": 0.1})
+    """The six kinds queued until the optimizer slice build now, with the
+    JAX package's row state and step scalar."""
+    popt, jopt = SparseOptimizer(kind, {"lr": 0.1}), JaxSparseOptimizer(
+        kind, {"lr": 0.1})
+    assert popt.row_state_widths(DIM) == jopt.row_state_widths(DIM)
+    assert set(popt.scalar_state_init()) == set(jopt.scalar_state_init())
 
 
 def test_unknown_kind_raises():

@@ -264,14 +264,20 @@ def test_training_mode_dropout_changes_the_forward():
 
 
 def test_unported_training_options_raise():
+    """Accumulation and the grad scaler are ported now
+    (test_torch_port_train_options.py holds them against the JAX
+    package): the steps build, and a scaler outside FP16 is ignored, as
+    in the JAX package. Variational dropout still raises."""
     text = hstu_synth_train_config_text(BATCH)
     model, _, tx, _, _ = _port_trainer(text)
     sched = {"fn": lambda *a: 1.0, "by_epoch": False}
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        port_main.make_train_step(model, tx, sched, sched, grad_accum_steps=2)
-    with pytest.raises(NotImplementedError, match="scaler"):
-        port_main.make_train_step(model, tx, sched, sched,
-                                  grad_scaler_cfg=object())
+    port_main.make_train_step(model, tx, sched, sched, grad_accum_steps=2)
+    port_main.make_train_step(model, tx, sched, sched,
+                              grad_scaler_cfg=object())
+    assert "scaler" not in port_main._init_state(model, tx, 1, object())
+    with pytest.raises(NotImplementedError, match="variational_dropout"):
+        _port_trainer(text.replace(
+            "model_config {", "model_config {\n  variational_dropout {}", 1))
 
 
 def test_train_and_evaluate_checkpoint_round_trip(tmp_path):

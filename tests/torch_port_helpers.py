@@ -118,29 +118,186 @@ def jax_train_setup(cfg_text: str):
     return cfg, model, features, state, step
 
 
+def jax_options_setup(cfg_text: str):
+    """(cfg, model, features, state, jitted train step) of the JAX package
+    with the train config's options as its ``train_and_evaluate`` sets
+    them up: the compute dtype, the grad clipper chained before the
+    dense optimizer, the accumulated gradients and the grad scaler's
+    state (FP16 only)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from google.protobuf import text_format
+
+    from torcheasyrec_tpu import main as jax_main
+    from torcheasyrec_tpu.optim.optimizer_builder import (
+        create_dense_optimizer,
+        create_grad_clipper,
+    )
+    from torcheasyrec_tpu.protos import pipeline_pb2
+
+    cfg = text_format.Parse(cfg_text, pipeline_pb2.EasyRecConfig())
+    tc = cfg.train_config
+    model, features, sparse_sched = jax_main._build_model_and_optim(cfg, None)
+    dense, tables, sparse_opt = jax_main._init_state(model, cfg)
+    tx, dense_sched = create_dense_optimizer(tc.dense_optimizer, dense)
+    if tc.HasField("grad_clipping"):
+        clipper = create_grad_clipper(tc.grad_clipping)
+        if clipper is not None:
+            tx = optax.chain(clipper, tx)
+    compute_dtype = jax_main._compute_dtype(tc)
+    accum = int(tc.gradient_accumulation_steps or 1)
+    scaler_cfg = tc.grad_scaler if tc.HasField("grad_scaler") else None
+    state = {"dense": dense, "tables": tables, "sparse_opt": sparse_opt,
+             "dense_opt": tx.init(dense), "step": jnp.zeros((), jnp.int32)}
+    if accum > 1:
+        state["accum_grads"] = jax.tree_util.tree_map(jnp.zeros_like, dense)
+    if scaler_cfg is not None and compute_dtype == jnp.float16:
+        state["scaler"] = {"scale": jnp.float32(scaler_cfg.init_scale),
+                           "good_steps": jnp.int32(0)}
+    step = jax.jit(jax_main.make_train_step(
+        model, tx, sparse_sched, dense_sched, compute_dtype,
+        grad_accum_steps=accum, grad_scaler_cfg=scaler_cfg))
+    return cfg, model, features, state, step
+
+
+def port_options_setup(cfg_text: str, jax_model, jax_state, table_names,
+                       **engine_options):
+    """(model, features, tx, state, train step) of the port on the CPU
+    with the train config's options, from the weights of a JAX state."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(cfg_text)
+    tc = cfg.train_config
+    model, features, sparse_sched = port_main._build_model_and_optim(
+        cfg, "cpu", for_train=True, **engine_options)
+    model.load_state_dict(converted_state(
+        jax_model, jax_state["dense"], jax_state["tables"], table_names))
+    tx, dense_sched = port_main._dense_optimizer(model, tc)
+    accum = int(tc.gradient_accumulation_steps or 1)
+    scaler_cfg = tc.grad_scaler if tc.HasField("grad_scaler") else None
+    state = port_main._init_state(model, tx, accum, scaler_cfg)
+    step = port_main.make_train_step(model, tx, sparse_sched, dense_sched,
+                                     accum, scaler_cfg)
+    return model, features, tx, state, step
+
+
+class PairedTrainers:
+    """The JAX package's train step and the port's from one config text
+    and the same weights (``jax_options_setup``, ``port_options_setup``),
+    fed the same Arrow columns by ``step``."""
+
+    def __init__(self, cfg_text: str, table_names, labels,
+                 **engine_options) -> None:
+        from torcheasyrec_tpu.datasets.data_parser import (
+            DataParser as JaxParser,
+        )
+        from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+
+        (_, self.jmodel, jfeatures, self.jstate,
+         self._jstep) = jax_options_setup(cfg_text)
+        (self.model, features, self.tx, self.state,
+         self._step) = port_options_setup(cfg_text, self.jmodel, self.jstate,
+                                          table_names, **engine_options)
+        self.table_names = table_names
+        self._jparser = JaxParser(jfeatures, labels=labels)
+        self._parser = DataParser(features, labels=labels)
+
+    def step(self, cols):
+        """One step of each on ``cols``: (JAX metrics, port metrics)."""
+        import jax
+
+        self.jstate, jmetrics, _ = self._jstep(
+            self.jstate, self._jparser.parse_to_batch(cols),
+            jax.random.key(0))
+        self.state, metrics = self._step(
+            self.state, self._parser.parse_to_batch(cols))
+        return jmetrics, metrics
+
+    def assert_close(self, tol, param_tol=None, table_tol=None):
+        assert_state_matches_jax(self.model, self.state, self.jmodel,
+                                 self.jstate, self.table_names, tol,
+                                 param_tol, table_tol)
+
+
+def assert_close_to_max(got, ref, name, tol):
+    """max |got - ref| <= tol * max |ref| (float64)."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (name, got.shape, ref.shape)
+    scale = max(float(np.abs(ref).max()) if ref.size else 0.0, 1e-30)
+    err = float(np.abs(got - ref).max()) if ref.size else 0.0
+    assert err <= tol * scale, f"{name}: {err} > {tol} * {scale}"
+
+
+def assert_state_matches_jax(model, state, jax_model, jax_state,
+                             table_names, tol, param_tol=None,
+                             table_tol=None):
+    """Dense parameters (within ``param_tol``, else ``tol``), tables
+    (``table_tol``, else ``tol``) and the sparse optimizer state of every
+    table (``tol``) of the port, each relative to the max of the JAX
+    package's tensor."""
+    import jax
+
+    from torcheasyrec_tpu_torch.utils.convert import from_jax_state
+
+    eng = jax_model.embedding_group.engine
+    jtables = {n: np.asarray(eng.extract_table(jax_state["tables"], n),
+                             np.float32) for n in table_names}
+    ref = from_jax_state(jax.device_get(jax_state["dense"]), jtables)
+    sd = model.state_dict()
+    assert set(sd) == set(ref)
+    for name, r in ref.items():
+        assert_close_to_max(
+            sd[name].float().numpy(), r.numpy(), name,
+            (table_tol or tol) if "tables." in name else param_tol or tol)
+    peng = model.embedding_group.engine
+    fused = model.embedding_group.engine_tables()
+    for n in table_names:
+        jst = eng.extract_table_state(jax_state["tables"],
+                                      jax_state["sparse_opt"], n)
+        pst = peng.extract_table_state(fused, state["sparse_opt"], n)
+        assert set(jst) == set(pst), n
+        for k, v in jst.items():
+            v = np.asarray(v)
+            assert_close_to_max(pst[k].float().numpy().reshape(v.shape), v,
+                                f"{n}.{k}", tol)
+
+
 # --- DeepFM on Criteo-shaped data, at a small size --------------------------
 DEEPFM_BUCKETS = (3000, 50, 7, 2000, 120, 3)
 DEEPFM_N_DENSE = 3
+
+
+DEEPFM_DENSE_OPT = ("adam_optimizer { lr: 0.01 }"
+                    " constant_learning_rate {}")
 
 
 def deepfm_config_text(batch_size: int = 64, buckets=DEEPFM_BUCKETS,
                        emb_dim: int = 8, sparse_opt: str =
                        "rowwise_adagrad_optimizer { lr: 0.05 }",
                        model_dir: str = "unused", num_steps: int = 0,
-                       mixed_precision: str = "") -> str:
+                       mixed_precision: str = "",
+                       dense_opt: str = DEEPFM_DENSE_OPT,
+                       train_extra: str = "", feature_extra: str = "",
+                       wide_extra: str = "") -> str:
     """The Criteo DeepFM config of the repo's train benchmark (WIDE, fm
     and deep groups over the same id features, dense features in deep,
-    deep and final MLPs, BCE, AUC) with small tables and narrow MLPs."""
+    deep and final MLPs, BCE, AUC) with small tables and narrow MLPs.
+    ``dense_opt`` is the dense optimizer block's body, ``train_extra``
+    more train_config fields, ``feature_extra`` more fields of every
+    id_feature and ``wide_extra`` of the deepfm block."""
     lines = [
         'train_input_path: "unused"',
         'eval_input_path: "unused"',
         f'model_dir: "{model_dir}"',
         "train_config {",
         f"  sparse_optimizer {{ {sparse_opt} constant_learning_rate {{}} }}",
-        "  dense_optimizer { adam_optimizer { lr: 0.01 }"
-        " constant_learning_rate {} }",
+        f"  dense_optimizer {{ {dense_opt} }}",
         f"  num_steps: {num_steps}" if num_steps else "  num_epochs: 1",
         f'  mixed_precision: "{mixed_precision}"',
+        train_extra,
         "}",
         "data_config {",
         f"  batch_size: {batch_size}",
@@ -155,7 +312,7 @@ def deepfm_config_text(batch_size: int = 64, buckets=DEEPFM_BUCKETS,
     for i, n in enumerate(buckets):
         lines.append(
             f'feature_configs {{ id_feature {{ feature_name: "cat_{i}" '
-            f"num_buckets: {n} embedding_dim: {emb_dim} }} }}")
+            f"num_buckets: {n} embedding_dim: {emb_dim} {feature_extra}}} }}")
     cat_names = "".join(
         f'    feature_names: "cat_{i}"\n' for i in range(len(buckets)))
     int_names = "".join(
@@ -171,7 +328,7 @@ def deepfm_config_text(batch_size: int = 64, buckets=DEEPFM_BUCKETS,
         "  deepfm {\n"
         "    deep { hidden_units: [32, 16] }\n"
         "    final { hidden_units: [16, 8] }\n"
-        "    wide_embedding_dim: 4\n"
+        f"    wide_embedding_dim: 4 {wide_extra}\n"
         "  }\n"
         "  num_class: 1\n"
         "  losses { binary_cross_entropy {} }\n"

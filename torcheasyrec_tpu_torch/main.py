@@ -12,10 +12,13 @@ its input through the dataloader of ``datasets/dataset.py``.
 PyTorch updates in place, so the train state is not a pytree threaded
 through the step: the dense parameters and the tables live in the model,
 the dense optimizer holds its own state, and ``state`` carries the sparse
-optimizer state, the step and the epoch. Not ported, and raising where a
-config asks for them: the FP16 grad scaler, gradient accumulation,
-gradient clipping, the multi-step scan dispatch, ZCH and host-offloaded
-tables. Train metrics are not computed.
+optimizer state, the step and the epoch, and where the config asks for
+them the accumulated dense gradients and the grad scaler's state. The
+train config's options: ``mixed_precision`` BF16 or FP16, the grad
+scaler (FP16 only), gradient clipping, gradient accumulation, per-part
+dense optimizers, train metrics and ``is_profiling``;
+``steps_per_dispatch`` > 1 runs as single steps. Not ported: ZCH and
+host-offloaded tables, TensorBoard summaries, the delta embedding dump.
 """
 
 import glob
@@ -23,8 +26,9 @@ import json
 import logging
 import os
 import time
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from torcheasyrec_tpu_torch.datasets.dataset import (
@@ -43,6 +47,7 @@ from torcheasyrec_tpu_torch.optim.optimizer_builder import (
 )
 from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 from torcheasyrec_tpu_torch.utils import checkpoint_util, config_util
+from torcheasyrec_tpu_torch.utils.convert import dense_param_paths
 
 logger = logging.getLogger("tzrec_tpu_torch")
 
@@ -81,7 +86,7 @@ def _compute_dtype(train_config) -> torch.dtype:
     if mp == "BF16":
         return torch.bfloat16
     if mp == "FP16":
-        raise NotImplementedError("FP16 mixed precision is not ported")
+        return torch.float16
     return torch.float32
 
 
@@ -129,10 +134,46 @@ def build_model(pipeline_config, device="cuda",
     return model, features
 
 
-def _init_state(model: BaseModel) -> Dict[str, Any]:
+def uses_grad_scaler(model: BaseModel, grad_scaler_cfg) -> bool:
+    """The grad scaler runs only when the compute dtype is FP16; under
+    BF16 or FP32 a ``grad_scaler`` block is ignored."""
+    return (grad_scaler_cfg is not None
+            and model.compute_dtype == torch.float16)
+
+
+def _init_state(model: BaseModel, tx: Optional[DenseOptimizer] = None,
+                grad_accum_steps: int = 1,
+                grad_scaler_cfg=None) -> Dict[str, Any]:
     """The train state beside the model: the sparse optimizer state of
-    every embedding group, and the step counter."""
-    return {"sparse_opt": model.embedding_group.init_opt_state(), "step": 0}
+    every embedding group and the step counter; with
+    ``grad_accum_steps`` > 1 the accumulated dense gradients (zeros, one
+    per parameter of ``tx``); with the grad scaler (``uses_grad_scaler``)
+    its ``scale`` (``init_scale``) and ``good_steps``, 0-d tensors on the
+    model's device."""
+    state = {"sparse_opt": model.embedding_group.init_opt_state(), "step": 0}
+    if grad_accum_steps > 1:
+        state["accum_grads"] = [torch.zeros_like(p, dtype=torch.float32)
+                                for p in tx.params]
+    if uses_grad_scaler(model, grad_scaler_cfg):
+        dev = next(iter(model.embedding_group.engine_tables().values())).device
+        state["scaler"] = {
+            "scale": torch.tensor(float(grad_scaler_cfg.init_scale),
+                                  device=dev),
+            "good_steps": torch.zeros((), dtype=torch.int32, device=dev)}
+    return state
+
+
+def _dense_optimizer(model: BaseModel, train_config):
+    """(DenseOptimizer, schedule) of the model's trainable parameters,
+    with the config's part optimizers (matched against the parameters'
+    JAX paths) and gradient clipping."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    paths = dense_param_paths(model)
+    return create_dense_optimizer(
+        train_config.dense_optimizer, [p for _, p in named],
+        [paths[n] for n, _ in named],
+        train_config.grad_clipping if train_config.HasField("grad_clipping")
+        else None)
 
 
 def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
@@ -142,15 +183,32 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
     lookup; forward and loss in the model's compute dtype; gradients for
     the dense parameters and for the looked-up embedding rows (never a
     dense table gradient); the fused sparse update of the touched rows
-    with the sparse schedule's multiplier; the dense update with the
-    dense schedule's multiplier; step + 1. ``metrics`` holds
-    ``total_loss`` and the per-task losses as detached scalars."""
-    if grad_accum_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported")
-    if grad_scaler_cfg is not None:
-        raise NotImplementedError("the FP16 grad scaler is not ported")
+    with the sparse schedule's multiplier; the dense update (through
+    ``tx``'s clipping) with the dense schedule's multiplier; step + 1.
+    ``metrics`` holds ``total_loss`` and the per-task losses as detached
+    scalars, and ``__preds``, the detached predictions, where the model
+    has train metrics.
+
+    With the grad scaler (``uses_grad_scaler``) the loss is multiplied by
+    ``state["scaler"]["scale"]`` and the gradients divided by it; if any
+    dense or embedding gradient is not finite, all are zeroed, the sparse
+    lr multiplier is 0 (the sparse optimizer still runs: adam-like
+    moments decay) and the dense update is multiplied by 0 while the
+    dense optimizer's state moves forward, as in the JAX package. The
+    scale grows by ``growth_factor`` after ``growth_interval`` finite
+    steps in a row and backs off by ``backoff_factor`` on a non-finite
+    one. The flag and the scale stay on the device.
+
+    With ``grad_accum_steps`` = k > 1 the sparse rows update at every
+    step; the dense gradients add into ``state["accum_grads"]`` and their
+    mean updates the parameters, and the dense optimizer's state, at
+    steps where (step + 1) % k == 0 (with the scaler: and the step's
+    gradients are finite; the sum then carries into the next window)."""
     eg = model.embedding_group
     params = tx.params
+    use_scaler = uses_grad_scaler(model, grad_scaler_cfg)
+    k_accum = max(int(grad_accum_steps or 1), 1)
+    want_preds = bool(model.init_train_metrics())
 
     def train_step(state: Dict[str, Any], batch: Batch):
         model.train()
@@ -164,9 +222,14 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
         preds = model.predict(grouped, batch)
         losses = model.loss(preds, batch)
         total = model.total_loss(losses)
-        grads = torch.autograd.grad(total, list(params) + leaves,
-                                    allow_unused=True)
-        dgrads = grads[:len(params)]
+        scale = state["scaler"]["scale"] if use_scaler else None
+        grads = torch.autograd.grad(
+            total if scale is None else total * scale,
+            list(params) + leaves, allow_unused=True)
+        if scale is not None:
+            inv = 1.0 / scale
+            grads = [None if g is None else g * inv for g in grads]
+        dgrads = list(grads[:len(params)])
         # an output the loss does not reach has a zero gradient, which
         # still moves the moments of adam-like sparse optimizers
         emb_grads = {
@@ -175,15 +238,68 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
         }
         by_epoch = sparse_sched.get("by_epoch") and epoch is not None
         lr_scale = sparse_sched["fn"](epoch if by_epoch else step)
+        finite = None
+        if scale is not None:
+            finite = torch.stack([
+                torch.isfinite(g).all()
+                for g in dgrads + list(emb_grads.values()) if g is not None
+            ]).all()
+            # zeroed, so that 0 * inf = NaN reaches no table or state
+            zero = scale.new_zeros(())
+            dgrads = [None if g is None else torch.where(finite, g, zero)
+                      for g in dgrads]
+            emb_grads = {k: torch.where(finite, g, zero.to(g.dtype))
+                         for k, g in emb_grads.items()}
+            lr_scale = torch.where(finite, scale.new_tensor(lr_scale), zero)
         eg.engine.update(eg.engine_tables(), state["sparse_opt"], residuals,
                          emb_grads, lr_scale)
-        tx.step(dgrads, dense_sched["fn"](step, epoch))
+        mult = dense_sched["fn"](step, epoch)
+        gate = None if finite is None else finite.float()
+        if k_accum == 1:
+            tx.step(dgrads, mult, gate=gate)
+        else:
+            accum = state["accum_grads"]
+            for a, g in zip(accum, dgrads):
+                if g is not None:
+                    a.add_(g.float())
+            if (step + 1) % k_accum == 0:
+                tx.step([a / k_accum for a in accum], mult, gate=gate,
+                        keep=finite)
+                for a in accum:
+                    if gate is None:
+                        a.zero_()
+                    else:
+                        a.mul_(1.0 - gate)
+        if scale is not None:
+            state["scaler"] = _next_scaler_state(state["scaler"], finite,
+                                                 grad_scaler_cfg)
         state["step"] = step + 1
         metrics = {"total_loss": total.detach()}
         metrics.update({k: v.detach() for k, v in losses.items()})
+        if want_preds:
+            metrics["__preds"] = {k: v.detach() for k, v in preds.items()
+                                  if isinstance(v, torch.Tensor)}
         return state, metrics
 
     return train_step
+
+
+def _next_scaler_state(sc: Dict[str, torch.Tensor], finite: torch.Tensor,
+                       cfg) -> Dict[str, torch.Tensor]:
+    """The grad scaler after a step whose gradients were ``finite`` (a
+    0-d bool tensor): growth after ``growth_interval`` finite steps in a
+    row, backoff on a non-finite one, on the device."""
+    interval = int(cfg.growth_interval)
+    good = torch.where(finite, sc["good_steps"] + 1,
+                       sc["good_steps"].new_zeros(()))
+    grown = good >= interval
+    scale = torch.where(
+        finite,
+        torch.where(grown, sc["scale"] * float(cfg.growth_factor),
+                    sc["scale"]),
+        sc["scale"] * float(cfg.backoff_factor))
+    return {"scale": scale,
+            "good_steps": torch.where(grown, good.new_zeros(()), good)}
 
 
 def make_eval_step(model: BaseModel, with_loss: bool = True
@@ -210,27 +326,39 @@ def train_epoch(
     num_steps: int = 0,
     after_step: Optional[Callable[[Dict[str, Any], BatchInfo], None]] = None,
     log_every: int = 0,
+    model: Optional[BaseModel] = None,
+    train_metrics: Optional[List[Dict[str, Any]]] = None,
 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor], bool]:
     """The body of the training loop over one epoch's (batch, info)
-    items: a train step per batch, the dataloader watermark
+    items: a train step per batch, the step's predictions into the
+    model's ``train_metrics`` (on the host), the dataloader watermark
     (``dataloader_state``, {source_id: last row consumed}) raised to the
-    batch's ``checkpoint_info``, a log line every ``log_every`` steps,
-    then ``after_step(state, info)``. Stops after step ``num_steps``
-    (when > 0). Returns (state, the last step's metrics, whether it
-    stopped at ``num_steps``). Writes nothing itself."""
+    batch's ``checkpoint_info``, a log line every ``log_every`` steps
+    (the losses, and each train metric as ``train_<name>``), then
+    ``after_step(state, info)``. Stops after step ``num_steps`` (when >
+    0). Returns (state, the last step's metrics, whether it stopped at
+    ``num_steps``). Writes nothing itself."""
     metrics: Dict[str, torch.Tensor] = {}
     t0, examples = time.perf_counter(), 0
     for batch, info in batches:
         state, metrics = train_step(state, batch)
+        preds = metrics.pop("__preds", None)
+        if train_metrics and preds is not None:
+            model.update_metrics(train_metrics, preds, batch)
         examples += info.batch_size
         for sid, row in info.checkpoint_info.items():
             dataloader_state[sid] = max(dataloader_state.get(sid, -1), row)
         step = state["step"]
         if log_every and step % log_every == 0:
             rate = examples / max(time.perf_counter() - t0, 1e-9)
-            losses = " ".join(f"{k}={float(v):.5f}"
-                              for k, v in metrics.items())
-            logger.info(f"step {step}: {losses} ({rate:.0f} ex/s)")
+            line = " ".join(f"{k}={float(v):.5f}"
+                            for k, v in metrics.items())
+            if train_metrics:
+                line += "".join(
+                    f" train_{k}={v:.4f}"
+                    for k, v in model.compute_metrics(train_metrics).items()
+                    if np.isfinite(v))
+            logger.info(f"step {step}: {line} ({rate:.0f} ex/s)")
         if after_step is not None:
             after_step(state, info)
         if num_steps and step >= num_steps:
@@ -282,17 +410,6 @@ def _run_eval(model: BaseModel, eval_step, eval_dl, num_steps: int = 0,
     return result
 
 
-def _check_train_options(train_config) -> None:
-    for field, what in (("grad_scaler", "the FP16 grad scaler"),
-                        ("grad_clipping", "gradient clipping")):
-        if train_config.HasField(field):
-            raise NotImplementedError(f"{what} is not ported")
-    if (train_config.gradient_accumulation_steps or 1) > 1:
-        raise NotImplementedError("gradient accumulation is not ported")
-    if (train_config.steps_per_dispatch or 1) > 1:
-        raise NotImplementedError("the multi-step dispatch is not ported")
-
-
 def _eval_input(pipeline_config, explicit: bool) -> Optional[str]:
     """The eval input of ``train_and_evaluate``: the config's
     ``eval_input_path`` (files, directories, globs) when it names files
@@ -339,8 +456,13 @@ def train_and_evaluate(
     to ``<model_dir>/train_eval_result_v2.txt``. ``continue_train``
     resumes from the latest checkpoint of ``model_dir``: weights,
     optimizer states, step, epoch, and the rows of that epoch already
-    consumed. ``fine_tune_checkpoint`` (else the config's) starts from a
-    checkpoint or a bare state_dict, restoring what it holds."""
+    consumed, with the accumulated gradients and the grad scaler where
+    the config has them. ``fine_tune_checkpoint`` (else the config's)
+    starts from a checkpoint or a bare state_dict, restoring what it
+    holds. The train metrics of the config are logged every
+    ``log_step_count_steps``; ``is_profiling`` writes a
+    ``torch.profiler`` trace of steps 3-5
+    (``<model_dir>/profile/trace.json``)."""
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
     if edit_config_json:
         config_util.edit_config(pipeline_config, json.loads(edit_config_json))
@@ -350,17 +472,23 @@ def train_and_evaluate(
         pipeline_config.eval_input_path = eval_input_path
     train_config = pipeline_config.train_config
     data_config = pipeline_config.data_config
-    _check_train_options(train_config)
     eval_path = _eval_input(pipeline_config, bool(eval_input_path))
 
     dev = resolve_device(device)
     model, features, sparse_sched = _build_model_and_optim(
         pipeline_config, dev, for_train=True)
-    tx, dense_sched = create_dense_optimizer(
-        train_config.dense_optimizer,
-        [p for p in model.parameters() if p.requires_grad])
-    state = _init_state(model)
+    tx, dense_sched = _dense_optimizer(model, train_config)
+    grad_accum = int(train_config.gradient_accumulation_steps or 1)
+    scaler_cfg = (train_config.grad_scaler
+                  if train_config.HasField("grad_scaler") else None)
+    # the accumulated gradients and the scaler exist before a restore
+    # reads them from the checkpoint
+    state = _init_state(model, tx, grad_accum, scaler_cfg)
     state["epoch"] = 0
+    if (train_config.steps_per_dispatch or 1) > 1:
+        logger.warning(
+            f"steps_per_dispatch {train_config.steps_per_dispatch}: the "
+            "steps of one dispatch run as single steps (the same numbers)")
     model_dir = pipeline_config.model_dir
     ckpt_manager = checkpoint_util.CheckpointManager(
         model_dir,
@@ -395,8 +523,12 @@ def train_and_evaluate(
     if eval_path:
         eval_dl = create_dataloader(data_config, features, eval_path,
                                     mode="eval", device=dev)
-    train_step = make_train_step(model, tx, sparse_sched, dense_sched)
+    train_step = make_train_step(model, tx, sparse_sched, dense_sched,
+                                 grad_accum, scaler_cfg)
     eval_step = make_eval_step(model)
+    train_metrics = model.init_train_metrics()
+    profiler = _step_profiler(model_dir, dev) if train_config.is_profiling \
+        else None
     eval_result: Dict[str, float] = {}
 
     def save_and_eval() -> None:
@@ -409,6 +541,8 @@ def train_and_evaluate(
                 state["step"])
 
     def after_step(state, info: BatchInfo) -> None:
+        if profiler is not None:
+            profiler.step()
         if ckpt_manager.should_save(state["step"],
                                     data_timestamp=info.data_timestamp):
             save_and_eval()
@@ -428,7 +562,8 @@ def train_and_evaluate(
         try:
             state, epoch_metrics, stop = train_epoch(
                 train_step, state, batches, dataloader_state, num_steps,
-                after_step, train_config.log_step_count_steps)
+                after_step, train_config.log_step_count_steps, model,
+                train_metrics)
         finally:
             batches.close()
         metrics = epoch_metrics or metrics
@@ -441,11 +576,34 @@ def train_and_evaluate(
                 (epoch + 1) % train_config.save_checkpoints_epochs == 0):
             save_and_eval()
 
+    if profiler is not None:
+        profiler.stop()
     save_and_eval()
     result = {"step": float(state["step"])}
     result.update({k: float(v) for k, v in metrics.items()})
     result.update(eval_result)
     return result
+
+
+def _step_profiler(model_dir: str, dev: torch.device):
+    """A started ``torch.profiler`` that skips the first step, warms up
+    on the second and records steps 3-5 (CPU, and CUDA on the card),
+    then writes ``<model_dir>/profile/trace.json``; the loop calls its
+    ``step()`` after every train step."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    out_dir = os.path.join(model_dir, "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(
+        activities=activities,
+        schedule=schedule(skip_first=1, wait=0, warmup=1, active=3, repeat=1),
+        on_trace_ready=lambda p: p.export_chrome_trace(
+            os.path.join(out_dir, "trace.json")))
+    prof.start()
+    return prof
 
 
 def evaluate(

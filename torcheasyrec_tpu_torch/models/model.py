@@ -8,8 +8,10 @@ Counterpart of torcheasyrec_tpu/models/model.py. A model is an
 the embedding tables live in the EmbeddingGroup's engine and are updated
 by the sparse optimizer. Eval metrics accumulate on the host
 (``init_metrics`` / ``update_metrics`` / ``compute_metrics``; a grouped
-metric reads its grouping column through ``_grouping_value``); train
-metrics and variational dropout are not ported.
+metric reads its grouping column through ``_grouping_value``), and so do
+the train metrics (``init_train_metrics``: each config's metric in a
+``TrainMetricWrapper``, fed from the train step's detached predictions).
+Variational dropout is not ported.
 """
 
 from typing import Any, Dict, List, Optional
@@ -51,6 +53,7 @@ class BaseModel(nn.Module, metaclass=_meta):
         self._num_class = int(model_config.num_class or 1)
         self._loss_cfgs = list(model_config.losses)
         self._metric_cfgs = list(model_config.metrics)
+        self._train_metric_cfgs = list(model_config.train_metrics)
         self._engine_options = {"packed": packed,
                                 "dense_lane_rows": dense_lane_rows}
         self.compute_dtype = compute_dtype
@@ -104,6 +107,20 @@ class BaseModel(nn.Module, metaclass=_meta):
         from torcheasyrec_tpu_torch.metrics import create_metric
 
         return [create_metric(c) for c in self._metric_cfgs]
+
+    def init_train_metrics(self) -> List[Dict[str, Any]]:
+        from torcheasyrec_tpu_torch.metrics import (
+            TrainMetricWrapper,
+            create_metric,
+        )
+
+        out = []
+        for c in self._train_metric_cfgs:
+            m = create_metric(c)
+            m["metric"] = TrainMetricWrapper(
+                m["metric"], decay_rate=c.decay_rate, decay_step=c.decay_step)
+            out.append(m)
+        return out
 
     def update_metrics(self, metrics: List[Dict[str, Any]],
                        predictions: Dict[str, torch.Tensor],

@@ -16,7 +16,7 @@ from torch import nn
 
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.losses import create_loss_fn
-from torcheasyrec_tpu_torch.metrics import create_metric
+from torcheasyrec_tpu_torch.metrics import TrainMetricWrapper, create_metric
 from torcheasyrec_tpu_torch.models.model import _grouping_value
 from torcheasyrec_tpu_torch.models.rank_model import (
     SOFTMAX_LOSSES,
@@ -107,10 +107,22 @@ class MultiTaskRank(RankModel):
         return losses
 
     def init_metrics(self) -> List[Dict[str, Any]]:
+        return self._tower_metrics("metrics")
+
+    def init_train_metrics(self) -> List[Dict[str, Any]]:
+        return self._tower_metrics("train_metrics")
+
+    def _tower_metrics(self, field: str) -> List[Dict[str, Any]]:
+        """Each tower's ``metrics`` or ``train_metrics`` (these in a
+        ``TrainMetricWrapper``), named ``<metric>_<tower>``."""
         out = []
         for i, t in enumerate(self._task_tower_cfgs):
-            for c in t.metrics:
+            for c in getattr(t, field):
                 m = create_metric(c)
+                if field == "train_metrics":
+                    m["metric"] = TrainMetricWrapper(
+                        m["metric"], decay_rate=c.decay_rate,
+                        decay_step=c.decay_step)
                 m["name"] = f"{m['name']}_{t.tower_name}"
                 m["tower"] = t.tower_name
                 m["label"] = self._task_label(t, i)

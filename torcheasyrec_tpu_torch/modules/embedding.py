@@ -13,7 +13,10 @@ never sees them, and the train step updates their
 touched rows in place through ``engine.update`` from the gradients of
 ``lookup``'s outputs. Features sharing an ``embedding_name`` share one
 table; a WIDE group gets tables of its own, ``<name>__wide`` of
-``wide_embedding_dim`` (default 4) columns. Lookups are gathers: id -1
+``wide_embedding_dim`` (default 4) columns, drawn from ``wide_init_fn``
+where the model sets one. A table's ``init_fn`` and ``data_type`` (FP32,
+BF16, FP16: the storage dtype) come from its feature config. Lookups
+are gathers: id -1
 (padding) reads a zero row, pooled features sum (or average) their rows.
 
 In the ``state_dict`` each table keeps its own entry ``tables.<name>``
@@ -22,9 +25,8 @@ the layout, so a checkpoint written unpacked loads packed and the other
 way round. ``tables`` gives views into unpacked groups but copies out of
 packed ones: write through ``engine.write_table``, as
 ``load_state_dict`` does. The encoders' parameters are the model's
-dense parameters, ``encoders.<group>.<i>``. Dense embeddings, table
-init functions and non-fp32 or host-offloaded tables raise
-NotImplementedError.
+dense parameters, ``encoders.<group>.<i>``. Dense embeddings and
+host-offloaded tables raise NotImplementedError.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -54,25 +56,17 @@ class EmbeddingGroup(nn.Module):
                  wide_init_fn: Optional[str] = None,
                  packed: bool = True, dense_lane_rows: int = 32768) -> None:
         super().__init__()
-        if wide_init_fn:
-            raise NotImplementedError("wide_init_fn is not ported")
         self._name_to_feature = {f.name: f for f in features}
         shapes: Dict[str, Tuple[int, int]] = {}
+        table_specs: Dict[str, TableSpec] = {}
         lookups: Dict[str, LookupSpec] = {}
         self._group_slots: Dict[str, List[Slot]] = {}
         self._seq_groups: Dict[str, Dict[str, Any]] = {}
 
         def _add_table(feat: BaseFeature, suffix: str,
-                       dim_override: Optional[int] = None) -> str:
+                       dim_override: Optional[int] = None,
+                       init_override: Optional[str] = None) -> str:
             cfg = feat.emb_config()
-            if cfg.init_fn:
-                raise NotImplementedError(
-                    f"table {cfg.name}: init_fn is not ported"
-                )
-            if (getattr(feat.config, "data_type", "FP32") or "FP32").upper() != "FP32":
-                raise NotImplementedError(
-                    f"table {cfg.name}: only FP32 tables are ported"
-                )
             if "host_offload" in cfg.sharding_types:
                 raise NotImplementedError(
                     f"table {cfg.name}: host_offload tables are not ported"
@@ -84,11 +78,17 @@ class EmbeddingGroup(nn.Module):
                     f"shared embedding {name}: conflicting shapes "
                     f"{shapes[name]} vs {shape}"
                 )
+            table_specs.setdefault(name, TableSpec(
+                name, shape[0], shape[1],
+                dtype=(getattr(feat.config, "data_type", "FP32")
+                       or "FP32").upper(),
+                init_fn=init_override or cfg.init_fn or None))
             return name
 
         def _emb_slot(feat: BaseFeature, suffix: str, is_sequence: bool,
-                      dim_override: Optional[int] = None) -> Slot:
-            table = _add_table(feat, suffix, dim_override)
+                      dim_override: Optional[int] = None,
+                      init_override: Optional[str] = None) -> Slot:
+            table = _add_table(feat, suffix, dim_override, init_override)
             key = f"{table}:{feat.name}" + (":seq" if is_sequence else "")
             lookups[key] = LookupSpec(
                 key, feat.name, table,
@@ -158,7 +158,8 @@ class EmbeddingGroup(nn.Module):
                     slots.append(("dense", fname, max(feat.value_dim, 1)))
                 elif is_wide:
                     slots.append(_emb_slot(feat, suffix + "__wide", False,
-                                           wide_embedding_dim or 4))
+                                           wide_embedding_dim or 4,
+                                           wide_init_fn))
                 else:
                     slots.append(_emb_slot(feat, suffix, False))
             self._group_slots[gname] = slots
@@ -178,7 +179,7 @@ class EmbeddingGroup(nn.Module):
         self.encoders = nn.ModuleDict(encoders)
 
         self.engine = EmbeddingEngine(
-            [TableSpec(name, rows, dim) for name, (rows, dim) in shapes.items()],
+            list(table_specs.values()),
             list(lookups.values()), optimizer=sparse_optimizer,
             packed=packed, dense_lane_rows=dense_lane_rows,
         )

@@ -86,7 +86,11 @@ class PositionalEncoder(nn.Module):
             last_idx = (lengths.long() - 1).clamp(min=0)
             last_ts = torch.gather(ts, 1, last_idx[:, None])
             delta = (last_ts - ts).clamp(min=0.0)
-            bucket = torch.floor(torch.log2(delta + 1.0)).to(torch.int32)
+            # converted as XLA converts a float to an int: NaN to 0, +-inf
+            # saturated (under FP16 compute, timestamps past fp16's range
+            # arrive as inf, so delta is NaN or inf)
+            bucket = torch.nan_to_num(torch.floor(torch.log2(delta + 1.0)),
+                                      nan=0.0)
             bucket = bucket.clamp(0, self.time_buckets - 1).long()
             out = out + F.embedding(bucket, self.time).to(x.dtype)
         return out

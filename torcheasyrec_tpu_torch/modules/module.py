@@ -2,17 +2,20 @@
 
 Counterpart of torcheasyrec_tpu/modules/module.py. Parameters live in
 fp32 ``nn.Module``s and are cast at use: ``linear_apply`` multiplies in
-the compute dtype (bf16 when the config sets ``mixed_precision: "BF16"``,
-else fp32), accumulates in fp32, adds the fp32 bias and casts the result
-to the compute dtype, as the JAX package's ``linear_apply`` does. In
-bf16, cuBLAS rounds its fp32 sums to bf16 before the bias is added, one
-rounding more than the JAX path. Casts are explicit; there is no
+the compute dtype (bf16 or fp16 when the config sets ``mixed_precision:
+"BF16"`` or ``"FP16"``, else fp32), accumulates in fp32, adds the fp32
+bias and casts the result to the compute dtype, as the JAX package's
+``linear_apply`` does. In bf16 and fp16 the product rounds its fp32 sums
+to the compute dtype before the bias is added, one rounding more than
+the JAX path. Casts are explicit; there is no
 ``torch.autocast``. Initializers draw from an explicit
 ``torch.Generator``; they follow the JAX package's distributions, not
-its numbers. Dropout draws from the same kind of generator.
+its numbers (``parse_init_fn`` reads the torch-style init strings of the
+configs, ``default_emb_init`` is the tables' default). Dropout draws
+from the same kind of generator.
 """
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -79,3 +82,68 @@ def dropout(x: torch.Tensor, p: float, training: bool,
         return x
     return apply_dropout(
         x, dropout_keep_mask(x.shape, p, x.device, generator), p)
+
+
+InitFn = Callable[[torch.Tensor, torch.Generator, int], None]
+
+
+def parse_init_fn(spec: Optional[str]) -> Optional[InitFn]:
+    """``fn(view, generator, fan_rows)`` filling ``view`` in place from a
+    torch-style init string such as ``"nn.init.uniform_,a=-0.01,b=0.01"``;
+    None for an empty string. The port's copy of the JAX package's
+    ``parse_init_fn``, with its semantics: ``trunc_normal`` draws a plain
+    normal, and the fan-based inits take ``fan_in`` = the table's rows
+    (``fan_rows``) and ``fan_out`` = the view's last dimension."""
+    if not spec:
+        return None
+    parts = [p.strip() for p in spec.split(",")]
+    name = parts[0].rsplit(".", 1)[-1].rstrip("_")
+    kwargs = {}
+    for p in parts[1:]:
+        if "=" in p:
+            k, v = p.split("=", 1)
+            try:
+                kwargs[k.strip()] = float(v)
+            except ValueError:
+                kwargs[k.strip()] = v.strip()
+
+    a, b = kwargs.get("a", 0.0), kwargs.get("b", 1.0)
+    mean, std = kwargs.get("mean", 0.0), kwargs.get("std", 1.0)
+    val = kwargs.get("val", 0.0)
+    # name -> fill(view, generator, fan_in, fan_out)
+    fills = {
+        "uniform": lambda v, g, fi, fo: v.uniform_(a, b, generator=g),
+        "normal": lambda v, g, fi, fo: v.normal_(mean, std, generator=g),
+        "constant": lambda v, g, fi, fo: v.fill_(val),
+        "zeros": lambda v, g, fi, fo: v.fill_(0.0),
+        "ones": lambda v, g, fi, fo: v.fill_(1.0),
+        "xavier_uniform": lambda v, g, fi, fo: v.uniform_(
+            -(6.0 / (fi + fo)) ** 0.5, (6.0 / (fi + fo)) ** 0.5, generator=g),
+        "xavier_normal": lambda v, g, fi, fo: v.normal_(
+            0.0, (2.0 / (fi + fo)) ** 0.5, generator=g),
+        "kaiming_uniform": lambda v, g, fi, fo: v.uniform_(
+            -(6.0 / fi) ** 0.5, (6.0 / fi) ** 0.5, generator=g),
+        "kaiming_normal": lambda v, g, fi, fo: v.normal_(
+            0.0, (2.0 / fi) ** 0.5, generator=g),
+    }
+    fills.update(trunc_normal=fills["normal"],
+                 glorot_uniform=fills["xavier_uniform"],
+                 glorot_normal=fills["xavier_normal"],
+                 he_uniform=fills["kaiming_uniform"],
+                 he_normal=fills["kaiming_normal"])
+    if name not in fills:
+        raise ValueError(f"unknown init fn {spec}")
+    fill = fills[name]
+
+    def _init(view: torch.Tensor, generator: torch.Generator,
+              fan_rows: int) -> None:
+        fill(view, generator, fan_rows, view.shape[-1])
+
+    return _init
+
+
+def default_emb_init(view: torch.Tensor, generator: torch.Generator,
+                     fan_rows: int) -> None:
+    """The tables' default: uniform(+-1/sqrt(rows)) of the whole table."""
+    bound = 1.0 / max(fan_rows, 1) ** 0.5
+    view.uniform_(-bound, bound, generator=generator)

@@ -2,7 +2,7 @@
 // maps and TMA loads, mbarriers, named barriers, and wgmma with its
 // shared-memory descriptors.
 //
-// Tile layout convention. A bf16 tile of R rows x COLS columns lives in
+// Tile layout convention. A 16-bit (bf16 or fp16) tile of R rows x COLS columns lives in
 // shared memory as COLS / P column panels of P = min(64, COLS) columns;
 // panel p starts at byte p * R * P * 2, each row of a panel takes P * 2
 // bytes (128 or 64), and the 16-byte chunks of a row are XOR-swizzled
@@ -17,6 +17,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,7 +105,8 @@ __device__ __forceinline__ uint64_t desc_mn_major(const unsigned char* tile,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma: D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, fp32 accumulators.
+// wgmma: D[64 x N] (+)= A[64 x 16] B[16 x N], 16-bit operands of type E
+// (__nv_bfloat16 or __half), fp32 accumulators.
 // Thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8)
 // and columns 8 i + 2 (t % 4) (+ 1) of D: d[4 i + e] is row +8 for e >= 2
 // and column +1 for odd e, the D fragment of mma.m16n8k16 per warp.
@@ -112,140 +114,19 @@ __device__ __forceinline__ uint64_t desc_mn_major(const unsigned char* tile,
 // fragment layout of mma.m16n8k16.
 // ---------------------------------------------------------------------------
 
-template <int N, int TA, int TB>
+template <int N, int TA, int TB, typename E>
 struct Wgmma;
 
-template <int TA, int TB>
-struct Wgmma<16, TA, TB> {
-  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[8],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-          "n"(TB));
-  }
-};
-
-template <int TA, int TB>
-struct Wgmma<32, TA, TB> {
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[16],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-          "n"(TB));
-  }
-};
-
-template <int TA, int TB>
-struct Wgmma<64, TA, TB> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-          "n"(TB));
-  }
-};
-
-template <int TA, int TB>
-struct Wgmma<128, TA, TB> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-          "n"(TB));
-  }
-};
+#define HOPPER_WGMMA_E __nv_bfloat16
+#define HOPPER_WGMMA_TY "bf16"
+#include "hopper_wgmma.cuh"
+#undef HOPPER_WGMMA_E
+#undef HOPPER_WGMMA_TY
+#define HOPPER_WGMMA_E __half
+#define HOPPER_WGMMA_TY "f16"
+#include "hopper_wgmma.cuh"
+#undef HOPPER_WGMMA_E
+#undef HOPPER_WGMMA_TY
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -271,20 +152,30 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two fp32 values rounded to nearest into one register of type E, lo in
+// the low half. A value past E's range becomes inf, never clamped.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The A fragment of k-step kk (columns [16 kk, 16 kk + 16)) from a
-// [64 x N] accumulator, cast to bf16: two neighbouring n8 blocks.
-template <int R>
+// [64 x N] accumulator, cast to E: two neighbouring n8 blocks.
+template <typename E, int R>
 __device__ __forceinline__ void acc_to_a(const float (&d)[R], int kk,
                                          uint32_t (&a)[4]) {
-  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  a[0] = pack2<E>(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack2<E>(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack2<E>(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack2<E>(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 // ---------------------------------------------------------------------------
@@ -392,11 +283,13 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A map over a bf16 [B, N, H, COLS] tensor whose box is one panel
-// (P columns) of `rows` rows of one head of one sample, in the swizzle of
-// Tile<rows, COLS>. Rows past N read as zeros.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int b, int n,
-                            int h, int cols, int rows) {
+// A map over a 16-bit [B, N, H, COLS] tensor of type `type` (BFLOAT16 or
+// FLOAT16) whose box is one panel (P columns) of `rows` rows of one head
+// of one sample, in the swizzle of Tile<rows, COLS>. Rows past N read as
+// zeros.
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, int b, int n, int h, int cols,
+                            int rows) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
   const int p = cols < 64 ? cols : 64;
@@ -408,11 +301,23 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int b, int n,
   const cuuint32_t box[4] = {(cuuint32_t)p, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      map, type, 4, const_cast<void*>(base), dims,
       strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       p == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor-map element type of E.
+template <typename E>
+constexpr CUtensorMapDataType map_type();
+template <>
+constexpr CUtensorMapDataType map_type<__nv_bfloat16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <>
+constexpr CUtensorMapDataType map_type<__half>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
 
 }  // namespace hopper

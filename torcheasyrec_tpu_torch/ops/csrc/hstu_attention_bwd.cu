@@ -28,7 +28,10 @@
 // fragments, scores through shared memory in fp32) ran 6.95 ms; this one
 // runs 2.22 ms, 237 TFLOP/s, 24% of the bound (chip_smoke.py).
 //
-// bf16 design, one block per (key tile of 128 rows, head, sample). Blocks
+// 16-bit design (bf16 and fp16: one body, `bwd_wgmma`, instantiated for each
+// operand type as `hstu_bwd_bf16` and `hstu_bwd_f16`; .f32.bf16.bf16 or
+// .f32.f16.f16 wgmma, the tensor maps of the type, round-to-nearest packing),
+// one block per (key tile of 128 rows, head, sample). Blocks
 // start sample by sample, longest first, and within a head in rising key
 // tile order, so that the heaviest (the low key tiles of the longest
 // samples, which most query tiles attend) start first and the blocks in
@@ -48,10 +51,12 @@
 //   accumulators), applies SiLU, SiLU', alpha, 1/scaling_seqlen and the mask
 //   to the accumulator registers (the row and column of each register follow
 //   from the lane; wholly unmasked tiles skip the mask), and casts P^T and
-//   dS^T to bf16 in the A-fragment layout of the next products:
+//   dS^T to 16 bits in the A-fragment layout of the next products (in fp16 a
+//   dS past 65504, as a loss scale gives, becomes inf there as in the plain
+//   version, and its inf or NaN reaches dk and dq; nothing is clamped):
 //   dV += P^T dO and dK += dS^T Q are wgmma with A from registers. dk and dv
 //   stay in registers for the whole loop.
-// - dq: only dS^T (bf16, 16 KB) goes to shared memory, once per step, double
+// - dq: only dS^T (16-bit, 16 KB) goes to shared memory, once per step, double
 //   buffered; after one barrier between the two warpgroups each computes
 //   dQ = dS K for half of the head dim (wgmma, A and B MN-major from shared
 //   memory) and adds it into a zeroed fp32 [B, N, H, D] buffer with 8-byte
@@ -73,6 +78,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,8 +92,8 @@ using namespace hopper;
 
 constexpr int BQ = 64;            // query rows per step of the loop
 constexpr int BK = 64;            // fp32: key rows per block
-constexpr int NUM_THREADS = 256;  // 8 warps (bf16: two warpgroups)
-constexpr int HBK = 128;          // bf16: key rows per block
+constexpr int NUM_THREADS = 256;  // 8 warps (16-bit: two warpgroups)
+constexpr int HBK = 128;          // 16-bit: key rows per block
 
 // SiLU(z) and SiLU'(z) from one sigmoid.
 template <bool FAST>
@@ -99,7 +105,7 @@ __device__ __forceinline__ void silu_and_grad(float z, float* s, float* ds) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: TMA, wgmma
+// bf16 and fp16: TMA, wgmma
 // ---------------------------------------------------------------------------
 
 template <int D, int V>
@@ -121,16 +127,15 @@ struct HopperSmem {
   static constexpr int BYTES = BAR_OFF + 64 + 1024;
 };
 
-template <int D, int V>
-__global__ void __launch_bounds__(NUM_THREADS, 1)
-hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
-              const __grid_constant__ CUtensorMap k_map,
-              const __grid_constant__ CUtensorMap v_map,
-              const __grid_constant__ CUtensorMap do_map,
-              float* __restrict__ dq, bf16* __restrict__ dk,
-              bf16* __restrict__ dv, const int* __restrict__ lengths,
-              const int* __restrict__ num_targets, int n, int h_count,
-              float alpha, float inv_scale, MaskParams p) {
+// The body of the 16-bit kernels, for operands and dk, dv of type E (bf16
+// or fp16); `*_map` point at the kernel's __grid_constant__ maps.
+template <typename E, int D, int V>
+__device__ __forceinline__ void bwd_wgmma(
+    const CUtensorMap* q_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, const CUtensorMap* do_map,
+    float* __restrict__ dq, E* __restrict__ dk, E* __restrict__ dv,
+    const int* __restrict__ lengths, const int* __restrict__ num_targets,
+    int n, int h_count, float alpha, float inv_scale, MaskParams p) {
   using L = HopperSmem<D, V>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -143,12 +148,12 @@ hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
   const size_t head = (size_t)b * n * h_count + h;
   const int qk_stride = h_count * D, v_stride = h_count * V;
   float* dq_base = dq + head * D;
-  bf16* dk_base = dk + head * D;
-  bf16* dv_base = dv + head * V;
+  E* dk_base = dk + head * D;
+  E* dv_base = dv + head * V;
 
   if (k0 >= seq_len) {
-    zero_rows<NUM_THREADS, HBK, bf16, D>(dk_base, qk_stride, k0, n);
-    zero_rows<NUM_THREADS, HBK, bf16, V>(dv_base, v_stride, k0, n);
+    zero_rows<NUM_THREADS, HBK, E, D>(dk_base, qk_stride, k0, n);
+    zero_rows<NUM_THREADS, HBK, E, V>(dv_base, v_stride, k0, n);
     return;
   }
 
@@ -176,13 +181,13 @@ hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
     uint64_t* bar = &full[it & 1];
     const int q0 = tiles.tile(it) * BQ;
     mbar_expect_tx(bar, L::QT::BYTES + L::OT::BYTES);
-    tma_load_tile<BQ, D>(stage, &q_map, bar, h, q0, b);
-    tma_load_tile<BQ, V>(stage + L::DO_IN_STAGE, &do_map, bar, h, q0, b);
+    tma_load_tile<BQ, D>(stage, q_map, bar, h, q0, b);
+    tma_load_tile<BQ, V>(stage + L::DO_IN_STAGE, do_map, bar, h, q0, b);
   };
   if (tid == 0) {
     mbar_expect_tx(kv_full, L::KT::BYTES + L::VT::BYTES);
-    tma_load_tile<HBK, D>(ks, &k_map, kv_full, h, k0, b);
-    tma_load_tile<HBK, V>(vs, &v_map, kv_full, h, k0, b);
+    tma_load_tile<HBK, D>(ks, k_map, kv_full, h, k0, b);
+    tma_load_tile<HBK, V>(vs, v_map, kv_full, h, k0, b);
     for (int it = 0; it < min(n_q, 2); ++it) load_stage(it);
   }
 
@@ -229,12 +234,12 @@ hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      Wgmma<BQ, 0, 0>::ss(st, desc_k_major<HBK, D>(ks, kw, 16 * kk),
+      Wgmma<BQ, 0, 0, E>::ss(st, desc_k_major<HBK, D>(ks, kw, 16 * kk),
                           desc_k_major<BQ, D>(qs, 0, 16 * kk), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < V / 16; ++kk) {
-      Wgmma<BQ, 0, 0>::ss(dpt, desc_k_major<HBK, V>(vs, kw, 16 * kk),
+      Wgmma<BQ, 0, 0, E>::ss(dpt, desc_k_major<HBK, V>(vs, kw, 16 * kk),
                           desc_k_major<BQ, V>(dos, 0, 16 * kk), kk > 0);
     }
     wgmma_commit();
@@ -265,10 +270,10 @@ hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      acc_to_a(st, kk, pa[kk]);
-      acc_to_a(dpt, kk, da[kk]);
+      acc_to_a<E>(st, kk, pa[kk]);
+      acc_to_a<E>(dpt, kk, da[kk]);
     }
-    // dS^T to shared memory for dQ, the same bf16 values
+    // dS^T to shared memory for dQ, the same 16-bit values
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
@@ -284,9 +289,9 @@ hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      Wgmma<V, 0, 1>::rs(dv_acc, pa[kk], desc_mn_major<BQ, V>(dos, 16 * kk, 0),
+      Wgmma<V, 0, 1, E>::rs(dv_acc, pa[kk], desc_mn_major<BQ, V>(dos, 16 * kk, 0),
                          1);
-      Wgmma<D, 0, 1>::rs(dk_acc, da[kk], desc_mn_major<BQ, D>(qs, 16 * kk, 0),
+      Wgmma<D, 0, 1, E>::rs(dk_acc, da[kk], desc_mn_major<BQ, D>(qs, 16 * kk, 0),
                          1);
     }
     wgmma_commit();
@@ -300,7 +305,7 @@ hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HBK / 16; ++kk) {
-      Wgmma<D / 2, 1, 1>::ss(dq_acc, desc_mn_major<HBK, BQ>(dss, 16 * kk, 0),
+      Wgmma<D / 2, 1, 1, E>::ss(dq_acc, desc_mn_major<HBK, BQ>(dss, 16 * kk, 0),
                              desc_mn_major<HBK, D>(ks, 16 * kk, wg * (D / 2)),
                              kk > 0);
     }
@@ -332,13 +337,13 @@ hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
     }
   }
 
-  // ---- dk and dv from the registers, as bf16 ----
+  // ---- dk and dv from the registers, as E ----
 #pragma unroll
   for (int i = 0; i < V / 2; i += 2) {
     const int row = k0 + kw + r_lo + ((i & 2) ? 8 : 0);
     if (row < n) {
       *reinterpret_cast<uint32_t*>(dv_base + (size_t)row * v_stride + 8 * (i / 4) +
-                                   c_lo) = pack_bf16(dv_acc[i], dv_acc[i + 1]);
+                                   c_lo) = pack2<E>(dv_acc[i], dv_acc[i + 1]);
     }
   }
 #pragma unroll
@@ -347,10 +352,28 @@ hstu_bwd_bf16(const __grid_constant__ CUtensorMap q_map,
     if (row < n) {
       *reinterpret_cast<uint32_t*>(dk_base + (size_t)row * qk_stride +
                                    8 * (i / 4) + c_lo) =
-          pack_bf16(dk_acc[i], dk_acc[i + 1]);
+          pack2<E>(dk_acc[i], dk_acc[i + 1]);
     }
   }
 }
+
+#define HSTU_BWD_KERNEL(NAME, E)                                              \
+  template <int D, int V>                                                     \
+  __global__ void __launch_bounds__(NUM_THREADS, 1)                           \
+      NAME(const __grid_constant__ CUtensorMap q_map,                         \
+           const __grid_constant__ CUtensorMap k_map,                         \
+           const __grid_constant__ CUtensorMap v_map,                         \
+           const __grid_constant__ CUtensorMap do_map,                        \
+           float* __restrict__ dq, E* __restrict__ dk, E* __restrict__ dv,    \
+           const int* __restrict__ lengths,                                   \
+           const int* __restrict__ num_targets, int n, int h_count,           \
+           float alpha, float inv_scale, MaskParams p) {                      \
+    bwd_wgmma<E, D, V>(&q_map, &k_map, &v_map, &do_map, dq, dk, dv, lengths,  \
+                       num_targets, n, h_count, alpha, inv_scale, p);         \
+  }
+HSTU_BWD_KERNEL(hstu_bwd_bf16, bf16)
+HSTU_BWD_KERNEL(hstu_bwd_f16, __half)
+#undef HSTU_BWD_KERNEL
 
 // ---------------------------------------------------------------------------
 // fp32: CUDA-core FMAs
@@ -566,49 +589,56 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, int V>
-cudaError_t launch_dv(int is_bf16, const Args& a) {
-  if (is_bf16) {
-    CUtensorMap q_map, k_map, v_map, do_map;
-    cudaError_t err = make_map(&q_map, a.q, a.b, a.n, a.h, D, BQ);
-    if (err == cudaSuccess) err = make_map(&k_map, a.k, a.b, a.n, a.h, D, HBK);
-    if (err == cudaSuccess) err = make_map(&v_map, a.v, a.b, a.n, a.h, V, HBK);
-    if (err == cudaSuccess) {
-      err = make_map(&do_map, a.d_out, a.b, a.n, a.h, V, BQ);
-    }
-    if (err != cudaSuccess) return err;
-    auto kern = hstu_bwd_bf16<D, V>;
-    constexpr int smem_bytes = HopperSmem<D, V>::BYTES;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.n + HBK - 1) / HBK, a.h, a.b);
-    kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
-        q_map, k_map, v_map, do_map, a.dq, static_cast<bf16*>(a.dk),
-        static_cast<bf16*>(a.dv), a.lengths, a.num_targets, a.n, a.h, a.alpha,
-        a.inv_scale, a.p);
-  } else {
-    auto kern = hstu_bwd_f32<D, V>;
-    constexpr int smem_bytes = F32Smem<D, V>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.n + BK - 1) / BK, a.h, a.b);
-    kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.d_out),
-        a.dq, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-        a.lengths, a.num_targets, a.n, a.h, a.alpha, a.inv_scale, a.p);
+// The 16-bit kernel `kern` for operands of type E.
+template <typename E, int D, int V, typename Kernel>
+cudaError_t launch_wgmma(Kernel kern, const Args& a) {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  constexpr CUtensorMapDataType t = map_type<E>();
+  cudaError_t err = make_map(&q_map, t, a.q, a.b, a.n, a.h, D, BQ);
+  if (err == cudaSuccess) err = make_map(&k_map, t, a.k, a.b, a.n, a.h, D, HBK);
+  if (err == cudaSuccess) err = make_map(&v_map, t, a.v, a.b, a.n, a.h, V, HBK);
+  if (err == cudaSuccess) {
+    err = make_map(&do_map, t, a.d_out, a.b, a.n, a.h, V, BQ);
   }
+  if (err != cudaSuccess) return err;
+  constexpr int smem_bytes = HopperSmem<D, V>::BYTES;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + HBK - 1) / HBK, a.h, a.b);
+  kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
+      q_map, k_map, v_map, do_map, a.dq, static_cast<E*>(a.dk),
+      static_cast<E*>(a.dv), a.lengths, a.num_targets, a.n, a.h, a.alpha,
+      a.inv_scale, a.p);
+  return cudaGetLastError();
+}
+
+// dtype: 0 fp32, 1 bf16, 2 fp16
+template <int D, int V>
+cudaError_t launch_dv(int dtype, const Args& a) {
+  if (dtype == 1) return launch_wgmma<bf16, D, V>(hstu_bwd_bf16<D, V>, a);
+  if (dtype == 2) return launch_wgmma<__half, D, V>(hstu_bwd_f16<D, V>, a);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  auto kern = hstu_bwd_f32<D, V>;
+  constexpr int smem_bytes = F32Smem<D, V>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + BK - 1) / BK, a.h, a.b);
+  kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.d_out),
+      a.dq, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.lengths, a.num_targets, a.n, a.h, a.alpha, a.inv_scale, a.p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_d(int v_dim, int is_bf16, const Args& a) {
+cudaError_t launch_d(int v_dim, int dtype, const Args& a) {
   switch (v_dim) {
-    case 32: return launch_dv<D, 32>(is_bf16, a);
-    case 64: return launch_dv<D, 64>(is_bf16, a);
-    case 128: return launch_dv<D, 128>(is_bf16, a);
+    case 32: return launch_dv<D, 32>(dtype, a);
+    case 64: return launch_dv<D, 64>(dtype, a);
+    case 128: return launch_dv<D, 128>(dtype, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -616,11 +646,11 @@ cudaError_t launch_d(int v_dim, int is_bf16, const Args& a) {
 }  // namespace
 
 // dq is a zeroed fp32 [B, N, H, D] buffer the kernel adds into; dk and dv
-// are written whole, in q's type.
+// are written whole, in q's type. dtype: 0 fp32, 1 bf16, 2 fp16.
 extern "C" int hstu_attention_bwd(
     const void* q, const void* k, const void* v, const void* d_out, float* dq,
     void* dk, void* dv, const int* lengths, const int* num_targets, int b,
-    int n, int h, int d, int v_dim, int is_bf16, float alpha, float inv_scale,
+    int n, int h, int d, int v_dim, int dtype, float alpha, float inv_scale,
     int causal, int max_attn_len, int contextual_seq_len,
     int min_full_attn_seq_len, int sla_k1, int sla_k2, void* stream) {
   if (b <= 0 || n <= 0 || h <= 0) return (int)cudaSuccess;
@@ -631,9 +661,9 @@ extern "C" int hstu_attention_bwd(
                     sla_k2},
          static_cast<cudaStream_t>(stream)};
   switch (d) {
-    case 32: return (int)launch_d<32>(v_dim, is_bf16, a);
-    case 64: return (int)launch_d<64>(v_dim, is_bf16, a);
-    case 128: return (int)launch_d<128>(v_dim, is_bf16, a);
+    case 32: return (int)launch_d<32>(v_dim, dtype, a);
+    case 64: return (int)launch_d<64>(v_dim, dtype, a);
+    case 128: return (int)launch_d<128>(v_dim, dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

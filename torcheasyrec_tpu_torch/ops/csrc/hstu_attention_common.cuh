@@ -164,8 +164,8 @@ __device__ __forceinline__ int sample_of_rank(const int* lengths, int b_count,
 
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
-// SiLU with the fast exp and division: bf16 keeps far fewer bits than
-// these lose.
+// SiLU with the fast exp and division: bf16 and fp16 keep far fewer bits
+// than these lose.
 __device__ __forceinline__ float silu_fast(float x) {
   return __fdividef(x, 1.0f + __expf(-x));
 }

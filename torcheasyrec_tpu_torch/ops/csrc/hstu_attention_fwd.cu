@@ -24,7 +24,11 @@
 // ran 2.19 ms; this one runs 1.06-1.08 ms, 195-199 TFLOP/s, 20% of the
 // bound (chip_smoke.py).
 //
-// bf16 design, one block per (query tile of 128 rows, head, sample). Blocks
+// 16-bit design (bf16 and fp16: one body, `fwd_wgmma`, instantiated for each
+// operand type as `hstu_fwd_bf16` and `hstu_fwd_f16`; .f32.bf16.bf16 or
+// .f32.f16.f16 wgmma, the tensor maps of the type, round-to-nearest packing,
+// which turns an fp16 value past 65504 into inf as the plain version's cast
+// does), one block per (query tile of 128 rows, head, sample). Blocks
 // start sample by sample, longest first, and within a head from the last
 // query tile (the one that visits the most key tiles) down, to even out the
 // tail of the grid while the blocks in flight share one or two heads' k and
@@ -42,9 +46,9 @@
 // - scores stay in registers: S = Q K^T by wgmma (64 rows x 128 key
 //   columns, fp32 accumulators); SiLU, alpha, 1/scaling_seqlen and the mask
 //   are applied to the accumulator registers (row and column from the lane;
-//   wholly unmasked tiles skip the mask); P is cast to bf16 in registers and
+//   wholly unmasked tiles skip the mask); P is cast to 16 bits in registers and
 //   is the A operand of O += P V (wgmma with A from registers, V MN-major
-//   from shared memory). O stays in registers and leaves as bf16.
+//   from shared memory). O stays in registers and leaves in 16 bits.
 // - padding never meets a product: a v tile that crosses the sample's
 //   length has its rows at or past the length zeroed in shared memory before
 //   the product (a masked score is 0, and 0 times NaN is NaN); scores of
@@ -60,6 +64,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,13 +79,13 @@ using namespace hopper;
 constexpr int BQ = 64;            // fp32: query rows per block
 constexpr int BK = 64;            // fp32: key/value rows per tile
 constexpr int NUM_THREADS = 128;  // fp32: 4 warps
-constexpr int HBQ = 128;          // bf16: query rows per block
-constexpr int HBK = 128;          // bf16: key/value rows per tile
-constexpr int CONSUMERS = 256;    // bf16: two consumer warpgroups
-constexpr int H_THREADS = CONSUMERS + 32;  // bf16: and the producer warp
+constexpr int HBQ = 128;          // 16-bit: query rows per block
+constexpr int HBK = 128;          // 16-bit: key/value rows per tile
+constexpr int CONSUMERS = 256;    // 16-bit: two consumer warpgroups
+constexpr int H_THREADS = CONSUMERS + 32;  // 16-bit: and the producer warp
 
 // ---------------------------------------------------------------------------
-// bf16: TMA, wgmma, warp specialisation
+// bf16 and fp16: TMA, wgmma, warp specialisation
 // ---------------------------------------------------------------------------
 
 template <int D, int V>
@@ -97,14 +102,14 @@ struct HopperSmem {
   static constexpr int BYTES = BAR_OFF + 64 + 1024;
 };
 
-template <int D, int V>
-__global__ void __launch_bounds__(H_THREADS, 1)
-hstu_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
-              const __grid_constant__ CUtensorMap k_map,
-              const __grid_constant__ CUtensorMap v_map,
-              bf16* __restrict__ out, const int* __restrict__ lengths,
-              const int* __restrict__ num_targets, int n, int h_count,
-              float alpha, float inv_scale, MaskParams p) {
+// The body of the 16-bit kernels, for operands and output of type E
+// (bf16 or fp16); `*_map` point at the kernel's __grid_constant__ maps.
+template <typename E, int D, int V>
+__device__ __forceinline__ void fwd_wgmma(
+    const CUtensorMap* q_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, E* __restrict__ out,
+    const int* __restrict__ lengths, const int* __restrict__ num_targets,
+    int n, int h_count, float alpha, float inv_scale, MaskParams p) {
   using L = HopperSmem<D, V>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -116,10 +121,10 @@ hstu_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
   const int n_t = p.has_targets ? num_targets[b] : 0;
   const size_t head = (size_t)b * n * h_count + h;
   const int v_stride = h_count * V;
-  bf16* o_base = out + head * V;
+  E* o_base = out + head * V;
 
   if (q0 >= seq_len) {
-    zero_rows<H_THREADS, HBQ, bf16, V>(o_base, v_stride, q0, n);
+    zero_rows<H_THREADS, HBQ, E, V>(o_base, v_stride, q0, n);
     return;
   }
 
@@ -142,15 +147,15 @@ hstu_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
   if (threadIdx.x >= CONSUMERS) {  // ---- producer ----
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(q_full, L::QT::BYTES);
-      tma_load_tile<HBQ, D>(qs, &q_map, q_full, h, q0, b);
+      tma_load_tile<HBQ, D>(qs, q_map, q_full, h, q0, b);
       for (int it = 0; it < n_kv; ++it) {
         const int s = it & 1;
         unsigned char* stage = smem + L::STAGE_OFF + s * L::STAGE;
         mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
         mbar_expect_tx(&full[s], L::KT::BYTES + L::VT::BYTES);
         const int k0 = tiles.tile(it) * HBK;
-        tma_load_tile<HBK, D>(stage, &k_map, &full[s], h, k0, b);
-        tma_load_tile<HBK, V>(stage + L::V_IN_STAGE, &v_map, &full[s], h, k0,
+        tma_load_tile<HBK, D>(stage, k_map, &full[s], h, k0, b);
+        tma_load_tile<HBK, V>(stage + L::V_IN_STAGE, v_map, &full[s], h, k0,
                               b);
       }
     }
@@ -189,14 +194,14 @@ hstu_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      Wgmma<HBK, 0, 0>::ss(sacc, desc_k_major<HBQ, D>(qs, qw, 16 * kk),
+      Wgmma<HBK, 0, 0, E>::ss(sacc, desc_k_major<HBQ, D>(qs, qw, 16 * kk),
                            desc_k_major<HBK, D>(ks, 0, 16 * kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sacc);
 
-    // P = mask * SiLU(alpha S) / scale, cast to bf16 as the A operand; the
+    // P = mask * SiLU(alpha S) / scale, cast to E as the A operand; the
     // mask as one bit per register, computed in a rolled loop where the
     // tile needs it
     uint64_t valid = ~0ull;
@@ -216,13 +221,13 @@ hstu_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     }
     uint32_t pa[HBK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < HBK / 16; ++kk) acc_to_a(sacc, kk, pa[kk]);
+    for (int kk = 0; kk < HBK / 16; ++kk) acc_to_a<E>(sacc, kk, pa[kk]);
 
     // O += P V
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HBK / 16; ++kk) {
-      Wgmma<V, 0, 1>::rs(o_acc, pa[kk], desc_mn_major<HBK, V>(vs, 16 * kk, 0),
+      Wgmma<V, 0, 1, E>::rs(o_acc, pa[kk], desc_mn_major<HBK, V>(vs, 16 * kk, 0),
                          1);
     }
     wgmma_commit();
@@ -233,17 +238,33 @@ hstu_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
     if (lane == 0) mbar_arrive(&empty[s]);  // k and v of this stage are free
   }
 
-  // ---- out from the registers, as bf16 (rows past the length hold 0) ----
+  // ---- out from the registers, as E (rows past the length hold 0) ----
 #pragma unroll
   for (int i = 0; i < V / 2; i += 2) {
     const int row = q0 + qw + r_lo + ((i & 2) ? 8 : 0);
     if (row < n) {
       *reinterpret_cast<uint32_t*>(o_base + (size_t)row * v_stride +
                                    8 * (i / 4) + c_lo) =
-          pack_bf16(o_acc[i], o_acc[i + 1]);
+          pack2<E>(o_acc[i], o_acc[i + 1]);
     }
   }
 }
+
+#define HSTU_FWD_KERNEL(NAME, E)                                             \
+  template <int D, int V>                                                    \
+  __global__ void __launch_bounds__(H_THREADS, 1)                            \
+      NAME(const __grid_constant__ CUtensorMap q_map,                        \
+           const __grid_constant__ CUtensorMap k_map,                        \
+           const __grid_constant__ CUtensorMap v_map, E* __restrict__ out,   \
+           const int* __restrict__ lengths,                                  \
+           const int* __restrict__ num_targets, int n, int h_count,          \
+           float alpha, float inv_scale, MaskParams p) {                     \
+    fwd_wgmma<E, D, V>(&q_map, &k_map, &v_map, out, lengths, num_targets, n, \
+                       h_count, alpha, inv_scale, p);                        \
+  }
+HSTU_FWD_KERNEL(hstu_fwd_bf16, bf16)
+HSTU_FWD_KERNEL(hstu_fwd_f16, __half)
+#undef HSTU_FWD_KERNEL
 
 // ---------------------------------------------------------------------------
 // fp32: CUDA-core FMAs
@@ -380,44 +401,51 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The 16-bit kernel `kern` for operands of type E.
+template <typename E, int D, int V, typename Kernel>
+cudaError_t launch_wgmma(Kernel kern, const Args& a) {
+  CUtensorMap q_map, k_map, v_map;
+  constexpr CUtensorMapDataType t = map_type<E>();
+  cudaError_t err = make_map(&q_map, t, a.q, a.b, a.n, a.h, D, HBQ);
+  if (err == cudaSuccess) err = make_map(&k_map, t, a.k, a.b, a.n, a.h, D, HBK);
+  if (err == cudaSuccess) err = make_map(&v_map, t, a.v, a.b, a.n, a.h, V, HBK);
+  if (err != cudaSuccess) return err;
+  constexpr int smem_bytes = HopperSmem<D, V>::BYTES;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + HBQ - 1) / HBQ, a.h, a.b);
+  kern<<<grid, H_THREADS, smem_bytes, a.stream>>>(
+      q_map, k_map, v_map, static_cast<E*>(a.out), a.lengths, a.num_targets,
+      a.n, a.h, a.alpha, a.inv_scale, a.p);
+  return cudaGetLastError();
+}
+
+// dtype: 0 fp32, 1 bf16, 2 fp16
 template <int D, int V>
-cudaError_t launch_dv(int is_bf16, const Args& a) {
-  if (is_bf16) {
-    CUtensorMap q_map, k_map, v_map;
-    cudaError_t err = make_map(&q_map, a.q, a.b, a.n, a.h, D, HBQ);
-    if (err == cudaSuccess) err = make_map(&k_map, a.k, a.b, a.n, a.h, D, HBK);
-    if (err == cudaSuccess) err = make_map(&v_map, a.v, a.b, a.n, a.h, V, HBK);
-    if (err != cudaSuccess) return err;
-    auto kern = hstu_fwd_bf16<D, V>;
-    constexpr int smem_bytes = HopperSmem<D, V>::BYTES;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.n + HBQ - 1) / HBQ, a.h, a.b);
-    kern<<<grid, H_THREADS, smem_bytes, a.stream>>>(
-        q_map, k_map, v_map, static_cast<bf16*>(a.out), a.lengths,
-        a.num_targets, a.n, a.h, a.alpha, a.inv_scale, a.p);
-  } else {
-    auto kern = hstu_fwd_f32<D, V>;
-    constexpr int smem_bytes = F32Smem<D, V>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.n + BQ - 1) / BQ, a.h, a.b);
-    kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<float*>(a.out),
-        a.lengths, a.num_targets, a.n, a.h, a.alpha, a.inv_scale, a.p);
-  }
+cudaError_t launch_dv(int dtype, const Args& a) {
+  if (dtype == 1) return launch_wgmma<bf16, D, V>(hstu_fwd_bf16<D, V>, a);
+  if (dtype == 2) return launch_wgmma<__half, D, V>(hstu_fwd_f16<D, V>, a);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  auto kern = hstu_fwd_f32<D, V>;
+  constexpr int smem_bytes = F32Smem<D, V>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + BQ - 1) / BQ, a.h, a.b);
+  kern<<<grid, NUM_THREADS, smem_bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out),
+      a.lengths, a.num_targets, a.n, a.h, a.alpha, a.inv_scale, a.p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_d(int v_dim, int is_bf16, const Args& a) {
+cudaError_t launch_d(int v_dim, int dtype, const Args& a) {
   switch (v_dim) {
-    case 32: return launch_dv<D, 32>(is_bf16, a);
-    case 64: return launch_dv<D, 64>(is_bf16, a);
-    case 128: return launch_dv<D, 128>(is_bf16, a);
+    case 32: return launch_dv<D, 32>(dtype, a);
+    case 64: return launch_dv<D, 64>(dtype, a);
+    case 128: return launch_dv<D, 128>(dtype, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -427,7 +455,7 @@ cudaError_t launch_d(int v_dim, int is_bf16, const Args& a) {
 extern "C" int hstu_attention_fwd(
     const void* q, const void* k, const void* v, void* out,
     const int* lengths, const int* num_targets, int b, int n, int h, int d,
-    int v_dim, int is_bf16, float alpha, float inv_scale, int causal,
+    int v_dim, int dtype, float alpha, float inv_scale, int causal,
     int max_attn_len, int contextual_seq_len, int min_full_attn_seq_len,
     int sla_k1, int sla_k2, void* stream) {
   if (b <= 0 || n <= 0 || h <= 0) return (int)cudaSuccess;
@@ -437,9 +465,9 @@ extern "C" int hstu_attention_fwd(
                     sla_k2},
          static_cast<cudaStream_t>(stream)};
   switch (d) {
-    case 32: return (int)launch_d<32>(v_dim, is_bf16, a);
-    case 64: return (int)launch_d<64>(v_dim, is_bf16, a);
-    case 128: return (int)launch_d<128>(v_dim, is_bf16, a);
+    case 32: return (int)launch_d<32>(v_dim, dtype, a);
+    case 64: return (int)launch_d<64>(v_dim, dtype, a);
+    case 128: return (int)launch_d<128>(v_dim, dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,9 +14,10 @@ backward kernel ``ops/csrc/hstu_attention_bwd.cu`` replaces
 ``_bwd_dv_dk_kernel`` there. When a gradient is required the call goes
 through ``HstuAttentionFunction``, which saves q, k, v and the lengths
 only (no score matrix) and recomputes the scores tile by tile in its
-backward. The kernel paths check their inputs and raise; they never fall
-back. The plain versions beside them are ``_torch_hstu_mha`` and
-``_torch_hstu_mha_bwd``.
+backward. The kernels take fp32, bf16 and fp16 (``DTYPE_CODES``); the
+kernel paths check their inputs and raise; they never fall back. The
+plain versions beside them are ``_torch_hstu_mha`` and
+``_torch_hstu_mha_bwd``, in every dtype.
 """
 
 import ctypes
@@ -30,6 +31,9 @@ from torcheasyrec_tpu_torch.ops import Kernel, uses_cuda_kernel
 from torcheasyrec_tpu_torch.ops import cuda_build
 
 _KERNEL_HEAD_DIMS = (32, 64, 128)
+# the kernels' dtype code (their C interface): fp32 on the CUDA cores,
+# bf16 and fp16 through wgmma
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def valid_attn_mask(
@@ -252,9 +256,10 @@ class HstuAttentionFunction(torch.autograd.Function):
 
 def check_kernel_inputs(q, k, v, lengths, num_targets) -> None:
     """Raise unless the CUDA kernels take these tensors as they are."""
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype not in DTYPE_CODES:
         raise ValueError(
-            f"the hstu attention kernels take fp32 or bf16, got {q.dtype}")
+            f"the hstu attention kernels take fp32, bf16 or fp16, got "
+            f"{q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype")
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or (
@@ -288,7 +293,8 @@ def check_kernel_inputs(q, k, v, lengths, num_targets) -> None:
 
 def _kernel_lib(name: str, n_pointers: int) -> ctypes.CDLL:
     """The library of kernel ``name``, whose C function of the same name
-    takes ``n_pointers`` pointers, then b, n, h, d, v_dim, is_bf16, alpha,
+    takes ``n_pointers`` pointers, then b, n, h, d, v_dim, the dtype code
+    (``DTYPE_CODES``), alpha,
     1/scale, the six mask ints and the stream."""
     lib = cuda_build.load(name)
     if not getattr(lib, "_typed", False):
@@ -330,7 +336,7 @@ def hstu_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lengths.data_ptr(),
             None if num_targets is None else num_targets.data_ptr(),
-            b, n, h, d, vd, int(q.dtype == torch.bfloat16),
+            b, n, h, d, vd, DTYPE_CODES[q.dtype],
             float(alpha), 1.0 / float(scaling_seqlen), int(bool(causal)),
             int(max_attn_len), int(contextual_seq_len),
             int(min_full_attn_seq_len), int(sla_k1), int(sla_k2), stream,
@@ -385,7 +391,7 @@ def hstu_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lengths.data_ptr(),
             None if num_targets is None else num_targets.data_ptr(),
-            b, n, h, d, vd, int(q.dtype == torch.bfloat16),
+            b, n, h, d, vd, DTYPE_CODES[q.dtype],
             float(alpha), 1.0 / float(scaling_seqlen), int(bool(causal)),
             int(max_attn_len), int(contextual_seq_len),
             int(min_full_attn_seq_len), int(sla_k1), int(sla_k2), stream,

@@ -37,6 +37,13 @@ one ``index_add_``, the optimizer runs over the whole region (allowed
 only for sgd, adagrad and rowwise_adagrad, whose zero-gradient update is
 the identity) and the region is written back as one block.
 
+Tables of ``data_type`` BF16 or FP16 are stored in that dtype and stay
+unpacked, as in the JAX package: a lookup gathers and pools their rows
+in the storage dtype (the outputs and their gradients have it), the
+optimizer runs in fp32 on the touched rows and rounds the new rows to
+the storage dtype on write; their row state is fp32. A table's
+``init_fn`` (a torch-style init string) replaces the default init.
+
 The engine is a descriptor: tables and optimizer state are dicts of
 tensors, keyed by group, that the caller holds. Not ported: co-keyed
 table merge, meshes and sharded layouts, host-offloaded groups, ZCH.
@@ -51,6 +58,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from torcheasyrec_tpu_torch.datasets.utils import SparseField
+from torcheasyrec_tpu_torch.modules.module import (
+    default_emb_init,
+    parse_init_fn,
+)
 from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 
 
@@ -59,7 +70,8 @@ class TableSpec:
     name: str
     rows: int
     dim: int
-    dtype: str = "FP32"
+    dtype: str = "FP32"  # storage: FP32 | BF16 | FP16
+    init_fn: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +102,10 @@ class _Group:
     dense_rows: int = 0  # logical rows [0, dense_rows) are the dense lane
     dense_tables: frozenset = frozenset()
 
+    @property
+    def store_dtype(self) -> torch.dtype:
+        return _STORE_DTYPES.get(self.dtype.upper(), torch.float32)
+
 
 @dataclasses.dataclass
 class PlanEntry:
@@ -103,6 +119,10 @@ class PlanEntry:
     weights: Optional[torch.Tensor]
     lengths: torch.Tensor
     shape: Tuple[int, ...]
+
+
+_STORE_DTYPES = {"FP32": torch.float32, "BF16": torch.bfloat16,
+                 "FP16": torch.float16}
 
 
 def _group_key(dim: int, dtype: str = "FP32") -> str:
@@ -237,12 +257,12 @@ class EmbeddingEngine:
 
     def init_tables(self, generator: torch.Generator,
                     device=None) -> Dict[str, torch.Tensor]:
-        """{group key: storage}, every table drawn from its default init
-        uniform(+-1/sqrt(rows)) (the JAX package's ``default_emb_init``),
-        straight into its place: an unpacked table's row slice, or a
-        packed table's slot lanes, with the state lanes set from the
-        optimizer's fill values. No ``[total_rows, slot]`` intermediate
-        is built."""
+        """{group key: storage}, every table drawn from its ``init_fn``
+        (else the default uniform(+-1/sqrt(rows)), the JAX package's
+        ``default_emb_init``) straight into its place in the storage
+        dtype: an unpacked table's row slice, or a packed table's slot
+        lanes, with the state lanes set from the optimizer's fill values.
+        No ``[total_rows, slot]`` intermediate is built."""
         device = device or generator.device
         out: Dict[str, torch.Tensor] = {}
         fills = self.optimizer.row_state_init()
@@ -255,12 +275,13 @@ class EmbeddingEngine:
                             fills.get(name, 0.0))
                 store = lane_fill.to(device).repeat(g.p_rows, 1)
             else:
-                store = torch.zeros(g.total_rows, g.dim, device=device)
+                store = torch.zeros(g.total_rows, g.dim, device=device,
+                                    dtype=g.store_dtype)
             out[gk] = store
             for t in g.specs:
-                bound = 1.0 / max(t.rows, 1) ** 0.5
+                init = parse_init_fn(t.init_fn) or default_emb_init
                 for view in self._weight_views(g, store, t.name):
-                    view.uniform_(-bound, bound, generator=generator)
+                    init(view, generator, t.rows)
         return out
 
     def init_opt_state(self, device=None) -> Dict[str, Any]:
@@ -281,7 +302,8 @@ class EmbeddingEngine:
         sequence_sparse: Optional[Dict[str, SparseField]] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """(outputs, residuals). outputs[key]: [B, dim] pooled, or
-        [B, L, dim] for sequence lookups, fp32. residuals: per group
+        [B, L, dim] for sequence lookups, in the table's storage dtype
+        (fp32 but for BF16 and FP16 tables). residuals: per group
         ``(flat_ids, plan)`` for ``update``."""
         sequence_sparse = sequence_sparse or {}
         outputs: Dict[str, torch.Tensor] = {}
@@ -297,8 +319,8 @@ class EmbeddingEngine:
 
     def _gather(self, g: _Group, weight: torch.Tensor,
                 flat_ids: torch.Tensor) -> torch.Tensor:
-        """rows[i] = logical row flat_ids[i] of the group, fp32; an
-        invalid id (< 0) reads a zero row. Of a packed group exactly the
+        """rows[i] = logical row flat_ids[i] of the group, in its storage
+        dtype; an invalid id (< 0) reads a zero row. Of a packed group exactly the
         slot's weight lanes are gathered, an exact copy (the JAX engine's
         one-hot multiply and dense-lane one-hot product give the same
         values)."""
@@ -307,7 +329,7 @@ class EmbeddingEngine:
             rows = _slots(weight, g)[:, :, :g.dim][pid, lane]
             valid = ~invalid
         else:
-            rows = weight[flat_ids.clamp(min=0)].float()
+            rows = weight[flat_ids.clamp(min=0)]
             valid = flat_ids >= 0
         return torch.where(valid[:, None], rows, rows.new_zeros(()))
 

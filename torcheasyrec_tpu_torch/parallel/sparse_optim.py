@@ -9,10 +9,13 @@ size. All math runs in fp32.
 ``apply_rows`` is the pure row-level function (old weight rows, old
 state rows, gradients) -> (new rows, new state rows, new scalar state);
 ``apply`` wraps it with the gather and the in-place ``index_copy_`` for
-``[rows, dim]`` tables. Ported kinds: sgd, adagrad, rowwise_adagrad and
-adam. lars_sgd, lamb, partial_rowwise_lamb, partial_rowwise_adam,
-adadelta and rmsprop raise NotImplementedError. Column segments of
-merged tables and column-sharded reductions are not ported.
+``[rows, dim]`` tables. Every kind of the sparse optimizer oneof:
+sgd, adagrad, rowwise_adagrad, adam, partial_rowwise_adam, lamb,
+partial_rowwise_lamb, lars_sgd, adadelta and rmsprop. The row-wise
+reductions (rowwise adagrad's and the partial kinds' mean of g^2, lamb's
+and lars's norms) run over the ``dim`` weight lanes of a row only, never
+over its state lanes. Column segments of merged tables and
+column-sharded reductions are not ported.
 """
 
 from typing import Any, Dict, List, Tuple
@@ -21,20 +24,25 @@ import torch
 
 Params = Dict[str, Any]
 
-PORTED_KINDS = ("sgd", "adagrad", "rowwise_adagrad", "adam")
-_QUEUED_KINDS = ("lars_sgd", "lamb", "partial_rowwise_lamb",
-                 "partial_rowwise_adam", "adadelta", "rmsprop")
+PORTED_KINDS = ("sgd", "adagrad", "rowwise_adagrad", "adam",
+                "partial_rowwise_adam", "lamb", "partial_rowwise_lamb",
+                "lars_sgd", "adadelta", "rmsprop")
+# kinds that keep a step count beside the row state
+_STEP_KINDS = ("adam", "partial_rowwise_adam", "lamb", "partial_rowwise_lamb")
+# kinds whose weight decay is added to the gradient
+_DECAY_KINDS = ("adam", "lamb", "partial_rowwise_lamb", "partial_rowwise_adam",
+                "lars_sgd", "adadelta", "rmsprop")
+
+
+def _row_norm(x: torch.Tensor) -> torch.Tensor:
+    """[K, 1] L2 norm of each row."""
+    return (x * x).sum(dim=-1, keepdim=True).sqrt()
 
 
 class SparseOptimizer:
     """Stateless descriptor; the state lives in plain dicts of tensors."""
 
     def __init__(self, kind: str, cfg: Dict[str, Any]) -> None:
-        if kind in _QUEUED_KINDS:
-            raise NotImplementedError(
-                f"sparse optimizer {kind} is not ported; ported kinds: "
-                f"{PORTED_KINDS}"
-            )
         if kind not in PORTED_KINDS:
             raise ValueError(f"unknown sparse optimizer {kind}")
         self.kind = kind
@@ -44,12 +52,19 @@ class SparseOptimizer:
     # -- state -------------------------------------------------------------
 
     def row_state_widths(self, dim: int) -> List[Tuple[str, int]]:
-        """Per-row state columns as (name, width)."""
+        """Per-row state columns as (name, width); the order is the in-row
+        layout of packed tables."""
         return {
             "sgd": [],
             "adagrad": [("acc", dim)],
             "rowwise_adagrad": [("acc", 1)],
             "adam": [("m", dim), ("v", dim)],
+            "partial_rowwise_adam": [("m", dim), ("v", 1)],
+            "lamb": [("m", dim), ("v", dim)],
+            "partial_rowwise_lamb": [("m", dim), ("v", 1)],
+            "lars_sgd": [("mom", dim)],
+            "adadelta": [("acc", dim), ("delta_acc", dim)],
+            "rmsprop": [("sq", dim)],
         }[self.kind]
 
     def row_state_init(self) -> Dict[str, float]:
@@ -60,8 +75,8 @@ class SparseOptimizer:
         return {}
 
     def scalar_state_init(self, device=None) -> Params:
-        """Non-row state (shared scalars): the adam step count."""
-        if self.kind == "adam":
+        """Non-row state (shared scalars): the adam and lamb step count."""
+        if self.kind in _STEP_KINDS:
             return {"step": torch.zeros((), dtype=torch.int32, device=device)}
         return {}
 
@@ -81,7 +96,7 @@ class SparseOptimizer:
         srows: Params,         # {name: [K, width]} old row state
         grads: torch.Tensor,   # [K, dim] fp32 (deduplicated row grad sums)
         lr,                    # scalar (schedule-scaled), float or tensor
-        scalar_state: Params,  # {"step": ...} for adam
+        scalar_state: Params,  # {"step": ...} for the adam and lamb kinds
     ) -> Tuple[torch.Tensor, Params, Params]:
         """Pure row-level update: (new_rows, new_srows, new_scalar_state).
         No table access."""
@@ -92,7 +107,7 @@ class SparseOptimizer:
             grads = grads.clamp(-mg, mg)
         w_rows = w_rows.float()
         wd = float(c.get("weight_decay", 0.0))
-        if wd and k == "adam":
+        if wd and k in _DECAY_KINDS:
             grads = grads + wd * w_rows
 
         if k == "sgd":
@@ -108,18 +123,54 @@ class SparseOptimizer:
             acc = srows["acc"] + (grads * grads).mean(dim=-1, keepdim=True)
             return w_rows - lr * grads / (acc.sqrt() + eps), {"acc": acc}, {}
 
-        # adam
-        b1 = float(c.get("beta1", 0.9))
-        b2 = float(c.get("beta2", 0.999))
+        if k in _STEP_KINDS:
+            lamb = k in ("lamb", "partial_rowwise_lamb")
+            b1 = float(c.get("beta1", 0.9))
+            b2 = float(c.get("beta2", 0.999))
+            eps = float(c.get("eps", 1e-6 if lamb else 1e-8))
+            step = scalar_state["step"] + 1
+            m = b1 * srows["m"] + (1 - b1) * grads
+            g2 = grads * grads
+            if k.startswith("partial_rowwise"):
+                g2 = g2.mean(dim=-1, keepdim=True)
+            v = b2 * srows["v"] + (1 - b2) * g2
+            t = step.float()
+            mh = m / (1 - b1 ** t)
+            vh = v / (1 - b2 ** t)
+            upd = mh / (vh.sqrt() + eps)
+            if lamb:
+                w_norm = _row_norm(w_rows)
+                u_norm = _row_norm(upd)
+                trust = torch.where((w_norm > 0) & (u_norm > 0),
+                                    w_norm / (u_norm + 1e-12),
+                                    w_norm.new_ones(()))
+                upd = trust * upd
+            return w_rows - lr * upd, {"m": m, "v": v}, {"step": step}
+
+        if k == "lars_sgd":
+            momentum = float(c.get("momentum", 0.9))
+            eta = float(c.get("eta", 0.001))
+            w_norm = _row_norm(w_rows)
+            g_norm = _row_norm(grads)
+            local_lr = torch.where((w_norm > 0) & (g_norm > 0),
+                                   eta * w_norm / (g_norm + 1e-12),
+                                   w_norm.new_ones(()))
+            mom = momentum * srows["mom"] + local_lr * lr * grads
+            return w_rows - mom, {"mom": mom}, {}
+
+        if k == "adadelta":
+            rho = float(c.get("rho", 0.95))
+            eps = float(c.get("eps", 1e-6))
+            acc = rho * srows["acc"] + (1 - rho) * grads * grads
+            delta = (srows["delta_acc"] + eps).sqrt() / (acc + eps).sqrt() * grads
+            dacc = rho * srows["delta_acc"] + (1 - rho) * delta * delta
+            return w_rows - lr * delta, {"acc": acc, "delta_acc": dacc}, {}
+
+        # rmsprop
+        alpha = float(c.get("alpha", 0.99))
         eps = float(c.get("eps", 1e-8))
-        step = scalar_state["step"] + 1
-        m = b1 * srows["m"] + (1 - b1) * grads
-        v = b2 * srows["v"] + (1 - b2) * grads * grads
-        t = step.float()
-        mh = m / (1 - b1 ** t)
-        vh = v / (1 - b2 ** t)
-        new_rows = w_rows - lr * mh / (vh.sqrt() + eps)
-        return new_rows, {"m": m, "v": v}, {"step": step}
+        sq = alpha * srows["sq"] + (1 - alpha) * grads * grads
+        return w_rows - lr * grads / (sq.sqrt() + eps), {"sq": sq}, {}
 
     # -- update ([rows, dim] tables) -----------------------------------------
 

@@ -4,8 +4,10 @@ Counterpart of torcheasyrec_tpu/utils/checkpoint_util.py. A checkpoint
 is one file, ``<model_dir>/model.ckpt-<step>.pt``, independent of the
 embedding engine's layout: the model's ``state_dict`` (tables in their
 canonical ``[rows, dim]`` form), the sparse optimizer state per table,
-the dense optimizer state, the step and epoch, and the dataloader
-watermark ``{source_id: last row consumed}`` that a resume skips.
+the dense optimizer state, the step and epoch, the dataloader
+watermark ``{source_id: last row consumed}`` that a resume skips, and
+where the train state has them the accumulated dense gradients
+(``accum_grads``) and the grad scaler's state (``scaler``).
 """
 
 import glob
@@ -16,6 +18,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 CKPT_PREFIX = "model.ckpt-"
+# train state entries a checkpoint carries where the state has them
+_OPTIONAL_STATE = ("accum_grads", "scaler")
 
 
 def checkpoint_path(model_dir: str, step: int) -> str:
@@ -51,7 +55,8 @@ def save_checkpoint(model_dir: str, model, tx, state: Dict[str, Any],
          "dense_opt": tx.state_dict(), "step": state["step"],
          "epoch": state.get("epoch", 0),
          "dataloader_state": {int(k): int(v) for k, v in
-                              (dataloader_state or {}).items()}},
+                              (dataloader_state or {}).items()},
+         **{k: state[k] for k in _OPTIONAL_STATE if k in state}},
         path,
     )
     return path
@@ -73,7 +78,8 @@ def restore_checkpoint(path: str, model, tx=None, strict: bool = True
                        ) -> Dict[str, Any]:
     """Load a checkpoint into a model built for training (and into
     ``tx``); returns the train state beside the model: ``sparse_opt``,
-    ``step``, ``epoch`` and ``dataloader_state``. Without ``strict`` it
+    ``step``, ``epoch`` and ``dataloader_state``, and ``accum_grads`` and
+    ``scaler`` where the file has them. Without ``strict`` it
     is the JAX package's partial restore: what the file lacks (the
     optimizer states and the step of a bare state_dict, a table, a
     layer) keeps its current or initial value."""
@@ -88,7 +94,8 @@ def restore_checkpoint(path: str, model, tx=None, strict: bool = True
     return {"sparse_opt": sparse_opt, "step": int(ckpt.get("step", 0)),
             "epoch": int(ckpt.get("epoch", 0)),
             "dataloader_state": {int(k): int(v) for k, v in
-                                 ckpt.get("dataloader_state", {}).items()}}
+                                 ckpt.get("dataloader_state", {}).items()},
+            **{k: ckpt[k] for k in _OPTIONAL_STATE if k in ckpt}}
 
 
 class CheckpointManager:

@@ -38,6 +38,11 @@ therefore takes too); ``dense_opt_state_from_jax`` takes optax
 adam's ``mu``, ``nu`` and ``count`` and gives a ``DenseOptimizer``
 state dict.
 
+``dense_param_paths(model)`` goes the other way for names: each dense
+parameter's path as the JAX package's optimizer builder writes it
+(``/``-joined, list entries as ``[i]``), which ``part_optimizers``'
+regexes are matched against.
+
 This module never imports JAX.
 """
 
@@ -88,6 +93,41 @@ def from_jax_state(dense_params: Mapping[str, Any],
             np.array(arr, dtype=np.float32)
         )
     return state
+
+
+# owning module class -> {port leaf: JAX leaf}
+_LEAF_TO_JAX = {
+    "Linear": {"weight": "kernel"},
+    "LayerNorm": {"weight": "scale"},
+    "CrossLayer": {"weight": "w", "bias": "b"},
+    "STULayer": {"uvqk_weight": "uvqk_w", "uvqk_bias": "uvqk_b",
+                 "output_weight": "output_w"},
+}
+
+
+def dense_param_paths(model: torch.nn.Module) -> Dict[str, str]:
+    """{parameter name: its JAX path}, the inverse of ``from_jax_state``'s
+    renames: ``deep_mlp.layers.0.linear.weight`` is
+    ``deep_mlp/layer_0/linear/kernel``, an entry of any other
+    ``ModuleList`` is ``[i]`` (``towers.1.layers.0...`` is
+    ``towers/[1]/layer_0/...``), a LayerNorm's ``weight`` is ``scale``."""
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        mod, path = model, []
+        for part in parts[:-1]:
+            if isinstance(mod, torch.nn.ModuleList):
+                if path and path[-1] in ("layers", "blocks"):
+                    path[-1] = f"{path[-1][:-1]}_{part}"
+                else:
+                    path.append(f"[{part}]")
+            else:
+                path.append(part)
+            mod = mod._modules[part]
+        path.append(_LEAF_TO_JAX.get(type(mod).__name__, {}).get(
+            parts[-1], parts[-1]))
+        out[name] = "/".join(path)
+    return out
 
 
 def sparse_opt_state_from_jax(
