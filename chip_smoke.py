@@ -24,8 +24,10 @@ retrieval with 32 sampled negatives a batch) on the JAX package's
 synthetic Criteo data; and the training loop's options (FP16 with the
 grad scaler, clipping and accumulation on DLRM-HSTU, the six further
 sparse optimizers and BF16/FP16 tables on DeepFM, part optimizers,
-train metrics and every eval metric on DBMTL). Phases, one JSON line
-each:
+train metrics and every eval metric on DBMTL); and the generative-
+recommendation family (hstu_synth's DLRM-HSTU at its published width,
+DLRM-HSTU with the content/action preprocessors, SLA and attention
+truncation, ULTRA-HSTU and HSTU-Match). Phases, one JSON line each:
 
 1. env: the card, CUDA and torch versions; every CUDA kernel of the
    paths is built from the sources here (one nvcc per source, in
@@ -35,7 +37,10 @@ each:
    version on the card, at the slice's shapes and over a sweep of every
    mask variant, head-dim pair, lengths at the 64- and 128-row tile
    edges, an SLA window shorter than a tile and batches wider than the
-   card, fp32 and bf16; and with NaN in the padded rows of every input,
+   card, fp32 and bf16, and the generative family's real shapes (B=128,
+   H=4, D=V=32 at N=43 and 48, interleaved N=85, truncated N=27, SLA and
+   window channels; HSTU-Match's D=V=16 at N=18 in fp32, the one dtype
+   whose kernels take head dim 16); and with NaN in the padded rows of every input,
    where the result must be finite and equal to the plain version's on
    the inputs with those rows zero. Tolerance: max|kernel - plain| <=
    1e-4 * max|plain| in fp32 (TF32 off), <= 2e-2 * max|plain| in bf16
@@ -207,6 +212,36 @@ each:
    table ``init_fn``: each eval metric equal to its recomputation in
    numpy from the predictions ``predict_checkpoint`` writes.
 
+10. train_gr: the generative-recommendation family. The hstu_synth data
+   (``benchmark/synthetic.ensure_hstu_dataset``: 20 480 train rows from
+   seed 11, 4 096 eval rows from seed 12) and its DLRM-HSTU config at the
+   published width (E 128, hidden and attention dim 32, 4 heads, 3
+   layers, max_seq_len 48, batch 128, fp32, the model seed 42's weights
+   drawn on the CPU, so that a CPU run from them compares): two epochs
+   (320 steps) through
+   ``train_and_evaluate``, each AUC within 0.02 of its pinned label (the
+   distance to the pinned threshold printed), ``evaluate`` equal to the
+   trainer's metrics, ``predict_checkpoint`` of the first 2 eval batches
+   equal to the eval step's outputs bit for bit. Then three models at
+   that width, each 3 fp32 steps on the card and on the CPU from the same
+   CPU-drawn weights and loader batches, the training-mode loss, every
+   prediction and every dense gradient within 1e-4 of the CPU's max
+   before each step (a structural zero gradient must be zero on the
+   card): DLRM-HSTU with target interleaving, an MLP content encoder, a
+   parameterized content MLP, SLA and truncation after layer 1 to a tail
+   of 16; ULTRA-HSTU with two channels (a max_attn_len window, SLA); and
+   HSTU-Match (the JAX package's integration config: grouped sequence
+   features, the sampler's 32 negatives in sequence mode, the UIH
+   preprocessor with an action encoder, the query-time anchor, head dim
+   16), after one epoch of it through ``train_and_evaluate`` (recall@1
+   and @5). Adam's eps is 1e-4 in the card-against-CPU steps. The
+   attention and row-write launches of all this are counted (set to 0
+   just before, read just after). Last the hstu_synth step on a resident
+   batch (median, window, idle share, peak memory), one epoch through the
+   loader, and kernels #1 and #2 at hstu_synth's shape in fp32 (device
+   time per launch, the plain version's, the bound of this data's work
+   at the fp32 peak, its bytes over each sample's real rows).
+
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
 prints them, and as the last line the device record. Any failure raises
@@ -235,10 +270,14 @@ N_TRAIN_STEPS = 6
 N_FILE_STEPS = 2
 SEED = 7
 
-# published dense peaks of one H100 SXM (bf16 and fp16 tensor cores, HBM3)
+# published dense peaks of one H100 SXM (bf16 and fp16 tensor cores, fp32
+# outside the tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
+DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16",
+               torch.float16: "fp16"}
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 BF16_ULP = 2.0 ** -8  # bf16's relative spacing at the top of a binade
@@ -528,6 +567,43 @@ def slice_upstream_grad(v):
         v.dtype)
 
 
+GR_SWEEP_SHAPES = ("B=128 H=4 D=V=32 N=43, 48, 85, 27 (hstu_synth, "
+                   "interleaved, truncated, ULTRA-HSTU's SLA and window "
+                   "channels); B=32 N=18 H=2 D=V=16 (HSTU-Match, fp32)")
+
+
+def gr_sweep(r):
+    """The generative family's real attention shapes, as (case, D, V, B,
+    N, H, lengths, targets, name): hstu_synth's (B=128, H=4, D=V=32, one
+    contextual token, 8-31 history tokens and 2-9 targets, so N=43 and
+    48, the max_seq_len; both below the 16-bit kernels' 128-row tile),
+    its interleaved layout (N=85, targets twice) and its truncated one
+    (a tail of 16: N=27), ULTRA-HSTU's channels (SLA; a max_attn_len
+    window), and HSTU-Match's user tower (B=32, H=2, D=V=16, two
+    contextual tokens and no targets, fp32 only)."""
+    b = 128
+    lc = r.integers(2, 10, b)
+    lu = r.integers(8, 32, b)
+    lens = 1 + lu + lc
+    full = lens.copy()
+    full[:4] = 48  # rows at the max_seq_len
+    ctx_tg = dict(causal=True, contextual_seq_len=1, targets=True)
+    return [
+        (ctx_tg, 32, 32, b, 43, 4, lens, lc, "hstu_synth"),
+        (ctx_tg, 32, 32, b, 48, 4, full, lc, "hstu_synth N=max_seq_len"),
+        (ctx_tg, 32, 32, b, 85, 4, 1 + 2 * lu + 2 * lc, 2 * lc,
+         "interleaved"),
+        (ctx_tg, 32, 32, b, 27, 4, 1 + np.minimum(lu, 16) + lc, lc,
+         "truncated"),
+        (dict(ctx_tg, sla_k1=8, sla_k2=4), 32, 32, b, 43, 4, lens, lc,
+         "ULTRA-HSTU SLA channel"),
+        (dict(ctx_tg, max_attn_len=16), 32, 32, b, 43, 4, lens, lc,
+         "ULTRA-HSTU max_attn_len channel"),
+        (dict(causal=True), 16, 16, 32, 18, 2, 2 + r.integers(5, 13, 32),
+         None, "HSTU-Match user tower"),
+    ]
+
+
 def mask_sweep(dtypes=((torch.float32, FP32_TOL),
                        (torch.bfloat16, BF16_TOL))):
     """(name, tolerance, q, k, v, lengths, targets, mask arguments), in each
@@ -537,35 +613,40 @@ def mask_sweep(dtypes=((torch.float32, FP32_TOL),
     N=1000; an SLA window shorter than a tile (sla_k1=64, sla_k2=16, with
     targets) at N=1000; 70 samples x 2 heads (more blocks per tile index
     than the card has SMs) and 300 samples (more than the kernels' in-block
-    ranking by length takes)."""
+    ranking by length takes); then the generative family's shapes
+    (``gr_sweep``; head dim 16 in fp32 only)."""
     ctx_tg = dict(causal=True, contextual_seq_len=1, targets=True)
-    sweep = [(case, 64, 64, 3, 300, 2, None) for case in MASK_CASES] + [
-        (ctx_tg, d, vd, 3, 300, 2, None)
+    sweep = [(case, 64, 64, 3, 300, 2, None, None, "")
+             for case in MASK_CASES] + [
+        (ctx_tg, d, vd, 3, 300, 2, None, None, "")
         for d, vd in ((32, 32), (128, 128), (32, 128), (128, 64))
     ] + [
-        (ctx_tg, 128, 128, 6, 1000, 2, [127, 128, 129, 255, 256, 1000]),
+        (ctx_tg, 128, 128, 6, 1000, 2, [127, 128, 129, 255, 256, 1000], None,
+         ""),
         (dict(causal=True, sla_k1=64, sla_k2=16, targets=True), 128, 128, 3,
-         1000, 2, None),
-        (ctx_tg, 64, 64, 70, 200, 2, None),
-        (dict(causal=True), 32, 32, 300, 130, 1, None),
-    ]
+         1000, 2, None, None, ""),
+        (ctx_tg, 64, 64, 70, 200, 2, None, None, ""),
+        (dict(causal=True), 32, 32, 300, 130, 1, None, None, ""),
+    ] + gr_sweep(np.random.default_rng(SEED))
     r = np.random.default_rng(1)
     for dtype, tol in dtypes:
-        for i, (case, d, vd, b, n, h, lens) in enumerate(sweep):
+        for i, (case, d, vd, b, n, h, lens, tg, label) in enumerate(sweep):
+            if min(d, vd) < 32 and dtype != torch.float32:
+                continue  # the 16-bit kernels start at head dim 32
             if lens is None:
                 lens = r.integers(1, n + 1, b)
                 lens[0] = n
             lens = np.asarray(lens)
-            tg = (np.minimum(lens // 4 + 1, lens) if case.get("targets")
-                  else None)
+            if tg is None and case.get("targets"):
+                tg = np.minimum(lens // 4 + 1, lens)
             q, k, v, lengths, targets = attn_inputs(b, n, h, d, vd, dtype,
                                                     lens, tg, seed=100 + i)
             m = {key: case.get(key, 0) for key in (
                 "max_attn_len", "contextual_seq_len",
                 "min_full_attn_seq_len", "sla_k1", "sla_k2")}
             m["causal"] = case.get("causal", True)
-            yield (f"{dtype} B={b} N={n} H={h} D={d} V={vd} {case}", tol, q,
-                   k, v, lengths, targets, m)
+            yield (f"{dtype} B={b} N={n} H={h} D={d} V={vd} {case} {label}",
+                   tol, q, k, v, lengths, targets, m)
 
 
 def nan_padded_inputs(dtype):
@@ -648,8 +729,7 @@ def phase_kernel():
           "tol_rel": BF16_TOL})
     del ref
 
-    worst = {}
-    n_cases = 0
+    worst, cases = {}, {}
     for name, tol, q, k, v, lengths, targets, m in mask_sweep():
         got = hstu.hstu_attention_fwd(
             q, k, v, lengths, targets, 0.1, m["causal"], m["max_attn_len"],
@@ -661,11 +741,11 @@ def phase_kernel():
             m["sla_k1"], m["sla_k2"])
         err = check(name, got, ref, tol)
         worst[str(q.dtype)] = max(worst.get(str(q.dtype), 0.0), err)
-        n_cases += 1
+        cases[DTYPE_NAMES[q.dtype]] = cases.get(DTYPE_NAMES[q.dtype], 0) + 1
     torch.cuda.synchronize()
-    emit({"phase": "kernel", "case": "mask sweep", "cases": n_cases // 2,
+    emit({"phase": "kernel", "case": "mask sweep", "cases": cases,
           "shapes": "B=3 N=300 H=2 over D, V; B=6, 3 N=1000; B=70 N=200; "
-                    "B=300 N=130", "max_abs_err": worst,
+                    "B=300 N=130; " + GR_SWEEP_SHAPES, "max_abs_err": worst,
           "tol_rel": {"fp32": FP32_TOL, "bf16": BF16_TOL}})
 
     # padded rows of q, k and v hold NaN: the output must be finite and
@@ -715,10 +795,9 @@ def phase_kernel_bwd():
           "max_abs_err": slice_errs, "max_abs_plain": plain_max,
           "tol_rel": BF16_TOL})
 
-    worst = {}
-    n_cases = 0
+    worst, cases = {}, {}
     for name, tol, q, k, v, lengths, targets, m in mask_sweep():
-        g = torch.Generator(device="cuda").manual_seed(n_cases)
+        g = torch.Generator(device="cuda").manual_seed(sum(cases.values()))
         do = torch.randn(v.shape, device="cuda", generator=g).to(v.dtype)
         args = (m["causal"], m["max_attn_len"], m["contextual_seq_len"],
                 m["min_full_attn_seq_len"], 500, m["sla_k1"], m["sla_k2"])
@@ -730,11 +809,11 @@ def phase_kernel_bwd():
             err = check(f"{name} {gname}", g_, r_, tol)
             key = f"{q.dtype} {gname}"
             worst[key] = max(worst.get(key, 0.0), err)
-        n_cases += 1
+        cases[DTYPE_NAMES[q.dtype]] = cases.get(DTYPE_NAMES[q.dtype], 0) + 1
     torch.cuda.synchronize()
-    emit({"phase": "kernel_bwd", "case": "mask sweep", "cases": n_cases // 2,
+    emit({"phase": "kernel_bwd", "case": "mask sweep", "cases": cases,
           "shapes": "B=3 N=300 H=2 over D, V; B=6, 3 N=1000; B=70 N=200; "
-                    "B=300 N=130", "max_abs_err": worst,
+                    "B=300 N=130; " + GR_SWEEP_SHAPES, "max_abs_err": worst,
           "tol_rel": {"fp32": FP32_TOL, "bf16": BF16_TOL}})
 
     # padded rows of q, k, v and do hold NaN: finite gradients, equal to
@@ -909,9 +988,10 @@ def build_trainer(cfg, seed=SEED, device="cuda", **engine_options):
     return model, features, tx, state, step
 
 
-def dense_grads(model, batch):
-    """Loss and gradients of the dense parameters, by the train step's own
-    forward (lookup, assemble, predict, loss) without any update."""
+def train_mode_outputs(model, batch):
+    """(loss, predictions, {dense parameter: gradient}) of the train
+    step's own forward (lookup, assemble, predict, loss) in training mode,
+    without any update."""
     eg = model.embedding_group
     model.train()
     with torch.no_grad():
@@ -921,8 +1001,54 @@ def dense_grads(model, batch):
     total = model.total_loss(model.loss(preds, batch))
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(total, params, allow_unused=True)
-    return (float(total.detach()),
+    return (total.detach(), {k: v.detach() for k, v in preds.items()},
             {n: g for n, g in zip(names, grads) if g is not None})
+
+
+def dense_grads(model, batch):
+    """Loss and gradients of the dense parameters, by the train step's own
+    forward without any update."""
+    total, _, grads = train_mode_outputs(model, batch)
+    return float(total), grads
+
+
+class CpuComparison:
+    """Holds one model's tensors on the card against the same model's on
+    the CPU: each within ``tol`` of the CPU's max abs value, the worst
+    relative error kept per key; a gradient at or below ``zero_share`` of
+    the largest on the CPU must be so on the card, and is not compared
+    otherwise."""
+
+    def __init__(self, name: str, tol: float, zero_share: float) -> None:
+        self.name, self.tol, self.zero_share = name, tol, zero_share
+        self.errs, self.zero = {}, set()
+
+    def compare(self, key, ref, got) -> None:
+        ref, got = ref.detach().float().cpu(), got.detach().float().cpu()
+        if ref.shape != got.shape:
+            raise AssertionError(f"{self.name}: {key} {tuple(got.shape)} on "
+                                 f"the card, {tuple(ref.shape)} on the CPU")
+        scale = float(ref.abs().max()) or 1.0
+        err = float((got - ref).abs().max()) / scale
+        self.errs[key] = max(self.errs.get(key, 0.0), err)
+        if not err <= self.tol:
+            raise AssertionError(f"{self.name}: {key} off by {err:.3g} of its "
+                                 "max on the card")
+
+    def compare_grads(self, ref_grads, grads) -> None:
+        if set(grads) != set(ref_grads):
+            raise AssertionError(f"{self.name}: gradients of {sorted(grads)} "
+                                 f"on the card, {sorted(ref_grads)} on the CPU")
+        top = max(float(g.abs().max()) for g in ref_grads.values())
+        card_top = max(float(g.abs().max()) for g in grads.values())
+        for k in ref_grads:
+            if float(ref_grads[k].abs().max()) <= self.zero_share * top:
+                self.zero.add(k)
+                if float(grads[k].abs().max()) > self.zero_share * card_top:
+                    raise AssertionError(f"{self.name}: {k}'s gradient is 0 "
+                                         "on the CPU, not on the card")
+            else:
+                self.compare(f"grad:{k}", ref_grads[k], grads[k])
 
 
 def batch_row_ids(model, batch) -> torch.Tensor:
@@ -1141,11 +1267,12 @@ def bwd_times(dtype=torch.bfloat16) -> dict:
                                      0, 1, 0, scale)
     plain_ms = cuda_ms(plain, 2)
     # work this run's data needs: five products over the unmasked (row,
-    # column) pairs; bytes: q, k, v, do read once, dq, dk, dv written once
+    # column) pairs; bytes: q, k, v, do read once over the real rows, dq,
+    # dk, dv written once (attn_bytes)
     pairs = unmasked_pairs(q.shape[1], lengths, targets)
     h, d, vd = q.shape[2], q.shape[3], v.shape[3]
     flops = 2.0 * pairs * h * (3 * d + 2 * vd)
-    nbytes = 2.0 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
+    nbytes = attn_bytes(q, v, lengths, backward=True)
     bound_ms, bound_by = card_bound(flops, nbytes)
     return {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "plain_note": "8 calls of 4 samples", "flops": flops,
@@ -1198,6 +1325,21 @@ def profile_forward(fn) -> dict:
             "top_kernels_ms": {k[:80]: v for k, v in top}}
 
 
+def attn_bytes(q, v, lengths, backward: bool = False) -> float:
+    """Bytes the attention must move for this data: q, k and v (and the
+    upstream gradient) read over each sample's real rows only, which is
+    all the kernels read; the output (dq, dk and dv) written at the
+    padded N, since the kernels write the padded rows' zeros too."""
+    b, n, h, d = q.shape
+    vd = v.shape[3]
+    rows = float(lengths.clamp(max=n).sum())
+    if backward:
+        reads, writes = rows * h * (2 * d + 2 * vd), b * n * h * (2 * d + vd)
+    else:
+        reads, writes = rows * h * (2 * d + vd), b * n * h * vd
+    return q.element_size() * (reads + writes)
+
+
 def unmasked_pairs(n, lengths, targets) -> int:
     """Unmasked (row, column) pairs of the slice's mask (causal, one
     contextual token, num_targets) summed over the samples."""
@@ -1210,10 +1352,11 @@ def unmasked_pairs(n, lengths, targets) -> int:
     )
 
 
-def card_bound(flops: float, nbytes: float):
+def card_bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """(least ms the card could take, what bounds it): the larger of the
-    operations over the bf16 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    operations over ``peak`` (their type's) and the bytes over the memory
+    rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -1237,11 +1380,12 @@ def fwd_times(dtype=torch.bfloat16) -> dict:
                                  targets[s:s + 8], 0, 1, 0, scale)
     plain_ms = cuda_ms(plain, 2)
     # work this run's data needs: the two products over the unmasked
-    # (row, column) pairs; bytes: q, k, v read once, out written once
+    # (row, column) pairs; bytes: q, k, v read once over the real rows,
+    # out written once (attn_bytes)
     pairs = unmasked_pairs(q.shape[1], lengths, targets)
     h, d, vd = q.shape[2], q.shape[3], v.shape[3]
     flops = 2.0 * pairs * h * (d + vd)
-    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + v.numel())
+    nbytes = attn_bytes(q, v, lengths)
     bound_ms, bound_by = card_bound(flops, nbytes)
     return {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "plain_note": "4 calls of 8 samples", "flops": flops,
@@ -2907,44 +3051,20 @@ def match_models_on_card(tmp) -> dict:
         batch = next(iter(batches))[0]
         batches.close()
         card_batch = batch.to("cuda")
-        errs = {}
-
-        def compare(key, ref, got):
-            ref, got = ref.detach().float().cpu(), got.detach().float().cpu()
-            if ref.shape != got.shape:
-                raise AssertionError(f"{name}: {key} {tuple(got.shape)} on "
-                                     f"the card, {tuple(ref.shape)} on the CPU")
-            scale = float(ref.abs().max()) or 1.0
-            errs[key] = float((got - ref).abs().max()) / scale
-            if not errs[key] <= MATCH_ON_CARD_TOL:
-                raise AssertionError(f"{name}: {key} off by {errs[key]:.3g} "
-                                     "of its max on the card")
-
+        cmp = CpuComparison(name, MATCH_ON_CARD_TOL, MATCH_ZERO_GRAD)
         with torch.no_grad():
             ref_preds = cpu_model.eval()(batch)
             preds = card_model.eval()(card_batch)
         for k in ref_preds:
-            compare(k, ref_preds[k], preds[k])
+            cmp.compare(k, ref_preds[k], preds[k])
         ref_loss, ref_grads = dense_grads(cpu_model, batch)
         loss, grads = dense_grads(card_model, card_batch)
-        compare("loss", torch.tensor(ref_loss), torch.tensor(loss))
-        if set(grads) != set(ref_grads):
-            raise AssertionError(f"{name}: gradients of {sorted(grads)} on "
-                                 f"the card, {sorted(ref_grads)} on the CPU")
+        cmp.compare("loss", torch.tensor(ref_loss), torch.tensor(loss))
         # a gradient at rounding level on the CPU is 0 by construction
         # (the item tower's output bias under a softmax over item rows):
         # the card's must be at rounding level too, not equal
-        top = max(float(g.abs().max()) for g in ref_grads.values())
-        card_top = max(float(g.abs().max()) for g in grads.values())
-        zero = []
-        for k in ref_grads:
-            if float(ref_grads[k].abs().max()) <= MATCH_ZERO_GRAD * top:
-                zero.append(k)
-                if float(grads[k].abs().max()) > MATCH_ZERO_GRAD * card_top:
-                    raise AssertionError(f"{name}: {k}'s gradient is 0 on "
-                                         "the CPU, not on the card")
-            else:
-                compare(f"grad:{k}", ref_grads[k], grads[k])
+        cmp.compare_grads(ref_grads, grads)
+        errs, zero = cmp.errs, sorted(cmp.zero)
         sim = ref_preds["similarity"]
         out[name] = {"similarity_shape": list(sim.shape),
                      "item_rows": int(ref_preds["item_tower_emb"].shape[0]),
@@ -3563,6 +3683,560 @@ def phase_train_options():
     return fp16_launches, (fwd16, bwd16), kind_launches
 
 
+# --- train_gr: the generative-recommendation family --------------------------
+GR_SEED = 42  # the port's default model seed (main._build_model_and_optim)
+GR_TRAIN_ROWS, GR_EVAL_ROWS = 20_480, 4_096  # ensure_hstu_dataset's sizes
+GR_BATCH, GR_EPOCHS = 128, 2
+GR_STEPS = GR_EPOCHS * GR_TRAIN_ROWS // GR_BATCH
+GR_PREDICT_BATCHES = 2
+GR_CHECK_STEPS = 3  # card against CPU, each model
+GR_CARD_TOL = 1e-4  # fp32: max abs error over the CPU's max abs, per tensor
+# a gradient below this share of the largest one on the CPU is a
+# structural zero (interleaved targets' action tokens reach no output):
+# it must be so on the card; the small but real ones (item_proj's, about
+# 1e-5 of the largest) are compared like the rest
+GR_ZERO_GRAD = 1e-9
+# adam's eps in the card-vs-CPU steps: at the published 1e-8 a gradient
+# element at rounding level becomes a step of lr whose sign the card and
+# the CPU need not share (ROADMAP section 3); every other setting is the
+# config's
+GR_ADAM_EPS = 1e-4
+GR_MATCH_ROWS, GR_MATCH_EVAL_ROWS = 2_048, 384
+GR_MATCH_ITEMS, GR_MATCH_CLUSTERS = 256, 4
+
+# the options of the generative family at hstu_synth's width: target
+# interleaving with an MLP content encoder and a parameterized content
+# MLP (contextual dropout 0, so that card and CPU draw nothing), SLA, and
+# attention truncation after layer 1 with a tail of 16
+GR_INTERLEAVE = """input_preprocessor {
+        contextual_interleave_preprocessor {
+          action_encoder { simple_action_encoder {
+            action_embedding_dim: 16 action_weights: [1, 2] } }
+          action_mlp { simple_mlp { hidden_dim: 32 } }
+          content_encoder { mlp_content_encoder {
+            uih_mlp { hidden_units: [64] } target_mlp { hidden_units: [64] } } }
+          content_mlp { parameterized_mlp { hidden_dim: 32
+            contextual_dropout_ratio: 0 } }
+        }
+      }"""
+GR_TRUNCATION = ("attn_truncation_split_layer: 1\n"
+                 "      attn_truncation_tail_len: 16\n")
+
+# HSTU-Match: the JAX package's integration config
+# (tests/test_hstu_match.py): grouped sequence features, the negative
+# sampler in sequence mode, the UIH preprocessor with an action encoder,
+# the query-time anchor, COSINE at temperature 0.05
+GR_MATCH_CONFIG = """
+train_input_path: "{train}"
+eval_input_path: "{eval}"
+model_dir: "{model_dir}"
+train_config {{
+  sparse_optimizer {{ rowwise_adagrad_optimizer {{ lr: 0.05 }}
+                      constant_learning_rate {{}} }}
+  dense_optimizer {{ adam_optimizer {{ lr: 0.01 }} constant_learning_rate {{}} }}
+  num_epochs: 1
+  save_checkpoints_steps: 10000
+  log_step_count_steps: 50
+}}
+eval_config {{}}
+data_config {{
+  batch_size: 32
+  dataset_type: ParquetDataset
+  fg_mode: FG_NONE
+  label_fields: "cand_seq__action_weight"
+  negative_sampler {{
+    input_path: "{items}"
+    num_sample: 32
+    attr_fields: "cand_seq__video_id"
+    item_id_field: "cand_seq__video_id"
+  }}
+}}
+feature_configs {{ id_feature {{ feature_name: "user_id"
+  expression: "user:user_id" num_buckets: 120 embedding_dim: 16 }} }}
+feature_configs {{ id_feature {{ feature_name: "user_degree"
+  expression: "user:user_degree" num_buckets: 8 embedding_dim: 16 }} }}
+feature_configs {{ sequence_feature {{
+  sequence_name: "uih_seq" sequence_length: 16 sequence_delim: ";"
+  features {{ id_feature {{ feature_name: "video_id"
+    expression: "item:video_id" embedding_name: "video_emb"
+    num_buckets: 256 embedding_dim: 32 }} }}
+  features {{ raw_feature {{ feature_name: "action_timestamp"
+    expression: "user:action_timestamp" }} }}
+  features {{ raw_feature {{ feature_name: "action_weight"
+    expression: "user:action_weight" }} }} }} }}
+feature_configs {{ sequence_feature {{
+  sequence_name: "cand_seq" sequence_length: 4 sequence_delim: ";"
+  features {{ id_feature {{ feature_name: "video_id"
+    expression: "item:video_id" embedding_name: "video_emb"
+    num_buckets: 256 embedding_dim: 32 }} }} }} }}
+feature_configs {{ raw_feature {{ feature_name: "request_time"
+  expression: "user:request_time" }} }}
+model_config {{
+  feature_groups {{ group_name: "contextual" feature_names: "user_id"
+                    feature_names: "user_degree" group_type: DEEP }}
+  feature_groups {{ group_name: "uih" feature_names: "uih_seq__video_id"
+                    group_type: JAGGED_SEQUENCE }}
+  feature_groups {{ group_name: "candidate"
+                    feature_names: "cand_seq__video_id"
+                    group_type: JAGGED_SEQUENCE }}
+  feature_groups {{ group_name: "uih_action"
+                    feature_names: "uih_seq__action_weight"
+                    group_type: JAGGED_SEQUENCE }}
+  feature_groups {{ group_name: "uih_timestamp"
+                    feature_names: "uih_seq__action_timestamp"
+                    group_type: JAGGED_SEQUENCE }}
+  feature_groups {{ group_name: "query_time" feature_names: "request_time"
+                    group_type: DEEP }}
+  hstu_match {{
+    user_tower {{
+      input: "uih"
+      hstu {{
+        stu {{ embedding_dim: 32 hidden_dim: 16 attention_dim: 16
+               num_heads: 2 num_layers: 2 }}
+        positional_encoder {{ num_position_buckets: 64
+                              num_time_buckets: 32 use_time_encoding: true }}
+        input_preprocessor {{ uih_preprocessor {{
+          action_encoder {{ simple_action_encoder {{
+            action_embedding_dim: 8 action_weights: [1, 2] }} }}
+          action_mlp {{ simple_mlp {{ hidden_dim: 32 }} }} }} }}
+        output_postprocessor {{ l2norm_postprocessor {{}} }}
+        input_dropout_ratio: {dropout}
+      }}
+      max_seq_len: 16
+    }}
+    item_tower {{ input: "candidate" mlp {{ hidden_units: [32] }} }}
+    similarity: COSINE
+    temperature: 0.05
+  }}
+  metrics {{ recall_at_k {{ top_k: 1 }} }}
+  metrics {{ recall_at_k {{ top_k: 5 }} }}
+  losses {{ softmax_cross_entropy {{}} }}
+}}
+"""
+
+
+def gr_config_dir() -> str:
+    return os.path.join(zoo_config_dir(), "hstu_synth")
+
+
+def replace_block(text: str, start: str, new: str) -> str:
+    """``text`` with the braced block that begins at ``start`` replaced."""
+    s = text.index(start)
+    depth = 0
+    for i in range(s, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if text[i] == "}" and depth == 0:
+            return text[:s] + new + text[i + 1:]
+    raise ValueError(f"unbalanced block {start!r}")
+
+
+def gr_variant_text(name: str) -> str:
+    """hstu_synth's config (published width) with the options (``options``)
+    or as ULTRA-HSTU with two channels (``ultra``: the base one with a
+    max_attn_len window of 16, a second with SLA); input dropout 0 and
+    adam at GR_ADAM_EPS, so that the card and the CPU can be held close."""
+    with open(os.path.join(gr_config_dir(), "dlrm_hstu.config")) as f:
+        text = f.read()
+    text = text.replace("adam_optimizer { lr: 0.002 }",
+                        f"adam_optimizer {{ lr: 0.002 eps: {GR_ADAM_EPS} }}")
+    text = text.replace("    hstu {", "    hstu {\n      input_dropout_ratio: 0",
+                        1)
+    if name == "options":
+        text = replace_block(text, "input_preprocessor {", GR_INTERLEAVE)
+        text = text.replace("num_layers: 3", "num_layers: 3 sla_k1: 8 sla_k2: 4")
+        # interleaving doubles the tokens a step
+        text = text.replace("max_seq_len: 48", "max_seq_len: 96")
+    else:
+        text = text.replace("num_layers: 3", "num_layers: 3 max_attn_len: 16")
+        start = text.index("    hstu {")
+        block = text[start:start + len(text) - len(
+            replace_block(text, "    hstu {", ""))]
+        second = block.replace("max_attn_len: 16", "sla_k1: 8 sla_k2: 4")
+        text = (text[:start] + block + "\n" + second
+                + text[start + len(block):]).replace("dlrm_hstu {",
+                                                     "ultra_hstu {")
+    return text.replace("input_preprocessor {",
+                        GR_TRUNCATION + "      input_preprocessor {", 1)
+
+
+def gr_match_files(root) -> dict:
+    """HSTU-Match's data, the port's copy of the JAX test's generator:
+    users live in one of 4 item clusters; history and 1-3 positives come
+    from it; GR_MATCH_EVAL_ROWS of the rows are the eval file; the
+    sampler's item table holds the 256 items."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(0)
+    per = GR_MATCH_ITEMS // GR_MATCH_CLUSTERS
+    cols = {k: [] for k in (
+        "user_id", "user_degree", "uih_seq__video_id",
+        "uih_seq__action_timestamp", "uih_seq__action_weight",
+        "cand_seq__video_id", "cand_seq__action_weight", "request_time")}
+    for _ in range(GR_MATCH_ROWS):
+        uid = int(rng.integers(0, 120))
+        c = uid % GR_MATCH_CLUSTERS
+        lu = int(rng.integers(5, 13))
+        hist = rng.integers(c * per, (c + 1) * per, lu)
+        ts = 1_700_000_000 + int(rng.integers(0, 10_000)) + np.cumsum(
+            rng.integers(10, 600, lu))
+        aw = rng.choice([1, 2, 3], lu)
+        k = int(rng.integers(1, 4))
+        pos = rng.integers(c * per, (c + 1) * per, k)
+        cols["user_id"].append(uid)
+        cols["user_degree"].append(uid % 8)
+        cols["uih_seq__video_id"].append(";".join(map(str, hist)))
+        cols["uih_seq__action_timestamp"].append(";".join(map(str, ts)))
+        cols["uih_seq__action_weight"].append(";".join(map(str, aw)))
+        cols["cand_seq__video_id"].append(";".join(map(str, pos)))
+        cols["cand_seq__action_weight"].append(";".join(["1"] * k))
+        cols["request_time"].append(float(ts[-1] + 60))
+    tbl = pa.table({k: pa.array(v) for k, v in cols.items()})
+    out = {"train": os.path.join(root, "match_train.parquet"),
+           "eval": os.path.join(root, "match_eval.parquet"),
+           "items": os.path.join(root, "match_items.parquet")}
+    n_train = GR_MATCH_ROWS - GR_MATCH_EVAL_ROWS
+    pq.write_table(tbl.slice(0, n_train), out["train"])
+    pq.write_table(tbl.slice(n_train), out["eval"])
+    pq.write_table(pa.table({
+        "id": pa.array(np.arange(GR_MATCH_ITEMS)),
+        "weight": pa.array(np.ones(GR_MATCH_ITEMS)),
+        "attrs": pa.array([str(i) for i in range(GR_MATCH_ITEMS)])}),
+        out["items"])
+    return out
+
+
+def gr_match_text(paths, model_dir, dropout) -> str:
+    return GR_MATCH_CONFIG.format(train=paths["train"], eval=paths["eval"],
+                                  model_dir=model_dir, items=paths["items"],
+                                  dropout=dropout)
+
+
+def gr_card_vs_cpu(name, text, data_path) -> dict:
+    """GR_CHECK_STEPS fp32 train steps of one model on the card and on
+    the CPU from the same CPU-drawn weights and the loader's batches (the
+    sampler's negatives included): before each step the training-mode
+    loss, every prediction and every dense gradient within GR_CARD_TOL of
+    the CPU's max abs, but a structural zero on the CPU (below
+    GR_ZERO_GRAD of the largest), which must be so on the card; the
+    steps' losses too."""
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(text)
+    cpu_model, features, _, cpu_state, cpu_step = build_trainer(
+        cfg, device="cpu")
+    card_model, _, _, card_state, card_step = build_trainer(cfg)
+    card_model.load_state_dict(cpu_model.state_dict())
+    loader = create_dataloader(cfg.data_config, features, data_path,
+                               mode="train", device="cpu")()
+    batches = [b for _, (b, _) in zip(range(GR_CHECK_STEPS), loader)]
+    loader.close()
+    cmp = CpuComparison(name, GR_CARD_TOL, GR_ZERO_GRAD)
+    losses = []
+    for i, batch in enumerate(batches):
+        card_batch = batch.to("cuda")
+        ref_loss, ref_preds, ref_grads = train_mode_outputs(cpu_model, batch)
+        loss, preds, grads = train_mode_outputs(card_model, card_batch)
+        cmp.compare("loss", ref_loss, loss)
+        for k in ref_preds:
+            cmp.compare(k, ref_preds[k], preds[k])
+        cmp.compare_grads(ref_grads, grads)
+        cpu_state, cpu_m = cpu_step(cpu_state, batch)
+        card_state, card_m = card_step(card_state, card_batch)
+        cmp.compare(f"step {i + 1} loss", torch.as_tensor(cpu_m["total_loss"]),
+                    torch.as_tensor(card_m["total_loss"]))
+        losses.append((float(cpu_m["total_loss"]),
+                       float(card_m["total_loss"])))
+    errs = cmp.errs
+    worst_grad = max((v for k, v in errs.items() if k.startswith("grad:")),
+                     default=0.0)
+    return {"model": type(card_model).__name__, "steps": GR_CHECK_STEPS,
+            "batch": batches[0].labels[cfg.data_config.label_fields[0]]
+            .shape[0], "losses_cpu_card": losses,
+            "max_rel_err": max(errs.values()),
+            "max_rel_err_outputs": max(v for k, v in errs.items()
+                                       if not k.startswith("grad:")),
+            "max_rel_err_gradients": worst_grad,
+            "compared": len(errs), "zero_gradients": sorted(cmp.zero),
+            "tol": GR_CARD_TOL}
+
+
+def gr_hstu_synth(paths, tmp, labels) -> dict:
+    """hstu_synth's DLRM-HSTU through the entry points at its published
+    width: GR_EPOCHS epochs of ``train_and_evaluate``, ``evaluate`` and
+    ``predict_checkpoint`` of its checkpoint (the first
+    GR_PREDICT_BATCHES eval batches), each AUC within ZOO_AUC_BOUND of its
+    pinned label. It starts from GR_SEED's weights drawn on the CPU, as
+    dssm's run does, so that its AUCs compare with a CPU run of the same
+    seed (``tools/seed_spread.py --config hstu_synth``)."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    src = os.path.join(gr_config_dir(), "dlrm_hstu.config")
+    model_dir = os.path.join(tmp, "dlrm_hstu")
+    init = cpu_init(src, os.path.join(tmp, "hstu_synth_init.pt"))
+    t0 = time.perf_counter()
+    result = port_main.train_and_evaluate(
+        src, train_input_path=paths["train"], eval_input_path=paths["eval"],
+        edit_config_json=json.dumps({"model_dir": model_dir}),
+        fine_tune_checkpoint=init, device="cuda")
+    torch.cuda.synchronize()
+    train_eval_s = time.perf_counter() - t0
+    if result["step"] != GR_STEPS or not all(
+            np.isfinite(v) for v in result.values()):
+        raise AssertionError(f"hstu_synth: {result}, not {GR_STEPS} steps")
+    metrics = {}
+    for m, spec in labels["metrics"].items():
+        if m not in result:
+            raise AssertionError(f"hstu_synth: no metric {m} in {result}")
+        dist = result[m] - spec["value"]
+        metrics[m] = {"value": result[m], "label": spec["value"],
+                      "distance": dist, "threshold": spec["threshold"],
+                      "within_threshold": abs(dist) <= spec["threshold"],
+                      "bound": ZOO_AUC_BOUND}
+        if abs(dist) > ZOO_AUC_BOUND:
+            raise AssertionError(
+                f"hstu_synth: {m} {result[m]} is {dist:+.4f} from its label "
+                f"{spec['value']} (bound {ZOO_AUC_BOUND})")
+    cfg_path = os.path.join(model_dir, "pipeline.config")
+    t0 = time.perf_counter()
+    again = port_main.evaluate(cfg_path, eval_input_path=paths["eval"],
+                               device="cuda")
+    eval_s = time.perf_counter() - t0
+    for m in metrics:
+        if again[m] != result[m]:
+            raise AssertionError(f"hstu_synth: evaluate() {m} {again[m]} "
+                                 f"against {result[m]} after training")
+
+    pred_in = os.path.join(tmp, "hstu_predict_in.parquet")
+    pq.write_table(pq.read_table(paths["eval"]).slice(
+        0, GR_PREDICT_BATCHES * GR_BATCH), pred_in)
+    pred_out = os.path.join(tmp, "hstu_pred.parquet")
+    n_pred = port_main.predict_checkpoint(cfg_path, pred_in, pred_out,
+                                          device="cuda")
+    pred = pq.read_table(pred_out)
+    cfg = parse_pipeline_config(open(cfg_path).read())
+    model, features = port_main.build_model(cfg, "cuda")
+    checkpoint_util.load_model_weights(
+        checkpoint_util.latest_checkpoint(model_dir), model)
+    eval_step = port_main.make_eval_step(model, with_loss=False)
+    outs = {}
+    for batch, _ in create_dataloader(cfg.data_config, features, pred_in,
+                                      mode="predict", device="cuda")():
+        for k, v in eval_step(batch)[0].items():
+            if not k.startswith("__"):
+                outs.setdefault(k, []).append(v.float().cpu().numpy())
+    outs = {k: np.concatenate(v) for k, v in outs.items()}
+    if n_pred != GR_PREDICT_BATCHES * GR_BATCH or (
+            sorted(pred.column_names) != sorted(outs)):
+        raise AssertionError(f"hstu_synth: predicted {n_pred} rows, columns "
+                             f"{pred.column_names} against {sorted(outs)}")
+    for k, v in outs.items():
+        col = np.stack(pred.column(k).to_numpy(zero_copy_only=False))
+        if not np.array_equal(col, v):
+            raise AssertionError(f"hstu_synth: predict_checkpoint {k} "
+                                 "differs from the eval step's")
+        if k.startswith("probs") and not (np.isfinite(col).all() and (
+                (col > 0) & (col < 1)).all()):
+            raise AssertionError(f"hstu_synth: {k} not finite in (0, 1)")
+    return {"config": os.path.relpath(src), "seed": GR_SEED,
+            "init": "drawn on the CPU",
+            "batch": cfg.data_config.batch_size, "steps": GR_STEPS,
+            "epochs": GR_EPOCHS, "train_and_evaluate_s": train_eval_s,
+            "train_and_evaluate": result, "metrics": metrics,
+            "evaluate_s": eval_s, "evaluate_equals_trainer": True,
+            "predict_rows": n_pred, "predict_equals_eval_step": True,
+            "predict_shapes": {k: list(v.shape) for k, v in outs.items()}}
+
+
+def gr_hstu_synth_timing(paths) -> dict:
+    """hstu_synth's step on a resident batch (median of synchronised
+    steps, a window, the idle share of profiled steps, peak memory) and
+    one epoch through the loader and ``train_epoch``."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+    from torcheasyrec_tpu_torch.utils.config_util import load_pipeline_config
+
+    cfg = load_pipeline_config(os.path.join(gr_config_dir(),
+                                            "dlrm_hstu.config"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, features, _, state, step = build_trainer(cfg, seed=GR_SEED)
+    dl = create_dataloader(cfg.data_config, features, paths["train"],
+                           mode="train", device="cuda")
+    batches = dl()
+    batch = next(iter(batches))[0]
+    batches.close()
+    losses, step_ms, window_ms = timed_steps(step, state, batch, ZOO_WARMUP,
+                                             ZOO_TIMED_STEPS)
+
+    def profiled_steps():
+        for _ in range(ZOO_PROFILED_STEPS):
+            step(state, batch)
+
+    profile = profile_forward(profiled_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = dl()
+    try:
+        state, _, _ = port_main.train_epoch(step, state, batches, {})
+    finally:
+        batches.close()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"hstu_synth: timed losses {losses}")
+    return {"step_ms_median": float(np.median(step_ms)),
+            "step_ms_range": [min(step_ms), max(step_ms)],
+            "window_step_ms": window_ms,
+            "examples_per_s": GR_BATCH / window_ms * 1e3,
+            "idle_share_profiled_steps": profile.get("device_idle_share"),
+            "step_profile": profile, "epoch_s": epoch_s,
+            "epoch_steps": GR_TRAIN_ROWS // GR_BATCH,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def gr_attention_inputs(paths):
+    """q, k, v [B, N, H, 32] fp32 at hstu_synth's real shape: the first
+    train batch's lengths (one contextual token, the history, the
+    candidates) and candidate counts as targets, N = 1 + 32 + 10."""
+    import pyarrow.parquet as pq
+
+    tbl = pq.read_table(paths["train"]).slice(0, GR_BATCH)
+    lu = np.array([len(s.split(";")) for s in
+                   tbl.column("video_id").to_pylist()])
+    lc = np.array([len(s.split(";")) for s in
+                   tbl.column("item_video_id").to_pylist()])
+    return attn_inputs(GR_BATCH, 1 + 32 + 10, 4, 32, 32, torch.float32,
+                       1 + lu + lc, lc, seed=GR_SEED)
+
+
+def gr_kernel_times(paths) -> tuple:
+    """Kernels #1 and #2 at hstu_synth's shape, fp32 as the model runs:
+    device time per launch beside the plain version's, and the bound of
+    this data's work (the unmasked pairs' FLOPs over the fp32 peak, the
+    bytes of ``attn_bytes`` over the memory rate)."""
+    from torcheasyrec_tpu_torch.ops import hstu
+
+    q, k, v, lengths, targets = gr_attention_inputs(paths)
+    do = slice_upstream_grad(v)
+    args = (32 ** -0.5, True, 0, 1, 0, 48)
+    pairs = unmasked_pairs(q.shape[1], lengths, targets)
+    h, d, vd = q.shape[2], q.shape[3], v.shape[3]
+    out = {}
+    for name, kernel, plain, flops, nbytes in (
+        ("hstu_attention_fwd",
+         lambda: hstu.hstu_attention_fwd(q, k, v, lengths, targets, *args),
+         lambda: hstu._torch_hstu_mha(q, k, v, lengths, args[0], True,
+                                      targets, 0, 1, 0, 48),
+         2.0 * pairs * h * (d + vd), attn_bytes(q, v, lengths)),
+        ("hstu_attention_bwd",
+         lambda: hstu.hstu_attention_bwd(q, k, v, do, lengths, targets,
+                                         *args),
+         lambda: hstu._torch_hstu_mha_bwd(q, k, v, do, lengths, args[0],
+                                          True, targets, 0, 1, 0, 48),
+         2.0 * pairs * h * (3 * d + 2 * vd),
+         attn_bytes(q, v, lengths, backward=True)),
+    ):
+        kernel_ms = device_ms(kernel, 50)
+        bound_ms, bound_by = card_bound(flops, nbytes, PEAK_FP32_FLOPS)
+        out[name] = {
+            "kernel_ms": kernel_ms, "plain_ms": device_ms(plain, 10),
+            "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
+            "dtype": "fp32",
+            "shape": [GR_BATCH, q.shape[1], h, d, vd]}
+    return out
+
+
+def gr_hstu_match(tmp) -> dict:
+    """HSTU-Match through ``train_and_evaluate`` for one epoch (the
+    sampler's 32 negatives a batch in sequence mode; recall@1 and @5 on
+    the eval rows), then GR_CHECK_STEPS steps on the card against the
+    CPU (input dropout 0)."""
+    from torcheasyrec_tpu_torch import main as port_main
+
+    paths = gr_match_files(tmp)
+    cfg_path = os.path.join(tmp, "hstu_match.config")
+    with open(cfg_path, "w") as f:
+        f.write(gr_match_text(paths, os.path.join(tmp, "hstu_match"), 0.1))
+    t0 = time.perf_counter()
+    result = port_main.train_and_evaluate(cfg_path, device="cuda")
+    train_eval_s = time.perf_counter() - t0
+    steps = (GR_MATCH_ROWS - GR_MATCH_EVAL_ROWS) // 32
+    if result["step"] != steps or not all(
+            np.isfinite(v) for v in result.values()) or not all(
+            0.0 <= result[m] <= 1.0 for m in ("recall@1", "recall@5")):
+        raise AssertionError(f"hstu_match: {result}, not {steps} steps")
+    check = gr_card_vs_cpu(
+        "hstu_match", gr_match_text(paths, os.path.join(tmp, "m_check"), 0.0),
+        paths["train"])
+    return {"steps": steps, "batch": 32, "negatives": 32,
+            "train_and_evaluate_s": train_eval_s,
+            "recall@1": result["recall@1"], "recall@5": result["recall@5"],
+            "train_and_evaluate": result, "card_vs_cpu": check}
+
+
+def phase_train_gr():
+    """The generative-recommendation family on the card: hstu_synth's
+    DLRM-HSTU through the entry points, DLRM-HSTU with the options and
+    ULTRA-HSTU against the CPU, HSTU-Match through ``train_and_evaluate``
+    and against the CPU; the kernel launches of all of them counted (the
+    counts set to 0 just before, read just after); then the hstu_synth
+    step and epoch timed, and kernels #1 and #2 timed at its shape."""
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.ops import hstu
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
+    with open(os.path.join(zoo_config_dir(), "base_eval_metric.json")) as f:
+        labels = json.load(f)["torcheasyrec_tpu_torch/benchmark/configs/"
+                              "hstu_synth/dlrm_hstu.config"]
+    out = {"phase": "train_gr", "seed": GR_SEED}
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = synthetic.ensure_hstu_dataset(tmp, GR_TRAIN_ROWS,
+                                              GR_EVAL_ROWS)
+        seconds["data"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        hstu.hstu_attention_fwd.launches = 0
+        hstu.hstu_attention_bwd.launches = 0
+        write_rows.launches = 0
+        for name, fn in (
+            ("hstu_synth", lambda: gr_hstu_synth(paths, tmp, labels)),
+            ("dlrm_hstu_options", lambda: gr_card_vs_cpu(
+                "dlrm_hstu_options", gr_variant_text("options"),
+                paths["train"])),
+            ("ultra_hstu", lambda: gr_card_vs_cpu(
+                "ultra_hstu", gr_variant_text("ultra"), paths["train"])),
+            ("hstu_match", lambda: gr_hstu_match(tmp)),
+        ):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {"hstu_attention_fwd": hstu.hstu_attention_fwd.launches,
+                    "hstu_attention_bwd": hstu.hstu_attention_bwd.launches,
+                    "row_write": write_rows.launches}
+        # every model of the family ran both attention kernels
+        if not (launches["hstu_attention_fwd"] and
+                launches["hstu_attention_bwd"]):
+            raise AssertionError(f"train_gr: kernel launches {launches}")
+        out["kernel_launches"] = launches
+        t0 = time.perf_counter()
+        out["hstu_synth_timing"] = gr_hstu_synth_timing(paths)
+        out["kernel_timing"] = gr_kernel_times(paths)
+        seconds["timing"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    emit(out)
+    return launches, out["kernel_timing"]
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3608,6 +4282,7 @@ def main() -> int:
     zoo_launches, lane_off_launches = timed("train_zoo", phase_train_zoo)
     (fp16_fwd_launches, fp16_bwd_launches), (fwd16, bwd16), options_writes = (
         timed("train_options", phase_train_options))
+    gr_launches, gr_timing = timed("train_gr", phase_train_gr)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -3627,27 +4302,41 @@ def main() -> int:
         return {k: times[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                       "bound_by")}
 
+    def gr_row(name: str) -> dict:
+        """The kernel at hstu_synth's shape, fp32 as that model runs."""
+        return {k: gr_timing[name][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "shape")}
+
+    gr_fwd = gr_launches["hstu_attention_fwd"]
+    gr_bwd = gr_launches["hstu_attention_bwd"]
+
     emit({"kernels": [
         # no single PyTorch call computes SiLU (softmax-free) attention or
         # its backward: library_ms is null for both. ms, plain_ms and
         # bound_ms are bf16's; fp16 has its own beside them
         kernel_row("hstu_attention_fwd", "hstu_attention.py:114",
-                   serve_launches + train_fwd_launches + fp16_fwd_launches,
-                   fwd_err, fwd_timing,
+                   serve_launches + train_fwd_launches + fp16_fwd_launches
+                   + gr_fwd, fwd_err, fwd_timing,
                    launches_by_path={"serving": serve_launches,
                                      "training": train_fwd_launches,
-                                     "train_options": fp16_fwd_launches},
+                                     "train_options": fp16_fwd_launches,
+                                     "train_gr": gr_fwd},
                    launches_by_dtype={
                        "bf16": serve_launches + train_fwd_launches,
-                       "fp16": fp16_fwd_launches},
-                   fp16=fp16_row(fwd16)),
+                       "fp16": fp16_fwd_launches, "fp32": gr_fwd},
+                   fp16=fp16_row(fwd16),
+                   hstu_synth_fp32=gr_row("hstu_attention_fwd")),
         kernel_row("hstu_attention_bwd", "hstu_attention.py:207",
-                   bwd_launches + fp16_bwd_launches, bwd_err, bwd_timing,
+                   bwd_launches + fp16_bwd_launches + gr_bwd, bwd_err,
+                   bwd_timing,
                    launches_by_path={"training": bwd_launches,
-                                     "train_options": fp16_bwd_launches},
+                                     "train_options": fp16_bwd_launches,
+                                     "train_gr": gr_bwd},
                    launches_by_dtype={"bf16": bwd_launches,
-                                      "fp16": fp16_bwd_launches},
-                   fp16=fp16_row(bwd16)),
+                                      "fp16": fp16_bwd_launches,
+                                      "fp32": gr_bwd},
+                   fp16=fp16_row(bwd16),
+                   hstu_synth_fp32=gr_row("hstu_attention_bwd")),
         # at the real step's dim-16 targets, through the table less its
         # scratch row as the engine calls it; library_ms: index_copy_ of
         # the same writes (the scratch entries taken out beforehand);
@@ -3655,7 +4344,8 @@ def main() -> int:
         # was first timed
         kernel_row("row_write", "row_write.py:35",
                    deepfm_launches + loader_launches + zoo_launches
-                   + lane_off_launches + options_writes,
+                   + lane_off_launches + options_writes
+                   + gr_launches["row_write"],
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -3663,7 +4353,8 @@ def main() -> int:
                        "train_loader": loader_launches,
                        "train_zoo": zoo_launches,
                        "train_zoo_dssm_dense_lane_off": lane_off_launches,
-                       "train_options": options_writes}),
+                       "train_options": options_writes,
+                       "train_gr": gr_launches["row_write"]}),
     ]})
     print(smi, flush=True)
     emit(device_record())

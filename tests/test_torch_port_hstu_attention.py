@@ -189,9 +189,12 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 
 def test_attention_dropout_raises():
+    """Attention dropout needs its keep mask or a generator to draw it
+    from; with neither it raises (tests/test_torch_port_gr.py holds the
+    dropout itself against the JAX formula)."""
     q, k, v, lengths, _ = _inputs(seed=5)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         port.hstu_mha(t(q), t(k), t(v), t(lengths), alpha=0.1, dropout_pr=0.1)
 
 
@@ -217,8 +220,9 @@ def _bad_inputs(kind):
         q = q[:, :, 0]
     elif kind == "head dim 48":
         q, k = q[..., :24].repeat(1, 1, 1, 2), k[..., :24].repeat(1, 1, 1, 2)
-    elif kind == "head dim 16":
-        q, k = q[..., :16].contiguous(), k[..., :16].contiguous()
+    elif kind == "head dim 16":  # the 16-bit kernels start at 32
+        q, k, v = (t.to(torch.bfloat16) for t in (
+            q[..., :16].contiguous(), k[..., :16].contiguous(), v))
     elif kind == "v head dim 256":
         v = torch.cat([v] * 8, -1)
     elif kind == "misaligned k":  # 4 bytes past a 16-byte boundary
@@ -290,6 +294,55 @@ def test_kernels_take_every_head_dim_pair(dtype, d, vd):
     (q, k, v), lengths, targets = _fake_cuda_inputs(dtype, d, vd)
     port.check_kernel_inputs(q, k, v, lengths, targets)
     port.check_kernel_inputs(q, k, v, lengths, None)
+
+
+@pytest.mark.parametrize("d,vd", [(16, 16), (16, 64), (128, 16)])
+def test_fp32_kernels_take_head_dim_16(d, vd):
+    """HSTU-Match's towers attend at head dim 16: the fp32 kernels take
+    it beside 32, 64 and 128."""
+    (q, k, v), lengths, targets = _fake_cuda_inputs(torch.float32, d, vd)
+    port.check_kernel_inputs(q, k, v, lengths, targets)
+    port.check_kernel_inputs(q, k, v, lengths, None)
+
+
+@pytest.mark.parametrize("kernel", [Kernel.PALLAS, Kernel.TRITON,
+                                    Kernel.CUTLASS])
+def test_attention_dropout_on_the_card_needs_the_plain_route(kernel):
+    """Attention dropout has no kernel: on card tensors a kernel route
+    raises instead of running the plain path unasked; Kernel.PYTORCH
+    runs it (here on the tensors' CPU storage)."""
+    (q, k, v), lengths, targets = _fake_cuda_inputs(torch.float32, 32, 32)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="Kernel.PYTORCH"):
+        port.hstu_mha(q, k, v, lengths, alpha=0.1, num_targets=targets,
+                      dropout_pr=0.1, kernel=kernel, generator=g)
+    before = port.hstu_attention_fwd.launches
+    out = port.hstu_mha(q, k, v, lengths, alpha=0.1, num_targets=targets,
+                        dropout_pr=0.1, kernel=Kernel.PYTORCH, generator=g)
+    assert out.shape == v.shape and torch.isfinite(out).all()
+    assert port.hstu_attention_fwd.launches == before
+
+
+def test_attention_bound_counts_the_real_rows():
+    """chip_smoke's bound reads q, k, v (and the upstream gradient) over
+    each sample's real rows, all the kernels read, and writes the outputs
+    at the padded N, as the kernels write the padded rows' zeros."""
+    import chip_smoke
+
+    q, v = torch.zeros(3, 40, 2, 32), torch.zeros(3, 40, 2, 16)
+    qn, vn = q.numel(), v.numel()
+    full = torch.tensor([40, 40, 40], dtype=torch.int32)
+    assert chip_smoke.attn_bytes(q, v, full) == 4 * (2 * qn + 2 * vn)
+    assert chip_smoke.attn_bytes(q, v, full, backward=True) == 4 * (
+        4 * qn + 3 * vn)
+    short = torch.tensor([10, 40, 50], dtype=torch.int32)  # 50 reads 40
+    rows = 10 + 40 + 40
+    assert chip_smoke.attn_bytes(q, v, short) == 4 * (
+        rows * 2 * (2 * 32 + 16) + vn)
+    assert chip_smoke.attn_bytes(q, v, short, backward=True) == 4 * (
+        rows * 2 * (2 * 32 + 2 * 16) + 2 * qn + vn)
+    assert chip_smoke.attn_bytes(q.bfloat16(), v.bfloat16(), short) == (
+        chip_smoke.attn_bytes(q, v, short) / 2)
 
 
 def test_ptxas_usage_reads_the_build_log(tmp_path, monkeypatch):

@@ -43,7 +43,8 @@ for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "modules.sequence", "models.multi_tower",
              "models.rocket_launching", "datasets.sampler",
              "models.match_model", "models.dssm", "models.dat",
-             "modules.capsule", "models.mind"):
+             "modules.capsule", "models.mind", "modules.gr.preprocessors",
+             "models.ultra_hstu", "models.hstu_match"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -90,6 +91,9 @@ DEEPFM_SLICE_MODULES = [
     # two-tower retrieval and the negative samplers
     "datasets.sampler", "models.match_model", "models.dssm", "models.dat",
     "modules.capsule", "models.mind",
+    # the generative-recommendation family
+    "modules.gr.preprocessors", "modules.gr.stu", "modules.gr.hstu_transducer",
+    "models.ultra_hstu", "models.hstu_match",
 ]
 
 

@@ -106,8 +106,8 @@ def test_stu_layer_matches(kw):
 def test_stu_layer_training_with_dropout_raises():
     """Output dropout runs in training mode (it raised while the port
     only served): two calls draw two masks, eval is deterministic. What
-    still raises is attention-probability dropout, which bypasses the
-    kernel in the JAX package too and which the STU never asks for."""
+    raises is attention-probability dropout without a generator or a
+    keep mask; the STU never asks for it."""
     layer = pstu.STULayer(E, LD, AD, _gen(), num_heads=H,
                           output_dropout_ratio=0.1)
     x = torch.from_numpy(_np(_rng(9).normal(size=(B, N, E))))
@@ -117,7 +117,7 @@ def test_stu_layer_training_with_dropout_raises():
     layer.eval()
     assert torch.equal(layer(x, lengths), layer(x, lengths))
     q = torch.zeros(B, N, H, AD)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         pops.hstu_mha(q, q, q, lengths, alpha=0.1, dropout_pr=0.1)
 
 

@@ -92,6 +92,73 @@ def hstu_synth_train_config_text(batch_size: int = 4, num_layers: int = 2,
         "    hstu {", f"    hstu {{\n input_dropout_ratio: {input_dropout}", 1)
 
 
+def jax_train_loss(jmodel, tables, jbatch, training: bool = True):
+    """fn(dense) -> (total loss, predictions) of the JAX model's forward
+    in training (or eval) mode, for ``jax.value_and_grad``; fp32, the
+    dropout ratios 0."""
+    import jax
+    import jax.numpy as jnp
+
+    from torcheasyrec_tpu.modules import module as JM
+
+    def fn(dense):
+        ctx = JM.Context(training=training, rng=jax.random.PRNGKey(0),
+                         compute_dtype=jnp.float32)
+        grouped, _ = jmodel.embedding_group.forward(
+            tables, jbatch, dense["embedding_group"], ctx)
+        grouped, _ = jmodel.build_input(dense, grouped, jbatch, ctx)
+        preds = jmodel.predict(dense, grouped, jbatch, ctx)
+        return jmodel.total_loss(jmodel.loss(preds, jbatch)), preds
+
+    return fn
+
+
+def port_train_loss(model, batch, training: bool = True):
+    """(total loss, predictions) of the port's forward in training (or
+    eval) mode, the dense parameters' gradients accumulated into
+    ``.grad``; the tables take no gradient."""
+    eg = model.embedding_group
+    model.train(training)
+    model.zero_grad()
+    with torch.no_grad():
+        emb_out, _ = eg.lookup(batch)
+    preds = model.predict(eg.assemble(emb_out, batch, model.compute_dtype),
+                          batch)
+    total = model.total_loss(model.loss(preds, batch))
+    total.backward()
+    return total.detach(), preds
+
+
+def assert_forward_and_grads_match(model, batch, jmodel, dense, tables,
+                                   jbatch, fwd_tol=1e-5, grad_tol=1e-4,
+                                   training: bool = True):
+    """The loss and every prediction within ``fwd_tol`` of its max, every
+    dense parameter's gradient within ``grad_tol`` of its max, against
+    the JAX model at ``dense`` on the same batch. Returns the port's
+    predictions."""
+    import jax
+
+    from torcheasyrec_tpu_torch.utils.convert import from_jax_state
+
+    (jtotal, jpreds), jgrads = jax.jit(jax.value_and_grad(
+        jax_train_loss(jmodel, tables, jbatch, training), has_aux=True))(
+        dense)
+    total, preds = port_train_loss(model, batch, training)
+    assert_close_to_max(float(total), float(jtotal), "loss", fwd_tol)
+    assert set(preds) == set(jpreds)
+    for k, v in preds.items():
+        assert_close_to_max(v.detach().float().numpy(), np.asarray(jpreds[k]),
+                            k, fwd_tol)
+    ref = from_jax_state(jax.device_get(jgrads), {})
+    params = dict(model.named_parameters())
+    assert set(params) == {k for k in ref if "tables." not in k}
+    for n, p in params.items():
+        got = torch.zeros_like(p) if p.grad is None else p.grad
+        assert_close_to_max(got.numpy(), ref[n].numpy(), f"grad {n}",
+                            grad_tol)
+    return preds
+
+
 def jax_train_setup(cfg_text: str):
     """(cfg, model, features, state, jitted train step) of the JAX
     package in fp32; the state holds dense, tables, sparse_opt,

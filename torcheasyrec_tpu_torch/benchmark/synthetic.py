@@ -220,3 +220,71 @@ def ensure_dataset(root: str, train_rows: int = 262144,
         os.makedirs(root, exist_ok=True)
         pq.write_table(tbl, items)
     return {"train": train, "eval": evalp, "items": items}
+
+
+def generate_hstu(path: str, num_rows: int, seed: int = 0) -> str:
+    """Generative-recommender (DLRM-HSTU) rows, the kuairand analogue: a
+    history of 8-31 videos and 2-9 candidates a row, with the action
+    bitmask labels of two tasks (click 1, like 2). The planted signal is
+    each video's popularity (the candidate's embedding) and the match of
+    the candidate's cluster with the user's (the history, through the
+    attention). The port's copy of the JAX package's ``generate_hstu``:
+    the same rows from the same seed."""
+    rng = np.random.default_rng(seed)
+    n_users, n_videos, n_clusters = 2000, 5000, 50
+    stride = n_videos // n_clusters
+    rows: Dict[str, list] = {
+        "user_id": [], "video_id": [], "item_video_id": [],
+        "action_weight": [], "action_timestamp": [], "item_query_time": [],
+        "item_action_weight": [], "unused_label": [],
+    }
+    for _ in range(num_rows):
+        uid = int(rng.integers(0, n_users))
+        pref = uid % n_clusters
+        lu = int(rng.integers(8, 32))
+        lc = int(rng.integers(2, 10))
+        hist = [
+            int(pref * stride + rng.integers(0, stride))
+            if rng.random() < 0.8 else int(rng.integers(0, n_videos))
+            for _ in range(lu)
+        ]
+        cands = [int(rng.integers(0, n_videos)) for _ in range(lc)]
+        weights = []
+        for c in cands:
+            base = 0.05 + 0.5 * ((c * 7919) % n_videos) / n_videos
+            p_click = min(
+                base + (0.4 if c // stride == pref else 0.0), 0.95
+            )
+            click = rng.random() < p_click
+            like = click and rng.random() < 0.3
+            weights.append(int(click) + 2 * int(like))
+        ts = sorted(rng.integers(0, 10 ** 6, lu).tolist())
+        rows["user_id"].append(uid)
+        rows["video_id"].append(";".join(map(str, hist)))
+        rows["item_video_id"].append(";".join(map(str, cands)))
+        rows["action_weight"].append(
+            ";".join(str(int(rng.integers(0, 4))) for _ in range(lu))
+        )
+        rows["action_timestamp"].append(";".join(map(str, ts)))
+        rows["item_query_time"].append(
+            ";".join(str(10 ** 6) for _ in range(lc))
+        )
+        rows["item_action_weight"].append(";".join(map(str, weights)))
+        rows["unused_label"].append(0.0)
+    tbl = pa.table({k: pa.array(v) for k, v in rows.items()})
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    pq.write_table(tbl, path)
+    return path
+
+
+def ensure_hstu_dataset(root: str, train_rows: int = 20480,
+                        eval_rows: int = 4096) -> Dict[str, str]:
+    """Idempotently materialize the hstu_synth shards under ``root``:
+    train rows from seed 11, eval rows from seed 12."""
+    train = os.path.join(root, f"hstu_synth_train_{train_rows}.parquet")
+    evalp = os.path.join(root, f"hstu_synth_eval_{eval_rows}.parquet")
+    if not os.path.exists(train):
+        generate_hstu(train, train_rows, seed=11)
+    if not os.path.exists(evalp):
+        generate_hstu(evalp, eval_rows, seed=12)
+    return {"train": train, "eval": evalp}

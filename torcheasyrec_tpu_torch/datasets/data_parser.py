@@ -6,9 +6,12 @@ padded shapes: jagged value counts round up to power-of-two buckets
 configured ``sequence_length`` keeping the most recent steps. Each
 feature keeps its own row count: after a negative sampler, the item-side
 features hold B + num_sample rows and the others B; labels stay at B.
-The tensors are built on the CPU; ``Batch.to(device)`` moves them. The JAX parser's
-vectorised shortcut for plain id columns, the native FG DAG, INPUT_TILE
-serving and list-valued labels are not ported.
+A label named ``{sequence_name}__{column}`` after a grouped sequence
+feature, or a list-valued label, parses as a padded [B, L] float array
+(``_parse_jagged_label``: the sequence's delimiter and length, keeping
+the last steps). The tensors are built on the CPU; ``Batch.to(device)``
+moves them. The JAX parser's vectorised shortcut for plain id columns,
+the native FG DAG and INPUT_TILE serving are not ported.
 """
 
 from typing import Any, Dict, List, Optional
@@ -47,6 +50,15 @@ class DataParser:
         # features that produced a multi-valued row once stay jagged, so
         # the batch layout is stable across batches
         self._force_jagged: set = set()
+        # labels of a grouped sequence: {label: (delimiter, length)}
+        seq_groups: Dict[str, Any] = {}
+        for f in features:
+            if f.sequence_name and f.sequence_name not in seq_groups:
+                seq_groups[f.sequence_name] = (
+                    f.sequence_delim or ";", int(f.sequence_length or 0))
+        self._label_seq = {
+            lbl: seq_groups[lbl.split("__", 1)[0]] for lbl in self._labels
+            if "__" in lbl and lbl.split("__", 1)[0] in seq_groups}
 
     def parse(self, input_data: Dict[str, pa.Array]) -> Dict[str, Any]:
         """Run every feature's parse; returns name -> parsed numpy data."""
@@ -56,12 +68,11 @@ class DataParser:
         for label in self._labels:
             if label in input_data:
                 arr = _combined(input_data[label])
-                if pa.types.is_list(arr.type) or pa.types.is_large_list(
-                    arr.type
-                ):
-                    raise NotImplementedError(
-                        f"label {label}: list-valued labels are not ported"
-                    )
+                if label in self._label_seq or pa.types.is_list(
+                        arr.type) or pa.types.is_large_list(arr.type):
+                    out[f"__label__{label}"] = _parse_jagged_label(
+                        arr, *self._label_seq.get(label, (";", 0)))
+                    continue
                 out[f"__label__{label}"] = np.nan_to_num(
                     arr.cast(pa.float32(), safe=False).to_numpy(
                         zero_copy_only=False
@@ -133,6 +144,28 @@ class DataParser:
 
 def _combined(arr):
     return arr.combine_chunks() if isinstance(arr, pa.ChunkedArray) else arr
+
+
+def _parse_jagged_label(arr: pa.Array, delim: str = ";",
+                        max_len: int = 0) -> np.ndarray:
+    """A multi-valued label per row (a list, or ``delim``-joined string)
+    -> padded [B, L] float32, keeping the last steps as the sequence
+    features do; L is ``max_len``, else the longest row's bucket."""
+    if pa.types.is_list(arr.type) or pa.types.is_large_list(arr.type):
+        rows = [[] if v is None else [float(x) for x in v]
+                for v in arr.to_pylist()]
+    else:
+        rows = [[float(t) if t else 0.0 for t in s.split(delim)] if s
+                else [] for s in arr.cast(pa.string()).to_pylist()]
+    if max_len <= 0:
+        max_len = bucketize_size(max((len(r) for r in rows), default=1),
+                                 minimum=1)
+    out = np.zeros((len(rows), max_len), dtype=np.float32)
+    for i, r in enumerate(rows):
+        take = min(len(r), max_len)
+        if take:
+            out[i, :take] = r[len(r) - take:]
+    return np.nan_to_num(out)
 
 
 def _fixed_single(data: SparseData) -> SparseField:

@@ -18,7 +18,8 @@ import os
 import queue
 import random
 import threading
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import pyarrow as pa
@@ -481,18 +482,24 @@ def _reader_for(data_config, input_path: str, batch_size: int, selected_cols,
     return r
 
 
-def create_sampler(data_config: Any, mode: str) -> Optional[Any]:
+def create_sampler(data_config: Any, mode: str,
+                   features: Sequence[Any] = ()) -> Optional[Any]:
     """The negative sampler ``data_config`` names, for train and eval
     (``num_eval_sample`` outside train); None in predict or where it
-    names none."""
+    names none. Where its ``item_id_field`` is a grouped sequence's
+    sub-feature among ``features``, it reads that column's rows as
+    positives joined by the sequence's delimiter."""
     which = data_config.WhichOneof("sampler")
     if which is None or mode == "predict":
         return None
     from torcheasyrec_tpu_torch.datasets import sampler as sampler_mod
 
     cfg = getattr(data_config, which)
+    seq_delim = next((f.sequence_delim or ";" for f in features
+                      if f.name == cfg.item_id_field and f.sequence_name),
+                     None)
     return sampler_mod.BaseSampler.create_class(type(cfg).__name__)(
-        cfg, is_training=mode == "train")
+        cfg, is_training=mode == "train", seq_delim=seq_delim)
 
 
 def num_loader_workers(data_config: Any, mode: str = "train") -> int:
@@ -554,7 +561,7 @@ def create_dataloader(
                                       reserved_columns)
     reader = _reader_for(data_config, input_path, batch_size, selected_cols,
                          mode, resume_state)
-    sampler = create_sampler(data_config, mode)
+    sampler = create_sampler(data_config, mode, features)
     dataset = BaseDataset(data_config, features, reader, mode,
                           worker_id=worker_id, num_workers=num_workers,
                           reserved_columns=reserved_columns, sampler=sampler)

@@ -78,9 +78,13 @@ def _read_table(path: str) -> pa.Table:
 class BaseSampler(metaclass=_meta):
     """Base of the samplers: the config, the generator and the item table;
     subclasses implement ``_load`` and ``process``. Outside train mode
-    ``num_eval_sample`` (where set) replaces ``num_sample``."""
+    ``num_eval_sample`` (where set) replaces ``num_sample``. In sequence
+    mode (``seq_delim`` set: ``item_id_field`` names a grouped sequence's
+    sub-feature), a row of the item id column holds its positives joined
+    by ``seq_delim``."""
 
-    def __init__(self, config: Any, is_training: bool = True) -> None:
+    def __init__(self, config: Any, is_training: bool = True,
+                 seq_delim: Optional[str] = None) -> None:
         self._config = config
         self._num_sample = int(getattr(config, "num_sample", 0))
         if not is_training and getattr(config, "num_eval_sample", 0):
@@ -88,6 +92,7 @@ class BaseSampler(metaclass=_meta):
         self._attr_fields = list(config.attr_fields)
         self._attr_delim = getattr(config, "attr_delimiter", ":") or ":"
         self._item_id_field = config.item_id_field
+        self._seq_delim = seq_delim
         self._rng = np.random.default_rng(0)
         self._inited = False
 
@@ -105,9 +110,8 @@ class BaseSampler(metaclass=_meta):
     # -- shared helpers -----------------------------------------------------
 
     def _pos_id_set(self, columns: Dict[str, pa.Array]) -> set:
-        """Distinct positive item ids of the batch (list columns
-        flattened). The JAX package also splits delimiter-joined strings
-        for its grouped sequence features, which are not ported."""
+        """Distinct positive item ids of the batch, multi-positive rows
+        flattened (list columns, or strings joined by ``seq_delim``)."""
         col = columns.get(self._item_id_field)
         if col is None:
             return set()
@@ -115,6 +119,15 @@ class BaseSampler(metaclass=_meta):
             col = col.combine_chunks()
         if pa.types.is_list(col.type) or pa.types.is_large_list(col.type):
             return set(col.flatten().cast(pa.int64(), safe=False).to_pylist())
+        if self._seq_delim and pa.types.is_string(col.type):
+            out = set()
+            for s in col.to_pylist():
+                for tok in (s.split(self._seq_delim) if s else ()):
+                    try:
+                        out.add(int(float(tok)))
+                    except ValueError:
+                        continue
+            return out
         try:
             return set(col.cast(pa.int64(), safe=False).to_pylist())
         except (pa.ArrowInvalid, pa.ArrowNotImplementedError):

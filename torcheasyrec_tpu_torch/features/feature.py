@@ -4,9 +4,11 @@ Counterpart of torcheasyrec_tpu/features/feature.py, cut to what id and
 raw features (plain and sequence) need in FG_NONE mode, where the input
 columns are already encoded. Host-side only (pyarrow/numpy): it turns
 Arrow columns into numpy ids, lengths and dense values, and marks the
-features a negative sampler appends rows to (``data_group``). FG_NORMAL
-feature generation, grouped ``sequence_feature`` configs, vocab files,
-zero-collision hashing and dynamic embeddings are not ported and raise
+features a negative sampler appends rows to (``data_group``). A grouped
+``sequence_feature`` config expands into one feature per sub-feature,
+named ``{sequence_name}__{sub_name}``, each with the group's delimiter,
+length and pk. FG_NORMAL feature generation, vocab files, zero-collision
+hashing and dynamic embeddings are not ported and raise
 NotImplementedError.
 """
 
@@ -320,6 +322,11 @@ class BaseFeature(metaclass=_meta_cls):
         self.config = getattr(feature_config, oneof)
         self._oneof_name = oneof
         self._is_seq_oneof = oneof.startswith("sequence_")
+        # set on the sub-features of a grouped sequence_feature
+        self.sequence_name: Optional[str] = None
+        self.sequence_delim: Optional[str] = None
+        self.sequence_length: Optional[int] = None
+        self.sequence_pk: Optional[str] = None
         self._multival_sep = fg_encoded_multival_sep or chr(3)
         # a tuple once computed; None (not a sentinel object) until then,
         # so that a pickled feature (a loader worker's) compares right
@@ -339,11 +346,13 @@ class BaseFeature(metaclass=_meta_cls):
 
     @property
     def name(self) -> str:
+        if self.sequence_name:
+            return f"{self.sequence_name}__{self.config.feature_name}"
         return self.config.feature_name
 
     @property
     def is_sequence(self) -> bool:
-        return self._is_seq_oneof
+        return self._is_seq_oneof or self.sequence_name is not None
 
     @property
     def is_weighted(self) -> bool:
@@ -351,6 +360,8 @@ class BaseFeature(metaclass=_meta_cls):
 
     @property
     def effective_sequence_length(self) -> int:
+        if self.sequence_length:
+            return int(self.sequence_length)
         return int(getattr(self.config, "sequence_length", 0) or 0)
 
     @property
@@ -439,7 +450,8 @@ class BaseFeature(metaclass=_meta_cls):
 
     @property
     def effective_sequence_delim(self) -> str:
-        return getattr(self.config, "sequence_delim", ";") or ";"
+        return (self.sequence_delim
+                or getattr(self.config, "sequence_delim", ";") or ";")
 
     def _fg_encoded_default(self) -> Optional[List[Any]]:
         dv = getattr(self.config, "fg_encoded_default_value", "")
@@ -522,15 +534,24 @@ def create_features(
 ) -> List[BaseFeature]:
     """Build feature objects from FeatureConfig protos. With ``neg_fields``
     (the negative sampler's attr fields), item-side features and those
-    whose input is one of the fields join ``NEG_DATA_GROUP``."""
+    whose input is one of the fields join ``NEG_DATA_GROUP``. A grouped
+    ``sequence_feature`` gives one feature per sub-feature, named
+    ``{sequence_name}__{sub_name}``."""
     features: List[BaseFeature] = []
     for cfg in feature_configs:
         oneof = cfg.WhichOneof("feature")
         if oneof == "sequence_feature":
-            raise NotImplementedError(
-                "grouped sequence_feature configs are not ported; use "
-                "sequence_id_feature / sequence_raw_feature"
-            )
+            seq_cfg = cfg.sequence_feature
+            for sub in seq_cfg.features:
+                feat = BaseFeature.create_class(
+                    _oneof_to_class(sub.WhichOneof("feature")))(
+                    sub, fg_mode, fg_encoded_multival_sep)
+                feat.sequence_name = seq_cfg.sequence_name
+                feat.sequence_delim = seq_cfg.sequence_delim
+                feat.sequence_length = int(seq_cfg.sequence_length)
+                feat.sequence_pk = seq_cfg.sequence_pk or None
+                features.append(feat)
+            continue
         cls_name = _oneof_to_class(oneof.replace("sequence_", ""))
         features.append(BaseFeature.create_class(cls_name)(
             cfg, fg_mode, fg_encoded_multival_sep

@@ -8,6 +8,7 @@ from torcheasyrec_tpu_torch.models.deepfm import DeepFM  # noqa: F401
 from torcheasyrec_tpu_torch.models.dlrm import DLRM  # noqa: F401
 from torcheasyrec_tpu_torch.models.dlrm_hstu import DlrmHSTU  # noqa: F401
 from torcheasyrec_tpu_torch.models.dssm import DSSM, DSSMV2  # noqa: F401
+from torcheasyrec_tpu_torch.models.hstu_match import HSTUMatch  # noqa: F401
 from torcheasyrec_tpu_torch.models.masknet import MaskNet  # noqa: F401
 from torcheasyrec_tpu_torch.models.mind import MIND  # noqa: F401
 from torcheasyrec_tpu_torch.models.mmoe import MMoE  # noqa: F401
@@ -22,6 +23,7 @@ from torcheasyrec_tpu_torch.models.ple import PLE  # noqa: F401
 from torcheasyrec_tpu_torch.models.rocket_launching import (  # noqa: F401
     RocketLaunching,
 )
+from torcheasyrec_tpu_torch.models.ultra_hstu import UltraHSTU  # noqa: F401
 from torcheasyrec_tpu_torch.models.wide_and_deep import WideAndDeep  # noqa: F401
 from torcheasyrec_tpu_torch.models.model import BaseModel
 

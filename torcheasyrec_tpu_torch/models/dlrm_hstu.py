@@ -1,20 +1,30 @@
 """DLRM-HSTU generative ranking model.
 
-Counterpart of torcheasyrec_tpu/models/dlrm_hstu.py (``__init__``,
-``predict``, ``_task_labels`` and ``loss``): uih + candidate sequences ->
-HSTUTransducer -> per-candidate item MLP -> fusion multi-task heads. Feature-group contract as in the JAX
-package: ``contextual`` (DEEP, optional), ``uih`` and ``candidate``
-(sequence groups), and optional ``uih_action`` / ``uih_watchtime`` /
+Counterpart of torcheasyrec_tpu/models/dlrm_hstu.py: uih + candidate
+sequences -> HSTUTransducer -> per-candidate item MLP -> fusion
+multi-task heads. Feature-group contract as in the JAX package:
+``contextual`` (DEEP, optional), ``uih`` and ``candidate`` (sequence
+groups), and optional ``uih_action`` / ``uih_watchtime`` /
 ``uih_timestamp`` / ``candidate_timestamp`` sequence groups carrying one
 scalar per step. ``model_config.kernel`` picks the attention: PALLAS (the
 default), CUTLASS or TRITON run the CUDA kernel on the card, PYTORCH or
-JAX the plain version. The loss is a per-task BCE over the real
-candidates; labels come from a per-candidate sequence column, optionally
-through ``task_bitmask``. Metrics are not ported.
+JAX the plain version. A ``contextual_preprocessor`` or
+``contextual_interleave_preprocessor`` with a content MLP builds the
+content/action-MLP family (``modules/gr/preprocessors.py``), any other
+preprocessor the linear ``ContextualPreprocessor``; under target
+interleaving each candidate's content token carries its prediction.
+``attn_truncation_split_layer`` and ``attn_truncation_tail_len`` cut the
+history between two layer ranges. The loss is a per-task BCE over the
+real candidates; labels come from a per-candidate sequence column,
+optionally through ``task_bitmask``. The eval metrics are one per task
+and metric config, ``<metric>_<task>``, over the real candidates.
+``hstu`` may be a repeated field (ULTRA-HSTU): its first entry builds
+the base channel.
 """
 
-from typing import Dict
+from typing import Any, Dict, List
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -22,15 +32,15 @@ from torch import nn
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.losses import binary_cross_entropy
 from torcheasyrec_tpu_torch.models.model import BaseModel
-from torcheasyrec_tpu_torch.modules.gr.encoders import (
-    OutputPostprocessor,
-    PositionalEncoder,
-    SimpleActionEncoder,
-)
+from torcheasyrec_tpu_torch.modules.gr.encoders import encoders_from_config
 from torcheasyrec_tpu_torch.modules.gr.hstu_transducer import (
     ContextualPreprocessor,
     HSTUTransducer,
     extract_candidates,
+)
+from torcheasyrec_tpu_torch.modules.gr.preprocessors import (
+    action_encoder_from_config,
+    preprocessor_from_config,
 )
 from torcheasyrec_tpu_torch.modules.gr.stu import stu_from_config
 from torcheasyrec_tpu_torch.modules.mlp import mlp_from_config
@@ -51,10 +61,11 @@ class DlrmHSTU(BaseModel):
         self._build_embedding_group()
         mc = self._model_config
         hstu_cfg = mc.hstu
+        if hasattr(hstu_cfg, "__len__"):  # repeated field (UltraHSTU)
+            hstu_cfg = hstu_cfg[0]
         stu_cfg = config_to_kwargs(hstu_cfg.stu)
         e = int(stu_cfg["embedding_dim"])
-        if hstu_cfg.attn_truncation_split_layer > 0:
-            raise NotImplementedError("attention truncation is not ported")
+        self._e = e
 
         eg = self.embedding_group
         dims = eg.seq_group_dims()
@@ -69,40 +80,31 @@ class DlrmHSTU(BaseModel):
 
         pre_cfg = hstu_cfg.input_preprocessor
         which_pre = pre_cfg.WhichOneof("input_preprocessor")
-        action_encoder = None
-        if which_pre is not None:
-            pcfg = getattr(pre_cfg, which_pre)
-            if which_pre != "contextual_preprocessor" or pcfg.content_mlp.WhichOneof(
-                "contextualized_mlp"
-            ):
-                raise NotImplementedError(
-                    f"input preprocessor {which_pre} is ported only as a "
-                    "contextual_preprocessor without a content MLP"
-                )
-            if pcfg.HasField("action_encoder") and (
-                pcfg.action_encoder.WhichOneof("action_encoder")
-            ):
-                ac = pcfg.action_encoder.simple_action_encoder
-                action_encoder = SimpleActionEncoder(
-                    action_embedding_dim=int(ac.action_embedding_dim or 8),
-                    action_weights=list(ac.action_weights) or [1],
-                    generator=g,
-                    watchtime_to_action_thresholds=list(
-                        ac.watchtime_to_action_thresholds
-                    ),
-                    embedding_init_std=float(ac.embedding_init_std or 0.1),
-                )
-        pre = ContextualPreprocessor(
-            embedding_dim=e,
-            uih_content_dim=uih_dim,
-            cand_content_dim=cand_dim,
-            generator=g,
-            contextual_dim=ctx_dim,
-            # one token per contextual feature
-            n_contextual_tokens=n_ctx_features,
-            action_encoder=action_encoder,
-            input_dropout_ratio=float(hstu_cfg.input_dropout_ratio),
-        )
+        input_dropout = float(hstu_cfg.input_dropout_ratio)
+        pre = None
+        if which_pre in ("contextual_preprocessor",
+                         "contextual_interleave_preprocessor") and getattr(
+                pre_cfg, which_pre).content_mlp.WhichOneof(
+                "contextualized_mlp"):
+            pre = preprocessor_from_config(
+                pre_cfg, e, uih_dim, cand_dim, g, contextual_dim=ctx_dim,
+                # one token per contextual feature
+                n_contextual_tokens=n_ctx_features,
+                input_dropout_ratio=input_dropout)
+        if pre is None:
+            pcfg = getattr(pre_cfg, which_pre) if which_pre else None
+            pre = ContextualPreprocessor(
+                embedding_dim=e,
+                uih_content_dim=uih_dim,
+                cand_content_dim=cand_dim,
+                generator=g,
+                contextual_dim=ctx_dim,
+                n_contextual_tokens=n_ctx_features,
+                action_encoder=action_encoder_from_config(
+                    pcfg.action_encoder if pcfg is not None
+                    and pcfg.HasField("action_encoder") else None, g),
+                input_dropout_ratio=input_dropout,
+            )
         if not hstu_cfg.stu.HasField("num_layers"):
             stu_cfg["num_layers"] = int(hstu_cfg.attn_num_layers)
         stack = stu_from_config(stu_cfg, g,
@@ -111,29 +113,12 @@ class DlrmHSTU(BaseModel):
         # the contextual prefix length feeds the attention mask
         stack.set_contextual_seq_len(pre.n_ctx)
 
-        pos = None
-        if hstu_cfg.HasField("positional_encoder"):
-            pc = hstu_cfg.positional_encoder
-            pos = PositionalEncoder(
-                embedding_dim=e,
-                num_position_buckets=int(pc.num_position_buckets or 8192),
-                generator=g,
-                num_time_buckets=int(pc.num_time_buckets or 0),
-                use_time_encoding=bool(pc.use_time_encoding),
-            )
-        post = None
-        if hstu_cfg.HasField("output_postprocessor"):
-            which = hstu_cfg.output_postprocessor.WhichOneof(
-                "output_postprocessor"
-            )
-            kind = {
-                "l2norm_postprocessor": "l2_norm",
-                "layernorm_postprocessor": "layer_norm",
-                "timestamp_layernorm_postprocessor": "timestamp_layer_norm",
-            }[which]
-            post = OutputPostprocessor(kind, e, g)
+        pos, post = encoders_from_config(hstu_cfg, e, g)
         self.transducer = HSTUTransducer(
             pre, stack, pos, post, max_seq_len=int(mc.max_seq_len),
+            attn_truncation_split_layer=int(
+                hstu_cfg.attn_truncation_split_layer),
+            attn_truncation_tail_len=int(hstu_cfg.attn_truncation_tail_len),
         )
 
         ft = mc.fusion_mtl_tower
@@ -175,9 +160,12 @@ class DlrmHSTU(BaseModel):
             cand_timestamps=self._seq_scalar(grouped, "candidate_timestamp"),
         )
         lc_max = cand.shape[1]
-        # targets sit at [lengths - num_targets, lengths)
+        # targets sit at [lengths - num_targets, lengths) of the returned
+        # layout; interleaved, each candidate's content token is first
+        stride = 2 if self.transducer.pre.interleave_targets(
+            self.training) else 1
         cand_out = extract_candidates(seq_out, 0, lengths - num_targets,
-                                      lc_max)
+                                      lc_max, stride)
         item_h = F.silu(linear_apply(self.item_proj, cand, dt))
         h = torch.cat([cand_out, item_h], dim=-1)
         if self.tower_mlp is not None:
@@ -232,3 +220,30 @@ class DlrmHSTU(BaseModel):
             losses[f"bce_{t.task_name}"] = (
                 float(t.weight or 1.0) * per.sum() / denom)
         return losses
+
+    def init_metrics(self) -> List[Dict[str, Any]]:
+        """One metric per task and metric config, named
+        ``<metric>_<task>``."""
+        from torcheasyrec_tpu_torch.metrics import create_metric
+
+        out = []
+        for t in self._task_cfgs:
+            for c in t.metrics:
+                m = create_metric(c)
+                m["name"] = f"{m['name']}_{t.task_name}"
+                m["task"] = t
+                out.append(m)
+        return out
+
+    def update_metrics(self, metrics: List[Dict[str, Any]],
+                       predictions: Dict[str, torch.Tensor],
+                       batch: Batch) -> None:
+        """Each task's probabilities and labels over the real candidates."""
+        cand_len = predictions["__candidate_lengths"].cpu().numpy()
+        for m in metrics:
+            t = m["task"]
+            probs = predictions[f"probs_{t.task_name}"].float().cpu().numpy()
+            lc_max = probs.shape[1]
+            labels = self._task_labels(t, batch, lc_max).cpu().numpy()
+            mask = np.arange(lc_max)[None, :] < cand_len[:, None]
+            m["metric"].update(probs[mask], labels[mask])

@@ -55,7 +55,9 @@ class SimpleActionEncoder(nn.Module):
 
 class PositionalEncoder(nn.Module):
     """Learned position embeddings, counted back from the sequence end,
-    plus log2-bucketed time-delta embeddings."""
+    plus log2-bucketed time-delta embeddings: the delta to the last
+    valid token's timestamp, or to ``anchor`` (a per-row request time,
+    HSTU-Match's ``query_time``) where given."""
 
     def __init__(self, embedding_dim: int, num_position_buckets: int,
                  generator: torch.Generator, num_time_buckets: int = 0,
@@ -73,7 +75,8 @@ class PositionalEncoder(nn.Module):
             device=dev) * 0.02) if self.use_time else None
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                timestamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                timestamps: Optional[torch.Tensor] = None,
+                anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, _ = x.shape
         pos = torch.arange(n, device=x.device)[None, :]
         rel = (lengths.long()[:, None] - 1 - pos).clamp(0, self.pos_buckets - 1)
@@ -83,8 +86,11 @@ class PositionalEncoder(nn.Module):
         out = x + F.embedding(rel, self.pos).to(x.dtype)
         if self.use_time and timestamps is not None:
             ts = timestamps.float()
-            last_idx = (lengths.long() - 1).clamp(min=0)
-            last_ts = torch.gather(ts, 1, last_idx[:, None])
+            if anchor is not None:
+                last_ts = anchor.float().reshape(b, 1)
+            else:
+                last_idx = (lengths.long() - 1).clamp(min=0)
+                last_ts = torch.gather(ts, 1, last_idx[:, None])
             delta = (last_ts - ts).clamp(min=0.0)
             # converted as XLA converts a float to an int: NaN to 0, +-inf
             # saturated (under FP16 compute, timestamps past fp16's range
@@ -131,3 +137,31 @@ class OutputPostprocessor(nn.Module):
             tfeat = torch.stack(feats, dim=-1)
             y = y + linear_apply(self.time_mlp, tfeat, compute_dtype).to(y.dtype)
         return y
+
+
+_POSTPROCESSOR_KINDS = {
+    "l2norm_postprocessor": "l2_norm",
+    "layernorm_postprocessor": "layer_norm",
+    "timestamp_layernorm_postprocessor": "timestamp_layer_norm",
+}
+
+
+def encoders_from_config(hstu_cfg, embedding_dim: int,
+                         generator: torch.Generator):
+    """(positional encoder, output postprocessor) of an HSTU config, each
+    None where the config has none."""
+    pos = post = None
+    if hstu_cfg.HasField("positional_encoder"):
+        pc = hstu_cfg.positional_encoder
+        pos = PositionalEncoder(
+            embedding_dim=embedding_dim,
+            num_position_buckets=int(pc.num_position_buckets or 8192),
+            generator=generator,
+            num_time_buckets=int(pc.num_time_buckets or 0),
+            use_time_encoding=bool(pc.use_time_encoding),
+        )
+    if hstu_cfg.HasField("output_postprocessor"):
+        post = OutputPostprocessor(
+            _POSTPROCESSOR_KINDS[hstu_cfg.output_postprocessor.WhichOneof(
+                "output_postprocessor")], embedding_dim, generator)
+    return pos, post

@@ -5,13 +5,19 @@ combined [contextual | uih | candidates] sequence is one gather with
 per-sample index arithmetic, so each sample's tokens are contiguous and
 "valid = position < length" holds for the attention masks. In training
 mode the preprocessor drops input tokens' features with
-``input_dropout_ratio``. Attention truncation
-(``attn_truncation_split_layer`` > 0), the content/action-MLP
-preprocessors (and the contextual dropout inside their parameterized
-MLP) and ``cached_forward`` are not ported.
+``input_dropout_ratio``. The preprocessor is this module's linear
+``ContextualPreprocessor`` or one of ``preprocessors.py``. With
+``attn_truncation_split_layer`` and a tail length, the stack runs to the
+split, the history is cut to its last ``tail`` tokens (``truncate_uih``;
+interleaved targets count twice), the timestamps are gathered alike,
+and the rest of the stack runs on the shorter sequence. ``time_anchor``
+(a per-row request time) anchors the positional encoder's time deltas.
+``extra_stacks`` (ULTRA-HSTU's channels) run beside ``stack`` over the
+same layer ranges and the outputs are averaged. ``cached_forward`` is
+not ported.
 """
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,7 +27,7 @@ from torcheasyrec_tpu_torch.modules.gr.encoders import (
     PositionalEncoder,
     SimpleActionEncoder,
 )
-from torcheasyrec_tpu_torch.modules.gr.stu import STUStack
+from torcheasyrec_tpu_torch.modules.gr.stu import STUStack, truncate_uih
 from torcheasyrec_tpu_torch.modules.module import (
     dropout,
     linear,
@@ -62,11 +68,14 @@ def extract_candidates(
     n_ctx: int,
     uih_lengths: torch.Tensor,
     lc_max: int,
+    stride: int = 1,
 ) -> torch.Tensor:
-    """Gather the candidate positions' outputs -> [B, Lc, D]."""
+    """Gather the candidate positions' outputs -> [B, Lc, D]; ``stride``
+    2 takes the content token of each interleaved [content, action]
+    target pair."""
     lu = uih_lengths.long()[:, None]
     c = torch.arange(lc_max, device=seq_out.device)[None, :]
-    idx = (n_ctx + lu + c).clamp(0, seq_out.shape[1] - 1)
+    idx = (n_ctx + lu + stride * c).clamp(0, seq_out.shape[1] - 1)
     return torch.gather(
         seq_out, 1, idx[..., None].expand(-1, -1, seq_out.shape[2])
     )
@@ -74,8 +83,12 @@ def extract_candidates(
 
 class ContextualPreprocessor(nn.Module):
     """Projects contextual / uih / candidate inputs to E-dim tokens and
-    assembles the combined sequence (the linear-projection variant; the
-    content/action-MLP family is not ported)."""
+    assembles the combined sequence: the linear-projection variant, for a
+    config whose preprocessor has no content MLP (the content/action-MLP
+    family is in ``preprocessors.py``)."""
+
+    def interleave_targets(self, training: bool) -> bool:
+        return False
 
     def __init__(
         self,
@@ -156,11 +169,13 @@ class ContextualPreprocessor(nn.Module):
 class HSTUTransducer(nn.Module):
     def __init__(
         self,
-        preprocessor: ContextualPreprocessor,
+        preprocessor: nn.Module,
         stack: STUStack,
         positional_encoder: Optional[PositionalEncoder] = None,
         postprocessor: Optional[OutputPostprocessor] = None,
         max_seq_len: int = 0,
+        attn_truncation_split_layer: int = 0,
+        attn_truncation_tail_len: int = 0,
     ) -> None:
         super().__init__()
         self.pre = preprocessor
@@ -168,18 +183,51 @@ class HSTUTransducer(nn.Module):
         self.pos = positional_encoder
         self.post = postprocessor
         self.max_seq_len = max_seq_len
+        self.trunc_split = attn_truncation_split_layer
+        self.trunc_tail = attn_truncation_tail_len
+        # ULTRA-HSTU's further channels; their owner registers them
+        self.extra_stacks: List[STUStack] = []
 
-    def forward(self, compute_dtype: torch.dtype, **inputs
+    def _run_stack(self, x, lengths, num_targets, scaling, start=0,
+                   end=None) -> torch.Tensor:
+        """Layers [start, end) of the stack, averaged with the extra
+        channels' layers over the same range (clamped to their depth)."""
+        outs = [self.stack(x, lengths, num_targets, scaling, start, end)]
+        for st in self.extra_stacks:
+            outs.append(st(x, lengths, num_targets, scaling,
+                           min(start, st.num_layers),
+                           None if end is None else min(end, st.num_layers)))
+        return outs[0] if len(outs) == 1 else sum(outs) / len(outs)
+
+    def forward(self, compute_dtype: torch.dtype,
+                time_anchor: Optional[torch.Tensor] = None, **inputs
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """-> (seq_out [B, N, E], lengths, num_targets)."""
+        """-> (seq_out [B, N, E], lengths, num_targets); after a
+        truncation N and the lengths are the shorter sequence's."""
         x, lengths, num_targets, timestamps = self.pre(
             compute_dtype=compute_dtype, **inputs
         )
         if self.pos is not None:
-            x = self.pos(x, lengths, timestamps)
+            x = self.pos(x, lengths, timestamps, anchor=time_anchor)
         # the attention scale is the configured max_seq_len, not N
         scaling = self.max_seq_len or x.shape[1]
-        x = self.stack(x, lengths, num_targets, scaling_seqlen=scaling)
+        if 0 < self.trunc_split < self.stack.num_layers and self.trunc_tail:
+            x = self._run_stack(x, lengths, num_targets, scaling,
+                                end=self.trunc_split)
+            cand = inputs.get("cand_emb")
+            max_targets = cand.shape[1] if cand is not None else 0
+            if self.pre.interleave_targets(self.training):
+                max_targets *= 2
+            x, lengths, (safe, valid) = truncate_uih(
+                x, lengths, num_targets, self.trunc_tail, self.pre.n_ctx,
+                max_targets)
+            if timestamps is not None:
+                timestamps = torch.gather(timestamps, 1, safe) * valid.to(
+                    timestamps.dtype)
+            x = self._run_stack(x, lengths, num_targets, scaling,
+                                start=self.trunc_split)
+        else:
+            x = self._run_stack(x, lengths, num_targets, scaling)
         if self.post is not None:
             x = self.post(x, timestamps, compute_dtype)
         return x, lengths, num_targets

@@ -7,8 +7,10 @@ Norm(attn) * u -> dropout in training mode -> output projection ->
 residual. In training mode ``recompute_uvqk`` and ``recompute_y``
 rematerialize the projection stage and the output stage in the backward
 (``torch.utils.checkpoint``, non-reentrant); the attention never re-runs,
-as in the JAX package. The KV-cached decode (``cached_forward``) and
-``truncate_uih`` are not ported.
+as in the JAX package. ``STUStack`` runs a range of its layers, so that
+the transducer can truncate the history between two ranges
+(``truncate_uih``). The KV-cached decode (``cached_forward``) is not
+ported.
 """
 
 from typing import Any, Dict, Optional
@@ -131,10 +133,48 @@ class STUStack(nn.Module):
         for layer in self.layers:
             layer.contextual_seq_len = n
 
-    def forward(self, x, lengths, num_targets=None, scaling_seqlen: int = -1):
-        for layer in self.layers:
+    def forward(self, x, lengths, num_targets=None, scaling_seqlen: int = -1,
+                start: int = 0, end: Optional[int] = None):
+        """Layers ``start`` to ``end`` (exclusive; None: the last)."""
+        for layer in self.layers[start:end]:
             x = layer(x, lengths, num_targets, scaling_seqlen)
         return x
+
+
+def truncate_uih(
+    x: torch.Tensor,  # [B, N, E] = [ctx | uih | targets | pad]
+    lengths: torch.Tensor,  # [B] valid tokens, ctx and targets included
+    num_targets: Optional[torch.Tensor],  # [B]
+    tail_len: int,
+    n_ctx: int,
+    max_targets: int,
+):
+    """Attention truncation: keep the contextual prefix, the last
+    ``tail_len`` history tokens and the targets, repacked contiguously
+    into a width of min(N, n_ctx + tail_len + max_targets). Returns
+    (x', lengths', (source index, valid)); the same gather applies to any
+    tensor aligned with the tokens (the timestamps)."""
+    b, n, _ = x.shape
+    dev = x.device
+    t = (num_targets.to(torch.int32) if num_targets is not None
+         else torch.zeros(b, dtype=torch.int32, device=dev))
+    h_bound = lengths.to(torch.int32) - t  # ctx + uih
+    keep = torch.clamp(h_bound - n_ctx, min=0).clamp(max=tail_len)
+    n_new = min(n, n_ctx + tail_len + max_targets)
+    s = torch.arange(n_new, dtype=torch.int32, device=dev)[None, :]
+    rel = s - n_ctx
+    keep_b = keep[:, None]
+    rel2 = rel - keep_b
+    src = torch.where(
+        s < n_ctx, s.expand(b, n_new),
+        torch.where(rel < keep_b, h_bound[:, None] - keep_b + rel,
+                    torch.where(rel2 < t[:, None], h_bound[:, None] + rel2,
+                                torch.full_like(rel2, n))))
+    valid = src < n
+    safe = torch.clamp(src, max=n - 1).long()
+    x_new = torch.gather(x, 1, safe[..., None].expand(-1, -1, x.shape[2]))
+    x_new = x_new * valid[..., None].to(x.dtype)
+    return x_new, n_ctx + keep + t, (safe, valid)
 
 
 def stu_from_config(cfg: Dict[str, Any], generator: torch.Generator,

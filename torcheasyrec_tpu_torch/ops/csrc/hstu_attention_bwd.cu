@@ -614,10 +614,14 @@ cudaError_t launch_wgmma(Kernel kern, const Args& a) {
 }
 
 // dtype: 0 fp32, 1 bf16, 2 fp16
+// Head dim 16 (HSTU-Match's towers) runs on the fp32 kernel only: the
+// 16-bit kernels' tiles start at 32 columns (64-byte rows).
 template <int D, int V>
 cudaError_t launch_dv(int dtype, const Args& a) {
-  if (dtype == 1) return launch_wgmma<bf16, D, V>(hstu_bwd_bf16<D, V>, a);
-  if (dtype == 2) return launch_wgmma<__half, D, V>(hstu_bwd_f16<D, V>, a);
+  if constexpr (D >= 32 && V >= 32) {
+    if (dtype == 1) return launch_wgmma<bf16, D, V>(hstu_bwd_bf16<D, V>, a);
+    if (dtype == 2) return launch_wgmma<__half, D, V>(hstu_bwd_f16<D, V>, a);
+  }
   if (dtype != 0) return cudaErrorInvalidValue;
   auto kern = hstu_bwd_f32<D, V>;
   constexpr int smem_bytes = F32Smem<D, V>::BYTES;
@@ -636,6 +640,7 @@ cudaError_t launch_dv(int dtype, const Args& a) {
 template <int D>
 cudaError_t launch_d(int v_dim, int dtype, const Args& a) {
   switch (v_dim) {
+    case 16: return launch_dv<D, 16>(dtype, a);
     case 32: return launch_dv<D, 32>(dtype, a);
     case 64: return launch_dv<D, 64>(dtype, a);
     case 128: return launch_dv<D, 128>(dtype, a);
@@ -661,6 +666,7 @@ extern "C" int hstu_attention_bwd(
                     sla_k2},
          static_cast<cudaStream_t>(stream)};
   switch (d) {
+    case 16: return (int)launch_d<16>(v_dim, dtype, a);
     case 32: return (int)launch_d<32>(v_dim, dtype, a);
     case 64: return (int)launch_d<64>(v_dim, dtype, a);
     case 128: return (int)launch_d<128>(v_dim, dtype, a);

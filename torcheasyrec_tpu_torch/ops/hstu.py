@@ -26,11 +26,17 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from torcheasyrec_tpu_torch.modules.module import apply_dropout
+from torcheasyrec_tpu_torch.modules.module import (
+    apply_dropout,
+    dropout_keep_mask,
+)
 from torcheasyrec_tpu_torch.ops import Kernel, uses_cuda_kernel
 from torcheasyrec_tpu_torch.ops import cuda_build
 
+# head dims the kernels take: 16 (HSTU-Match's towers) on the fp32
+# kernels only, whose tiles have no width floor
 _KERNEL_HEAD_DIMS = (32, 64, 128)
+_F32_KERNEL_HEAD_DIMS = (16,) + _KERNEL_HEAD_DIMS
 # the kernels' dtype code (their C interface): fp32 on the CUDA cores,
 # bf16 and fp16 through wgmma
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -122,12 +128,34 @@ def hstu_mha(
     kernel: Kernel = Kernel.PALLAS,
     sla_k1: int = 0,
     sla_k2: int = 0,
+    dropout_keep: Optional[torch.Tensor] = None,  # bool [B, H, N, N]
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Pointwise-SiLU attention. Returns [B, N, H, V] in v's dtype."""
-    if dropout_pr > 0.0:
-        raise NotImplementedError("attention dropout (training) is not ported")
+    """Pointwise-SiLU attention. Returns [B, N, H, V] in v's dtype.
+
+    With ``dropout_pr`` > 0 the masked scores are dropped (the kept ones
+    scaled by 1 / (1 - p)) before the second product, on the plain path
+    only, as the JAX package runs it: on CUDA tensors the caller asks for
+    it with ``Kernel.PYTORCH`` (a kernel route raises ValueError). The
+    keep mask is ``dropout_keep``, else drawn from ``generator``; with
+    neither it raises ValueError. No config reaches this: the STU drops
+    its output, not the attention probabilities."""
     if scaling_seqlen == -1:
         scaling_seqlen = q.shape[1]
+    if dropout_pr > 0.0:
+        if q.is_cuda and uses_cuda_kernel(kernel):
+            raise ValueError(
+                "attention dropout has no kernel: pass kernel=Kernel.PYTORCH "
+                "to run it on the plain path")
+        if dropout_keep is None:
+            b, n, h, _ = q.shape
+            dropout_keep = dropout_keep_mask((b, h, n, n), dropout_pr,
+                                             q.device, generator)
+        return _torch_hstu_mha(
+            q, k, v, lengths, alpha, causal, num_targets, max_attn_len,
+            contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
+            sla_k1, sla_k2, dropout_pr, dropout_keep,
+        )
     if uses_cuda_kernel(kernel):
         lengths = lengths.to(torch.int32).contiguous()
         if num_targets is not None:
@@ -156,11 +184,13 @@ def hstu_mha(
 def _torch_hstu_mha(
     q, k, v, lengths, alpha, causal, num_targets, max_attn_len,
     contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
-    sla_k1=0, sla_k2=0,
+    sla_k1=0, sla_k2=0, dropout_pr=0.0, dropout_keep=None,
 ) -> torch.Tensor:
     """Plain version of the attention: materializes [B, H, N, N] scores.
     Counterpart of ``_jax_hstu_mha``; the scores are cast to v's dtype
-    before the second product, both products accumulate in fp32."""
+    before the second product, both products accumulate in fp32. With
+    ``dropout_keep`` (bool [B, H, N, N]) and ``dropout_pr`` > 0 the masked
+    scores are dropped as the JAX package drops them."""
     n = q.shape[1]
     qk = torch.einsum("bxhd,byhd->bhxy", q.float(), k.float()) * alpha
     attn = F.silu(qk) / scaling_seqlen
@@ -169,6 +199,8 @@ def _torch_hstu_mha(
         min_full_attn_seq_len, sla_k1=sla_k1, sla_k2=sla_k2,
     )
     attn = attn * mask[:, None].to(attn.dtype)
+    if dropout_pr > 0.0 and dropout_keep is not None:
+        attn = apply_dropout(attn, dropout_keep, dropout_pr)
     out = torch.einsum(
         "bhxy,byhv->bxhv", attn.to(v.dtype).float(), v.float()
     )
@@ -269,9 +301,11 @@ def check_kernel_inputs(q, k, v, lengths, num_targets) -> None:
             f"expected q, k [B, N, H, D] and v [B, N, H, V], got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if q.shape[3] not in _KERNEL_HEAD_DIMS or v.shape[3] not in _KERNEL_HEAD_DIMS:
+    dims = (_F32_KERNEL_HEAD_DIMS if q.dtype == torch.float32
+            else _KERNEL_HEAD_DIMS)
+    if q.shape[3] not in dims or v.shape[3] not in dims:
         raise ValueError(
-            f"head dims must be in {_KERNEL_HEAD_DIMS}, got D={q.shape[3]} "
+            f"head dims must be in {dims} for {q.dtype}, got D={q.shape[3]} "
             f"V={v.shape[3]}"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -22,7 +22,14 @@
   become ``weight`` and ``bias``;
 - the STU's ``uvqk_w`` [E, F] and ``output_w`` [H*ld, E] become
   ``uvqk_weight`` [F, E] and ``output_weight`` [E, H*ld], ``uvqk_b``
-  becomes ``uvqk_bias``;
+  becomes ``uvqk_bias``; the generative family's parameters keep their
+  JAX names: the preprocessors' (``content_encoder`` with ``enrich`` or
+  the ``uih``/``target`` MLPs, ``content_mlp`` and ``action_mlp`` with
+  ``l1``, ``sln``, ``l2``, ``ln`` or ``compress``, ``raw_w``, ``w_norm``
+  (an [in, out] LayerNorm), ``res1``, ``res_sln``, ``res2``, then
+  ``ctx_proj``, ``action``, ``target_action``, the UIH preprocessor's
+  ``proj``), ULTRA-HSTU's ``extra_stacks.<i>`` and HSTU-Match's
+  ``item_tower`` and ``user_out``;
 - ``tables`` ({table name: [rows, dim]}, canonical layout, as the JAX
   engine's ``extract_table`` gives them) become
   ``embedding_group.tables.<name>``; ``load_state_dict`` lays them into
