@@ -27,7 +27,9 @@ sparse optimizers and BF16/FP16 tables on DeepFM, part optimizers,
 train metrics and every eval metric on DBMTL); and the generative-
 recommendation family (hstu_synth's DLRM-HSTU at its published width,
 DLRM-HSTU with the content/action preprocessors, SLA and attention
-truncation, ULTRA-HSTU and HSTU-Match). Phases, one JSON line each:
+truncation, ULTRA-HSTU and HSTU-Match); and the rest of the ranking and
+multi-task zoo (xDeepFM, WuKong, PEPNet, DC2VR) on the synthetic Criteo
+data. Phases, one JSON line each:
 
 1. env: the card, CUDA and torch versions; every CUDA kernel of the
    paths is built from the sources here (one nvcc per source, in
@@ -241,6 +243,30 @@ truncation, ULTRA-HSTU and HSTU-Match). Phases, one JSON line each:
    loader, and kernels #1 and #2 at hstu_synth's shape in fp32 (device
    time per launch, the plain version's, the bound of this data's work
    at the fp32 peak, its bytes over each sample's real rows).
+
+11. train_zoo_rest: the rest of the ranking and multi-task zoo on the
+   criteo_synth data, four configs with assumed widths on the port's
+   criteo_synth header (no published config of these models is in the
+   repository, and none has a pinned label): xDeepFM (CIN 128-128-128 over
+   the fm group, deep 512-256-128 with batch norm), WuKong (three layers of
+   LCB 24 and FMB 24 over the 26 sparse features and 8 from the dense
+   MLP, PReLU in the final MLP, variational dropout), PEPNet (EPNet over
+   a domain group, PPNet towers 512-256-128 gated by priors, Pareto loss
+   weights) and DC2VR (a Dice bottom, MMoE of 4 experts, the cvr tower
+   intervened by the ctr tower within its task space). Each config first
+   3 fp32 steps on the card against the CPU from the same CPU-drawn
+   weights and batches, the variational-dropout noise given to both:
+   losses, predictions, dense gradients, and after the steps every
+   tensor of the state dict (batch-norm statistics and tables included)
+   and the row state, within 1e-4 of each tensor's CPU max. Then as the
+   zoo's configs: an epoch through ``train_and_evaluate`` from the
+   default seed's CPU-drawn weights (xDeepFM's cut to 8 steps: its CPU
+   epoch takes minutes), each AUC within 0.02 of a CPU run of the same
+   config from them, exactly one row write a step per written
+   packed group (two for xDeepFM), ``evaluate`` and ``predict_checkpoint``,
+   the resident step; xDeepFM's real step's row writes bit-equal to the
+   plain version; and ``feature_selection`` on WuKong's checkpoint: each
+   drop probability equal to sigmoid(logit_p) of the saved weights.
 
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
@@ -990,15 +1016,19 @@ def build_trainer(cfg, seed=SEED, device="cuda", **engine_options):
 
 def train_mode_outputs(model, batch):
     """(loss, predictions, {dense parameter: gradient}) of the train
-    step's own forward (lookup, assemble, predict, loss) in training mode,
-    without any update."""
+    step's own forward (lookup, assemble, variational dropout, predict,
+    loss) in training mode, without any update of the weights (the batch
+    norms' running statistics move, as in a step)."""
     eg = model.embedding_group
     model.train()
     with torch.no_grad():
         emb_out, _ = eg.lookup(batch)
-    preds = model.predict(eg.assemble(emb_out, batch, model.compute_dtype),
-                          batch)
-    total = model.total_loss(model.loss(preds, batch))
+    grouped, vd_losses = model.build_input(
+        eg.assemble(emb_out, batch, model.compute_dtype), batch)
+    preds = model.predict(grouped, batch)
+    losses = model.loss(preds, batch)
+    losses.update(vd_losses)
+    total = model.total_loss(losses)
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(total, params, allow_unused=True)
     return (total.detach(), {k: v.detach() for k, v in preds.items()},
@@ -2565,9 +2595,10 @@ ZOO_CONFIGS = ["wide_and_deep", "dlrm", "dcn_v2", "masknet", "mmoe", "ple",
                "rocket_launching", "dbmtl_jrc", "dssm"]
 # packed groups with tables past the dense lane, each one row write a
 # step; dssm's three tables (at most 2 000 rows) all take the dense lane
-ZOO_WRITTEN_GROUPS = {"wide_and_deep": 2, "dssm": 0}
+ZOO_WRITTEN_GROUPS = {"wide_and_deep": 2, "xdeepfm": 2, "dssm": 0}
 # one real step's writes held bit for bit against the plain version
-ZOO_CAPTURED = ("dlrm", "multi_tower_din")
+# (xdeepfm: train_zoo_rest's)
+ZOO_CAPTURED = ("dlrm", "multi_tower_din", "xdeepfm")
 # the same, at one step of a model built with the dense lane off: every
 # packed group then takes the row write (dssm: its two groups)
 ZOO_LANE_OFF = ("dssm",)
@@ -2694,15 +2725,18 @@ def lane_off_step(name, cfg, batch) -> dict:
     return {"launches": launches, "bit_equal": True, "calls": per_call}
 
 
-def zoo_edits(src, model_dir, paths) -> str:
-    """``edit_config_json`` for a zoo config: its model_dir, and where it
-    has a negative sampler, the sampler's item file."""
+def zoo_edits(src, model_dir, paths, num_steps=None) -> str:
+    """``edit_config_json`` for a zoo config: its model_dir, where it has
+    a negative sampler the sampler's item file, and ``num_steps`` where
+    the run is cut short of its epoch."""
     from torcheasyrec_tpu_torch.utils.config_util import load_pipeline_config
 
     edits = {"model_dir": model_dir}
     sampler = load_pipeline_config(src).data_config.WhichOneof("sampler")
     if sampler is not None:
         edits[f"data_config.{sampler}.input_path"] = paths["items"]
+    if num_steps:
+        edits["train_config.num_steps"] = num_steps
     return json.dumps(edits)
 
 
@@ -2717,21 +2751,23 @@ def cpu_init(src, path) -> str:
     return path
 
 
-def cpu_reference(name, src, paths, tmp, init, result, labels) -> dict:
+def cpu_reference(name, src, paths, tmp, init, result, metric_names,
+                  num_steps=None) -> dict:
     """The config trained on the CPU from the card run's initial weights
-    ``init``; each metric of the card's ``result`` must lie within
-    ZOO_CPU_BOUND of the CPU run's."""
+    ``init`` (for ``num_steps`` where the card run was cut to them); each
+    metric of the card's ``result`` must lie within ZOO_CPU_BOUND of the
+    CPU run's."""
     from torcheasyrec_tpu_torch import main as port_main
 
     t0 = time.perf_counter()
     cpu = port_main.train_and_evaluate(
         src, train_input_path=paths["train"], eval_input_path=paths["eval"],
         edit_config_json=zoo_edits(src, os.path.join(tmp, f"{name}_cpu"),
-                                   paths),
+                                   paths, num_steps),
         fine_tune_checkpoint=init, device="cpu")
     out = {"train_and_evaluate_cpu_s": time.perf_counter() - t0,
-           "bound": ZOO_CPU_BOUND}
-    for m in labels["metrics"]:
+           "cpu_steps": cpu["step"], "bound": ZOO_CPU_BOUND}
+    for m in metric_names:
         dist = result[m] - cpu[m]
         out[m] = {"card": result[m], "cpu": cpu[m], "card_minus_cpu": dist}
         if not abs(dist) <= ZOO_CPU_BOUND:
@@ -2742,10 +2778,16 @@ def cpu_reference(name, src, paths, tmp, init, result, labels) -> dict:
     return out
 
 
-def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
+def zoo_model(name, paths, pred_in, tmp, labels, src=None,
+              num_steps=None) -> dict:
     """One criteo_synth config through the entry points: an epoch of
-    ``train_and_evaluate``, ``evaluate`` and ``predict_checkpoint`` of its
-    checkpoint; then the step timed on a resident batch."""
+    ``train_and_evaluate`` (``num_steps`` where it is cut shorter),
+    ``evaluate`` and ``predict_checkpoint`` of its checkpoint; then the
+    step timed on a resident batch. ``src`` is the config file (the
+    repo's copy of the name by default). ``labels`` are its pinned labels;
+    a config without them (``labels`` {"metrics": [names]}) is held
+    against a CPU run from the same CPU-drawn weights, as those of
+    ``ZOO_CPU_REFERENCE`` are beside their labels."""
     import pyarrow.parquet as pq
 
     from torcheasyrec_tpu_torch import main as port_main
@@ -2755,15 +2797,17 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
     from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
 
     model_dir = os.path.join(tmp, name)
-    src = os.path.join(zoo_config_dir(), "criteo_synth", f"{name}.config")
+    src = src or os.path.join(zoo_config_dir(), "criteo_synth",
+                              f"{name}.config")
+    pinned = isinstance(labels["metrics"], dict)
     init = None
-    if name in ZOO_CPU_REFERENCE:
+    if name in ZOO_CPU_REFERENCE or not pinned:
         init = cpu_init(src, os.path.join(tmp, f"{name}_init.pt"))
     write_rows.launches = 0
     t0 = time.perf_counter()
     result = port_main.train_and_evaluate(
         src, train_input_path=paths["train"], eval_input_path=paths["eval"],
-        edit_config_json=zoo_edits(src, model_dir, paths),
+        edit_config_json=zoo_edits(src, model_dir, paths, num_steps),
         fine_tune_checkpoint=init, device="cuda")
     torch.cuda.synchronize()
     train_eval_s = time.perf_counter() - t0
@@ -2771,7 +2815,7 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
     cfg_path = os.path.join(model_dir, "pipeline.config")
     cfg = parse_pipeline_config(open(cfg_path).read())
     batch_size = cfg.data_config.batch_size
-    steps = ZOO_TRAIN_ROWS // batch_size
+    steps = num_steps or ZOO_TRAIN_ROWS // batch_size
     if result["step"] != steps:
         raise AssertionError(f"{name}: {result['step']} steps, not {steps}")
     if not all(np.isfinite(v) for v in result.values()):
@@ -2779,7 +2823,11 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
 
     # the pinned labels, from the JAX package's run on a TPU
     metrics = {}
-    for m, spec in labels["metrics"].items():
+    for m in ([] if pinned else labels["metrics"]):
+        if m not in result:
+            raise AssertionError(f"{name}: no metric {m} in {result}")
+        metrics[m] = {"value": result[m]}
+    for m, spec in (labels["metrics"].items() if pinned else ()):
         if m not in result:
             raise AssertionError(f"{name}: no metric {m} in {result}")
         dist = result[m] - spec["value"]
@@ -2839,7 +2887,8 @@ def zoo_model(name, paths, pred_in, tmp, labels) -> dict:
 
     cpu_ref = None
     if init is not None:
-        cpu_ref = cpu_reference(name, src, paths, tmp, init, result, labels)
+        cpu_ref = cpu_reference(name, src, paths, tmp, init, result,
+                                list(labels["metrics"]), num_steps)
 
     # the step on a resident batch: groups, timing, idle share, memory
     torch.cuda.synchronize()
@@ -4237,6 +4286,381 @@ def phase_train_gr():
     return launches, out["kernel_timing"]
 
 
+# --- train_zoo_rest: the rest of the ranking and multi-task zoo ------------
+# xDeepFM, WuKong, PEPNet and DC2VR. No published config of these models is
+# in the repository and none has a pinned label: each config takes the
+# port's criteo_synth header (deepfm.config: 26 id features at dim 16 with
+# the published buckets capped at 100 000, 13 raw features, batch 4096,
+# BF16, rowwise adagrad lr 0.01, adam lr 0.001, one epoch) and assumed
+# layer widths, and its AUCs are held against a CPU run of the same config
+# from the same CPU-drawn weights (ZOO_CPU_BOUND).
+ZOO_REST = ("xdeepfm", "wukong", "pepnet", "dc2vr")
+ZOO_REST_METRICS = {"xdeepfm": ("auc", "grouped_auc_cat_10"),
+                    "wukong": ("auc", "grouped_auc_cat_10"),
+                    "pepnet": ("auc_ctr", "auc_cvr"),
+                    "dc2vr": ("auc_ctr", "auc_cvr")}
+# a config whose epoch on the card's host CPU takes much longer than a
+# minute has its card run and its CPU reference both cut to these steps:
+# xDeepFM's BF16 CIN took 263.5 s for 64 steps and the eval there, about
+# 3.8 s a step (NVIDIA H100 80GB HBM3 host, 700.00 W card; PERF.md §6)
+ZOO_REST_STEPS = {"xdeepfm": 8}
+ZOO_REST_CHECK_STEPS = 3  # fp32 steps on the card against the CPU
+ZOO_REST_CARD_TOL = 1e-4  # max abs error over the CPU's max abs, per tensor
+# a linear's bias before a batch norm has a gradient of 0 up to rounding
+ZOO_REST_ZERO_GRAD = 1e-5
+ZOO_CATS = [f"cat_{i}" for i in range(26)]
+ZOO_INTS = [f"int_{i}" for i in range(13)]
+
+
+def _feature_group(name, feats, kind="DEEP") -> str:
+    names = " ".join(f'feature_names: "{f}"' for f in feats)
+    return f'  feature_groups {{ group_name: "{name}" {names} group_type: ' \
+        f"{kind} }}\n"
+
+
+_REST_RANK_HEAD = ("  num_class: 1\n  losses { binary_cross_entropy {} }\n"
+                   "  metrics { auc {} }\n"
+                   '  metrics { grouped_auc { grouping_key: "cat_10" } }\n')
+_REST_TOWER = ('  task_towers {{ tower_name: "{name}" label_name: "{label}"'
+               " {extra}\n    losses {{ binary_cross_entropy {{}} }}"
+               " metrics {{ auc {{}} }} }}\n")
+
+
+def zoo_rest_model_config(name: str) -> str:
+    """The model_config block of a ZOO_REST config; the widths are
+    assumed (no published config of these models is in the repo)."""
+    if name == "xdeepfm":
+        return (_feature_group("wide", ZOO_CATS, "WIDE")
+                + _feature_group("fm", ZOO_CATS)
+                + _feature_group("deep", ZOO_CATS + ZOO_INTS)
+                + "  xdeepfm {\n    cin { cin_layer_size: [128, 128, 128] }\n"
+                "    deep { hidden_units: [512, 256, 128] use_bn: true }\n"
+                "    final { hidden_units: [128, 64] }\n"
+                "    wide_embedding_dim: 4\n  }\n" + _REST_RANK_HEAD)
+    if name == "wukong":
+        layer = ("    wukong_layers { lcb_feature_num: 24 fmb_feature_num: 24"
+                 " compressed_feature_num: 16\n"
+                 "      feature_num_mlp { hidden_units: [512, 512] } }\n")
+        return (_feature_group("sparse", ZOO_CATS)
+                + _feature_group("dense", ZOO_INTS)
+                + "  wukong {\n    dense_mlp { hidden_units: [512, 128] }\n"
+                + layer * 3
+                + '    final { hidden_units: [512, 256] activation: "nn.PReLU"'
+                " }\n  }\n" + _REST_RANK_HEAD
+                + "  variational_dropout { regularization_lambda: 0.01 }\n")
+    if name == "pepnet":
+        return (_feature_group("all", ZOO_CATS + ZOO_INTS)
+                + _feature_group("domain", ["cat_5", "cat_16"])
+                + _feature_group("ppnet", ["cat_0", "cat_9"])
+                + "  pepnet {\n    epnet_hidden_unit: 512\n"
+                "    ppnet_hidden_units: [512, 256, 128]\n"
+                + _REST_TOWER.format(name="ctr", label="label", extra="")
+                + _REST_TOWER.format(name="cvr", label="conversion",
+                                     extra="")
+                + "  }\n  use_pareto_loss_weight: true\n")
+    if name == "dc2vr":
+        return (_feature_group("all", ZOO_CATS + ZOO_INTS)
+                + "  dc2vr {\n"
+                '    bottom_mlp { hidden_units: [512] activation: "nn.Dice" }\n'
+                "    expert_mlp { hidden_units: [256, 128] }\n"
+                "    num_expert: 4\n"
+                + _REST_TOWER.format(name="ctr", label="label", extra=(
+                    "mlp { hidden_units: [64] } low_rank_dim: 32"))
+                + _REST_TOWER.format(name="cvr", label="conversion", extra=(
+                    'mlp { hidden_units: [64] } intervention_tower_names: '
+                    '"ctr" low_rank_dim: 32 task_space_indicator_label: '
+                    '"label" out_task_space_weight: 0.1'))
+                + "  }\n")
+    raise KeyError(name)
+
+
+def zoo_rest_text(name: str, paths, model_dir: str, fp32: bool = False
+                  ) -> str:
+    """A ZOO_REST config: deepfm.config's header (both labels) with its
+    paths and the model's block. ``fp32``: fp32 compute, adam's and
+    rowwise adagrad's eps 1e-4 and every dropout ratio 0, for the
+    card-against-CPU steps: both optimizers divide a gradient by its own
+    size, so where it is at rounding level (a bias before a batch norm)
+    or nearly cancels (a row's sum over its duplicates, which the card
+    adds in another order) the default eps turns the rounding into an
+    lr-sized step of either sign (ROADMAP §3)."""
+    text = criteo_text("deepfm", model_dir, paths)
+    head = text[:text.index("model_config {")].replace(
+        '  label_fields: "label"\n',
+        '  label_fields: "label"\n  label_fields: "conversion"\n')
+    text = head + "model_config {\n" + zoo_rest_model_config(name) + "}\n"
+    if fp32:
+        for old, new in (('mixed_precision: "BF16"', ""),
+                         ("adam_optimizer { lr: 0.001 }",
+                          "adam_optimizer { lr: 0.001 eps: 1e-4 }"),
+                         ("rowwise_adagrad_optimizer { lr: 0.01 }",
+                          "rowwise_adagrad_optimizer { lr: 0.01 eps: 1e-4 }"),
+                         ("low_rank_dim: 32", "low_rank_dim: 32 "
+                          "dropout_ratio: 0.0")):
+            if old in text:
+                text = text.replace(old, new)
+    return text
+
+
+class GateReplay:
+    """The card's ReLU and PReLU gates (x > 0, x >= 0), recorded in call
+    order and replayed on the CPU. Two right fp32 runs of one model can
+    round a pre-activation within an ulp of 0 to opposite sides: one
+    sample's backward then takes another branch, and rowwise adagrad turns
+    that sample's rows into steps of either sign (at batch 4096 about one
+    such sample a forward; measured on the CPU against fp64: one sample of
+    4096 off, by 1.8e-2 of the input gradient's max, every other within
+    3.5e-7). Replaying the card's branch makes both runs compute one
+    smooth function, held at the bound; every gate where the CPU would
+    have branched otherwise is counted, and its pre-activation must lie
+    within ``tol`` of the tensor's max abs of 0."""
+
+    def __init__(self, tol: float) -> None:
+        self.tol, self.masks, self.record = tol, [], True
+        self.at, self.flips, self.worst_flip = 0, 0, 0.0
+
+    def start(self, record: bool) -> None:
+        self.record, self.at = record, 0
+        if record:
+            self.masks = []
+
+    def done(self) -> None:
+        if not self.record and self.at != len(self.masks):
+            raise AssertionError(f"{self.at} gates on the CPU, "
+                                 f"{len(self.masks)} on the card")
+
+    def gate(self, x: torch.Tensor, own: torch.Tensor) -> torch.Tensor:
+        if self.record:
+            self.masks.append(own)
+            return own
+        mask = self.masks[self.at].to(own.device)
+        self.at += 1
+        differ = mask != own
+        if bool(differ.any()):
+            self.flips += int(differ.sum())
+            share = float(x.detach()[differ].abs().max()) / max(
+                float(x.detach().abs().max()), 1e-30)
+            self.worst_flip = max(self.worst_flip, share)
+            if share > self.tol:
+                raise AssertionError(f"a gate flips at {share:.3g} of its "
+                                     "input's max: not a rounding tie")
+        return mask
+
+    def relu(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.gate(x, x > 0), x, x.new_zeros(()))
+
+
+def replay_gates(models, replay: GateReplay):
+    """Routes every ReLU (``torch.relu``, ``F.relu``, the MLPs' and
+    PPNets' activation functions) and PReLU of ``models`` through
+    ``replay``; returns the function that undoes it."""
+    import torch.nn.functional as F
+
+    from torcheasyrec_tpu_torch.modules import activation
+
+    relu, f_relu = torch.relu, F.relu
+    prelu_forward = activation.PReLU.forward
+    swapped = [m for model in models for m in model.modules()
+               if getattr(m, "act", None) is f_relu]
+    for m in swapped:
+        m.act = replay.relu
+    torch.relu = F.relu = replay.relu
+    activation.PReLU.forward = lambda mod, x: torch.where(
+        replay.gate(x, x >= 0), x, mod.alpha * x).to(x.dtype)
+
+    def undo() -> None:
+        torch.relu, F.relu = relu, f_relu
+        activation.PReLU.forward = prelu_forward
+        for m in swapped:
+            m.act = f_relu
+
+    return undo
+
+
+def zoo_rest_card_vs_cpu(name, text, train_path) -> dict:
+    """ZOO_REST_CHECK_STEPS fp32 train steps on the card and on the CPU
+    from the same CPU-drawn weights and batches, the variational-dropout
+    noise drawn once on the CPU and given to both and the card's ReLU and
+    PReLU branches replayed on the CPU (``GateReplay``): before each step
+    the training-mode loss, every prediction and dense gradient within
+    ZOO_REST_CARD_TOL of the CPU's max abs (a gradient at rounding level
+    on the CPU, below ZOO_REST_ZERO_GRAD of the largest, must be so on the
+    card); each step's losses; after the steps every tensor of the state
+    dict (dense parameters, batch-norm statistics, the tables) and the
+    row state of every table."""
+    from torcheasyrec_tpu_torch.modules.variational_dropout import (
+        draw_noise,
+    )
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(text)
+    cpu_model, features, _, cpu_state, cpu_step = build_trainer(
+        cfg, device="cpu")
+    card_model, _, _, card_state, card_step = build_trainer(cfg)
+    card_model.load_state_dict(cpu_model.state_dict())
+    batches = parquet_batches(train_path, features, ZOO_REST_CHECK_STEPS,
+                              cfg.data_config.batch_size)
+    cmp = CpuComparison(name, ZOO_REST_CARD_TOL, ZOO_REST_ZERO_GRAD)
+    noise_gen = torch.Generator().manual_seed(SEED)
+    vds = cpu_model.variational_dropout or {}
+    replay = GateReplay(ZOO_REST_CARD_TOL)
+    undo = replay_gates((cpu_model, card_model), replay)
+
+    def paired(card_fn, cpu_fn):
+        replay.start(record=True)
+        got = card_fn()
+        replay.start(record=False)
+        ref = cpu_fn()
+        replay.done()
+        return ref, got
+
+    try:
+        for i, batch in enumerate(batches):
+            noise = {g: draw_noise(vd.n, noise_gen) for g, vd in vds.items()}
+            cpu_model.vd_noise = noise
+            card_model.vd_noise = {g: u.cuda() for g, u in noise.items()}
+            card_batch = batch.to("cuda")
+            (ref_loss, ref_preds, ref_grads), (loss, preds, grads) = paired(
+                lambda: train_mode_outputs(card_model, card_batch),
+                lambda: train_mode_outputs(cpu_model, batch))
+            cmp.compare("loss", ref_loss, loss)
+            for k in ref_preds:
+                cmp.compare(k, ref_preds[k], preds[k])
+            cmp.compare_grads(ref_grads, grads)
+            (cpu_state, cpu_m), (card_state, card_m) = paired(
+                lambda: card_step(card_state, card_batch),
+                lambda: cpu_step(cpu_state, batch))
+            for k in cpu_m:
+                cmp.compare(f"step {i + 1} {k}", torch.as_tensor(cpu_m[k]),
+                            torch.as_tensor(card_m[k]))
+    finally:
+        undo()
+    ref_sd, sd = cpu_model.state_dict(), card_model.state_dict()
+    if set(ref_sd) != set(sd):
+        raise AssertionError(f"{name}: state dicts differ in their keys")
+    for k in ref_sd:
+        cmp.compare(f"state:{k}", ref_sd[k], sd[k])
+    eng, card_eng = (cpu_model.embedding_group.engine,
+                     card_model.embedding_group.engine)
+    cpu_tables = cpu_model.embedding_group.engine_tables()
+    card_tables = card_model.embedding_group.engine_tables()
+    for t in cpu_model.embedding_group.tables:
+        ref = eng.extract_table_state(cpu_tables, cpu_state["sparse_opt"], t)
+        got = card_eng.extract_table_state(card_tables,
+                                           card_state["sparse_opt"], t)
+        for k in ref:
+            cmp.compare(f"row_state:{t}.{k}", ref[k], got[k])
+    stats = [k for k in ref_sd if k.endswith((".bn.mean", ".bn.var"))]
+    errs = cmp.errs
+    out = {"model": type(card_model).__name__, "steps": ZOO_REST_CHECK_STEPS,
+           "batch": cfg.data_config.batch_size, "compared": len(errs),
+           "max_rel_err": max(errs.values()),
+           "max_rel_err_by_kind": {
+               kind: max((v for k, v in errs.items() if k.startswith(kind)),
+                         default=None)
+               for kind in ("grad:", "state:", "row_state:", "step ")},
+           "max_rel_err_bn_statistics": max(
+               (errs[f"state:{k}"] for k in stats), default=None),
+           "bn_statistics": len(stats), "zero_gradients": sorted(cmp.zero),
+           "variational_dropout_groups": sorted(vds),
+           "gates_replayed_per_forward": len(replay.masks),
+           "gate_ties_flipped": replay.flips,
+           "worst_flip_share_of_max": replay.worst_flip,
+           "tol": ZOO_REST_CARD_TOL}
+    del cpu_model, card_model, cpu_state, card_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_rest_feature_selection(model_dir) -> dict:
+    """``feature_selection`` on a checkpointed model with variational
+    dropout: every feature's drop probability it reports (1 - its keep
+    probability) must equal sigmoid(logit_p) of the saved weights."""
+    from torcheasyrec_tpu_torch.tools.feature_selection import (
+        select_features,
+    )
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+
+    cfg_path = os.path.join(model_dir, "pipeline.config")
+    ranked = select_features(cfg_path, topk=1000, device="cuda")
+    ckpt = torch.load(checkpoint_util.latest_checkpoint(model_dir),
+                      map_location="cpu", weights_only=True)["model"]
+    want = {}
+    for key in ("sparse", "dense"):
+        p = torch.sigmoid(ckpt[f"variational_dropout.{key}.logit_p"])
+        names = ZOO_CATS if key == "sparse" else ZOO_INTS
+        want.update(zip(names, p.tolist()))
+    drop = {k: 1.0 - v for k, v in ranked.items()}
+    if set(drop) != set(want):
+        raise AssertionError(f"feature_selection named {sorted(drop)}")
+    err = max(abs(drop[k] - want[k]) for k in want)
+    if not err <= 1e-6:
+        raise AssertionError(f"feature_selection's drop probabilities are "
+                             f"{err:.3g} from sigmoid(logit_p)")
+    order = list(ranked)
+    return {"features": len(ranked), "max_abs_err": err,
+            "most_kept": order[:3], "least_kept": order[-3:],
+            "drop_probability_range": [min(drop.values()),
+                                       max(drop.values())]}
+
+
+def phase_train_zoo_rest():
+    """ZOO_REST on the card: each config fp32 against the CPU over
+    ZOO_REST_CHECK_STEPS steps, then through the entry points as the zoo's
+    (``zoo_model``: an epoch with the row writes counted, the AUCs against
+    a CPU run from the same weights, ``evaluate``, ``predict_checkpoint``,
+    the resident step), xDeepFM's row writes at a real step against the
+    plain version, and ``feature_selection`` on WuKong's checkpoint;
+    returns the row-write launches of the epochs."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
+    out = {"phase": "train_zoo_rest", "models": {}, "card_vs_cpu": {}}
+    seconds, launches = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = synthetic.ensure_dataset(tmp, ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
+        pred_in = os.path.join(tmp, "predict_in.parquet")
+        pq.write_table(pq.read_table(paths["eval"]).slice(
+            0, ZOO_PREDICT_BATCHES * ZOO_BATCH), pred_in)
+        seconds["data"] = time.perf_counter() - t0
+        for name in ZOO_REST:
+            t0 = time.perf_counter()
+            before = write_rows.launches
+            out["card_vs_cpu"][name] = zoo_rest_card_vs_cpu(
+                name, zoo_rest_text(name, paths, os.path.join(
+                    tmp, f"{name}_check"), fp32=True), paths["train"])
+            out["card_vs_cpu"][name]["row_write_launches"] = (
+                write_rows.launches - before)
+            seconds[f"{name}_card_vs_cpu"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            src = os.path.join(tmp, f"{name}.config")
+            with open(src, "w") as f:
+                f.write(zoo_rest_text(name, paths, os.path.join(tmp, name)))
+            res = zoo_model(name, paths, pred_in, tmp,
+                            {"metrics": list(ZOO_REST_METRICS[name])}, src,
+                            ZOO_REST_STEPS.get(name))
+            launches += res["row_write_launches"]
+            if name == "wukong":
+                res["feature_selection"] = zoo_rest_feature_selection(
+                    os.path.join(tmp, name))
+            seconds[name] = time.perf_counter() - t0
+            out["models"][name] = res
+            emit({"phase": "train_zoo_rest_model", "model": name,
+                  "card_vs_cpu": out["card_vs_cpu"][name], **res})
+    out["seconds"] = seconds
+    out["row_write_launches"] = launches
+    emit({"phase": "train_zoo_rest", "seconds": seconds,
+          "row_write_launches": launches,
+          "card_vs_cpu": {n: {k: r[k] for k in ("max_rel_err", "compared")}
+                          for n, r in out["card_vs_cpu"].items()},
+          "models": {n: {k: r[k] for k in ZOO_SUMMARY + ("cpu_reference",)}
+                     for n, r in out["models"].items()}})
+    return launches
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4283,6 +4707,7 @@ def main() -> int:
     (fp16_fwd_launches, fp16_bwd_launches), (fwd16, bwd16), options_writes = (
         timed("train_options", phase_train_options))
     gr_launches, gr_timing = timed("train_gr", phase_train_gr)
+    zoo_rest_launches = timed("train_zoo_rest", phase_train_zoo_rest)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -4345,7 +4770,7 @@ def main() -> int:
         kernel_row("row_write", "row_write.py:35",
                    deepfm_launches + loader_launches + zoo_launches
                    + lane_off_launches + options_writes
-                   + gr_launches["row_write"],
+                   + gr_launches["row_write"] + zoo_rest_launches,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -4354,7 +4779,8 @@ def main() -> int:
                        "train_zoo": zoo_launches,
                        "train_zoo_dssm_dense_lane_off": lane_off_launches,
                        "train_options": options_writes,
-                       "train_gr": gr_launches["row_write"]}),
+                       "train_gr": gr_launches["row_write"],
+                       "train_zoo_rest": zoo_rest_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

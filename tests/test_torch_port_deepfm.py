@@ -200,8 +200,30 @@ def test_rank_model_heads_and_weighted_losses_match_jax(head):
         'deep { hidden_units: [32, 16] activation: "nn.Dice" }'), "Dice"),
 ])
 def test_unported_rank_options_raise(text, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _port_model(text)
+    """Variational dropout, MLP batch norm and Dice are ported now
+    (tests/test_torch_port_zoo_rest.py holds them against the JAX
+    package): each case's config builds with its module. Options still
+    unported raise NotImplementedError: host-offloaded tables, vocab files
+    and fg_mode FG_NORMAL, one a case."""
+    _, model, _, _ = _port_model(text)
+    if match == "variational_dropout":
+        assert sorted(model.variational_dropout) == ["deep", "fm", "wide"]
+    elif match == "batch norm":
+        assert all(layer.bn is not None for layer in model.deep_mlp.layers)
+    else:
+        assert all(type(layer.act).__name__ == "Dice"
+                   for layer in model.deep_mlp.layers)
+    still, still_match = {
+        "variational_dropout": (deepfm_config_text(
+            feature_extra='embedding_constraints { sharding_types: '
+            '"host_offload" } '), "host_offload"),
+        "batch norm": (deepfm_config_text(
+            feature_extra='vocab_file: "vocab.txt" '), "vocab_file"),
+        "Dice": (deepfm_config_text().replace(
+            "fg_mode: FG_NONE", "fg_mode: FG_NORMAL"), "FG_NONE"),
+    }[match]
+    with pytest.raises(NotImplementedError, match=still_match):
+        _port_model(still)
 
 
 def test_dense_feature_in_wide_group_raises():

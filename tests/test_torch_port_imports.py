@@ -44,7 +44,11 @@ for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "models.rocket_launching", "datasets.sampler",
              "models.match_model", "models.dssm", "models.dat",
              "modules.capsule", "models.mind", "modules.gr.preprocessors",
-             "models.ultra_hstu", "models.hstu_match"):
+             "models.ultra_hstu", "models.hstu_match",
+             "modules.variational_dropout", "modules.personalized_net",
+             "modules.intervention", "losses.pe_mtl_loss", "models.xdeepfm",
+             "models.wukong", "models.pepnet", "models.dc2vr",
+             "tools.feature_selection"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -94,6 +98,12 @@ DEEPFM_SLICE_MODULES = [
     # the generative-recommendation family
     "modules.gr.preprocessors", "modules.gr.stu", "modules.gr.hstu_transducer",
     "models.ultra_hstu", "models.hstu_match",
+    # the rest of the ranking and multi-task zoo
+    "modules.activation", "modules.mlp", "modules.module",
+    "modules.variational_dropout", "modules.personalized_net",
+    "modules.intervention", "losses.pe_mtl_loss", "models.xdeepfm",
+    "models.wukong", "models.pepnet", "models.dc2vr", "models.model",
+    "tools.feature_selection",
 ]
 
 

@@ -267,7 +267,10 @@ def test_unported_training_options_raise():
     """Accumulation and the grad scaler are ported now
     (test_torch_port_train_options.py holds them against the JAX
     package): the steps build, and a scaler outside FP16 is ignored, as
-    in the JAX package. Variational dropout still raises."""
+    in the JAX package. So does variational dropout (held against the JAX
+    package in tests/test_torch_port_zoo_rest.py): DLRM-HSTU's one
+    non-sequence group has a single feature, so it gates nothing, as in
+    the JAX package. fg_mode FG_NORMAL still raises."""
     text = hstu_synth_train_config_text(BATCH)
     model, _, tx, _, _ = _port_trainer(text)
     sched = {"fn": lambda *a: 1.0, "by_epoch": False}
@@ -275,9 +278,12 @@ def test_unported_training_options_raise():
     port_main.make_train_step(model, tx, sched, sched,
                               grad_scaler_cfg=object())
     assert "scaler" not in port_main._init_state(model, tx, 1, object())
-    with pytest.raises(NotImplementedError, match="variational_dropout"):
-        _port_trainer(text.replace(
-            "model_config {", "model_config {\n  variational_dropout {}", 1))
+    vd_model = _port_trainer(text.replace(
+        "model_config {", "model_config {\n  variational_dropout {}", 1))[0]
+    assert vd_model._base_model_config.HasField("variational_dropout")
+    assert not vd_model.variational_dropout
+    with pytest.raises(NotImplementedError, match="FG_NONE"):
+        _port_trainer(text.replace("fg_mode: FG_NONE", "fg_mode: FG_NORMAL"))
 
 
 def test_train_and_evaluate_checkpoint_round_trip(tmp_path):

@@ -516,10 +516,32 @@ def test_config_copy_equals_the_jax_original_but_its_paths(name):
      " losses { binary_cross_entropy {} } }\n", "task_space_indicator"),
 ])
 def test_unported_multi_task_options_raise(extra, match):
+    """Pareto loss weights and ``task_space_indicator_label`` are ported
+    now (tests/test_torch_port_zoo_rest.py holds them against the JAX
+    package): each case's config builds. Options still unported raise
+    NotImplementedError: a dense embedding (AutoDis) and a
+    host-offloaded table, one a case."""
     text = zoo_config_text("mmoe")
     if "pareto" in extra:
         text = text.replace("model_config {", "model_config {\n" + extra, 1)
     else:
         text = text.replace("    num_expert: 3\n", "    num_expert: 3\n" + extra)
-    with pytest.raises(NotImplementedError, match=match):
-        _port_model(text)
+    _, model, _, _ = _port_model(text)
+    if match == "Pareto":
+        assert model._use_pareto
+    else:
+        assert [t.tower_name for t in model._task_tower_cfgs
+                if t.task_space_indicator_label] == ["x"]
+    still, still_match = {
+        "Pareto": (zoo_config_text("mmoe").replace(
+            'raw_feature { feature_name: "int_0" }',
+            'raw_feature { feature_name: "int_0" autodis { num_channels: 3 }'
+            " }"), "dense embeddings"),
+        "task_space_indicator": (zoo_config_text("mmoe").replace(
+            'feature_name: "cat_0" ', 'feature_name: "cat_0" '
+            'embedding_constraints { sharding_types: "host_offload" } '),
+            "host_offload"),
+    }[match]
+    assert still != zoo_config_text("mmoe")
+    with pytest.raises(NotImplementedError, match=still_match):
+        _port_model(still)

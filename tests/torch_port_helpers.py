@@ -106,9 +106,11 @@ def jax_train_loss(jmodel, tables, jbatch, training: bool = True):
                          compute_dtype=jnp.float32)
         grouped, _ = jmodel.embedding_group.forward(
             tables, jbatch, dense["embedding_group"], ctx)
-        grouped, _ = jmodel.build_input(dense, grouped, jbatch, ctx)
+        grouped, vd_losses = jmodel.build_input(dense, grouped, jbatch, ctx)
         preds = jmodel.predict(dense, grouped, jbatch, ctx)
-        return jmodel.total_loss(jmodel.loss(preds, jbatch)), preds
+        losses = jmodel.loss(preds, jbatch)
+        losses.update(vd_losses)
+        return jmodel.total_loss(losses), preds
 
     return fn
 
@@ -122,9 +124,12 @@ def port_train_loss(model, batch, training: bool = True):
     model.zero_grad()
     with torch.no_grad():
         emb_out, _ = eg.lookup(batch)
-    preds = model.predict(eg.assemble(emb_out, batch, model.compute_dtype),
-                          batch)
-    total = model.total_loss(model.loss(preds, batch))
+    grouped, vd_losses = model.build_input(
+        eg.assemble(emb_out, batch, model.compute_dtype), batch)
+    preds = model.predict(grouped, batch)
+    losses = model.loss(preds, batch)
+    losses.update(vd_losses)
+    total = model.total_loss(losses)
     total.backward()
     return total.detach(), preds
 
@@ -593,8 +598,56 @@ ZOO_SEQ_MODELS = {
 }
 
 
+# the rest of the ranking and multi-task zoo, narrowed from the
+# criteo_synth-shaped configs of chip_smoke.py's train_zoo_rest phase;
+# dropout ratios 0 (the intervention's default is 0.1)
+_WUKONG_LAYER = ("wukong_layers {{ lcb_feature_num: {lcb} fmb_feature_num: 6"
+                 " compressed_feature_num: 3"
+                 " feature_num_mlp {{ hidden_units: [16] }} }}")
+ZOO_REST_MODELS = {
+    "xdeepfm": (
+        _group("wide", _CATS, "WIDE") + _group("fm", _CATS)
+        + _group("deep", _CATS + _INTS),
+        "xdeepfm { cin { cin_layer_size: [8, 6, 4] }"
+        " deep { hidden_units: [32, 16] use_bn: true }"
+        " final { hidden_units: [16, 8] } wide_embedding_dim: 4 }",
+        _RANK_HEAD),
+    # 6 sparse features and the dense MLP's 2: the first layer projects
+    # its residual to 10 features, the second keeps them
+    "wukong": (
+        _group("sparse", _CATS) + _group("dense", _INTS),
+        "wukong { dense_mlp { hidden_units: [16] } "
+        + _WUKONG_LAYER.format(lcb=4) + " " + _WUKONG_LAYER.format(lcb=4)
+        + ' final { hidden_units: [16, 8] activation: "nn.PReLU" } }',
+        _RANK_HEAD + "  variational_dropout { regularization_lambda: 0.01 }\n"),
+    "pepnet": (
+        _group("all", _CATS + _INTS) + _group("domain", ["cat_5", "cat_2"])
+        + _group("ppnet", ["cat_0", "cat_3"]),
+        "pepnet {\n    epnet_hidden_unit: 16\n"
+        "    ppnet_hidden_units: [16, 8]\n" + _tasks() + "}",
+        "  use_pareto_loss_weight: true\n"),
+    "dc2vr": (
+        _group("all", _CATS + _INTS),
+        "dc2vr {\n"
+        '    bottom_mlp { hidden_units: [32] activation: "nn.Dice" }\n'
+        "    expert_mlp { hidden_units: [16, 8] }\n    num_expert: 2\n"
+        '  task_towers { tower_name: "ctr" label_name: "label"\n'
+        "    mlp { hidden_units: [8] } low_rank_dim: 4 dropout_ratio: 0.0\n"
+        "    losses { binary_cross_entropy {} } metrics { auc {} } }\n"
+        '  task_towers { tower_name: "cvr" label_name: "conversion"\n'
+        '    mlp { hidden_units: [8] } intervention_tower_names: "ctr"\n'
+        "    low_rank_dim: 4 dropout_ratio: 0.0\n"
+        '    task_space_indicator_label: "label" out_task_space_weight: 0.1\n'
+        "    losses { binary_cross_entropy {} } metrics { auc {} } }\n"
+        "}", ""),
+}
+
+
 def _zoo_spec(model: str):
-    return ZOO_MODELS[model] if model in ZOO_MODELS else ZOO_SEQ_MODELS[model]
+    for specs in (ZOO_MODELS, ZOO_SEQ_MODELS, ZOO_REST_MODELS):
+        if model in specs:
+            return specs[model]
+    raise KeyError(model)
 
 
 def zoo_config_text(model: str, batch_size: int = 64,
@@ -646,7 +699,7 @@ def zoo_config_text(model: str, batch_size: int = 64,
 
 def zoo_table_names(model: str):
     names = [f"cat_{i}_emb" for i in range(len(ZOO_BUCKETS))]
-    if model == "wide_and_deep":
+    if model in ("wide_and_deep", "xdeepfm"):
         names += [f"{n}__wide" for n in names]
     if "click_seq" in _zoo_spec(model)[0]:
         names.append("item_emb")

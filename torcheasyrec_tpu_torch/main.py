@@ -180,7 +180,10 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
                     dense_sched, grad_accum_steps: int = 1,
                     grad_scaler_cfg=None):
     """train_step(state, batch) -> (state, metrics). One step: embedding
-    lookup; forward and loss in the model's compute dtype; gradients for
+    lookup; forward (the groups through ``build_input``'s variational
+    dropout, whose ``<group>_feature_p_loss`` terms join the losses; the
+    batch norms' running statistics move once) and loss in the model's
+    compute dtype; gradients for
     the dense parameters and for the looked-up embedding rows (never a
     dense table gradient); the fused sparse update of the touched rows
     with the sparse schedule's multiplier; the dense update (through
@@ -217,10 +220,12 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
             emb_out, residuals = eg.lookup(batch)
         keys = list(emb_out)
         leaves = [emb_out[k].requires_grad_(True) for k in keys]
-        grouped = eg.assemble(dict(zip(keys, leaves)), batch,
-                              model.compute_dtype)
+        grouped, vd_losses = model.build_input(
+            eg.assemble(dict(zip(keys, leaves)), batch, model.compute_dtype),
+            batch)
         preds = model.predict(grouped, batch)
         losses = model.loss(preds, batch)
+        losses.update(vd_losses)
         total = model.total_loss(losses)
         scale = state["scaler"]["scale"] if use_scaler else None
         grads = torch.autograd.grad(

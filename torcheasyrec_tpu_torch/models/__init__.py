@@ -3,6 +3,7 @@
 
 from torcheasyrec_tpu_torch.models.dat import DAT  # noqa: F401
 from torcheasyrec_tpu_torch.models.dbmtl import DBMTL  # noqa: F401
+from torcheasyrec_tpu_torch.models.dc2vr import DC2VR  # noqa: F401
 from torcheasyrec_tpu_torch.models.dcn import DCNV1, DCNV2  # noqa: F401
 from torcheasyrec_tpu_torch.models.deepfm import DeepFM  # noqa: F401
 from torcheasyrec_tpu_torch.models.dlrm import DLRM  # noqa: F401
@@ -15,6 +16,7 @@ from torcheasyrec_tpu_torch.models.mmoe import MMoE  # noqa: F401
 from torcheasyrec_tpu_torch.models.multi_task_rank import (  # noqa: F401
     SimpleMultiTask,
 )
+from torcheasyrec_tpu_torch.models.pepnet import PEPNet  # noqa: F401
 from torcheasyrec_tpu_torch.models.multi_tower import (  # noqa: F401
     MultiTower,
     MultiTowerDIN,
@@ -25,7 +27,12 @@ from torcheasyrec_tpu_torch.models.rocket_launching import (  # noqa: F401
 )
 from torcheasyrec_tpu_torch.models.ultra_hstu import UltraHSTU  # noqa: F401
 from torcheasyrec_tpu_torch.models.wide_and_deep import WideAndDeep  # noqa: F401
-from torcheasyrec_tpu_torch.models.model import BaseModel
+from torcheasyrec_tpu_torch.models.wukong import WuKong  # noqa: F401
+from torcheasyrec_tpu_torch.models.xdeepfm import XDeepFM
+from torcheasyrec_tpu_torch.models.model import _MODEL_CLASS_MAP, BaseModel
+
+# proto message names that differ from the class names
+_MODEL_CLASS_MAP["xDeepFM"] = XDeepFM
 
 
 def create_model(model_config, features, labels, sample_weights=None,

@@ -11,10 +11,16 @@ by the sparse optimizer. Eval metrics accumulate on the host
 metric reads its grouping column through ``_grouping_value``), and so do
 the train metrics (``init_train_metrics``: each config's metric in a
 ``TrainMetricWrapper``, fed from the train step's detached predictions).
-Variational dropout is not ported.
+With ``variational_dropout`` in the config, every non-sequence group of
+more than one feature (its encoders' outputs counted as features) gets a
+``VariationalDropout`` under ``variational_dropout.<group>``;
+``build_input`` gates the groups between the embedding group and
+``predict`` and gives the ``<group>_feature_p_loss`` terms the train
+step adds to the losses. Its noise comes from the model's generator, or
+from ``vd_noise`` ({group: u}) where that is set.
 """
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +29,9 @@ from torch import nn
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.features.feature import BaseFeature
 from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
+from torcheasyrec_tpu_torch.modules.variational_dropout import (
+    VariationalDropout,
+)
 from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 from torcheasyrec_tpu_torch.utils.load_class import get_register_class_meta
 
@@ -44,8 +53,6 @@ class BaseModel(nn.Module, metaclass=_meta):
         dense_lane_rows: int = 32768,
     ) -> None:
         super().__init__()
-        if model_config.HasField("variational_dropout"):
-            raise NotImplementedError("variational_dropout is not ported")
         self._base_model_config = model_config
         self._features = features
         self._labels = list(labels)
@@ -62,6 +69,9 @@ class BaseModel(nn.Module, metaclass=_meta):
         which = model_config.WhichOneof("model")
         self._model_config = getattr(model_config, which) if which else None
         self.embedding_group: Optional[EmbeddingGroup] = None
+        self.variational_dropout: Optional[nn.ModuleDict] = None
+        self.vd_feature_names: Dict[str, List[str]] = {}
+        self.vd_noise: Optional[Dict[str, torch.Tensor]] = None
 
     def _build_embedding_group(self, wide_embedding_dim=None,
                                wide_init_fn=None) -> None:
@@ -71,6 +81,49 @@ class BaseModel(nn.Module, metaclass=_meta):
             wide_embedding_dim=wide_embedding_dim, wide_init_fn=wide_init_fn,
             **self._engine_options,
         )
+        self._build_variational_dropout()
+
+    def _build_variational_dropout(self) -> None:
+        """One VariationalDropout per non-sequence group of more than one
+        feature, the group's encoders counted as features
+        (``<group>__encoder_<i>``), as the JAX ``BaseModel`` builds them."""
+        bc = self._base_model_config
+        if not bc.HasField("variational_dropout"):
+            return
+        cfg = bc.variational_dropout
+        eg = self.embedding_group
+        vds = {}
+        for g in eg.group_names():
+            names = [key.split(":")[1] if kind == "emb" else key
+                     for kind, key, _ in eg._group_slots[g]]
+            names += [f"{g}__encoder_{i}"
+                      for i in range(len(eg._encoders(g)))]
+            dims = eg.group_dims(g)
+            if len(dims) <= 1:
+                continue
+            vds[g] = VariationalDropout(
+                dims, regularization_lambda=cfg.regularization_lambda,
+                embedding_wise=cfg.embedding_wise_variational_dropout,
+                device=self._generator.device)
+            self.vd_feature_names[g] = names
+        self.variational_dropout = nn.ModuleDict(vds)
+
+    def build_input(self, grouped: Dict[str, torch.Tensor], batch: Batch
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Dict[str, torch.Tensor]]:
+        """(the groups gated by their variational dropout, the
+        ``<group>_feature_p_loss`` terms); the groups as they are and no
+        term without variational dropout."""
+        if not self.variational_dropout:
+            return grouped, {}
+        out, aux = dict(grouped), {}
+        noise = self.vd_noise or {}
+        for g, vd in self.variational_dropout.items():
+            if g not in grouped:
+                continue
+            out[g], aux[f"{g}_feature_p_loss"] = vd(
+                grouped[g], self.training, self._generator, noise.get(g))
+        return out, aux
 
     def _main_group(self) -> str:
         """The model's input group: "all" where the config has one, else
@@ -91,11 +144,15 @@ class BaseModel(nn.Module, metaclass=_meta):
         return sum(losses.values())
 
     def _reduce(self, per_sample: torch.Tensor, batch: Batch,
-                sample_weight_name: Optional[str] = None) -> torch.Tensor:
-        """Weighted mean of per-sample losses."""
+                sample_weight_name: Optional[str] = None,
+                extra_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Weighted mean of per-sample losses; ``extra_weight`` (the task
+        space's) multiplies the sample weight."""
         if per_sample.dim() == 0:
             return per_sample
         w = batch.sample_weights.get(sample_weight_name or "")
+        if extra_weight is not None:
+            w = extra_weight if w is None else w * extra_weight
         if w is None:
             return per_sample.mean()
         w = w.float()
@@ -149,6 +206,7 @@ class BaseModel(nn.Module, metaclass=_meta):
     def forward(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """Full forward for eval/predict."""
         grouped = self.embedding_group(batch, self.compute_dtype)
+        grouped, _ = self.build_input(grouped, batch)
         return self.predict(grouped, batch)
 
 

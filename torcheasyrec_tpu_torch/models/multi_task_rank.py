@@ -5,8 +5,14 @@ Counterpart of torcheasyrec_tpu/models/multi_task_rank.py. Each task
 tower has its label (``label_name``, else the label fields by order),
 losses, metrics, weight and sample weight. Per tower ``<t>``: outputs
 ``logits_<t>`` and ``probs_<t>``, losses ``<loss>_<t>`` (times the
-task's weight), metrics ``<metric>_<t>`` on ``probs_<t>``. Pareto loss
-weights and ``task_space_indicator_label`` raise NotImplementedError.
+task's weight), metrics ``<metric>_<t>`` on ``probs_<t>``. A tower's
+``task_space_indicator_label`` (a label, else a feature's first value
+through ``_grouping_value_dev``) weighs its samples by
+``in_task_space_weight`` where it is positive and
+``out_task_space_weight`` elsewhere; ``use_pareto_loss_weight`` scales
+the losses by their Pareto weights (``losses/pe_mtl_loss.py``) where
+there are two or more, with each tower's ``pareto_min_loss_weight`` as
+its losses' floor.
 """
 
 from typing import Any, Dict, List
@@ -16,11 +22,13 @@ from torch import nn
 
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.losses import create_loss_fn
+from torcheasyrec_tpu_torch.losses.pe_mtl_loss import apply_pareto_weights
 from torcheasyrec_tpu_torch.metrics import TrainMetricWrapper, create_metric
 from torcheasyrec_tpu_torch.models.model import _grouping_value
 from torcheasyrec_tpu_torch.models.rank_model import (
     SOFTMAX_LOSSES,
     RankModel,
+    _grouping_value_dev,
     loss_kwargs,
 )
 from torcheasyrec_tpu_torch.modules.mlp import mlp_from_config
@@ -33,15 +41,15 @@ class MultiTaskRank(RankModel):
                  **kwargs) -> None:
         super().__init__(model_config, features, labels, sample_weights,
                          **kwargs)
-        if model_config.use_pareto_loss_weight:
-            raise NotImplementedError("Pareto loss weights are not ported")
         self._task_tower_cfgs = list(self._model_config.task_towers)
+        self._use_pareto = bool(model_config.use_pareto_loss_weight)
+        self._pareto_floors = {
+            f"{c.WhichOneof('loss')}_{t.tower_name}":
+                float(t.pareto_min_loss_weight)
+            for t in self._task_tower_cfgs for c in t.losses
+            if c.WhichOneof("loss")}
         self._task_loss_fns: Dict[str, List[Dict[str, Any]]] = {}
         for t in self._task_tower_cfgs:
-            if t.task_space_indicator_label:
-                raise NotImplementedError(
-                    f"task tower {t.tower_name}: task_space_indicator_label "
-                    "is not ported")
             fns = [create_loss_fn(c) for c in t.losses]
             for lf in fns:
                 if lf["num_class"] > max(int(t.num_class or 1), 1):
@@ -100,10 +108,18 @@ class MultiTaskRank(RankModel):
             label = batch.labels[self._task_label(t, i)]
             task_w = float(t.weight)
             logits = predictions[f"logits_{t.tower_name}"]
+            extra_w = None
+            if t.task_space_indicator_label:
+                ind = (_grouping_value_dev(
+                    batch, t.task_space_indicator_label) > 0).float()
+                extra_w = (float(t.in_task_space_weight) * ind
+                           + float(t.out_task_space_weight) * (1.0 - ind))
             for lf in self._task_loss_fns[t.tower_name]:
                 losses[f"{lf['name']}_{t.tower_name}"] = task_w * self._reduce(
                     lf["fn"](logits, label, **loss_kwargs(lf, batch)), batch,
-                    t.sample_weight_name or None)
+                    getattr(t, "sample_weight_name", "") or None, extra_w)
+        if self._use_pareto and len(losses) > 1:
+            losses = apply_pareto_weights(losses, self._pareto_floors)
         return losses
 
     def init_metrics(self) -> List[Dict[str, Any]]:

@@ -1,8 +1,11 @@
-"""MLP stack: per layer Linear -> [LayerNorm] -> activation -> dropout.
+"""MLP stack: per layer Linear -> [BatchNorm] -> [LayerNorm] ->
+activation -> dropout.
 
-Counterpart of torcheasyrec_tpu/modules/mlp.py. Batch norm is not
-ported. Dropout is the identity in eval and draws its mask from the
-module's generator in training mode.
+Counterpart of torcheasyrec_tpu/modules/mlp.py. Per layer ``layers.<i>``
+holds ``linear``, ``bn`` (``use_bn``: ``module.BatchNorm``, its running
+statistics buffers), ``ln`` (``use_ln``) and ``act`` where the
+activation has parameters (Dice, PReLU). Dropout is the identity in eval
+and draws its mask from the module's generator in training mode.
 """
 
 from typing import Optional, Sequence
@@ -10,8 +13,13 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from torcheasyrec_tpu_torch.modules.activation import get_activation
+from torcheasyrec_tpu_torch.modules.activation import (
+    act_needs_params,
+    create_activation,
+    get_activation,
+)
 from torcheasyrec_tpu_torch.modules.module import (
+    BatchNorm,
     LayerNorm,
     dropout,
     linear,
@@ -21,10 +29,14 @@ from torcheasyrec_tpu_torch.modules.module import (
 
 class Perceptron(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, generator: torch.Generator,
-                 bias: bool, use_ln: bool) -> None:
+                 bias: bool, use_bn: bool, use_ln: bool,
+                 activation: str) -> None:
         super().__init__()
+        dev = generator.device
         self.linear = linear(in_dim, out_dim, generator, bias)
-        self.ln = LayerNorm(out_dim, generator.device) if use_ln else None
+        self.bn = BatchNorm(out_dim, dev) if use_bn else None
+        self.ln = LayerNorm(out_dim, dev) if use_ln else None
+        self.act = create_activation(activation, out_dim, dev)
 
 
 class MLP(nn.Module):
@@ -40,19 +52,19 @@ class MLP(nn.Module):
         bias: bool = True,
     ) -> None:
         super().__init__()
-        if use_bn:
-            raise NotImplementedError("MLP batch norm is not ported")
         self._generator = generator
         self.in_features = in_features
         self.hidden_units = list(hidden_units)
-        self.act = get_activation(activation)
+        self.act = (None if act_needs_params(activation)
+                    else get_activation(activation))
         dr = list(dropout_ratio or [])
         if len(dr) == 1 and len(self.hidden_units) > 1:
             dr = dr * len(self.hidden_units)
         self.dropout_ratio = dr + [0.0] * (len(self.hidden_units) - len(dr))
         dims = [in_features] + self.hidden_units
         self.layers = nn.ModuleList(
-            Perceptron(dims[i], dims[i + 1], generator, bias, use_ln)
+            Perceptron(dims[i], dims[i + 1], generator, bias, use_bn, use_ln,
+                       activation)
             for i in range(len(self.hidden_units))
         )
 
@@ -63,9 +75,11 @@ class MLP(nn.Module):
                 compute_dtype: torch.dtype) -> torch.Tensor:
         for layer, dr in zip(self.layers, self.dropout_ratio):
             x = linear_apply(layer.linear, x, compute_dtype)
+            if layer.bn is not None:
+                x = layer.bn(x)
             if layer.ln is not None:
                 x = layer.ln(x)
-            x = self.act(x)
+            x = self.act(x) if layer.act is None else layer.act(x)
             x = dropout(x, dr, self.training, self._generator)
         return x
 

@@ -1,4 +1,5 @@
-"""Linear, layer-norm and dropout semantics of the dense stack.
+"""Linear, layer-norm, batch-norm and dropout semantics of the dense
+stack.
 
 Counterpart of torcheasyrec_tpu/modules/module.py. Parameters live in
 fp32 ``nn.Module``s and are cast at use: ``linear_apply`` multiplies in
@@ -57,6 +58,40 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias,
                          self.eps)
         return y.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Batch norm over every leading axis, as the JAX package's
+    ``batch_norm_apply``: in training the biased batch statistics of the
+    input in fp32 normalise it, and the running ``mean`` and ``var``
+    (buffers, no optimizer sees them) move by ``momentum`` towards them,
+    the biased variance included, once per training forward; in eval the
+    running statistics normalise it. The result is cast back to the
+    input's dtype. A [B, L, D] input keeps [D] statistics (padded
+    positions included), unlike ``nn.BatchNorm1d``."""
+
+    def __init__(self, dim: int, device=None, momentum: float = 0.1,
+                 eps: float = 1e-5) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.register_buffer("mean", torch.zeros(dim, device=device))
+        self.register_buffer("var", torch.ones(dim, device=device))
+        self.momentum, self.eps = momentum, eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            var, mean = torch.var_mean(xf, dim=axes, correction=0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                self.var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
 
 
 def dropout_keep_mask(shape, p: float, device,

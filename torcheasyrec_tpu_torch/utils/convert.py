@@ -15,11 +15,19 @@
   ``item_tower`` (each ``mlp`` and ``output``), MIND's ``user_mlp``,
   ``hist_mlp``, ``concat_mlp`` and ``user_out``, and its capsule's
   ``bilinear`` [in, high] and ``routing_logits`` (not transposed);
-  ``layer_<i>`` (MLP layers, cross layers) becomes ``layers.<i>`` and
-  MaskNet's ``block_<i>`` becomes ``blocks.<i>``;
+  ``layer_<i>`` (MLP layers, cross layers, CIN layers) becomes
+  ``layers.<i>`` and MaskNet's ``block_<i>`` becomes ``blocks.<i>``;
+  WuKong's ``layers`` and PPNet's ``layers`` and ``gates`` are JAX lists
+  and keep ``layers.<i>`` (PEPNet's ``ppnets.<i>.layers.<j>``); DC2VR's
+  ``towers``, ``interventions`` and ``outputs`` are keyed by tower name;
 - linear ``kernel`` [in, out] becomes ``weight`` [out, in], LayerNorm
-  ``scale`` becomes ``weight``; a DCN v1 cross layer's ``w`` and ``b``
-  become ``weight`` and ``bias``;
+  and batch-norm ``scale`` becomes ``weight``; a DCN v1 cross layer's
+  ``w`` and ``b`` become ``weight`` and ``bias``; so does ``w`` of a CIN
+  layer (``cin.layer_<i>.w``), of WuKong's ``lcb`` and
+  ``residual_proj``, all [in, out] and not transposed; a batch norm's
+  ``mean`` and ``var`` (an MLP's ``bn``, Dice's ``act.bn``) are the
+  port's buffers of those names; PReLU's and Dice's ``act.alpha`` and
+  ``variational_dropout.<group>.logit_p`` keep their names;
 - the STU's ``uvqk_w`` [E, F] and ``output_w`` [H*ld, E] become
   ``uvqk_weight`` [F, E] and ``output_weight`` [E, H*ld], ``uvqk_b``
   becomes ``uvqk_bias``; the generative family's parameters keep their
@@ -61,7 +69,8 @@ import torch
 
 _TRANSPOSED = {"kernel": "weight", "uvqk_w": "uvqk_weight",
                "output_w": "output_weight"}
-# "w" and "b": the DCN v1 cross layers, the only parameters so named
+# "w" and "b": the DCN v1 cross layers; "w" also the CIN layers' and the
+# WuKong blocks' [in, out] maps
 _RENAMED = {"scale": "weight", "uvqk_b": "uvqk_bias", "w": "weight",
             "b": "bias"}
 
@@ -106,10 +115,18 @@ def from_jax_state(dense_params: Mapping[str, Any],
 _LEAF_TO_JAX = {
     "Linear": {"weight": "kernel"},
     "LayerNorm": {"weight": "scale"},
+    "BatchNorm": {"weight": "scale"},
     "CrossLayer": {"weight": "w", "bias": "b"},
+    "CINLayer": {"weight": "w"},
+    "LinearCompressBlock": {"weight": "w"},
     "STULayer": {"uvqk_weight": "uvqk_w", "uvqk_bias": "uvqk_b",
                  "output_weight": "output_w"},
 }
+
+
+# modules whose ``layers`` ModuleList is a JAX list ("layers/[i]"), not
+# the "layer_<i>" keys of an MLP, the cross layers or CIN
+_JAX_LIST_OWNERS = ("WuKong", "PPNet")
 
 
 def dense_param_paths(model: torch.nn.Module) -> Dict[str, str]:
@@ -117,20 +134,24 @@ def dense_param_paths(model: torch.nn.Module) -> Dict[str, str]:
     renames: ``deep_mlp.layers.0.linear.weight`` is
     ``deep_mlp/layer_0/linear/kernel``, an entry of any other
     ``ModuleList`` is ``[i]`` (``towers.1.layers.0...`` is
-    ``towers/[1]/layer_0/...``), a LayerNorm's ``weight`` is ``scale``."""
+    ``towers/[1]/layer_0/...``; WuKong's ``layers.0.lcb.weight`` is
+    ``layers/[0]/lcb/w``), a LayerNorm's ``weight`` is ``scale``. Buffers
+    (the batch norms' running statistics) are not parameters and have no
+    path."""
     out = {}
     for name, _ in model.named_parameters():
         parts = name.split(".")
-        mod, path = model, []
+        mod, owner, path = model, None, []
         for part in parts[:-1]:
             if isinstance(mod, torch.nn.ModuleList):
-                if path and path[-1] in ("layers", "blocks"):
+                if (path and path[-1] in ("layers", "blocks")
+                        and type(owner).__name__ not in _JAX_LIST_OWNERS):
                     path[-1] = f"{path[-1][:-1]}_{part}"
                 else:
                     path.append(f"[{part}]")
             else:
                 path.append(part)
-            mod = mod._modules[part]
+            owner, mod = mod, mod._modules[part]
         path.append(_LEAF_TO_JAX.get(type(mod).__name__, {}).get(
             parts[-1], parts[-1]))
         out[name] = "/".join(path)
@@ -160,7 +181,9 @@ def dense_opt_state_from_jax(mu: Mapping[str, Any], nu: Mapping[str, Any],
                              ) -> Dict[str, Any]:
     """optax adam moments (pytrees shaped like the dense params) and step
     count -> ``DenseOptimizer.load_state_dict`` input, with the moments
-    in the order of ``param_names`` (the model's parameter names)."""
+    in the order of ``param_names`` (the model's parameter names). The
+    moments the JAX package keeps for the batch norms' running
+    statistics, which are buffers here, are left out."""
     mu_sd, nu_sd = from_jax_state(mu, {}), from_jax_state(nu, {})
     return {
         "count": int(count),
