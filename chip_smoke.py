@@ -29,7 +29,7 @@ recommendation family (hstu_synth's DLRM-HSTU at its published width,
 DLRM-HSTU with the content/action preprocessors, SLA and attention
 truncation, ULTRA-HSTU and HSTU-Match); and the rest of the ranking and
 multi-task zoo (xDeepFM, WuKong, PEPNet, DC2VR) on the synthetic Criteo
-data. Phases, one JSON line each:
+data; and export and artifact serving. Phases, one JSON line each:
 
 1. env: the card, CUDA and torch versions; every CUDA kernel of the
    paths is built from the sources here (one nvcc per source, in
@@ -260,13 +260,35 @@ data. Phases, one JSON line each:
    tensor of the state dict (batch-norm statistics and tables included)
    and the row state, within 1e-4 of each tensor's CPU max. Then as the
    zoo's configs: an epoch through ``train_and_evaluate`` from the
-   default seed's CPU-drawn weights (xDeepFM's cut to 8 steps: its CPU
-   epoch takes minutes), each AUC within 0.02 of a CPU run of the same
+   default seed's CPU-drawn weights (xDeepFM's cut to 8 steps, its CPU
+   epoch taking minutes; WuKong's and PEPNet's to 32), each AUC within 0.02 of a CPU run of the same
    config from them, exactly one row write a step per written
    packed group (two for xDeepFM), ``evaluate`` and ``predict_checkpoint``,
    the resident step; xDeepFM's real step's row writes bit-equal to the
    plain version; and ``feature_selection`` on WuKong's checkpoint: each
    drop probability equal to sigmoid(logit_p) of the saved weights.
+
+12. export: export and artifact serving. The lane's DLRM-HSTU (slice
+   weights, bf16) saved as a checkpoint and exported (``main.export``:
+   weights, config, fg.json, ``predict_fn.pt2``); the program loaded by
+   ``torch.export.load`` in a fresh process that imports torch and
+   ``torcheasyrec_tpu_torch.ops.hstu`` only, run on the traced batch:
+   kernel #1 once per STU layer (the wrapper's count and a profiler trace
+   of the forward), the outputs against the eager eval step's (bit-equal
+   printed, held at the bf16 bound), its forward ms beside the eager
+   one's; ``predict`` from the artifact on two slice requests bit-equal
+   to ``predict_checkpoint``. The lane's STU stack decoding: a prefill
+   of 2 048 tokens then 4 one-token decodes against the full forward's
+   rows (bf16 bound). Per-tower artifacts of criteo_synth dssm and of
+   HSTU-Match (whose user tower program holds the attention operator,
+   fp32 at head dim 16): each tower's embeddings from its artifact
+   against the whole model's on the same rows (1e-4 of the max).
+   criteo_synth deepfm trained 8 steps with the delta dump every 4 (row
+   writes counted): every shard's ids equal to the ids its batches look
+   up (parsed on the host), its rows equal to the step's checkpoint;
+   then its fp32 and INT8 artifacts: the INT8 tables bit-equal to a CPU
+   quantization of the same weights, the INT8 probabilities within 0.05
+   of the fp32 artifact's. Export seconds and bytes per artifact.
 
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
@@ -4302,8 +4324,10 @@ ZOO_REST_METRICS = {"xdeepfm": ("auc", "grouped_auc_cat_10"),
 # a config whose epoch on the card's host CPU takes much longer than a
 # minute has its card run and its CPU reference both cut to these steps:
 # xDeepFM's BF16 CIN took 263.5 s for 64 steps and the eval there, about
-# 3.8 s a step (NVIDIA H100 80GB HBM3 host, 700.00 W card; PERF.md §6)
-ZOO_REST_STEPS = {"xdeepfm": 8}
+# 3.8 s a step (NVIDIA H100 80GB HBM3 host, 700.00 W card; PERF.md §6);
+# WuKong's and PEPNet's CPU epochs (37.7-50.1 s) are cut in half to keep
+# the whole script near 700 s once phase export joined it
+ZOO_REST_STEPS = {"xdeepfm": 8, "wukong": 32, "pepnet": 32}
 ZOO_REST_CHECK_STEPS = 3  # fp32 steps on the card against the CPU
 ZOO_REST_CARD_TOL = 1e-4  # max abs error over the CPU's max abs, per tensor
 # a linear's bias before a batch norm has a gradient of 0 up to rounding
@@ -4661,6 +4685,483 @@ def phase_train_zoo_rest():
     return launches
 
 
+# --- export: artifacts, the loaded program, the delta dump, cached decode --
+EXPORT_F8_STEPS = 8
+EXPORT_F8_INTERVAL = 4
+EXPORT_PREDICT_ROWS = 4096
+EXPORT_QUANT_TOL = 0.05  # INT8 probs against fp32's: the JAX test's bound
+EXPORT_TIMED_FORWARDS = 5
+DECODE_PREFILL = 2048  # history tokens prefilled, then DECODE_TOKENS one by one
+DECODE_TOKENS = 4
+# the loaded program runs in a process of its own that imports torch and
+# the attention operator's module only, never the model code
+LOADED_PROGRAM = r"""
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from torcheasyrec_tpu_torch.ops import hstu
+
+program_path, inputs_path, out_path, n_timed = sys.argv[1:5]
+torch.backends.cuda.matmul.allow_tf32 = False
+leaves = [t.cuda() for t in torch.load(inputs_path, weights_only=True)]
+program = torch.export.load(program_path).module()
+hstu.hstu_attention_fwd.launches = 0
+with torch.inference_mode():
+    program(*leaves)  # warm-up
+    torch.cuda.synchronize()
+    before = hstu.hstu_attention_fwd.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = program(*leaves)
+        torch.cuda.synchronize()
+    profiled = hstu.hstu_attention_fwd.launches - before
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(int(n_timed)):
+        program(*leaves)
+    end.record()
+    torch.cuda.synchronize()
+traced = sum(1 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "hstu_fwd" in e.name)
+torch.save({k: v.cpu() for k, v in out.items()}, out_path)
+print(json.dumps({
+    "launches": hstu.hstu_attention_fwd.launches,
+    "profiled_forward_launches": profiled,
+    "profiled_forward_traced_kernels": traced,
+    "forward_ms": start.elapsed_time(end) / int(n_timed),
+    "port_modules": sorted(m for m in sys.modules
+                           if m.startswith("torcheasyrec_tpu_torch"))}))
+"""
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def timed_export(port_main, cfg_path, export_dir, **kw) -> dict:
+    t0 = time.perf_counter()
+    port_main.export(cfg_path, export_dir, device="cuda", **kw)
+    return {"export_s": time.perf_counter() - t0,
+            "artifact_bytes": dir_bytes(export_dir)}
+
+
+def read_column(path, key) -> torch.Tensor:
+    import pyarrow.parquet as pq
+
+    col = pq.read_table(path)[key].to_numpy(zero_copy_only=False)
+    return torch.from_numpy(np.stack(col) if col.dtype == object else col)
+
+
+def equal_columns(what, got_path, ref_path, keys) -> list:
+    """Raise unless each column of ``keys`` is bit-equal in two predict
+    outputs; returns the columns compared."""
+    for key in keys:
+        got, ref = read_column(got_path, key), read_column(ref_path, key)
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            raise AssertionError(f"{what} {key}: {tuple(got.shape)} vs "
+                                 f"{tuple(ref.shape)}, not bit-equal")
+    return keys
+
+
+def export_dlrm_hstu(port_main, hstu, tmp) -> dict:
+    """The lane's DLRM-HSTU: checkpoint, export, the program loaded in a
+    fresh process, the artifact predict against predict_checkpoint."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg_path = os.path.join(tmp, "dlrm_hstu.config")
+    text = config_text("PALLAS", model_dir=os.path.join(tmp, "hstu_model"))
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    cfg = parse_pipeline_config(text)
+    model, features = port_main.build_model(cfg, "cuda", seed=SEED)
+    ckpt = os.path.join(tmp, "hstu.pt")
+    torch.save(model.state_dict(), ckpt)
+    export_dir = os.path.join(tmp, "hstu_export")
+    before = hstu.hstu_attention_fwd.launches
+    res = timed_export(port_main, cfg_path, export_dir, checkpoint_path=ckpt)
+    if hstu.hstu_attention_fwd.launches != before:
+        raise AssertionError("the export launched the kernel: the trace "
+                             "must run on fake tensors")
+    program_path = os.path.join(export_dir, port_main.PREDICT_PROGRAM)
+    res["program_bytes"] = os.path.getsize(program_path)
+    with open(os.path.join(export_dir, port_main.SERVING_SPEC)) as f:
+        res["serving_spec"] = {k: v for k, v in json.load(f).items()
+                               if k != "input_tree"}
+
+    # the eager eval step on the traced batch
+    _, batch = port_main.serving_batch(cfg, features, "cuda")
+    leaves = torch.utils._pytree.tree_flatten(batch)[0]
+    eval_step = port_main.make_eval_step(model, with_loss=False)
+    ref = {k: v for k, v in eval_step(batch)[0].items()
+           if not k.startswith("__")}
+    res["eager_forward_ms"] = cuda_ms(lambda: eval_step(batch),
+                                      EXPORT_TIMED_FORWARDS)
+    inputs = os.path.join(tmp, "hstu_inputs.pt")
+    torch.save([t.cpu() for t in leaves], inputs)
+    outs = os.path.join(tmp, "hstu_loaded_out.pt")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", LOADED_PROGRAM, program_path, inputs, outs,
+         str(EXPORT_TIMED_FORWARDS)],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError("the loaded program failed:\n" + proc.stdout
+                             + proc.stderr[-4000:])
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    loaded["process_s"] = time.perf_counter() - t0
+    n_layers = len(model.transducer.stack.layers)
+    allowed = {"torcheasyrec_tpu_torch", "torcheasyrec_tpu_torch.ops",
+               "torcheasyrec_tpu_torch.ops.hstu",
+               "torcheasyrec_tpu_torch.ops.cuda_build",
+               "torcheasyrec_tpu_torch.modules",
+               "torcheasyrec_tpu_torch.modules.module"}
+    if set(loaded["port_modules"]) - allowed:
+        raise AssertionError("the loaded program's process imported model "
+                             f"code: {loaded['port_modules']}")
+    if (loaded["profiled_forward_launches"] != n_layers
+            or loaded["profiled_forward_traced_kernels"] != n_layers):
+        raise AssertionError(
+            f"the loaded program launched kernel #1 "
+            f"{loaded['profiled_forward_launches']} times "
+            f"({loaded['profiled_forward_traced_kernels']} in the trace), "
+            f"not once per STU layer ({n_layers})")
+    got = torch.load(outs, weights_only=True)
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"outputs {sorted(got)} vs {sorted(ref)}")
+    loaded["bit_equal_to_eager"] = all(
+        torch.equal(got[k], ref[k].cpu()) for k in ref)
+    loaded["max_abs_err_vs_eager"] = {
+        k: check(f"loaded program {k}", got[k], ref[k].cpu(), BF16_TOL)
+        for k in ref}
+    res["loaded_program"] = loaded
+
+    # predict from the artifact against predict_checkpoint, bit for bit
+    requests = os.path.join(tmp, "hstu_requests.parquet")
+    pq.write_table(pa.concat_tables([pa.table(synth_cols(BATCH, SEED + i))
+                                     for i in (1, 2)]), requests)
+    art_out = os.path.join(tmp, "hstu_artifact_preds.parquet")
+    ckpt_out = os.path.join(tmp, "hstu_ckpt_preds.parquet")
+    before = hstu.hstu_attention_fwd.launches
+    n = port_main.predict(requests, art_out, export_dir,
+                          reserved_columns="user_id", device="cuda")
+    port_main.predict_checkpoint(cfg_path, requests, ckpt_out,
+                                 checkpoint_path=ckpt,
+                                 reserved_columns="user_id", device="cuda")
+    res["predict_launches"] = hstu.hstu_attention_fwd.launches - before
+    if n != 2 * BATCH or res["predict_launches"] != 4 * n_layers:
+        raise AssertionError(f"predict: {n} rows, "
+                             f"{res['predict_launches']} launches")
+    res["predict_bit_equal_to_predict_checkpoint"] = equal_columns(
+        "artifact predict", art_out, ckpt_out,
+        ["user_id", "probs_is_click", "probs_is_like", "logits_is_click",
+         "logits_is_like"])
+    return res, model
+
+
+def whole_model_towers(port_main, export_dir, rows) -> dict:
+    """Both towers' embeddings of the whole model of an artifact's root
+    (its weights, the eval step) over the predict-mode loader's batches
+    of ``rows``, on the card."""
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+
+    cfg = port_main.config_util.load_pipeline_config(
+        os.path.join(export_dir, "pipeline.config"))
+    dev = torch.device("cuda")
+    model, features = port_main._artifact_model(cfg, dev)
+    checkpoint_util.restore_model(os.path.join(export_dir, "model"), model)
+    step = port_main.make_eval_step(model, with_loss=False)
+    outs = {"user_tower_emb": [], "item_tower_emb": []}
+    batches = create_dataloader(cfg.data_config, features, rows,
+                                mode="predict", device=dev)()
+    try:
+        for batch, _ in batches:
+            preds = step(batch)[0]
+            for k, v in outs.items():
+                v.append(preds[k].float().cpu())
+    finally:
+        batches.close()
+    return {k: torch.cat(v) for k, v in outs.items()}
+
+
+def export_towers(port_main, hstu, tmp) -> dict:
+    """criteo_synth dssm at its published width and HSTU-Match at the JAX
+    test's config: per-tower artifacts; each tower's embeddings from its
+    artifact against the whole model's outputs on the same rows."""
+    from torcheasyrec_tpu_torch.utils import test_util
+    from torcheasyrec_tpu_torch.utils.config_util import load_pipeline_config
+
+    out = {}
+    match_paths = gr_match_files(tmp)
+    dssm_src = os.path.join(zoo_config_dir(), "criteo_synth", "dssm.config")
+    for name in ("dssm", "hstu_match"):
+        cfg_path = os.path.join(tmp, f"{name}.config")
+        model_dir = os.path.join(tmp, f"{name}_model")
+        if name == "dssm":
+            cfg = load_pipeline_config(dssm_src)
+            cfg.model_dir = model_dir
+            port_main.config_util.save_message(cfg, cfg_path)
+            features = port_main._create_features(cfg)
+            rows = os.path.join(tmp, "dssm_rows.parquet")
+            test_util.write_mock_parquet(rows, features, EXPORT_PREDICT_ROWS,
+                                         [], seed=5)
+        else:
+            with open(cfg_path, "w") as f:
+                f.write(gr_match_text(match_paths, model_dir, 0.0))
+            rows = match_paths["eval"]
+        export_dir = os.path.join(tmp, f"{name}_export")
+        before = hstu.hstu_attention_fwd.launches
+        res = timed_export(port_main, cfg_path, export_dir)
+        whole = whole_model_towers(port_main, export_dir, rows)
+        res["towers"] = {}
+        for tower in ("user", "item"):
+            tdir = os.path.join(export_dir, tower)
+            program = torch.export.load(os.path.join(
+                tdir, port_main.TOWER_PROGRAM))
+            ops = sum(1 for n in program.graph.nodes
+                      if n.op == "call_function"
+                      and str(n.target).startswith(
+                          "tzrec_tpu_torch.hstu_attention_fwd"))
+            emb = os.path.join(tmp, f"{name}_{tower}.parquet")
+            port_main.predict(rows, emb, tdir, device="cuda")
+            key = f"{tower}_tower_emb"
+            got = read_column(emb, key)
+            res["towers"][tower] = {
+                "artifact_bytes": dir_bytes(tdir), "attention_ops": ops,
+                "rows": got.shape[0],
+                "max_abs_err_vs_whole_model": check(
+                    f"{name} {tower} tower", got, whole[key], FP32_TOL),
+                "bit_equal": bool(torch.equal(got, whole[key]))}
+        want_ops = 2 if name == "hstu_match" else 0
+        if (res["towers"]["user"]["attention_ops"] != want_ops
+                or res["towers"]["item"]["attention_ops"] != 0):
+            raise AssertionError(f"{name}: the tower programs hold "
+                                 f"{res['towers']} attention operators")
+        res["launches"] = hstu.hstu_attention_fwd.launches - before
+        out[name] = res
+    return out
+
+
+def export_f8_and_quant(port_main, write_rows, tmp) -> dict:
+    """criteo_synth deepfm: EXPORT_F8_STEPS steps through
+    ``train_and_evaluate`` with the delta dump every EXPORT_F8_INTERVAL
+    (kernel #3 once a step), each shard's ids against the batches' ids
+    parsed on the host and its rows against the step's checkpoint; then
+    the fp32 and the INT8 export of the trained weights."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.acc.quant_util import quantize_rowwise
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+    from torcheasyrec_tpu_torch.utils.config_util import load_pipeline_config
+    from torcheasyrec_tpu_torch.utils.delta_embedding_dump import (
+        DeltaEmbeddingDumper,
+    )
+
+    paths = synthetic.ensure_dataset(tmp, EXPORT_F8_STEPS * ZOO_BATCH,
+                                     EXPORT_PREDICT_ROWS)
+    cfg = load_pipeline_config(
+        os.path.join(zoo_config_dir(), "criteo_synth", "deepfm.config"))
+    model_dir = os.path.join(tmp, "deepfm_model")
+    cfg.model_dir = model_dir
+    cfg.train_input_path, cfg.eval_input_path = paths["train"], paths["eval"]
+    tc = cfg.train_config
+    tc.num_steps = EXPORT_F8_STEPS
+    tc.save_checkpoints_steps = EXPORT_F8_INTERVAL
+    tc.delta_embedding_dump_config.dump_interval_steps = EXPORT_F8_INTERVAL
+    if cfg.data_config.shuffle or cfg.data_config.batch_size != ZOO_BATCH:
+        raise AssertionError("the ids check reads batches of ZOO_BATCH rows "
+                             "in file order")
+    cfg_path = os.path.join(tmp, "deepfm.config")
+    port_main.config_util.save_message(cfg, cfg_path)
+    before = write_rows.launches
+    t0 = time.perf_counter()
+    port_main.train_and_evaluate(cfg_path, device="cuda")
+    res = {"train_s": time.perf_counter() - t0,
+           "row_write_launches": write_rows.launches - before}
+
+    # the ids of each dump's batches, parsed from the parquet on the host;
+    # the CPU model in the export's layout (the config's sparse optimizer)
+    model, features = port_main._artifact_model(cfg, torch.device("cpu"))
+    # a row write a step for each packed group with tables past the lane
+    res["written_groups"] = sum(
+        1 for g in model.embedding_group.engine.groups.values()
+        if g.packed and len(g.dense_tables) < len(g.specs))
+    dumper = DeltaEmbeddingDumper(os.path.join(tmp, "unused_dump"),
+                                  model.embedding_group)
+    table = pq.read_table(paths["train"])
+    parser = DataParser(features)
+    dump_dir = os.path.join(model_dir, "delta_embedding_dump")
+    shards = sorted(os.listdir(dump_dir))
+    steps = range(EXPORT_F8_INTERVAL, EXPORT_F8_STEPS + 1, EXPORT_F8_INTERVAL)
+    res["shards"] = len(shards)
+    ids_per_dump = {}
+    for step in steps:
+        rows = table.slice((step - EXPORT_F8_INTERVAL) * ZOO_BATCH,
+                           EXPORT_F8_INTERVAL * ZOO_BATCH)
+        batch = parser.parse_to_batch(
+            {n: rows.column(n) for n in rows.schema.names})
+        want = {}
+        for fname, tname in dumper._feature_to_table.items():
+            v = batch.sparse_features[fname].values.reshape(-1).numpy()
+            want.setdefault(tname, set()).update(v[v >= 0].tolist())
+        ckpt_model, _ = port_main.build_model(cfg, "cpu")
+        checkpoint_util.load_model_weights(
+            checkpoint_util.checkpoint_path(model_dir, step), ckpt_model)
+        eg = ckpt_model.embedding_group
+        for tname, ids in want.items():
+            shard = os.path.join(dump_dir,
+                                 f"delta_embedding-{tname}-{step}.parquet")
+            t = pq.read_table(shard)
+            got_ids = t["id"].to_numpy()
+            if not np.array_equal(got_ids, np.array(sorted(ids))):
+                raise AssertionError(f"{shard}: {len(got_ids)} ids, the "
+                                     f"batches looked up {len(ids)}")
+            rows_ref = eg.engine.extract_table(eg.engine_tables(), tname)[
+                torch.from_numpy(got_ids)]
+            got = torch.from_numpy(np.stack(t["embedding"].to_numpy(
+                zero_copy_only=False)))
+            if not torch.equal(got, rows_ref):
+                raise AssertionError(f"{shard}: rows differ from the step's "
+                                     "checkpoint")
+            ids_per_dump.setdefault(step, []).append(len(ids))
+    res["ids_per_dump"] = {s: {"tables": len(n), "ids": sum(n)}
+                           for s, n in ids_per_dump.items()}
+    n_checked = sum(len(n) for n in ids_per_dump.values())
+    if res["shards"] != n_checked:
+        raise AssertionError(f"{res['shards']} shards for {n_checked} "
+                             "(table, dump) pairs")
+
+    # the fp32 and the INT8 artifact of the trained weights
+    pred_in = os.path.join(tmp, "deepfm_pred_in.parquet")
+    pq.write_table(pq.read_table(paths["eval"]), pred_in)
+    res["fp32"] = timed_export(port_main, cfg_path,
+                               os.path.join(tmp, "deepfm_fp32"))
+    os.environ["QUANT_EMB"] = "INT8"
+    try:
+        res["int8"] = timed_export(port_main, cfg_path,
+                                   os.path.join(tmp, "deepfm_int8"))
+    finally:
+        del os.environ["QUANT_EMB"]
+    eg = model.embedding_group
+    checkpoint_util.load_model_weights(
+        checkpoint_util.latest_checkpoint(model_dir), model)
+    qdir = os.path.join(tmp, "deepfm_int8", "quant_tables")
+    for gk, w in eg.engine.export_weight_matrices(
+            eg.engine_tables()).items():
+        want = quantize_rowwise(w, "INT8")
+        got = np.load(os.path.join(qdir, f"{gk}.npz"))
+        for k in ("values", "scales"):
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"INT8 {gk} {k}: not bit-equal to the "
+                                     "CPU quantization")
+    p32, p8 = (os.path.join(tmp, f"deepfm_{k}.parquet")
+               for k in ("fp32", "int8"))
+    port_main.predict(pred_in, p32, os.path.join(tmp, "deepfm_fp32"),
+                      device="cuda")
+    port_main.predict(pred_in, p8, os.path.join(tmp, "deepfm_int8"),
+                      device="cuda")
+    a, b = read_column(p8, "probs"), read_column(p32, "probs")
+    res["int8_vs_fp32_probs_max_abs"] = float((a - b).abs().max())
+    if not res["int8_vs_fp32_probs_max_abs"] < EXPORT_QUANT_TOL:
+        raise AssertionError(f"INT8 probs {res['int8_vs_fp32_probs_max_abs']}"
+                             f" from fp32's (bound {EXPORT_QUANT_TOL})")
+    return res
+
+
+def export_cached_decode(model, hstu) -> dict:
+    """The lane's STU stack (bf16): a prefill of DECODE_PREFILL history
+    tokens, then DECODE_TOKENS decodes of one token, against the rows of
+    the full forward (kernel #1) over the same tokens. Without the
+    contextual prefix: its row attends the whole sequence in a full
+    forward, so no incremental decode (the JAX package's neither) gives
+    the full forward's rows with it."""
+    stack = model.transducer.stack
+    stack.set_contextual_seq_len(0)
+    n_max = MAX_SEQ + N_CAND * 2
+    e = stack.layers[0].uvqk_weight.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    total = DECODE_PREFILL + DECODE_TOKENS
+    x = torch.randn(BATCH, total, e, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    caches = stack.init_cache(BATCH, n_max)
+    before = hstu.hstu_attention_fwd.launches
+    with torch.inference_mode():
+        _, caches = stack.cached_forward(
+            x[:, :DECODE_PREFILL],
+            torch.full((BATCH,), DECODE_PREFILL, dtype=torch.int32,
+                       device="cuda"), caches, scaling_seqlen=n_max)
+        decoded = []
+        for t in range(DECODE_PREFILL, total):
+            y, caches = stack.cached_forward(
+                x[:, t:t + 1], torch.full((BATCH,), t + 1, dtype=torch.int32,
+                                          device="cuda"),
+                caches, scaling_seqlen=n_max)
+            decoded.append(y)
+        if hstu.hstu_attention_fwd.launches != before:
+            raise AssertionError("the cached decode launched kernel #1")
+        full = stack(x, torch.full((BATCH,), total, dtype=torch.int32,
+                                   device="cuda"), scaling_seqlen=n_max)
+    launches = hstu.hstu_attention_fwd.launches - before
+    got, ref = torch.cat(decoded, 1), full[:, DECODE_PREFILL:]
+    err = check("cached decode", got, ref, BF16_TOL)
+    return {"batch": BATCH, "prefill": DECODE_PREFILL,
+            "decoded": DECODE_TOKENS, "cache_len": n_max,
+            "max_abs_err_vs_full": err, "max_abs_full": rel_err(got, ref)[1],
+            "tol_rel": BF16_TOL, "launches": launches}
+
+
+def phase_export(smi):
+    """Export and artifact serving: ``export_dlrm_hstu``,
+    ``export_towers``, ``export_f8_and_quant``, ``export_cached_decode``;
+    returns kernel #1's and kernel #3's launches (the loaded program's in
+    its own process included)."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.ops import hstu
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
+    seconds = {}
+    hstu.hstu_attention_fwd.launches = 0
+    write_rows.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dlrm_hstu, model = export_dlrm_hstu(port_main, hstu, tmp)
+        seconds["dlrm_hstu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decode = export_cached_decode(model, hstu)
+        del model
+        torch.cuda.empty_cache()
+        seconds["cached_decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        towers = export_towers(port_main, hstu, tmp)
+        seconds["towers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        deepfm = export_f8_and_quant(port_main, write_rows, tmp)
+        seconds["deepfm_f8_quant"] = time.perf_counter() - t0
+    # the parent's launches, and the loaded program's in its own process
+    fwd = (hstu.hstu_attention_fwd.launches
+           + dlrm_hstu["loaded_program"]["launches"])
+    writes = write_rows.launches
+    want = EXPORT_F8_STEPS * deepfm["written_groups"]
+    if writes != deepfm["row_write_launches"] or writes != want:
+        raise AssertionError(f"{writes} row writes for {EXPORT_F8_STEPS} "
+                             f"deepfm steps of {deepfm['written_groups']} "
+                             "written groups")
+    emit({"phase": "export", "nvidia_smi": smi, "seconds": seconds,
+          "dlrm_hstu": dlrm_hstu, "cached_decode": decode, "towers": towers,
+          "deepfm": deepfm, "kernel_launches": {
+              "hstu_attention_fwd": fwd, "row_write": writes}})
+    return fwd, writes
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4708,6 +5209,7 @@ def main() -> int:
         timed("train_options", phase_train_options))
     gr_launches, gr_timing = timed("train_gr", phase_train_gr)
     zoo_rest_launches = timed("train_zoo_rest", phase_train_zoo_rest)
+    export_fwd, export_writes = timed("export", phase_export, smi)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -4741,14 +5243,16 @@ def main() -> int:
         # bound_ms are bf16's; fp16 has its own beside them
         kernel_row("hstu_attention_fwd", "hstu_attention.py:114",
                    serve_launches + train_fwd_launches + fp16_fwd_launches
-                   + gr_fwd, fwd_err, fwd_timing,
+                   + gr_fwd + export_fwd, fwd_err, fwd_timing,
                    launches_by_path={"serving": serve_launches,
                                      "training": train_fwd_launches,
                                      "train_options": fp16_fwd_launches,
-                                     "train_gr": gr_fwd},
+                                     "train_gr": gr_fwd,
+                                     "export": export_fwd},
                    launches_by_dtype={
                        "bf16": serve_launches + train_fwd_launches,
-                       "fp16": fp16_fwd_launches, "fp32": gr_fwd},
+                       "fp16": fp16_fwd_launches, "fp32": gr_fwd,
+                       "export (bf16, and fp32 HSTU-Match)": export_fwd},
                    fp16=fp16_row(fwd16),
                    hstu_synth_fp32=gr_row("hstu_attention_fwd")),
         kernel_row("hstu_attention_bwd", "hstu_attention.py:207",
@@ -4770,7 +5274,8 @@ def main() -> int:
         kernel_row("row_write", "row_write.py:35",
                    deepfm_launches + loader_launches + zoo_launches
                    + lane_off_launches + options_writes
-                   + gr_launches["row_write"] + zoo_rest_launches,
+                   + gr_launches["row_write"] + zoo_rest_launches
+                   + export_writes,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -4780,7 +5285,8 @@ def main() -> int:
                        "train_zoo_dssm_dense_lane_off": lane_off_launches,
                        "train_options": options_writes,
                        "train_gr": gr_launches["row_write"],
-                       "train_zoo_rest": zoo_rest_launches}),
+                       "train_zoo_rest": zoo_rest_launches,
+                       "export": export_writes}),
     ]})
     print(smi, flush=True)
     emit(device_record())

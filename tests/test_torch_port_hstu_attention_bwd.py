@@ -241,9 +241,14 @@ def test_bwd_wrapper_refuses_cpu_tensors():
 
 def test_cuda_route_raises_when_the_build_fails(monkeypatch):
     """On the CUDA route a failed build raises: nothing falls back to the
-    plain version."""
+    plain version. ``hstu_mha``'s forward goes through the attention
+    operator, whose CUDA implementation (what the dispatcher runs for a
+    card tensor; called here as it would for one) launches the kernel."""
     def failing_build(names):
         raise RuntimeError("CUDA kernel build failed: nvcc exited 1")
+
+    def plain_taken(*args, **kwargs):
+        raise AssertionError("the CUDA route took the plain version")
 
     monkeypatch.setattr(cuda_build, "build", failing_build)
     monkeypatch.setattr(cuda_build, "_loaded", {})
@@ -256,6 +261,9 @@ def test_cuda_route_raises_when_the_build_fails(monkeypatch):
     with pytest.raises(RuntimeError, match="build failed"):
         port.hstu_attention_bwd(*fake, torch.zeros_like(fake[2]), lengths,
                                 None, 0.1, True, 0, 0, 0, 128)
+    monkeypatch.setattr(port, "_torch_hstu_mha", plain_taken)
+    monkeypatch.setattr(port, "hstu_attention_op",
+                        port._hstu_attention_op_cuda)
     with pytest.raises(RuntimeError, match="build failed"):
         port.hstu_mha(*fake, lengths, alpha=0.1)
     assert before == (port.hstu_attention_fwd.launches,

@@ -48,7 +48,9 @@ for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "modules.variational_dropout", "modules.personalized_net",
              "modules.intervention", "losses.pe_mtl_loss", "models.xdeepfm",
              "models.wukong", "models.pepnet", "models.dc2vr",
-             "tools.feature_selection"):
+             "tools.feature_selection", "acc.quant_util", "export",
+             "tools.hitrate", "utils.test_util",
+             "utils.delta_embedding_dump"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -104,6 +106,9 @@ DEEPFM_SLICE_MODULES = [
     "modules.intervention", "losses.pe_mtl_loss", "models.xdeepfm",
     "models.wukong", "models.pepnet", "models.dc2vr", "models.model",
     "tools.feature_selection",
+    # export and artifact serving
+    "acc.quant_util", "export", "tools.hitrate", "utils.test_util",
+    "utils.delta_embedding_dump",
 ]
 
 

@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 # checkpoint-position side columns the readers inject (source id: the
 # file's index in the expanded path list; row index within that file)
@@ -148,6 +149,23 @@ class Batch:
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.tensors())
+
+
+def _flatten_fields(obj):
+    names = tuple(f.name for f in dataclasses.fields(obj)
+                  if getattr(obj, f.name) is not None)
+    return [getattr(obj, n) for n in names], names
+
+
+# the batch and its fields are pytree nodes (their tensors the leaves, a
+# None field no leaf), so ``torch.utils._pytree.tree_flatten`` gives the
+# flat inputs of an exported serving program and ``tree_unflatten``
+# rebuilds the batch inside it
+for _cls in (SparseField, DenseField, SequenceDenseField, Batch):
+    pytree.register_pytree_node(
+        _cls, _flatten_fields,
+        lambda values, names, cls=_cls: cls(**dict(zip(names, values))),
+        serialized_type_name=f"{_cls.__module__}.{_cls.__qualname__}")
 
 
 @dataclasses.dataclass

@@ -525,6 +525,77 @@ class BaseFeature(metaclass=_meta_cls):
             v = np.where(v >= n, n - 1, v)
         return dataclasses.replace(parsed, values=v)
 
+    # -- fg.json: the serving contract ---------------------------------------
+
+    def fg_json(self) -> Dict[str, Any]:
+        """This feature's entry of ``fg.json``, as the JAX package writes
+        it: a grouped sub-feature keeps its bare name (the group carries
+        the prefix); a standalone sequence feature keeps its ``sequence_``
+        type, delimiter and length; sequence features get a default of
+        "0"; the config's serve-time fields follow."""
+        c = self.config
+        out: Dict[str, Any] = {
+            "feature_name": (c.feature_name if self.sequence_name
+                             else self.name),
+            "feature_type": (self._oneof_name if self._is_seq_oneof
+                             else self._oneof_name.replace("sequence_", "")),
+        }
+        if self._is_seq_oneof:
+            out["sequence_delim"] = getattr(c, "sequence_delim", ";")
+            if self.effective_sequence_length:
+                out["sequence_length"] = self.effective_sequence_length
+        if self.is_sequence and not getattr(c, "default_value", ""):
+            out["default_value"] = "0"
+        if out["feature_type"] == "expr_feature":
+            out["expression"] = getattr(c, "expression", "")
+        else:
+            expr = getattr(c, "expression", None)
+            exprs = (([expr] if expr else []) if isinstance(expr, str)
+                     else list(expr or []))
+            if len(exprs) == 1:
+                out["expression"] = exprs[0]
+            elif exprs:
+                out["expression"] = exprs
+        for field in ("default_value", "separator", "hash_bucket_size",
+                      "num_buckets", "value_dim", "embedding_dim",
+                      "normalizer", "map", "key", "method", "vocab_file"):
+            v = getattr(c, field, None)
+            if v:
+                out[field] = (v if not hasattr(v, "__len__")
+                              or isinstance(v, (str, bytes)) else list(v))
+        for field in ("boundaries", "vocab_list", "variables"):
+            if len(getattr(c, field, [])):
+                out[field] = list(getattr(c, field))
+        if out["feature_type"] == "match_feature":
+            for src, dst in (("nested_map", "user"), ("pkey", "category"),
+                             ("skey", "item")):
+                v = getattr(c, src, "")
+                if v:
+                    out[dst] = v
+        return out
+
+
+def create_fg_json(features: List[BaseFeature]) -> Dict[str, Any]:
+    """The serving-side ``fg.json`` of ``features``: standalone features
+    in order, then one entry per grouped sequence with its
+    sub-features."""
+    out: Dict[str, Any] = {"features": []}
+    seq_groups: Dict[str, Dict[str, Any]] = {}
+    for f in features:
+        if not f.sequence_name:
+            out["features"].append(f.fg_json())
+            continue
+        g = seq_groups.setdefault(f.sequence_name, {
+            "sequence_name": f.sequence_name,
+            "sequence_length": f.sequence_length,
+            "sequence_delim": f.sequence_delim,
+            **({"sequence_pk": f.sequence_pk} if f.sequence_pk else {}),
+            "features": [],
+        })
+        g["features"].append(f.fg_json())
+    out["features"].extend(seq_groups.values())
+    return out
+
 
 def create_features(
     feature_configs: List[Any],

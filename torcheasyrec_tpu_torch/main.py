@@ -4,7 +4,8 @@ predict.
 Counterpart of torcheasyrec_tpu/main.py (``_create_features``,
 ``_compute_dtype``, ``_build_model_and_optim``, ``_init_state``,
 ``make_train_step``, ``make_eval_step``, ``train_and_evaluate`` on one
-device, ``_run_eval``, ``evaluate`` and ``predict_checkpoint``). Entry
+device, ``_run_eval``, ``evaluate``, ``predict_checkpoint``, ``export``
+and the artifact ``predict``). Entry
 points take ``device`` (default ``"cuda"``) and raise when CUDA is
 absent unless the caller asked for ``"cpu"``. Every entry point reads
 its input through the dataloader of ``datasets/dataset.py``.
@@ -16,9 +17,24 @@ optimizer state, the step and the epoch, and where the config asks for
 them the accumulated dense gradients and the grad scaler's state. The
 train config's options: ``mixed_precision`` BF16 or FP16, the grad
 scaler (FP16 only), gradient clipping, gradient accumulation, per-part
-dense optimizers, train metrics and ``is_profiling``;
+dense optimizers, train metrics, ``is_profiling`` and the delta
+embedding dump (``utils/delta_embedding_dump.py``);
 ``steps_per_dispatch`` > 1 runs as single steps. Not ported: ZCH and
-host-offloaded tables, TensorBoard summaries, the delta embedding dump.
+host-offloaded tables, TensorBoard summaries.
+
+An export artifact holds the weights (``model/model.pt``), the
+``pipeline.config``, ``fg.json`` and the serving program: a
+``torch.export`` ``ExportedProgram`` of the eval forward over the flat
+tensors of one batch, saved as ``predict_fn.pt2`` (a match model's
+towers: ``<tower>/tower_fn.pt2``) beside ``serving_spec.json``. It is
+traced at the static shapes of a mock batch of ``eval_batch_size`` (else
+``batch_size``) rows, as the JAX package traces its StableHLO; a batch
+of other shapes is refused by the program. The attention forward is the
+operator ``torch.ops.tzrec_tpu_torch.hstu_attention_fwd`` in it, so the
+program runs kernel #1 on the card; it loads only where
+``torcheasyrec_tpu_torch.ops.hstu`` has been imported. ``predict``
+itself rebuilds the model from the artifact's config and weights, as
+the JAX package's does.
 """
 
 import glob
@@ -48,6 +64,9 @@ from torcheasyrec_tpu_torch.optim.optimizer_builder import (
 from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 from torcheasyrec_tpu_torch.utils import checkpoint_util, config_util
 from torcheasyrec_tpu_torch.utils.convert import dense_param_paths
+from torcheasyrec_tpu_torch.utils.delta_embedding_dump import (
+    DeltaEmbeddingDumper,
+)
 
 logger = logging.getLogger("tzrec_tpu_torch")
 
@@ -333,10 +352,12 @@ def train_epoch(
     log_every: int = 0,
     model: Optional[BaseModel] = None,
     train_metrics: Optional[List[Dict[str, Any]]] = None,
+    delta_dumper: Optional[DeltaEmbeddingDumper] = None,
 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor], bool]:
     """The body of the training loop over one epoch's (batch, info)
     items: a train step per batch, the step's predictions into the
-    model's ``train_metrics`` (on the host), the dataloader watermark
+    model's ``train_metrics`` (on the host), the batch's ids into
+    ``delta_dumper`` and its dump on its interval, the dataloader watermark
     (``dataloader_state``, {source_id: last row consumed}) raised to the
     batch's ``checkpoint_info``, a log line every ``log_every`` steps
     (the losses, and each train metric as ``train_<name>``), then
@@ -351,6 +372,10 @@ def train_epoch(
         if train_metrics and preds is not None:
             model.update_metrics(train_metrics, preds, batch)
         examples += info.batch_size
+        if delta_dumper is not None:
+            delta_dumper.observe(batch)
+            delta_dumper.maybe_dump(state["step"],
+                                    model.embedding_group.engine_tables())
         for sid, row in info.checkpoint_info.items():
             dataloader_state[sid] = max(dataloader_state.get(sid, -1), row)
         step = state["step"]
@@ -467,7 +492,10 @@ def train_and_evaluate(
     holds. The train metrics of the config are logged every
     ``log_step_count_steps``; ``is_profiling`` writes a
     ``torch.profiler`` trace of steps 3-5
-    (``<model_dir>/profile/trace.json``)."""
+    (``<model_dir>/profile/trace.json``). ``delta_embedding_dump_config``
+    writes the rows the steps touched every ``dump_interval_steps``
+    steps and at the end (``<model_dir>/delta_embedding_dump`` unless it
+    names an ``output_dir``)."""
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
     if edit_config_json:
         config_util.edit_config(pipeline_config, json.loads(edit_config_json))
@@ -516,10 +544,8 @@ def train_and_evaluate(
             dataloader_state = restored["dataloader_state"]
         del restored["dataloader_state"]
         state.update(restored)
-    from google.protobuf import text_format
-
-    with open(os.path.join(model_dir, "pipeline.config"), "w") as f:
-        f.write(text_format.MessageToString(pipeline_config))
+    config_util.save_message(pipeline_config,
+                             os.path.join(model_dir, "pipeline.config"))
 
     train_dl = create_dataloader(
         data_config, features, pipeline_config.train_input_path,
@@ -535,6 +561,14 @@ def train_and_evaluate(
     profiler = _step_profiler(model_dir, dev) if train_config.is_profiling \
         else None
     eval_result: Dict[str, float] = {}
+    delta_dumper = None
+    if train_config.HasField("delta_embedding_dump_config"):
+        dcfg = train_config.delta_embedding_dump_config
+        delta_dumper = DeltaEmbeddingDumper(
+            dcfg.output_dir or os.path.join(model_dir,
+                                            "delta_embedding_dump"),
+            model.embedding_group, dcfg.dump_interval_steps,
+            dcfg.file_prefix)
 
     def save_and_eval() -> None:
         nonlocal eval_result
@@ -568,7 +602,7 @@ def train_and_evaluate(
             state, epoch_metrics, stop = train_epoch(
                 train_step, state, batches, dataloader_state, num_steps,
                 after_step, train_config.log_step_count_steps, model,
-                train_metrics)
+                train_metrics, delta_dumper)
         finally:
             batches.close()
         metrics = epoch_metrics or metrics
@@ -583,6 +617,8 @@ def train_and_evaluate(
 
     if profiler is not None:
         profiler.stop()
+    if delta_dumper is not None:
+        delta_dumper.dump(state["step"], model.embedding_group.engine_tables())
     save_and_eval()
     result = {"step": float(state["step"])}
     result.update({k: float(v) for k, v in metrics.items()})
@@ -671,8 +707,6 @@ def predict_checkpoint(
     come from the predict-mode loader; a writer thread converts and
     writes batch N while batch N+1 computes. Returns the rows predicted.
     """
-    import pyarrow as pa
-
     dev = resolve_device(device)
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
     if batch_size:
@@ -687,38 +721,37 @@ def predict_checkpoint(
             f"{pipeline_config.model_dir} holds JAX checkpoints; convert "
             "them with utils/convert.from_jax_state and pass checkpoint_path"
         )
-    reserved = [c.strip() for c in (reserved_columns or "").split(",")
-                if c.strip()]
-    out_cols = [c.strip() for c in (output_columns or "").split(",")
-                if c.strip()]
-    dl = create_dataloader(pipeline_config.data_config, features,
-                           predict_input_path, mode="predict",
-                           reserved_columns=reserved, device=dev)
+    return _predict_preds(pipeline_config, model, features,
+                          predict_input_path, predict_output_path,
+                          reserved_columns, output_columns, dev)
+
+
+def _predict_preds(pipeline_config, model: BaseModel, features,
+                   input_path: str, output_path: str,
+                   reserved_columns: Optional[str],
+                   output_columns: Optional[str], dev) -> int:
+    """The model's predictions over the predict-mode loader, after the
+    reserved input columns (carried through, so predictions stay
+    joinable): every output but the ``__`` and list ones, or those of
+    ``output_columns``; [B, K] outputs as list columns."""
+    import pyarrow as pa
+
+    out_cols = _parse_list(output_columns)
     eval_step = make_eval_step(model, with_loss=False)
 
     def convert(preds, reserved_cols) -> Dict[str, pa.Array]:
-        # the reserved input columns first, so predictions stay joinable
         out: Dict[str, pa.Array] = dict(reserved_cols)
         for k, v in preds.items():
-            if k.startswith("__") or (out_cols and k not in out_cols):
+            if (k.startswith("__") or (out_cols and k not in out_cols)
+                    or isinstance(v, (list, tuple))):
                 continue
             v = v.float().cpu().numpy()
             out[k] = pa.array(v) if v.ndim == 1 else pa.array(list(v))
         return out
 
-    writer = _AsyncPredictWriter(
-        create_writer(predict_output_path, "ParquetWriter"), convert)
-    n = 0
-    batches = dl()
-    try:
-        for batch, info in batches:
-            preds, _ = eval_step(batch)
-            writer.put(preds, info.reserved)
-            n += info.batch_size
-    finally:
-        batches.close()
-        writer.close()
-    return n
+    return _predict_loop(pipeline_config, features, input_path, output_path,
+                         reserved_columns, dev,
+                         lambda batch: eval_step(batch)[0], convert)
 
 
 class _AsyncPredictWriter:
@@ -767,3 +800,388 @@ class _AsyncPredictWriter:
                 raise
         if self._err is not None:
             raise self._err
+
+
+# ---------------------------------------------------------------------------
+# export
+# ---------------------------------------------------------------------------
+
+PREDICT_PROGRAM = "predict_fn.pt2"
+TOWER_PROGRAM = "tower_fn.pt2"
+SERVING_SPEC = "serving_spec.json"
+
+
+def _artifact_model(pipeline_config, dev) -> Tuple[BaseModel, list]:
+    """(model in eval mode, features) for export and the artifact
+    ``predict``: built with the config's sparse optimizer, so a packed
+    group has the layout of the trainer's (and of the JAX package's),
+    which the quantized tables' rows follow."""
+    model, features, _ = _build_model_and_optim(pipeline_config, dev,
+                                                for_train=True)
+    return model.eval(), features
+
+
+def _parse_list(columns: Optional[str]) -> List[str]:
+    return [c.strip() for c in (columns or "").split(",") if c.strip()]
+
+
+def export(
+    pipeline_config_path: str,
+    export_dir: str,
+    checkpoint_path: Optional[str] = None,
+    device="cuda",
+) -> None:
+    """Write the serving artifact of a trained model to ``export_dir``:
+    the weights of ``checkpoint_path`` (else, with ``exporter_type:
+    "best"``, the checkpoint of the best eval line, else the latest of
+    ``model_dir``, else the seeded init), the config, ``fg.json`` and the
+    serving program traced on ``device``. A match model writes one
+    artifact per tower (``user/``, ``item/``) and the whole model at the
+    root. ``QUANT_EMB`` (INT8, INT4, INT2, FP16) quantizes the tables
+    into ``quant_tables/`` and writes no program, as in the JAX package.
+    A failed program serialization raises unless
+    ``TZREC_EXPORT_BEST_EFFORT=1``. TDM raises NotImplementedError (its
+    embedding artifact waits for TDM)."""
+    from torcheasyrec_tpu_torch.models.match_model import MatchModel
+
+    dev = resolve_device(device)
+    pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
+    if pipeline_config.model_config.WhichOneof("model") == "tdm":
+        raise NotImplementedError("TDM's export is not ported")
+    model_dir = pipeline_config.model_dir
+    model, features = _artifact_model(pipeline_config, dev)
+    ckpt = checkpoint_path
+    if ckpt is None and pipeline_config.export_config.exporter_type == "best":
+        ckpt = _best_checkpoint(pipeline_config, model_dir)
+    if ckpt is None:
+        ckpt = checkpoint_util.latest_checkpoint(model_dir)
+    if ckpt:
+        checkpoint_util.load_model_weights(ckpt, model)
+    if isinstance(model, MatchModel):
+        for tower, spec in model.tower_specs().items():
+            _export_tower(pipeline_config, model, features,
+                          os.path.join(export_dir, tower), tower, spec)
+    _export_artifact(pipeline_config, model, features, export_dir)
+
+
+def _write_config_and_fg(pipeline_config, features, out_dir: str) -> None:
+    from torcheasyrec_tpu_torch.features import create_fg_json
+
+    os.makedirs(out_dir, exist_ok=True)
+    config_util.save_message(pipeline_config,
+                             os.path.join(out_dir, "pipeline.config"))
+    with open(os.path.join(out_dir, "fg.json"), "w") as f:
+        json.dump(create_fg_json(features), f, indent=2)
+
+
+def _export_artifact(pipeline_config, model: BaseModel, features,
+                     export_dir: str) -> None:
+    """The whole model's artifact; with ``QUANT_EMB`` the tables go
+    rowwise-quantized into ``quant_tables/<group>.npz`` (``values``,
+    ``scales``; ``quant_meta.json`` holds the dtype and each group's rows
+    and dim) and ``model/`` holds the dense weights only."""
+    from torcheasyrec_tpu_torch.acc.quant_util import quantize_rowwise
+
+    _write_config_and_fg(pipeline_config, features, export_dir)
+    state = model.state_dict()
+    quant_dtype = os.environ.get("QUANT_EMB", "").upper()
+    if quant_dtype:
+        eg = model.embedding_group
+        mats = eg.engine.export_weight_matrices(eg.engine_tables())
+        qdir = os.path.join(export_dir, "quant_tables")
+        os.makedirs(qdir, exist_ok=True)
+        meta = {"dtype": quant_dtype, "groups": {}}
+        for gk, w in mats.items():
+            q = quantize_rowwise(w, quant_dtype)
+            np.savez(os.path.join(qdir, f"{gk}.npz"), values=q["values"],
+                     scales=q["scales"])
+            meta["groups"][gk] = {"rows": int(w.shape[0]),
+                                  "dim": int(w.shape[1])}
+        with open(os.path.join(export_dir, "quant_meta.json"), "w") as f:
+            json.dump(meta, f)
+        state = {k: v for k, v in state.items()
+                 if not k.startswith("embedding_group.tables.")}
+    checkpoint_util.save_model(os.path.join(export_dir, "model"), state)
+    if not quant_dtype:
+        _export_program(pipeline_config, model, features, export_dir)
+    logger.info(f"exported model to {export_dir}"
+                + (f" (tables {quant_dtype})" if quant_dtype else ""))
+
+
+def _tower_weights(model: BaseModel, table_names) -> Dict[str, torch.Tensor]:
+    """The dense weights and the tower's own tables (the others stay at
+    their init where the artifact is loaded; the tower never reads
+    them)."""
+    prefix = "embedding_group.tables."
+    return {k: v for k, v in model.state_dict().items()
+            if not k.startswith(prefix) or k[len(prefix):] in table_names}
+
+
+def _tower_fn(model: BaseModel, tower: str, groups: List[str],
+              output: str) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """batch of the tower's features -> {output: fp32 embedding}."""
+
+    def fn(batch: Batch) -> Dict[str, torch.Tensor]:
+        grouped = model.embedding_group(batch, model.compute_dtype, groups)
+        grouped, _ = model.build_input(grouped, batch)
+        return {output: model.predict_tower(grouped, batch, tower).float()}
+
+    return fn
+
+
+def _export_tower(pipeline_config, model: BaseModel, features,
+                  tower_dir: str, tower: str, spec: Dict[str, Any]) -> None:
+    """One tower's artifact: the dense weights with the tower's tables,
+    the config, the tower's ``fg.json``, ``tower.json`` (tower, groups,
+    output key, features) and the program of the tower function."""
+    eg = model.embedding_group
+    groups = eg.groups_closure(spec["groups"])
+    feat_names = eg.features_for_groups(groups)
+    tower_features = [f for f in features if f.name in set(feat_names)]
+    _write_config_and_fg(pipeline_config, tower_features, tower_dir)
+    checkpoint_util.save_model(
+        os.path.join(tower_dir, "model"),
+        _tower_weights(model, eg.tables_for_groups(groups)))
+    with open(os.path.join(tower_dir, "tower.json"), "w") as f:
+        json.dump({"tower": tower, "groups": groups,
+                   "output": spec["output"], "features": feat_names},
+                  f, indent=2)
+    _serialize_program(pipeline_config, tower_features,
+                       _tower_fn(model, tower, groups, spec["output"]),
+                       model, tower_dir, TOWER_PROGRAM)
+    logger.info(f"exported the {tower} tower to {tower_dir}")
+
+
+def _export_program(pipeline_config, model: BaseModel, features,
+                    export_dir: str) -> None:
+    """``predict_fn.pt2``: the eval forward without the ``__`` outputs
+    and the list outputs."""
+
+    def serve_fn(batch: Batch) -> Dict[str, torch.Tensor]:
+        return {k: v for k, v in model(batch).items()
+                if not k.startswith("__") and not isinstance(v, (list, tuple))}
+
+    _serialize_program(pipeline_config, features, serve_fn, model,
+                       export_dir, PREDICT_PROGRAM)
+
+
+class _FlatServe(torch.nn.Module):
+    """``serve_fn`` over the flat tensors of a batch: what is exported.
+    The model is a submodule, so its weights go into the program."""
+
+    def __init__(self, model: BaseModel, serve_fn, spec) -> None:
+        super().__init__()
+        self.model = model
+        self._serve_fn = serve_fn
+        self._spec = spec
+
+    def forward(self, *flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        import torch.utils._pytree as pytree
+
+        return self._serve_fn(pytree.tree_unflatten(list(flat), self._spec))
+
+
+def serving_batch(pipeline_config, features, device) -> Tuple[int, Batch]:
+    """(rows, batch) the serving program is traced over: a mock table
+    (``utils/test_util``, seed 0) of ``eval_batch_size`` (else
+    ``batch_size``) rows, parsed as the loader parses, on ``device``."""
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.utils.test_util import generate_mock_table
+
+    dc = pipeline_config.data_config
+    bs = int(dc.eval_batch_size or dc.batch_size)
+    tbl = generate_mock_table(features, bs, [], seed=0)
+    batch = DataParser(features, labels=[]).parse_to_batch(
+        {name: tbl.column(i) for i, name in enumerate(tbl.schema.names)})
+    return bs, batch.to(device)
+
+
+def _serialize_program(pipeline_config, features, serve_fn,
+                       model: BaseModel, export_dir: str,
+                       filename: str) -> None:
+    """Export ``serve_fn(batch)`` over the flat tensors of the serving
+    batch (``torch.export``, static shapes, no gradient) and save it with
+    ``torch.export.save``, beside ``serving_spec.json`` (``batch_size``,
+    ``platforms``, ``num_inputs``, ``input_tree``). Raises on failure: an
+    artifact must not ship without its program, unless
+    ``TZREC_EXPORT_BEST_EFFORT=1`` downgrades the failure to a
+    warning."""
+    import torch.utils._pytree as pytree
+
+    try:
+        dev = next(iter(model.embedding_group.engine_tables().values())).device
+        bs, batch = serving_batch(pipeline_config, features, dev)
+        leaves, spec = pytree.tree_flatten(batch)
+        # the weights take no gradient, so the attention runs as its
+        # forward operator (not the autograd function)
+        model.requires_grad_(False)
+        program = torch.export.export(
+            _FlatServe(model, serve_fn, spec), tuple(leaves))
+        torch.export.save(program, os.path.join(export_dir, filename))
+        with open(os.path.join(export_dir, SERVING_SPEC), "w") as f:
+            json.dump({"batch_size": bs, "platforms": [dev.type],
+                       "num_inputs": len(leaves), "input_tree": str(spec)},
+                      f)
+        logger.info(f"wrote {filename}")
+    except Exception as e:  # noqa: BLE001 - raised again below
+        if os.environ.get("TZREC_EXPORT_BEST_EFFORT") == "1":
+            logger.warning(f"program export skipped: {e}")
+            return
+        raise RuntimeError(
+            f"serving program export failed for {export_dir}: {e}") from e
+
+
+def _best_checkpoint(pipeline_config, model_dir: str) -> Optional[str]:
+    """The checkpoint whose eval line in ``train_eval_result_v2.txt`` has
+    the best ``best_exporter_metric`` (default auc; larger or smaller as
+    ``metric_larger_is_better`` says); None where there is no such line
+    or its checkpoint is gone."""
+    ec = pipeline_config.export_config
+    metric = ec.best_exporter_metric or "auc"
+    larger = ec.metric_larger_is_better
+    path = os.path.join(model_dir, "train_eval_result_v2.txt")
+    if not os.path.exists(path):
+        return None
+    best_step, best_val = None, None
+    with open(path) as f:
+        for line in f:
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if metric not in rec:
+                continue
+            v = float(rec[metric])
+            if best_val is None or (v > best_val if larger else v < best_val):
+                best_val, best_step = v, int(rec["global_step"])
+    if best_step is None or (
+            best_step not in checkpoint_util.list_checkpoints(model_dir)):
+        return None
+    logger.info(f"best exporter: step {best_step} ({metric}={best_val:.5f})")
+    return checkpoint_util.checkpoint_path(model_dir, best_step)
+
+
+# ---------------------------------------------------------------------------
+# predict from an artifact
+# ---------------------------------------------------------------------------
+
+
+def predict(
+    predict_input_path: str,
+    predict_output_path: str,
+    scripted_model_path: str,
+    reserved_columns: Optional[str] = None,
+    output_columns: Optional[str] = None,
+    batch_size: Optional[int] = None,
+    device="cuda",
+) -> int:
+    """Batch inference from an export artifact (``scripted_model_path``,
+    the directory ``export`` wrote): the model is rebuilt from its
+    ``pipeline.config`` and ``model/`` weights, with the tables
+    dequantized from ``quant_tables/`` where ``quant_meta.json`` is
+    present; a tower artifact (``tower.json``) writes its tower's
+    embeddings. Output and columns as ``predict_checkpoint``; returns the
+    rows predicted.
+
+    The artifact's ``.pt2`` program is not run here. To run it
+    elsewhere, import ``torcheasyrec_tpu_torch.ops.hstu`` before
+    ``torch.export.load``: the program names the attention operator that
+    module registers."""
+    from torcheasyrec_tpu_torch.acc.quant_util import dequantize_rowwise
+
+    dev = resolve_device(device)
+    pipeline_config = config_util.load_pipeline_config(
+        os.path.join(scripted_model_path, "pipeline.config"))
+    if batch_size:
+        pipeline_config.data_config.batch_size = batch_size
+    tower_meta_path = os.path.join(scripted_model_path, "tower.json")
+    if os.path.exists(tower_meta_path):
+        with open(tower_meta_path) as f:
+            tower_meta = json.load(f)
+        return _predict_tower_artifact(
+            pipeline_config, scripted_model_path, tower_meta,
+            predict_input_path, predict_output_path, reserved_columns, dev)
+    model, features = _artifact_model(pipeline_config, dev)
+    model_dir = os.path.join(scripted_model_path, "model")
+    quant_meta_path = os.path.join(scripted_model_path, "quant_meta.json")
+    if os.path.exists(quant_meta_path):
+        with open(quant_meta_path) as f:
+            quant_meta = json.load(f)
+        checkpoint_util.restore_model(model_dir, model, strict=False)
+        mats = {}
+        for gk, meta in quant_meta["groups"].items():
+            z = np.load(os.path.join(scripted_model_path, "quant_tables",
+                                     f"{gk}.npz"))
+            mats[gk] = dequantize_rowwise(
+                {"values": z["values"], "scales": z["scales"]},
+                quant_meta["dtype"], meta["dim"])
+        eg = model.embedding_group
+        stores = eg.engine_tables()
+        with torch.no_grad():
+            for gk, t in eg.engine.import_weight_matrices(mats, dev).items():
+                stores[gk].copy_(t)
+    else:
+        checkpoint_util.restore_model(model_dir, model)
+    return _predict_preds(pipeline_config, model, features,
+                          predict_input_path, predict_output_path,
+                          reserved_columns, output_columns, dev)
+
+
+def _predict_loop(pipeline_config, features, input_path: str,
+                  output_path: str, reserved_columns: Optional[str], dev,
+                  step, convert) -> int:
+    """The predict-mode loader over ``input_path`` through ``step``,
+    written by a thread through ``convert(outputs, reserved columns)``;
+    returns the rows."""
+    dl = create_dataloader(pipeline_config.data_config, features, input_path,
+                           mode="predict",
+                           reserved_columns=_parse_list(reserved_columns),
+                           device=dev)
+    writer = _AsyncPredictWriter(
+        create_writer(output_path, "ParquetWriter"), convert)
+    n = 0
+    batches = dl()
+    try:
+        for batch, info in batches:
+            writer.put(step(batch), info.reserved)
+            n += info.batch_size
+    finally:
+        batches.close()
+        writer.close()
+    return n
+
+
+def _predict_tower_artifact(pipeline_config, tower_dir: str,
+                            tower_meta: Dict[str, Any], input_path: str,
+                            output_path: str,
+                            reserved_columns: Optional[str], dev) -> int:
+    """One tower's embeddings from its artifact: the input holds that
+    tower's features only (an item table for the index, user requests
+    for queries); [B, K, D] multi-interest outputs are written as
+    [B, K * D]."""
+    import pyarrow as pa
+
+    model, features = _artifact_model(pipeline_config, dev)
+    checkpoint_util.restore_model(os.path.join(tower_dir, "model"), model,
+                                  strict=False)
+    out_key = tower_meta["output"]
+    feat_set = set(tower_meta["features"])
+    tower_features = [f for f in features if f.name in feat_set]
+    tower_fn = _tower_fn(model, tower_meta["tower"], tower_meta["groups"],
+                         out_key)
+
+    def step(batch: Batch) -> torch.Tensor:
+        model.eval()
+        with torch.inference_mode():
+            return tower_fn(batch)[out_key]
+
+    def convert(emb, reserved_cols) -> Dict[str, pa.Array]:
+        emb = emb.cpu().numpy()
+        if emb.ndim == 3:
+            emb = emb.reshape(emb.shape[0], -1)
+        out: Dict[str, pa.Array] = dict(reserved_cols)
+        out[out_key] = pa.array(list(emb))
+        return out
+
+    return _predict_loop(pipeline_config, tower_features, input_path,
+                         output_path, reserved_columns, dev, step, convert)

@@ -295,31 +295,67 @@ class EmbeddingGroup(nn.Module):
                     out.append(enc.input)
         return out
 
+    def features_for_groups(self, group_names) -> List[str]:
+        """The feature names a subset of groups reads (a tower's fg.json
+        and its loader's columns), in slot order."""
+        names: List[str] = []
+
+        def add(slot: Slot) -> None:
+            kind, key, _ = slot
+            f = key.split(":")[1] if kind == "emb" else key
+            if f not in names:
+                names.append(f)
+
+        for g in group_names:
+            sg = self._seq_groups.get(g)
+            if sg is not None:
+                for slot in sg["query"] + sg["sequence"]:
+                    add(slot)
+                if sg["length_feature"] not in names:
+                    names.append(sg["length_feature"])
+            for slot in self._group_slots.get(g, []):
+                add(slot)
+        return names
+
+    def tables_for_groups(self, group_names) -> set:
+        return self.engine.tables_for_features(
+            set(self.features_for_groups(group_names)))
+
     # -- forward -----------------------------------------------------------
 
-    def lookup(self, batch: Batch
+    def lookup(self, batch: Batch, groups: Optional[List[str]] = None
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """Engine lookup only: (emb_out, residuals). emb_out holds fp32
         lookups, [B, L, D] per sequence feature and [B, D] pooled. The
         train step takes gradients with respect to emb_out and routes
-        them, with the residuals, to ``engine.update``."""
+        them, with the residuals, to ``engine.update``. ``groups`` looks
+        up those groups' features only."""
         return self.engine.lookup(
             self.engine_tables(), batch.sparse_features,
             batch.sequence_sparse_features,
+            feature_filter=(None if groups is None
+                            else set(self.features_for_groups(groups))),
         )
 
-    def forward(self, batch: Batch,
-                compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-        """Lookup + ``assemble``, for eval and predict."""
-        return self.assemble(self.lookup(batch)[0], batch, compute_dtype)
+    def forward(self, batch: Batch, compute_dtype: torch.dtype,
+                groups: Optional[List[str]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Lookup + ``assemble``, for eval and predict; ``groups`` (a
+        tower's group closure) restricts both."""
+        return self.assemble(self.lookup(batch, groups)[0], batch,
+                             compute_dtype, groups)
 
     def assemble(self, emb_out: Dict[str, torch.Tensor], batch: Batch,
-                 compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+                 compute_dtype: torch.dtype,
+                 groups: Optional[List[str]] = None
+                 ) -> Dict[str, torch.Tensor]:
         """Group concat and sequence encoders, a function of ``emb_out``:
         ``{g}.query``, ``{g}.sequence`` and ``{g}.sequence_length`` for
         sequence groups first, then ``{group}`` [B, D] for WIDE and DEEP
         groups, each its slots followed by its encoders' outputs. Values
-        are cast to ``compute_dtype``."""
+        are cast to ``compute_dtype``. ``groups`` assembles those groups
+        only."""
+        gset = None if groups is None else set(groups)
 
         def _slot_value(slot: Slot) -> torch.Tensor:
             kind, key, _ = slot
@@ -333,6 +369,8 @@ class EmbeddingGroup(nn.Module):
 
         result: Dict[str, torch.Tensor] = {}
         for name, sg in self._seq_groups.items():
+            if gset is not None and name not in gset:
+                continue
             lf = sg["length_feature"]
             if lf in batch.sequence_sparse_features:
                 lengths = batch.sequence_sparse_features[lf].lengths
@@ -347,6 +385,8 @@ class EmbeddingGroup(nn.Module):
             )
             result[f"{name}.sequence_length"] = lengths
         for gname, slots in self._group_slots.items():
+            if gset is not None and gname not in gset:
+                continue
             vals = [_slot_value(s) for s in slots]
             vals += [enc(result, compute_dtype)
                      for enc in self._encoders(gname)]

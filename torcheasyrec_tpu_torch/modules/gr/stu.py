@@ -9,8 +9,10 @@ rematerialize the projection stage and the output stage in the backward
 (``torch.utils.checkpoint``, non-reentrant); the attention never re-runs,
 as in the JAX package. ``STUStack`` runs a range of its layers, so that
 the transducer can truncate the history between two ranges
-(``truncate_uih``). The KV-cached decode (``cached_forward``) is not
-ported.
+(``truncate_uih``). ``cached_forward`` is the KV-cached decode: the new
+tokens' keys and values go into a per-layer cache and their queries
+attend it through ``delta_hstu_mha`` (plain PyTorch, as in the JAX
+package).
 """
 
 from typing import Any, Dict, Optional
@@ -22,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from torcheasyrec_tpu_torch.modules.module import LayerNorm, dropout_keep_mask
 from torcheasyrec_tpu_torch.ops import Kernel
 from torcheasyrec_tpu_torch.ops.hstu import (
+    delta_hstu_mha,
     hstu_compute_output,
     hstu_compute_uqvk,
     hstu_mha,
@@ -119,6 +122,55 @@ class STULayer(nn.Module):
             return checkpoint(out_fn, attn, u, x, use_reentrant=False)
         return out_fn(attn, u, x)
 
+    def init_cache(self, b: int, n_max: int) -> Dict[str, torch.Tensor]:
+        """This layer's fp32 KV cache of ``n_max`` positions, on its
+        weights' device."""
+        dev = self.uvqk_weight.device
+        return {"k": torch.zeros(b, n_max, self.h, self.ad, device=dev),
+                "v": torch.zeros(b, n_max, self.h, self.ld, device=dev)}
+
+    def cached_forward(self, x_new: torch.Tensor, lengths: torch.Tensor,
+                       cache: Dict[str, torch.Tensor],
+                       scaling_seqlen: int = -1,
+                       num_targets: Optional[torch.Tensor] = None):
+        """Incremental decode of the Ld new tokens ``x_new`` [B, Ld, E]
+        (``lengths`` [B] counts them): only their q, k, v are computed,
+        their keys and values are written into the cache at
+        [lengths - Ld, lengths) and their queries attend the cached
+        sequence. Eval mode, no dropout. Returns (y_new, new cache); the
+        cache passed in is left as it is."""
+        ld_new = x_new.shape[1]
+        u, v, q, k = hstu_compute_uqvk(
+            x_new, self.input_ln.weight, self.input_ln.bias,
+            self.uvqk_weight, self.uvqk_bias, self.h, self.ld, self.ad)
+        # the start as the JAX package's dynamic_update_slice takes it: a
+        # negative one wraps by the cache length, then it is clamped into
+        # the cache (so a prefill wider than a sample's length lands at
+        # the cache's end; only lengths >= Ld are meaningful)
+        n_max = cache["k"].shape[1]
+        start = lengths.to(torch.int64) - ld_new
+        start = torch.clamp(torch.where(start < 0, start + n_max, start),
+                            min=0, max=n_max - ld_new)
+        pos = start[:, None] + torch.arange(ld_new, device=x_new.device)[None]
+
+        def scatter(buf, new):
+            idx = pos[:, :, None, None].expand(-1, -1, *buf.shape[2:])
+            return buf.scatter(1, idx, new.to(buf.dtype))
+
+        new_cache = {"k": scatter(cache["k"], k), "v": scatter(cache["v"], v)}
+        attn = delta_hstu_mha(
+            q, new_cache["k"].to(q.dtype), new_cache["v"].to(q.dtype),
+            lengths, alpha=self.alpha, num_targets=num_targets,
+            max_attn_len=self.max_attn_len,
+            contextual_seq_len=self.contextual_seq_len,
+            scaling_seqlen=scaling_seqlen, sla_k1=self.sla_k1,
+            sla_k2=self.sla_k2)
+        y = hstu_compute_output(
+            attn, u, x_new, self.output_ln.weight, self.output_ln.bias,
+            self.output_weight, group_norm=self.use_group_norm,
+            num_heads=self.h, linear_dim=self.ld)
+        return y, new_cache
+
 
 class STUStack(nn.Module):
     def __init__(self, layers) -> None:
@@ -139,6 +191,20 @@ class STUStack(nn.Module):
         for layer in self.layers[start:end]:
             x = layer(x, lengths, num_targets, scaling_seqlen)
         return x
+
+    def init_cache(self, b: int, n_max: int):
+        return [layer.init_cache(b, n_max) for layer in self.layers]
+
+    def cached_forward(self, x_new, lengths, caches,
+                       scaling_seqlen: int = -1, num_targets=None):
+        """Incremental decode through every layer, one KV cache each.
+        Returns (y_new, new caches)."""
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x_new, c = layer.cached_forward(x_new, lengths, cache,
+                                            scaling_seqlen, num_targets)
+            new_caches.append(c)
+        return x_new, new_caches
 
 
 def truncate_uih(

@@ -7,7 +7,11 @@ Counterpart of torcheasyrec_tpu/ops/hstu.py. Sequences are padded dense
 ``hstu_mha`` dispatches: a CUDA tensor goes to the hand-written kernels
 unless the config asked for the plain version (Kernel.PYTORCH /
 Kernel.JAX, differentiated by plain autograd); a CPU tensor goes to the
-plain versions. The forward kernel ``ops/csrc/hstu_attention_fwd.cu``
+plain versions. The forward goes through the operator
+``torch.ops.tzrec_tpu_torch.hstu_attention_fwd`` (``hstu_attention_op``),
+whose CUDA implementation launches the kernel and whose CPU one is the
+plain version, so that ``torch.export`` keeps it in an exported program
+on either device. The forward kernel ``ops/csrc/hstu_attention_fwd.cu``
 replaces the Pallas kernel
 ``torcheasyrec_tpu/ops/pallas/hstu_attention.py:_fwd_kernel``; the fused
 backward kernel ``ops/csrc/hstu_attention_bwd.cu`` replaces
@@ -52,9 +56,12 @@ def valid_attn_mask(
     min_full_attn_seq_len: int = 0,
     sla_k1: int = 0,
     sla_k2: int = 0,
+    row_pos: Optional[torch.Tensor] = None,  # [B, R] row subset
 ) -> torch.Tensor:
-    """[B, N, N] bool mask, row i attending column j. Rows and columns at
-    or past the length are masked, so padded rows output zeros.
+    """[B, N, N] bool mask, row i attending column j, or [B, R, N] for
+    the rows ``row_pos`` selects (the cached decode's new tokens). Rows
+    and columns at or past the length are masked, so padded rows output
+    zeros.
 
     With sla_k1 or sla_k2 > 0, Semi-Local Attention replaces the causal
     mask: history rows attend the prefix [0, min(eff_k2, i + 1)) and the
@@ -64,7 +71,10 @@ def valid_attn_mask(
     """
     b = lengths.shape[0]
     dev = lengths.device
-    rows = torch.arange(n, dtype=torch.int32, device=dev)[None, :, None]
+    if row_pos is None:
+        rows = torch.arange(n, dtype=torch.int32, device=dev)[None, :, None]
+    else:
+        rows = row_pos.to(torch.int32)[:, :, None]
     cols = torch.arange(n, dtype=torch.int32, device=dev)[None, None, :]
     len_b = lengths.to(torch.int32).reshape(b, 1, 1)
     col_valid = (cols < len_b) & (rows < len_b)
@@ -83,7 +93,7 @@ def valid_attn_mask(
         )
         tgt = cols < h_bound
         mask = torch.where(rows < h_bound, hist, tgt)
-        return (mask & col_valid).expand(b, n, n)
+        return (mask & col_valid).expand(b, rows.shape[1], n)
 
     ids_r, ids_c = rows, cols
     max_ids = len_b
@@ -109,7 +119,7 @@ def valid_attn_mask(
             mask = mask & (dist <= max_attn_len)
     if contextual_seq_len > 0:
         mask = mask | ((ids_r == 0) & (ids_c < max_ids))
-    return (mask & col_valid).expand(b, n, n)
+    return (mask & col_valid).expand(b, rows.shape[1], n)
 
 
 def hstu_mha(
@@ -168,12 +178,11 @@ def hstu_mha(
                 contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
                 sla_k1, sla_k2,
             )
-        if q.is_cuda:
-            return hstu_attention_fwd(
-                q, k, v, lengths, num_targets, alpha, causal, max_attn_len,
-                contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
-                sla_k1, sla_k2,
-            )
+        return _attention_forward(
+            q, k, v, lengths, num_targets, alpha, causal, max_attn_len,
+            contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
+            sla_k1, sla_k2,
+        )
     return _torch_hstu_mha(
         q, k, v, lengths, alpha, causal, num_targets, max_attn_len,
         contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
@@ -204,6 +213,43 @@ def _torch_hstu_mha(
     out = torch.einsum(
         "bhxy,byhv->bxhv", attn.to(v.dtype).float(), v.float()
     )
+    return out.to(v.dtype)
+
+
+def delta_hstu_mha(
+    delta_q: torch.Tensor,  # [B, Ld, H, D]: the new tokens' queries
+    k: torch.Tensor,  # [B, N, H, D]: cached and new keys
+    v: torch.Tensor,  # [B, N, H, V]
+    lengths: torch.Tensor,  # [B] valid tokens, the new ones included
+    alpha: float,
+    num_targets: Optional[torch.Tensor] = None,
+    max_attn_len: int = 0,
+    contextual_seq_len: int = 0,
+    scaling_seqlen: int = -1,
+    sla_k1: int = 0,
+    sla_k2: int = 0,
+) -> torch.Tensor:
+    """The cached decode's attention, counterpart of the JAX package's
+    ``delta_hstu_mha`` (plain there too: no Pallas kernel). The Ld new
+    tokens sit at positions [lengths - Ld, lengths) and attend the cached
+    sequence causally; only their Ld mask rows are built. Returns
+    [B, Ld, H, V] in v's dtype."""
+    ld = delta_q.shape[1]
+    n = k.shape[1]
+    if scaling_seqlen == -1:
+        scaling_seqlen = n
+    qk = torch.einsum("bxhd,byhd->bhxy", delta_q.float(), k.float()) * alpha
+    attn = F.silu(qk) / scaling_seqlen
+    row_pos = torch.clamp(
+        lengths.to(torch.int32)[:, None] - ld
+        + torch.arange(ld, dtype=torch.int32, device=lengths.device)[None],
+        0, n - 1)
+    mask = valid_attn_mask(
+        n, lengths, True, num_targets, max_attn_len, contextual_seq_len, 0,
+        sla_k1=sla_k1, sla_k2=sla_k2, row_pos=row_pos)
+    attn = attn * mask[:, None].to(attn.dtype)
+    out = torch.einsum(
+        "bhxy,byhv->bxhv", attn.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
 
@@ -254,14 +300,8 @@ class HstuAttentionFunction(torch.autograd.Function):
                          min_full_attn_seq_len, scaling_seqlen, sla_k1,
                          sla_k2)
         ctx.alpha = alpha
-        if q.is_cuda:
-            return hstu_attention_fwd(
-                q, k, v, lengths, num_targets, alpha, causal, max_attn_len,
-                contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
-                sla_k1, sla_k2,
-            )
-        return _torch_hstu_mha(
-            q, k, v, lengths, alpha, causal, num_targets, max_attn_len,
+        return _attention_forward(
+            q, k, v, lengths, num_targets, alpha, causal, max_attn_len,
             contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
             sla_k1, sla_k2,
         )
@@ -383,6 +423,71 @@ def hstu_attention_fwd(
 
 
 hstu_attention_fwd.launches = 0
+
+
+@torch.library.custom_op("tzrec_tpu_torch::hstu_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def hstu_attention_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    num_targets: Optional[torch.Tensor],
+    alpha: float,
+    causal: bool,
+    max_attn_len: int,
+    contextual_seq_len: int,
+    min_full_attn_seq_len: int,
+    scaling_seqlen: int,
+    sla_k1: int,
+    sla_k2: int,
+) -> torch.Tensor:
+    """The attention forward as an operator of its own,
+    ``torch.ops.tzrec_tpu_torch.hstu_attention_fwd``, so that
+    ``torch.export`` keeps it as one node of the graph (it traces its
+    fake version) and the exported program runs the kernel. The CPU
+    implementation is the plain version; the CUDA one launches the kernel
+    through ``hstu_attention_fwd`` (it raises on inputs the kernel does
+    not take). A saved program that names the operator loads only in a
+    process that has imported this module. The backward kernel stays
+    on ``HstuAttentionFunction``: training is not exported."""
+    return _torch_hstu_mha(
+        q, k, v, lengths, alpha, causal, num_targets, max_attn_len,
+        contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
+        sla_k1, sla_k2,
+    )
+
+
+def _attention_forward(q, k, v, lengths, num_targets, alpha, causal,
+                       max_attn_len, contextual_seq_len,
+                       min_full_attn_seq_len, scaling_seqlen, sla_k1,
+                       sla_k2) -> torch.Tensor:
+    """The operator with its scalars in the schema's types."""
+    return hstu_attention_op(
+        q, k, v, lengths, num_targets, float(alpha), bool(causal),
+        int(max_attn_len), int(contextual_seq_len),
+        int(min_full_attn_seq_len), int(scaling_seqlen), int(sla_k1),
+        int(sla_k2))
+
+
+@hstu_attention_op.register_kernel("cuda")
+def _hstu_attention_op_cuda(q, k, v, lengths, num_targets, alpha, causal,
+                            max_attn_len, contextual_seq_len,
+                            min_full_attn_seq_len, scaling_seqlen, sla_k1,
+                            sla_k2):
+    return hstu_attention_fwd(
+        q, k, v, lengths, num_targets, alpha, causal, max_attn_len,
+        contextual_seq_len, min_full_attn_seq_len, scaling_seqlen,
+        sla_k1, sla_k2,
+    )
+
+
+@hstu_attention_op.register_fake
+def _hstu_attention_op_fake(q, k, v, lengths, num_targets, alpha, causal,
+                            max_attn_len, contextual_seq_len,
+                            min_full_attn_seq_len, scaling_seqlen, sla_k1,
+                            sla_k2):
+    return v.new_empty(tuple(q.shape[:3]) + (v.shape[3],))
 
 
 def hstu_attention_bwd(

@@ -55,6 +55,7 @@ import math
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from torcheasyrec_tpu_torch.datasets.utils import SparseField
@@ -131,11 +132,12 @@ def _group_key(dim: int, dtype: str = "FP32") -> str:
 
 
 def segment_ids_from_lengths(lengths: torch.Tensor, n: int) -> torch.Tensor:
-    """[n] sample index of each jagged slot; padding slots get b."""
-    b = lengths.shape[0]
-    seg = torch.repeat_interleave(
-        torch.arange(b, device=lengths.device), lengths.long())
-    return torch.cat([seg, seg.new_full((n - seg.shape[0],), b)])
+    """[n] sample index of each jagged slot; padding slots get b. A
+    search over the running lengths, so the shape is known without the
+    data (``torch.export`` traces it, and the card does not wait)."""
+    ends = torch.cumsum(lengths.long(), 0)
+    pos = torch.arange(n, device=lengths.device)
+    return torch.searchsorted(ends, pos, right=True)
 
 
 def _slots(t: torch.Tensor, g: _Group) -> torch.Tensor:
@@ -300,15 +302,22 @@ class EmbeddingEngine:
         tables: Dict[str, torch.Tensor],
         sparse: Dict[str, SparseField],
         sequence_sparse: Optional[Dict[str, SparseField]] = None,
+        feature_filter: Optional[set] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """(outputs, residuals). outputs[key]: [B, dim] pooled, or
         [B, L, dim] for sequence lookups, in the table's storage dtype
         (fp32 but for BF16 and FP16 tables). residuals: per group
-        ``(flat_ids, plan)`` for ``update``."""
+        ``(flat_ids, plan)`` for ``update``. ``feature_filter`` keeps the
+        lookups of the named features only (a tower's serving batch holds
+        its own features alone); a group left with none is skipped."""
         sequence_sparse = sequence_sparse or {}
         outputs: Dict[str, torch.Tensor] = {}
         residuals: Dict[str, Any] = {}
         for gk, lks in self._lookups_by_group.items():
+            if feature_filter is not None:
+                lks = [lk for lk in lks if lk.feature_name in feature_filter]
+                if not lks:
+                    continue
             g = self.groups[gk]
             flat_ids, plan = self._flatten_group_ids(
                 g, lks, sparse, sequence_sparse)
@@ -563,6 +572,45 @@ class EmbeddingEngine:
         scalar_state.update(new_scalar)
 
     # -- per-table access ------------------------------------------------------
+
+    def tables_for_features(self, feature_names) -> set:
+        """Names of the tables the given features look up (the tables a
+        tower artifact keeps)."""
+        names = set(feature_names)
+        return {lk.table_name for lks in self._lookups_by_group.values()
+                for lk in lks if lk.feature_name in names}
+
+    def export_weight_matrices(self, tables: Dict[str, torch.Tensor]
+                               ) -> Dict[str, np.ndarray]:
+        """{group key: [total_rows, dim] fp32 numpy weights}, whatever the
+        layout (a packed group's weight lanes, without its row state or
+        scratch row): the view the quantized export writes."""
+        out = {}
+        for gk, g in self.groups.items():
+            t = tables[gk].detach()
+            w = self.unpack_group(g, t)[0] if g.packed else t
+            out[gk] = w.float().cpu().numpy()
+        return out
+
+    def import_weight_matrices(self, mats: Dict[str, Any],
+                               device=None) -> Dict[str, torch.Tensor]:
+        """Inverse of ``export_weight_matrices``: {group key: storage in
+        this engine's layout} (the row state of packed rows at the
+        optimizer's fill values; serving never reads it)."""
+        fills = self.optimizer.row_state_init()
+        out = {}
+        for gk, w in mats.items():
+            g = self.groups[gk]
+            w = torch.as_tensor(np.asarray(w, np.float32), device=device)
+            if g.packed:
+                srows = {name: torch.full((g.total_rows, width),
+                                          float(fills.get(name, 0.0)),
+                                          device=w.device)
+                         for name, width in g.state_widths}
+                out[gk] = self.pack_group(g, w, srows)
+            else:
+                out[gk] = w.to(g.store_dtype)
+        return out
 
     def table_rows(self, table_name: str) -> Tuple[str, int, int]:
         """(group key, first logical row, rows) of one table."""

@@ -18,6 +18,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 CKPT_PREFIX = "model.ckpt-"
+# an export artifact's weights, under its ``model/`` directory
+MODEL_FILE = "model.pt"
 # train state entries a checkpoint carries where the state has them
 _OPTIONAL_STATE = ("accum_grads", "scaler")
 
@@ -72,6 +74,25 @@ def load_model_weights(path: str, model, strict: bool = True
     ckpt = torch.load(path, map_location=dev, weights_only=True)
     model.load_state_dict(ckpt.get("model", ckpt), strict=strict)
     return ckpt
+
+
+def save_model(path: str, state: Dict[str, torch.Tensor]) -> str:
+    """An export artifact's weights: ``state`` (a ``state_dict``, or a
+    part of one) saved as ``<path>/model.pt``; returns that file."""
+    os.makedirs(path, exist_ok=True)
+    out = os.path.join(path, MODEL_FILE)
+    torch.save({k: v.detach().cpu() for k, v in state.items()}, out)
+    return out
+
+
+def restore_model(path: str, model, strict: bool = True) -> None:
+    """Load ``<path>/model.pt`` of ``save_model`` into ``model``. Without
+    ``strict``, weights the file lacks keep their values (a tower
+    artifact holds its own tables only, a quantized one none)."""
+    dev = next(iter(model.embedding_group.engine_tables().values())).device
+    model.load_state_dict(torch.load(os.path.join(path, MODEL_FILE),
+                                     map_location=dev, weights_only=True),
+                          strict=strict)
 
 
 def restore_checkpoint(path: str, model, tx=None, strict: bool = True

@@ -1,13 +1,15 @@
 """Pipeline-config loading and editing.
 
 Counterpart of torcheasyrec_tpu/utils/config_util.py
-(load_pipeline_config, config_to_kwargs, edit_config). The text-format
+(load_pipeline_config, save_message, config_to_kwargs, edit_config).
+The text-format
 EasyRecConfig is the user-facing surface: the same text parses into this package's
 protos and into the JAX package's, since text format names no package.
 protobuf is imported inside the functions, so the model code can be
 built from keyword arguments alone.
 """
 
+import os
 import re
 from typing import Any, Dict
 
@@ -20,6 +22,17 @@ def load_pipeline_config(pipeline_config_path: str,
             f.read(), is_json=pipeline_config_path.endswith(".json"),
             allow_unknown_field=allow_unknown_field,
         )
+
+
+def save_message(message, filepath: str) -> None:
+    """Write a proto message as text format (the directory is made)."""
+    from google.protobuf import text_format
+
+    directory = os.path.dirname(filepath)
+    if directory:
+        os.makedirs(directory, exist_ok=True)
+    with open(filepath, "w") as f:
+        f.write(text_format.MessageToString(message, as_utf8=True))
 
 
 def parse_pipeline_config(text: str, is_json: bool = False,
