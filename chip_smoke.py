@@ -29,7 +29,8 @@ recommendation family (hstu_synth's DLRM-HSTU at its published width,
 DLRM-HSTU with the content/action preprocessors, SLA and attention
 truncation, ULTRA-HSTU and HSTU-Match); and the rest of the ranking and
 multi-task zoo (xDeepFM, WuKong, PEPNet, DC2VR) on the synthetic Criteo
-data; and export and artifact serving. Phases, one JSON line each:
+data; and export and artifact serving; and TDM tree retrieval. Phases,
+one JSON line each:
 
 1. env: the card, CUDA and torch versions; every CUDA kernel of the
    paths is built from the sources here (one nvcc per source, in
@@ -289,6 +290,40 @@ data; and export and artifact serving. Phases, one JSON line each:
    then its fp32 and INT8 artifacts: the INT8 tables bit-equal to a CPU
    quantization of the same weights, the INT8 probabilities within 0.05
    of the fp32 artifact's. Export seconds and bytes per artifact.
+
+13. train_tdm: TDM tree retrieval on the criteo_synth data at assumed
+   widths (``tdm_text``; the upstream Taobao example's model, which is
+   not in the repository): the tree of the 2 000 items (``init_tree``,
+   4 001 nodes, leaves at depth 11); ``TDMSampler.process`` timed on the
+   host (a batch of 1 024 rows becomes ~46 800 pairs); the sampler's
+   shared table on a synthetic item table of 4 M items (cut to half of
+   /dev/shm's free space): the build, the segment's bytes, and the
+   memory of 4 spawned workers that attach against one that unpickles a
+   private copy (each worker's own growth, and the host's MemAvailable
+   while they hold their mappings: the attached workers' growth must be
+   under a quarter of the copy's, by the workers' own counters where
+   they separate shared memory, else by the host's). 3 fp32 steps on the
+   card against
+   the CPU from the same CPU-drawn weights and sampled batches, as
+   ``train_zoo_rest``'s (1e-4 of each tensor's max, the card's PReLU
+   branches replayed on the CPU). 16 steps (cut from 64: the CPU
+   reference's time) through ``train_and_evaluate``
+   from the default seed's CPU-drawn weights with 4 loader workers on the
+   shared tables, and an eval of 8 192 rows: exactly one row write a step
+   (the wrapper's count, and 3 in the trace of steps 3-5), the AUC within
+   0.02 of a CPU run from the same weights; the step on a resident
+   sampled batch (median, window, idle share, peak memory) with its row
+   writes bit-equal to the plain version's, and the loader-fed step.
+   ``export``: every tree node's embedding from ``embedding/`` by
+   ``predict`` in a process of its own, and its ``tower_fn.pt2`` on its
+   batch, bit-equal to ``node_embedding``; ``model/``'s ``predict``
+   bit-equal to ``predict_checkpoint``. ``cluster_tree`` over the 2 000
+   leaf embeddings from the artifact, 8 steps (cut from 32) on the new
+   tree from the
+   trained weights (one row write a step), and ``tdm_retrieval``
+   (recall@50, 2 clusters, 1 024 eval users) on each tree, on the card
+   within 0.02 of the CPU from the same checkpoint, with its ms per user
+   and per beam layer and the host's share.
 
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
@@ -4501,9 +4536,10 @@ def replay_gates(models, replay: GateReplay):
     return undo
 
 
-def zoo_rest_card_vs_cpu(name, text, train_path) -> dict:
+def zoo_rest_card_vs_cpu(name, text, train_path, batches=None) -> dict:
     """ZOO_REST_CHECK_STEPS fp32 train steps on the card and on the CPU
-    from the same CPU-drawn weights and batches, the variational-dropout
+    from the same CPU-drawn weights and batches (the train file's first,
+    or ``batches``, CPU batches), the variational-dropout
     noise drawn once on the CPU and given to both and the card's ReLU and
     PReLU branches replayed on the CPU (``GateReplay``): before each step
     the training-mode loss, every prediction and dense gradient within
@@ -4522,8 +4558,9 @@ def zoo_rest_card_vs_cpu(name, text, train_path) -> dict:
         cfg, device="cpu")
     card_model, _, _, card_state, card_step = build_trainer(cfg)
     card_model.load_state_dict(cpu_model.state_dict())
-    batches = parquet_batches(train_path, features, ZOO_REST_CHECK_STEPS,
-                              cfg.data_config.batch_size)
+    if batches is None:
+        batches = parquet_batches(train_path, features, ZOO_REST_CHECK_STEPS,
+                                  cfg.data_config.batch_size)
     cmp = CpuComparison(name, ZOO_REST_CARD_TOL, ZOO_REST_ZERO_GRAD)
     noise_gen = torch.Generator().manual_seed(SEED)
     vds = cpu_model.variational_dropout or {}
@@ -5162,6 +5199,770 @@ def phase_export(smi):
     return fwd, writes
 
 
+# --- train_tdm: TDM tree retrieval -------------------------------------------
+TDM_BATCH = 1024  # input rows a step; the sampler makes ~46 800 pairs of them
+TDM_LAYERS = (0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6)  # negatives by depth
+# train_and_evaluate on the card and on the CPU: cut from 64 steps, whose
+# CPU reference took 137.7 s on the card's host (2.2 s a step; PERF.md
+# §6, PR 14), to keep the whole script near 800 s
+TDM_STEPS = 16
+TDM_RETRAIN_STEPS = 8  # on the rebuilt tree (cut from 32, 29.3 s there)
+TDM_EVAL_ROWS = 8192
+TDM_WORKERS = 4
+TDM_SAMPLER_BATCHES = 5
+TDM_SHM_ITEMS = 4_000_000  # the shared item table, cut to fit /dev/shm
+TDM_SHM_WORKERS = 4
+TDM_LOADER_STEPS = 16  # the loader-fed window, after LOADER_WARMUP steps
+TDM_RECALL_NUM, TDM_N_CLUSTER = 50, 2
+TDM_RETRIEVAL_USERS = 1024
+TDM_CPU_BOUND = 0.02  # AUC and recall@50 on the card against the CPU's
+TDM_PREDICT_ROWS = 4096
+# the node predict from the embedding artifact, in a process of its own
+TDM_NODE_PREDICT = r"""
+import sys
+from torcheasyrec_tpu_torch import main
+print(main.predict(sys.argv[1], sys.argv[2], sys.argv[3],
+                   reserved_columns="item_id"))
+"""
+
+
+def tdm_text(paths, tree, model_dir, num_steps=None, check=False) -> str:
+    """TDM on the criteo_synth data at assumed widths (the upstream Taobao
+    example's model, which is not in the repository): the 26 ``cat_*`` at
+    dim 16 (the generator's capped buckets) and the 13 ``int_*`` in a DEEP
+    group ``user``; ``item_id`` (the query, 4 096 buckets to cover the
+    tree's internal nodes) and ``click_seq`` (30 long) on one table
+    ``item_emb``; MultiWindowDIN over windows 1, 1, 2, 2, 4, 4, 8, 8 with
+    an attention MLP of 36 (PReLU); final 256-128-64-32 with batch norm
+    and PReLU; BCE, AUC; batch 1 024, fp32, rowwise adagrad lr 0.01 and
+    adam lr 0.001; ``check``: adam's and rowwise adagrad's eps 1e-4, as
+    the card-against-CPU steps of ``zoo_rest_text``."""
+    from torcheasyrec_tpu_torch.benchmark.synthetic import CRITEO_BUCKETS
+
+    eps = " eps: 1e-4" if check else ""
+    num_steps = num_steps or TDM_STEPS
+    feats = "".join(
+        f'feature_configs {{ id_feature {{ feature_name: "cat_{j}" '
+        f"num_buckets: {b} embedding_dim: 16 }} }}\n"
+        for j, b in enumerate(CRITEO_BUCKETS))
+    feats += "".join(
+        f'feature_configs {{ raw_feature {{ feature_name: "int_{i}" }} }}\n'
+        for i in range(13))
+    layers = ", ".join(map(str, TDM_LAYERS))
+    return f"""train_input_path: "{paths['train']}"
+eval_input_path: "{paths['tdm_eval']}"
+model_dir: "{model_dir}"
+train_config {{
+  sparse_optimizer {{ rowwise_adagrad_optimizer {{ lr: 0.01{eps} }}
+                      constant_learning_rate {{}} }}
+  dense_optimizer {{ adam_optimizer {{ lr: 0.001{eps} }}
+                     constant_learning_rate {{}} }}
+  num_steps: {num_steps}
+  save_checkpoints_steps: 100000
+  is_profiling: true
+}}
+eval_config {{}}
+data_config {{
+  batch_size: {TDM_BATCH}
+  dataset_type: ParquetDataset
+  fg_mode: FG_NONE
+  label_fields: "label"
+  num_workers: {TDM_WORKERS}
+  tdm_sampler {{
+    item_input_path: "{tree}/node_table.parquet"
+    edge_input_path: "{tree}/edge_table.parquet"
+    predict_edge_input_path: "{tree}/edge_table.parquet"
+    attr_fields: "item_id"
+    item_id_field: "item_id"
+    layer_num_sample: [{layers}]
+  }}
+}}
+{feats}feature_configs {{ id_feature {{ feature_name: "item_id"
+  num_buckets: 4096 embedding_dim: 16 embedding_name: "item_emb" }} }}
+feature_configs {{ sequence_id_feature {{ feature_name: "click_seq"
+  num_buckets: 4096 embedding_dim: 16 sequence_length: 30
+  embedding_name: "item_emb" }} }}
+model_config {{
+{_feature_group("user", ZOO_CATS + ZOO_INTS)}\
+  feature_groups {{ group_name: "seq" feature_names: "item_id"
+                    feature_names: "click_seq" group_type: SEQUENCE }}
+  tdm {{
+    multiwindow_din {{ windows_len: [1, 1, 2, 2, 4, 4, 8, 8]
+      attn_mlp {{ hidden_units: [36] activation: "nn.PReLU" }} }}
+    final {{ hidden_units: [256, 128, 64, 32] use_bn: true
+             activation: "nn.PReLU" }}
+  }}
+  num_class: 1
+  losses {{ binary_cross_entropy {{}} }}
+  metrics {{ auc {{}} }}
+}}
+"""
+
+
+def write_text(path, text) -> str:
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def tdm_tree(items, tree) -> dict:
+    """``init_tree`` over the items; its node and edge counts, root and
+    leaf depth."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.tools.tdm.gen_tree import init_tree
+
+    t0 = time.perf_counter()
+    init_tree(items, tree, branching=2)
+    nodes = pq.read_table(os.path.join(tree, "node_table.parquet"))
+    edges = pq.read_table(os.path.join(tree, "edge_table.parquet"))
+    with open(os.path.join(tree, "root_id.txt")) as f:
+        root = int(f.read())
+    return {"nodes": nodes.num_rows, "edges": edges.num_rows, "root": root,
+            "internal_ids": [int(pq.read_table(items).num_rows) + 1, root],
+            "init_tree_s": time.perf_counter() - t0}
+
+
+def tdm_sampler_host(cfg, features, train_path) -> dict:
+    """``TDMSampler.process`` on the card's host: ms per batch of
+    TDM_BATCH rows (median of TDM_SAMPLER_BATCHES) and pairs per batch;
+    and the parse of the sampled columns into a batch (the loader's next
+    step: every user column repeated per pair, the history strings
+    included)."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.datasets.dataset import (
+        _selected_columns,
+        create_sampler,
+    )
+
+    sampler = create_sampler(cfg.data_config, "train", features)
+    t0 = time.perf_counter()
+    sampler.init()
+    init_s = time.perf_counter() - t0
+    tbl = pq.read_table(train_path, columns=_selected_columns(
+        cfg.data_config, features, "train", None))
+    parser = DataParser(features, labels=list(cfg.data_config.label_fields))
+    ms, parse_ms, pairs, positives = [], [], [], []
+    for i in range(TDM_SAMPLER_BATCHES):
+        part = tbl.slice(i * TDM_BATCH, TDM_BATCH)
+        cols = {c: part[c].combine_chunks() for c in part.column_names}
+        t0 = time.perf_counter()
+        out = sampler.process(cols)
+        t1 = time.perf_counter()
+        parser.parse_to_batch(out)
+        parse_ms.append((time.perf_counter() - t1) * 1e3)
+        ms.append((t1 - t0) * 1e3)
+        pairs.append(len(out["item_id"]))
+        positives.append(int(out["label"].to_numpy().sum()))
+    return {"init_s": init_s, "ms_per_batch_median": float(np.median(ms)),
+            "ms_per_batch": ms,
+            "parse_ms_per_batch_median": float(np.median(parse_ms)),
+            "parse_ms_per_batch": parse_ms, "pairs_per_batch": pairs,
+            "positives_per_batch": positives,
+            "pairs_per_s": float(np.median(pairs)) / np.median(ms) * 1e3,
+            "max_depth": sampler._max_depth}
+
+
+def proc_memory_kb() -> dict:
+    """This process's memory as the kernel reports it, in kB: /proc's
+    ``status`` (VmRSS, RssAnon, RssFile, RssShmem), ``statm`` (resident,
+    shared) and ``smaps_rollup`` (Rss, Pss, Private_*, Shared_*), each
+    key where the system provides it; and ``private``, the first of
+    RssAnon, Private_Clean + Private_Dirty and statm's resident - shared
+    that it has (``private_source`` names it)."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key in ("VmRSS", "RssAnon", "RssFile", "RssShmem"):
+                out[key] = int(val.split()[0])
+    page_kb = os.sysconf("SC_PAGE_SIZE") // 1024
+    with open("/proc/self/statm") as f:
+        _, resident, shared = (int(v) for v in f.read().split()[:3])
+    out["statm_resident"], out["statm_shared"] = (resident * page_kb,
+                                                  shared * page_kb)
+    try:
+        with open("/proc/self/smaps_rollup") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                if key in ("Rss", "Pss", "Private_Clean", "Private_Dirty",
+                           "Shared_Clean", "Shared_Dirty"):
+                    out[f"smaps_{key}"] = int(val.split()[0])
+    except OSError:
+        pass
+    if "RssAnon" in out:
+        out["private"], out["private_source"] = out["RssAnon"], "RssAnon"
+    elif "smaps_Private_Dirty" in out:
+        out["private"] = (out["smaps_Private_Clean"]
+                          + out["smaps_Private_Dirty"])
+        out["private_source"] = "smaps_rollup Private_*"
+    else:
+        out["private"] = resident * page_kb - shared * page_kb
+        out["private_source"] = "statm resident - shared"
+    return out
+
+
+def mem_available_kb() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1])
+    raise AssertionError("/proc/meminfo has no MemAvailable")
+
+
+def tdm_rss_worker(blob, queue, go, done) -> None:
+    """A loader worker's view of a pickled sampler: once ``go`` is set,
+    its memory (``proc_memory_kb``) before the unpickle and after ``init``
+    and a read of every table page; it stays alive until ``done``, so
+    that the parent can read the host's memory with every worker's
+    mapping in place."""
+    import pickle
+
+    import torcheasyrec_tpu_torch.datasets.sampler  # noqa: F401 (its imports)
+
+    queue.put("ready")
+    go.wait()
+    before = proc_memory_kb()
+    sampler = pickle.loads(blob)
+    sampler.init()
+    touched = sum(float(np.asarray(a).sum()) for a in sampler._tables.values()
+                  if a.dtype.kind in "iuf")
+    after = proc_memory_kb()
+    queue.put({"growth_kb": {k: after[k] - before[k] for k in after
+                             if k != "private_source"},
+               "private_source": after["private_source"],
+               "shared": bool(sampler._shm_name), "touched": touched})
+    done.wait()
+
+
+def tdm_shared_table(tmp) -> dict:
+    """``prepare_shared`` on a synthetic item table of TDM_SHM_ITEMS items
+    (uniform weights; cut to fit half of /dev/shm's free space): the
+    parent's build seconds and the segment's bytes; then
+    TDM_SHM_WORKERS spawned workers that attach, against one that
+    unpickles a private copy: each worker's own memory growth, and the
+    host's (MemAvailable) while all the attached workers hold their
+    mapping, then while the copy is made. Where a worker's counters
+    separate shared from private memory, an attached worker's private
+    growth must be under a quarter of the copy's; else the host's growth
+    for the four attached workers must be under a quarter of the copy's."""
+    import multiprocessing
+    import pickle
+    from queue import Empty
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.datasets.sampler import NegativeSampler
+    from torcheasyrec_tpu_torch.protos import sampler_pb2
+    from torcheasyrec_tpu_torch.utils import shm_pack
+    from google.protobuf import text_format
+
+    st = os.statvfs("/dev/shm")
+    shm = {"size_bytes": st.f_blocks * st.f_frsize,
+           "free_bytes": st.f_bavail * st.f_frsize}
+    per_item = 8 * 7 + 12  # six 8-byte arrays, the attr offsets and bytes
+    n = int(min(TDM_SHM_ITEMS, shm["free_bytes"] / 2 / per_item))
+    path = os.path.join(tmp, "shm_items.parquet")
+    ids = np.arange(n, dtype=np.int64)
+    attrs = pc.binary_join_element_wise(
+        pa.array(ids).cast(pa.string()),
+        pa.array(ids // 40).cast(pa.string()), ":")
+    pq.write_table(pa.table({"id": ids, "weight": np.ones(n),
+                             "attrs": attrs}), path)
+    cfg = text_format.Parse(
+        f'input_path: "{path}" num_sample: 32 attr_fields: "item_id" '
+        'attr_fields: "item_cluster" item_id_field: "item_id"',
+        sampler_pb2.NegativeSampler())
+    shared = NegativeSampler(cfg)
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    go_shared, go_copy, done = ctx.Event(), ctx.Event(), ctx.Event()
+    procs = []
+
+    def collect(n_items):
+        got, deadline = [], time.perf_counter() + 300
+        while len(got) < n_items:
+            try:
+                got.append(queue.get(timeout=5))
+            except Empty:
+                if (time.perf_counter() > deadline or any(
+                        p.exitcode not in (None, 0) for p in procs)):
+                    raise AssertionError(
+                        f"memory workers: {len(got)} of {n_items} messages, "
+                        f"exit codes {[p.exitcode for p in procs]}") from None
+        return got
+
+    try:
+        t0 = time.perf_counter()
+        shared.prepare_shared()
+        build_s = time.perf_counter() - t0
+        seg = shm_pack.segment_bytes(shared._shm_name)
+        private = NegativeSampler(cfg)
+        private.init()
+        blobs = [pickle.dumps(shared)] * TDM_SHM_WORKERS + [
+            pickle.dumps(private)]
+        del private
+        procs = [ctx.Process(target=tdm_rss_worker, args=(
+            b, queue, go_shared if i < TDM_SHM_WORKERS else go_copy, done))
+            for i, b in enumerate(blobs)]
+        for p in procs:
+            p.start()
+        collect(len(procs))  # every worker started and imported
+        host0 = mem_available_kb()
+        go_shared.set()
+        attached = collect(TDM_SHM_WORKERS)
+        host1 = mem_available_kb()
+        go_copy.set()
+        copied = collect(1)
+        host2 = mem_available_kb()
+        done.set()
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        done.set()
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        shared.close_shared()
+    if not all(r["shared"] for r in attached) or copied[0]["shared"]:
+        raise AssertionError(f"memory workers: {attached + copied}")
+    own = [r["growth_kb"]["private"] * 1024 for r in attached]
+    copy_own = copied[0]["growth_kb"]["private"] * 1024
+    host_attached, host_copy = (host0 - host1) * 1024, (host1 - host2) * 1024
+    # a worker's own memory grows by its start-up's few MB when it
+    # attaches, by the table's size when it holds a private copy; where
+    # its counters show no shared growth, they cannot tell the two apart
+    g0 = attached[0]["growth_kb"]
+    shared_seen = max(g0.get("RssShmem", 0), g0["statm_shared"],
+                      g0.get("smaps_Shared_Clean", 0)
+                      + g0.get("smaps_Shared_Dirty", 0)) * 1024
+    if shared_seen >= 0.5 * seg and copy_own >= 0.5 * seg:
+        check = "each attached worker's own growth < 1/4 of the copy's"
+        ok = max(own) < 0.25 * copy_own
+    elif host_copy >= 0.5 * seg:
+        check = ("the host's growth for the 4 attached workers < 1/4 of "
+                 "the copy's")
+        ok = host_attached < 0.25 * host_copy
+    else:
+        check, ok = "not measured", True
+    if not ok:
+        raise AssertionError(
+            f"attached workers' memory: own {own}, host {host_attached}; "
+            f"the private copy's: own {copy_own}, host {host_copy}; "
+            f"segment {seg}")
+    return {"dev_shm": shm, "items": n, "cut": n < TDM_SHM_ITEMS,
+            "prepare_shared_s": build_s, "segment_bytes": seg,
+            "pickled_shared_bytes": len(blobs[0]),
+            "pickled_private_bytes": len(blobs[-1]),
+            "private_memory_source": attached[0]["private_source"],
+            "shared_growth_seen_bytes": shared_seen, "check": check,
+            "host_mem_available_drop_bytes": {
+                "attach_4_workers": host_attached, "private_copy": host_copy},
+            "attached_workers_growth_kb": [r["growth_kb"] for r in attached],
+            "private_copy_growth_kb": copied[0]["growth_kb"]}
+
+
+def tdm_loader_batches(cfg, features, path, n, device) -> list:
+    """The first ``n`` train batches of the thread loader (the sampler
+    applied) on ``device``."""
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+
+    cfg.data_config.num_workers = 0
+    it = create_dataloader(cfg.data_config, features, path, mode="train",
+                           device=device)()
+    try:
+        return [b for b, _ in itertools.islice(it, n)]
+    finally:
+        it.close()
+
+
+def traced_row_writes(model_dir) -> int:
+    """Kernel #3's launches in the train loop's profiler trace (steps 3-5
+    of ``is_profiling``)."""
+    with open(os.path.join(model_dir, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and "row_write_kernel" in e.get("name", ""))
+
+
+def tdm_train(port_main, write_rows, text, src, paths, tmp, name,
+              num_steps, init) -> dict:
+    """``train_and_evaluate`` on the card from ``init`` (4 loader workers
+    on the shared tables), with the row writes counted (once a step, by
+    the wrapper and in the trace of steps 3-5)."""
+    write_rows.launches = 0
+    t0 = time.perf_counter()
+    result = port_main.train_and_evaluate(
+        write_text(src, text), fine_tune_checkpoint=init, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = write_rows.launches
+    model_dir = os.path.join(tmp, name)
+    traced = traced_row_writes(model_dir)
+    if result["step"] != num_steps or launches != num_steps or traced != 3:
+        raise AssertionError(f"{name}: {result['step']} steps, {launches} "
+                             f"row writes, {traced} in the traced 3 steps")
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError(f"{name}: not finite: {result}")
+    return {"train_and_evaluate_s": seconds, "result": result,
+            "row_write_launches": launches, "traced_row_writes_3_steps":
+            traced}
+
+
+def tdm_resident(port_main, cfg, features, train_path) -> dict:
+    """The step on a resident sampled batch (median of ZOO_TIMED_STEPS
+    after ZOO_WARMUP, a window, ZOO_PROFILED_STEPS profiled, peak memory),
+    one step's row writes against the plain version, and the step fed by
+    the loader's TDM_WORKERS workers (a window after LOADER_WARMUP)."""
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, _, _, state, step = build_trainer(cfg)
+    batch = tdm_loader_batches(cfg, features, train_path, 1, "cuda")[0]
+    rows = int(batch.labels["label"].shape[0])
+    before = write_rows.launches
+    losses, step_ms, window_ms = timed_steps(step, state, batch, ZOO_WARMUP,
+                                             ZOO_TIMED_STEPS)
+
+    def profiled_steps():
+        for _ in range(ZOO_PROFILED_STEPS):
+            step(state, batch)
+
+    profile = profile_forward(profiled_steps)
+    calls = write_targets(model, step, state, batch)
+    check_step_writes("tdm", calls)
+    driven = ZOO_WARMUP + 2 * ZOO_TIMED_STEPS + ZOO_PROFILED_STEPS + 1
+    if write_rows.launches - before != driven or len(calls) != 1:
+        raise AssertionError(f"tdm: {write_rows.launches - before} row "
+                             f"writes in {driven} resident steps")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"tdm: timed losses not finite: {losses}")
+    out = {"pairs": rows, "input_rows": TDM_BATCH,
+           "step_ms_median": float(np.median(step_ms)),
+           "step_ms_range": [min(step_ms), max(step_ms)],
+           "window_step_ms": window_ms,
+           "pairs_per_s": rows / window_ms * 1e3,
+           "idle_share_profiled_steps": profile.get("device_idle_share"),
+           "busy_ms_per_step": (profile["device_busy_ms"] / ZOO_PROFILED_STEPS
+                                if "device_busy_ms" in profile else None),
+           "step_profile": profile,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "row_write_at_step_targets": {
+               "bit_equal": True, "targets": int(calls[0][1].shape[0]),
+               "table_rows": int(calls[0][0].shape[0])}}
+
+    cfg.data_config.num_workers = TDM_WORKERS
+    dl = create_dataloader(cfg.data_config, features, train_path,
+                           mode="train", device="cuda")
+    it = dl()
+    pairs = 0
+    try:
+        for i, (b, _) in enumerate(it):
+            state, _ = step(state, b)
+            if i == LOADER_WARMUP - 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            elif i >= LOADER_WARMUP:
+                pairs += int(b.labels["label"].shape[0])
+            if i == LOADER_WARMUP + TDM_LOADER_STEPS - 1:
+                break
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        it.close()
+    out["loader_fed"] = {"workers": TDM_WORKERS, "steps": TDM_LOADER_STEPS,
+                         "step_ms": seconds * 1e3 / TDM_LOADER_STEPS,
+                         "pairs_per_s": pairs / seconds}
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def tdm_export(port_main, model_dir, tmp, tree) -> dict:
+    """Export of the trained model: the node embeddings of every tree node
+    from ``embedding/`` by ``predict`` in a process of its own, and from
+    the loaded ``tower_fn.pt2`` on its serving batch, each bit-equal to
+    the model's ``node_embedding``; ``model/``'s ``predict`` bit-equal to
+    ``predict_checkpoint``. Seconds and bytes per artifact."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+    from torcheasyrec_tpu_torch.utils.config_util import load_pipeline_config
+
+    cfg_path = os.path.join(model_dir, "pipeline.config")
+    export_dir = os.path.join(tmp, "tdm_export")
+    res = timed_export(port_main, cfg_path, export_dir)
+    emb_dir, whole = (os.path.join(export_dir, d)
+                      for d in ("embedding", "model"))
+    res["bytes"] = {"embedding": dir_bytes(emb_dir), "model": dir_bytes(whole)}
+    res["program_bytes"] = {
+        "embedding": os.path.getsize(os.path.join(emb_dir,
+                                                  port_main.TOWER_PROGRAM)),
+        "model": os.path.getsize(os.path.join(whole,
+                                              port_main.PREDICT_PROGRAM))}
+
+    node_ids = pq.read_table(os.path.join(tree, "node_table.parquet"))["id"]
+    nodes = os.path.join(tmp, "tdm_nodes.parquet")
+    pq.write_table(pa.table({"item_id": node_ids}), nodes)
+    node_out = os.path.join(tmp, "tdm_node_emb.parquet")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", TDM_NODE_PREDICT, nodes, node_out, emb_dir],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError("the node predict failed:\n" + proc.stdout
+                             + proc.stderr[-4000:])
+    res["node_predict_process_s"] = time.perf_counter() - t0
+    got = read_column(node_out, "item_emb")
+    if not torch.equal(read_column(node_out, "item_id"),
+                       torch.from_numpy(node_ids.to_numpy())):
+        raise AssertionError("the node predict's item_id column")
+
+    cfg = load_pipeline_config(cfg_path)
+    model, features = port_main.build_model(cfg, "cuda")
+    checkpoint_util.load_model_weights(
+        checkpoint_util.latest_checkpoint(model_dir), model)
+    node_features = [f for f in features if f.name == "item_id"]
+    batch = DataParser(node_features, labels=[]).parse_to_batch(
+        {"item_id": node_ids.combine_chunks()}).to("cuda")
+    with torch.inference_mode():
+        want = model.embedding_group.node_embedding(
+            batch, torch.float32, model.seq_group).float().cpu()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"embedding artifact: {tuple(got.shape)} node "
+                             "embeddings, not bit-equal to node_embedding")
+    _, sbatch = port_main.serving_batch(cfg, node_features, "cuda")
+    program = torch.export.load(os.path.join(
+        emb_dir, port_main.TOWER_PROGRAM)).module()
+    with torch.inference_mode():
+        prog = program(*torch.utils._pytree.tree_flatten(sbatch)[0])
+        ref = model.embedding_group.node_embedding(
+            sbatch, torch.float32, model.seq_group)
+    if not torch.equal(prog["item_emb"], ref):
+        raise AssertionError("tower_fn.pt2 differs from node_embedding")
+    res["nodes"] = {"rows": int(got.shape[0]), "dim": int(got.shape[1]),
+                    "bit_equal_to_node_embedding": True,
+                    "program_bit_equal_on_its_batch": True}
+    del model, program
+
+    pred_in = os.path.join(tmp, "tdm_predict_in.parquet")
+    pq.write_table(pq.read_table(cfg.eval_input_path).slice(
+        0, TDM_PREDICT_ROWS), pred_in)
+    art_out, ckpt_out = (os.path.join(tmp, f"tdm_{k}.parquet")
+                         for k in ("artifact_preds", "ckpt_preds"))
+    t0 = time.perf_counter()
+    n = port_main.predict(pred_in, art_out, whole, reserved_columns="item_id",
+                          device="cuda")
+    res["predict_s"] = time.perf_counter() - t0
+    port_main.predict_checkpoint(cfg_path, pred_in, ckpt_out,
+                                 reserved_columns="item_id", device="cuda")
+    if n != TDM_PREDICT_ROWS:
+        raise AssertionError(f"model/ predicted {n} rows")
+    res["predict_bit_equal_to_predict_checkpoint"] = equal_columns(
+        "tdm model/ predict", art_out, ckpt_out, ["item_id", "probs",
+                                                  "logits"])
+    res["emb_dir"] = emb_dir
+    return res
+
+
+def tdm_cluster(port_main, items, emb_dir, tmp) -> dict:
+    """The leaf items' embeddings from the embedding artifact, then
+    ``cluster_tree`` over them."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.tools.tdm.gen_tree import cluster_tree
+
+    t0 = time.perf_counter()
+    tbl = pq.read_table(items)
+    leaf_in, leaf_out = (os.path.join(tmp, f"tdm_leaves_{k}.parquet")
+                         for k in ("in", "out"))
+    pq.write_table(pa.table({"item_id": tbl.column(0)}), leaf_in)
+    port_main.predict(leaf_in, leaf_out, emb_dir, reserved_columns="item_id",
+                      device="cuda")
+    emb = pq.read_table(leaf_out)
+    if not emb["item_id"].equals(tbl.column(0)):
+        raise AssertionError("leaf embeddings out of order")
+    with_emb = os.path.join(tmp, "tdm_items_emb.parquet")
+    pq.write_table(tbl.append_column("embedding", emb["item_emb"]),
+                   with_emb)
+    tree = os.path.join(tmp, "tdm_tree_cluster")
+    cluster_tree(with_emb, tree, branching=2)
+    nodes = pq.read_table(os.path.join(tree, "node_table.parquet")).num_rows
+    return {"tree": tree, "nodes": nodes, "seconds": time.perf_counter() - t0}
+
+
+def tdm_retrieve(users, cfg_path) -> dict:
+    """``tdm_retrieval`` (recall@TDM_RECALL_NUM) on the card and on the
+    CPU from the same checkpoint: recall within TDM_CPU_BOUND, ms per
+    user and per beam layer, the host's share."""
+    from torcheasyrec_tpu_torch.tools.tdm.retrieval import tdm_retrieval
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        r = tdm_retrieval(cfg_path, users, recall_num=TDM_RECALL_NUM,
+                          n_cluster=TDM_N_CLUSTER, device=dev)
+        seconds = time.perf_counter() - t0
+        out[dev] = {"recall": r["recall"], "users": r["total"],
+                    "seconds": seconds,
+                    "ms_per_user": seconds * 1e3 / r["total"],
+                    "layer_ms": [s * 1e3 for s in r["layer_s"]],
+                    "layers": [r["first_layer"], r["max_level"]],
+                    "host_s": r["host_s"], "device_s": r["device_s"],
+                    "host_share": r["host_s"] / max(
+                        r["host_s"] + r["device_s"], 1e-9)}
+    dist = out["cuda"]["recall"] - out["cpu"]["recall"]
+    out["card_minus_cpu"] = dist
+    if not abs(dist) <= TDM_CPU_BOUND:
+        raise AssertionError(f"recall@{TDM_RECALL_NUM} on the card "
+                             f"{out['cuda']['recall']} is {dist:+.4f} from "
+                             f"the CPU's (bound {TDM_CPU_BOUND})")
+    return out
+
+
+def phase_train_tdm(smi):
+    """TDM end to end (``tdm_text``): the tree, the sampler's host cost and
+    its shared table, 3 fp32 steps on the card against the CPU, an epoch
+    cut to TDM_STEPS through ``train_and_evaluate`` with 4 loader workers
+    against a CPU run from the same weights, the resident and loader-fed
+    step, export and the artifacts' predict, ``cluster_tree`` over the
+    exported leaf embeddings and TDM_RETRAIN_STEPS steps on the new tree,
+    ``tdm_retrieval`` on each tree against the CPU. Returns kernel #3's
+    launches of the two ``train_and_evaluate`` runs."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    out, seconds = {"phase": "train_tdm", "nvidia_smi": smi}, {}
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        seconds[key] = time.perf_counter() - t0
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = timed("data", synthetic.ensure_dataset, tmp, ZOO_TRAIN_ROWS,
+                      ZOO_EVAL_ROWS)
+        paths["tdm_eval"] = os.path.join(tmp, "tdm_eval.parquet")
+        evals = pq.read_table(paths["eval"])
+        pq.write_table(evals.slice(0, TDM_EVAL_ROWS), paths["tdm_eval"])
+        users = os.path.join(tmp, "tdm_users.parquet")
+        pq.write_table(evals.slice(0, TDM_RETRIEVAL_USERS), users)
+        del evals
+        tree = os.path.join(tmp, "tdm_tree")
+        out["tree"] = timed("tree", tdm_tree, paths["items"], tree)
+        emit({"phase": "train_tdm_tree", **out["tree"]})
+
+        text = tdm_text(paths, tree, os.path.join(tmp, "tdm"))
+        cfg = parse_pipeline_config(text)
+        features = port_main._create_features(cfg)
+        out["sampler"] = timed("sampler", tdm_sampler_host, cfg, features,
+                               paths["train"])
+        out["shared_table"] = timed("shared_table", tdm_shared_table, tmp)
+        emit({"phase": "train_tdm_sampler", "sampler": out["sampler"],
+              "shared_table": out["shared_table"]})
+
+        check_text = tdm_text(paths, tree, os.path.join(tmp, "tdm_check"),
+                              check=True)
+        batches = tdm_loader_batches(parse_pipeline_config(check_text),
+                                     features, paths["train"],
+                                     ZOO_REST_CHECK_STEPS, "cpu")
+        before = write_rows.launches
+        out["card_vs_cpu"] = timed("card_vs_cpu", zoo_rest_card_vs_cpu,
+                                   "tdm", check_text, None, batches)
+        out["card_vs_cpu"]["pairs_per_batch"] = [
+            int(b.labels["label"].shape[0]) for b in batches]
+        out["card_vs_cpu"]["row_write_launches"] = (write_rows.launches
+                                                    - before)
+        del batches
+        emit({"phase": "train_tdm_card_vs_cpu", **out["card_vs_cpu"]})
+
+        src = os.path.join(tmp, "tdm.config")
+        init = cpu_init(write_text(src, text),
+                        os.path.join(tmp, "tdm_init.pt"))
+        out["train"] = timed("train", tdm_train, port_main, write_rows, text,
+                             src, paths, tmp, "tdm", TDM_STEPS, init)
+        t0 = time.perf_counter()
+        cpu = port_main.train_and_evaluate(
+            write_text(os.path.join(tmp, "tdm_cpu.config"),
+                       tdm_text(paths, tree, os.path.join(tmp, "tdm_cpu"))),
+            fine_tune_checkpoint=init, device="cpu")
+        seconds["train_cpu"] = time.perf_counter() - t0
+        dist = out["train"]["result"]["auc"] - cpu["auc"]
+        out["train"]["cpu_reference"] = {
+            "auc": cpu["auc"], "card_minus_cpu": dist, "bound":
+            TDM_CPU_BOUND, "steps": cpu["step"]}
+        if not abs(dist) <= TDM_CPU_BOUND:
+            raise AssertionError(
+                f"tdm: auc {out['train']['result']['auc']} on the card is "
+                f"{dist:+.4f} from {cpu['auc']} on the CPU")
+        out["resident"] = timed("resident", tdm_resident, port_main, cfg,
+                                features, paths["train"])
+        emit({"phase": "train_tdm_train", "train": out["train"],
+              "resident": out["resident"]})
+
+        out["export"] = timed("export", tdm_export, port_main,
+                              os.path.join(tmp, "tdm"), tmp, tree)
+        out["cluster_tree"] = timed("cluster_tree", tdm_cluster, port_main,
+                                    paths["items"], out["export"]["emb_dir"],
+                                    tmp)
+        tree2 = out["cluster_tree"]["tree"]
+        # the trained weights alone: the new tree's run starts at step 0
+        trained = os.path.join(tmp, "tdm_trained.pt")
+        torch.save(torch.load(checkpoint_util.latest_checkpoint(
+            os.path.join(tmp, "tdm")), weights_only=True)["model"], trained)
+        out["retrain"] = timed(
+            "retrain", tdm_train, port_main, write_rows,
+            tdm_text(paths, tree2, os.path.join(tmp, "tdm_cluster"),
+                     TDM_RETRAIN_STEPS),
+            os.path.join(tmp, "tdm_cluster.config"), paths, tmp,
+            "tdm_cluster", TDM_RETRAIN_STEPS, trained)
+        emit({"phase": "train_tdm_export", "export": out["export"],
+              "cluster_tree": out["cluster_tree"], "retrain": out["retrain"]})
+
+        out["retrieval"] = {
+            "init_tree": timed("retrieval_init_tree", tdm_retrieve, users,
+                               os.path.join(tmp, "tdm", "pipeline.config")),
+            "cluster_tree": timed(
+                "retrieval_cluster_tree", tdm_retrieve, users,
+                os.path.join(tmp, "tdm_cluster", "pipeline.config"))}
+    launches = (out["train"]["row_write_launches"]
+                + out["retrain"]["row_write_launches"])
+    out["seconds"] = seconds
+    out["row_write_launches"] = launches
+    emit({"phase": "train_tdm", "seconds": seconds,
+          "row_write_launches": launches,
+          "retrieval": out["retrieval"],
+          "summary": {
+              "sampler_ms_per_batch": out["sampler"]["ms_per_batch_median"],
+              "pairs_per_batch": out["sampler"]["pairs_per_batch"],
+              "segment_bytes": out["shared_table"]["segment_bytes"],
+              "card_vs_cpu_max_rel_err": out["card_vs_cpu"]["max_rel_err"],
+              "auc": out["train"]["result"]["auc"],
+              "auc_card_minus_cpu": out["train"]["cpu_reference"][
+                  "card_minus_cpu"],
+              "resident_step_ms": out["resident"]["step_ms_median"],
+              "loader_fed_step_ms": out["resident"]["loader_fed"]["step_ms"],
+              "pairs_per_s": out["resident"]["pairs_per_s"],
+              "idle_share": out["resident"]["idle_share_profiled_steps"]}})
+    return launches
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5210,6 +6011,7 @@ def main() -> int:
     gr_launches, gr_timing = timed("train_gr", phase_train_gr)
     zoo_rest_launches = timed("train_zoo_rest", phase_train_zoo_rest)
     export_fwd, export_writes = timed("export", phase_export, smi)
+    tdm_launches = timed("train_tdm", phase_train_tdm, smi)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -5275,7 +6077,7 @@ def main() -> int:
                    deepfm_launches + loader_launches + zoo_launches
                    + lane_off_launches + options_writes
                    + gr_launches["row_write"] + zoo_rest_launches
-                   + export_writes,
+                   + export_writes + tdm_launches,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -5286,7 +6088,8 @@ def main() -> int:
                        "train_options": options_writes,
                        "train_gr": gr_launches["row_write"],
                        "train_zoo_rest": zoo_rest_launches,
-                       "export": export_writes}),
+                       "export": export_writes,
+                       "train_tdm": tdm_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

@@ -216,19 +216,23 @@ def test_dataset_batches_and_info_equal_jax(deepfm_dir, mode):
 
 
 def test_sampler_raises():
-    """The TDM sampler is not ported: asking for it raises. The negative
-    samplers are (tests/test_torch_port_match.py): the loader builds one
-    for train and eval, none for predict."""
+    """The loader builds the TDM sampler (tests/test_torch_port_tdm.py),
+    which writes its labels into the first label field; and a negative
+    sampler (tests/test_torch_port_match.py) for train and eval, none
+    for predict."""
     def config(sampler):
         return parse_pipeline_config(deepfm_config_text(BATCH).replace(
             '  label_fields: "label"',
-            f'  label_fields: "label"\n  {sampler}')).data_config
+            f'  label_fields: "label"\n  label_fields: "label2"\n'
+            f'  {sampler}')).data_config
 
     tdm = config('tdm_sampler { item_input_path: "x" edge_input_path: "x" '
                  'predict_edge_input_path: "x" attr_fields: "cat_0" '
                  'item_id_field: "cat_0" }')
-    with pytest.raises(NotImplementedError, match="TDMSampler"):
-        port_dataset.create_sampler(tdm, "train")
+    built = port_dataset.create_sampler(tdm, "train")
+    assert type(built).__name__ == "TDMSampler"
+    assert built._label_field == "label"
+    assert port_dataset.create_sampler(tdm, "predict") is None
     neg = config('negative_sampler { input_path: "x" num_sample: 2 '
                  'attr_fields: "cat_0" item_id_field: "cat_0" }')
     assert type(port_dataset.create_sampler(neg, "train")).__name__ == (

@@ -252,12 +252,33 @@ def test_export_and_predict_clis(deepfm, tmp_path):
 
 
 def test_tdm_export_raises(tmp_path):
-    """TDM's embedding artifact waits for TDM: its export raises."""
+    """TDM's export (from the seeded init) writes the split layout:
+    ``embedding/`` with the node features' program, ``tower.json`` and
+    ``fg.json``, and the whole model under ``model/``; nothing at the
+    root (tests/test_torch_port_tdm.py holds both against the JAX
+    package's)."""
+    from test_torch_port_tdm import config_text
+
     path = str(tmp_path / "tdm.config")
     with open(path, "w") as f:
-        f.write('model_dir: "%s"\nmodel_config { tdm {} }\n' % tmp_path)
-    with pytest.raises(NotImplementedError, match="TDM"):
-        port_main.export(path, str(tmp_path / "export"), device="cpu")
+        f.write(config_text(str(tmp_path), str(tmp_path / "model")))
+    export_dir = str(tmp_path / "export")
+    port_main.export(path, export_dir, device="cpu")
+    assert sorted(os.listdir(export_dir)) == ["embedding", "model"]
+    emb, whole = (os.path.join(export_dir, d) for d in ("embedding", "model"))
+    for name in ("tower_fn.pt2", "serving_spec.json", "pipeline.config",
+                 "fg.json", "model"):
+        assert os.path.exists(os.path.join(emb, name)), name
+    with open(os.path.join(emb, "tower.json")) as f:
+        assert json.load(f) == {"tower": "embedding", "seq_group": "seq",
+                                "output": "item_emb",
+                                "features": ["item_id"]}
+    with open(os.path.join(emb, "fg.json")) as f:
+        assert [c["feature_name"] for c in json.load(f)["features"]] == [
+            "item_id"]
+    for name in ("predict_fn.pt2", "serving_spec.json", "pipeline.config",
+                 "fg.json", "model"):
+        assert os.path.exists(os.path.join(whole, name)), name
 
 
 # -- DLRM-HSTU: the attention operator in the program ----------------------

@@ -50,7 +50,8 @@ for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "models.wukong", "models.pepnet", "models.dc2vr",
              "tools.feature_selection", "acc.quant_util", "export",
              "tools.hitrate", "utils.test_util",
-             "utils.delta_embedding_dump"):
+             "utils.delta_embedding_dump", "utils.shm_pack", "models.tdm",
+             "tools.tdm.gen_tree", "tools.tdm.retrieval"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -109,6 +110,9 @@ DEEPFM_SLICE_MODULES = [
     # export and artifact serving
     "acc.quant_util", "export", "tools.hitrate", "utils.test_util",
     "utils.delta_embedding_dump",
+    # TDM and the shared sampler tables
+    "utils.shm_pack", "models.tdm", "tools.tdm.gen_tree",
+    "tools.tdm.retrieval",
 ]
 
 

@@ -894,10 +894,10 @@ def test_new_classes_resolve_by_proto_name():
     import torcheasyrec_tpu.models as jax_models
     import torcheasyrec_tpu_torch.models as port_models
 
-    for name in ("xDeepFM", "WuKong", "PEPNet", "DC2VR"):
+    for name in ("xDeepFM", "WuKong", "PEPNet", "DC2VR", "TDM"):
         assert BaseModel.create_class(name).__name__ == (
             jax_models.BaseModel.create_class(name).__name__)
     ported, ref = _model_classes(port_models), _model_classes(jax_models)
     assert len(ref) == 27 and ported <= ref
-    assert len(ported) == 24
-    assert ref - ported == {"TDM", "SidRqvae", "SidRqkmeans"}
+    assert len(ported) == 25
+    assert ref - ported == {"SidRqvae", "SidRqkmeans"}

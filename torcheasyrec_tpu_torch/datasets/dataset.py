@@ -399,10 +399,18 @@ class _WorkerShards(torch.utils.data.IterableDataset):
 
 class _LoaderIter:
     """A ``DataLoader``'s iterator with the device copy applied at
-    ``__next__`` and a ``close`` that stops its workers."""
+    ``__next__`` and a ``close`` that stops its workers, then unlinks the
+    sampler's shared tables (``sampler``, where it published them for the
+    workers)."""
 
-    def __init__(self, loader, copy: Optional[_DeviceCopy]) -> None:
-        self._it = iter(loader)
+    def __init__(self, loader, copy: Optional[_DeviceCopy],
+                 sampler: Optional[Any] = None) -> None:
+        self._sampler = sampler
+        try:
+            self._it = iter(loader)  # spawns the workers
+        except BaseException:
+            self._close_sampler()
+            raise
         self._copy = copy
 
     def __iter__(self):
@@ -416,7 +424,14 @@ class _LoaderIter:
         return batch, info
 
     def close(self) -> None:
-        self._it._shutdown_workers()
+        try:
+            self._it._shutdown_workers()
+        finally:
+            self._close_sampler()
+
+    def _close_sampler(self) -> None:
+        if self._sampler is not None:
+            self._sampler.close_shared()
 
 
 def create_reader(
@@ -484,22 +499,27 @@ def _reader_for(data_config, input_path: str, batch_size: int, selected_cols,
 
 def create_sampler(data_config: Any, mode: str,
                    features: Sequence[Any] = ()) -> Optional[Any]:
-    """The negative sampler ``data_config`` names, for train and eval
+    """The sampler ``data_config`` names, for train and eval
     (``num_eval_sample`` outside train); None in predict or where it
-    names none. Where its ``item_id_field`` is a grouped sequence's
-    sub-feature among ``features``, it reads that column's rows as
-    positives joined by the sequence's delimiter."""
+    names none. The TDM sampler writes its labels into the first label
+    field. Where the ``item_id_field`` is a grouped sequence's
+    sub-feature among ``features``, the sampler reads that column's rows
+    as positives joined by the sequence's delimiter."""
     which = data_config.WhichOneof("sampler")
     if which is None or mode == "predict":
         return None
     from torcheasyrec_tpu_torch.datasets import sampler as sampler_mod
 
     cfg = getattr(data_config, which)
+    cls_name = type(cfg).__name__
+    extra = {}
+    if cls_name == "TDMSampler" and len(data_config.label_fields):
+        extra["label_field"] = data_config.label_fields[0]
     seq_delim = next((f.sequence_delim or ";" for f in features
                       if f.name == cfg.item_id_field and f.sequence_name),
                      None)
-    return sampler_mod.BaseSampler.create_class(type(cfg).__name__)(
-        cfg, is_training=mode == "train", seq_delim=seq_delim)
+    return sampler_mod.BaseSampler.create_class(cls_name)(
+        cfg, is_training=mode == "train", seq_delim=seq_delim, **extra)
 
 
 def num_loader_workers(data_config: Any, mode: str = "train") -> int:
@@ -551,9 +571,12 @@ def create_dataloader(
     pin-memory threads, CUDA's own), and a fork copies their locks in
     whatever state they are; a spawned worker starts from a fresh
     interpreter and never touches CUDA (its tensors stay on the CPU; the
-    parent pins and copies them). A negative sampler (``create_sampler``)
-    is built here, one for the loader: each worker draws from its pickled
-    copy."""
+    parent pins and copies them). A sampler (``create_sampler``) is built
+    here, one for the loader: each worker draws from its pickled copy.
+    With workers, each epoch's iterator publishes the sampler's tables in
+    shared memory before it spawns them (``prepare_shared``: the workers'
+    copies attach to one table) and unlinks them in its ``close``, which
+    the loop calls in a ``finally``."""
     batch_size = int(data_config.batch_size)
     if mode != "train" and data_config.HasField("eval_batch_size"):
         batch_size = int(data_config.eval_batch_size)
@@ -579,7 +602,10 @@ def create_dataloader(
                 batch_size=None, num_workers=mp_workers,
                 pin_memory=copy is not None, timeout=WORKER_TIMEOUT_S,
                 multiprocessing_context="spawn", prefetch_factor=PREFETCH)
-            return _LoaderIter(loader, copy)
+            if sampler is not None:
+                # one table for the workers, unlinked by the iterator's close
+                sampler.prepare_shared()
+            return _LoaderIter(loader, copy, sampler)
         resumed_epoch_pending[0] = False
         return PrefetchIterator(iter(dataset), prefetch=PREFETCH, copy=copy)
 

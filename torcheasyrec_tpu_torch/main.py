@@ -26,7 +26,8 @@ An export artifact holds the weights (``model/model.pt``), the
 ``pipeline.config``, ``fg.json`` and the serving program: a
 ``torch.export`` ``ExportedProgram`` of the eval forward over the flat
 tensors of one batch, saved as ``predict_fn.pt2`` (a match model's
-towers: ``<tower>/tower_fn.pt2``) beside ``serving_spec.json``. It is
+towers: ``<tower>/tower_fn.pt2``; TDM's node embedding:
+``embedding/tower_fn.pt2``) beside ``serving_spec.json``. It is
 traced at the static shapes of a mock batch of ``eval_batch_size`` (else
 ``batch_size``) rows, as the JAX package traces its StableHLO; a batch
 of other shapes is refused by the program. The attention forward is the
@@ -837,17 +838,17 @@ def export(
     ``model_dir``, else the seeded init), the config, ``fg.json`` and the
     serving program traced on ``device``. A match model writes one
     artifact per tower (``user/``, ``item/``) and the whole model at the
-    root. ``QUANT_EMB`` (INT8, INT4, INT2, FP16) quantizes the tables
-    into ``quant_tables/`` and writes no program, as in the JAX package.
-    A failed program serialization raises unless
-    ``TZREC_EXPORT_BEST_EFFORT=1``. TDM raises NotImplementedError (its
-    embedding artifact waits for TDM)."""
+    root; TDM writes ``embedding/`` (tree node features -> node
+    embeddings, for tree building) and ``model/`` (the whole model, which
+    scores (user, node) pairs). ``QUANT_EMB`` (INT8, INT4, INT2, FP16)
+    quantizes the tables into ``quant_tables/`` and writes no program, as
+    in the JAX package. A failed program serialization raises unless
+    ``TZREC_EXPORT_BEST_EFFORT=1``."""
     from torcheasyrec_tpu_torch.models.match_model import MatchModel
+    from torcheasyrec_tpu_torch.models.tdm import TDM
 
     dev = resolve_device(device)
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
-    if pipeline_config.model_config.WhichOneof("model") == "tdm":
-        raise NotImplementedError("TDM's export is not ported")
     model_dir = pipeline_config.model_dir
     model, features = _artifact_model(pipeline_config, dev)
     ckpt = checkpoint_path
@@ -861,6 +862,10 @@ def export(
         for tower, spec in model.tower_specs().items():
             _export_tower(pipeline_config, model, features,
                           os.path.join(export_dir, tower), tower, spec)
+    if isinstance(model, TDM):
+        _export_tdm_embedding(pipeline_config, model, features,
+                              os.path.join(export_dir, "embedding"))
+        export_dir = os.path.join(export_dir, "model")
     _export_artifact(pipeline_config, model, features, export_dir)
 
 
@@ -952,6 +957,71 @@ def _export_tower(pipeline_config, model: BaseModel, features,
     logger.info(f"exported the {tower} tower to {tower_dir}")
 
 
+class _NodeEmbedding(torch.nn.Module):
+    """TDM's node embedding as a module of its own: an embedding group of
+    the query features alone (one DEEP group, ``node``), holding a copy
+    of their tables and nothing else, so that its program carries those
+    tables only. Its output is ``EmbeddingGroup.node_embedding``'s."""
+
+    GROUP = "node"
+
+    def __init__(self, model: BaseModel) -> None:
+        from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
+        from torcheasyrec_tpu_torch.protos import model_pb2
+
+        super().__init__()
+        eg = model.embedding_group
+        names = eg.query_features(model.seq_group)
+        group = model_pb2.FeatureGroupConfig(
+            group_name=self.GROUP, feature_names=names,
+            group_type=model_pb2.DEEP)
+        fused = eg.engine_tables()
+        dev = next(iter(fused.values())).device
+        self.embedding_group = EmbeddingGroup(
+            [f for f in model._features if f.name in set(names)], [group],
+            torch.Generator(device=dev),
+            sparse_optimizer=SparseOptimizer("sgd", {"lr": 0.0}),
+            **model._engine_options)
+        sub = self.embedding_group
+        want = eg.engine.tables_for_features(set(names))
+        if set(sub.engine._specs) != want:
+            raise ValueError(f"node tables {sorted(sub.engine._specs)}, "
+                             f"the model's query tables {sorted(want)}")
+        for name in want:
+            sub.engine.write_table(sub.engine_tables(), name,
+                                   eg.engine.extract_table(fused, name))
+        self._dtype = model.compute_dtype
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        return self.embedding_group(batch, self._dtype,
+                                    [self.GROUP])[self.GROUP]
+
+
+def _export_tdm_embedding(pipeline_config, model: BaseModel, features,
+                          emb_dir: str) -> None:
+    """TDM's ``embedding/`` artifact: the dense weights with the query
+    features' tables, the config, those features' ``fg.json``,
+    ``tower.json`` (tower ``embedding``, the sequence group, output
+    ``item_emb``, the features) and ``tower_fn.pt2``, the program of
+    ``_NodeEmbedding``."""
+    eg = model.embedding_group
+    feat_names = eg.query_features(model.seq_group)
+    node_features = [f for f in features if f.name in set(feat_names)]
+    _write_config_and_fg(pipeline_config, node_features, emb_dir)
+    checkpoint_util.save_model(
+        os.path.join(emb_dir, "model"),
+        _tower_weights(model, eg.engine.tables_for_features(set(feat_names))))
+    with open(os.path.join(emb_dir, "tower.json"), "w") as f:
+        json.dump({"tower": "embedding", "seq_group": model.seq_group,
+                   "output": "item_emb", "features": feat_names},
+                  f, indent=2)
+    node = _NodeEmbedding(model)
+    _serialize_program(pipeline_config, node_features,
+                       lambda batch: {"item_emb": node(batch).float()},
+                       node, emb_dir, TOWER_PROGRAM)
+    logger.info(f"exported TDM's embedding artifact to {emb_dir}")
+
+
 def _export_program(pipeline_config, model: BaseModel, features,
                     export_dir: str) -> None:
     """``predict_fn.pt2``: the eval forward without the ``__`` outputs
@@ -997,10 +1067,12 @@ def serving_batch(pipeline_config, features, device) -> Tuple[int, Batch]:
 
 
 def _serialize_program(pipeline_config, features, serve_fn,
-                       model: BaseModel, export_dir: str,
+                       model: torch.nn.Module, export_dir: str,
                        filename: str) -> None:
     """Export ``serve_fn(batch)`` over the flat tensors of the serving
-    batch (``torch.export``, static shapes, no gradient) and save it with
+    batch (``torch.export``, static shapes, no gradient; ``model``, which
+    has an ``embedding_group``, is the module whose weights the program
+    holds) and save it with
     ``torch.export.save``, beside ``serving_spec.json`` (``batch_size``,
     ``platforms``, ``num_inputs``, ``input_tree``). Raises on failure: an
     artifact must not ship without its program, unless
@@ -1157,8 +1229,8 @@ def _predict_tower_artifact(pipeline_config, tower_dir: str,
                             reserved_columns: Optional[str], dev) -> int:
     """One tower's embeddings from its artifact: the input holds that
     tower's features only (an item table for the index, user requests
-    for queries); [B, K, D] multi-interest outputs are written as
-    [B, K * D]."""
+    for queries, TDM's tree nodes for tree building); [B, K, D]
+    multi-interest outputs are written as [B, K * D]."""
     import pyarrow as pa
 
     model, features = _artifact_model(pipeline_config, dev)
@@ -1167,8 +1239,14 @@ def _predict_tower_artifact(pipeline_config, tower_dir: str,
     out_key = tower_meta["output"]
     feat_set = set(tower_meta["features"])
     tower_features = [f for f in features if f.name in feat_set]
-    tower_fn = _tower_fn(model, tower_meta["tower"], tower_meta["groups"],
-                         out_key)
+    if tower_meta["tower"] == "embedding":  # TDM's node embeddings
+
+        def tower_fn(batch: Batch) -> Dict[str, torch.Tensor]:
+            return {out_key: model.embedding_group.node_embedding(
+                batch, model.compute_dtype, tower_meta["seq_group"]).float()}
+    else:
+        tower_fn = _tower_fn(model, tower_meta["tower"],
+                             tower_meta["groups"], out_key)
 
     def step(batch: Batch) -> torch.Tensor:
         model.eval()

@@ -392,3 +392,23 @@ class EmbeddingGroup(nn.Module):
                      for enc in self._encoders(gname)]
             result[gname] = torch.cat(vals, dim=-1)
         return result
+
+    def query_features(self, seq_group: str) -> List[str]:
+        """The features of a sequence group's query slots, in slot
+        order."""
+        return [key.split(":")[1] if kind == "emb" else key
+                for kind, key, _ in self._seq_groups[seq_group]["query"]]
+
+    def node_embedding(self, batch: Batch, compute_dtype: torch.dtype,
+                       seq_group: str) -> torch.Tensor:
+        """A candidate's (TDM tree node's) embedding: the concatenated
+        query slots of ``seq_group``, looked up alone (the engine's
+        feature filter keeps every other feature, and its tables, out)."""
+        emb_out, _ = self.engine.lookup(
+            self.engine_tables(), batch.sparse_features,
+            batch.sequence_sparse_features,
+            feature_filter=set(self.query_features(seq_group)))
+        vals = [emb_out[key].to(compute_dtype) if kind == "emb"
+                else batch.dense_features[key].values.to(compute_dtype)
+                for kind, key, _ in self._seq_groups[seq_group]["query"]]
+        return torch.cat(vals, dim=-1) if len(vals) > 1 else vals[0]

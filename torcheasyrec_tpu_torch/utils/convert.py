@@ -12,7 +12,9 @@
   ``outputs``; MultiTower's ``towers``) by that name; RocketLaunching's
   ``share``, ``booster``, ``light``, ``booster_out`` and ``light_out``
   keep their names, and so do the retrieval models' ``user_tower``,
-  ``item_tower`` (each ``mlp`` and ``output``), MIND's ``user_mlp``,
+  ``item_tower`` (each ``mlp`` and ``output``), TDM's ``mwdin`` (its
+  attention ``mlp`` and ``linear``), ``final`` and ``output``, MIND's
+  ``user_mlp``,
   ``hist_mlp``, ``concat_mlp`` and ``user_out``, and its capsule's
   ``bilinear`` [in, high] and ``routing_logits`` (not transposed);
   ``layer_<i>`` (MLP layers, cross layers, CIN layers) becomes
