@@ -262,8 +262,8 @@ one JSON line each:
    and the row state, within 1e-4 of each tensor's CPU max. Then as the
    zoo's configs: an epoch through ``train_and_evaluate`` from the
    default seed's CPU-drawn weights (xDeepFM's cut to 8 steps, its CPU
-   epoch taking minutes; WuKong's and PEPNet's to 32), each AUC within 0.02 of a CPU run of the same
-   config from them, exactly one row write a step per written
+   epoch taking minutes; WuKong's and PEPNet's to 8), each AUC within
+   0.02 of a CPU run of the same config from them, exactly one row write a step per written
    packed group (two for xDeepFM), ``evaluate`` and ``predict_checkpoint``,
    the resident step; xDeepFM's real step's row writes bit-equal to the
    plain version; and ``feature_selection`` on WuKong's checkpoint: each
@@ -306,10 +306,10 @@ one JSON line each:
    card against
    the CPU from the same CPU-drawn weights and sampled batches, as
    ``train_zoo_rest``'s (1e-4 of each tensor's max, the card's PReLU
-   branches replayed on the CPU). 16 steps (cut from 64: the CPU
+   branches replayed on the CPU). 8 steps (cut from 64: the CPU
    reference's time) through ``train_and_evaluate``
    from the default seed's CPU-drawn weights with 4 loader workers on the
-   shared tables, and an eval of 8 192 rows: exactly one row write a step
+   shared tables, and an eval of 4 096 rows: exactly one row write a step
    (the wrapper's count, and 3 in the trace of steps 3-5), the AUC within
    0.02 of a CPU run from the same weights; the step on a resident
    sampled batch (median, window, idle share, peak memory) with its row
@@ -321,9 +321,52 @@ one JSON line each:
    leaf embeddings from the artifact, 8 steps (cut from 32) on the new
    tree from the
    trained weights (one row write a step), and ``tdm_retrieval``
-   (recall@50, 2 clusters, 1 024 eval users) on each tree, on the card
+   (recall@50, 2 clusters, 256 eval users) on each tree, on the card
    within 0.02 of the CPU from the same checkpoint, with its ms per user
    and per beam layer and the host's share.
+
+14. train_sharded: training over ranks on ``torch.distributed``. The
+   ranks are spawned here (``dist_util.spawn_ranks``: a ``FileStore``
+   under TMPDIR, a time limit a spawn; a rank that raises fails the
+   phase). With two cards or more each rank has its own card on NCCL;
+   with one, the two ranks share it through gloo, and a one-rank NCCL
+   group shows NCCL's init and collectives on the card; the line names
+   which ran. Part 1: criteo_synth DeepFM on one NCCL rank with every
+   table ``row_wise`` (``embedding_constraints``), 3 steps, every table
+   within 1e-5 of its max of an unsharded rank's. Part 2: the uncapped
+   Criteo DeepFM (204.2 M rows) at world size 2 under the planner's plan
+   (printed with its estimate), global batch 8 192 in BF16, 3 steps,
+   against a run at world size 1 on the same global batches whose
+   products take the ranks' row blocks (so BF16 rounds each row as a
+   rank does), both under PyTorch's deterministic algorithms: after 1
+   step the touched rows, their row state, the dense parameters and
+   adam's moments within 1e-5 of each tensor's max (the row state and
+   the moments carry the gradient's scale); after 3 the rows and row
+   state within 3x the distance of a second world-1 run on the rows
+   permuted within the blocks (floored at 1e-5); a sample of
+   untouched rows bit-equal to the init, the init equal to world size
+   1's; the dense parameters bit-equal across ranks; kernel #3 once per
+   packed group, rank and step, and one step's writes on a rank held
+   against the plain version bit for bit; per rank the step median, peak
+   memory, exchange bytes a step and the idle share of 5 profiled steps.
+   Parts 3 and 5 (one spawn), each against a one-rank run whose
+   products take the ranks' row blocks: criteo_synth DeepFM in fp32
+   under each of the five layouts, forced, within 1e-5 after 3 steps
+   (tables, row state and dense parameters; replicated tables and dense
+   parameters equal across ranks), and hstu_synth's DLRM-HSTU (jagged
+   candidates, kernels #1/#2 on each rank), DSSM with sampled negatives
+   (the ranks share the sampled rows) and with in-batch ones, DeepFM with
+   MLP batch norm, within 1e-4; each bound raised to 3x the distance of a
+   second one-rank run on the rows permuted within the blocks where that
+   is larger. Batch norm is held first where no optimizer amplifies it:
+   one step's loss and batch means and variances within 1e-5 of each
+   tensor's max, the dense gradients within 1e-4 of the largest, and the
+   same step with each rank's own statistics (the fault) outside the
+   first bound. Part 4 in the same spawn: one criteo_synth DeepFM epoch
+   through ``train_and_evaluate`` at world size 2 (each rank its files,
+   2 048 rows a rank), ``evaluate`` at world size 2 equal to world size
+   1's to 1e-6 and within 0.02 of the pinned AUC, the checkpoint
+   restored at world size 1 bit for bit.
 
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
@@ -331,6 +374,7 @@ prints them, and as the last line the device record. Any failure raises
 and exits non-zero; without CUDA it exits non-zero before any result.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -4360,9 +4404,9 @@ ZOO_REST_METRICS = {"xdeepfm": ("auc", "grouped_auc_cat_10"),
 # minute has its card run and its CPU reference both cut to these steps:
 # xDeepFM's BF16 CIN took 263.5 s for 64 steps and the eval there, about
 # 3.8 s a step (NVIDIA H100 80GB HBM3 host, 700.00 W card; PERF.md §6);
-# WuKong's and PEPNet's CPU epochs (37.7-50.1 s) are cut in half to keep
-# the whole script near 700 s once phase export joined it
-ZOO_REST_STEPS = {"xdeepfm": 8, "wukong": 32, "pepnet": 32}
+# WuKong's and PEPNet's CPU epochs (37.7-50.1 s) are cut to an eighth to
+# keep the whole script near 900 s once phase train_sharded joined it
+ZOO_REST_STEPS = {"xdeepfm": 8, "wukong": 8, "pepnet": 8}
 ZOO_REST_CHECK_STEPS = 3  # fp32 steps on the card against the CPU
 ZOO_REST_CARD_TOL = 1e-4  # max abs error over the CPU's max abs, per tensor
 # a linear's bias before a batch norm has a gradient of 0 up to rounding
@@ -5204,17 +5248,18 @@ TDM_BATCH = 1024  # input rows a step; the sampler makes ~46 800 pairs of them
 TDM_LAYERS = (0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6)  # negatives by depth
 # train_and_evaluate on the card and on the CPU: cut from 64 steps, whose
 # CPU reference took 137.7 s on the card's host (2.2 s a step; PERF.md
-# §6, PR 14), to keep the whole script near 800 s
-TDM_STEPS = 16
+# §6), to keep the whole script near 900 s (8 steps since phase
+# train_sharded joined it; the trace of steps 3-5 needs 5)
+TDM_STEPS = 8
 TDM_RETRAIN_STEPS = 8  # on the rebuilt tree (cut from 32, 29.3 s there)
-TDM_EVAL_ROWS = 8192
+TDM_EVAL_ROWS = 4096
 TDM_WORKERS = 4
 TDM_SAMPLER_BATCHES = 5
 TDM_SHM_ITEMS = 4_000_000  # the shared item table, cut to fit /dev/shm
 TDM_SHM_WORKERS = 4
 TDM_LOADER_STEPS = 16  # the loader-fed window, after LOADER_WARMUP steps
 TDM_RECALL_NUM, TDM_N_CLUSTER = 50, 2
-TDM_RETRIEVAL_USERS = 1024
+TDM_RETRIEVAL_USERS = 256  # cut from 1 024: the CPU reference's time
 TDM_CPU_BOUND = 0.02  # AUC and recall@50 on the card against the CPU's
 TDM_PREDICT_ROWS = 4096
 # the node predict from the embedding artifact, in a process of its own
@@ -5963,6 +6008,1029 @@ def phase_train_tdm(smi):
     return launches
 
 
+# --- phase train_sharded: training over two ranks ---------------------------
+SHARDED_WORLD = 2
+SHARDED_STEPS = 3
+SHARDED_TIMEOUT_S = 600  # each spawn's limit: a rank that hangs fails it
+SHARDED_TIMED_STEPS = 10
+SHARDED_PROFILE_STEPS = 5
+SHARDED_UNTOUCHED = 2048  # untouched rows sampled a table
+SHARDED_TRAP_TOL = 1e-4
+SHARDED_LAYOUTS = ("row_wise", "column_wise", "table_wise", "table_row_wise",
+                   "data_parallel")
+SHARDED_DEVICE = "cuda"  # a rehearsal on the CPU sets "cpu"
+SHARDED_BATCH = DEEPFM_BATCH  # the uncapped DeepFM's global batch
+SHARDED_BUCKETS = CRITEO_RAW
+SHARDED_SYNTH_BATCH = 4096  # criteo_synth's global batch
+SHARDED_TRAIN_FILES = 4  # criteo_synth's train file split, a rank's share
+
+
+def sharded_backend() -> tuple:
+    """(what the two-rank parts run on, their backend): one card a rank
+    on NCCL where the machine has two cards or more, else both ranks on
+    the one card through gloo."""
+    if SHARDED_DEVICE == "cuda" and torch.cuda.device_count() >= 2:
+        return "nccl, one card a rank", "nccl"
+    return "gloo, two ranks on one card", "gloo"
+
+
+def run_ranks(fn, world, args, backend, tmp):
+    from torcheasyrec_tpu_torch.utils import dist_util
+
+    return dist_util.spawn_ranks(fn, world, args, store_dir=tmp,
+                                 device=SHARDED_DEVICE, backend=backend,
+                                 timeout_s=SHARDED_TIMEOUT_S)
+
+
+def rank_rows(cols: dict, shard, n_global: int, shared_tail: int = 0):
+    """This rank's rows of global columns: row block ``rank`` of ``world``;
+    a column of ``n_global + shared_tail`` rows (a sampler's item side)
+    keeps its tail, the negatives every rank shares."""
+    if shard is None:
+        return cols
+    import pyarrow as pa
+
+    per = n_global // shard.world
+    lo = shard.rank * per
+    out = {}
+    for k, v in cols.items():
+        part = v.slice(lo, per)
+        if shared_tail and len(v) == n_global + shared_tail:
+            part = pa.concat_arrays([part, v.slice(n_global, shared_tail)])
+        out[k] = part
+    return out
+
+
+def sharded_trainer(cfg_text, shard=None, plan=None):
+    """``build_trainer`` of a config text on SHARDED_DEVICE, over the
+    ranks of ``shard`` where there is one."""
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    kw = {} if shard is None else {"shard": shard, "plan": plan}
+    return build_trainer(parse_pipeline_config(cfg_text), device=SHARDED_DEVICE,
+                         **kw)
+
+
+def parse_batch(features, cols, labels):
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+
+    return DataParser(features, labels=labels).parse_to_batch(cols).to(
+        SHARDED_DEVICE)
+
+
+def digest(tensors) -> str:
+    """A hash of the tensors' bits, for "equal on every rank"."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def dense_digest(model) -> str:
+    return digest([p for _, p in sorted(model.named_parameters())]
+                  + [b for n, b in sorted(model.named_buffers())
+                     if not n.startswith("embedding_group.group_")])
+
+
+def touched_ids(cols_list, buckets) -> dict:
+    """{table: the rows the batches look up, ascending} of the DeepFM
+    lane (each cat feature reads its table and its WIDE table)."""
+    out = {}
+    for i in range(len(buckets)):
+        ids = np.unique(np.concatenate(
+            [c[f"cat_{i}"].to_numpy() for c in cols_list]))
+        out[f"cat_{i}_emb"] = out[f"cat_{i}_emb__wide"] = ids
+    return out
+
+
+def untouched_ids(touched, buckets, seed=SEED) -> dict:
+    """{table: up to SHARDED_UNTOUCHED rows no batch looks up}."""
+    r = np.random.default_rng(seed)
+    out = {}
+    for i, n in enumerate(buckets):
+        cand = r.integers(0, n, min(n, 4 * SHARDED_UNTOUCHED))
+        cand = np.setdiff1d(cand, touched[f"cat_{i}_emb"])[:SHARDED_UNTOUCHED]
+        out[f"cat_{i}_emb"] = out[f"cat_{i}_emb__wide"] = cand
+    return out
+
+
+def read_table_rows(model, ids: dict) -> dict:
+    """{table: its rows ``ids[table]`` on the host} (collective over the
+    ranks of a sharded model)."""
+    eg = model.embedding_group
+    fused = eg.engine_tables()
+    return {t: eg.engine.read_rows(fused, t, torch.from_numpy(v)).cpu()
+            for t, v in ids.items()}
+
+
+def compact_write_capture():
+    """(start, stop, calls): between start() and stop() every
+    ``write_rows`` call is recorded compactly: the distinct targets in
+    the table, their rows before and after the call, the targets and the
+    rows written (a whole-table copy of an uncapped table would not fit
+    twice)."""
+    from torcheasyrec_tpu_torch.ops import row_write
+
+    calls, real = [], row_write.write_rows
+
+    def capture(table, ids, rows):
+        ok = ids[(ids >= 0) & (ids < table.shape[0])]
+        uniq = torch.unique(ok)
+        before = table[uniq].clone()
+        real(table, ids, rows)
+        calls.append((uniq, ids.clone(), rows.clone(), before,
+                       table[uniq].clone(), table.shape[0]))
+        return table
+
+    def start():
+        capture.launches = real.launches
+        row_write.write_rows = capture
+
+    def stop():
+        row_write.write_rows = real
+        real.launches = capture.launches
+
+    return start, stop, calls
+
+
+def check_compact_writes(calls) -> int:
+    """The kernel against the plain version on each captured call's
+    targets and rows, over a table of just the rows it wrote (targets
+    renumbered; those past the table's end stay past it): bit for bit,
+    and equal to what the step left in the real table. Returns the
+    targets checked; these launches do not count."""
+    from torcheasyrec_tpu_torch.ops.row_write import (
+        _torch_write_rows,
+        write_rows,
+    )
+
+    kept, n = write_rows.launches, 0
+    for uniq, ids, rows, before, after, p in calls:
+        local = torch.searchsorted(uniq, ids.clamp(max=p - 1))
+        local = torch.where((ids >= 0) & (ids < p), local,
+                            local.new_full((), uniq.shape[0]))
+        a, b = before.clone(), before.clone()
+        write_rows(a, local, rows)
+        _torch_write_rows(b, local, rows)
+        if not (torch.equal(a, b) and torch.equal(a, after)):
+            raise AssertionError(
+                "the row write and its plain version disagree at a sharded "
+                "step's captured targets")
+        n += int(ids.shape[0])
+    write_rows.launches = kept
+    return n
+
+
+def packed_written_groups(model) -> int:
+    """The packed groups whose rows this rank holds: one row write each a
+    step (every rank receives ids of every such group at this batch)."""
+    return sum(1 for g in model.embedding_group.engine.groups.values()
+               if g.packed)
+
+
+def read_state_rows(model, state, ids: dict) -> dict:
+    """{table.state: its row state at rows ``ids[table]`` on the host}
+    (collective over the ranks of a sharded model)."""
+    eg = model.embedding_group
+    fused = eg.engine_tables()
+    return {f"{t}.{k}": v.cpu() for t, r in ids.items() for k, v in
+            eg.engine.read_row_state(fused, state["sparse_opt"], t,
+                                     torch.from_numpy(r)).items()}
+
+
+def dense_values(model, tx) -> dict:
+    """{name: value} of the dense parameters and of the dense optimizer's
+    state (adam's moments move with the gradient's scale, which adam's
+    first step and rowwise adagrad's do not)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {n: p.detach().float().cpu().clone()
+           for n, p in model.named_parameters()}
+    for p, st in zip(tx.params, tx.state):
+        out.update({f"{names[id(p)]}.{k}": v.detach().cpu().clone()
+                    for k, v in st.items()})
+    return out
+
+
+def deepfm_world1_run(cfg_text, cols_list, touched, untouched,
+                      permute: bool = False) -> dict:
+    """The uncapped DeepFM on one rank, its products over the ranks' row
+    blocks (``row_blocks``) under PyTorch's deterministic algorithms:
+    the touched rows and their row state after step 1 and step 3, the
+    dense parameters and optimizer state after step 1, the untouched
+    sample before and after. With ``permute`` each batch's rows are
+    permuted within those blocks first (``permuted``): the same steps
+    with every sum over the batch taken in another order."""
+    model, features, tx, state, step = sharded_trainer(cfg_text)
+    out = {"untouched_init": read_table_rows(model, untouched)}
+    for i, cols in enumerate(cols_list):
+        if permute:
+            cols = permuted(cols, SHARDED_BATCH, SEED + i, SHARDED_WORLD)
+        with deterministic(), row_blocks(SHARDED_WORLD):
+            state, _ = step(state, parse_batch(features, cols, ["label"]))
+        if i == 0:
+            out["after_1"] = read_table_rows(model, touched)
+            out["state_1"] = read_state_rows(model, state, touched)
+            out["dense_1"] = dense_values(model, tx)
+    out["after_3"] = read_table_rows(model, touched)
+    out["state_3"] = read_state_rows(model, state, touched)
+    out["untouched_after"] = read_table_rows(model, untouched)
+    del model, state, step, tx
+    if SHARDED_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def deepfm_sharded_rank(shard, cfg_text, cols_list, touched, untouched):
+    """Rank side of the uncapped DeepFM at world size 2: the planner's
+    plan, 3 steps on this rank's halves of the global batches (kernel #3
+    counted from 0), the rows compared by the parent, the dense
+    parameters' digest; then one step's row writes captured and held
+    against the plain version, and the step timed and profiled."""
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.parallel import planner
+
+    t0 = time.perf_counter()
+    model, features, tx, state, step = sharded_trainer(cfg_text, shard)
+    sync()
+    out = {"rank": shard.rank, "init_s": time.perf_counter() - t0,
+           "plan": model.sharding_plan, "backend": shard.backend}
+    specs = model.embedding_group.table_specs()
+    hbm = None
+    if SHARDED_DEVICE == "cuda" and torch.cuda.device_count() < shard.world:
+        hbm = torch.cuda.get_device_properties(
+            shard.device).total_memory / shard.world
+    out["plan_est_ms"] = planner.plan_cost(  # the model's own inputs
+        specs, n_devices=shard.world, batch_size=SHARDED_BATCH // shard.world,
+        optimizer_kind="rowwise_adagrad", shards_per_host=shard.world,
+        host_excluded={s.name for s in specs}, hbm_budget=hbm)[1] * 1e3
+    out["plan_hbm_budget_gb"] = None if hbm is None else hbm / 1e9
+    if hbm is not None and "row_wise" not in set(
+            model.sharding_plan.values()):
+        # at half a card a rank cannot hold every table whole
+        raise AssertionError(f"the plan shards no table: "
+                             f"{model.sharding_plan}")
+    out["groups"] = {gk: {"sharding": g.sharding, "packed": g.packed,
+                          "local_rows": g.local_rows,
+                          "local_gb": (g.p_rows * 512 if g.packed else
+                                       g.local_rows * g.local_dim * 4) / 1e9}
+                     for gk, g in model.embedding_group.engine.groups.items()}
+    rows = {"untouched_init": read_table_rows(model, untouched)}
+    batches = [parse_batch(features, rank_rows(c, shard, SHARDED_BATCH),
+                           ["label"]) for c in cols_list]
+    sync()
+    write_rows.launches = 0
+    for i, b in enumerate(batches):
+        with deterministic():  # as the one-rank run (its sums in order)
+            state, _ = step(state, b)
+        if i == 0:
+            rows["after_1"] = read_table_rows(model, touched)
+            rows["state_1"] = read_state_rows(model, state, touched)
+            rows["dense_1"] = dense_values(model, tx)
+    sync()
+    out["row_write_launches"] = write_rows.launches
+    want = SHARDED_STEPS * packed_written_groups(model)
+    if out["row_write_launches"] != want:
+        raise AssertionError(
+            f"rank {shard.rank}: {out['row_write_launches']} row writes in "
+            f"{SHARDED_STEPS} steps, {want} expected")
+    rows["after_3"] = read_table_rows(model, touched)
+    rows["state_3"] = read_state_rows(model, state, touched)
+    rows["untouched_after"] = read_table_rows(model, untouched)
+    out["dense_digest"] = dense_digest(model)
+    # one more step, its row writes captured (not counted)
+    start, stop, calls = compact_write_capture()
+    start()
+    try:
+        state, _ = step(state, batches[0])
+    finally:
+        stop()
+    out["captured_targets_checked"] = check_compact_writes(calls)
+    out["captured_writes"] = len(calls)
+    del calls
+    # the step, timed and profiled (not counted)
+    kept = write_rows.launches
+    if SHARDED_DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats(shard.device)
+    before = shard.sent_bytes
+    state, _ = step(state, batches[0])
+    sync()
+    out["exchange_bytes_per_step"] = shard.sent_bytes - before
+    losses, step_ms, window_ms = timed_steps(
+        step, state, batches[0], 2, SHARDED_TIMED_STEPS)
+    out["step_ms_median"] = float(np.median(step_ms))
+    out["window_ms_per_step"] = window_ms
+    out["examples_per_s_global"] = SHARDED_BATCH / (window_ms / 1e3)
+    if SHARDED_DEVICE == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(shard.device) / 1e9
+
+        def steps():
+            for _ in range(SHARDED_PROFILE_STEPS):
+                step(state, batches[0])
+        out["profile_5_steps"] = profile_forward(steps)
+    write_rows.launches = kept
+    out["losses_finite"] = bool(np.isfinite(losses).all())
+    return out, (rows if shard.rank == 0 else None)
+
+
+def max_rel_err(got: dict, ref: dict) -> dict:
+    """{table: max |got - ref| / max |ref|}."""
+    return {t: float((got[t].float() - ref[t].float()).abs().max())
+            / max(float(ref[t].float().abs().max()), 1e-30)
+            for t in ref if ref[t].numel()}
+
+
+def rel_report(got: dict, ref: dict) -> dict:
+    """The distance of two {name: tensor} dicts: the largest |got - ref|
+    relative to each tensor's largest |ref|, its name, and the share of
+    all elements farther apart than LAYOUT_TOL of their tensor's max."""
+    worst, where, beyond, total = 0.0, None, 0, 0
+    for t, r in ref.items():
+        if not r.numel():
+            continue
+        diff = (got[t].float() - r.float()).abs()
+        scale = max(float(r.float().abs().max()), 1e-30)
+        err = float(diff.max()) / scale
+        if err > worst:
+            worst, where = err, t
+        beyond += int((diff > LAYOUT_TOL * scale).sum())
+        total += diff.numel()
+    return {"max_err": worst, "table": where,
+            "share_beyond_1e-5": beyond / max(total, 1)}
+
+
+def sharded_deepfm(tmp, backend) -> dict:
+    """Part 2: the uncapped Criteo DeepFM at world size 2 against world
+    size 1 on the same global batches (the config's batch_size is a
+    rank's, the planner's input). The world-1 reference forms its
+    products over the ranks' row blocks, as parts 3 and 5 do, so that
+    BF16 rounds each row's products as a rank does: after step 1 the
+    touched rows, their row state, the dense parameters and the dense
+    optimizer's state within 1e-5 of each tensor's max (the row state
+    and adam's moments carry the gradient's scale); after step 3 the
+    rows and row state within 3x the distance of a second world-1 run on
+    the rows permuted within the blocks (floored at 1e-5). Returns the
+    report, its ``failures`` listed."""
+    text = deepfm_config_text(SHARDED_BUCKETS)
+    rank_text = text.replace(f"batch_size: {DEEPFM_BATCH}",
+                             f"batch_size: {SHARDED_BATCH // SHARDED_WORLD}")
+    cols_list = [criteo_cols(SHARDED_BUCKETS, 100 + i, SHARDED_BATCH)
+                 for i in range(SHARDED_STEPS)]
+    touched = touched_ids(cols_list, SHARDED_BUCKETS)
+    untouched = untouched_ids(touched, SHARDED_BUCKETS)
+    t0 = time.perf_counter()
+    ref = deepfm_world1_run(text, cols_list, touched, untouched)
+    again = deepfm_world1_run(text, cols_list, touched, untouched,
+                              permute=True)
+    out = {"world_1_two_runs_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ranks = run_ranks(deepfm_sharded_rank, SHARDED_WORLD,
+                      (rank_text, cols_list, touched, untouched), backend,
+                      tmp)
+    out["world_2_s"] = time.perf_counter() - t0
+    rows = ranks[0][1]
+    failures = []
+    for k in ("after_1", "state_1", "dense_1", "after_3", "state_3"):
+        got = rel_report(rows[k], ref[k])
+        noise = rel_report(again[k], ref[k])
+        bound = LAYOUT_TOL if k.endswith("_1") else max(
+            3.0 * noise["max_err"], LAYOUT_TOL)
+        out[k] = {"world_2_vs_1": got, "permuted_rows_vs_1": noise,
+                  "bound": bound}
+        if not got["max_err"] <= bound:
+            failures.append(f"world 2 vs 1 {k}: {got}, bound {bound}")
+    for t in untouched:
+        for who, r in (("world 2", rows), ("world 1", ref)):
+            if not torch.equal(r["untouched_after"][t],
+                               r["untouched_init"][t]):
+                failures.append(f"{who} {t}: an untouched row moved")
+        if not torch.equal(rows["untouched_init"][t],
+                           ref["untouched_init"][t]):
+            failures.append(f"{t}: the sharded init differs from world "
+                            "size 1's")
+    out["untouched_rows_checked"] = sum(len(v) for v in untouched.values())
+    if len({r[0]["dense_digest"] for r in ranks}) != 1:
+        failures.append("the dense parameters differ across ranks")
+    out["ranks"] = [r[0] for r in ranks]
+    out["row_write_launches"] = sum(r[0]["row_write_launches"] for r in ranks)
+    out["failures"] = failures
+    return out
+
+
+class deterministic:
+    """PyTorch's deterministic algorithms inside the block (the card's
+    atomic sums, whose order changes from run to run, replaced by ordered
+    ones), so that each run of parts 3 and 5 is the same numbers every
+    time; ops without a deterministic version run as they are (their
+    warnings are not printed)."""
+
+    def __enter__(self):
+        import warnings
+
+        self._was = torch.are_deterministic_algorithms_enabled()
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self._was)
+        self._warnings.__exit__(*exc)
+        return False
+
+
+class row_blocks:
+    """Inside the block every ``linear_apply`` of the port forms its
+    product over ``n`` row blocks of its input, one product a block,
+    concatenated (an input whose rows do not split in ``n`` as it is):
+    a one-rank run then rounds each row's products as a run at world size
+    ``n`` does, whose ranks hold those row blocks (cuBLAS picks its kernel
+    by the shape, so a row's sums round differently at another row
+    count, and a ReLU near its kink can flip on that rounding)."""
+
+    def __init__(self, n: int) -> None:
+        self.n = n
+
+    def __enter__(self):
+        from torcheasyrec_tpu_torch.modules import module
+
+        real, n = module.linear_apply, self.n
+
+        def blocked(layer, x, compute_dtype):
+            if x.shape[0] < n or x.shape[0] % n:
+                return real(layer, x, compute_dtype)
+            return torch.cat([real(layer, part, compute_dtype)
+                              for part in x.chunk(n)])
+
+        self._real = real
+        self._patched = [m for name, m in list(sys.modules.items())
+                         if name.startswith("torcheasyrec_tpu_torch")
+                         and getattr(m, "linear_apply", None) is real]
+        for m in self._patched:
+            m.linear_apply = blocked
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._patched:
+            m.linear_apply = self._real
+        return False
+
+
+def permuted(cols: dict, n_global: int, seed: int, blocks: int = 1) -> dict:
+    """The batch's rows in another order within each of ``blocks`` row
+    blocks (the same permutation in every column of ``n_global`` rows; a
+    sampler's shared tail stays put): the same steps with every sum over
+    the batch taken in another order, each block's rows kept in it."""
+    import pyarrow as pa
+
+    r = np.random.default_rng(seed)
+    per = n_global // blocks
+    perm = pa.array(np.concatenate([b * per + r.permutation(per)
+                                    for b in range(blocks)]))
+    out = {}
+    for k, v in cols.items():
+        head = v.slice(0, n_global).take(perm)
+        out[k] = (head if len(v) == n_global else
+                  pa.concat_arrays([head, v.slice(n_global)]))
+    return out
+
+
+def synth_world1(texts: dict, batches_cols: dict, labels: dict,
+                 n_global=None, blocks: int = 1) -> dict:
+    """{name: the state_dict and sparse state after the global batches on
+    one rank}, on the host, the products over ``blocks`` row blocks
+    (``row_blocks``); with ``n_global`` ({name: rows}) each batch's rows
+    are permuted within those blocks first (``permuted``)."""
+    out = {}
+    for name, text in texts.items():
+        model, features, _, state, step = sharded_trainer(text)
+        for i, cols in enumerate(batches_cols[name]):
+            if n_global is not None:
+                cols = permuted(cols, n_global[name], SEED + i, blocks)
+            with deterministic(), row_blocks(blocks):
+                state, _ = step(state, parse_batch(features, cols,
+                                                   labels[name]))
+        out[name] = {
+            "model": {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()},
+            "sparse": {t: {k: v.cpu() for k, v in st.items()} for t, st in
+                       model.embedding_group.opt_state_dict(
+                           state["sparse_opt"]).items()}}
+        del model, state, step
+    return out
+
+
+def state_errs(model, state, ref) -> dict:
+    """{tensor: max |port - ref| / max |ref|} of a state_dict and the
+    sparse state per table (collective: tables are gathered)."""
+    sd = model.state_dict()
+    errs = {k: float((sd[k].float().cpu() - v.float()).abs().max())
+            / max(float(v.float().abs().max()), 1e-30)
+            for k, v in ref["model"].items() if v.numel()}
+    sparse = model.embedding_group.opt_state_dict(state["sparse_opt"])
+    for t, st in ref["sparse"].items():
+        for k, v in st.items():
+            if v.dim() == 0:
+                continue
+            got = sparse[t][k].float().cpu().reshape(v.shape)
+            errs[f"{t}.{k}"] = float((got - v.float()).abs().max()) / max(
+                float(v.float().abs().max()), 1e-30)
+    return errs
+
+
+def bn_one_step(text, cols, labels, shard=None,
+                local_stats: bool = False) -> dict:
+    """One train-mode forward and backward of the DeepFM with MLP batch
+    norm, no update (``train_mode_outputs``): {name: tensor} of the loss,
+    every batch norm's batch mean and variance (momentum 1, so the
+    running statistics are the batch's) and the dense gradients. At one
+    rank the products take the ranks' row blocks (``row_blocks``); over
+    ranks the loss and the gradients are averaged as the train step
+    averages them. ``local_stats`` detaches the batch norms from the
+    ranks, each then normalising by its own rows' statistics: the fault
+    the comparison must catch."""
+    from torcheasyrec_tpu_torch.modules.module import BatchNorm
+
+    model, features, _, _, _ = sharded_trainer(text, shard)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.momentum = 1.0
+            if local_stats:
+                m.shard = None
+    batch = parse_batch(features, cols, labels)
+    blocks = (row_blocks(SHARDED_WORLD) if shard is None
+              else contextlib.nullcontext())
+    with deterministic(), blocks:
+        loss, _, grads = train_mode_outputs(model, batch)
+    out = {"loss": loss.reshape(1)}
+    out.update({f"grad.{n}": g for n, g in sorted(grads.items())})
+    if shard is not None:
+        out = {k: shard.all_reduce(v.float().contiguous()) / shard.world
+               for k, v in out.items()}
+    for n, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            out[f"{n}.batch_mean"] = m.mean
+            out[f"{n}.batch_var"] = m.var
+    out = {k: v.detach().float().cpu().clone() for k, v in out.items()}
+    del model, features, batch
+    return out
+
+
+def synth_rank(shard, texts, batches_cols, labels, ref_path, n_global,
+               shared_tail, plans, entry):
+    """Rank side of parts 3-5 at world size 2: batch norm's one step
+    (``bn_one_step``) with the ranks' statistics and with each rank's
+    own; each config 3 steps on this rank's rows (its held against the
+    one-rank run in ``ref_path`` by rank 0, replicated tables and dense
+    parameters by digest on every rank; kernels #1, #2 and #3 counted),
+    then the entry points (``train_and_evaluate`` over the rank's files,
+    ``evaluate``)."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.ops import hstu
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
+    ref = torch.load(ref_path, weights_only=True) if shard.rank == 0 else None
+    out = {"models": {}}
+    # batch norm's one step, with the statistics over the ranks and (the
+    # fault) over each rank's own rows
+    bn_cols = rank_rows(batches_cols["deepfm_bn"][0], shard,
+                        n_global["deepfm_bn"])
+    out["bn_one_step"] = {
+        which: bn_one_step(texts["deepfm_bn"], bn_cols, labels["deepfm_bn"],
+                           shard, local_stats=which == "local")
+        for which in ("global", "local")}
+    hstu.hstu_attention_fwd.launches = hstu.hstu_attention_bwd.launches = 0
+    write_rows.launches = 0
+    for name, text in texts.items():
+        model, features, _, state, step = sharded_trainer(
+            text, shard, plans.get(name))
+        for cols in batches_cols[name]:
+            with deterministic():
+                state, _ = step(state, parse_batch(
+                    features, rank_rows(cols, shard, n_global[name],
+                                        shared_tail.get(name, 0)),
+                    labels[name]))
+        sync()
+        eng = model.embedding_group.engine
+        fused = model.embedding_group.engine_tables()
+        replicated = digest(
+            [fused[gk] for gk, g in eng.groups.items()
+             if g.sharding == "data_parallel"]
+            + [v for gk, g in eng.groups.items()
+               if g.sharding == "data_parallel"
+               for v in state["sparse_opt"][gk].values()])
+        # every rank takes part in gathering the tables
+        errs = state_errs(model, state, ref[name] if ref else
+                          {"model": {}, "sparse": {}})
+        out["models"][name] = {
+            "groups": {gk: g.sharding for gk, g in eng.groups.items()},
+            "dense_digest": dense_digest(model),
+            "replicated_digest": replicated,
+            "max_err": max(errs.values()) if errs else None,
+            "worst": max(errs, key=errs.get) if errs else None,
+            "top": sorted(errs.items(), key=lambda kv: -kv[1])[:6]}
+        del model, state, step
+    out["hstu_launches"] = (hstu.hstu_attention_fwd.launches,
+                            hstu.hstu_attention_bwd.launches)
+    out["row_write_launches"] = write_rows.launches
+    cfg_path, edits = entry
+    t0 = time.perf_counter()
+    out["train"] = port_main.train_and_evaluate(
+        cfg_path, edit_config_json=edits, device=SHARDED_DEVICE, shard=shard)
+    out["train_s"] = time.perf_counter() - t0
+    out["evaluate"] = port_main.evaluate(cfg_path, device=SHARDED_DEVICE,
+                                         shard=shard)
+    out["row_write_launches"] = write_rows.launches  # the entry points too
+    return out
+
+
+def synth_texts(paths) -> tuple:
+    """({name: config text}, {name: label fields}) of parts 3 and 5: the
+    criteo_synth DeepFM in fp32 under each layout (forced by
+    ``embedding_constraints``) and with MLP batch norm, DSSM with sampled
+    negatives and with in-batch ones (no sampler), hstu_synth's
+    DLRM-HSTU."""
+    src = os.path.join(zoo_config_dir(), "criteo_synth", "deepfm.config")
+    # adam's and rowwise adagrad's eps 1e-4: both normalise a gradient,
+    # and at their default eps a gradient at rounding level (two runs of
+    # the card's atomic sums, or another GEMM shape at another world
+    # size) takes a full step of either sign (ROADMAP section 3)
+    with open(src) as f:
+        deepfm = f.read().replace(
+            'mixed_precision: "BF16"', 'mixed_precision: ""').replace(
+            "rowwise_adagrad_optimizer { lr: 0.01 }",
+            "rowwise_adagrad_optimizer { lr: 0.01 eps: 1e-4 }").replace(
+            "adam_optimizer { lr: 0.001 }",
+            "adam_optimizer { lr: 0.001 eps: 1e-4 }")
+    if deepfm.count("eps: 1e-4") != 2:
+        raise AssertionError("criteo_synth deepfm's optimizers moved")
+    texts = {}
+    for layout in SHARDED_LAYOUTS:
+        if layout == "table_row_wise":
+            # on one host the planner offers no table_row_wise (the JAX
+            # planner neither) and a constraint naming it alone raises:
+            # the plan forces it (``synth_plans``), and the engine lays it
+            # out row_wise, as the JAX engine does
+            texts[f"deepfm_{layout}"] = deepfm
+            continue
+        texts[f"deepfm_{layout}"] = deepfm.replace(
+            "embedding_dim: 16 }",
+            f'embedding_dim: 16 embedding_constraints {{ sharding_types: '
+            f'"{layout}" }} }}')
+    texts["deepfm_bn"] = deepfm.replace(
+        "deep { hidden_units: [512, 256, 128] }",
+        "deep { hidden_units: [512, 256, 128] use_bn: true }")
+    with open(os.path.join(zoo_config_dir(), "criteo_synth",
+                           "dssm.config")) as f:
+        dssm = f.read().replace(
+            "criteo_synth_data/criteo_synth_items.parquet",
+            paths["items"]).replace(
+            "adam_optimizer { lr: 0.001 }",
+            "adam_optimizer { lr: 0.001 eps: 1e-4 }").replace(
+            "adagrad_optimizer { lr: 0.05 }",
+            "adagrad_optimizer { lr: 0.05 eps: 1e-4 }")
+    texts["dssm_sampled"] = dssm
+    start = dssm.index("  negative_sampler {")
+    end = dssm.index("}", start) + 1
+    texts["dssm_in_batch"] = (dssm[:start] + dssm[end:]).replace(
+        "dssm {", "dssm {\n    in_batch_negative: true", 1)
+    with open(os.path.join(zoo_config_dir(), "hstu_synth",
+                           "dlrm_hstu.config")) as f:
+        # no dropout: its masks are drawn per rank over the rank's rows
+        texts["dlrm_hstu"] = f.read().replace(
+            "    hstu {\n      stu {",
+            "    hstu {\n      input_dropout_ratio: 0.0\n      stu {", 1).replace(
+            "adam_optimizer { lr: 0.002 }",
+            "adam_optimizer { lr: 0.002 eps: 1e-4 }").replace(
+            # rowwise adagrad's first step is lr * g / |g|: a row whose
+            # gradient is at rounding level takes a full step of either
+            # sign at the default eps (1e-10)
+            "rowwise_adagrad_optimizer { lr: 0.05 }",
+            "rowwise_adagrad_optimizer { lr: 0.05 eps: 1e-4 }")
+    if "input_dropout_ratio: 0.0" not in texts["dlrm_hstu"]:
+        raise AssertionError("the hstu_synth config's hstu block moved")
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    labels = {n: list(parse_pipeline_config(t).data_config.label_fields)
+              for n, t in texts.items()}
+    return texts, labels
+
+
+def synth_plans(ref: dict) -> dict:
+    """{name: a plan to build with} of the configs whose layout a plan
+    forces: table_row_wise for every table."""
+    return {"deepfm_table_row_wise": {
+        t: "table_row_wise" for t in ref["deepfm_table_row_wise"]["sparse"]}}
+
+
+def synth_batches(texts, labels, paths, hstu_paths) -> tuple:
+    """({name: 3 global batches' columns}, {name: global rows},
+    {name: rows every rank shares at the end of an item column})."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.dataset import create_sampler
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    def take(path, n, i):
+        t = pq.read_table(path).slice(i * n, n)
+        return {c: t[c].combine_chunks() for c in t.column_names}
+
+    cols, n_global, tail = {}, {}, {}
+    for name, text in texts.items():
+        if name == "dlrm_hstu":
+            cfg = parse_pipeline_config(text)
+            n = int(cfg.data_config.batch_size)
+            cols[name] = [take(hstu_paths["train"], n, i)
+                          for i in range(SHARDED_STEPS)]
+        else:
+            n = SHARDED_SYNTH_BATCH
+            cols[name] = [take(paths["train"], n, i)
+                          for i in range(SHARDED_STEPS)]
+        n_global[name] = n
+        if name == "dssm_sampled":
+            cfg = parse_pipeline_config(text)
+            features = port_main._create_features(cfg)
+            sampler = create_sampler(cfg.data_config, "train", features)
+            sampler.init()
+            cols[name] = [sampler.process(c) for c in cols[name]]
+            tail[name] = int(cfg.data_config.negative_sampler.num_sample)
+    return cols, n_global, tail
+
+
+def split_file(path, n_files, root, name) -> str:
+    """A parquet file as ``n_files`` files, comma-joined: each rank reads
+    whole files of its own."""
+    import pyarrow.parquet as pq
+
+    t = pq.read_table(path)
+    per = -(-t.num_rows // n_files)
+    out = []
+    for i in range(n_files):
+        p = os.path.join(root, f"{name}_part_{i}.parquet")
+        pq.write_table(t.slice(i * per, per), p)
+        out.append(p)
+    return ",".join(out)
+
+
+def one_nccl_rank(shard, text, cols_list):
+    """Part 1 on one NCCL rank: the criteo_synth DeepFM with every table
+    ``row_wise``, 3 steps; every table, gathered."""
+    model, features, _, state, step = sharded_trainer(text, shard)
+    for cols in cols_list:
+        state, _ = step(state, parse_batch(features, cols, ["label"]))
+    eng = model.embedding_group.engine
+    fused = model.embedding_group.engine_tables()
+    if {g.sharding for g in eng.groups.values()} != {"row_wise"}:
+        raise AssertionError("part 1: not every group is row_wise")
+    return {t: eng.extract_table(fused, t).cpu() for t in eng._specs}, \
+        shard.backend
+
+
+def sync() -> None:
+    if SHARDED_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def ref_distance(a: dict, b: dict) -> float:
+    """The largest distance, relative to the tensor's max, between two
+    one-rank runs of ``synth_world1`` (one config): the noise of two runs
+    of the same steps."""
+    worst = 0.0
+    pairs = [(a["model"][k], b["model"][k]) for k in b["model"]]
+    pairs += [(a["sparse"][t][k], v) for t, st in b["sparse"].items()
+              for k, v in st.items() if v.dim()]
+    for x, y in pairs:
+        if y.numel():
+            worst = max(worst, float((x.float() - y.float()).abs().max())
+                        / max(float(y.float().abs().max()), 1e-30))
+    return worst
+
+
+def phase_train_sharded(smi):
+    """Training over ranks (``torch.distributed``, ranks spawned with a
+    ``FileStore``; docstring item 14). Returns the launches of kernel #3
+    and of kernels #1/#2 on the ranks' main paths. Every check's result
+    is printed before a failure raises."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.utils import checkpoint_util, config_util
+
+    mode, backend = sharded_backend()
+    out = {"phase": "train_sharded", "ranks_on": mode,
+           "cards": torch.cuda.device_count() if SHARDED_DEVICE == "cuda"
+           else 0, "card": smi}
+    seconds, failures = {}, []
+    with open(os.path.join(zoo_config_dir(), "base_eval_metric.json")) as f:
+        pinned = json.load(f)["torcheasyrec_tpu_torch/benchmark/configs/"
+                              "criteo_synth/deepfm.config"]["metrics"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = synthetic.ensure_dataset(tmp, ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
+        hstu_paths = synthetic.ensure_hstu_dataset(
+            os.path.join(tmp, "hstu"), GR_TRAIN_ROWS, GR_EVAL_ROWS)
+        texts, labels = synth_texts(paths)
+        cols, n_global, tail = synth_batches(texts, labels, paths, hstu_paths)
+        seconds["data"] = time.perf_counter() - t0
+
+        # part 1: one NCCL rank, every table row_wise, against two
+        # unsharded runs on the same batches (their distance: the noise)
+        t0 = time.perf_counter()
+        one_text = texts["deepfm_row_wise"]
+        refs = []
+        for _ in range(2):
+            model, features, _, state, step = sharded_trainer(one_text)
+            for c in cols["deepfm_row_wise"]:
+                state, _ = step(state, parse_batch(features, c, ["label"]))
+            eng = model.embedding_group.engine
+            fused = model.embedding_group.engine_tables()
+            refs.append({t: eng.extract_table(fused, t).cpu()
+                         for t in eng._specs})
+            del model, state, step, eng, fused
+        ref1 = refs[0]
+        noise1 = max(max_rel_err(refs[1], ref1).values())
+        del refs
+        if SHARDED_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        (got1, nccl_backend), = run_ranks(
+            one_nccl_rank, 1, (one_text, cols["deepfm_row_wise"]),
+            "nccl" if SHARDED_DEVICE == "cuda" else "gloo", tmp)
+        err = max(max_rel_err(got1, ref1).values())
+        bound1 = max(LAYOUT_TOL, 3.0 * noise1)
+        out["one_nccl_rank"] = {"backend": nccl_backend, "max_err": err,
+                                "noise_two_runs": noise1, "bound": bound1}
+        if not err <= bound1:
+            failures.append(f"one NCCL rank vs unsharded: {err}")
+        seconds["one_nccl_rank"] = time.perf_counter() - t0
+
+        # part 2: the uncapped DeepFM
+        t0 = time.perf_counter()
+        out["deepfm_uncapped"] = sharded_deepfm(tmp, backend)
+        failures += out["deepfm_uncapped"].pop("failures")
+        seconds["deepfm_uncapped"] = time.perf_counter() - t0
+
+        # parts 3-5: the reference is one rank whose products take the
+        # ranks' row blocks (``row_blocks``); a second such run on each
+        # block's rows permuted gives the noise of summing over the batch
+        # in another order (the ranks' partial sums change it too),
+        # amplified by the optimizers and batch norm's backward; a plain
+        # one-rank run's distance from the reference is printed (the GEMM
+        # shape's part); then the ranks' runs (and the entry points on
+        # four train files, batch 2048 a rank)
+        t0 = time.perf_counter()
+        ref_path = os.path.join(tmp, "world1.pt")
+        ref = synth_world1(texts, cols, labels, blocks=SHARDED_WORLD)
+        again = synth_world1(texts, cols, labels, n_global, SHARDED_WORLD)
+        noise = {n: ref_distance(again[n], ref[n]) for n in texts}
+        del again
+        plain = synth_world1(texts, cols, labels)
+        shape_part = {n: ref_distance(plain[n], ref[n]) for n in texts}
+        del plain
+        bn_ref = bn_one_step(texts["deepfm_bn"], cols["deepfm_bn"][0],
+                             labels["deepfm_bn"])
+        bn_permuted = bn_one_step(
+            texts["deepfm_bn"], permuted(cols["deepfm_bn"][0],
+                                         n_global["deepfm_bn"], SEED,
+                                         SHARDED_WORLD), labels["deepfm_bn"])
+        plans = synth_plans(ref)
+        torch.save(ref, ref_path)
+        del ref
+        if SHARDED_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        seconds["world_1_refs"] = time.perf_counter() - t0
+        src = os.path.join(zoo_config_dir(), "criteo_synth", "deepfm.config")
+        model_dir = os.path.join(tmp, "deepfm_world2")
+        edits = json.dumps({
+            "model_dir": model_dir,
+            "train_input_path": split_file(
+                paths["train"], SHARDED_TRAIN_FILES, tmp, "train"),
+            "eval_input_path": split_file(
+                paths["eval"], SHARDED_WORLD, tmp, "eval"),
+            "data_config.batch_size": ZOO_BATCH // SHARDED_WORLD})
+        cfg_path = os.path.join(tmp, "deepfm_world2.config")
+        cfg = config_util.load_pipeline_config(src)
+        config_util.edit_config(cfg, json.loads(edits))
+        config_util.save_message(cfg, cfg_path)
+        t0 = time.perf_counter()
+        ranks = run_ranks(synth_rank, SHARDED_WORLD,
+                          (texts, cols, labels, ref_path, n_global, tail,
+                           plans, (cfg_path, None)), backend, tmp)
+        seconds["world_2_parts_3_5"] = time.perf_counter() - t0
+        models = {}
+        for name in texts:
+            r0 = ranks[0]["models"][name]
+            tol = LAYOUT_TOL if name.startswith("deepfm_") and \
+                name != "deepfm_bn" else SHARDED_TRAP_TOL
+            # the bound: the tolerance or 3x the noise of the permuted
+            # run, the larger
+            bound = max(tol, 3.0 * noise[name])
+            models[name] = {"max_err": r0["max_err"], "worst": r0["worst"],
+                            "top": r0["top"],
+                            "noise_permuted_rows": noise[name],
+                            "plain_one_rank_vs_blocks": shape_part[name],
+                            "bound": bound, "groups": r0["groups"]}
+            if name.startswith("deepfm_") and name != "deepfm_bn":
+                layout = name[len("deepfm_"):]
+                want = "row_wise" if layout == "table_row_wise" else layout
+                if {v for v in r0["groups"].values()} != {want}:
+                    failures.append(f"{name}: groups {r0['groups']}")
+            if not r0["max_err"] <= bound:
+                failures.append(f"{name} at world 2 vs 1: {r0['max_err']} "
+                                f"({r0['worst']}), bound {bound}")
+            for key in ("dense_digest", "replicated_digest"):
+                if len({r["models"][name][key] for r in ranks}) != 1:
+                    failures.append(f"{name}: {key} differs across ranks")
+        out["models"] = models
+        # batch norm held where no optimizer amplifies it: one step's
+        # loss and batch statistics within 1e-5 of each tensor's max, the
+        # dense gradients within 1e-4 of the largest (some are sums whose
+        # terms cancel at this init: a bias that a batch norm follows,
+        # whose mean the norm takes out, is zero but for rounding, and a
+        # norm's scale that ReLU and the next norm take out is small;
+        # against their own max they read the order of their sums,
+        # reported by tensor); the same step with each rank's own
+        # statistics must lie outside the first bound; the one-rank run on
+        # rows permuted within the blocks reads the order of the sums
+        bn = {}
+        runs = dict(ranks[0]["bn_one_step"], permuted_rows=bn_permuted)
+        for which, got in runs.items():
+            stats = {k: v for k, v in got.items() if not k.startswith("grad.")}
+            names = sorted(k for k in got if k.startswith("grad."))
+            bn[which] = {
+                "loss_and_stats": rel_report(stats, {k: bn_ref[k]
+                                                     for k in stats}),
+                "dense_grads": rel_report(
+                    {"all": torch.cat([got[k].reshape(-1) for k in names])},
+                    {"all": torch.cat([bn_ref[k].reshape(-1)
+                                       for k in names])}),
+                "dense_grads_by_tensor": rel_report(
+                    {k: got[k] for k in names}, {k: bn_ref[k] for k in names}),
+                "largest_grad": max(float(bn_ref[k].abs().max())
+                                    for k in names)}
+        bn["bounds"] = {"loss_and_stats": LAYOUT_TOL,
+                        "dense_grads": SHARDED_TRAP_TOL}
+        out["bn_one_step"] = bn
+        for key, bound in bn["bounds"].items():
+            if not bn["global"][key]["max_err"] <= bound:
+                failures.append(f"batch norm's step at world 2 vs 1, {key}: "
+                                f"{bn['global'][key]}, bound {bound}")
+        if not bn["local"]["loss_and_stats"]["max_err"] > LAYOUT_TOL:
+            failures.append("batch norm's check does not tell each rank's "
+                            f"statistics from the global ones: {bn['local']}")
+        fwd, bwd = ranks[0]["hstu_launches"]
+        if not (fwd > 0 and bwd > 0):
+            failures.append(f"kernels #1/#2 did not run on rank 0: "
+                            f"{fwd}/{bwd}")
+        # part 4: the entry points' results
+        train = ranks[0]["train"]
+        steps = int(train["step"])
+        ckpt = checkpoint_util.checkpoint_path(model_dir, steps)
+        auc2 = ranks[0]["evaluate"]["auc"]
+        t0 = time.perf_counter()
+        one = port_main.evaluate(cfg_path, checkpoint_path=ckpt,
+                                 device=SHARDED_DEVICE)
+        m1, _ = port_main.build_model(cfg, SHARDED_DEVICE)
+        restored = checkpoint_util.load_model_weights(ckpt, m1)
+        sd = m1.state_dict()
+        tables_equal = all(torch.equal(sd[k].cpu(), v.cpu())
+                           for k, v in restored["model"].items()
+                           if ".tables." in k)
+        del m1, sd, restored
+        seconds["world_1_evaluate"] = time.perf_counter() - t0
+        out["entry_points"] = {
+            "steps": steps, "train_s": ranks[0]["train_s"],
+            "auc_world_2": auc2, "auc_world_1": one["auc"],
+            "auc_train_eval": train.get("auc"),
+            "pinned_auc": pinned["auc"]["value"],
+            "plan_saved": os.path.exists(os.path.join(
+                model_dir, "sharding_plan.json")),
+            "restored_tables_bit_equal": tables_equal}
+        if not abs(auc2 - one["auc"]) <= 1e-6:
+            failures.append(f"evaluate at world 2 {auc2} vs 1 {one['auc']}")
+        if not abs(auc2 - pinned["auc"]["value"]) <= ZOO_AUC_BOUND:
+            failures.append(f"world-2 AUC {auc2} vs pinned "
+                            f"{pinned['auc']['value']}")
+        if not (tables_equal and out["entry_points"]["plan_saved"]):
+            failures.append(f"entry points: {out['entry_points']}")
+        if steps != ZOO_TRAIN_ROWS // ZOO_BATCH:
+            failures.append(f"world 2 took {steps} steps")
+    launches = {
+        "row_write": (out["deepfm_uncapped"]["row_write_launches"]
+                      + sum(r["row_write_launches"] for r in ranks)),
+        "hstu_attention_fwd": sum(r["hstu_launches"][0] for r in ranks),
+        "hstu_attention_bwd": sum(r["hstu_launches"][1] for r in ranks)}
+    out["launches_main_path"] = launches
+    out["seconds"] = seconds
+    out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError(f"train_sharded: {failures}")
+    return launches
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6012,6 +7080,8 @@ def main() -> int:
     zoo_rest_launches = timed("train_zoo_rest", phase_train_zoo_rest)
     export_fwd, export_writes = timed("export", phase_export, smi)
     tdm_launches = timed("train_tdm", phase_train_tdm, smi)
+    torch.cuda.empty_cache()
+    sharded = timed("train_sharded", phase_train_sharded, smi)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -6045,27 +7115,33 @@ def main() -> int:
         # bound_ms are bf16's; fp16 has its own beside them
         kernel_row("hstu_attention_fwd", "hstu_attention.py:114",
                    serve_launches + train_fwd_launches + fp16_fwd_launches
-                   + gr_fwd + export_fwd, fwd_err, fwd_timing,
+                   + gr_fwd + export_fwd + sharded["hstu_attention_fwd"],
+                   fwd_err, fwd_timing,
                    launches_by_path={"serving": serve_launches,
                                      "training": train_fwd_launches,
                                      "train_options": fp16_fwd_launches,
                                      "train_gr": gr_fwd,
-                                     "export": export_fwd},
+                                     "export": export_fwd,
+                                     "train_sharded":
+                                         sharded["hstu_attention_fwd"]},
                    launches_by_dtype={
                        "bf16": serve_launches + train_fwd_launches,
-                       "fp16": fp16_fwd_launches, "fp32": gr_fwd,
+                       "fp16": fp16_fwd_launches,
+                       "fp32": gr_fwd + sharded["hstu_attention_fwd"],
                        "export (bf16, and fp32 HSTU-Match)": export_fwd},
                    fp16=fp16_row(fwd16),
                    hstu_synth_fp32=gr_row("hstu_attention_fwd")),
         kernel_row("hstu_attention_bwd", "hstu_attention.py:207",
-                   bwd_launches + fp16_bwd_launches + gr_bwd, bwd_err,
-                   bwd_timing,
+                   bwd_launches + fp16_bwd_launches + gr_bwd
+                   + sharded["hstu_attention_bwd"], bwd_err, bwd_timing,
                    launches_by_path={"training": bwd_launches,
                                      "train_options": fp16_bwd_launches,
-                                     "train_gr": gr_bwd},
-                   launches_by_dtype={"bf16": bwd_launches,
-                                      "fp16": fp16_bwd_launches,
-                                      "fp32": gr_bwd},
+                                     "train_gr": gr_bwd,
+                                     "train_sharded":
+                                         sharded["hstu_attention_bwd"]},
+                   launches_by_dtype={
+                       "bf16": bwd_launches, "fp16": fp16_bwd_launches,
+                       "fp32": gr_bwd + sharded["hstu_attention_bwd"]},
                    fp16=fp16_row(bwd16),
                    hstu_synth_fp32=gr_row("hstu_attention_bwd")),
         # at the real step's dim-16 targets, through the table less its
@@ -6077,7 +7153,7 @@ def main() -> int:
                    deepfm_launches + loader_launches + zoo_launches
                    + lane_off_launches + options_writes
                    + gr_launches["row_write"] + zoo_rest_launches
-                   + export_writes + tdm_launches,
+                   + export_writes + tdm_launches + sharded["row_write"],
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -6089,7 +7165,8 @@ def main() -> int:
                        "train_gr": gr_launches["row_write"],
                        "train_zoo_rest": zoo_rest_launches,
                        "export": export_writes,
-                       "train_tdm": tdm_launches}),
+                       "train_tdm": tdm_launches,
+                       "train_sharded": sharded["row_write"]}),
     ]})
     print(smi, flush=True)
     emit(device_record())

@@ -51,7 +51,8 @@ for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "tools.feature_selection", "acc.quant_util", "export",
              "tools.hitrate", "utils.test_util",
              "utils.delta_embedding_dump", "utils.shm_pack", "models.tdm",
-             "tools.tdm.gen_tree", "tools.tdm.retrieval"):
+             "tools.tdm.gen_tree", "tools.tdm.retrieval",
+             "utils.dist_util", "parallel.mesh", "parallel.planner"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -113,6 +114,8 @@ DEEPFM_SLICE_MODULES = [
     # TDM and the shared sampler tables
     "utils.shm_pack", "models.tdm", "tools.tdm.gen_tree",
     "tools.tdm.retrieval",
+    # training over several ranks
+    "utils.dist_util", "parallel.mesh", "parallel.planner",
 ]
 
 

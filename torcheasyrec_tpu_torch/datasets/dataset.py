@@ -548,8 +548,8 @@ def create_dataloader(
     mode: str = "train",
     reserved_columns: Optional[List[str]] = None,
     resume_state: Optional[Dict[int, int]] = None,
-    worker_id: int = 0,
-    num_workers: int = 1,
+    worker_id: Optional[int] = None,
+    num_workers: Optional[int] = None,
     device=None,
 ) -> Callable[[], Iterator[Tuple[Batch, BatchInfo]]]:
     """A zero-argument factory of one epoch's iterator over
@@ -557,8 +557,10 @@ def create_dataloader(
     ``.mp_workers``; each iterator has ``close()``.
 
     Outside train mode the batch size is ``eval_batch_size`` where set.
-    The input shard is ``worker_id`` of ``num_workers`` (the whole input
-    by default). With ``device`` on CUDA the batches arrive there, copied
+    The input shard is ``worker_id`` of ``num_workers``; by default this
+    rank's of the ranks of ``torch.distributed`` (the whole input outside
+    a process group), as the JAX package defaults to its process. Rank r
+    of N with K loader workers: worker w reads shard r * K + w of N * K. With ``device`` on CUDA the batches arrive there, copied
     from pinned memory on a side stream; else they stay on the CPU.
     ``resume_state`` ({source_id: last row consumed}) skips those rows in
     the first epoch only.
@@ -577,6 +579,12 @@ def create_dataloader(
     shared memory before it spawns them (``prepare_shared``: the workers'
     copies attach to one table) and unlinks them in its ``close``, which
     the loop calls in a ``finally``."""
+    if worker_id is None or num_workers is None:
+        import torch.distributed as dist
+
+        on = dist.is_available() and dist.is_initialized()
+        worker_id = dist.get_rank() if on else 0
+        num_workers = dist.get_world_size() if on else 1
     batch_size = int(data_config.batch_size)
     if mode != "train" and data_config.HasField("eval_batch_size"):
         batch_size = int(data_config.eval_batch_size)

@@ -3,7 +3,10 @@
 [--device cpu]``. Evaluates the checkpoint (default: the latest of the
 config's ``model_dir``) on parquet files, directories or globs, in
 batches of ``eval_batch_size``, and prints the metrics as one JSON
-line."""
+line. Under
+``python -m torch.distributed.run --nproc_per_node N`` each rank
+evaluates its shard of the input, the metrics are gathered and rank 0
+writes the result."""
 
 import argparse
 import json

@@ -16,9 +16,12 @@ import torch
 
 def pareto_loss_weights(losses: Dict[str, torch.Tensor],
                         min_weights: Optional[Dict[str, float]] = None,
-                        iters: int = 20) -> Dict[str, torch.Tensor]:
+                        iters: int = 20, reduce=None
+                        ) -> Dict[str, torch.Tensor]:
     names = sorted(losses)
     l = torch.stack([losses[n].detach().float() for n in names])
+    if reduce is not None:
+        l = reduce(l)
     k = len(names)
     floors = l.new_tensor([float((min_weights or {}).get(n, 0.0))
                            for n in names])
@@ -34,8 +37,9 @@ def pareto_loss_weights(losses: Dict[str, torch.Tensor],
 
 
 def apply_pareto_weights(losses: Dict[str, torch.Tensor],
-                         min_weights: Optional[Dict[str, float]] = None
-                         ) -> Dict[str, torch.Tensor]:
-    """Each loss times its detached Pareto weight."""
-    weights = pareto_loss_weights(losses, min_weights)
+                         min_weights: Optional[Dict[str, float]] = None,
+                         reduce=None) -> Dict[str, torch.Tensor]:
+    """Each loss times its detached Pareto weight; ``reduce`` maps the
+    detached losses to the global ones first (several ranks)."""
+    weights = pareto_loss_weights(losses, min_weights, reduce=reduce)
     return {n: weights[n] * v for n, v in losses.items()}

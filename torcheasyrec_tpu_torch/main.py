@@ -22,6 +22,21 @@ embedding dump (``utils/delta_embedding_dump.py``);
 ``steps_per_dispatch`` > 1 runs as single steps. Not ported: ZCH and
 host-offloaded tables, TensorBoard summaries.
 
+Several ranks (``torch.distributed.run --nproc_per_node N``, or a
+``shard`` the caller made with ``utils/dist_util.init_distributed``):
+the model is built twice, first for its table specs, then with the
+planner's plan (``parallel/planner.py``; ``sharding_plan.json`` in the
+model dir, reloaded by ``continue_train``); each rank reads input shard
+``rank`` of ``world``; the train step averages the dense gradients over
+the ranks (one bucketed ``all_reduce``) and scales the embedding
+gradients by 1 / world, since each rank's loss is its share of the
+global batch's mean (``models/model.BaseModel._reduce``); the ranks stop
+together when one runs out of input; the eval runs the ranks in step
+(a rank out of rows repeats its last batch without counting it) and
+gathers the metrics; rank 0 writes canonical checkpoints, which load at
+any world size and plan. The delta embedding dump, export and predict
+run on one rank only.
+
 An export artifact holds the weights (``model/model.pt``), the
 ``pipeline.config``, ``fg.json`` and the serving program: a
 ``torch.export`` ``ExportedProgram`` of the eval forward over the flat
@@ -62,8 +77,10 @@ from torcheasyrec_tpu_torch.optim.optimizer_builder import (
     create_dense_optimizer,
     create_sparse_optimizer,
 )
+from torcheasyrec_tpu_torch.parallel import planner
+from torcheasyrec_tpu_torch.parallel.mesh import ShardContext
 from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
-from torcheasyrec_tpu_torch.utils import checkpoint_util, config_util
+from torcheasyrec_tpu_torch.utils import checkpoint_util, config_util, dist_util
 from torcheasyrec_tpu_torch.utils.convert import dense_param_paths
 from torcheasyrec_tpu_torch.utils.delta_embedding_dump import (
     DeltaEmbeddingDumper,
@@ -112,7 +129,9 @@ def _compute_dtype(train_config) -> torch.dtype:
 
 def _build_model_and_optim(pipeline_config, device="cuda", for_train=True,
                            seed: int = 42, packed: bool = True,
-                           dense_lane_rows: int = 32768):
+                           dense_lane_rows: int = 32768,
+                           shard: Optional[ShardContext] = None,
+                           plan: Optional[Dict[str, str]] = None):
     """(model on ``device``, features, sparse lr schedule). Weights are
     drawn from a ``torch.Generator`` seeded with ``seed``; the same
     generator later draws the dropout masks. With ``for_train`` the
@@ -120,8 +139,12 @@ def _build_model_and_optim(pipeline_config, device="cuda", for_train=True,
     and the model is left in training mode; without, the model is in eval
     mode, its engine keeps no optimizer row state and the schedule is
     None. ``packed`` and ``dense_lane_rows`` go to the embedding engine
-    (``parallel/emb_engine.py``)."""
-    dev = resolve_device(device)
+    (``parallel/emb_engine.py``). With ``shard`` the model lives on the
+    rank's device and its tables take their layouts from ``plan``, else
+    (over several ranks) from the planner's plan of the table specs, as
+    the JAX package's two-phase build does; ``model.sharding_plan`` holds
+    it."""
+    dev = shard.device if shard is not None else resolve_device(device)
     features = _create_features(pipeline_config)
     train_config = pipeline_config.train_config
     if for_train:
@@ -130,27 +153,67 @@ def _build_model_and_optim(pipeline_config, device="cuda", for_train=True,
     else:
         # no optimizer row state: packed rows hold weights only
         sparse_opt, sparse_sched = SparseOptimizer("sgd", {"lr": 0.0}), None
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(seed)
-    model = create_model(
-        pipeline_config.model_config,
-        features,
-        list(pipeline_config.data_config.label_fields),
-        list(pipeline_config.data_config.sample_weight_fields),
-        compute_dtype=_compute_dtype(train_config),
-        generator=generator,
-        sparse_optimizer=sparse_opt,
-        packed=packed,
-        dense_lane_rows=dense_lane_rows,
-    )
+
+    def build(plan_, build_tables=True):
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+        return create_model(
+            pipeline_config.model_config,
+            features,
+            list(pipeline_config.data_config.label_fields),
+            list(pipeline_config.data_config.sample_weight_fields),
+            compute_dtype=_compute_dtype(train_config),
+            generator=generator,
+            sparse_optimizer=sparse_opt,
+            packed=packed,
+            dense_lane_rows=dense_lane_rows,
+            shard=shard, plan=plan_, build_tables=build_tables,
+        )
+
+    if shard is not None and plan is None and shard.world > 1:
+        plan = plan_tables(
+            build(None, build_tables=False).embedding_group.table_specs(),
+            shard, pipeline_config, sparse_opt.kind)
+    model = build(plan)
+    model.sharding_plan = plan
+    model.attach_shard()
     return model.train(for_train), features, sparse_sched
 
 
-def build_model(pipeline_config, device="cuda",
-                seed: int = 42) -> Tuple[BaseModel, list]:
+def plan_tables(specs, shard: ShardContext, pipeline_config,
+                optimizer_kind: str) -> Dict[str, str]:
+    """The planner's {table: layout} for ``specs`` over the ranks of
+    ``shard``, its estimate logged. No table is offloaded to the host
+    (the engine has no such tier). Where ranks share a card, each plans
+    with its share of the card's memory (unless ``HBM_CAPACITY`` is
+    set)."""
+    spg = shard.local_world
+    while shard.world % spg:
+        spg -= 1
+    hbm = None
+    if (shard.device.type == "cuda" and "HBM_CAPACITY" not in os.environ
+            and shard.local_world > torch.cuda.device_count()):
+        hbm = (torch.cuda.get_device_properties(shard.device).total_memory
+               * torch.cuda.device_count() / shard.local_world)
+    plan, cost, _ = planner.plan_cost(
+        specs, n_devices=shard.world,
+        batch_size=int(pipeline_config.data_config.batch_size),
+        optimizer_kind=optimizer_kind, shards_per_host=max(spg, 1),
+        host_excluded={s.name for s in specs}, hbm_budget=hbm)
+    if dist_util.is_main_process(shard):
+        logger.info(f"sharding plan over {shard.world} ranks "
+                    f"(est {cost * 1e3:.3f} ms/step): {plan}")
+    return plan
+
+
+def build_model(pipeline_config, device="cuda", seed: int = 42,
+                shard: Optional[ShardContext] = None,
+                plan: Optional[Dict[str, str]] = None
+                ) -> Tuple[BaseModel, list]:
     """(model in eval mode on ``device``, features), for eval and predict."""
     model, features, _ = _build_model_and_optim(
-        pipeline_config, device, for_train=False, seed=seed)
+        pipeline_config, device, for_train=False, seed=seed, shard=shard,
+        plan=plan)
     return model, features
 
 
@@ -226,8 +289,16 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
     step; the dense gradients add into ``state["accum_grads"]`` and their
     mean updates the parameters, and the dense optimizer's state, at
     steps where (step + 1) % k == 0 (with the scaler: and the step's
-    gradients are finite; the sum then carries into the next window)."""
+    gradients are finite; the sum then carries into the next window).
+
+    Over several ranks (``model.shard``) each rank's loss is its share of
+    the global batch's (their mean is the global loss): the dense
+    gradients are averaged over the ranks in one ``all_reduce``, the
+    embedding gradients are scaled by 1 / world before they travel to
+    the rows' owners, the grad scaler's finite flag is the ranks' AND and
+    the reported losses are the ranks' mean."""
     eg = model.embedding_group
+    shard = model.shard
     params = tx.params
     use_scaler = uses_grad_scaler(model, grad_scaler_cfg)
     k_accum = max(int(grad_accum_steps or 1), 1)
@@ -261,6 +332,10 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
             k: torch.zeros_like(leaf) if g is None else g
             for k, leaf, g in zip(keys, leaves, grads[len(params):])
         }
+        if shard is not None:
+            dgrads = _mean_over_ranks(dgrads, shard)
+            emb_grads = {k: g * (1.0 / shard.world)
+                         for k, g in emb_grads.items()}
         by_epoch = sparse_sched.get("by_epoch") and epoch is not None
         lr_scale = sparse_sched["fn"](epoch if by_epoch else step)
         finite = None
@@ -269,6 +344,9 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
                 torch.isfinite(g).all()
                 for g in dgrads + list(emb_grads.values()) if g is not None
             ]).all()
+            if shard is not None:
+                finite = shard.all_reduce(
+                    finite.float(), op=torch.distributed.ReduceOp.MIN) > 0
             # zeroed, so that 0 * inf = NaN reaches no table or state
             zero = scale.new_zeros(())
             dgrads = [None if g is None else torch.where(finite, g, zero)
@@ -301,12 +379,38 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
         state["step"] = step + 1
         metrics = {"total_loss": total.detach()}
         metrics.update({k: v.detach() for k, v in losses.items()})
+        if shard is not None:
+            names = list(metrics)
+            vals = shard.all_reduce(torch.stack(
+                [metrics[n].float() for n in names])) / shard.world
+            metrics = dict(zip(names, vals))
         if want_preds:
             metrics["__preds"] = {k: v.detach() for k, v in preds.items()
                                   if isinstance(v, torch.Tensor)}
         return state, metrics
 
     return train_step
+
+
+def _mean_over_ranks(grads: List[Optional[torch.Tensor]],
+                     shard: ShardContext) -> List[Optional[torch.Tensor]]:
+    """Each gradient averaged over the ranks, through one fp32 buffer and
+    one ``all_reduce``; a None (no rank's loss reaches the parameter)
+    stays None."""
+    live = [g for g in grads if g is not None]
+    if not live:
+        return grads
+    flat = torch.cat([g.float().reshape(-1) for g in live])
+    flat = shard.all_reduce(flat) / shard.world
+    out, pos = [], 0
+    for g in grads:
+        if g is None:
+            out.append(None)
+            continue
+        n = g.numel()
+        out.append(flat[pos:pos + n].view(g.shape).to(g.dtype))
+        pos += n
+    return out
 
 
 def _next_scaler_state(sc: Dict[str, torch.Tensor], finite: torch.Tensor,
@@ -354,6 +458,7 @@ def train_epoch(
     model: Optional[BaseModel] = None,
     train_metrics: Optional[List[Dict[str, Any]]] = None,
     delta_dumper: Optional[DeltaEmbeddingDumper] = None,
+    shard: Optional[ShardContext] = None,
 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor], bool]:
     """The body of the training loop over one epoch's (batch, info)
     items: a train step per batch, the step's predictions into the
@@ -364,10 +469,13 @@ def train_epoch(
     (the losses, and each train metric as ``train_<name>``), then
     ``after_step(state, info)``. Stops after step ``num_steps`` (when >
     0). Returns (state, the last step's metrics, whether it stopped at
-    ``num_steps``). Writes nothing itself."""
+    ``num_steps``). Writes nothing itself. Over several ranks (``shard``)
+    every rank steps only while every rank has a batch, so the ranks
+    stop together on uneven input, and a batch's ``data_timestamp`` is
+    the ranks' least (the event-time quorum of the checkpoints)."""
     metrics: Dict[str, torch.Tensor] = {}
     t0, examples = time.perf_counter(), 0
-    for batch, info in batches:
+    for batch, info in _in_step(batches, shard):
         state, metrics = train_step(state, batch)
         preds = metrics.pop("__preds", None)
         if train_metrics and preds is not None:
@@ -397,15 +505,37 @@ def train_epoch(
     return state, metrics, False
 
 
+def _in_step(batches, shard: Optional[ShardContext]):
+    """``batches`` while every rank has one (all of them on one rank)."""
+    if shard is None or shard.world <= 1:
+        yield from batches
+        return
+    it = iter(batches)
+    while True:
+        item = next(it, None)
+        if not dist_util.all_workers_have_data(shard, item is not None):
+            return
+        batch, info = item
+        info.data_timestamp = dist_util.global_min_int(
+            shard, info.data_timestamp)
+        yield batch, info
+
+
 def _run_eval(model: BaseModel, eval_step, eval_dl, num_steps: int = 0,
-              model_dir: Optional[str] = None, step: int = 0
-              ) -> Dict[str, float]:
+              model_dir: Optional[str] = None, step: int = 0,
+              shard: Optional[ShardContext] = None) -> Dict[str, float]:
     """One pass over the eval loader (``num_steps`` > 0 stops early):
     the model's metrics, and every loss averaged over the batches as
     ``loss_<name>``. Batch N-1's metrics are updated on the host while
     batch N computes on the device. With ``model_dir``, the result is
     appended to ``<model_dir>/train_eval_result_v2.txt`` as a
-    ``{"global_step": step, ...}`` line."""
+    ``{"global_step": step, ...}`` line. Over several ranks see
+    ``_run_eval_ranks``; every rank returns the result, rank 0 writes
+    it."""
+    if shard is not None and shard.world > 1:
+        result = _run_eval_ranks(model, eval_step, eval_dl, num_steps, shard)
+        _write_eval(result, model_dir if shard.rank == 0 else None, step)
+        return result
     metrics = model.init_metrics()
     loss_sums: Dict[str, float] = {}
     n = 0
@@ -433,11 +563,60 @@ def _run_eval(model: BaseModel, eval_step, eval_dl, num_steps: int = 0,
         _drain(pending)
     result = model.compute_metrics(metrics)
     result.update({f"loss_{k}": v / max(n, 1) for k, v in loss_sums.items()})
+    _write_eval(result, model_dir, step)
+    return result
+
+
+def _write_eval(result: Dict[str, float], model_dir: Optional[str],
+                step: int) -> None:
     if model_dir:
         with open(os.path.join(model_dir, "train_eval_result_v2.txt"),
                   "a") as f:
             f.write(json.dumps({"global_step": step, **result}) + "\n")
     logger.info(f"eval @ step {step}: {result}")
+
+
+def _run_eval_ranks(model: BaseModel, eval_step, eval_dl, num_steps: int,
+                    shard: ShardContext) -> Dict[str, float]:
+    """The eval over several ranks, each on its input shard. The lookups
+    are collective, so the ranks step together: a rank out of rows runs
+    its last batch again without counting it (the reference's dummy
+    batch), until no rank has rows left or a rank has none to repeat.
+    The metrics are gathered from every rank (``sync_metrics``); each
+    loss is the mean over the steps of the ranks' mean, the global
+    batch's loss (a repeated batch counts, as the JAX package counts its
+    padded replays)."""
+    from torcheasyrec_tpu_torch.metrics import sync_metrics
+
+    metrics = model.init_metrics()
+    loss_sums: Dict[str, float] = {}
+    n, last = 0, None
+    batches = eval_dl()
+    try:
+        while True:
+            item = next(batches, None)
+            feed = item[0] if item is not None else last
+            if not dist_util.any_worker_has_data(shard, item is not None):
+                break
+            if not dist_util.all_workers_have_data(shard, feed is not None):
+                break
+            last = feed
+            preds, losses = eval_step(feed)
+            if item is not None:
+                model.update_metrics(metrics, preds, feed)
+            for k, v in losses.items():
+                loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
+            n += 1
+            if num_steps and n >= num_steps:
+                break
+    finally:
+        batches.close()
+    sync_metrics(metrics, shard)
+    result = model.compute_metrics(metrics)
+    names = sorted(loss_sums)
+    sums = dist_util.gather_host_sum(shard, *(loss_sums[k] for k in names))
+    result.update({f"loss_{k}": v / shard.world / max(n, 1)
+                   for k, v in zip(names, sums)})
     return result
 
 
@@ -470,6 +649,7 @@ def train_and_evaluate(
     fine_tune_checkpoint: Optional[str] = None,
     edit_config_json: Optional[str] = None,
     device="cuda",
+    shard: Optional[ShardContext] = None,
 ) -> Dict[str, float]:
     """Train from parquet input with checkpoints and evals; returns the
     step count, the last step's losses and the last eval's result.
@@ -496,7 +676,29 @@ def train_and_evaluate(
     (``<model_dir>/profile/trace.json``). ``delta_embedding_dump_config``
     writes the rows the steps touched every ``dump_interval_steps``
     steps and at the end (``<model_dir>/delta_embedding_dump`` unless it
-    names an ``output_dir``)."""
+    names an ``output_dir``).
+
+    Over several ranks (``shard``, else torchrun's environment when
+    ``WORLD_SIZE`` > 1, whose process group is then left when the
+    function returns; the module docstring says what runs where) every
+    rank calls it with the same arguments."""
+    own_group = shard is None and dist_util.launched_world_size() > 1
+    if own_group:
+        shard = dist_util.init_distributed(device)
+    try:
+        return _train_and_evaluate(
+            pipeline_config_path, train_input_path, eval_input_path,
+            continue_train, fine_tune_checkpoint, edit_config_json, device,
+            shard)
+    finally:
+        if own_group:
+            dist_util.destroy_distributed()
+
+
+def _train_and_evaluate(pipeline_config_path, train_input_path,
+                        eval_input_path, continue_train,
+                        fine_tune_checkpoint, edit_config_json, device,
+                        shard):
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
     if edit_config_json:
         config_util.edit_config(pipeline_config, json.loads(edit_config_json))
@@ -508,9 +710,16 @@ def train_and_evaluate(
     data_config = pipeline_config.data_config
     eval_path = _eval_input(pipeline_config, bool(eval_input_path))
 
-    dev = resolve_device(device)
+    dev = shard.device if shard is not None else resolve_device(device)
+    multi = shard is not None and shard.world > 1
+    model_dir = pipeline_config.model_dir
+    saved_plan = planner.load_plan(model_dir) if continue_train and multi \
+        else None
     model, features, sparse_sched = _build_model_and_optim(
-        pipeline_config, dev, for_train=True)
+        pipeline_config, dev, for_train=True, shard=shard, plan=saved_plan)
+    if model.sharding_plan and dist_util.is_main_process(shard):
+        os.makedirs(model_dir, exist_ok=True)
+        planner.save_plan(model.sharding_plan, model_dir)
     tx, dense_sched = _dense_optimizer(model, train_config)
     grad_accum = int(train_config.gradient_accumulation_steps or 1)
     scaler_cfg = (train_config.grad_scaler
@@ -523,7 +732,6 @@ def train_and_evaluate(
         logger.warning(
             f"steps_per_dispatch {train_config.steps_per_dispatch}: the "
             "steps of one dispatch run as single steps (the same numbers)")
-    model_dir = pipeline_config.model_dir
     ckpt_manager = checkpoint_util.CheckpointManager(
         model_dir,
         save_checkpoints_steps=train_config.save_checkpoints_steps,
@@ -533,6 +741,7 @@ def train_and_evaluate(
             train_config.save_checkpoints_timestamp_interval),
         save_checkpoints_timestamps=list(
             train_config.save_checkpoints_timestamps),
+        shard=shard,
     )
     dataloader_state: Dict[int, int] = {}
     latest = checkpoint_util.latest_checkpoint(model_dir)
@@ -545,9 +754,11 @@ def train_and_evaluate(
             dataloader_state = restored["dataloader_state"]
         del restored["dataloader_state"]
         state.update(restored)
-    config_util.save_message(pipeline_config,
-                             os.path.join(model_dir, "pipeline.config"))
+    if dist_util.is_main_process(shard):
+        config_util.save_message(pipeline_config,
+                                 os.path.join(model_dir, "pipeline.config"))
 
+    # each rank reads its shard of the input (create_dataloader's default)
     train_dl = create_dataloader(
         data_config, features, pipeline_config.train_input_path,
         mode="train", resume_state=dataloader_state, device=dev)
@@ -564,6 +775,11 @@ def train_and_evaluate(
     eval_result: Dict[str, float] = {}
     delta_dumper = None
     if train_config.HasField("delta_embedding_dump_config"):
+        if multi:
+            raise NotImplementedError(
+                "delta_embedding_dump_config under several ranks is not "
+                "ported (the JAX package refuses it under several "
+                "processes too)")
         dcfg = train_config.delta_embedding_dump_config
         delta_dumper = DeltaEmbeddingDumper(
             dcfg.output_dir or os.path.join(model_dir,
@@ -578,7 +794,7 @@ def train_and_evaluate(
             eval_result = _run_eval(
                 model, eval_step, eval_dl,
                 pipeline_config.eval_config.num_steps or 0, model_dir,
-                state["step"])
+                state["step"], shard)
 
     def after_step(state, info: BatchInfo) -> None:
         if profiler is not None:
@@ -603,7 +819,7 @@ def train_and_evaluate(
             state, epoch_metrics, stop = train_epoch(
                 train_step, state, batches, dataloader_state, num_steps,
                 after_step, train_config.log_step_count_steps, model,
-                train_metrics, delta_dumper)
+                train_metrics, delta_dumper, shard)
         finally:
             batches.close()
         metrics = epoch_metrics or metrics
@@ -654,18 +870,39 @@ def evaluate(
     eval_input_path: Optional[str] = None,
     eval_result_filename: str = "eval_result.txt",
     device="cuda",
+    shard: Optional[ShardContext] = None,
 ) -> Dict[str, float]:
     """Evaluate a checkpoint (``checkpoint_path``, else the latest of the
     config's ``model_dir``, else the seeded init) on ``eval_input_path``
     (else the config's; files, directories, globs) in batches of
     ``eval_batch_size`` (else ``batch_size``); writes the result as JSON
-    to ``<model_dir>/<eval_result_filename>`` and returns it."""
-    dev = resolve_device(device)
+    to ``<model_dir>/<eval_result_filename>`` and returns it. Over several
+    ranks (``shard``, else torchrun's environment) the tables take the
+    model dir's ``sharding_plan.json`` (else the planner's plan), each
+    rank reads its rows of the checkpoint and its input shard, and rank
+    0 writes the gathered result."""
+    own_group = shard is None and dist_util.launched_world_size() > 1
+    if own_group:
+        shard = dist_util.init_distributed(device)
+    try:
+        return _evaluate(pipeline_config_path, checkpoint_path,
+                         eval_input_path, eval_result_filename, device, shard)
+    finally:
+        if own_group:
+            dist_util.destroy_distributed()
+
+
+def _evaluate(pipeline_config_path, checkpoint_path, eval_input_path,
+              eval_result_filename, device, shard):
+    dev = shard.device if shard is not None else resolve_device(device)
     pipeline_config = config_util.load_pipeline_config(pipeline_config_path)
     if eval_input_path:
         pipeline_config.eval_input_path = eval_input_path
     model_dir = pipeline_config.model_dir
-    model, features = build_model(pipeline_config, dev)
+    multi = shard is not None and shard.world > 1
+    model, features = build_model(
+        pipeline_config, dev, shard=shard,
+        plan=planner.load_plan(model_dir) if multi and model_dir else None)
     ckpt = checkpoint_path or checkpoint_util.latest_checkpoint(model_dir)
     step = 0
     if ckpt:
@@ -675,8 +912,9 @@ def evaluate(
         pipeline_config.data_config, features,
         pipeline_config.eval_input_path, mode="eval", device=dev)
     result = _run_eval(model, make_eval_step(model), eval_dl,
-                       pipeline_config.eval_config.num_steps or 0, None, step)
-    if model_dir:
+                       pipeline_config.eval_config.num_steps or 0, None, step,
+                       shard)
+    if model_dir and dist_util.is_main_process(shard):
         os.makedirs(model_dir, exist_ok=True)
         with open(os.path.join(model_dir, eval_result_filename), "w") as f:
             f.write(json.dumps(result))

@@ -10,13 +10,53 @@ of the MetricConfig oneof: ``auc``, ``multiclass_auc``, ``grouped_auc``
 ``accuracy``, ``mean_absolute_error`` and ``mean_squared_error``; and
 ``TrainMetricWrapper``, the decayed running value of a train metric.
 XAUC and GroupedXAUC draw their pairs with ``np.random.default_rng(0)``
-in the JAX package's order, so both packages give the same value. Only
-one process: there is no cross-host ``sync``.
+in the JAX package's order, so both packages give the same value.
+
+Over several ranks each rank accumulates its own rows; ``sync_metrics``
+then gathers every rank's state onto every rank (the rows of the AUC
+kinds and XAUC in rank order, the sums of the others added), so every
+rank computes the value of the global eval set, as the JAX package's
+``sync`` does.
 """
 
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+
+class _RowState:
+    """A metric that keeps its rows: ``sync`` gathers every rank's."""
+
+    _lists = ("_preds", "_labels")
+
+    def sync(self, shard) -> None:
+        from torcheasyrec_tpu_torch.utils.dist_util import gather_host_objects
+
+        for name in self._lists:
+            parts = gather_host_objects(shard, getattr(self, name))
+            setattr(self, name, [a for part in parts for a in part])
+
+
+class _SumState:
+    """A metric that keeps sums: ``sync`` adds every rank's."""
+
+    _sums = ("_sum", "_n")
+
+    def sync(self, shard) -> None:
+        from torcheasyrec_tpu_torch.utils.dist_util import gather_host_sum
+
+        vals = gather_host_sum(shard, *(getattr(self, n) for n in self._sums))
+        for name, v in zip(self._sums, vals):
+            setattr(self, name, type(getattr(self, name))(v))
+
+
+def sync_metrics(metrics: List[Dict[str, Any]], shard) -> None:
+    """Gather every rank's state into each metric of ``metrics`` (every
+    rank calls it, in the same order); nothing on one rank."""
+    if shard is None or shard.world <= 1:
+        return
+    for m in metrics:
+        m["metric"].sync(shard)
 
 
 def _auc(preds: np.ndarray, labels: np.ndarray) -> float:
@@ -38,7 +78,7 @@ def _auc(preds: np.ndarray, labels: np.ndarray) -> float:
     return float(auc)
 
 
-class AUC:
+class AUC(_RowState):
     def __init__(self, thresholds: int = 200, **kw) -> None:
         self.reset()
 
@@ -96,7 +136,9 @@ def _grouped_auc(preds: np.ndarray, labels: np.ndarray,
     return float(np.mean(aucs))
 
 
-class GroupedAUC:
+class GroupedAUC(_RowState):
+    _lists = ("_preds", "_labels", "_keys")
+
     def __init__(self, grouping_key: str, **kw) -> None:
         self.grouping_key = grouping_key
         self.reset()
@@ -117,11 +159,13 @@ class GroupedAUC:
                             np.concatenate(self._keys))
 
 
-class RecallAtK:
+class RecallAtK(_SumState):
     """recall@k of retrieval: a row of ``preds`` is one user's similarity
     [1 + negatives] with the positive in column 0; the row is a hit when
     fewer than ``top_k`` negatives score at least as high (a tie counts
     against the positive)."""
+
+    _sums = ("_hit", "_n")
 
     def __init__(self, top_k: int = 5, **kw) -> None:
         self.top_k = top_k
@@ -143,7 +187,7 @@ class RecallAtK:
         return float(self._hit / max(self._n, 1))
 
 
-class MulticlassAUC:
+class MulticlassAUC(_RowState):
     """One-vs-rest AUC over the classes of ``preds`` [N, C]: the mean (or,
     with ``average: "weighted"``, the class-count weighted mean) of the
     classes that have both a positive and a negative."""
@@ -177,7 +221,7 @@ class MulticlassAUC:
         return float(np.mean(aucs))
 
 
-class XAUC:
+class XAUC(_RowState):
     """Pairwise order accuracy on continuous labels over sampled pairs:
     ``sample_ratio`` of the n(n-1)/2 pairs (at most ``max_pairs``, at
     least one), drawn with replacement from ``default_rng(0)``; pairs of
@@ -216,10 +260,12 @@ class XAUC:
         return float(concordant.sum() / valid.sum())
 
 
-class GroupedXAUC:
+class GroupedXAUC(_RowState):
     """The mean over the groups of ``grouping_key`` (ascending) of XAUC
     on at most ``max_pairs_per_group`` pairs a group, drawn with
     replacement within the group from one ``default_rng(0)``."""
+
+    _lists = ("_preds", "_labels", "_keys")
 
     def __init__(self, grouping_key: str, max_pairs_per_group: int = 100,
                  **kw) -> None:
@@ -259,9 +305,11 @@ class GroupedXAUC:
         return float(np.mean(scores)) if scores else float("nan")
 
 
-class NormalizedEntropy:
+class NormalizedEntropy(_SumState):
     """Cross entropy over the entropy of the base rate, both in float64,
     predictions clipped to [eta, 1 - eta]."""
+
+    _sums = ("_ce_sum", "_pos", "_n")
 
     def __init__(self, eta: float = 1e-12, **kw) -> None:
         self.eta = eta
@@ -289,10 +337,12 @@ class NormalizedEntropy:
         return float(self._ce_sum / self._n / h)
 
 
-class Accuracy:
+class Accuracy(_SumState):
     """Share of correct predictions: ``preds > threshold`` against
     ``labels > 0.5``, or for [N, C] predictions the label among the
     ``top_k`` classes."""
+
+    _sums = ("_correct", "_n")
 
     def __init__(self, threshold: float = 0.5, top_k: int = 1, **kw) -> None:
         self.threshold = threshold
@@ -319,7 +369,7 @@ class Accuracy:
         return float(self._correct / max(self._n, 1))
 
 
-class MeanAbsoluteError:
+class MeanAbsoluteError(_SumState):
     def __init__(self, **kw) -> None:
         self.reset()
 

@@ -82,8 +82,8 @@ class DAT(MatchModel):
         b, d = ue.shape
         au = _to_width(predictions["__augment_a_user"].float(), d)
         ai = _to_width(predictions["__augment_a_item"].float()[:b], d)
-        losses["amm_loss_u"] = self._amm_u * (
-            au - ie[:b].detach()).square().sum(-1).mean()
-        losses["amm_loss_i"] = self._amm_i * (
-            ai - ue.detach()).square().sum(-1).mean()
+        losses["amm_loss_u"] = self._amm_u * self.batch_mean(
+            (au - ie[:b].detach()).square().sum(-1))
+        losses["amm_loss_i"] = self._amm_i * self.batch_mean(
+            (ai - ue.detach()).square().sum(-1))
         return losses

@@ -32,6 +32,7 @@ from torch import nn
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.losses import binary_cross_entropy
 from torcheasyrec_tpu_torch.models.model import BaseModel
+from torcheasyrec_tpu_torch.parallel.mesh import batch_mean
 from torcheasyrec_tpu_torch.modules.gr.encoders import encoders_from_config
 from torcheasyrec_tpu_torch.modules.gr.hstu_transducer import (
     ContextualPreprocessor,
@@ -216,9 +217,9 @@ class DlrmHSTU(BaseModel):
                 < cand_len.to(torch.int32)[:, None]
             ).float()
             per = binary_cross_entropy(logits, labels) * mask
-            denom = mask.sum().clamp(min=1.0)
-            losses[f"bce_{t.task_name}"] = (
-                float(t.weight or 1.0) * per.sum() / denom)
+            # over several ranks: the candidates of the global batch
+            losses[f"bce_{t.task_name}"] = float(t.weight or 1.0) * batch_mean(
+                per.sum(), mask.sum(), self.shard, eps=1.0)
         return losses
 
     def init_metrics(self) -> List[Dict[str, Any]]:

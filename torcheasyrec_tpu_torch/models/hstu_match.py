@@ -28,6 +28,7 @@ import torch
 
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.losses import softmax_cross_entropy
+from torcheasyrec_tpu_torch.parallel.mesh import batch_mean
 from torcheasyrec_tpu_torch.models.match_model import (
     HARD_SLOT_FILL,
     MatchModel,
@@ -171,6 +172,9 @@ class HSTUMatch(MatchModel):
             user_emb = l2_normalize(user_emb)
         return user_emb
 
+    def unsharded_reduction(self):
+        return "HSTU-Match's similarity over the batch's item blocks"
+
     def predict_tower(self, grouped: Dict[str, torch.Tensor], batch: Batch,
                       tower: str) -> torch.Tensor:
         if tower == "item":
@@ -247,8 +251,8 @@ class HSTUMatch(MatchModel):
             w = batch.sample_weights[self._sample_weight_name].float()
             mask = mask * torch.repeat_interleave(w, sim.shape[0]
                                                   // w.shape[0])
-        return {"softmax_cross_entropy":
-                (per * mask).sum() / mask.sum().clamp(min=1.0)}
+        return {"softmax_cross_entropy": batch_mean(
+            (per * mask).sum(), mask.sum(), self.shard, eps=1.0)}
 
     def update_metrics(self, metrics: List[Dict], predictions: Dict,
                        batch: Batch) -> None:

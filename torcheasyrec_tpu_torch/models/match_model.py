@@ -24,6 +24,7 @@ from torcheasyrec_tpu_torch.losses import softmax_cross_entropy
 from torcheasyrec_tpu_torch.models.model import BaseModel
 from torcheasyrec_tpu_torch.modules.mlp import mlp_from_config
 from torcheasyrec_tpu_torch.modules.module import linear, linear_apply
+from torcheasyrec_tpu_torch.parallel.mesh import all_gather_with_grad
 from torcheasyrec_tpu_torch.protos import simi_pb2
 from torcheasyrec_tpu_torch.utils.config_util import config_to_kwargs
 
@@ -119,10 +120,23 @@ class MatchModel(BaseModel):
         With ``hard_neg_indices`` [H, 2] (user row, hard column), the last
         H item rows are hard negatives, each scored against its own user
         only and placed in column 1 + S + hard column; a slot whose user
-        row is B holds no item and keeps ``HARD_SLOT_FILL``."""
+        row is B holds no item and keeps ``HARD_SLOT_FILL``.
+
+        Over several ranks each rank holds its own block of the JAX
+        package's global item rows ([its B positives | its S negatives |
+        its hard negatives]), so sampled and hard negatives score against
+        the rank's own negatives, the JAX package's block p. In-batch
+        negatives score against every rank's items, gathered with their
+        gradients and laid out as the JAX package reorders them: [every
+        rank's positives | every rank's sampled negatives]; the positive
+        of local row i is then column ``in_batch_offset() + i``."""
         b = user_emb.shape[0]
         u, items = user_emb.float(), item_emb.float()
         if self._in_batch_negative:
+            shard = getattr(self, "shard", None)
+            if shard is not None:
+                items = torch.cat([all_gather_with_grad(items[:b], shard),
+                                   all_gather_with_grad(items[b:], shard)])
             return u @ items.T
         n_hard = 0 if hard_neg_indices is None else hard_neg_indices.shape[0]
         s = items.shape[0] - b - n_hard
@@ -146,10 +160,22 @@ class MatchModel(BaseModel):
                            ) -> Dict[str, torch.Tensor]:
         return {"similarity": sim.float()}
 
+    def in_batch_offset(self, b: int) -> int:
+        """The global row of this rank's first user: the users of the
+        ranks before it (0 on one rank)."""
+        if self.shard is None:
+            return 0
+        counts = self.shard.all_gather_list(torch.tensor([b]))
+        return int(sum(int(c) for c in counts[:self.shard.rank]))
+
     def _two_tower_predict(self, user_emb, item_emb, batch: Batch
                            ) -> Dict[str, torch.Tensor]:
         preds = self._sim_to_prediction(self._sim(
             user_emb, item_emb, batch.additional.get("hard_neg_indices")))
+        if self._in_batch_negative and self.shard is not None:
+            # the column of row 0's positive, for the loss and the metrics
+            preds["__in_batch_offset"] = torch.tensor(
+                self.in_batch_offset(user_emb.shape[0]))
         preds["user_tower_emb"] = user_emb
         preds["item_tower_emb"] = item_emb
         return preds
@@ -162,7 +188,8 @@ class MatchModel(BaseModel):
         sim = predictions["similarity"] / self._temperature
         b = sim.shape[0]
         if self._in_batch_negative:
-            labels = torch.arange(b, device=sim.device)
+            labels = torch.arange(b, device=sim.device) + int(
+                predictions.get("__in_batch_offset", 0))
         else:
             labels = torch.zeros(b, dtype=torch.long, device=sim.device)
         return {"softmax_cross_entropy": self._reduce(
@@ -176,7 +203,8 @@ class MatchModel(BaseModel):
         sim = predictions["similarity"].float().cpu().numpy()
         if self._in_batch_negative:
             b, n = sim.shape
-            idx = (np.arange(n)[None, :] + np.arange(b)[:, None]) % n
+            off = int(predictions.get("__in_batch_offset", 0))
+            idx = (np.arange(n)[None, :] + np.arange(b)[:, None] + off) % n
             sim = np.take_along_axis(sim, idx, axis=1)
         for m in metrics:
             m["metric"].update(sim, None)

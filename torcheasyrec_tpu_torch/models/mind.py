@@ -114,6 +114,9 @@ class MIND(MatchModel):
                                    self.compute_dtype)
         raise ValueError(f"unknown tower {tower!r}")
 
+    def unsharded_reduction(self):
+        return "MIND's interest attention over the batch's item rows"
+
     def predict(self, grouped: Dict[str, torch.Tensor],
                 batch: Batch) -> Dict[str, torch.Tensor]:
         interests, cap_mask = self._interests(grouped)

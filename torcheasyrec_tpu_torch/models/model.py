@@ -32,6 +32,7 @@ from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
 from torcheasyrec_tpu_torch.modules.variational_dropout import (
     VariationalDropout,
 )
+from torcheasyrec_tpu_torch.parallel.mesh import ShardContext, batch_mean
 from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 from torcheasyrec_tpu_torch.utils.load_class import get_register_class_meta
 
@@ -51,6 +52,9 @@ class BaseModel(nn.Module, metaclass=_meta):
         sparse_optimizer: Optional[SparseOptimizer] = None,
         packed: bool = True,
         dense_lane_rows: int = 32768,
+        shard: Optional[ShardContext] = None,
+        plan: Optional[Dict[str, str]] = None,
+        build_tables: bool = True,
     ) -> None:
         super().__init__()
         self._base_model_config = model_config
@@ -62,7 +66,12 @@ class BaseModel(nn.Module, metaclass=_meta):
         self._metric_cfgs = list(model_config.metrics)
         self._train_metric_cfgs = list(model_config.train_metrics)
         self._engine_options = {"packed": packed,
-                                "dense_lane_rows": dense_lane_rows}
+                                "dense_lane_rows": dense_lane_rows,
+                                "shard": shard, "plan": plan,
+                                "build_tables": build_tables}
+        # the ranks of the job: the losses' and the batch norms' batch
+        # statistics and the in-batch negatives span all of them
+        self.shard = shard if shard is not None and shard.world > 1 else None
         self.compute_dtype = compute_dtype
         self._generator = generator or torch.Generator()
         self._sparse_optimizer = sparse_optimizer
@@ -147,16 +156,52 @@ class BaseModel(nn.Module, metaclass=_meta):
                 sample_weight_name: Optional[str] = None,
                 extra_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Weighted mean of per-sample losses; ``extra_weight`` (the task
-        space's) multiplies the sample weight."""
+        space's) multiplies the sample weight. Over several ranks the
+        divisor is the global batch's (its row count, or its weight sum:
+        ``mesh.batch_mean``), as the JAX package's one program over the
+        global batch has it."""
         if per_sample.dim() == 0:
             return per_sample
         w = batch.sample_weights.get(sample_weight_name or "")
         if extra_weight is not None:
             w = extra_weight if w is None else w * extra_weight
         if w is None:
-            return per_sample.mean()
+            if self.shard is None:
+                return per_sample.mean()
+            return self.batch_mean(per_sample)
         w = w.float()
-        return (per_sample * w).sum() / w.sum().clamp(min=1e-12)
+        return batch_mean((per_sample * w).sum(), w.sum(), self.shard,
+                          eps=1e-12)
+
+    def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the global batch (its first axis over
+        every rank); ``x.mean()`` on one rank."""
+        if self.shard is None:
+            return x.mean()
+        return batch_mean(x.sum(), torch.tensor(float(x.numel())),
+                          self.shard)
+
+    def unsharded_reduction(self) -> Optional[str]:
+        """The reduction over the batch this model computes that the port
+        does not compute over several ranks, else None."""
+        return None
+
+    def attach_shard(self) -> None:
+        """Give the batch norms the ranks (their batch statistics span
+        them); the model's own reductions read ``self.shard``. Raises
+        NotImplementedError, naming the reduction, for a model whose
+        ``unsharded_reduction`` would give a per-rank answer."""
+        from torcheasyrec_tpu_torch.modules.module import BatchNorm
+
+        if self.shard is not None:
+            why = self.unsharded_reduction()
+            if why:
+                raise NotImplementedError(
+                    f"{type(self).__name__} at world size {self.shard.world}:"
+                    f" {why} is not computed over the global batch")
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.shard = self.shard
 
     # -- metrics (host side) -------------------------------------------------
 

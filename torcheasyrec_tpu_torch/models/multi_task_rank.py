@@ -101,6 +101,12 @@ class MultiTaskRank(RankModel):
                 t, linear_apply(out, h, dt)))
         return preds
 
+    def unsharded_reduction(self):
+        if any(lf["name"] == "jrc_loss" for fns in
+               self._task_loss_fns.values() for lf in fns):
+            return "jrc_loss's [B, B] session matrix"
+        return None
+
     def loss(self, predictions: Dict[str, torch.Tensor],
              batch: Batch) -> Dict[str, torch.Tensor]:
         losses = {}
@@ -119,7 +125,13 @@ class MultiTaskRank(RankModel):
                     lf["fn"](logits, label, **loss_kwargs(lf, batch)), batch,
                     getattr(t, "sample_weight_name", "") or None, extra_w)
         if self._use_pareto and len(losses) > 1:
-            losses = apply_pareto_weights(losses, self._pareto_floors)
+            # the weights come from the global losses: over several ranks
+            # the mean of the ranks' values (each rank's loss is scaled
+            # so that the mean is the global one)
+            losses = apply_pareto_weights(
+                losses, self._pareto_floors,
+                reduce=None if self.shard is None else
+                (lambda x: self.shard.all_reduce(x) / self.shard.world))
         return losses
 
     def init_metrics(self) -> List[Dict[str, Any]]:

@@ -60,6 +60,11 @@ class RankModel(BaseModel):
             preds[f"y{suffix}"] = output[..., 0]
         return preds
 
+    def unsharded_reduction(self):
+        if any(lf["name"] == "jrc_loss" for lf in self._loss_fns):
+            return "jrc_loss's [B, B] session matrix"
+        return None
+
     def loss(self, predictions: Dict[str, torch.Tensor],
              batch: Batch) -> Dict[str, torch.Tensor]:
         losses = {}

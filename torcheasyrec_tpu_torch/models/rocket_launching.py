@@ -84,8 +84,8 @@ class RocketLaunching(RankModel):
                                        batch, self._sample_weight_name)
             for net in ("booster", "light")}
         teacher = predictions["logits_booster"].detach()
-        losses["distill"] = (predictions["logits_light"]
-                             - teacher).square().mean()
+        losses["distill"] = self.batch_mean(
+            (predictions["logits_light"] - teacher).square())
         if self.feature_based:
             hb = predictions["__hidden_booster"].detach()
             hl = predictions["__hidden_light"]
@@ -93,7 +93,7 @@ class RocketLaunching(RankModel):
             a, b = hl[..., :d].float(), hb[..., :d].float()
             cos = (a * b).sum(-1) * torch.rsqrt(
                 (a * a).sum(-1) * (b * b).sum(-1) + 1e-12)
-            losses["feature_distill"] = (1.0 - cos).mean()
+            losses["feature_distill"] = self.batch_mean(1.0 - cos)
         return losses
 
     def init_metrics(self) -> List[Dict[str, Any]]:

@@ -22,7 +22,15 @@ are gathers: id -1
 In the ``state_dict`` each table keeps its own entry ``tables.<name>``
 in canonical ``[num_buckets, dim]`` layout, whatever the grouping and
 the layout, so a checkpoint written unpacked loads packed and the other
-way round. ``tables`` gives views into unpacked groups but copies out of
+way round, and one written at one world size loads at another. Under a
+``ShardContext`` (``shard``) each table takes its layout from ``plan``
+({table: sharding}), else ``row_wise`` from 8192 rows and
+``data_parallel`` below, as in the JAX package; a feature's
+``embedding_constraints.sharding_types`` win over both. The
+``state_dict`` then gathers every table from the ranks (every rank
+calls it), and a load writes each rank's own rows. With
+``build_tables=False`` no table is drawn: the engine is built for its
+table specs alone (the planner's first pass). ``tables`` gives views into unpacked groups but copies out of
 packed ones: write through ``engine.write_table``, as
 ``load_state_dict`` does. The encoders' parameters are the model's
 dense parameters, ``encoders.<group>.<i>``. Dense embeddings and
@@ -38,12 +46,19 @@ from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.features.feature import BaseFeature
 from torcheasyrec_tpu_torch.modules.sequence import create_seq_encoder
 from torcheasyrec_tpu_torch.parallel.emb_engine import (
+    DATA_PARALLEL,
+    ROW_WISE,
     EmbeddingEngine,
     LookupSpec,
     TableSpec,
 )
+from torcheasyrec_tpu_torch.parallel.mesh import ShardContext
 from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 from torcheasyrec_tpu_torch.protos import model_pb2
+
+# tables below this row count default to data_parallel under a
+# ShardContext (the JAX package's threshold)
+_DP_ROWS_THRESHOLD = 8192
 
 Slot = Tuple[str, str, int]  # ("emb", lookup key, dim) | ("dense"|"seq_dense", feature, dim)
 
@@ -54,8 +69,12 @@ class EmbeddingGroup(nn.Module):
                  sparse_optimizer: Optional[SparseOptimizer] = None,
                  wide_embedding_dim: Optional[int] = None,
                  wide_init_fn: Optional[str] = None,
-                 packed: bool = True, dense_lane_rows: int = 32768) -> None:
+                 packed: bool = True, dense_lane_rows: int = 32768,
+                 shard: Optional[ShardContext] = None,
+                 plan: Optional[Dict[str, str]] = None,
+                 build_tables: bool = True) -> None:
         super().__init__()
+        plan = plan or {}
         self._name_to_feature = {f.name: f for f in features}
         shapes: Dict[str, Tuple[int, int]] = {}
         table_specs: Dict[str, TableSpec] = {}
@@ -78,11 +97,19 @@ class EmbeddingGroup(nn.Module):
                     f"shared embedding {name}: conflicting shapes "
                     f"{shapes[name]} vs {shape}"
                 )
+            sharding = plan.get(
+                name, ROW_WISE if shape[0] >= _DP_ROWS_THRESHOLD
+                else DATA_PARALLEL)
+            if cfg.sharding_types and sharding not in cfg.sharding_types:
+                # the constraint wins over the plan and the default
+                sharding = cfg.sharding_types[0]
             table_specs.setdefault(name, TableSpec(
                 name, shape[0], shape[1],
                 dtype=(getattr(feat.config, "data_type", "FP32")
                        or "FP32").upper(),
-                init_fn=init_override or cfg.init_fn or None))
+                init_fn=init_override or cfg.init_fn or None,
+                sharding=sharding,
+                sharding_types=tuple(cfg.sharding_types)))
             return name
 
         def _emb_slot(feat: BaseFeature, suffix: str, is_sequence: bool,
@@ -181,8 +208,10 @@ class EmbeddingGroup(nn.Module):
         self.engine = EmbeddingEngine(
             list(table_specs.values()),
             list(lookups.values()), optimizer=sparse_optimizer,
-            packed=packed, dense_lane_rows=dense_lane_rows,
+            packed=packed, dense_lane_rows=dense_lane_rows, shard=shard,
         )
+        if not build_tables:
+            return
         # one storage tensor per group, a buffer named after the group,
         # initialised in place by the engine
         for gk, store in self.engine.init_tables(generator).items():
@@ -202,6 +231,10 @@ class EmbeddingGroup(nn.Module):
         return {name: self.engine.extract_table(fused, name)
                 for name in self.engine._specs}
 
+    def table_specs(self) -> List[TableSpec]:
+        """The engine's table specs, for the planner."""
+        return list(self.engine._specs.values())
+
     def init_opt_state(self) -> Dict[str, Any]:
         device = next(iter(self.engine_tables().values())).device
         return self.engine.init_opt_state(device)
@@ -210,10 +243,19 @@ class EmbeddingGroup(nn.Module):
                        ) -> Dict[str, Dict[str, torch.Tensor]]:
         """The sparse optimizer state per table, whatever the layout:
         {table name: ``engine.extract_table_state``}. Row state of packed
-        groups comes out of their rows."""
+        groups comes out of their rows. Sharded: gathered table by table
+        onto the host."""
         fused = self.engine_tables()
-        return {name: self.engine.extract_table_state(fused, opt_state, name)
-                for name in self.engine._specs}
+        out = {}
+        for name in self.engine._specs:
+            st = self.engine.extract_table_state(fused, opt_state, name)
+            out[name] = {k: self._to_host(v) for k, v in st.items()}
+        return out
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A gathered table off the card (sharded groups only: device
+        memory then holds one gathered table at a time)."""
+        return t.cpu() if self.engine.shard is not None else t
 
     def load_opt_state_dict(self, per_table: Dict[str, Dict[str, Any]]
                             ) -> Dict[str, Any]:
@@ -226,7 +268,9 @@ class EmbeddingGroup(nn.Module):
         return opt_state
 
     def _save_to_state_dict(self, destination, prefix, keep_vars) -> None:
-        for name, t in self.tables.items():
+        fused = self.engine_tables()
+        for name in self.engine._specs:
+            t = self._to_host(self.engine.extract_table(fused, name))
             destination[f"{prefix}tables.{name}"] = (
                 t if keep_vars else t.detach())
 

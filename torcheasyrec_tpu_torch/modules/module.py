@@ -68,7 +68,13 @@ class BatchNorm(nn.Module):
     the biased variance included, once per training forward; in eval the
     running statistics normalise it. The result is cast back to the
     input's dtype. A [B, L, D] input keeps [D] statistics (padded
-    positions included), unlike ``nn.BatchNorm1d``."""
+    positions included), unlike ``nn.BatchNorm1d``. With ``shard`` (a
+    ``ShardContext`` of several ranks, set by ``BaseModel.attach_shard``)
+    the training statistics are the global batch's, as under a JAX mesh:
+    the sum and then the sum of squared deviations are all-reduced, with
+    their gradients."""
+
+    shard = None
 
     def __init__(self, dim: int, device=None, momentum: float = 0.1,
                  eps: float = 1e-5) -> None:
@@ -83,7 +89,10 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            var, mean = torch.var_mean(xf, dim=axes, correction=0)
+            if self.shard is not None and self.shard.world > 1:
+                mean, var = self._global_stats(xf, axes)
+            else:
+                var, mean = torch.var_mean(xf, dim=axes, correction=0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
@@ -92,6 +101,20 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+    def _global_stats(self, xf: torch.Tensor, axes):
+        """(mean, biased variance) over every rank's rows, two passes."""
+        from torcheasyrec_tpu_torch.parallel.mesh import (
+            all_reduce_with_grad,
+            global_count,
+        )
+
+        n = global_count(float(xf.numel() // xf.shape[-1]), self.shard)
+        n = n.to(xf.device)
+        mean = all_reduce_with_grad(xf.sum(dim=axes), self.shard) / n
+        dev = xf - mean
+        var = all_reduce_with_grad((dev * dev).sum(dim=axes), self.shard) / n
+        return mean, var
 
 
 def dropout_keep_mask(shape, p: float, device,

@@ -14,8 +14,11 @@ sgd, adagrad, rowwise_adagrad, adam, partial_rowwise_adam, lamb,
 partial_rowwise_lamb, lars_sgd, adadelta and rmsprop. The row-wise
 reductions (rowwise adagrad's and the partial kinds' mean of g^2, lamb's
 and lars's norms) run over the ``dim`` weight lanes of a row only, never
-over its state lanes. Column segments of merged tables and
-column-sharded reductions are not ported.
+over its state lanes. Under a column-wise layout a rank holds some of a
+row's columns: ``dim_reduce`` (an ``all_reduce`` over the ranks) sums
+those reductions over the ranks and ``full_dim`` is the whole row's
+width, as the JAX package's ``dim_psum_axis`` and ``full_dim``. Column
+segments of merged tables are not ported.
 """
 
 from typing import Any, Dict, List, Tuple
@@ -34,9 +37,20 @@ _DECAY_KINDS = ("adam", "lamb", "partial_rowwise_lamb", "partial_rowwise_adam",
                 "lars_sgd", "adadelta", "rmsprop")
 
 
-def _row_norm(x: torch.Tensor) -> torch.Tensor:
-    """[K, 1] L2 norm of each row."""
-    return (x * x).sum(dim=-1, keepdim=True).sqrt()
+def _row_norm(x: torch.Tensor, dim_reduce=None) -> torch.Tensor:
+    """[K, 1] L2 norm of each row (of the whole row, under
+    ``dim_reduce``)."""
+    s = (x * x).sum(dim=-1, keepdim=True)
+    return (s if dim_reduce is None else dim_reduce(s)).sqrt()
+
+
+def _row_mean(x: torch.Tensor, dim_reduce=None,
+              full_dim=None) -> torch.Tensor:
+    """[K, 1] mean of each row (of the whole row of ``full_dim``
+    columns, under ``dim_reduce``)."""
+    if dim_reduce is None:
+        return x.mean(dim=-1, keepdim=True)
+    return dim_reduce(x.sum(dim=-1, keepdim=True)) / float(full_dim)
 
 
 class SparseOptimizer:
@@ -97,6 +111,8 @@ class SparseOptimizer:
         grads: torch.Tensor,   # [K, dim] fp32 (deduplicated row grad sums)
         lr,                    # scalar (schedule-scaled), float or tensor
         scalar_state: Params,  # {"step": ...} for the adam and lamb kinds
+        dim_reduce=None,       # column-wise: sum over the ranks
+        full_dim=None,         # column-wise: the whole row's width
     ) -> Tuple[torch.Tensor, Params, Params]:
         """Pure row-level update: (new_rows, new_srows, new_scalar_state).
         No table access."""
@@ -120,7 +136,8 @@ class SparseOptimizer:
 
         if k == "rowwise_adagrad":
             eps = float(c.get("eps", 1e-10))
-            acc = srows["acc"] + (grads * grads).mean(dim=-1, keepdim=True)
+            acc = srows["acc"] + _row_mean(grads * grads, dim_reduce,
+                                           full_dim)
             return w_rows - lr * grads / (acc.sqrt() + eps), {"acc": acc}, {}
 
         if k in _STEP_KINDS:
@@ -132,15 +149,15 @@ class SparseOptimizer:
             m = b1 * srows["m"] + (1 - b1) * grads
             g2 = grads * grads
             if k.startswith("partial_rowwise"):
-                g2 = g2.mean(dim=-1, keepdim=True)
+                g2 = _row_mean(g2, dim_reduce, full_dim)
             v = b2 * srows["v"] + (1 - b2) * g2
             t = step.float()
             mh = m / (1 - b1 ** t)
             vh = v / (1 - b2 ** t)
             upd = mh / (vh.sqrt() + eps)
             if lamb:
-                w_norm = _row_norm(w_rows)
-                u_norm = _row_norm(upd)
+                w_norm = _row_norm(w_rows, dim_reduce)
+                u_norm = _row_norm(upd, dim_reduce)
                 trust = torch.where((w_norm > 0) & (u_norm > 0),
                                     w_norm / (u_norm + 1e-12),
                                     w_norm.new_ones(()))
@@ -150,8 +167,8 @@ class SparseOptimizer:
         if k == "lars_sgd":
             momentum = float(c.get("momentum", 0.9))
             eta = float(c.get("eta", 0.001))
-            w_norm = _row_norm(w_rows)
-            g_norm = _row_norm(grads)
+            w_norm = _row_norm(w_rows, dim_reduce)
+            g_norm = _row_norm(grads, dim_reduce)
             local_lr = torch.where((w_norm > 0) & (g_norm > 0),
                                    eta * w_norm / (g_norm + 1e-12),
                                    w_norm.new_ones(()))
@@ -182,6 +199,8 @@ class SparseOptimizer:
         uids: torch.Tensor,    # [K] unique row ids; < 0 or >= rows dropped
         grads: torch.Tensor,   # [K, dim] fp32 (deduplicated row sums)
         lr,
+        dim_reduce=None,
+        full_dim=None,
     ) -> Tuple[torch.Tensor, Params]:
         """Update the rows ``uids`` of ``weight`` and of the row state in
         place; every other row keeps its bits. Ids outside [0, rows) are
@@ -195,7 +214,7 @@ class SparseOptimizer:
         srows = {n: state[n][uids] for n in names}
         scalar = {k: v for k, v in state.items() if k not in names}
         new_rows, new_srows, new_scalar = self.apply_rows(
-            weight[uids], srows, grads, lr, scalar)
+            weight[uids], srows, grads, lr, scalar, dim_reduce, full_dim)
         weight.index_copy_(0, uids, new_rows.to(weight.dtype))
         for n in names:
             state[n].index_copy_(0, uids, new_srows[n])

@@ -10,6 +10,14 @@ Input paths are parquet files, directories (every ``*.parquet`` below
 them), globs, or comma-separated lists of these; they default to the
 config's. ``--continue_train`` resumes from the latest checkpoint of the
 config's ``model_dir``, mid-epoch where it was taken.
+Over N ranks on one host (one process a rank; NCCL where each rank has a
+card of its own, else gloo):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m torcheasyrec_tpu_torch.train_eval --pipeline_config_path cfg.config
+
+Each rank reads its shard of the input; rank 0 writes the checkpoints,
+the eval results and ``sharding_plan.json``.
 """
 
 import argparse

@@ -8,6 +8,13 @@ the dense optimizer state, the step and epoch, the dataloader
 watermark ``{source_id: last row consumed}`` that a resume skips, and
 where the train state has them the accumulated dense gradients
 (``accum_grads``) and the grad scaler's state (``scaler``).
+
+Over several ranks (a model whose engine has a ``ShardContext``) the
+checkpoint is the same file: every rank takes part in gathering each
+table, one at a time, to the host, and rank 0 writes it, with the ranks'
+dataloader watermarks merged (each input file belongs to one rank). A
+restore memory-maps the file and each rank copies only its own rows
+and columns, so a checkpoint loads at any world size and any plan.
 """
 
 import glob
@@ -16,6 +23,8 @@ import re
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from torcheasyrec_tpu_torch.utils import dist_util
 
 CKPT_PREFIX = "model.ckpt-"
 # an export artifact's weights, under its ``model/`` directory
@@ -48,19 +57,27 @@ def save_checkpoint(model_dir: str, model, tx, state: Dict[str, Any],
                     dataloader_state: Optional[Dict[int, int]] = None) -> str:
     """Write ``model.ckpt-<step>.pt`` into ``model_dir``; returns its
     path. Row state of packed groups is read out of their rows, so a
-    checkpoint written packed loads unpacked and back."""
+    checkpoint written packed loads unpacked and back. Over several ranks
+    every rank calls it and rank 0 writes."""
+    shard = model.embedding_group.engine.shard
     path = checkpoint_path(model_dir, state["step"])
-    torch.save(
-        {"model": model.state_dict(),
-         "sparse_opt": model.embedding_group.opt_state_dict(
-             state["sparse_opt"]),
-         "dense_opt": tx.state_dict(), "step": state["step"],
-         "epoch": state.get("epoch", 0),
-         "dataloader_state": {int(k): int(v) for k, v in
-                              (dataloader_state or {}).items()},
-         **{k: state[k] for k in _OPTIONAL_STATE if k in state}},
-        path,
-    )
+    loader_state: Dict[int, int] = {}
+    for part in dist_util.gather_host_objects(shard, dataloader_state or {}):
+        for k, v in part.items():
+            loader_state[int(k)] = max(loader_state.get(int(k), -1), int(v))
+    ckpt = {"model": model.state_dict(),
+            "sparse_opt": model.embedding_group.opt_state_dict(
+                state["sparse_opt"]),
+            "dense_opt": tx.state_dict(), "step": state["step"],
+            "epoch": state.get("epoch", 0),
+            "dataloader_state": loader_state,
+            **{k: state[k] for k in _OPTIONAL_STATE if k in state}}
+    if dist_util.is_main_process(shard):
+        # written aside and renamed: a restore may hold the old file of
+        # this step mapped, which truncating it in place would break
+        torch.save(ckpt, path + ".tmp")
+        os.replace(path + ".tmp", path)
+    dist_util.barrier(shard)
     return path
 
 
@@ -71,7 +88,12 @@ def load_model_weights(path: str, model, strict: bool = True
     ``strict``, weights the file lacks keep their values and names the
     model lacks are ignored (shapes must still agree)."""
     dev = next(iter(model.embedding_group.engine_tables().values())).device
-    ckpt = torch.load(path, map_location=dev, weights_only=True)
+    if model.embedding_group.engine.shard is not None:
+        # each rank copies its own rows out of the mapped file
+        ckpt = torch.load(path, map_location="cpu", weights_only=True,
+                          mmap=True)
+    else:
+        ckpt = torch.load(path, map_location=dev, weights_only=True)
     model.load_state_dict(ckpt.get("model", ckpt), strict=strict)
     return ckpt
 
@@ -105,8 +127,9 @@ def restore_checkpoint(path: str, model, tx=None, strict: bool = True
     optimizer states and the step of a bare state_dict, a table, a
     layer) keeps its current or initial value."""
     ckpt = load_model_weights(path, model, strict=strict)
+    dev = next(iter(model.embedding_group.engine_tables().values())).device
     if tx is not None and (strict or "dense_opt" in ckpt):
-        tx.load_state_dict(ckpt["dense_opt"])
+        tx.load_state_dict(_to_device(ckpt["dense_opt"], dev))
     eg = model.embedding_group
     if strict or "sparse_opt" in ckpt:
         sparse_opt = eg.load_opt_state_dict(ckpt["sparse_opt"])
@@ -116,7 +139,20 @@ def restore_checkpoint(path: str, model, tx=None, strict: bool = True
             "epoch": int(ckpt.get("epoch", 0)),
             "dataloader_state": {int(k): int(v) for k, v in
                                  ckpt.get("dataloader_state", {}).items()},
-            **{k: ckpt[k] for k in _OPTIONAL_STATE if k in ckpt}}
+            **{k: _to_device(ckpt[k], dev) for k in _OPTIONAL_STATE
+               if k in ckpt}}
+
+
+def _to_device(x, dev):
+    """Tensors of a nested list or dict copied to ``dev`` (never views of
+    a mapped checkpoint file)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, copy=True)
+    if isinstance(x, dict):
+        return {k: _to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_device(v, dev) for v in x)
+    return x
 
 
 class CheckpointManager:
@@ -135,8 +171,10 @@ class CheckpointManager:
         keep_checkpoint_max: int = 0,
         save_checkpoints_timestamp_interval: int = 0,
         save_checkpoints_timestamps: Optional[List[int]] = None,
+        shard=None,
     ) -> None:
         self.model_dir = model_dir
+        self._shard = shard
         os.makedirs(model_dir, exist_ok=True)
         self._steps = save_checkpoints_steps
         self._epochs = save_checkpoints_epochs
@@ -172,7 +210,7 @@ class CheckpointManager:
         return path
 
     def _prune(self) -> None:
-        if not self._keep_max:
+        if not self._keep_max or not dist_util.is_main_process(self._shard):
             return
         steps = list_checkpoints(self.model_dir)
         while len(steps) > self._keep_max:
