@@ -368,12 +368,30 @@ one JSON line each:
    1's to 1e-6 and within 0.02 of the pinned AUC, the checkpoint
    restored at world size 1 bit for bit.
 
+Phase ``train_zch`` (last before the timeline): criteo_synth DeepFM at
+its published width with eight of its 100 000-bucket features as 32 768
+slot ZCH (lfu, lru, distance_lfu) and dynamicemb tables (the host spill
+tier, frequency admission) and four tables host-offloaded
+(``zch_text``). 3 fp32 steps on the card against the CPU after a shared
+warm ZCH state: remapped slots, ZCH state, spill keys and restored slots
+bit-equal, tables, row state and dense parameters within 1e-4 of each
+tensor's max, untouched rows bit-equal, the host tables within 1e-5 of a
+run with them on the card; an epoch cut to ZCH_STEPS through
+``train_and_evaluate`` (BF16) with kernel #3 once per written packed
+group and step, spills and restores, its AUC within 0.02 of a CPU run
+from the same weights, its loop's step times, ``evaluate`` and
+``predict_checkpoint``; a resume bit-equal to the straight run; the export's ``predict`` in a
+fresh process and its loaded program bit-equal; the TensorBoard tags; the
+step, its host work and the remap's device time beside the same config
+without ZCH.
+
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
 prints them, and as the last line the device record. Any failure raises
 and exits non-zero; without CUDA it exits non-zero before any result.
 """
 
+import atexit
 import contextlib
 import itertools
 import json
@@ -4406,7 +4424,8 @@ ZOO_REST_METRICS = {"xdeepfm": ("auc", "grouped_auc_cat_10"),
 # 3.8 s a step (NVIDIA H100 80GB HBM3 host, 700.00 W card; PERF.md §6);
 # WuKong's and PEPNet's CPU epochs (37.7-50.1 s) are cut to an eighth to
 # keep the whole script near 900 s once phase train_sharded joined it
-ZOO_REST_STEPS = {"xdeepfm": 8, "wukong": 8, "pepnet": 8}
+# dc2vr cut from its epoch of 64 steps (33 s there), for train_zch's time
+ZOO_REST_STEPS = {"xdeepfm": 8, "wukong": 8, "pepnet": 8, "dc2vr": 32}
 ZOO_REST_CHECK_STEPS = 3  # fp32 steps on the card against the CPU
 ZOO_REST_CARD_TOL = 1e-4  # max abs error over the CPU's max abs, per tensor
 # a linear's bias before a batch norm has a gradient of 0 up to rounding
@@ -5248,11 +5267,12 @@ TDM_BATCH = 1024  # input rows a step; the sampler makes ~46 800 pairs of them
 TDM_LAYERS = (0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6)  # negatives by depth
 # train_and_evaluate on the card and on the CPU: cut from 64 steps, whose
 # CPU reference took 137.7 s on the card's host (2.2 s a step; PERF.md
-# §6), to keep the whole script near 900 s (8 steps since phase
-# train_sharded joined it; the trace of steps 3-5 needs 5)
-TDM_STEPS = 8
-TDM_RETRAIN_STEPS = 8  # on the rebuilt tree (cut from 32, 29.3 s there)
-TDM_EVAL_ROWS = 4096
+# §6), to keep the whole script near 900 s: 8 steps when phase
+# train_sharded joined it, 5 when train_zch did (the trace of steps 3-5
+# needs 5)
+TDM_STEPS = 5
+TDM_RETRAIN_STEPS = 5  # on the rebuilt tree (cut from 32, then 8)
+TDM_EVAL_ROWS = 2048  # cut from 4 096, for train_zch's time
 TDM_WORKERS = 4
 TDM_SAMPLER_BATCHES = 5
 TDM_SHM_ITEMS = 4_000_000  # the shared item table, cut to fit /dev/shm
@@ -5261,7 +5281,7 @@ TDM_LOADER_STEPS = 16  # the loader-fed window, after LOADER_WARMUP steps
 TDM_RECALL_NUM, TDM_N_CLUSTER = 50, 2
 TDM_RETRIEVAL_USERS = 256  # cut from 1 024: the CPU reference's time
 TDM_CPU_BOUND = 0.02  # AUC and recall@50 on the card against the CPU's
-TDM_PREDICT_ROWS = 4096
+TDM_PREDICT_ROWS = 2048  # within TDM_EVAL_ROWS (cut from 4 096)
 # the node predict from the embedding artifact, in a process of its own
 TDM_NODE_PREDICT = r"""
 import sys
@@ -6810,6 +6830,10 @@ def ref_distance(a: dict, b: dict) -> float:
     return worst
 
 
+# the world-size-2 criteo_synth DeepFM epoch's AUC, printed by train_zch
+SHARDED_AUC = {}
+
+
 def phase_train_sharded(smi):
     """Training over ranks (``torch.distributed``, ranks spawned with a
     ``FileStore``; docstring item 14). Returns the launches of kernel #3
@@ -6989,6 +7013,7 @@ def phase_train_sharded(smi):
         steps = int(train["step"])
         ckpt = checkpoint_util.checkpoint_path(model_dir, steps)
         auc2 = ranks[0]["evaluate"]["auc"]
+        SHARDED_AUC["world_2"] = auc2
         t0 = time.perf_counter()
         one = port_main.evaluate(cfg_path, checkpoint_path=ckpt,
                                  device=SHARDED_DEVICE)
@@ -7028,6 +7053,707 @@ def phase_train_sharded(smi):
     emit(out)
     if failures:
         raise AssertionError(f"train_sharded: {failures}")
+    return launches
+
+
+# --- train_zch: ZCH, dynamic embeddings and host-offloaded tables ---------
+# criteo_synth deepfm.config at its published width with five 100 000-bucket
+# features remapped into 32 768-slot ZCH tables (two lfu, two lru, one
+# distance_lfu, the proto's eviction interval of 5), three dynamicemb
+# tables (two STEP, which bring the host spill tier, one with frequency
+# admission at 2) and four tables host-offloaded. The sizes are assumed
+# (no published ZCH config is in the repository): 32 768 slots lie well
+# below the ~75-85k distinct ids a 100 000-bucket feature draws in an
+# epoch, so eviction, spill and readmission all happen.
+ZCH_SLOTS = 32768
+ZCH_SPECS = {
+    "cat_0": f"zch {{ zch_size: {ZCH_SLOTS} lfu {{}} }}",
+    "cat_9": f"zch {{ zch_size: {ZCH_SLOTS} lfu {{}} }}",
+    "cat_10": f"zch {{ zch_size: {ZCH_SLOTS} lru {{}} }}",
+    "cat_11": f"zch {{ zch_size: {ZCH_SLOTS} lru {{}} }}",
+    "cat_19": f"zch {{ zch_size: {ZCH_SLOTS} distance_lfu {{}} }}",
+    "cat_20": f'dynamicemb {{ max_capacity: {ZCH_SLOTS} score_strategy: "STEP" }}',
+    "cat_21": f'dynamicemb {{ max_capacity: {ZCH_SLOTS} score_strategy: "STEP" }}',
+    "cat_22": f"dynamicemb {{ max_capacity: {ZCH_SLOTS} "
+              "frequency_admission_strategy { threshold: 2 } }",
+}
+ZCH_HOST = ("cat_2", "cat_4", "cat_14", "cat_23")
+# an epoch is 64 steps of 4 096; cut to 12 (both on the card and the
+# CPU's reference run: the phase's 60 s set the cut)
+ZCH_STEPS = 12
+ZCH_RESUME_AT = 6
+# the fp32 card-against-CPU steps start after ZCH_WARM_STEPS remaps (no
+# update) of the train file's first batches, so that they evict, spill
+# and restore
+ZCH_WARM_STEPS = 16
+ZCH_CHECK_STEPS = 3
+ZCH_TRAIN_ROWS = (ZCH_WARM_STEPS + ZCH_CHECK_STEPS + 1) * 4096  # > ZCH_STEPS
+ZCH_EVAL_ROWS = 2 * 4096
+ZCH_CARD_TOL = 1e-4  # tables, row state, dense: of each tensor's max
+ZCH_HOST_TOL = 1e-5  # host tables against the same tables on the card
+ZCH_CPU_BOUND = 0.02  # the epoch's AUC against a CPU run's
+ZCH_TIMED_STEPS, ZCH_PROFILED_STEPS = 8, 3
+# the loader-fed epoch's steps are timed past its first 2 (warm-up)
+ZCH_CLOCK_SKIP = 2
+
+
+def zch_text(paths, model_dir, fp32=False, host=True) -> str:
+    """deepfm.config with ``ZCH_SPECS`` and (``host``) ``ZCH_HOST``
+    offloaded; ``fp32``: fp32 compute and adam's and rowwise adagrad's eps
+    1e-4, as ``zoo_rest_text`` sets them for the card-against-CPU steps."""
+    import re
+
+    text = criteo_text("deepfm", model_dir, paths, replace=[
+        (f'feature_name: "{f}" num_buckets: 100000 ',
+         f'feature_name: "{f}" {spec} ') for f, spec in ZCH_SPECS.items()])
+    if host:
+        for f in ZCH_HOST:
+            text, n = re.subn(
+                rf'(feature_name: "{f}" num_buckets: \d+ embedding_dim: 16)',
+                r'\1 embedding_constraints { sharding_types: "host_offload" }',
+                text)
+            if n != 1:
+                raise AssertionError(f"deepfm.config: no line for {f}")
+    if fp32:
+        for old, new in (('mixed_precision: "BF16"', ""),
+                         ("adam_optimizer { lr: 0.001 }",
+                          "adam_optimizer { lr: 0.001 eps: 1e-4 }"),
+                         ("rowwise_adagrad_optimizer { lr: 0.01 }",
+                          "rowwise_adagrad_optimizer { lr: 0.01 eps: 1e-4 }")):
+            text = text.replace(old, new)
+    return text.replace("save_checkpoints_steps: 100000",
+                        f"save_checkpoints_steps: {ZCH_RESUME_AT}")
+
+
+def _card(batch):
+    """``batch`` on the card, keeping the host batch as the loader does."""
+    out = batch.to("cuda")
+    out.host = batch
+    return out
+
+
+class _ZchLog:
+    """Records what a model's ZCH remaps and spill steps produced."""
+
+    def __init__(self, eg) -> None:
+        self.slots, self.batches, self.records, self.restores = [], [], [], []
+        remap, spill_step = eg.remap_zch, eg.spill_step
+
+        def remap_rec(batch, step, training, collect_spill=False):
+            new, sp = remap(batch, step, training, collect_spill)
+            self.slots.append({f: new.sparse_features[f].values.clone()
+                               for f in eg._zch_features})
+            self.batches.append(new)
+            return new, sp
+
+        def spill_rec(rec):
+            self.records.append({t: {k: v.clone() for k, v in r.items()}
+                                 for t, r in rec.items()})
+            restores = spill_step(rec)
+            self.restores.append(restores)
+            return restores
+
+        eg.remap_zch, eg.spill_step = remap_rec, spill_rec
+
+
+def _touched_rows(eg, batches, restores) -> dict:
+    """{table: sorted rows} the batches' lookups (after the remap) and the
+    restores reached."""
+    rows = {t: [] for t in eg.engine._specs}
+    for lks in eg.engine._lookups_by_group.values():
+        for lk in lks:
+            for b in batches:
+                src = (b.sequence_sparse_features if lk.is_sequence
+                       else b.sparse_features)
+                v = src[lk.feature_name].values.reshape(-1).long()
+                rows[lk.table_name].append(v[v >= 0].cpu())
+    for r in restores:
+        for t, (slots, _) in r.items():
+            rows[t].append(torch.as_tensor(slots, dtype=torch.long))
+    return {t: torch.unique(torch.cat(v)) if v else torch.zeros(0, dtype=
+            torch.long) for t, v in rows.items()}
+
+
+def zch_card_vs_cpu(paths, tmp) -> dict:
+    """ZCH_CHECK_STEPS fp32 steps of the ZCH DeepFM on the card and on the
+    CPU from the same CPU-drawn weights and batches, after both took the
+    card's warm ZCH state (ZCH_WARM_STEPS remaps with the spill tier): the
+    remapped slots, the whole ZCH state, the spill records' keys and slots
+    and the restores' slots equal bit for bit; the records' and restores'
+    rows, the tables, row state and dense parameters within ZCH_CARD_TOL of
+    each tensor's max (the card's ReLU branches replayed on the CPU,
+    ``GateReplay``); rows no id reached bit-equal; then the same steps on
+    the card with the host-offloaded tables on the device, those tables and
+    their row state within ZCH_HOST_TOL."""
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(zch_text(paths, os.path.join(tmp, "zchk"),
+                                         fp32=True))
+    cpu_model, features, _, cpu_state, cpu_step = build_trainer(
+        cfg, device="cpu")
+    card_model, _, _, card_state, card_step = build_trainer(cfg)
+    card_model.load_state_dict(cpu_model.state_dict())
+    ceg, peg = card_model.embedding_group, cpu_model.embedding_group
+    batches = parquet_batches(paths["train"], features,
+                              ZCH_WARM_STEPS + ZCH_CHECK_STEPS, ZOO_BATCH)
+    for i, b in enumerate(batches[:ZCH_WARM_STEPS]):
+        _, sp = ceg.remap_zch(_card(b), i, True, collect_spill=True)
+        ceg.spill_step(ceg.gather_spill_rows(sp))
+    init_sd = {k: v.detach().clone() for k, v in
+               card_model.state_dict().items()}
+    spill_sd = ceg.spill.state_dict()
+    cpu_model.load_state_dict(init_sd)
+    peg.spill.load_state_dict(spill_sd)
+    cpu_state["step"] = card_state["step"] = ZCH_WARM_STEPS
+    eng = ceg.engine
+    before = {t: eng.extract_table(ceg.engine_tables(), t).detach().cpu()
+              for t in eng._specs}
+    clog, plog = _ZchLog(ceg), _ZchLog(peg)
+    cmp = CpuComparison("train_zch", ZCH_CARD_TOL, MATCH_ZERO_GRAD)
+    replay = GateReplay(ZCH_CARD_TOL)
+    undo = replay_gates((cpu_model, card_model), replay)
+    evictions, counts = 0, {"records": 0, "evicted": 0, "restored": 0}
+    try:
+        for i in range(ZCH_CHECK_STEPS):
+            b = batches[ZCH_WARM_STEPS + i]
+            kb = {t: st["keys"].clone() for t, st in ceg.zch_states().items()}
+            replay.start(record=True)
+            card_state, cm = card_step(card_state, _card(b))
+            replay.start(record=False)
+            cpu_state, pm = cpu_step(cpu_state, b)
+            replay.done()
+            evictions += sum(int(((k >= 0) & (k != ceg.zch_states()[t][
+                "keys"])).sum()) for t, k in kb.items())
+            for f, s in plog.slots[i].items():
+                if not torch.equal(clog.slots[i][f].cpu(), s):
+                    raise AssertionError(f"train_zch: step {i} {f}'s slots "
+                                         "differ on the card")
+            for t, st in peg.zch_states().items():
+                for k, v in st.items():
+                    if not torch.equal(ceg.zch_states()[t][k].cpu(), v):
+                        raise AssertionError(f"train_zch: step {i} ZCH state "
+                                             f"{t}.{k} differs on the card")
+            for t, rec in plog.records[i].items():
+                for k, v in rec.items():
+                    got = clog.records[i][t][k]
+                    if k == "evicted_rows":
+                        cmp.compare(f"spill:{t}.{k}", v, got)
+                    elif not torch.equal(got.cpu(), v):
+                        raise AssertionError(f"train_zch: step {i} spill "
+                                             f"record {t}.{k} differs")
+                counts["records"] += int(rec["slots"].numel())
+                counts["evicted"] += int((rec["evicted_keys"] >= 0).sum())
+            if set(plog.restores[i]) != set(clog.restores[i]):
+                raise AssertionError("train_zch: restores of other tables")
+            for t, (slots, rows) in plog.restores[i].items():
+                cs, cr = clog.restores[i][t]
+                if not np.array_equal(cs, slots):
+                    raise AssertionError(f"train_zch: {t}'s restored slots "
+                                         "differ on the card")
+                cmp.compare(f"restore:{t}", torch.as_tensor(rows),
+                            torch.as_tensor(cr))
+                counts["restored"] += len(slots)
+            for k in pm:
+                cmp.compare(f"step {i + 1} {k}", torch.as_tensor(pm[k]),
+                            torch.as_tensor(cm[k]))
+    finally:
+        undo()
+    ref_sd, sd = cpu_model.state_dict(), card_model.state_dict()
+    for k in ref_sd:
+        if ".zch." in k:
+            if not torch.equal(sd[k].cpu(), ref_sd[k]):
+                raise AssertionError(f"train_zch: {k} differs on the card")
+        else:
+            cmp.compare(f"state:{k}", ref_sd[k], sd[k])
+    ptables, ctables = peg.engine_tables(), ceg.engine_tables()
+    for t in eng._specs:
+        ref = peg.engine.extract_table_state(ptables, cpu_state["sparse_opt"],
+                                             t)
+        got = eng.extract_table_state(ctables, card_state["sparse_opt"], t)
+        for k in ref:
+            cmp.compare(f"row_state:{t}.{k}", ref[k], got[k])
+    # rows no id reached keep their bits
+    touched = _touched_rows(ceg, clog.batches, clog.restores)
+    untouched = 0
+    for t, old in before.items():
+        keep = torch.ones(old.shape[0], dtype=torch.bool)
+        keep[touched[t]] = False
+        now = eng.extract_table(ctables, t).detach().cpu()
+        if not torch.equal(now[keep], old[keep]):
+            raise AssertionError(f"train_zch: untouched rows of {t} moved")
+        untouched += int(keep.sum())
+    if not (evictions > 0 and counts["evicted"] > 0
+            and counts["restored"] > 0):
+        raise AssertionError(f"train_zch: evictions {evictions}, spill "
+                             f"{counts} in the checked steps")
+    host_tables = sorted(t for t in eng._specs if eng.groups[
+        eng._table_group[t]].sharding == "host_offload")
+    if len(host_tables) != 2 * len(ZCH_HOST):
+        raise AssertionError(f"train_zch: host tables {host_tables}")
+    # the host tier against the same tables on the card
+    dev_cfg = parse_pipeline_config(zch_text(
+        paths, os.path.join(tmp, "zchd"), fp32=True, host=False))
+    dev_model, _, _, dev_state, dev_step = build_trainer(dev_cfg)
+    dev_model.load_state_dict(init_sd)
+    dev_model.embedding_group.spill.load_state_dict(spill_sd)
+    dev_state["step"] = ZCH_WARM_STEPS
+    for i in range(ZCH_CHECK_STEPS):
+        dev_state, _ = dev_step(dev_state, _card(batches[ZCH_WARM_STEPS + i]))
+    deg = dev_model.embedding_group
+    host_err = 0.0
+    for t in host_tables:
+        pairs = [(eng.extract_table(ctables, t),
+                  deg.engine.extract_table(deg.engine_tables(), t))]
+        hst = eng.extract_table_state(ctables, card_state["sparse_opt"], t)
+        dst = deg.engine.extract_table_state(deg.engine_tables(),
+                                             dev_state["sparse_opt"], t)
+        pairs += [(hst[k], dst[k]) for k in hst]
+        for got, ref in pairs:
+            ref, got = ref.detach().float().cpu(), got.detach().float().cpu()
+            err = float((got - ref).abs().max()) / (float(ref.abs().max())
+                                                    or 1.0)
+            host_err = max(host_err, err)
+            if not err <= ZCH_HOST_TOL:
+                raise AssertionError(f"train_zch: host table {t} off by "
+                                     f"{err:.3g} of the device run's max")
+    errs = cmp.errs
+    out = {"steps": ZCH_CHECK_STEPS, "warm_remaps": ZCH_WARM_STEPS,
+           "batch": ZOO_BATCH, "compared": len(errs),
+           "max_rel_err": max(errs.values()),
+           "max_rel_err_by_kind": {
+               kind: max((v for k, v in errs.items() if k.startswith(kind)),
+                         default=None)
+               for kind in ("state:", "row_state:", "spill:", "restore:",
+                            "step ")},
+           "slots_zch_state_spill_keys_bit_equal": True,
+           "evictions": evictions, "spill": counts,
+           "untouched_rows_bit_equal": untouched,
+           "gate_ties_flipped": replay.flips,
+           "host_tables": host_tables,
+           "host_vs_device_max_rel_err": host_err,
+           "tol": ZCH_CARD_TOL, "host_tol": ZCH_HOST_TOL}
+    del cpu_model, card_model, dev_model, cpu_state, card_state, dev_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zch_timers(eg) -> dict:
+    """Wraps the host work of a step (the host tier's gather and apply,
+    the spill store and the restore write) to sum its wall ms."""
+    ms = {"host_gather": 0.0, "host_apply": 0.0, "spill_store": 0.0,
+          "spill_restore": 0.0}
+
+    def wrap(obj, name, key):
+        fn = getattr(obj, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                ms[key] += (time.perf_counter() - t0) * 1e3
+
+        setattr(obj, name, timed)
+
+    wrap(eg.engine, "host_gather", "host_gather")
+    wrap(eg.engine, "_host_apply", "host_apply")
+    wrap(eg.spill, "process", "spill_store")
+    wrap(eg, "apply_spill_restores", "spill_restore")
+    return ms
+
+
+def zch_resident(cfg, batches) -> dict:
+    """The step over resident batches in turn: median of ZCH_TIMED_STEPS
+    synchronised steps, a window, the host work per step and the idle
+    share from ZCH_PROFILED_STEPS profiled steps; the device time of one
+    step's remaps alone, profiled, and the host's waits in them."""
+    model, _, _, state, step = build_trainer(cfg)
+    eg = model.embedding_group
+    n = len(batches)
+    for i in range(2):
+        state, _ = step(state, batches[i % n])
+    torch.cuda.synchronize()
+    ms = _zch_timers(eg) if eg.has_zch else {}
+    step_ms = []
+    for i in range(ZCH_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[(2 + i) % n])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    host = {k: v / ZCH_TIMED_STEPS for k, v in ms.items()}
+    t0 = time.perf_counter()
+    for i in range(ZCH_TIMED_STEPS):
+        state, m = step(state, batches[i % n])
+    float(m["total_loss"])
+    torch.cuda.synchronize()
+    window = (time.perf_counter() - t0) * 1e3 / ZCH_TIMED_STEPS
+    profile_out = profile_forward(lambda: [step(state, batches[i % n])
+                                           for i in range(ZCH_PROFILED_STEPS)])
+    remap = None
+    if eg.has_zch:
+        # one step's remaps alone (training, with the spill records): the
+        # device time of their kernels, and where the host waits for the
+        # card inside them (``set_sync_debug_mode``)
+        import warnings
+
+        remap = profile_forward(lambda: [eg.remap_zch(
+            batches[i % n], state["step"], True, collect_spill=True)
+            for i in range(ZCH_PROFILED_STEPS)])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eg.remap_zch(batches[0], state["step"], True,
+                             collect_spill=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        remap["host_waits"] = sorted({
+            str(w.message).splitlines()[0][:120] for w in caught
+            if "prototype" not in str(w.message)})
+    out = {"step_ms_median": float(np.median(step_ms)),
+           "step_ms_range": [min(step_ms), max(step_ms)],
+           "window_step_ms": window,
+           "examples_per_s": ZOO_BATCH / window * 1e3,
+           "idle_share_profiled_steps": profile_out.get("device_idle_share"),
+           "busy_ms_per_step": (profile_out.get("device_busy_ms", 0.0)
+                                / ZCH_PROFILED_STEPS),
+           "step_profile": profile_out}
+    if eg.has_zch:
+        out["remap_device_ms_per_step"] = (
+            remap.get("device_busy_ms", 0.0) / ZCH_PROFILED_STEPS)
+        out["remap_profile"] = remap
+        out["host_ms_per_step"] = host
+        # the copies each way at one step's sizes (the rows a batch
+        # gathers, their gradients back)
+        hrows = eg.host_gather(batches[0])
+        rows = [r for r, _ in hrows.values()]
+        dev_rows = [r.to("cuda") for r in rows]
+        out["host_rows_bytes"] = sum(r.numel() * 4 for r in rows)
+        out["h2d_rows_ms"] = cuda_ms(
+            lambda: [r.to("cuda", non_blocking=True) for r in rows], 5)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            [r.cpu() for r in dev_rows]
+        out["d2h_grads_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+ZCH_PREDICT = r"""
+import sys
+from torcheasyrec_tpu_torch import main
+art, inp, out = sys.argv[1:4]
+main.predict(inp, out, art, device="cuda")
+"""
+
+
+def zch_export_start(cfg_path, pred_in, tmp):
+    """Export the trained ZCH model, then start a fresh process that runs
+    the artifact's ``predict`` (``ZCH_PREDICT``); returns what
+    ``zch_export_check`` takes."""
+    from torcheasyrec_tpu_torch import main as port_main
+
+    art = os.path.join(tmp, "zch_export")
+    t0 = time.perf_counter()
+    port_main.export(cfg_path, art, device="cuda")
+    export_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "zch_art_pred.parquet")
+    log = open(os.path.join(tmp, "zch_predict.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", ZCH_PREDICT, art, pred_in, out],
+        stdout=log, stderr=subprocess.STDOUT, text=True)
+    # stopped at exit where a failure ends the phase before its check
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "log": log, "t0": time.perf_counter(),
+            "export_s": export_s, "out": out, "art": art}
+
+
+def zch_export_check(started, cfg_path, pred_ckpt) -> dict:
+    """The exported program, loaded here, on the serving batch against the
+    eager forward of the checkpoint; then the fresh process's artifact
+    ``predict`` against ``predict_checkpoint``; both bit for bit."""
+    import pyarrow.parquet as pq
+    import torch.utils._pytree as pytree
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.utils import checkpoint_util, config_util
+
+    t0 = time.perf_counter()
+    cfg = config_util.load_pipeline_config(cfg_path)
+    model, feats = port_main.build_model(cfg, "cuda")
+    checkpoint_util.load_model_weights(
+        checkpoint_util.latest_checkpoint(cfg.model_dir), model)
+    _, batch = port_main.serving_batch(cfg, feats, "cuda")
+    with torch.inference_mode():
+        want = model(batch)
+    prog = torch.export.load(os.path.join(started["art"],
+                                          port_main.PREDICT_PROGRAM))
+    got = prog.module()(*pytree.tree_flatten(batch)[0])
+    for k, v in got.items():
+        if not torch.equal(v, want[k]):
+            raise AssertionError(f"train_zch: the loaded program's {k} "
+                                 "differs from the eager forward")
+    program_s = time.perf_counter() - t0
+    del model, prog
+    proc, log = started["proc"], started["log"]
+    try:
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log.seek(0)
+    err = log.read()
+    log.close()
+    if proc.returncode:
+        raise AssertionError(f"train_zch: the artifact's predict failed: "
+                             f"{err[-3000:]}")
+    process_s = time.perf_counter() - started["t0"]
+    a, b = pq.read_table(pred_ckpt), pq.read_table(started["out"])
+    if a.num_rows != b.num_rows:
+        raise AssertionError(f"train_zch: the artifact predicted "
+                             f"{b.num_rows} rows, not {a.num_rows}")
+    for col in ("probs", "logits"):
+        if not np.array_equal(a[col].to_numpy(), b[col].to_numpy()):
+            raise AssertionError(f"train_zch: the artifact's {col} differ "
+                                 "from predict_checkpoint's")
+    return {"export_s": started["export_s"], "program_check_s": program_s,
+            "predict_process_s": process_s, "rows": a.num_rows,
+            "predict_bit_equal": True,
+            "program_outputs_bit_equal": sorted(got)}
+
+
+@contextlib.contextmanager
+def step_clock(port_main):
+    """Stamps the end of every train step of ``train_and_evaluate``'s
+    loop (the card synchronised, before the loop's ``after_step``) while
+    it is open; yields the list of stamps (perf_counter seconds)."""
+    import inspect
+
+    stamps, orig = [], port_main.train_epoch
+    sig = inspect.signature(orig)
+
+    def clocked(*a, **k):
+        bound = sig.bind(*a, **k)
+        inner = bound.arguments.get("after_step")
+
+        def after(state, info):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if inner is not None:
+                inner(state, info)
+
+        bound.arguments["after_step"] = after
+        return orig(*bound.args, **bound.kwargs)
+
+    port_main.train_epoch = clocked
+    try:
+        yield stamps
+    finally:
+        port_main.train_epoch = orig
+
+
+def epoch_steps(stamps, skip=ZCH_CLOCK_SKIP) -> dict:
+    """The loop's step times from ``step_clock``'s stamps, past the first
+    ``skip`` steps: their median and the mean over the window."""
+    gaps = np.diff(stamps[skip - 1:]) * 1e3
+    return {"steps_timed": len(gaps), "step_ms_median": float(np.median(gaps)),
+            "step_ms_range": [float(gaps.min()), float(gaps.max())],
+            "window_step_ms": float(gaps.mean()),
+            "examples_per_s": ZOO_BATCH / float(gaps.mean()) * 1e3}
+
+
+def zch_tb_tags(model_dir) -> dict:
+    """The TensorBoard tags ``train_and_evaluate`` wrote, where the
+    ``tensorboard`` package imports."""
+    try:
+        from tensorboard.backend.event_processing.event_accumulator import (
+            EventAccumulator,
+        )
+    except ImportError as e:
+        return {"tensorboard": f"not importable: {e}"}
+    acc = EventAccumulator(os.path.join(model_dir, "tb"))
+    acc.Reload()
+    return {t: len(acc.Scalars(t)) for t in acc.Tags()["scalars"]}
+
+
+def phase_train_zch(smi, sharded_auc=None):
+    """ZCH, dynamic embeddings and host-offloaded tables on criteo_synth
+    DeepFM (``zch_text``): card against CPU (``zch_card_vs_cpu``), an
+    epoch cut to ZCH_STEPS through ``train_and_evaluate`` (BF16) against a
+    CPU run from the same weights (its loop's steps timed by
+    ``step_clock``), ``evaluate``, ``predict_checkpoint``, a resume at
+    ZCH_RESUME_AT bit-equal to the straight run, the export and
+    its artifact in a fresh process (beside the CPU run and the resume),
+    the TensorBoard tags, and the step
+    with its host work beside the same config without ZCH. Returns kernel
+    #3's launches of the straight ``train_and_evaluate``."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    out, seconds = {"phase": "train_zch", "nvidia_smi": smi}, {}
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        seconds[key] = time.perf_counter() - t0
+        return res
+
+    with open(os.path.join(zoo_config_dir(), "base_eval_metric.json")) as f:
+        pinned = json.load(f)[
+            "torcheasyrec_tpu_torch/benchmark/configs/criteo_synth/"
+            "deepfm.config"]["metrics"]["auc"]["value"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = timed("data", synthetic.ensure_dataset, tmp, ZCH_TRAIN_ROWS,
+                      ZCH_EVAL_ROWS)
+        out["card_vs_cpu"] = timed("card_vs_cpu", zch_card_vs_cpu, paths, tmp)
+        emit({"phase": "train_zch_card_vs_cpu", **out["card_vs_cpu"]})
+
+        model_dir = os.path.join(tmp, "zch")
+        src = write_text(os.path.join(tmp, "zch.config"),
+                         zch_text(paths, model_dir))
+        init = cpu_init(src, os.path.join(tmp, "zch_init.pt"))
+        edits = json.dumps({"train_config.num_steps": ZCH_STEPS})
+        write_rows.launches = 0
+        t0 = time.perf_counter()
+        with step_clock(port_main) as stamps:
+            result = port_main.train_and_evaluate(
+                src, fine_tune_checkpoint=init, edit_config_json=edits,
+                device="cuda")
+        torch.cuda.synchronize()
+        seconds["train"] = time.perf_counter() - t0
+        launches = write_rows.launches
+        loader_fed = epoch_steps(stamps)
+        cfg_path = os.path.join(model_dir, "pipeline.config")
+        cfg = parse_pipeline_config(open(cfg_path).read())
+        probe, _ = port_main.build_model(cfg, "cpu")
+        written = sorted(gk for gk, g in probe.embedding_group.engine.groups
+                         .items() if g.packed and any(
+                             t.name not in g.dense_tables for t in g.specs))
+        del probe
+        if result["step"] != ZCH_STEPS or launches != ZCH_STEPS * len(
+                written):
+            raise AssertionError(
+                f"train_zch: {result['step']} steps, {launches} row writes "
+                f"for the written packed groups {written}")
+        ck = torch.load(checkpoint_util.latest_checkpoint(model_dir),
+                        map_location="cpu", weights_only=True)
+        spill = {t: dict(zip(("clock", "stored", "restored", "dropped"),
+                             v["meta"].tolist()))
+                 for t, v in ck["zch_spill"].items()}
+        # frequency admission (cat_22) holds new ids back: its table may
+        # not restore within the cut epoch, the others must
+        if not (sum(s["stored"] for s in spill.values()) > 0
+                and sum(s["restored"] for s in spill.values()) > 0):
+            raise AssertionError(f"train_zch: the epoch's spill {spill}")
+        occupied = {k.split(".")[2]: int((v >= 0).sum())
+                    for k, v in ck["model"].items() if k.endswith(".keys")}
+        del ck
+        pred_in = os.path.join(tmp, "zch_predict_in.parquet")
+        pq.write_table(pq.read_table(paths["eval"]).slice(
+            0, ZOO_PREDICT_BATCHES * ZOO_BATCH), pred_in)
+        t0 = time.perf_counter()
+        again = port_main.evaluate(cfg_path, device="cuda")
+        seconds["evaluate"] = time.perf_counter() - t0
+        if again["auc"] != result["auc"]:
+            raise AssertionError(f"train_zch: evaluate() auc {again['auc']} "
+                                 f"against {result['auc']}")
+        pred_ckpt = os.path.join(tmp, "zch_pred.parquet")
+        n_pred = port_main.predict_checkpoint(cfg_path, pred_in, pred_ckpt,
+                                              device="cuda")
+        # the fresh process predicts while the CPU run and the resume do
+        started = timed("export", zch_export_start, cfg_path, pred_in, tmp)
+        t0 = time.perf_counter()
+        cpu = port_main.train_and_evaluate(
+            write_text(os.path.join(tmp, "zch_cpu.config"),
+                       zch_text(paths, os.path.join(tmp, "zch_cpu"))),
+            fine_tune_checkpoint=init, edit_config_json=edits, device="cpu")
+        seconds["train_cpu"] = time.perf_counter() - t0
+        dist = result["auc"] - cpu["auc"]
+        if not abs(dist) <= ZCH_CPU_BOUND:
+            raise AssertionError(f"train_zch: auc {result['auc']} on the "
+                                 f"card is {dist:+.4f} from {cpu['auc']}")
+        out["train"] = {
+            "result": result, "steps": ZCH_STEPS, "row_write_launches":
+            launches, "written_packed_groups": written, "spill": spill,
+            "occupied_slots": occupied, "predict_rows": n_pred,
+            "cpu_reference": {"auc": cpu["auc"], "card_minus_cpu": dist,
+                              "bound": ZCH_CPU_BOUND},
+            "auc_beside": {"deepfm_pinned_label_64_steps": pinned,
+                           "train_sharded_deepfm_64_steps": sharded_auc},
+            "loader_fed_step": loader_fed,
+            "tensorboard_tags": zch_tb_tags(model_dir)}
+        emit({"phase": "train_zch_train", **out["train"]})
+
+        # a resume at ZCH_RESUME_AT against the straight run
+        rdir = os.path.join(tmp, "zch_resumed")
+        rsrc = write_text(os.path.join(tmp, "zch_resumed.config"),
+                          zch_text(paths, rdir))
+        t0 = time.perf_counter()
+        port_main.train_and_evaluate(
+            rsrc, fine_tune_checkpoint=init, device="cuda",
+            edit_config_json=json.dumps(
+                {"train_config.num_steps": ZCH_RESUME_AT}))
+        port_main.train_and_evaluate(rsrc, continue_train=True,
+                                     edit_config_json=edits, device="cuda")
+        seconds["resume"] = time.perf_counter() - t0
+        a, b = (torch.load(checkpoint_util.latest_checkpoint(d),
+                           map_location="cpu", weights_only=True)
+                for d in (model_dir, rdir))
+        same = [k for k in a["model"] if torch.equal(a["model"][k],
+                                                     b["model"][k])]
+        if len(same) != len(a["model"]) or a["step"] != b["step"]:
+            raise AssertionError(
+                f"train_zch: the resumed run differs in "
+                f"{sorted(set(a['model']) - set(same))[:8]}")
+        for t in a["zch_spill"]:
+            for k in a["zch_spill"][t]:
+                if not torch.equal(a["zch_spill"][t][k],
+                                   b["zch_spill"][t][k]):
+                    raise AssertionError(f"train_zch: resumed spill {t}.{k}")
+        out["resume"] = {"at": ZCH_RESUME_AT, "to": ZCH_STEPS,
+                         "state_dict_bit_equal": len(same)}
+        del a, b
+        out["export"] = timed("export_wait", zch_export_check, started,
+                              cfg_path, pred_ckpt)
+        emit({"phase": "train_zch_export", "resume": out["resume"],
+              **out["export"]})
+
+        # the step beside the same config without ZCH and host tables
+        plain_cfg = parse_pipeline_config(criteo_text(
+            "deepfm", os.path.join(tmp, "plain"), paths))
+        feats = port_main._create_features(cfg)
+        batches = [_card(b) for b in parquet_batches(
+            paths["train"], feats, 8, ZOO_BATCH)]
+        t0 = time.perf_counter()
+        out["resident"] = zch_resident(cfg, batches)
+        out["resident_plain_deepfm"] = zch_resident(plain_cfg, batches)
+        seconds["resident"] = time.perf_counter() - t0
+        del batches
+    out["seconds"] = seconds
+    c, r, rp = out["card_vs_cpu"], out["resident"], out["resident_plain_deepfm"]
+    out["summary"] = {
+        "card_vs_cpu_max_rel_err": c["max_rel_err"],
+        "host_vs_device_max_rel_err": c["host_vs_device_max_rel_err"],
+        "evictions_checked_steps": c["evictions"], "spill": c["spill"],
+        "auc": result["auc"], "auc_card_minus_cpu": dist,
+        "step_ms": r["step_ms_median"], "examples_per_s": r["examples_per_s"],
+        "plain_deepfm_step_ms": rp["step_ms_median"],
+        "plain_deepfm_examples_per_s": rp["examples_per_s"],
+        "idle_share": r["idle_share_profiled_steps"],
+        "remap_device_ms_per_step": r.get("remap_device_ms_per_step"),
+        "host_ms_per_step": r.get("host_ms_per_step"),
+        "loader_fed_step_ms": loader_fed["step_ms_median"],
+        "loader_fed_examples_per_s": loader_fed["examples_per_s"],
+        "row_write_launches": launches}
+    emit(out)
     return launches
 
 
@@ -7082,6 +7808,9 @@ def main() -> int:
     tdm_launches = timed("train_tdm", phase_train_tdm, smi)
     torch.cuda.empty_cache()
     sharded = timed("train_sharded", phase_train_sharded, smi)
+    torch.cuda.empty_cache()
+    zch_launches = timed("train_zch", phase_train_zch, smi,
+                         SHARDED_AUC.get("world_2"))
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -7153,7 +7882,8 @@ def main() -> int:
                    deepfm_launches + loader_launches + zoo_launches
                    + lane_off_launches + options_writes
                    + gr_launches["row_write"] + zoo_rest_launches
-                   + export_writes + tdm_launches + sharded["row_write"],
+                   + export_writes + tdm_launches + sharded["row_write"]
+                   + zch_launches,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -7166,7 +7896,8 @@ def main() -> int:
                        "train_zoo_rest": zoo_rest_launches,
                        "export": export_writes,
                        "train_tdm": tdm_launches,
-                       "train_sharded": sharded["row_write"]}),
+                       "train_sharded": sharded["row_write"],
+                       "train_zch": zch_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

@@ -203,8 +203,10 @@ def test_unported_rank_options_raise(text, match):
     """Variational dropout, MLP batch norm and Dice are ported now
     (tests/test_torch_port_zoo_rest.py holds them against the JAX
     package): each case's config builds with its module. Options still
-    unported raise NotImplementedError: host-offloaded tables, vocab files
-    and fg_mode FG_NORMAL, one a case."""
+    unported raise NotImplementedError: an MLP dense embedding, vocab files
+    and fg_mode FG_NORMAL, one a case (host-offloaded tables, the first
+    case's until they were ported, are held in
+    tests/test_torch_port_host_offload.py)."""
     _, model, _, _ = _port_model(text)
     if match == "variational_dropout":
         assert sorted(model.variational_dropout) == ["deep", "fm", "wide"]
@@ -214,9 +216,10 @@ def test_unported_rank_options_raise(text, match):
         assert all(type(layer.act).__name__ == "Dice"
                    for layer in model.deep_mlp.layers)
     still, still_match = {
-        "variational_dropout": (deepfm_config_text(
-            feature_extra='embedding_constraints { sharding_types: '
-            '"host_offload" } '), "host_offload"),
+        "variational_dropout": (deepfm_config_text().replace(
+            'raw_feature { feature_name: "int_0" }',
+            'raw_feature { feature_name: "int_0" mlp {} }'),
+            "dense embeddings"),
         "batch norm": (deepfm_config_text(
             feature_extra='vocab_file: "vocab.txt" '), "vocab_file"),
         "Dice": (deepfm_config_text().replace(

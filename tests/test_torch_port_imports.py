@@ -52,7 +52,10 @@ for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "tools.hitrate", "utils.test_util",
              "utils.delta_embedding_dump", "utils.shm_pack", "models.tdm",
              "tools.tdm.gen_tree", "tools.tdm.retrieval",
-             "utils.dist_util", "parallel.mesh", "parallel.planner"):
+             "utils.dist_util", "parallel.mesh", "parallel.planner",
+             "parallel.zch", "parallel.host_spill", "utils.summary_util",
+             "tools.dynamicemb.create_zch_init_ckpt",
+             "tools.dynamicemb.convert_zch_ckpt"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)

@@ -190,8 +190,9 @@ def test_keep_checkpoint_max_prunes_the_oldest(data, tmp_path):
                      train_extra="  save_checkpoints_steps: 1\n"
                      "  keep_checkpoint_max: 2\n")
     port_main.train_and_evaluate(cfg, device="cpu")
+    # tb: the TensorBoard summaries (use_tensorboard defaults to true)
     assert sorted(os.listdir(model_dir)) == [
-        "model.ckpt-3.pt", "model.ckpt-4.pt", "pipeline.config",
+        "model.ckpt-3.pt", "model.ckpt-4.pt", "pipeline.config", "tb",
         "train_eval_result_v2.txt"]
     # one eval per save: steps 1-4 and the final save at 4
     assert [r["global_step"] for r in _eval_lines(model_dir)] == [

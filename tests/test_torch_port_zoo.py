@@ -519,8 +519,9 @@ def test_unported_multi_task_options_raise(extra, match):
     """Pareto loss weights and ``task_space_indicator_label`` are ported
     now (tests/test_torch_port_zoo_rest.py holds them against the JAX
     package): each case's config builds. Options still unported raise
-    NotImplementedError: a dense embedding (AutoDis) and a
-    host-offloaded table, one a case."""
+    NotImplementedError: a dense embedding (AutoDis) and a vocab file,
+    one a case (host-offloaded tables, the second case's until they were
+    ported, are held in tests/test_torch_port_host_offload.py)."""
     text = zoo_config_text("mmoe")
     if "pareto" in extra:
         text = text.replace("model_config {", "model_config {\n" + extra, 1)
@@ -539,8 +540,7 @@ def test_unported_multi_task_options_raise(extra, match):
             " }"), "dense embeddings"),
         "task_space_indicator": (zoo_config_text("mmoe").replace(
             'feature_name: "cat_0" ', 'feature_name: "cat_0" '
-            'embedding_constraints { sharding_types: "host_offload" } '),
-            "host_offload"),
+            'vocab_file: "vocab.txt" '), "vocab_file"),
     }[match]
     assert still != zoo_config_text("mmoe")
     with pytest.raises(NotImplementedError, match=still_match):

@@ -721,3 +721,39 @@ def zoo_cols(n: int, seed: int):
         ";".join(map(str, r.integers(0, ZOO_ITEMS, k)))
         for k in r.integers(0, ZOO_SEQ_LEN + 3, n)])
     return cols
+
+
+# --- DeepFM with ZCH, dynamicemb and host-offloaded tables ----------------
+# cat_0/1/3: zch under the three policies (cat_3 at eviction interval 2);
+# cat_4: dynamicemb (the spill tier); cat_5: dynamicemb with frequency
+# admission; cat_2 host_offload. The sizes sit below each feature's id
+# space, so eviction, spill and readmission all happen in a few steps.
+ZCH_FEATURES = {
+    0: "zch { zch_size: 256 lfu {} }",
+    1: "zch { zch_size: 40 distance_lfu { decay_exponent: 1.0 } }",
+    3: "zch { zch_size: 200 lru { decay_exponent: 0.8 } "
+       "eviction_interval: 2 }",
+    4: 'dynamicemb { max_capacity: 64 score_strategy: "STEP" }',
+    5: 'dynamicemb { max_capacity: 3 score_strategy: "LFU" '
+       "frequency_admission_strategy { threshold: 2 } }",
+}
+HOST_OFFLOAD_FEATURES = (2,)
+
+
+def zch_deepfm_config_text(train: str = "unused", evalp: str = "unused",
+                           **kw) -> str:
+    """``deepfm_config_text`` with ``ZCH_FEATURES`` in place of their
+    ``num_buckets`` and ``HOST_OFFLOAD_FEATURES`` host-offloaded."""
+    text = deepfm_config_text(**kw)
+    for i, n in enumerate(DEEPFM_BUCKETS):
+        old = f'feature_name: "cat_{i}" num_buckets: {n}'
+        if i in ZCH_FEATURES:
+            text = text.replace(old,
+                                f'feature_name: "cat_{i}" {ZCH_FEATURES[i]}')
+        elif i in HOST_OFFLOAD_FEATURES:
+            text = text.replace(old, old + " embedding_constraints { "
+                                'sharding_types: "host_offload" }')
+    return (text.replace('train_input_path: "unused"',
+                         f'train_input_path: "{train}"')
+            .replace('eval_input_path: "unused"',
+                     f'eval_input_path: "{evalp}"'))

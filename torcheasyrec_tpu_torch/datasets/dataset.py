@@ -271,7 +271,9 @@ class _DeviceCopy:
     so the allocator keeps its memory until the step that reads it is
     done. Runs on the consumer's thread, as the JAX loader's device_put
     does: issuing copies from the producer thread would queue them behind
-    its parsing under the interpreter lock."""
+    its parsing under the interpreter lock. The copy keeps the pinned host
+    batch as ``host``: the host-offloaded tables read its ids, with no
+    copy back from the device."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
@@ -284,6 +286,7 @@ class _DeviceCopy:
         compute.wait_stream(self._stream)
         for t in out.tensors():
             t.record_stream(compute)
+        out.host = batch
         return out
 
 

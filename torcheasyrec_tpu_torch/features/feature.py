@@ -7,9 +7,10 @@ Arrow columns into numpy ids, lengths and dense values, and marks the
 features a negative sampler appends rows to (``data_group``). A grouped
 ``sequence_feature`` config expands into one feature per sub-feature,
 named ``{sequence_name}__{sub_name}``, each with the group's delimiter,
-length and pk. FG_NORMAL feature generation, vocab files, zero-collision
-hashing and dynamic embeddings are not ported and raise
-NotImplementedError.
+length and pk. The raw ids of ``zch`` and ``dynamicemb`` features pass
+unbounded (the model remaps them, ``parallel/zch.py``); their table has
+``zch_size`` or ``max_capacity`` rows. FG_NORMAL feature generation and
+vocab files are not ported and raise NotImplementedError.
 """
 
 import dataclasses
@@ -332,11 +333,6 @@ class BaseFeature(metaclass=_meta_cls):
         # so that a pickled feature (a loader worker's) compares right
         self._id_bound_cache = None
         self._data_group = BASE_DATA_GROUP
-        for f in ("zch", "dynamicemb"):
-            if _has_field_safe(self.config, f):
-                raise NotImplementedError(
-                    f"feature {self.name}: {f} tables are not ported"
-                )
         if getattr(self.config, "vocab_file", ""):
             raise NotImplementedError(
                 f"feature {self.name}: vocab_file is not ported"
@@ -392,7 +388,18 @@ class BaseFeature(metaclass=_meta_cls):
             return max(max(c.vocab_dict.values()), dbv) + 1
         if len(getattr(c, "boundaries", [])):
             return len(c.boundaries) + 1
+        if _has_field_safe(c, "zch"):
+            return int(c.zch.zch_size)
+        if _has_field_safe(c, "dynamicemb"):
+            return int(c.dynamicemb.max_capacity)
         raise ValueError(f"feature {self.name}: cannot infer id space size")
+
+    @property
+    def is_zch(self) -> bool:
+        """Ids are raw and remapped on the device (``zch`` or
+        ``dynamicemb``, ``parallel/zch.py``)."""
+        return (_has_field_safe(self.config, "zch")
+                or _has_field_safe(self.config, "dynamicemb"))
 
     @property
     def embedding_name(self) -> str:
@@ -503,11 +510,14 @@ class BaseFeature(metaclass=_meta_cls):
 
     def _id_bound(self):
         """Range guard for pre-encoded ids: an id past its table's rows
-        is wrapped (hash buckets) or clipped (everything else)."""
+        is wrapped (hash buckets) or clipped (everything else); the raw
+        ids of ZCH features pass unbounded (("none", 0))."""
         if self._id_bound_cache is not None:
             return self._id_bound_cache
         c = self.config
-        if getattr(c, "hash_bucket_size", 0):
+        if self.is_zch:
+            bound = ("none", 0)
+        elif getattr(c, "hash_bucket_size", 0):
             bound = ("mod", int(c.hash_bucket_size))
         else:
             bound = ("clip", int(self.num_embeddings))
@@ -517,7 +527,7 @@ class BaseFeature(metaclass=_meta_cls):
     def _enforce_id_bound(self, parsed):
         mode, n = self._id_bound()
         v = parsed.values
-        if v.size == 0 or int(v.max()) < n:
+        if mode == "none" or v.size == 0 or int(v.max()) < n:
             return parsed
         if mode == "mod":
             v = np.where(v >= n, v % n, v)

@@ -17,10 +17,22 @@ optimizer state, the step and the epoch, and where the config asks for
 them the accumulated dense gradients and the grad scaler's state. The
 train config's options: ``mixed_precision`` BF16 or FP16, the grad
 scaler (FP16 only), gradient clipping, gradient accumulation, per-part
-dense optimizers, train metrics, ``is_profiling`` and the delta
-embedding dump (``utils/delta_embedding_dump.py``);
-``steps_per_dispatch`` > 1 runs as single steps. Not ported: ZCH and
-host-offloaded tables, TensorBoard summaries.
+dense optimizers, train metrics, ``is_profiling``, the delta
+embedding dump (``utils/delta_embedding_dump.py``) and TensorBoard
+summaries (``use_tensorboard``, default on: ``<model_dir>/tb``, the
+losses and the sparse learning rate every ``log_step_count_steps``
+steps, the last eval at the end; ``utils/summary_util.py``);
+``steps_per_dispatch`` > 1 runs as single steps.
+
+ZCH and dynamic embeddings (one rank): the train step remaps the raw ids
+of ``zch``/``dynamicemb`` features before the lookup at the state's
+step (``EmbeddingGroup.remap_zch``), gathers the rows that the remap
+evicted from spill tables before the sparse update writes the tables in
+place, and after the update stores them on the host and writes back the
+rows of readmitted keys, before the next step. Eval, predict and the
+serving program remap read-only. Host-offloaded tables: the step gathers
+the batch's rows on the host from the loader's host copy of its ids,
+into page-locked memory, and applies their row gradients on the host.
 
 Several ranks (``torch.distributed.run --nproc_per_node N``, or a
 ``shard`` the caller made with ``utils/dist_util.init_distributed``):
@@ -171,9 +183,9 @@ def _build_model_and_optim(pipeline_config, device="cuda", for_train=True,
         )
 
     if shard is not None and plan is None and shard.world > 1:
-        plan = plan_tables(
-            build(None, build_tables=False).embedding_group.table_specs(),
-            shard, pipeline_config, sparse_opt.kind)
+        eg = build(None, build_tables=False).embedding_group
+        plan = plan_tables(eg.table_specs(), shard, pipeline_config,
+                           sparse_opt.kind, set(eg._zch_cfgs))
     model = build(plan)
     model.sharding_plan = plan
     model.attach_shard()
@@ -181,12 +193,14 @@ def _build_model_and_optim(pipeline_config, device="cuda", for_train=True,
 
 
 def plan_tables(specs, shard: ShardContext, pipeline_config,
-                optimizer_kind: str) -> Dict[str, str]:
+                optimizer_kind: str,
+                host_excluded: Optional[set] = None) -> Dict[str, str]:
     """The planner's {table: layout} for ``specs`` over the ranks of
-    ``shard``, its estimate logged. No table is offloaded to the host
-    (the engine has no such tier). Where ranks share a card, each plans
-    with its share of the card's memory (unless ``HBM_CAPACITY`` is
-    set)."""
+    ``shard``, its estimate logged. ``host_excluded`` (the ZCH tables,
+    whose ids are remapped on the device) never go to the host tier,
+    which the planner offers on one rank only. Where ranks share a card,
+    each plans with its share of the card's memory (unless
+    ``HBM_CAPACITY`` is set)."""
     spg = shard.local_world
     while shard.world % spg:
         spg -= 1
@@ -199,7 +213,7 @@ def plan_tables(specs, shard: ShardContext, pipeline_config,
         specs, n_devices=shard.world,
         batch_size=int(pipeline_config.data_config.batch_size),
         optimizer_kind=optimizer_kind, shards_per_host=max(spg, 1),
-        host_excluded={s.name for s in specs}, hbm_budget=hbm)
+        host_excluded=set(host_excluded or ()), hbm_budget=hbm)
     if dist_util.is_main_process(shard):
         logger.info(f"sharding plan over {shard.world} ranks "
                     f"(est {cost * 1e3:.3f} ms/step): {plan}")
@@ -232,13 +246,18 @@ def _init_state(model: BaseModel, tx: Optional[DenseOptimizer] = None,
     ``grad_accum_steps`` > 1 the accumulated dense gradients (zeros, one
     per parameter of ``tx``); with the grad scaler (``uses_grad_scaler``)
     its ``scale`` (``init_scale``) and ``good_steps``, 0-d tensors on the
-    model's device."""
-    state = {"sparse_opt": model.embedding_group.init_opt_state(), "step": 0}
+    model's device. A model with ZCH tables adds ``zch``, the mappings
+    (``EmbeddingGroup.zch_states``: the model's buffers, which the train
+    step advances in place)."""
+    eg = model.embedding_group
+    state = {"sparse_opt": eg.init_opt_state(), "step": 0}
+    if eg.has_zch:
+        state["zch"] = eg.zch_states()
     if grad_accum_steps > 1:
         state["accum_grads"] = [torch.zeros_like(p, dtype=torch.float32)
                                 for p in tx.params]
     if uses_grad_scaler(model, grad_scaler_cfg):
-        dev = next(iter(model.embedding_group.engine_tables().values())).device
+        dev = eg.device
         state["scaler"] = {
             "scale": torch.tensor(float(grad_scaler_cfg.init_scale),
                                   device=dev),
@@ -296,7 +315,14 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
     gradients are averaged over the ranks in one ``all_reduce``, the
     embedding gradients are scaled by 1 / world before they travel to
     the rows' owners, the grad scaler's finite flag is the ranks' AND and
-    the reported losses are the ranks' mean."""
+    the reported losses are the ranks' mean.
+
+    ZCH: the batch's raw ids are remapped at ``state["step"]`` first (the
+    mappings advance in place); the spill tables' evicted rows are
+    gathered before the sparse update and handed to the host spill tier
+    after it (``EmbeddingGroup.spill_step``), which writes readmitted
+    keys' rows back. Host-offloaded tables: the step gathers the batch's
+    rows on the host (``EmbeddingGroup.host_gather``)."""
     eg = model.embedding_group
     shard = model.shard
     params = tx.params
@@ -307,8 +333,17 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
     def train_step(state: Dict[str, Any], batch: Batch):
         model.train()
         step, epoch = state["step"], state.get("epoch")
+        host_rows = (eg.host_gather(batch) if eg.engine.has_host_groups
+                     else None)
+        spill_rec = None
+        if eg.has_zch:
+            batch, spills = eg.remap_zch(batch, step, training=True,
+                                         collect_spill=eg.has_host_spill)
+            if spills:
+                # the evicted keys' rows before this step's update
+                spill_rec = eg.gather_spill_rows(spills)
         with torch.no_grad():
-            emb_out, residuals = eg.lookup(batch)
+            emb_out, residuals = eg.lookup(batch, host_rows=host_rows)
         keys = list(emb_out)
         leaves = [emb_out[k].requires_grad_(True) for k in keys]
         grouped, vd_losses = model.build_input(
@@ -356,6 +391,8 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
             lr_scale = torch.where(finite, scale.new_tensor(lr_scale), zero)
         eg.engine.update(eg.engine_tables(), state["sparse_opt"], residuals,
                          emb_grads, lr_scale)
+        if spill_rec is not None:
+            eg.spill_step(spill_rec)
         mult = dense_sched["fn"](step, epoch)
         gate = None if finite is None else finite.float()
         if k_accum == 1:
@@ -459,6 +496,8 @@ def train_epoch(
     train_metrics: Optional[List[Dict[str, Any]]] = None,
     delta_dumper: Optional[DeltaEmbeddingDumper] = None,
     shard: Optional[ShardContext] = None,
+    tb=None,
+    lr_fn: Optional[Callable[[int], Any]] = None,
 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor], bool]:
     """The body of the training loop over one epoch's (batch, info)
     items: a train step per batch, the step's predictions into the
@@ -472,7 +511,10 @@ def train_epoch(
     ``num_steps``). Writes nothing itself. Over several ranks (``shard``)
     every rank steps only while every rank has a batch, so the ranks
     stop together on uneven input, and a batch's ``data_timestamp`` is
-    the ranks' least (the event-time quorum of the checkpoints)."""
+    the ranks' least (the event-time quorum of the checkpoints). With
+    ``tb`` (``utils/summary_util.SummaryWriter``) each log step also
+    writes the losses and ``lr_fn(step)``, the sparse learning-rate
+    multiplier."""
     metrics: Dict[str, torch.Tensor] = {}
     t0, examples = time.perf_counter(), 0
     for batch, info in _in_step(batches, shard):
@@ -498,6 +540,9 @@ def train_epoch(
                     for k, v in model.compute_metrics(train_metrics).items()
                     if np.isfinite(v))
             logger.info(f"step {step}: {line} ({rate:.0f} ex/s)")
+            if tb is not None:
+                tb.log_scalars(step, metrics,
+                               None if lr_fn is None else float(lr_fn(step)))
         if after_step is not None:
             after_step(state, info)
         if num_steps and step >= num_steps:
@@ -772,6 +817,12 @@ def _train_and_evaluate(pipeline_config_path, train_input_path,
     train_metrics = model.init_train_metrics()
     profiler = _step_profiler(model_dir, dev) if train_config.is_profiling \
         else None
+    tb = None
+    if train_config.use_tensorboard and dist_util.is_main_process(shard):
+        from torcheasyrec_tpu_torch.utils.summary_util import SummaryWriter
+
+        tb = SummaryWriter(os.path.join(model_dir, "tb"),
+                           list(train_config.tensorboard_summaries) or None)
     eval_result: Dict[str, float] = {}
     delta_dumper = None
     if train_config.HasField("delta_embedding_dump_config"):
@@ -819,7 +870,8 @@ def _train_and_evaluate(pipeline_config_path, train_input_path,
             state, epoch_metrics, stop = train_epoch(
                 train_step, state, batches, dataloader_state, num_steps,
                 after_step, train_config.log_step_count_steps, model,
-                train_metrics, delta_dumper, shard)
+                train_metrics, delta_dumper, shard, tb,
+                lambda t: sparse_sched["fn"](t))
         finally:
             batches.close()
         metrics = epoch_metrics or metrics
@@ -837,6 +889,9 @@ def _train_and_evaluate(pipeline_config_path, train_input_path,
     if delta_dumper is not None:
         delta_dumper.dump(state["step"], model.embedding_group.engine_tables())
     save_and_eval()
+    if tb is not None:
+        tb.log_eval(state["step"], eval_result)
+        tb.close()
     result = {"step": float(state["step"])}
     result.update({k: float(v) for k, v in metrics.items()})
     result.update(eval_result)
@@ -1214,7 +1269,7 @@ class _NodeEmbedding(torch.nn.Module):
             group_name=self.GROUP, feature_names=names,
             group_type=model_pb2.DEEP)
         fused = eg.engine_tables()
-        dev = next(iter(fused.values())).device
+        dev = eg.device
         self.embedding_group = EmbeddingGroup(
             [f for f in model._features if f.name in set(names)], [group],
             torch.Generator(device=dev),
@@ -1319,7 +1374,7 @@ def _serialize_program(pipeline_config, features, serve_fn,
     import torch.utils._pytree as pytree
 
     try:
-        dev = next(iter(model.embedding_group.engine_tables().values())).device
+        dev = model.embedding_group.device
         bs, batch = serving_batch(pipeline_config, features, dev)
         leaves, spec = pytree.tree_flatten(batch)
         # the weights take no gradient, so the attention runs as its

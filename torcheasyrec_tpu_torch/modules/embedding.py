@@ -33,10 +33,30 @@ calls it), and a load writes each rank's own rows. With
 table specs alone (the planner's first pass). ``tables`` gives views into unpacked groups but copies out of
 packed ones: write through ``engine.write_table``, as
 ``load_state_dict`` does. The encoders' parameters are the model's
-dense parameters, ``encoders.<group>.<i>``. Dense embeddings and
-host-offloaded tables raise NotImplementedError.
+dense parameters, ``encoders.<group>.<i>``. Dense embeddings raise
+NotImplementedError. A host-offloaded table (``embedding_constraints {
+sharding_types: "host_offload" }``) lives in host memory, outside the
+module's buffers (``model.to`` leaves it there); its rows reach the
+device per batch (``parallel/emb_engine.py``).
+
+ZCH (the counterpart of the JAX EmbeddingGroup's ``remap_zch`` and its
+spill tier): a ``zch`` or ``dynamicemb`` feature's raw ids are remapped
+to slots of its table by ``parallel/zch.py``. Features that share an
+``embedding_name`` share one mapping. The mappings are persistent
+buffers, ``zch.<table>.{keys,count,last[,admit_cnt]}`` in the
+``state_dict``, so checkpoints, exports and the serving program carry
+them. ``dynamicemb`` maps onto the same table: its ``score_strategy``
+picks the policy (LFU, NO_EVICTION -> lfu; STEP, TIMESTAMP -> lru) and
+``frequency_admission_strategy`` the admission counter; its tables get
+the host spill tier (``parallel/host_spill.py``; ``TZREC_HOST_SPILL=0``
+turns it off), whose stores are ``spill``. The train step remaps with
+``remap_zch(training=True)``; ``forward`` remaps read-only. ZCH under
+several ranks, and on a host-offloaded table, raise.
 """
 
+import os
+
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -45,8 +65,10 @@ from torch import nn
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.features.feature import BaseFeature
 from torcheasyrec_tpu_torch.modules.sequence import create_seq_encoder
+from torcheasyrec_tpu_torch.parallel import zch as zch_mod
 from torcheasyrec_tpu_torch.parallel.emb_engine import (
     DATA_PARALLEL,
+    HOST_OFFLOAD,
     ROW_WISE,
     EmbeddingEngine,
     LookupSpec,
@@ -86,10 +108,6 @@ class EmbeddingGroup(nn.Module):
                        dim_override: Optional[int] = None,
                        init_override: Optional[str] = None) -> str:
             cfg = feat.emb_config()
-            if "host_offload" in cfg.sharding_types:
-                raise NotImplementedError(
-                    f"table {cfg.name}: host_offload tables are not ported"
-                )
             name = cfg.name + suffix
             shape = (cfg.num_embeddings, dim_override or cfg.embedding_dim)
             if shapes.setdefault(name, shape) != shape:
@@ -210,18 +228,201 @@ class EmbeddingGroup(nn.Module):
             list(lookups.values()), optimizer=sparse_optimizer,
             packed=packed, dense_lane_rows=dense_lane_rows, shard=shard,
         )
+        self._build_zch(features, shard)
+        self.device = generator.device
+        self._host_stores: Dict[str, torch.Tensor] = {}
+        self.spill = None
         if not build_tables:
             return
         # one storage tensor per group, a buffer named after the group,
-        # initialised in place by the engine
+        # initialised in place by the engine; host groups stay on the host
         for gk, store in self.engine.init_tables(generator).items():
-            self.register_buffer(f"group_{gk}", store, persistent=False)
+            if self.engine.groups[gk].sharding == HOST_OFFLOAD:
+                self._host_stores[gk] = store
+            else:
+                self.register_buffer(f"group_{gk}", store, persistent=False)
+        self.zch = nn.ModuleDict({
+            t: _ZchBuffers(zch_mod.init_state(
+                cfg.size, cfg.counter_size if cfg.admit_threshold > 0 else 0,
+                self.device))
+            for t, cfg in self._zch_cfgs.items()})
+        if self._spill_tables:
+            from torcheasyrec_tpu_torch.parallel.host_spill import (
+                SpillManager,
+            )
+
+            self.spill = SpillManager(
+                {t: table_specs[t].dim for t in sorted(self._spill_tables)})
+
+    # -- ZCH ---------------------------------------------------------------
+
+    def _build_zch(self, features: List[BaseFeature],
+                   shard: Optional[ShardContext]) -> None:
+        """``_zch_cfgs`` ({table: ZchConfig}), ``_zch_features`` ({feature:
+        table}, in feature order) and the spill tables, as the JAX
+        EmbeddingGroup builds them."""
+        self._zch_cfgs: Dict[str, zch_mod.ZchConfig] = {}
+        self._zch_features: Dict[str, str] = {}
+        self._spill_tables: set = set()
+        for f in features:
+            if not (f.is_sparse and f.is_zch):
+                continue
+            table = f.embedding_name
+            if f.config.HasField("zch"):
+                zc = f.config.zch
+                which = zc.WhichOneof("eviction_policy") or "lfu"
+                decay = 1.0
+                if which in ("lru", "distance_lfu"):
+                    decay = float(getattr(zc, which).decay_exponent)
+                cfg = zch_mod.ZchConfig(
+                    size=int(zc.zch_size), policy=which,
+                    decay_exponent=decay,
+                    eviction_interval=int(zc.eviction_interval or 1),
+                    filter_fn=zc.threshold_filtering_func or None)
+            else:
+                de = f.config.dynamicemb
+                policy = {"LFU": "lfu", "STEP": "lru", "TIMESTAMP": "lru",
+                          "NO_EVICTION": "lfu"}.get(
+                              (de.score_strategy or "STEP").upper(), "lru")
+                admit, counter = 0, 0
+                if de.WhichOneof("admission_strategy") == (
+                        "frequency_admission_strategy"):
+                    fas = de.frequency_admission_strategy
+                    admit = int(fas.threshold)
+                    counter = int(fas.counter_capacity or 4 * de.max_capacity)
+                cfg = zch_mod.ZchConfig(size=int(de.max_capacity),
+                                        policy=policy, admit_threshold=admit,
+                                        counter_size=counter)
+                if (os.environ.get("TZREC_HOST_SPILL", "1") != "0"
+                        and table in self.engine._specs):
+                    self._spill_tables.add(table)
+            self._zch_features[f.name] = table
+            self._zch_cfgs.setdefault(table, cfg)
+        if not self._zch_cfgs:
+            return
+        if shard is not None and shard.world > 1:
+            raise NotImplementedError(
+                f"ZCH/dynamicemb tables {sorted(self._zch_cfgs)} over "
+                f"{shard.world} ranks are not ported (ROADMAP item 7's "
+                "remainder: each rank would evolve its own mapping from its "
+                "shard of the batch)")
+        for t in self._zch_cfgs:
+            gk = self.engine._table_group.get(t)
+            if gk and self.engine.groups[gk].sharding == HOST_OFFLOAD:
+                raise ValueError(
+                    f"table {t}: zch/dynamicemb tables cannot be "
+                    "host_offload (ids are remapped on the device)")
+
+    @property
+    def has_zch(self) -> bool:
+        return bool(self._zch_cfgs)
+
+    @property
+    def has_host_spill(self) -> bool:
+        return bool(self._spill_tables)
+
+    def zch_states(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{table: {name: buffer}}, the mappings the remap reads and the
+        train step advances in place."""
+        return {t: dict(m.named_buffers()) for t, m in self.zch.items()}
+
+    @torch.no_grad()
+    def remap_zch(self, batch: Batch, step: int, training: bool,
+                  collect_spill: bool = False):
+        """(batch with the ZCH features' ids replaced by slots, spill
+        records). Features in ``_zch_features`` order, each field's
+        sparse then sequence entry, the state threaded from one to the
+        next; with ``training`` the buffers take the final state. With
+        ``collect_spill`` the records of the spill tables
+        ({table: {evicted_keys, fresh_keys, slots}}, concatenated over
+        the table's features), else {}."""
+        if not self._zch_cfgs:
+            return batch, {}
+        bufs = self.zch_states()
+        states = {t: dict(st) for t, st in bufs.items()}
+        sparse = dict(batch.sparse_features)
+        seq_sparse = dict(batch.sequence_sparse_features)
+        spills: Dict[str, Dict[str, list]] = {}
+        for fname, table in self._zch_features.items():
+            cfg = self._zch_cfgs[table]
+            want = collect_spill and table in self._spill_tables
+            for container in (sparse, seq_sparse):
+                if fname not in container:
+                    continue
+                field = container[fname]
+                out = zch_mod.lookup_insert(states[table], cfg, field.values,
+                                            step, training,
+                                            collect_spill=want)
+                states[table] = out[1]
+                if want:
+                    acc = spills.setdefault(table, {k: [] for k in out[2]})
+                    for k, v in out[2].items():
+                        acc[k].append(v)
+                container[fname] = dataclasses.replace(field, values=out[0])
+        if training:
+            for t, st in states.items():
+                for k, v in st.items():
+                    bufs[t][k].copy_(v)
+        new = dataclasses.replace(batch, sparse_features=sparse,
+                                  sequence_sparse_features=seq_sparse)
+        new.host = getattr(batch, "host", None)
+        return new, {t: {k: torch.cat(v) if len(v) > 1 else v[0]
+                         for k, v in rec.items()}
+                     for t, rec in spills.items()}
+
+    def _remap_read_only(self, batch: Batch) -> Batch:
+        return self.remap_zch(batch, 0, False)[0] if self._zch_cfgs \
+            else batch
+
+    @torch.no_grad()
+    def gather_spill_rows(self, spills: Dict[str, Dict[str, torch.Tensor]]
+                          ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Each record with ``evicted_rows`` [N, dim] fp32: the evicted
+        keys' trained rows (else 0). Read the tables BEFORE the step's
+        update writes them."""
+        fused = self.engine_tables()
+        out = {}
+        for t, rec in spills.items():
+            gk, off, _ = self.engine.table_rows(t)
+            ids = torch.where(rec["evicted_keys"] >= 0,
+                              rec["slots"].long() + off,
+                              rec["slots"].new_full((), -1).long())
+            rows = self.engine._gather(self.engine.groups[gk], fused[gk], ids)
+            out[t] = dict(rec, evicted_rows=rows.float())
+        return out
+
+    @torch.no_grad()
+    def apply_spill_restores(self, restores: Dict[str, Tuple[Any, Any]]
+                             ) -> None:
+        """Write readmitted keys' stored rows ({table: (slots, rows)},
+        ``SpillManager.process``'s) into the tables, weight columns only."""
+        fused = self.engine_tables()
+        for t, (slots, rows) in restores.items():
+            gk, off, _ = self.engine.table_rows(t)
+            self.engine.write_logical_rows(
+                fused[gk], self.engine.groups[gk],
+                torch.as_tensor(slots, dtype=torch.long) + off,
+                torch.as_tensor(rows))
+
+    def spill_step(self, spill_rec: Dict[str, Dict[str, torch.Tensor]]
+                   ) -> Dict[str, Tuple[Any, Any]]:
+        """The host half of the spill tier after a step: the records
+        (``gather_spill_rows``') to the host, evicted rows stored,
+        readmitted rows popped and written back. Returns the restores."""
+        host = {t: {k: v.cpu().numpy() for k, v in rec.items()}
+                for t, rec in spill_rec.items()}
+        restores = self.spill.process(host)
+        if restores:
+            self.apply_spill_restores(restores)
+        return restores
 
     # -- tables ------------------------------------------------------------
 
     def engine_tables(self) -> Dict[str, torch.Tensor]:
-        """{group key: the group's storage}, as the engine takes them."""
-        return {gk: getattr(self, f"group_{gk}") for gk in self.engine.groups}
+        """{group key: the group's storage}, as the engine takes them (a
+        host group's on the host)."""
+        return {gk: self._host_stores[gk] if gk in self._host_stores
+                else getattr(self, f"group_{gk}") for gk in self.engine.groups}
 
     @property
     def tables(self) -> Dict[str, torch.Tensor]:
@@ -236,8 +437,7 @@ class EmbeddingGroup(nn.Module):
         return list(self.engine._specs.values())
 
     def init_opt_state(self) -> Dict[str, Any]:
-        device = next(iter(self.engine_tables().values())).device
-        return self.engine.init_opt_state(device)
+        return self.engine.init_opt_state(self.device)
 
     def opt_state_dict(self, opt_state: Dict[str, Any]
                        ) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -367,25 +567,58 @@ class EmbeddingGroup(nn.Module):
 
     # -- forward -----------------------------------------------------------
 
-    def lookup(self, batch: Batch, groups: Optional[List[str]] = None
+    def lookup(self, batch: Batch, groups: Optional[List[str]] = None,
+               host_rows: Optional[Dict[str, Any]] = None
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-        """Engine lookup only: (emb_out, residuals). emb_out holds fp32
+        """Engine lookup only (no ZCH remap): (emb_out, residuals).
+        emb_out holds fp32
         lookups, [B, L, D] per sequence feature and [B, D] pooled. The
         train step takes gradients with respect to emb_out and routes
         them, with the residuals, to ``engine.update``. ``groups`` looks
-        up those groups' features only."""
+        up those groups' features only. Host groups read ``host_rows``
+        (``host_gather``'s) where given, else gather from the batch's host
+        copy (``batch.host``, which the loader keeps; a batch on the host
+        is its own; else its ids are copied off the device)."""
         return self.engine.lookup(
             self.engine_tables(), batch.sparse_features,
             batch.sequence_sparse_features,
             feature_filter=(None if groups is None
                             else set(self.features_for_groups(groups))),
+            host_rows=host_rows, host_fields=self.host_fields(batch),
         )
+
+    def host_fields(self, batch: Batch):
+        """(sparse, sequence sparse) fields of the batch on the host where
+        the batch has them (its loader's host copy, or itself on the
+        host), else None."""
+        if not self.engine.has_host_groups:
+            return None
+        host = getattr(batch, "host", None)
+        if host is None:
+            f = next(iter(batch.sparse_features.values()), None)
+            if f is None or f.values.device.type != "cpu":
+                return None
+            host = batch
+        return host.sparse_features, host.sequence_sparse_features
+
+    def host_gather(self, batch: Batch) -> Dict[str, Any]:
+        """{host group: (rows, ids)} of the batch, gathered on the host
+        into page-locked memory (``engine.host_gather``), for the train
+        step."""
+        from torcheasyrec_tpu_torch.parallel.emb_engine import _fields_to_cpu
+
+        hs, hq = self.host_fields(batch) or (
+            _fields_to_cpu(batch.sparse_features),
+            _fields_to_cpu(batch.sequence_sparse_features))
+        return self.engine.host_gather(self.engine_tables(), hs, hq,
+                                       pin=True)
 
     def forward(self, batch: Batch, compute_dtype: torch.dtype,
                 groups: Optional[List[str]] = None
                 ) -> Dict[str, torch.Tensor]:
-        """Lookup + ``assemble``, for eval and predict; ``groups`` (a
-        tower's group closure) restricts both."""
+        """Read-only ZCH remap, lookup and ``assemble``, for eval and
+        predict; ``groups`` (a tower's group closure) restricts both."""
+        batch = self._remap_read_only(batch)
         return self.assemble(self.lookup(batch, groups)[0], batch,
                              compute_dtype, groups)
 
@@ -448,11 +681,22 @@ class EmbeddingGroup(nn.Module):
         """A candidate's (TDM tree node's) embedding: the concatenated
         query slots of ``seq_group``, looked up alone (the engine's
         feature filter keeps every other feature, and its tables, out)."""
+        batch = self._remap_read_only(batch)
         emb_out, _ = self.engine.lookup(
             self.engine_tables(), batch.sparse_features,
             batch.sequence_sparse_features,
-            feature_filter=set(self.query_features(seq_group)))
+            feature_filter=set(self.query_features(seq_group)),
+            host_fields=self.host_fields(batch))
         vals = [emb_out[key].to(compute_dtype) if kind == "emb"
                 else batch.dense_features[key].values.to(compute_dtype)
                 for kind, key, _ in self._seq_groups[seq_group]["query"]]
         return torch.cat(vals, dim=-1) if len(vals) > 1 else vals[0]
+
+
+class _ZchBuffers(nn.Module):
+    """One table's ZCH mapping as persistent buffers."""
+
+    def __init__(self, state: Dict[str, torch.Tensor]) -> None:
+        super().__init__()
+        for k, v in state.items():
+            self.register_buffer(k, v)

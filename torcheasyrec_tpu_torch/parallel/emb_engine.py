@@ -47,9 +47,18 @@ the storage dtype on write; their row state is fp32. A table's
 
 The engine is a descriptor: tables and optimizer state are dicts of
 tensors, keyed by group, that the caller holds. Not ported: co-keyed
-table merge, host-offloaded groups, ZCH. Packed and unpacked layouts
-agree to about 1 ulp per touched lane and step (the packed merge adds a
-rounded difference).
+table merge. Packed and unpacked layouts agree to about 1 ulp per
+touched lane and step (the packed merge adds a rounded difference).
+
+Host-offloaded tables (``host_offload``, one rank only): a group of its
+own per dim, ``d<dim>_host_offload``, unpacked fp32 in host memory with
+its optimizer row state beside it. A lookup gathers the batch's rows on
+the host from the batch's host ids (``host_gather``; the caller may pass
+them gathered as ``host_rows``) and copies them to the device; the
+update brings the row gradients back and applies the same optimizer
+code as an unpacked device group (sgd, adagrad, rowwise_adagrad, adam),
+on the host. ``write_logical_rows`` writes the weight columns of given
+logical rows under any layout (the ZCH spill tier's restores).
 
 Sharded layouts (``shard``, a ``parallel/mesh.ShardContext``): the
 counterpart of the JAX engine's mesh paths. Tables of one (dim,
@@ -108,8 +117,7 @@ COLUMN_WISE = "column_wise"
 TABLE_WISE = "table_wise"
 TABLE_ROW_WISE = "table_row_wise"
 DATA_PARALLEL = "data_parallel"
-# weights and optimizer state in host memory: a planner option of the
-# JAX package that the port's engine does not have
+# weights and optimizer state in host memory (one rank only)
 HOST_OFFLOAD = "host_offload"
 _HOST_OPT_KINDS = {"sgd", "adagrad", "rowwise_adagrad", "adam"}
 ALL_SHARDINGS = frozenset({
@@ -232,6 +240,12 @@ def _sorted_segment_sum(grads: torch.Tensor, order: torch.Tensor,
     return torch.segment_reduce(grads[order], "sum", lengths=lengths, axis=0)
 
 
+def _fields_to_cpu(fields: Dict[str, SparseField]) -> Dict[str, SparseField]:
+    """Sparse fields copied to the host (ids, lengths and weights)."""
+    return {k: SparseField(*(None if t is None else t.cpu() for t in (
+        f.values, f.lengths, f.weights))) for k, f in fields.items()}
+
+
 def _slots(t: torch.Tensor, g: _Group) -> torch.Tensor:
     """[P, spr, slot] view of the packed rows ``t`` [P, 128]: entry
     [p, s] is the slot of logical row ``p * spr + s``."""
@@ -272,10 +286,15 @@ class EmbeddingEngine:
         self.groups: Dict[str, _Group] = {}
         self._table_group: Dict[str, str] = {}
         for t in tables:
-            sharding = self._resolve_sharding(t) if shard is not None else ""
-            gk = _group_key(t.dim, t.dtype, sharding)
+            if self._is_host(t):
+                sharding, dtype = self._check_host(t), "FP32"
+            else:
+                sharding = (self._resolve_sharding(t) if shard is not None
+                            else "")
+                dtype = t.dtype
+            gk = _group_key(t.dim, dtype, sharding)
             g = self.groups.setdefault(
-                gk, _Group(t.dim, t.dtype, {}, 0, sharding=sharding))
+                gk, _Group(t.dim, dtype, {}, 0, sharding=sharding))
             g.specs.append(t)
             self._table_group[t.name] = gk
         for g in self.groups.values():
@@ -286,6 +305,26 @@ class EmbeddingEngine:
             self._lookups_by_group.setdefault(gk, []).append(lk)
 
     # -- layout --------------------------------------------------------------
+
+    @staticmethod
+    def _is_host(t: TableSpec) -> bool:
+        return COMPAT_SHARDING.get(t.sharding, t.sharding) == HOST_OFFLOAD
+
+    def _check_host(self, t: TableSpec) -> str:
+        """HOST_OFFLOAD where this engine can hold ``t`` on the host."""
+        if self.num_shards > 1:
+            raise NotImplementedError(
+                f"table {t.name}: host_offload runs on one rank only (as "
+                "in the JAX package); shard it row_wise instead")
+        if self.optimizer.kind not in _HOST_OPT_KINDS:
+            raise ValueError(
+                f"table {t.name}: host_offload supports sparse optimizers "
+                f"{sorted(_HOST_OPT_KINDS)}, not {self.optimizer.kind}")
+        return HOST_OFFLOAD
+
+    @property
+    def has_host_groups(self) -> bool:
+        return any(g.sharding == HOST_OFFLOAD for g in self.groups.values())
 
     def _resolve_sharding(self, t: TableSpec) -> str:
         """A table's layout under a ShardContext, as the JAX engine
@@ -299,9 +338,6 @@ class EmbeddingEngine:
                 f"table {t.name}: unknown sharding {t.sharding!r}; "
                 f"supported: {sorted(ALL_SHARDINGS)} "
                 f"(+compat {sorted(COMPAT_SHARDING)})")
-        if sharding == HOST_OFFLOAD:
-            raise NotImplementedError(
-                f"table {t.name}: host_offload tables are not ported")
         if (sharding == TABLE_ROW_WISE
                 and self.shards_per_host >= self.num_shards):
             return ROW_WISE
@@ -316,7 +352,7 @@ class EmbeddingEngine:
         """(state_widths, slot, spr) when the group packs, else None."""
         if not self._packed or g.dtype.upper() != "FP32":
             return None
-        if g.sharding in (COLUMN_WISE, DATA_PARALLEL):
+        if g.sharding in (COLUMN_WISE, DATA_PARALLEL, HOST_OFFLOAD):
             # as in the JAX engine: column shards and replicas keep
             # [rows, dim]
             return None
@@ -348,7 +384,7 @@ class EmbeddingEngine:
         multiple of ``spr``) and pads its rows to a multiple of
         lcm(spr, 8), as the JAX engine does. Under a ShardContext the
         offsets are the JAX engine's mesh offsets (``_finalize_sharded``)."""
-        if self.shard is not None:
+        if self.shard is not None and g.sharding != HOST_OFFLOAD:
             self._finalize_sharded(g)
             return
         g.local_dim = g.dim
@@ -477,9 +513,13 @@ class EmbeddingEngine:
         dense lane) draws them: a packed table's whole physical rows as
         [n, spr, dim], then its last slots as [rem, dim]; an unpacked
         one as [rows, dim] in its storage dtype."""
-        eng = self if self.shard is None else EmbeddingEngine(
-            list(self._specs.values()), [], self.optimizer,
-            packed=self._packed, dense_lane_rows=self._one_rank_lane)
+        # host tables draw as device tables would: offloading a table
+        # changes no table's values and no dense weight
+        eng = self if self.shard is None and not self.has_host_groups \
+            else EmbeddingEngine(
+                [dataclasses.replace(t, sharding=ROW_WISE) if self._is_host(t)
+                 else t for t in self._specs.values()], [], self.optimizer,
+                packed=self._packed, dense_lane_rows=self._one_rank_lane)
         for g in eng.groups.values():
             for t in g.specs:
                 if t.rows > self._INIT_CHUNK:
@@ -514,8 +554,11 @@ class EmbeddingEngine:
         gen_dev = generator.device
         out: Dict[str, torch.Tensor] = {}
         fills = self.optimizer.row_state_init()
+        replay = self.shard is not None or self.has_host_groups
         for gk, g in self.groups.items():
-            if g.packed:
+            if g.sharding == HOST_OFFLOAD:
+                out[gk] = torch.zeros(g.local_rows, g.dim)
+            elif g.packed:
                 lane_fill = torch.zeros(128)
                 for name, lo, width in self._state_lanes(g):
                     for s in range(g.spr):
@@ -542,7 +585,7 @@ class EmbeddingEngine:
             init = parse_init_fn(t.init_fn) or default_emb_init
             g = self.groups[self._table_group[t.name]]
             store = out[self._table_group[t.name]]
-            if self.shard is None:
+            if not replay:
                 _, n, s0 = self._owned(g, t.name)
                 for view in self._range_views(g, store, s0, n, 0, g.dim):
                     init(view, generator, t.rows)
@@ -577,8 +620,9 @@ class EmbeddingEngine:
         group only the scalars (its row state lives in the rows)."""
         return {
             gk: (self.optimizer.scalar_state_init(device) if g.packed
-                 else self.optimizer.init_state(g.local_rows, g.local_dim,
-                                                device))
+                 else self.optimizer.init_state(
+                     g.local_rows, g.local_dim,
+                     "cpu" if g.sharding == HOST_OFFLOAD else device))
             for gk, g in self.groups.items()
         }
 
@@ -590,14 +634,21 @@ class EmbeddingEngine:
         sparse: Dict[str, SparseField],
         sequence_sparse: Optional[Dict[str, SparseField]] = None,
         feature_filter: Optional[set] = None,
+        host_rows: Optional[Dict[str, Any]] = None,
+        host_fields=None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """(outputs, residuals). outputs[key]: [B, dim] pooled, or
         [B, L, dim] for sequence lookups, in the table's storage dtype
         (fp32 but for BF16 and FP16 tables). residuals: per group
         ``(flat_ids, plan)`` for ``update``, and under a ShardContext the
-        exchange's route as a third entry. ``feature_filter`` keeps the
+        exchange's route as a third entry; of a host group the host ids
+        as third entry. ``feature_filter`` keeps the
         lookups of the named features only (a tower's serving batch holds
-        its own features alone); a group left with none is skipped."""
+        its own features alone); a group left with none is skipped.
+        Host groups read ``host_rows`` ({group: (device rows, host ids)},
+        ``host_gather``'s) where given, else gather now from
+        ``host_fields`` ((sparse, sequence sparse) on the host; without
+        them the batch's ids are copied off the device)."""
         sequence_sparse = sequence_sparse or {}
         outputs: Dict[str, torch.Tensor] = {}
         residuals: Dict[str, Any] = {}
@@ -609,7 +660,16 @@ class EmbeddingEngine:
             g = self.groups[gk]
             flat_ids, plan = self._flatten_group_ids(
                 g, lks, sparse, sequence_sparse)
-            if self.shard is None:
+            if g.sharding == HOST_OFFLOAD:
+                got = (host_rows or {}).get(gk)
+                if got is None:
+                    hs, hq = host_fields or (_fields_to_cpu(sparse),
+                                             _fields_to_cpu(sequence_sparse))
+                    got = self.host_gather(tables, hs, hq, feature_filter,
+                                           groups=[gk])[gk]
+                rows = got[0].to(flat_ids.device, non_blocking=True)
+                residuals[gk] = (flat_ids, plan, got[1])
+            elif self.shard is None:
                 rows = self._gather(g, tables[gk], flat_ids)
                 residuals[gk] = (flat_ids, plan)
             else:
@@ -760,7 +820,10 @@ class EmbeddingEngine:
             grads = self._flat_row_grads(g, plan, out_grads)
             if grads is None:
                 continue
-            if self.shard is not None:
+            if g.sharding == HOST_OFFLOAD:
+                self._host_apply(tables[gk], opt_state[gk], route[0], grads,
+                                 lr)
+            elif self.shard is not None:
                 self._sharded_update(g, tables[gk], opt_state[gk], flat_ids,
                                      grads, lr, route[0])
             elif g.packed:
@@ -770,6 +833,76 @@ class EmbeddingEngine:
                 self._dedup_apply(tables[gk], opt_state[gk], flat_ids, grads,
                                   lr)
         return tables, opt_state
+
+    # -- host-offloaded groups -------------------------------------------------
+
+    def host_gather(self, tables: Dict[str, torch.Tensor], sparse,
+                    sequence_sparse=None, feature_filter: Optional[set] = None,
+                    groups=None, pin: bool = False
+                    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """{host group: (rows [n, dim] fp32, ids [n])} of the batch, on the
+        host, from host fields: the group's flat ids as ``lookup``
+        flattens them (the same order and validity) and their rows, an
+        invalid id's zero. With ``pin`` (and CUDA present) the rows go
+        into page-locked memory, so the copy to the card can be queued
+        (not while a program is traced: export cannot trace the pin)."""
+        out = {}
+        for gk, lks in self._lookups_by_group.items():
+            g = self.groups[gk]
+            if g.sharding != HOST_OFFLOAD or (groups is not None
+                                              and gk not in groups):
+                continue
+            if feature_filter is not None:
+                lks = [lk for lk in lks if lk.feature_name in feature_filter]
+                if not lks:
+                    continue
+            flat, _ = self._flatten_group_ids(g, lks, sparse,
+                                              sequence_sparse or {})
+            rows = self._gather(g, tables[gk], flat)
+            if pin and torch.cuda.is_available():
+                rows = rows.pin_memory()
+            out[gk] = (rows, flat)
+        return out
+
+    def _host_apply(self, table, state, ids, grads, lr) -> None:
+        """The optimizer on a host group's touched rows, on the host, by
+        the code of an unpacked device group; a zero learning rate
+        updates nothing (no moment moves), as in the JAX package."""
+        lr = float(lr)
+        if lr == 0.0:
+            return
+        self._dedup_apply(table, state, ids, grads.float().cpu(), lr)
+
+    @torch.no_grad()
+    def write_logical_rows(self, weight: torch.Tensor, g: _Group,
+                           flat_ids: torch.Tensor,
+                           rows: torch.Tensor) -> None:
+        """``rows[i]`` ([N, d]) into columns [0, d) of logical row
+        ``flat_ids[i]`` of the group, in place, under any layout; id -1
+        is dropped, of duplicates the last wins. Weight columns only:
+        the in-row optimizer state of a packed group stays (a restored
+        key restarts its optimizer state). One rank only."""
+        if self.num_shards > 1:
+            raise NotImplementedError(
+                "write_logical_rows runs on one rank (ZCH over several "
+                "ranks is not ported)")
+        flat_ids = flat_ids.long().to(weight.device)
+        rows = rows.to(weight.device)
+        keep = flat_ids >= 0
+        ids, rows = flat_ids[keep], rows[keep]
+        if ids.numel() == 0:
+            return
+        uids, inv = torch.unique(ids, return_inverse=True)
+        last = torch.full((uids.shape[0],), -1, dtype=torch.long,
+                          device=ids.device).scatter_reduce(
+            0, inv, torch.arange(ids.shape[0], device=ids.device), "amax")
+        vals = rows[last]
+        d = vals.shape[1]
+        if g.packed:
+            pid, lane, _ = self._packed_phys(g, uids)
+            _slots(weight, g)[pid, lane, :d] = vals.to(weight.dtype)
+        else:
+            weight[uids, :d] = vals.to(weight.dtype)
 
     def _sharded_update(self, g: _Group, table, state, flat_ids, grads, lr,
                         route) -> None:

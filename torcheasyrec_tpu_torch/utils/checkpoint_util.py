@@ -7,7 +7,11 @@ canonical ``[rows, dim]`` form), the sparse optimizer state per table,
 the dense optimizer state, the step and epoch, the dataloader
 watermark ``{source_id: last row consumed}`` that a resume skips, and
 where the train state has them the accumulated dense gradients
-(``accum_grads``) and the grad scaler's state (``scaler``).
+(``accum_grads``) and the grad scaler's state (``scaler``). The ZCH
+mappings (``state["zch"]``) are buffers of the model and travel in its
+``state_dict``; the host spill stores, where the model has them, travel
+as ``zch_spill`` (the JAX package starts them empty on a resume), so a
+resumed run continues as the straight run would.
 
 Over several ranks (a model whose engine has a ``ShardContext``) the
 checkpoint is the same file: every rank takes part in gathering each
@@ -72,6 +76,11 @@ def save_checkpoint(model_dir: str, model, tx, state: Dict[str, Any],
             "epoch": state.get("epoch", 0),
             "dataloader_state": loader_state,
             **{k: state[k] for k in _OPTIONAL_STATE if k in state}}
+    spill = model.embedding_group.spill
+    if spill is not None:
+        ckpt["zch_spill"] = {
+            t: {k: torch.from_numpy(v) for k, v in part.items()}
+            for t, part in spill.state_dict().items()}
     if dist_util.is_main_process(shard):
         # written aside and renamed: a restore may hold the old file of
         # this step mapped, which truncating it in place would break
@@ -87,7 +96,7 @@ def load_model_weights(path: str, model, strict: bool = True
     or a bare state_dict; returns what the file held. Without
     ``strict``, weights the file lacks keep their values and names the
     model lacks are ignored (shapes must still agree)."""
-    dev = next(iter(model.embedding_group.engine_tables().values())).device
+    dev = model.embedding_group.device
     if model.embedding_group.engine.shard is not None:
         # each rank copies its own rows out of the mapped file
         ckpt = torch.load(path, map_location="cpu", weights_only=True,
@@ -111,7 +120,7 @@ def restore_model(path: str, model, strict: bool = True) -> None:
     """Load ``<path>/model.pt`` of ``save_model`` into ``model``. Without
     ``strict``, weights the file lacks keep their values (a tower
     artifact holds its own tables only, a quantized one none)."""
-    dev = next(iter(model.embedding_group.engine_tables().values())).device
+    dev = model.embedding_group.device
     model.load_state_dict(torch.load(os.path.join(path, MODEL_FILE),
                                      map_location=dev, weights_only=True),
                           strict=strict)
@@ -127,10 +136,14 @@ def restore_checkpoint(path: str, model, tx=None, strict: bool = True
     optimizer states and the step of a bare state_dict, a table, a
     layer) keeps its current or initial value."""
     ckpt = load_model_weights(path, model, strict=strict)
-    dev = next(iter(model.embedding_group.engine_tables().values())).device
+    dev = model.embedding_group.device
     if tx is not None and (strict or "dense_opt" in ckpt):
         tx.load_state_dict(_to_device(ckpt["dense_opt"], dev))
     eg = model.embedding_group
+    if eg.spill is not None and "zch_spill" in ckpt:
+        eg.spill.load_state_dict({
+            t: {k: v.cpu().numpy() for k, v in part.items()}
+            for t, part in ckpt["zch_spill"].items()})
     if strict or "sparse_opt" in ckpt:
         sparse_opt = eg.load_opt_state_dict(ckpt["sparse_opt"])
     else:

@@ -42,7 +42,8 @@
   ``item_tower`` and ``user_out``;
 - ``tables`` ({table name: [rows, dim]}, canonical layout, as the JAX
   engine's ``extract_table`` gives them) become
-  ``embedding_group.tables.<name>``; ``load_state_dict`` lays them into
+  ``embedding_group.tables.<name>``, and the JAX state's ZCH mappings
+  (``state["zch"]``) ``embedding_group.zch.<table>.<name>``; ``load_state_dict`` lays them into
   the port's groups, packed or not. DeepFM's dense parameters
   (``deep_mlp``, ``final_mlp``, ``output``) need no rule of their own.
 
@@ -89,8 +90,12 @@ def _flatten(tree, prefix: str = ""):
 
 
 def from_jax_state(dense_params: Mapping[str, Any],
-                   tables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX dense params + canonical tables -> a torch state_dict (fp32)."""
+                   tables: Mapping[str, Any],
+                   zch: Mapping[str, Mapping[str, Any]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """JAX dense params + canonical tables (+ the JAX state's ``zch``,
+    {table: {keys, count, last[, admit_cnt]}}) -> a torch state_dict
+    (fp32, the ZCH mappings in their own dtypes)."""
     state: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(dense_params):
         if path.startswith("embedding_group.dense_emb."):
@@ -110,6 +115,11 @@ def from_jax_state(dense_params: Mapping[str, Any],
         state[f"embedding_group.tables.{name}"] = torch.from_numpy(
             np.array(arr, dtype=np.float32)
         )
+    for name, st in (zch or {}).items():
+        for k, arr in st.items():
+            dt = np.int32 if k in ("keys", "last") else np.float32
+            state[f"embedding_group.zch.{name}.{k}"] = torch.from_numpy(
+                np.array(arr, dtype=dt))
     return state
 
 
