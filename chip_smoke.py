@@ -158,9 +158,9 @@ one JSON line each:
    the loader, an eval pass at the end), with the
    row-write count set to 0 just before and read just after; ``evaluate``
    and ``predict_checkpoint`` (the first 2 eval batches) of its
-   checkpoint; then its step on a resident batch (median of 20
-   synchronised steps after 5 of warm-up, a 20-step window, the idle
-   share of 10 profiled steps, peak memory). Checks: exactly 64 steps and
+   checkpoint; then its step on a resident batch (median of 10
+   synchronised steps after 5 of warm-up, a 10-step window, the idle
+   share of 5 profiled steps, peak memory). Checks: exactly 64 steps and
    one row-write launch a step per packed group with tables past the
    dense lane (2 for Wide&Deep, 0 for DSSM, 1 for the others), the timed
    steps too; finite losses; every AUC of the config's pinned labels
@@ -246,7 +246,7 @@ one JSON line each:
    at the fp32 peak, its bytes over each sample's real rows).
 
 11. train_zoo_rest: the rest of the ranking and multi-task zoo on the
-   criteo_synth data, four configs with assumed widths on the port's
+   criteo_synth data (65 536 train and 16 384 eval rows), four configs with assumed widths on the port's
    criteo_synth header (no published config of these models is in the
    repository, and none has a pinned label): xDeepFM (CIN 128-128-128 over
    the fm group, deep 512-256-128 with batch norm), WuKong (three layers of
@@ -262,7 +262,7 @@ one JSON line each:
    and the row state, within 1e-4 of each tensor's CPU max. Then as the
    zoo's configs: an epoch through ``train_and_evaluate`` from the
    default seed's CPU-drawn weights (xDeepFM's cut to 8 steps, its CPU
-   epoch taking minutes; WuKong's and PEPNet's to 8), each AUC within
+   epoch taking minutes; WuKong's and PEPNet's to 8, DC2VR's to 16), each AUC within
    0.02 of a CPU run of the same config from them, exactly one row write a step per written
    packed group (two for xDeepFM), ``evaluate`` and ``predict_checkpoint``,
    the resident step; xDeepFM's real step's row writes bit-equal to the
@@ -306,10 +306,10 @@ one JSON line each:
    card against
    the CPU from the same CPU-drawn weights and sampled batches, as
    ``train_zoo_rest``'s (1e-4 of each tensor's max, the card's PReLU
-   branches replayed on the CPU). 8 steps (cut from 64: the CPU
+   branches replayed on the CPU). TDM_STEPS steps (cut from 64: the CPU
    reference's time) through ``train_and_evaluate``
    from the default seed's CPU-drawn weights with 4 loader workers on the
-   shared tables, and an eval of 4 096 rows: exactly one row write a step
+   shared tables, and an eval of TDM_EVAL_ROWS rows: exactly one row write a step
    (the wrapper's count, and 3 in the trace of steps 3-5), the AUC within
    0.02 of a CPU run from the same weights; the step on a resident
    sampled batch (median, window, idle share, peak memory) with its row
@@ -318,10 +318,10 @@ one JSON line each:
    ``predict`` in a process of its own, and its ``tower_fn.pt2`` on its
    batch, bit-equal to ``node_embedding``; ``model/``'s ``predict``
    bit-equal to ``predict_checkpoint``. ``cluster_tree`` over the 2 000
-   leaf embeddings from the artifact, 8 steps (cut from 32) on the new
-   tree from the
+   leaf embeddings from the artifact, TDM_RETRAIN_STEPS steps (cut from
+   32) on the new tree from the
    trained weights (one row write a step), and ``tdm_retrieval``
-   (recall@50, 2 clusters, 256 eval users) on each tree, on the card
+   (recall@50, 2 clusters, TDM_RETRIEVAL_USERS eval users) on each tree, on the card
    within 0.02 of the CPU from the same checkpoint, with its ms per user
    and per beam layer and the host's share.
 
@@ -384,6 +384,32 @@ from the same weights, its loop's step times, ``evaluate`` and
 fresh process and its loaded program bit-equal; the TensorBoard tags; the
 step, its host work and the remap's device time beside the same config
 without ZCH.
+
+Phase ``train_sid`` (last before the timeline): semantic-ID generation
+at the widths of TIGER's RQ-VAE (Rajput et al., "Recommender Systems
+with Generative Retrieval", NeurIPS 2023: 768-d item content vectors,
+an encoder 512-256-128 to a latent of 32, 3 levels of 256 codes, batch
+1 024) on 32 768 synthetic clustered items (``sid_items``). 3 fp32
+steps on the card against the CPU from the same CPU-drawn weights and
+batches, the CPU's codes replayed on the card where its two least
+distances lie within SID_TIE_GAP (``CodeReplay``, flips counted): loss,
+outputs, gradients and the state dict within 1e-4 of each tensor's
+max, the codebooks' gradients 0; an epoch through ``train_and_evaluate``
+with ``unique_ratio`` and ``rel_loss`` within 0.02 of a CPU run from
+the same weights, ``evaluate`` equal to it, ``predict_checkpoint``'s
+``codes`` through both SID tools with CSV output (the quality tool's
+unique share equal to ``unique_ratio``); the resident step, its idle
+share, and the host ms of the 768-wide list column's parse. RQ-KMeans
+(codebooks 256 x 3, ``train_sample_size`` 32 768): the fit's seconds on
+the card, and a fit on SID_KMEANS_CHECK samples against the CPU's with
+the CPU's assignments replayed (codebooks within 1e-4, codes equal).
+criteo_synth deepfm.config at its published width read from CSV, its
+int_0..int_11 through AutoDis (16 channels, assumed), int_12 through an
+MLP embedding, cat_1's table sized by a vocab file: 3 fp32 steps card
+against CPU (1e-4), 12 BF16 steps through ``train_and_evaluate`` with
+kernel #3 once per written packed group and step and the AUC within
+0.02 of a CPU run, one real step's row writes bit-equal to the plain
+version, and the CSV loader's examples/s beside the parquet loader's.
 
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
@@ -1150,7 +1176,8 @@ def train_mode_outputs(model, batch):
     total = model.total_loss(losses)
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(total, params, allow_unused=True)
-    return (total.detach(), {k: v.detach() for k, v in preds.items()},
+    return (total.detach(), {k: v.detach() for k, v in preds.items()
+                             if isinstance(v, torch.Tensor)},
             {n: g for n, g in zip(names, grads) if g is not None})
 
 
@@ -2734,11 +2761,30 @@ ZOO_CPU_BOUND = 0.02
 ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS = 262_144, 65_536  # ensure_dataset's sizes
 ZOO_AUC_BOUND = 0.02  # the JAX package's bound for a run off the TPU
 ZOO_PREDICT_BATCHES = 2
-ZOO_WARMUP, ZOO_TIMED_STEPS, ZOO_PROFILED_STEPS = 5, 20, 10
+# the resident step's timing: 20 timed and 10 profiled steps until
+# train_sid joined the script
+ZOO_WARMUP, ZOO_TIMED_STEPS, ZOO_PROFILED_STEPS = 5, 10, 5
 ZOO_BATCH = 4096
 ZOO_SUMMARY = ("metrics", "step_ms_median", "examples_per_s",
                "idle_share_profiled_steps", "max_memory_allocated_gb",
                "evaluate_s", "train_and_evaluate_s", "row_write_launches")
+
+
+_DATA_ROOT = []
+
+
+def criteo_synth_data(train_rows: int, eval_rows: int) -> dict:
+    """The criteo_synth rows (``synthetic.ensure_dataset``) in one
+    directory for the whole run, so that the phases that read the same
+    sizes generate them once; the directory goes at exit."""
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+
+    if not _DATA_ROOT:
+        root = tempfile.TemporaryDirectory()
+        atexit.register(root.cleanup)
+        _DATA_ROOT.append(root)
+    return synthetic.ensure_dataset(_DATA_ROOT[0].name, train_rows,
+                                    eval_rows)
 
 
 def zoo_config_dir() -> str:
@@ -3248,7 +3294,6 @@ def phase_train_zoo():
     steps (``ZOO_LANE_OFF``)."""
     import pyarrow.parquet as pq
 
-    from torcheasyrec_tpu_torch.benchmark import synthetic
     from torcheasyrec_tpu_torch.ops.row_write import write_rows
 
     with open(os.path.join(zoo_config_dir(), "base_eval_metric.json")) as f:
@@ -3257,7 +3302,7 @@ def phase_train_zoo():
     launches, lane_off = 0, 0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        paths = synthetic.ensure_dataset(tmp, ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
+        paths = criteo_synth_data(ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
         out["data_s"] = time.perf_counter() - t0
         pred_in = os.path.join(tmp, "predict_in.parquet")
         pq.write_table(pq.read_table(paths["eval"]).slice(
@@ -4424,8 +4469,12 @@ ZOO_REST_METRICS = {"xdeepfm": ("auc", "grouped_auc_cat_10"),
 # 3.8 s a step (NVIDIA H100 80GB HBM3 host, 700.00 W card; PERF.md §6);
 # WuKong's and PEPNet's CPU epochs (37.7-50.1 s) are cut to an eighth to
 # keep the whole script near 900 s once phase train_sharded joined it
-# dc2vr cut from its epoch of 64 steps (33 s there), for train_zch's time
-ZOO_REST_STEPS = {"xdeepfm": 8, "wukong": 8, "pepnet": 8, "dc2vr": 32}
+# dc2vr cut from its epoch of 64 steps (33 s there), for train_zch's time,
+# then to 16 for train_sid's
+ZOO_REST_STEPS = {"xdeepfm": 8, "wukong": 8, "pepnet": 8, "dc2vr": 16}
+# the rows its data holds: enough for DC2VR's 16 steps; the eval set cut
+# from 65 536 (the CPU reference's eval of xDeepFM) for train_sid's time
+ZOO_REST_ROWS = (65_536, 16_384)
 ZOO_REST_CHECK_STEPS = 3  # fp32 steps on the card against the CPU
 ZOO_REST_CARD_TOL = 1e-4  # max abs error over the CPU's max abs, per tensor
 # a linear's bias before a batch norm has a gradient of 0 up to rounding
@@ -4745,7 +4794,7 @@ def phase_train_zoo_rest():
     seconds, launches = {}, 0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        paths = synthetic.ensure_dataset(tmp, ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
+        paths = synthetic.ensure_dataset(tmp, *ZOO_REST_ROWS)
         pred_in = os.path.join(tmp, "predict_in.parquet")
         pq.write_table(pq.read_table(paths["eval"]).slice(
             0, ZOO_PREDICT_BATCHES * ZOO_BATCH), pred_in)
@@ -5272,16 +5321,16 @@ TDM_LAYERS = (0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6)  # negatives by depth
 # needs 5)
 TDM_STEPS = 5
 TDM_RETRAIN_STEPS = 5  # on the rebuilt tree (cut from 32, then 8)
-TDM_EVAL_ROWS = 2048  # cut from 4 096, for train_zch's time
+TDM_EVAL_ROWS = 1024  # cut from 4 096, for train_zch's and train_sid's time
 TDM_WORKERS = 4
 TDM_SAMPLER_BATCHES = 5
 TDM_SHM_ITEMS = 4_000_000  # the shared item table, cut to fit /dev/shm
 TDM_SHM_WORKERS = 4
-TDM_LOADER_STEPS = 16  # the loader-fed window, after LOADER_WARMUP steps
+TDM_LOADER_STEPS = 8  # the loader-fed window after LOADER_WARMUP (was 16)
 TDM_RECALL_NUM, TDM_N_CLUSTER = 50, 2
-TDM_RETRIEVAL_USERS = 256  # cut from 1 024: the CPU reference's time
+TDM_RETRIEVAL_USERS = 128  # cut from 1 024, then 256: the CPU's time
 TDM_CPU_BOUND = 0.02  # AUC and recall@50 on the card against the CPU's
-TDM_PREDICT_ROWS = 2048  # within TDM_EVAL_ROWS (cut from 4 096)
+TDM_PREDICT_ROWS = 1024  # within TDM_EVAL_ROWS (cut from 4 096)
 # the node predict from the embedding artifact, in a process of its own
 TDM_NODE_PREDICT = r"""
 import sys
@@ -5907,7 +5956,6 @@ def phase_train_tdm(smi):
     import pyarrow.parquet as pq
 
     from torcheasyrec_tpu_torch import main as port_main
-    from torcheasyrec_tpu_torch.benchmark import synthetic
     from torcheasyrec_tpu_torch.ops.row_write import write_rows
     from torcheasyrec_tpu_torch.utils import checkpoint_util
     from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
@@ -5921,7 +5969,7 @@ def phase_train_tdm(smi):
         return res
 
     with tempfile.TemporaryDirectory() as tmp:
-        paths = timed("data", synthetic.ensure_dataset, tmp, ZOO_TRAIN_ROWS,
+        paths = timed("data", criteo_synth_data, ZOO_TRAIN_ROWS,
                       ZOO_EVAL_ROWS)
         paths["tdm_eval"] = os.path.join(tmp, "tdm_eval.parquet")
         evals = pq.read_table(paths["eval"])
@@ -6853,7 +6901,7 @@ def phase_train_sharded(smi):
                               "criteo_synth/deepfm.config"]["metrics"]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        paths = synthetic.ensure_dataset(tmp, ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
+        paths = criteo_synth_data(ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
         hstu_paths = synthetic.ensure_hstu_dataset(
             os.path.join(tmp, "hstu"), GR_TRAIN_ROWS, GR_EVAL_ROWS)
         texts, labels = synth_texts(paths)
@@ -7757,6 +7805,642 @@ def phase_train_zch(smi, sharded_auc=None):
     return launches
 
 
+# --- phase train_sid: semantic-ID generation, dense embeddings, CSV --------
+
+SID_DIM = 768  # TIGER's item content vectors (Sentence-T5)
+SID_HIDDEN = (512, 256, 128)  # TIGER's RQ-VAE encoder; the decoder mirrors it
+SID_LATENT = 32
+SID_CODEBOOK = (256, 256, 256)
+SID_BATCH = 1024
+SID_ITEMS = 32_768  # synthetic items, 32 steps an epoch
+SID_EVAL_ITEMS = 4_096
+SID_CLUSTERS = 256
+SID_CHECK_STEPS = 3
+SID_CARD_TOL = 1e-4  # fp32: max abs error over the CPU's max abs, per tensor
+# a code on the card may differ from the CPU's only where the CPU's two
+# least distances lie within this share of the batch's largest distance
+SID_TIE_GAP = 1e-5
+SID_CPU_BOUND = 0.02  # unique_ratio, rel_loss, AUC against a CPU run
+SID_TIMED_STEPS = 20
+SID_PROFILED_STEPS = 5
+SID_PARSE_BATCHES = 4
+SID_KMEANS_CHECK = 4_096  # samples of the card-against-CPU fit: the CPU's time
+SID_AUTODIS_CHANNELS = 16  # assumed: no published config sets it
+SID_DEEPFM_STEPS = 12
+SID_DEEPFM_ROWS = (SID_DEEPFM_STEPS * 4096, 2 * 4096)
+SID_VOCAB_FEATURE = "cat_1"  # 39 060 ids: a table past the dense lane
+SID_LOADER_BATCHES = 12
+
+
+class CodeReplay:
+    """The codes of ``torch.argmin`` (the quantizer's and the k-means
+    fit's), recorded on the CPU in call order and replayed on the card.
+    Two right fp32 runs can order two distances that lie within rounding
+    differently; replaying the CPU's code makes both runs compute one
+    function, held at the bound. A card code that differs is accepted only
+    where the CPU's two least distances lie within ``gap`` of the batch's
+    largest distance, and is counted."""
+
+    def __init__(self, gap: float) -> None:
+        self.gap, self.codes, self.record, self.at = gap, [], True, 0
+        self.flips, self.worst = 0, 0.0
+        self._argmin = torch.argmin
+
+    def start(self, record: bool) -> None:
+        self.record, self.at = record, 0
+        if record:
+            self.codes = []
+
+    def done(self) -> None:
+        if not self.record and self.at != len(self.codes):
+            raise AssertionError(f"{self.at} argmins on the card, "
+                                 f"{len(self.codes)} on the CPU")
+
+    def argmin(self, x, dim=None, keepdim=False):
+        own = self._argmin(x, dim=dim, keepdim=keepdim)
+        if self.record:
+            x = x.detach()
+            two = torch.topk(x, 2, dim=dim, largest=False).values
+            gap = two.select(dim, 1) - two.select(dim, 0)
+            self.codes.append((own, gap, float(x.abs().max())))
+            return own
+        ref, gap, scale = self.codes[self.at]
+        self.at += 1
+        ref = ref.to(own.device)
+        differ = (ref != own).cpu()
+        if bool(differ.any()):
+            self.flips += int(differ.sum())
+            share = float(gap[differ].max()) / max(scale, 1e-30)
+            self.worst = max(self.worst, share)
+            if share > self.gap:
+                raise AssertionError(f"a code flips at a gap of {share:.3g} "
+                                     "of the largest distance: not a tie")
+        return ref
+
+    def __enter__(self):
+        torch.argmin = self.argmin
+        return self
+
+    def __exit__(self, *exc):
+        torch.argmin = self._argmin
+
+
+def sid_items(path, n: int, seed: int) -> str:
+    """``n`` synthetic item content vectors of SID_DIM floats (a
+    list<float32> column ``item_emb``) around SID_CLUSTERS fixed centres
+    of unit scale, with an ``item_id`` and a zero ``label``."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    centres = np.random.default_rng(SEED).normal(
+        size=(SID_CLUSTERS, SID_DIM)).astype(np.float32)
+    r = np.random.default_rng(seed)
+    x = (centres[r.integers(0, SID_CLUSTERS, n)]
+         + 0.3 * r.normal(size=(n, SID_DIM)).astype(np.float32))
+    emb = pa.ListArray.from_arrays(
+        pa.array(np.arange(0, n * SID_DIM + 1, SID_DIM, dtype=np.int32)),
+        pa.array(x.reshape(-1)))
+    pq.write_table(pa.table({
+        "item_id": pa.array(np.arange(n, dtype=np.int64) + seed * 10 ** 6),
+        "item_emb": emb, "label": pa.array(np.zeros(n, np.float32))}), path)
+    return path
+
+
+def sid_text(paths, model_dir, model: str) -> str:
+    """A SID config over ``item_emb`` (group "all"): TIGER's RQ-VAE
+    (``model`` "rqvae": encoder 768-512-256-128-32, 3 levels of 256 codes,
+    commitment weight 0.25) or RQ-KMeans on the raw vectors; adam at lr
+    1e-3 (TIGER trains with Adagrad at 0.4: assumed here)."""
+    block = (
+        f"sid_rqvae {{ embed_dim: {SID_LATENT} hidden_dims: "
+        f"{list(SID_HIDDEN)} codebook: {list(SID_CODEBOOK)} }}\n"
+        "  losses { recon_loss {} }\n"
+        "  losses { commitment_loss { latent_weight: [1.0, 0.25] } }"
+        if model == "rqvae" else
+        f"sid_rqkmeans {{ codebook: {list(SID_CODEBOOK)} "
+        f"train_sample_size: {SID_ITEMS} }}\n"
+        "  losses { recon_loss {} }")
+    return f"""train_input_path: "{paths['train']}"
+eval_input_path: "{paths['eval']}"
+model_dir: "{model_dir}"
+train_config {{
+  sparse_optimizer {{ adagrad_optimizer {{ lr: 0.01 }} constant_learning_rate {{}} }}
+  dense_optimizer {{ adam_optimizer {{ lr: 0.001 }} constant_learning_rate {{}} }}
+  num_epochs: 1
+  save_checkpoints_steps: 100000
+  log_step_count_steps: 8
+}}
+data_config {{
+  batch_size: {SID_BATCH}
+  dataset_type: ParquetDataset
+  fg_mode: FG_NONE
+  label_fields: "label"
+}}
+feature_configs {{ raw_feature {{ feature_name: "item_emb" value_dim: {SID_DIM} }} }}
+model_config {{
+  feature_groups {{ group_name: "all" feature_names: "item_emb" group_type: DEEP }}
+  {block}
+}}
+"""
+
+
+def sid_card_vs_cpu(cfg, batches) -> dict:
+    """SID_CHECK_STEPS fp32 RQ-VAE steps on the card and on the CPU from
+    the same CPU-drawn weights and batches, the CPU's codes replayed on
+    the card (``CodeReplay``): before each step the loss, the outputs and
+    every dense gradient within SID_CARD_TOL of the CPU's max, the
+    codebooks' gradients 0 on both; each step's losses; after the steps
+    the state dict."""
+    cpu_model, _, _, cpu_state, cpu_step = build_trainer(cfg, device="cpu")
+    card_model, _, _, card_state, card_step = build_trainer(cfg)
+    card_model.load_state_dict(cpu_model.state_dict())
+    cmp = CpuComparison("train_sid rqvae", SID_CARD_TOL, 0.0)
+    replay = CodeReplay(SID_TIE_GAP)
+    books = sorted(n for n, _ in cpu_model.named_parameters()
+                   if n.endswith(".codebook"))
+
+    def paired(card_fn, cpu_fn):
+        replay.start(record=True)
+        ref = cpu_fn()
+        replay.start(record=False)
+        got = card_fn()
+        replay.done()
+        return ref, got
+
+    with replay:
+        for i, batch in enumerate(batches):
+            card_batch = batch.to("cuda")
+            (ref_loss, ref_preds, ref_grads), (loss, preds, grads) = paired(
+                lambda: train_mode_outputs(card_model, card_batch),
+                lambda: train_mode_outputs(cpu_model, batch))
+            for b in books:
+                for g in (ref_grads, grads):
+                    if b in g and bool(g[b].any()):
+                        raise AssertionError(f"train_sid: {b} has a gradient")
+            ref_grads = {k: v for k, v in ref_grads.items() if k not in books}
+            grads = {k: v for k, v in grads.items() if k not in books}
+            cmp.compare("loss", ref_loss, loss)
+            for k in ("codes", "recon", "__z", "__x"):
+                cmp.compare(k, ref_preds[k], preds[k])
+            cmp.compare_grads(ref_grads, grads)
+            (cpu_state, cpu_m), (card_state, card_m) = paired(
+                lambda: card_step(card_state, card_batch),
+                lambda: cpu_step(cpu_state, batch))
+            for k in cpu_m:
+                cmp.compare(f"step {i + 1} {k}", torch.as_tensor(cpu_m[k]),
+                            torch.as_tensor(card_m[k]))
+    ref_sd, sd = cpu_model.state_dict(), card_model.state_dict()
+    for k in ref_sd:
+        cmp.compare(f"state:{k}", ref_sd[k], sd[k])
+    for b in books:
+        # no gradient: the codebooks keep their initial bits
+        if not torch.equal(ref_sd[b], sd[b].cpu()):
+            raise AssertionError(f"train_sid: {b} moved")
+    errs = cmp.errs
+    out = {"steps": len(batches), "batch": SID_BATCH, "compared":
+           len(errs), "max_rel_err": max(errs.values()),
+           "max_rel_err_by_kind": {
+               kind: max((v for k, v in errs.items() if k.startswith(kind)),
+                         default=None)
+               for kind in ("grad:", "state:", "step ", "recon")},
+           "codebook_gradients": "exactly 0 (none reaches a codebook)",
+           "codes_replayed_per_step": len(replay.codes),
+           "code_ties_flipped": replay.flips,
+           "worst_flip_gap_share": replay.worst, "tie_gap": SID_TIE_GAP,
+           "tol": SID_CARD_TOL}
+    del cpu_model, card_model, cpu_state, card_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def sid_resident(cfg, batch) -> dict:
+    """The RQ-VAE step on a resident batch: median of SID_TIMED_STEPS
+    synchronised steps after 3, a window, the idle share of
+    SID_PROFILED_STEPS profiled steps."""
+    model, _, _, state, step = build_trainer(cfg)
+    card = batch.to("cuda")
+    for _ in range(3):
+        state, _ = step(state, card)
+    losses, step_ms, window = timed_steps(step, state, card, 0,
+                                          SID_TIMED_STEPS)
+    profile = profile_forward(lambda: [step(state, card)
+                                       for _ in range(SID_PROFILED_STEPS)])
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"step_ms_median": float(np.median(step_ms)),
+            "step_ms_range": [min(step_ms), max(step_ms)],
+            "window_step_ms": window,
+            "examples_per_s": SID_BATCH / window * 1e3,
+            "idle_share_profiled_steps": profile.get("device_idle_share"),
+            "busy_ms_per_step": (profile.get("device_busy_ms", 0.0)
+                                 / SID_PROFILED_STEPS),
+            "step_profile": profile}
+
+
+def sid_parse_ms(path) -> dict:
+    """Host ms of the 768-wide list<float> column's parse (the rows
+    stacked one by one in ``_parse_fg_encoded_dense``) per batch of
+    SID_BATCH, beside the whole batch's parse."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.features.feature import (
+        _parse_fg_encoded_dense,
+    )
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    table = pq.read_table(path).slice(0, SID_PARSE_BATCHES * SID_BATCH)
+    cfg = parse_pipeline_config(sid_text({"train": path, "eval": path}, "x",
+                                         "rqvae"))
+    from torcheasyrec_tpu_torch import main as port_main
+
+    parser = DataParser(port_main._create_features(cfg), labels=["label"])
+    col_ms, batch_ms = [], []
+    for i in range(SID_PARSE_BATCHES):
+        part = table.slice(i * SID_BATCH, SID_BATCH)
+        cols = {c: part[c].combine_chunks() for c in part.column_names}
+        t0 = time.perf_counter()
+        _parse_fg_encoded_dense("item_emb", cols["item_emb"])
+        col_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        parser.parse_to_batch(cols)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"list_column_parse_ms_median": float(np.median(col_ms)),
+            "batch_parse_ms_median": float(np.median(batch_ms)),
+            "batches": SID_PARSE_BATCHES, "rows_per_batch": SID_BATCH,
+            "floats_per_row": SID_DIM}
+
+
+def sid_tools(pred, tmp) -> dict:
+    """Both SID CLIs through their argument parsers on the predicted
+    ``codes`` table, writing CSV: the collision map (random strategy: the
+    table has no candidate codes), the resolved groups, and the quality
+    summary and layer statistics."""
+    import dataclasses
+    from unittest import mock
+
+    import pyarrow.csv as pacsv
+
+    from torcheasyrec_tpu_torch.tools.sid import (
+        evaluate_sid_quality,
+        resolve_sid_collisions,
+    )
+
+    book = ",".join(map(str, SID_CODEBOOK))
+    out_dir = os.path.join(tmp, "sid_tools")
+    t0 = time.perf_counter()
+    res = resolve_sid_collisions.run(resolve_sid_collisions.build_parser()
+                                     .parse_args([
+        "--input_path", pred, "--codebook", book,
+        "--max_items_per_codebook", "1", "--strategy", "random",
+        "--writer_type", "CsvWriter",
+        "--output_path", os.path.join(out_dir, "map"),
+        "--resolved_sid_groups_output_path",
+        os.path.join(out_dir, "resolved")]))
+    resolve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with mock.patch.object(sys, "argv", [
+            "evaluate_sid_quality", "--input_path", pred, "--codebook", book,
+            "--writer_type", "CsvWriter", "--top_sids", "3",
+            "--summary_output", os.path.join(out_dir, "summary"),
+            "--layer_stats_output", os.path.join(out_dir, "layers")]):
+        evaluate_sid_quality.main()
+    quality_s = time.perf_counter() - t0
+    read = {k: pacsv.read_csv(os.path.join(out_dir, k, "part-0.csv"))
+            for k in ("map", "resolved", "summary", "layers")}
+    if read["map"].num_rows != SID_EVAL_ITEMS:
+        raise AssertionError(f"train_sid: {read['map'].num_rows} mapped items")
+    summary = {c: read["summary"].column(c)[0].as_py()
+               for c in read["summary"].column_names if c != "view"}
+    return {"resolve_s": resolve_s, "quality_s": quality_s,
+            "stats": dataclasses.asdict(res.stats),
+            "resolved_groups": read["resolved"].num_rows,
+            "quality": summary, "layer_rows": read["layers"].num_rows}
+
+
+def sid_kmeans(paths, tmp) -> dict:
+    """RQ-KMeans through ``train_and_evaluate`` on the card (the fit over
+    SID_ITEMS samples timed); then the fit on SID_KMEANS_CHECK samples on
+    the card against the CPU's from the same samples, the CPU's
+    assignments replayed on the card: codebooks within SID_CARD_TOL of
+    each one's max, the final codes equal."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.models.sid_models import SidRqkmeans
+
+    src = write_text(os.path.join(tmp, "rqkmeans.config"), sid_text(
+        paths, os.path.join(tmp, "rqkmeans"), "rqkmeans"))
+    fit_s, orig = [], SidRqkmeans.on_train_end
+
+    def timed_fit(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(self)
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+
+    SidRqkmeans.on_train_end = timed_fit
+    try:
+        t0 = time.perf_counter()
+        result = port_main.train_and_evaluate(src, device="cuda")
+        train_s = time.perf_counter() - t0
+    finally:
+        SidRqkmeans.on_train_end = orig
+    if len(fit_s) != 1:
+        raise AssertionError("train_sid: the k-means fit did not run once")
+
+    from torcheasyrec_tpu_torch.utils.config_util import load_pipeline_config
+
+    cfg = load_pipeline_config(src)
+    models = {side: port_main.build_model(cfg, dev)[0]
+              for side, dev in (("cpu", "cpu"), ("card", "cuda"))}
+    x = np.stack(pq.read_table(paths["train"], columns=["item_emb"]).column(
+        "item_emb").combine_chunks().slice(0, SID_KMEANS_CHECK).to_numpy(
+            zero_copy_only=False)).astype(np.float32)
+    replay = CodeReplay(SID_TIE_GAP)
+    codes = {}
+    secs = {}
+    with replay:
+        for side, record in (("cpu", True), ("card", False)):
+            m = models[side]
+            m.collect(x)
+            replay.start(record=record)
+            t0 = time.perf_counter()
+            m.on_train_end()
+            torch.cuda.synchronize()
+            secs[side] = time.perf_counter() - t0
+            dev = m.rq.vq_0.codebook.device
+            with torch.no_grad():
+                _, c, _ = m.rq(torch.from_numpy(x).to(dev))
+            codes[side] = c.cpu()
+            replay.done()
+    cmp = CpuComparison("train_sid rqkmeans", SID_CARD_TOL, 0.0)
+    ref_sd, sd = models["cpu"].state_dict(), models["card"].state_dict()
+    for k in ref_sd:
+        cmp.compare(k, ref_sd[k], sd[k])
+    if not torch.equal(codes["cpu"], codes["card"]):
+        raise AssertionError("train_sid: the fitted codes differ")
+    del models
+    torch.cuda.empty_cache()
+    return {"result": result, "train_and_evaluate_s": train_s,
+            "fit_s_card": fit_s[0], "fit_samples": SID_ITEMS,
+            "codebook": list(SID_CODEBOOK), "check_samples":
+            SID_KMEANS_CHECK, "check_fit_s": secs,
+            "codebook_max_rel_err": max(cmp.errs.values()),
+            "assignment_ties_flipped": replay.flips,
+            "worst_flip_gap_share": replay.worst,
+            "argmins_replayed": len(replay.codes), "tol": SID_CARD_TOL}
+
+
+def sid_deepfm_text(paths, model_dir, vocab, fp32=False) -> str:
+    """criteo_synth deepfm.config at its published width read from CSV:
+    int_0..int_11 through AutoDis (SID_AUTODIS_CHANNELS channels, dim
+    16), int_12 through an MLP embedding (dim 16), SID_VOCAB_FEATURE's
+    table sized by ``vocab``. ``fp32``: fp32 compute, adam's and rowwise
+    adagrad's eps 1e-4 (``zoo_rest_text``'s reasons)."""
+    from torcheasyrec_tpu_torch.benchmark.synthetic import CRITEO_BUCKETS
+
+    i = int(SID_VOCAB_FEATURE.split("_")[1])
+    replace = [(f'raw_feature {{ feature_name: "int_{j}" }}',
+                f'raw_feature {{ feature_name: "int_{j}" embedding_dim: 16 '
+                f"autodis {{ num_channels: {SID_AUTODIS_CHANNELS} }} }}")
+               for j in range(12)]
+    replace += [('raw_feature { feature_name: "int_12" }',
+                 'raw_feature { feature_name: "int_12" embedding_dim: 16 '
+                 "mlp {} }"),
+                (f'feature_name: "{SID_VOCAB_FEATURE}" num_buckets: '
+                 f"{CRITEO_BUCKETS[i]} ",
+                 f'feature_name: "{SID_VOCAB_FEATURE}" vocab_file: "{vocab}" '),
+                ("dataset_type: ParquetDataset",
+                 "dataset_type: CsvDataset\n  with_header: true")]
+    if fp32:
+        replace += [('mixed_precision: "BF16"', ""),
+                    ("adam_optimizer { lr: 0.001 }",
+                     "adam_optimizer { lr: 0.001 eps: 1e-4 }"),
+                    ("rowwise_adagrad_optimizer { lr: 0.01 }",
+                     "rowwise_adagrad_optimizer { lr: 0.01 eps: 1e-4 }")]
+    return criteo_text("deepfm", model_dir, paths, replace)
+
+
+def sid_deepfm(tmp) -> dict:
+    """criteo_synth DeepFM with dense embeddings, a vocab-file table and
+    CSV input (``sid_deepfm_text``): 3 fp32 steps card against CPU
+    (``zoo_rest_card_vs_cpu``); a BF16 epoch of SID_DEEPFM_STEPS through
+    ``train_and_evaluate`` with kernel #3 once per written packed group
+    and step, its AUC within SID_CPU_BOUND of a CPU run from the same
+    weights; one resident step's row writes bit-equal to the plain
+    version's; the CSV loader's examples/s beside the parquet loader's
+    on the same rows."""
+    import pyarrow.csv as pacsv
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.benchmark.synthetic import CRITEO_BUCKETS
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    seconds = {}
+    t0 = time.perf_counter()
+    pq_paths = synthetic.ensure_dataset(os.path.join(tmp, "criteo"),
+                                        *SID_DEEPFM_ROWS)
+    cols = (["label"] + [f"int_{j}" for j in range(13)]
+            + [f"cat_{j}" for j in range(26)])
+    paths = {}
+    for k in ("train", "eval"):
+        paths[k] = os.path.join(tmp, f"criteo_{k}.csv")
+        pacsv.write_csv(pq.read_table(pq_paths[k], columns=cols), paths[k])
+    vocab = os.path.join(tmp, "vocab.txt")
+    i = int(SID_VOCAB_FEATURE.split("_")[1])
+    with open(vocab, "w") as f:
+        f.writelines(f"v{j}\n" for j in range(CRITEO_BUCKETS[i]))
+    seconds["data"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    fp32_text = sid_deepfm_text(paths, os.path.join(tmp, "x"), vocab, True)
+    check = zoo_rest_card_vs_cpu("train_sid deepfm", fp32_text,
+                                 pq_paths["train"])
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+
+    model_dir = os.path.join(tmp, "deepfm_dense_emb")
+    src = write_text(os.path.join(tmp, "deepfm_dense_emb.config"),
+                     sid_deepfm_text(paths, model_dir, vocab))
+    cfg = parse_pipeline_config(open(src).read())
+    init = cpu_init(src, os.path.join(tmp, "deepfm_dense_emb_init.pt"))
+    probe, _ = port_main.build_model(cfg, "cpu")
+    eg = probe.embedding_group
+    written = sorted(gk for gk, g in eg.engine.groups.items()
+                     if g.packed and any(t.name not in g.dense_tables
+                                         for t in g.specs))
+    dense_emb = {k: type(v).__name__ for k, v in eg.dense_emb.items()}
+    vocab_rows = eg.tables[f"{SID_VOCAB_FEATURE}_emb"].shape[0]
+    del probe, eg
+    if len(dense_emb) != 13 or vocab_rows != CRITEO_BUCKETS[i]:
+        raise AssertionError(f"train_sid deepfm: {dense_emb}, {vocab_rows}")
+    write_rows.launches = 0
+    t0 = time.perf_counter()
+    result = port_main.train_and_evaluate(src, fine_tune_checkpoint=init,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    seconds["train"] = time.perf_counter() - t0
+    launches = write_rows.launches
+    if (result["step"] != SID_DEEPFM_STEPS
+            or launches != SID_DEEPFM_STEPS * len(written)):
+        raise AssertionError(
+            f"train_sid deepfm: {result['step']} steps, {launches} row "
+            f"writes for the written packed groups {written}")
+    t0 = time.perf_counter()
+    cpu = port_main.train_and_evaluate(
+        write_text(os.path.join(tmp, "deepfm_dense_emb_cpu.config"),
+                   sid_deepfm_text(paths, model_dir + "_cpu", vocab)),
+        fine_tune_checkpoint=init, device="cpu")
+    seconds["train_cpu"] = time.perf_counter() - t0
+    dist = result["auc"] - cpu["auc"]
+    if not abs(dist) <= SID_CPU_BOUND:
+        raise AssertionError(f"train_sid deepfm: auc {result['auc']} on the "
+                             f"card is {dist:+.4f} from {cpu['auc']}")
+
+    # one real step's row writes, the kernel against the plain version
+    model, features, _, state, step = build_trainer(cfg)
+    batch = parquet_batches(pq_paths["train"], features, 1, 4096)[0]
+    calls = write_targets(model, step, state, batch.to("cuda"))
+    check_step_writes("train_sid deepfm", calls)
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # the loader alone from CSV and from parquet, the same rows
+    loaders = {}
+    for kind, path, c in (("csv", paths["train"], cfg),
+                          ("parquet", pq_paths["train"], parse_pipeline_config(
+                              open(src).read().replace(
+                                  "dataset_type: CsvDataset\n  with_header: "
+                                  "true", "dataset_type: ParquetDataset")))):
+        dl = create_dataloader(c.data_config, port_main._create_features(c),
+                               path, mode="train", device="cuda")
+        loaders[kind] = loader_alone(dl, SID_LOADER_BATCHES)
+    return {"card_vs_cpu": check, "result": result, "steps":
+            SID_DEEPFM_STEPS, "row_write_launches": launches,
+            "written_packed_groups": written, "dense_embeddings": dense_emb,
+            "autodis_channels_assumed": SID_AUTODIS_CHANNELS,
+            "vocab_file_rows": vocab_rows,
+            "cpu_reference": {"auc": cpu["auc"], "card_minus_cpu": dist,
+                              "bound": SID_CPU_BOUND},
+            "step_writes_bit_equal": len(calls),
+            "loader_alone": loaders, "seconds": seconds}
+
+
+def phase_train_sid(smi):
+    """Semantic-ID generation (TIGER's RQ-VAE and RQ-KMeans on synthetic
+    768-d item vectors), the SID tools, and criteo_synth DeepFM with
+    dense embeddings, a vocab file and CSV input. Returns kernel #3's
+    launches of the DeepFM's ``train_and_evaluate``."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.utils.config_util import load_pipeline_config
+
+    out, seconds = {"phase": "train_sid", "nvidia_smi": smi}, {}
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        seconds[key] = time.perf_counter() - t0
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"train": os.path.join(tmp, "sid_train.parquet"),
+                 "eval": os.path.join(tmp, "sid_eval.parquet")}
+        t0 = time.perf_counter()
+        sid_items(paths["train"], SID_ITEMS, SEED + 1)
+        sid_items(paths["eval"], SID_EVAL_ITEMS, SEED + 2)
+        seconds["data"] = time.perf_counter() - t0
+        model_dir = os.path.join(tmp, "rqvae")
+        src = write_text(os.path.join(tmp, "rqvae.config"),
+                         sid_text(paths, model_dir, "rqvae"))
+        cfg = load_pipeline_config(src)
+        features = port_main._create_features(cfg)
+        batches = parquet_batches(paths["train"], features, SID_CHECK_STEPS,
+                                  SID_BATCH)
+        out["card_vs_cpu"] = timed("card_vs_cpu", sid_card_vs_cpu, cfg,
+                                   batches)
+        emit({"phase": "train_sid_card_vs_cpu", **out["card_vs_cpu"]})
+
+        # an epoch on the card from CPU-drawn weights, against the CPU
+        init = cpu_init(src, os.path.join(tmp, "rqvae_init.pt"))
+        t0 = time.perf_counter()
+        with step_clock(port_main) as stamps:
+            result = port_main.train_and_evaluate(
+                src, fine_tune_checkpoint=init, device="cuda")
+        seconds["train"] = time.perf_counter() - t0
+        loader_fed = epoch_steps(stamps)
+        loader_fed["examples_per_s"] = (SID_BATCH / loader_fed[
+            "window_step_ms"] * 1e3)
+        t0 = time.perf_counter()
+        cpu = port_main.train_and_evaluate(
+            write_text(os.path.join(tmp, "rqvae_cpu.config"),
+                       sid_text(paths, model_dir + "_cpu", "rqvae")),
+            fine_tune_checkpoint=init, device="cpu")
+        seconds["train_cpu"] = time.perf_counter() - t0
+        dists = {}
+        for k in ("unique_ratio", "rel_loss"):
+            dists[k] = result[k] - cpu[k]
+            if not abs(dists[k]) <= SID_CPU_BOUND:
+                raise AssertionError(f"train_sid: {k} {result[k]} on the card"
+                                     f" is {dists[k]:+.4f} from {cpu[k]}")
+        cfg_path = os.path.join(model_dir, "pipeline.config")
+        again = timed("evaluate", port_main.evaluate, cfg_path, None, None,
+                      "eval_result.txt", "cuda")
+        for k in ("unique_ratio", "rel_loss"):
+            if again[k] != result[k]:
+                raise AssertionError(f"train_sid: evaluate() {k} {again[k]}"
+                                     f" against {result[k]}")
+        pred = os.path.join(tmp, "sid_pred.parquet")
+        n_pred = timed("predict", port_main.predict_checkpoint, cfg_path,
+                       paths["eval"], pred, None, "item_id", None, None,
+                       "cuda")
+        tools = timed("tools", sid_tools, pred, tmp)
+        q = tools["quality"]
+        if q["unique_sid"] / q["total"] != result["unique_ratio"]:
+            raise AssertionError(
+                f"train_sid: the quality tool's unique share "
+                f"{q['unique_sid']} / {q['total']} against the eval's "
+                f"unique_ratio {result['unique_ratio']}")
+        out["train"] = {
+            "result": result, "predict_rows": n_pred,
+            "cpu_reference": {**{k: cpu[k] for k in dists},
+                              "card_minus_cpu": dists,
+                              "bound": SID_CPU_BOUND},
+            "loader_fed_step": loader_fed, "tools": tools}
+        emit({"phase": "train_sid_rqvae", **out["train"]})
+        out["resident"] = timed("resident", sid_resident, cfg, batches[0])
+        out["parse"] = timed("parse", sid_parse_ms, paths["train"])
+        out["kmeans"] = timed("kmeans", sid_kmeans, paths, tmp)
+        emit({"phase": "train_sid_rqkmeans", **out["kmeans"]})
+        out["deepfm"] = timed("deepfm", sid_deepfm, tmp)
+    out["seconds"] = seconds
+    r, d = out["resident"], out["deepfm"]
+    out["summary"] = {
+        "rqvae_card_vs_cpu_max_rel_err": out["card_vs_cpu"]["max_rel_err"],
+        "code_ties_flipped": out["card_vs_cpu"]["code_ties_flipped"],
+        "unique_ratio": result["unique_ratio"], "rel_loss":
+        result["rel_loss"], "card_minus_cpu": dists,
+        "step_ms": r["step_ms_median"], "examples_per_s":
+        r["examples_per_s"], "idle_share": r["idle_share_profiled_steps"],
+        "list_column_parse_ms": out["parse"]["list_column_parse_ms_median"],
+        "kmeans_fit_s_card": out["kmeans"]["fit_s_card"],
+        "kmeans_codebook_max_rel_err": out["kmeans"]["codebook_max_rel_err"],
+        "deepfm_card_vs_cpu_max_rel_err": d["card_vs_cpu"]["max_rel_err"],
+        "deepfm_auc": d["result"]["auc"],
+        "deepfm_auc_card_minus_cpu": d["cpu_reference"]["card_minus_cpu"],
+        "csv_loader_examples_per_s": d["loader_alone"]["csv"][
+            "examples_per_s"],
+        "parquet_loader_examples_per_s": d["loader_alone"]["parquet"][
+            "examples_per_s"],
+        "row_write_launches": d["row_write_launches"]}
+    emit(out)
+    return d["row_write_launches"]
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7811,6 +8495,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     zch_launches = timed("train_zch", phase_train_zch, smi,
                          SHARDED_AUC.get("world_2"))
+    torch.cuda.empty_cache()
+    sid_launches = timed("train_sid", phase_train_sid, smi)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -7883,7 +8569,7 @@ def main() -> int:
                    + lane_off_launches + options_writes
                    + gr_launches["row_write"] + zoo_rest_launches
                    + export_writes + tdm_launches + sharded["row_write"]
-                   + zch_launches,
+                   + zch_launches + sid_launches,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -7897,7 +8583,8 @@ def main() -> int:
                        "export": export_writes,
                        "train_tdm": tdm_launches,
                        "train_sharded": sharded["row_write"],
-                       "train_zch": zch_launches}),
+                       "train_zch": zch_launches,
+                       "train_sid": sid_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

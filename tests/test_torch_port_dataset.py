@@ -241,8 +241,18 @@ def test_sampler_raises():
 
 
 def test_csv_input_raises():
-    with pytest.raises(NotImplementedError, match="CSV"):
-        port_dataset.create_reader("in.csv", 8)
+    """CSV input is ported (tests/test_torch_port_csv.py holds it against
+    the JAX package); the readers still unported, Kafka and ODPS, raise."""
+    from torcheasyrec_tpu_torch.datasets.csv_dataset import CsvReader
+    from torcheasyrec_tpu_torch.protos import data_pb2
+
+    with pytest.raises(FileNotFoundError, match="no csv files"):
+        port_dataset.create_reader("missing_dir/*.csv", 8)
+    assert port_dataset._READER_CLASS_MAP["CsvReader"] is CsvReader
+    for kind in ("KafkaDataset", "OdpsDataset"):
+        with pytest.raises(NotImplementedError, match=kind):
+            port_dataset.create_reader(
+                "in", 8, dataset_type=data_pb2.DatasetType.Value(kind))
 
 
 # --- one test per fault of the port's old parquet reading ---------------------

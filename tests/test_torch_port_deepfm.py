@@ -199,34 +199,46 @@ def test_rank_model_heads_and_weighted_losses_match_jax(head):
         "deep { hidden_units: [32, 16] }",
         'deep { hidden_units: [32, 16] activation: "nn.Dice" }'), "Dice"),
 ])
-def test_unported_rank_options_raise(text, match):
+def test_unported_rank_options_raise(text, match, tmp_path):
     """Variational dropout, MLP batch norm and Dice are ported now
     (tests/test_torch_port_zoo_rest.py holds them against the JAX
-    package): each case's config builds with its module. Options still
-    unported raise NotImplementedError: an MLP dense embedding, vocab files
-    and fg_mode FG_NORMAL, one a case (host-offloaded tables, the first
-    case's until they were ported, are held in
+    package): each case's config builds with its module. So do an MLP
+    dense embedding and a vocab file, the next two cases' until they were
+    ported (tests/test_torch_port_dense_emb.py holds them against the JAX
+    package). Options still unported raise NotImplementedError: a Kafka
+    input and fg_mode FG_NORMAL (host-offloaded tables, the first case's
+    until they were ported, are held in
     tests/test_torch_port_host_offload.py)."""
     _, model, _, _ = _port_model(text)
     if match == "variational_dropout":
         assert sorted(model.variational_dropout) == ["deep", "fm", "wide"]
+        _, model, _, _ = _port_model(deepfm_config_text().replace(
+            'raw_feature { feature_name: "int_0" }',
+            'raw_feature { feature_name: "int_0" embedding_dim: 4 mlp {} }'))
+        assert type(model.embedding_group.dense_emb["int_0"]).__name__ == (
+            "MLPEmbedding")
     elif match == "batch norm":
         assert all(layer.bn is not None for layer in model.deep_mlp.layers)
+        vocab = tmp_path / "vocab.txt"
+        vocab.write_text("a\nb\nc 11\n")
+        _, model, _, _ = _port_model(deepfm_config_text().replace(
+            'feature_name: "cat_0" num_buckets: 3000 ',
+            f'feature_name: "cat_0" vocab_file: "{vocab}" '))
+        assert model.embedding_group.tables["cat_0_emb"].shape[0] == 12
     else:
         assert all(type(layer.act).__name__ == "Dice"
                    for layer in model.deep_mlp.layers)
-    still, still_match = {
-        "variational_dropout": (deepfm_config_text().replace(
-            'raw_feature { feature_name: "int_0" }',
-            'raw_feature { feature_name: "int_0" mlp {} }'),
-            "dense embeddings"),
-        "batch norm": (deepfm_config_text(
-            feature_extra='vocab_file: "vocab.txt" '), "vocab_file"),
-        "Dice": (deepfm_config_text().replace(
-            "fg_mode: FG_NONE", "fg_mode: FG_NORMAL"), "FG_NONE"),
-    }[match]
-    with pytest.raises(NotImplementedError, match=still_match):
-        _port_model(still)
+    if match == "variational_dropout":
+        from torcheasyrec_tpu_torch.datasets.dataset import create_reader
+        from torcheasyrec_tpu_torch.protos import data_pb2
+
+        with pytest.raises(NotImplementedError, match="KafkaDataset"):
+            create_reader("topic", 8,
+                          dataset_type=data_pb2.DatasetType.KafkaDataset)
+        return
+    with pytest.raises(NotImplementedError, match="FG_NONE"):
+        _port_model(deepfm_config_text().replace(
+            "fg_mode: FG_NONE", "fg_mode: FG_NORMAL"))
 
 
 def test_dense_feature_in_wide_group_raises():

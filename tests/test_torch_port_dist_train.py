@@ -422,12 +422,16 @@ REFUSED = {
     "deepfm_jrc": ("DeepFM", "jrc_loss"),
     "mind": ("MIND", "MIND"),
     "hstu_match": ("HSTUMatch", "HSTU-Match"),
+    "sid_sinkhorn": ("SidRqvae", "Sinkhorn"),
+    "sid_contrastive": ("SidRqvae", "contrastive"),
+    "sid_rqkmeans": ("SidRqkmeans", "k-means"),
 }
 
 
 def _refused_texts(root):
     from test_torch_port_match import match_config_text
     from test_hstu_match import CONFIG as HSTU_MATCH_CONFIG
+    from test_torch_port_sid import CONTRASTIVE, RQVAE, sid_config_text
 
     deepfm_jrc = deepfm_config_text().replace(
         "  num_class: 1\n  losses { binary_cross_entropy {} }",
@@ -439,6 +443,12 @@ def _refused_texts(root):
             "mind_concat", {"items": "x", "pos": "x", "hard": "x"}),
         "hstu_match": HSTU_MATCH_CONFIG.format(
             train="x", eval="x", model_dir=str(root), item_table="x"),
+        "sid_sinkhorn": sid_config_text(RQVAE.replace(
+            "codebook: [16, 16]",
+            "codebook: [16, 16] sinkhorn_config { iters: 3 }")),
+        "sid_contrastive": sid_config_text(CONTRASTIVE, pair="flag"),
+        "sid_rqkmeans": sid_config_text("sid_rqkmeans { codebook: [8, 8] }"),
+        "sid_rqvae": sid_config_text(RQVAE),
     }
 
 
@@ -454,3 +464,10 @@ def test_unported_reduction_raises_at_world_2(name, refusals):
         msg = out[name]
         assert msg is not None, name
         assert model in msg and what in msg and "world size 2" in msg, msg
+
+
+def test_rqvae_builds_at_world_2(refusals):
+    """RQ-VAE without Sinkhorn or the contrastive loss reduces over the
+    batch only in its losses' means, which span the ranks: it builds."""
+    for out in refusals:
+        assert out["sid_rqvae"] is None

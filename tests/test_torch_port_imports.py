@@ -55,7 +55,11 @@ for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "utils.dist_util", "parallel.mesh", "parallel.planner",
              "parallel.zch", "parallel.host_spill", "utils.summary_util",
              "tools.dynamicemb.create_zch_init_ckpt",
-             "tools.dynamicemb.convert_zch_ckpt"):
+             "tools.dynamicemb.convert_zch_ckpt", "datasets.csv_dataset",
+             "modules.sid.quantizer", "models.sid_models",
+             "utils.sid.collision", "utils.sid.quality",
+             "tools.sid.resolve_sid_collisions",
+             "tools.sid.evaluate_sid_quality"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)

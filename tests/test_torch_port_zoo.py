@@ -515,13 +515,16 @@ def test_config_copy_equals_the_jax_original_but_its_paths(name):
     ('  task_towers { tower_name: "x" task_space_indicator_label: "label"'
      " losses { binary_cross_entropy {} } }\n", "task_space_indicator"),
 ])
-def test_unported_multi_task_options_raise(extra, match):
+def test_unported_multi_task_options_raise(extra, match, tmp_path):
     """Pareto loss weights and ``task_space_indicator_label`` are ported
     now (tests/test_torch_port_zoo_rest.py holds them against the JAX
-    package): each case's config builds. Options still unported raise
-    NotImplementedError: a dense embedding (AutoDis) and a vocab file,
-    one a case (host-offloaded tables, the second case's until they were
-    ported, are held in tests/test_torch_port_host_offload.py)."""
+    package): each case's config builds. So do a dense embedding
+    (AutoDis) and a vocab file, one a case, until they were ported
+    (tests/test_torch_port_dense_emb.py holds them against the JAX
+    package). Options still unported raise NotImplementedError: fg_mode
+    FG_NORMAL and a Kafka input, one a case (host-offloaded tables, the
+    second case's until they were ported, are held in
+    tests/test_torch_port_host_offload.py)."""
     text = zoo_config_text("mmoe")
     if "pareto" in extra:
         text = text.replace("model_config {", "model_config {\n" + extra, 1)
@@ -530,18 +533,31 @@ def test_unported_multi_task_options_raise(extra, match):
     _, model, _, _ = _port_model(text)
     if match == "Pareto":
         assert model._use_pareto
-    else:
-        assert [t.tower_name for t in model._task_tower_cfgs
-                if t.task_space_indicator_label] == ["x"]
-    still, still_match = {
-        "Pareto": (zoo_config_text("mmoe").replace(
+        ported = zoo_config_text("mmoe").replace(
             'raw_feature { feature_name: "int_0" }',
-            'raw_feature { feature_name: "int_0" autodis { num_channels: 3 }'
-            " }"), "dense embeddings"),
-        "task_space_indicator": (zoo_config_text("mmoe").replace(
-            'feature_name: "cat_0" ', 'feature_name: "cat_0" '
-            'vocab_file: "vocab.txt" '), "vocab_file"),
-    }[match]
-    assert still != zoo_config_text("mmoe")
-    with pytest.raises(NotImplementedError, match=still_match):
-        _port_model(still)
+            'raw_feature { feature_name: "int_0" embedding_dim: 4 autodis {'
+            " num_channels: 3 } }")
+        assert ported != zoo_config_text("mmoe")
+        _, model, _, _ = _port_model(ported)
+        assert type(model.embedding_group.dense_emb["int_0"]).__name__ == (
+            "AutoDisEmbedding")
+        with pytest.raises(NotImplementedError, match="FG_NONE"):
+            _port_model(zoo_config_text("mmoe").replace(
+                "fg_mode: FG_NONE", "fg_mode: FG_NORMAL"))
+        return
+    assert [t.tower_name for t in model._task_tower_cfgs
+            if t.task_space_indicator_label] == ["x"]
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("a\nb\n")
+    ported = zoo_config_text("mmoe").replace(
+        'feature_name: "cat_0" num_buckets: 500 ', 'feature_name: "cat_0" '
+        f'vocab_file: "{vocab}" ')
+    assert ported != zoo_config_text("mmoe")
+    _, model, _, _ = _port_model(ported)
+    assert model.embedding_group.tables["cat_0_emb"].shape[0] == 2
+    from torcheasyrec_tpu_torch.datasets.dataset import create_reader
+    from torcheasyrec_tpu_torch.protos import data_pb2
+
+    with pytest.raises(NotImplementedError, match="KafkaDataset"):
+        create_reader("topic", 8,
+                      dataset_type=data_pb2.DatasetType.KafkaDataset)

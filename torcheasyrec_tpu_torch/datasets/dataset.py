@@ -444,12 +444,13 @@ def create_reader(
     dataset_type: Optional[int] = None,
     **kwargs: Any,
 ) -> BaseReader:
-    from torcheasyrec_tpu_torch.datasets import parquet_dataset  # noqa: F401
+    from torcheasyrec_tpu_torch.datasets import (  # noqa: F401
+        csv_dataset,
+        parquet_dataset,
+    )
     from torcheasyrec_tpu_torch.protos import data_pb2
 
     name = data_pb2.DatasetType.Name(dataset_type or _infer_type(input_path))
-    if name == "CsvDataset":
-        raise NotImplementedError("the CSV reader is not ported")
     cls = _READER_CLASS_MAP.get(name.replace("Dataset", "Reader"))
     if cls is None:
         raise NotImplementedError(
@@ -460,7 +461,10 @@ def create_reader(
 
 def create_writer(output_path: str, writer_type: str,
                   **kwargs: Any) -> BaseWriter:
-    from torcheasyrec_tpu_torch.datasets import parquet_dataset  # noqa: F401
+    from torcheasyrec_tpu_torch.datasets import (  # noqa: F401
+        csv_dataset,
+        parquet_dataset,
+    )
 
     cls = _WRITER_CLASS_MAP.get(writer_type)
     if cls is None:
@@ -492,6 +496,9 @@ def _reader_for(data_config, input_path: str, batch_size: int, selected_cols,
         drop_remainder=data_config.drop_remainder or (mode == "train"),
         shuffle=data_config.shuffle and mode == "train",
         shuffle_buffer_size=data_config.shuffle_buffer_size,
+        delimiter=data_config.delimiter,
+        with_header=data_config.with_header,
+        input_fields=list(data_config.input_fields),
         sample_cost_field=data_config.sample_cost_field or None,
         batch_cost_size=data_config.batch_cost_size,
     )

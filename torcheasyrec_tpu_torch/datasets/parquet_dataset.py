@@ -16,24 +16,26 @@ import pyarrow.parquet as pq
 from torcheasyrec_tpu_torch.datasets.dataset import BaseReader, BaseWriter
 
 
-def _expand_paths(input_path: str) -> List[str]:
-    """The files ``input_path`` names; raises when it names none."""
+def _expand_paths(input_path: str, suffix: str = "parquet",
+                  recursive: bool = True) -> List[str]:
+    """The files ``input_path`` names, a directory giving its
+    ``*.<suffix>`` files (below it, with ``recursive``); raises when it
+    names none."""
     paths: List[str] = []
     for part in input_path.split(","):
         part = part.strip()
         if not part:
             continue
         if os.path.isdir(part):
-            paths.extend(
-                sorted(glob.glob(os.path.join(part, "**", "*.parquet"),
-                                 recursive=True))
-            )
+            pattern = (os.path.join(part, "**", f"*.{suffix}") if recursive
+                       else os.path.join(part, f"*.{suffix}"))
+            paths.extend(sorted(glob.glob(pattern, recursive=recursive)))
         elif any(ch in part for ch in "*?["):
             paths.extend(sorted(glob.glob(part)))
         else:
             paths.append(part)
     if not paths:
-        raise FileNotFoundError(f"no parquet files match {input_path}")
+        raise FileNotFoundError(f"no {suffix} files match {input_path}")
     return paths
 
 

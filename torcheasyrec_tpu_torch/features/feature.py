@@ -9,8 +9,9 @@ features a negative sampler appends rows to (``data_group``). A grouped
 named ``{sequence_name}__{sub_name}``, each with the group's delimiter,
 length and pk. The raw ids of ``zch`` and ``dynamicemb`` features pass
 unbounded (the model remaps them, ``parallel/zch.py``); their table has
-``zch_size`` or ``max_capacity`` rows. FG_NORMAL feature generation and
-vocab files are not ported and raise NotImplementedError.
+``zch_size`` or ``max_capacity`` rows; a ``vocab_file`` sizes its
+feature's table (the ids arrive encoded). FG_NORMAL feature generation
+is not ported and raises NotImplementedError.
 """
 
 import dataclasses
@@ -333,10 +334,7 @@ class BaseFeature(metaclass=_meta_cls):
         # so that a pickled feature (a loader worker's) compares right
         self._id_bound_cache = None
         self._data_group = BASE_DATA_GROUP
-        if getattr(self.config, "vocab_file", ""):
-            raise NotImplementedError(
-                f"feature {self.name}: vocab_file is not ported"
-            )
+        self._vocab_cache: Optional[Dict[str, int]] = None
 
     # -- identity ----------------------------------------------------------
 
@@ -386,6 +384,8 @@ class BaseFeature(metaclass=_meta_cls):
         if len(getattr(c, "vocab_dict", {})):
             dbv = int(getattr(c, "default_bucketize_value", 0) or 1)
             return max(max(c.vocab_dict.values()), dbv) + 1
+        if getattr(c, "vocab_file", ""):
+            return self._vocab_file_size()
         if len(getattr(c, "boundaries", [])):
             return len(c.boundaries) + 1
         if _has_field_safe(c, "zch"):
@@ -393,6 +393,30 @@ class BaseFeature(metaclass=_meta_cls):
         if _has_field_safe(c, "dynamicemb"):
             return int(c.dynamicemb.max_capacity)
         raise ValueError(f"feature {self.name}: cannot infer id space size")
+
+    def _vocab_file_size(self) -> int:
+        """Max index + 1 over the parsed vocab file, covering the OOV
+        slot (``default_bucketize_value``, default 1) too."""
+        table = self._load_vocab_file()
+        dbv = int(getattr(self.config, "default_bucketize_value", 0) or 1)
+        if not table:
+            return dbv + 1
+        return max(max(table.values()), dbv) + 1
+
+    def _load_vocab_file(self) -> Dict[str, int]:
+        """{token: index} of the vocab file: a "token" line maps to its
+        0-based line number, a "token index" line to its explicit index
+        (raw indices, no offset); blank lines are skipped."""
+        if self._vocab_cache is None:
+            table: Dict[str, int] = {}
+            with open(self.config.vocab_file) as f:
+                for i, line in enumerate(f):
+                    parts = line.strip().split(maxsplit=1)
+                    if not parts or not parts[0]:
+                        continue
+                    table[parts[0]] = int(parts[1]) if len(parts) > 1 else i
+            self._vocab_cache = table
+        return self._vocab_cache
 
     @property
     def is_zch(self) -> bool:

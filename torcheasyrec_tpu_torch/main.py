@@ -75,7 +75,9 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from torcheasyrec_tpu_torch.datasets.csv_dataset import expand_csv_paths
 from torcheasyrec_tpu_torch.datasets.dataset import (
+    _infer_type,
     create_dataloader,
     create_writer,
 )
@@ -354,9 +356,13 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
         losses.update(vd_losses)
         total = model.total_loss(losses)
         scale = state["scaler"]["scale"] if use_scaler else None
-        grads = torch.autograd.grad(
-            total if scale is None else total * scale,
-            list(params) + leaves, allow_unused=True)
+        if total.requires_grad:
+            grads = torch.autograd.grad(
+                total if scale is None else total * scale,
+                list(params) + leaves, allow_unused=True)
+        else:
+            # a loss that reaches no weight (RQ-KMeans' logged error)
+            grads = [None] * (len(params) + len(leaves))
         if scale is not None:
             inv = 1.0 / scale
             grads = [None if g is None else g * inv for g in grads]
@@ -506,7 +512,9 @@ def train_epoch(
     (``dataloader_state``, {source_id: last row consumed}) raised to the
     batch's ``checkpoint_info``, a log line every ``log_every`` steps
     (the losses, and each train metric as ``train_<name>``), then
-    ``after_step(state, info)``. Stops after step ``num_steps`` (when >
+    ``after_step(state, info)``. A model that samples its input for a
+    fit at the end of training (RQ-KMeans) gets each batch through its
+    ``collect_from_batch``. Stops after step ``num_steps`` (when >
     0). Returns (state, the last step's metrics, whether it stopped at
     ``num_steps``). Writes nothing itself. Over several ranks (``shard``)
     every rank steps only while every rank has a batch, so the ranks
@@ -519,6 +527,8 @@ def train_epoch(
     t0, examples = time.perf_counter(), 0
     for batch, info in _in_step(batches, shard):
         state, metrics = train_step(state, batch)
+        if hasattr(model, "collect_from_batch"):
+            model.collect_from_batch(batch)
         preds = metrics.pop("__preds", None)
         if train_metrics and preds is not None:
             model.update_metrics(train_metrics, preds, batch)
@@ -674,8 +684,13 @@ def _eval_input(pipeline_config, explicit: bool) -> Optional[str]:
     path = pipeline_config.eval_input_path
     if not path:
         return None
+    from torcheasyrec_tpu_torch.protos import data_pb2
+
+    kind = pipeline_config.data_config.dataset_type or _infer_type(path)
+    expand = (expand_csv_paths if kind == data_pb2.DatasetType.CsvDataset
+              else _expand_paths)
     try:
-        missing = [p for p in _expand_paths(path) if not os.path.exists(p)]
+        missing = [p for p in expand(path) if not os.path.exists(p)]
     except FileNotFoundError:
         missing = [path]
     if not missing:
@@ -888,6 +903,9 @@ def _train_and_evaluate(pipeline_config_path, train_input_path,
         profiler.stop()
     if delta_dumper is not None:
         delta_dumper.dump(state["step"], model.embedding_group.engine_tables())
+    if hasattr(model, "on_train_end"):
+        # RQ-KMeans fits its codebooks, before the final save and eval
+        model.on_train_end()
     save_and_eval()
     if tb is not None:
         tb.log_eval(state["step"], eval_result)
@@ -1027,7 +1045,8 @@ def _predict_preds(pipeline_config, model: BaseModel, features,
     """The model's predictions over the predict-mode loader, after the
     reserved input columns (carried through, so predictions stay
     joinable): every output but the ``__`` and list ones, or those of
-    ``output_columns``; [B, K] outputs as list columns."""
+    ``output_columns``; [B, K] outputs as list columns (the SID models'
+    ``codes`` [B, L] as ``list<int64>``)."""
     import pyarrow as pa
 
     out_cols = _parse_list(output_columns)
@@ -1039,7 +1058,7 @@ def _predict_preds(pipeline_config, model: BaseModel, features,
             if (k.startswith("__") or (out_cols and k not in out_cols)
                     or isinstance(v, (list, tuple))):
                 continue
-            v = v.float().cpu().numpy()
+            v = (v.float() if v.is_floating_point() else v).cpu().numpy()
             out[k] = pa.array(v) if v.ndim == 1 else pa.array(list(v))
         return out
 

@@ -25,6 +25,10 @@ from torcheasyrec_tpu_torch.models.ple import PLE  # noqa: F401
 from torcheasyrec_tpu_torch.models.rocket_launching import (  # noqa: F401
     RocketLaunching,
 )
+from torcheasyrec_tpu_torch.models.sid_models import (  # noqa: F401
+    SidRqkmeans,
+    SidRqvae,
+)
 from torcheasyrec_tpu_torch.models.tdm import TDM  # noqa: F401
 from torcheasyrec_tpu_torch.models.ultra_hstu import UltraHSTU  # noqa: F401
 from torcheasyrec_tpu_torch.models.wide_and_deep import WideAndDeep  # noqa: F401

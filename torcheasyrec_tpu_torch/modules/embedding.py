@@ -33,8 +33,11 @@ calls it), and a load writes each rank's own rows. With
 table specs alone (the planner's first pass). ``tables`` gives views into unpacked groups but copies out of
 packed ones: write through ``engine.write_table``, as
 ``load_state_dict`` does. The encoders' parameters are the model's
-dense parameters, ``encoders.<group>.<i>``. Dense embeddings raise
-NotImplementedError. A host-offloaded table (``embedding_constraints {
+dense parameters, ``encoders.<group>.<i>``. A raw feature with a dense
+embedding (``autodis``, ``mlp``) takes a slot of its embedded width,
+computed by ``dense_emb.<feature>`` (``AutoDisEmbedding``,
+``MLPEmbedding``), whose parameters are dense ones too. A
+host-offloaded table (``embedding_constraints {
 sharding_types: "host_offload" }``) lives in host memory, outside the
 module's buffers (``model.to`` leaves it there); its rows reach the
 device per batch (``parallel/emb_engine.py``).
@@ -60,10 +63,12 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.features.feature import BaseFeature
+from torcheasyrec_tpu_torch.modules.module import linear, linear_apply
 from torcheasyrec_tpu_torch.modules.sequence import create_seq_encoder
 from torcheasyrec_tpu_torch.parallel import zch as zch_mod
 from torcheasyrec_tpu_torch.parallel.emb_engine import (
@@ -82,7 +87,9 @@ from torcheasyrec_tpu_torch.protos import model_pb2
 # ShardContext (the JAX package's threshold)
 _DP_ROWS_THRESHOLD = 8192
 
-Slot = Tuple[str, str, int]  # ("emb", lookup key, dim) | ("dense"|"seq_dense", feature, dim)
+# ("emb", lookup key, dim) | ("dense"|"seq_dense"|"autodis"|"mlpemb",
+# feature, dim)
+Slot = Tuple[str, str, int]
 
 
 class EmbeddingGroup(nn.Module):
@@ -103,6 +110,25 @@ class EmbeddingGroup(nn.Module):
         lookups: Dict[str, LookupSpec] = {}
         self._group_slots: Dict[str, List[Slot]] = {}
         self._seq_groups: Dict[str, Dict[str, Any]] = {}
+        dense_emb: Dict[str, nn.Module] = {}
+
+        def _dense_slot(feat: BaseFeature) -> Slot:
+            """A dense (raw) feature's slot of its ``output_dim``; a dense
+            embedding's module is built once per feature."""
+            which = feat.config.WhichOneof("dense_emb")
+            if which is not None and feat.name not in dense_emb:
+                d = int(feat.config.embedding_dim)
+                if which == "autodis":
+                    c = feat.config.autodis
+                    dense_emb[feat.name] = AutoDisEmbedding(
+                        int(c.num_channels), d, generator,
+                        temperature=float(c.temperature),
+                        keep_prob=float(c.keep_prob))
+                else:
+                    dense_emb[feat.name] = MLPEmbedding(
+                        max(feat.value_dim, 1), d, generator)
+            kind = {None: "dense", "autodis": "autodis", "mlp": "mlpemb"}
+            return (kind[which], feat.name, feat.output_dim)
 
         def _add_table(feat: BaseFeature, suffix: str,
                        dim_override: Optional[int] = None,
@@ -159,7 +185,7 @@ class EmbeddingGroup(nn.Module):
                 else:
                     q_slots.append(
                         _emb_slot(feat, suffix, False) if feat.is_sparse
-                        else ("dense", fname, max(feat.value_dim, 1))
+                        else _dense_slot(feat)
                     )
             if length_feature is None:
                 raise ValueError(
@@ -200,7 +226,7 @@ class EmbeddingGroup(nn.Module):
                         f"in wide group {gname}"
                     )
                 if not feat.is_sparse:
-                    slots.append(("dense", fname, max(feat.value_dim, 1)))
+                    slots.append(_dense_slot(feat))
                 elif is_wide:
                     slots.append(_emb_slot(feat, suffix + "__wide", False,
                                            wide_embedding_dim or 4,
@@ -219,9 +245,11 @@ class EmbeddingGroup(nn.Module):
                 encoders[gname] = nn.ModuleList(
                     create_seq_encoder(c, dims, generator, default_input)
                     for c in group.sequence_encoders)
-        # the encoders' parameters are dense parameters of the model,
-        # under ``encoders.<group>.<i>``
+        # the encoders' and the dense embeddings' parameters are dense
+        # parameters of the model, under ``encoders.<group>.<i>`` and
+        # ``dense_emb.<feature>``
         self.encoders = nn.ModuleDict(encoders)
+        self.dense_emb = nn.ModuleDict(dense_emb)
 
         self.engine = EmbeddingEngine(
             list(table_specs.values()),
@@ -642,7 +670,7 @@ class EmbeddingGroup(nn.Module):
                 return batch.sequence_dense_features[key].values.to(
                     compute_dtype
                 )
-            return batch.dense_features[key].values.to(compute_dtype)
+            return self._dense_value(slot, batch, compute_dtype)
 
         result: Dict[str, torch.Tensor] = {}
         for name, sg in self._seq_groups.items():
@@ -687,10 +715,20 @@ class EmbeddingGroup(nn.Module):
             batch.sequence_sparse_features,
             feature_filter=set(self.query_features(seq_group)),
             host_fields=self.host_fields(batch))
-        vals = [emb_out[key].to(compute_dtype) if kind == "emb"
-                else batch.dense_features[key].values.to(compute_dtype)
-                for kind, key, _ in self._seq_groups[seq_group]["query"]]
+        vals = [emb_out[slot[1]].to(compute_dtype) if slot[0] == "emb"
+                else self._dense_value(slot, batch, compute_dtype)
+                for slot in self._seq_groups[seq_group]["query"]]
         return torch.cat(vals, dim=-1) if len(vals) > 1 else vals[0]
+
+    def _dense_value(self, slot: Slot, batch: Batch,
+                     compute_dtype: torch.dtype) -> torch.Tensor:
+        """A dense slot's values in ``compute_dtype``, through its dense
+        embedding where it has one."""
+        kind, key, _ = slot
+        v = batch.dense_features[key].values.to(compute_dtype)
+        if kind in ("autodis", "mlpemb"):
+            v = self.dense_emb[key](v, compute_dtype)
+        return v
 
 
 class _ZchBuffers(nn.Module):
@@ -700,3 +738,63 @@ class _ZchBuffers(nn.Module):
         super().__init__()
         for k, v in state.items():
             self.register_buffer(k, v)
+
+
+class AutoDisEmbedding(nn.Module):
+    """AutoDis learnable discretization of dense values, each of the
+    input's columns on its own: h = leaky_relu(x * w1) [B, C]; logits =
+    h @ w2 + keep_prob * h; out = softmax(logits / temperature) @ meta
+    [B, d]; the columns' outputs concatenate to [B, n * d]. Computed in
+    fp32 from the input in the compute dtype, cast to it at the end, as
+    the JAX package's ``AutoDisEmbedding``. ``w1`` [C], ``w2`` [C, C] and
+    ``meta`` [C, d] are drawn from N(0, 0.1^2)."""
+
+    def __init__(self, num_channels: int, embedding_dim: int,
+                 generator: torch.Generator, temperature: float = 0.1,
+                 keep_prob: float = 0.8) -> None:
+        super().__init__()
+        dev = generator.device
+        c, d = num_channels, embedding_dim
+        self.d = d
+        self.temperature = temperature
+        self.keep_prob = keep_prob
+
+        def normal(*shape):
+            return nn.Parameter(torch.randn(
+                *shape, generator=generator, device=dev) * 0.1)
+
+        self.w1 = normal(c)
+        self.w2 = normal(c, c)
+        self.meta = normal(c, d)
+
+    def output_dim(self) -> int:
+        return self.d
+
+    def forward(self, x: torch.Tensor,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+        outs = []
+        for i in range(x.shape[-1]):
+            h = F.leaky_relu(x[..., i:i + 1] * self.w1)
+            logits = h @ self.w2 + self.keep_prob * h
+            p = torch.softmax(logits / self.temperature, dim=-1)
+            outs.append(p @ self.meta)
+        out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+        return out.to(compute_dtype)
+
+
+class MLPEmbedding(nn.Module):
+    """A linear projection of a dense value vector [B, n] to [B, d]
+    (``linear``, drawn as every linear is)."""
+
+    def __init__(self, in_dim: int, embedding_dim: int,
+                 generator: torch.Generator) -> None:
+        super().__init__()
+        self.d = embedding_dim
+        self.linear = linear(in_dim, embedding_dim, generator)
+
+    def output_dim(self) -> int:
+        return self.d
+
+    def forward(self, x: torch.Tensor,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+        return linear_apply(self.linear, x, compute_dtype)

@@ -29,7 +29,11 @@
   ``residual_proj``, all [in, out] and not transposed; a batch norm's
   ``mean`` and ``var`` (an MLP's ``bn``, Dice's ``act.bn``) are the
   port's buffers of those names; PReLU's and Dice's ``act.alpha`` and
-  ``variational_dropout.<group>.logit_p`` keep their names;
+  ``variational_dropout.<group>.logit_p`` keep their names, and so do
+  the dense embeddings' ``embedding_group.dense_emb.<feature>.{w1, w2,
+  meta}`` (AutoDis; an MLP embedding's ``linear`` is a linear) and the
+  SID models' codebooks ``rq.vq_<i>.codebook`` [K, D] (not transposed;
+  their ``encoder`` and ``decoder`` are MLPs);
 - the STU's ``uvqk_w`` [E, F] and ``output_w`` [H*ld, E] become
   ``uvqk_weight`` [F, E] and ``output_weight`` [E, H*ld], ``uvqk_b``
   becomes ``uvqk_bias``; the generative family's parameters keep their
@@ -98,9 +102,6 @@ def from_jax_state(dense_params: Mapping[str, Any],
     (fp32, the ZCH mappings in their own dtypes)."""
     state: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(dense_params):
-        if path.startswith("embedding_group.dense_emb."):
-            raise NotImplementedError(
-                f"{path}: dense embeddings are not ported")
         parts = re.sub(r"(^|\.)(layer|block)_(\d+)(?=\.)", r"\1\2s.\3",
                        path).split(".")
         leaf = parts[-1]
