@@ -411,6 +411,27 @@ kernel #3 once per written packed group and step and the AUC within
 0.02 of a CPU run, one real step's row writes bit-equal to the plain
 version, and the CSV loader's examples/s beside the parquet loader's.
 
+Phase ``train_fg`` (last before the timeline): feature generation from
+raw columns. The FG library (``fg/csrc/fg_ops.cc``) is built with g++
+beside the CUDA kernels. (a) The Criteo DeepFM at full width (tables
+capped at 10 M, BF16, batch 8 192) fed raw log columns: C1..C26 as
+8-hex-digit strings hashed into the tables, I1..I13 as integer strings
+through log10. FG's host ms per batch through the native DAG at
+fg_threads 1 and 4 and through the plain per-feature parses, each DAG
+batch bit-equal to the plain one; the loader alone with FG and with
+FG_NONE on the same rows; the loader-fed step over 4 workers with its
+idle share (5 profiled steps) against the resident step, kernel #3 once
+per written packed group and step; 3 fp32 steps card against CPU (1e-4,
+tables capped at 100 000). (b) A MultiTowerDIN with one feature of every
+kind (``benchmark/fg_synth.py``; widths assumed), 4 096 rows a batch,
+fp32: each kind's host ms, 3 steps card against CPU (1e-4), 8 steps
+through ``train_and_evaluate`` with kernel #3 once per written group
+and step and the AUC within 0.02 of a CPU run from the same weights.
+(c) Its export (the artifact's fg.json equal to
+``tools/create_fg_json``'s) and ``predict`` on requests of 1 user x 512
+items with INPUT_TILE=2, bit-equal to predict without it, the user-side
+features parsed once a request, the request times tiled and untiled.
+
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
 prints them, and as the last line the device record. Any failure raises
@@ -4473,8 +4494,9 @@ ZOO_REST_METRICS = {"xdeepfm": ("auc", "grouped_auc_cat_10"),
 # then to 16 for train_sid's
 ZOO_REST_STEPS = {"xdeepfm": 8, "wukong": 8, "pepnet": 8, "dc2vr": 16}
 # the rows its data holds: enough for DC2VR's 16 steps; the eval set cut
-# from 65 536 (the CPU reference's eval of xDeepFM) for train_sid's time
-ZOO_REST_ROWS = (65_536, 16_384)
+# from 65 536 (the CPU reference's eval of xDeepFM) to 16 384 for
+# train_sid's time, then to 8 192 (two predict batches) for train_fg's
+ZOO_REST_ROWS = (65_536, 8_192)
 ZOO_REST_CHECK_STEPS = 3  # fp32 steps on the card against the CPU
 ZOO_REST_CARD_TOL = 1e-4  # max abs error over the CPU's max abs, per tensor
 # a linear's bias before a batch norm has a gradient of 0 up to rounding
@@ -5321,7 +5343,7 @@ TDM_LAYERS = (0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6)  # negatives by depth
 # needs 5)
 TDM_STEPS = 5
 TDM_RETRAIN_STEPS = 5  # on the rebuilt tree (cut from 32, then 8)
-TDM_EVAL_ROWS = 1024  # cut from 4 096, for train_zch's and train_sid's time
+TDM_EVAL_ROWS = 512  # cut from 4 096, then 1 024 (for train_fg's time)
 TDM_WORKERS = 4
 TDM_SAMPLER_BATCHES = 5
 TDM_SHM_ITEMS = 4_000_000  # the shared item table, cut to fit /dev/shm
@@ -5330,7 +5352,7 @@ TDM_LOADER_STEPS = 8  # the loader-fed window after LOADER_WARMUP (was 16)
 TDM_RECALL_NUM, TDM_N_CLUSTER = 50, 2
 TDM_RETRIEVAL_USERS = 128  # cut from 1 024, then 256: the CPU's time
 TDM_CPU_BOUND = 0.02  # AUC and recall@50 on the card against the CPU's
-TDM_PREDICT_ROWS = 1024  # within TDM_EVAL_ROWS (cut from 4 096)
+TDM_PREDICT_ROWS = 512  # within TDM_EVAL_ROWS (cut from 4 096, then 1 024)
 # the node predict from the embedding artifact, in a process of its own
 TDM_NODE_PREDICT = r"""
 import sys
@@ -8441,6 +8463,575 @@ def phase_train_sid(smi):
     return d["row_write_launches"]
 
 
+
+# --- phase train_fg: feature generation from raw columns ----------------------
+# loader batches of DEEPFM_BATCH in the raw file: LOADER_WARMUP,
+# FG_FED_STEPS and FG_PROFILED_STEPS of the loader-fed run
+FG_CRITEO_BATCHES = 14
+FG_PARSE_BATCHES = 3  # batches each FG path's host time is the median of
+FG_FED_STEPS = 4  # the 4-worker loader-fed window, after LOADER_WARMUP
+FG_PROFILED_STEPS = 5
+FG_RESIDENT_STEPS = 10
+FG_CHECK_CAP = 100_000  # the fp32 card-against-CPU check's tables
+FG_CPU_BOUND = 0.02  # the epoch's AUC against a CPU run's
+FG_DIN_BATCH = 4096
+FG_DIN_STEPS = 8
+FG_DIN_EVAL_ROWS = 8192
+FG_DIN_EMB = 16  # assumed widths: no published config of this shape
+FG_DIN_HIDDEN = (128, 64)
+FG_REQUESTS = 8
+FG_REQUEST_ITEMS = 512  # candidate items of one user a request
+FG_LOG10 = "method=log10,threshold=1e-10,default=-10"
+
+
+def fg_criteo_text(buckets, model_dir="unused", train_path="unused",
+                   fg=True, fp32=False, threads=1, workers=0) -> str:
+    """The Criteo DeepFM of ``deepfm_config_text`` fed raw columns
+    (``fg``): cat_i hashes the 8-hex-digit string column C{i+1} into
+    ``buckets[i]`` rows; int_i reads the numeric string column I{i+1}
+    through the log10 normalizer. Without ``fg`` it reads the encoded
+    cat_i / int_i columns (FG_NONE). ``fp32``: fp32 compute, adam's and
+    rowwise adagrad's eps 1e-4 (``zoo_rest_text``'s reasons)."""
+    extra = f"  fg_threads: {threads}"
+    if workers:
+        extra += f"\n  num_workers: {workers}"
+    text = deepfm_config_text(buckets, model_dir, train_path,
+                              mixed_precision="FP32" if fp32 else "BF16",
+                              data_extra=extra)
+    if fp32:
+        text = (text.replace('  mixed_precision: "FP32"\n', "")
+                .replace("adam_optimizer { lr: 0.001 }",
+                         "adam_optimizer { lr: 0.001 eps: 1e-4 }")
+                .replace("rowwise_adagrad_optimizer { lr: 0.001 }",
+                         "rowwise_adagrad_optimizer { lr: 0.001 eps: 1e-4 }"))
+    if not fg:
+        return text
+    text = text.replace("fg_mode: FG_NONE", "fg_mode: FG_NORMAL")
+    for i, n in enumerate(buckets):
+        text = text.replace(
+            f'feature_name: "cat_{i}" num_buckets: {n} ',
+            f'feature_name: "cat_{i}" expression: "item:C{i + 1}" '
+            f"hash_bucket_size: {n} ")
+    for i in range(13):
+        text = text.replace(
+            f'raw_feature {{ feature_name: "int_{i}" }}',
+            f'raw_feature {{ feature_name: "int_{i}" expression: '
+            f'"item:I{i + 1}" normalizer: "{FG_LOG10}" }}')
+    return text
+
+
+def fg_criteo_cols(n: int, seed: int) -> dict:
+    """Raw Criteo-log columns: C1..C26 as 8-hex-digit strings (Criteo's
+    hashed categories, some empty), I1..I13 as non-negative integer
+    strings (some empty) and a coin ``label``."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    r = np.random.default_rng(seed)
+    cols = {"label": pa.array((r.random(n) > 0.5).astype(np.float32))}
+    for i in range(13):
+        v = pa.array(np.floor(r.lognormal(1.5, 1.8, n)).astype(np.int64))
+        s = v.cast(pa.string())
+        cols[f"I{i + 1}"] = pc.if_else(
+            pa.array(r.random(n) < 0.05), "", s)
+    digits = np.frombuffer(b"0123456789abcdef", np.uint8)
+    shifts = np.arange(28, -1, -4, dtype=np.uint64)
+    for i, b in enumerate(CRITEO_RAW):
+        ids = r.integers(0, min(b, 1 << 32), n).astype(np.uint64)
+        data = digits[(ids[:, None] >> shifts) & np.uint64(15)]
+        keep = r.random(n) >= 0.02  # the others are empty cells
+        lengths = np.where(keep, 8, 0)
+        offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+        cols[f"C{i + 1}"] = pa.StringArray.from_buffers(
+            n, pa.py_buffer(offsets), pa.py_buffer(data[keep].tobytes()))
+    return cols
+
+
+def fg_parsed_equal(name, got: dict, ref: dict) -> int:
+    """Every feature's parse in ``got`` equals ``ref``'s bit for bit;
+    returns the features compared."""
+    if set(got) != set(ref):
+        raise AssertionError(f"{name}: parsed {sorted(got)} against "
+                             f"{sorted(ref)}")
+    for k, r in ref.items():
+        g = got[k]
+        for field in ("values", "lengths", "weights", "seq_lengths"):
+            a, b = getattr(g, field, None), getattr(r, field, None)
+            if (a is None) != (b is None) or (
+                    a is not None and not (a.shape == b.shape
+                                           and a.dtype == b.dtype
+                                           and np.array_equal(a, b))):
+                raise AssertionError(f"{name}: {k}.{field} differs between "
+                                     "the DAG's parse and the plain one")
+    return len(ref)
+
+
+def fg_host_ms(features, cols_list, threads=(1, 4)) -> dict:
+    """Host ms per batch of FG (the medians over ``cols_list``): through
+    the native DAG at each of ``threads`` (``DataParser.parse``, the
+    DAG's features in one C++ call and the others' Python parses) and
+    through the plain per-feature parses; each DAG batch held against
+    the plain one bit for bit; the DAG's hand-backs."""
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+
+    out, dags = {}, {}
+    plain_ms, plain = [], []
+    for cols in cols_list:
+        t0 = time.perf_counter()
+        plain.append({f.name: f.parse(cols) for f in features})
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    out["plain_ms"] = float(np.median(plain_ms))
+    for t in threads:
+        parser = DataParser(features, labels=["label"], fg_threads=t)
+        ms = []
+        for cols, ref in zip(cols_list, plain):
+            t0 = time.perf_counter()
+            got = parser.parse(cols)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            fg_parsed_equal(f"fg_threads {t}",
+                            {k: v for k, v in got.items() if k in ref}, ref)
+        out[f"dag_ms_threads_{t}"] = float(np.median(ms))
+        dags[t] = parser.fg_dag
+    dag = dags[threads[0]]
+    out.update(dag_features=len(dag.native), features=len(features),
+               dag_handbacks=dict(dag.handbacks), dag_routed=dict(dag.routed),
+               batches=len(cols_list),
+               rows_per_batch=len(next(iter(cols_list[0].values()))),
+               dag_equals_plain="bit for bit")
+    return out
+
+
+def fg_written_groups(model) -> list:
+    eg = model.embedding_group
+    return sorted(gk for gk, g in eg.engine.groups.items()
+                  if g.packed and any(t.name not in g.dense_tables
+                                      for t in g.specs))
+
+
+def fg_criteo(tmp) -> dict:
+    """(a): the Criteo DeepFM fed raw columns at full width (tables capped
+    at CRITEO_CAP, BF16): FG's host ms per batch (DAG at 1 and 4 threads,
+    plain), the loader alone with FG and with FG_NONE on the same rows,
+    the loader-fed step over LOADER_WORKERS workers with its idle share
+    against the resident step, kernel #3 once per written packed group
+    and step; 3 fp32 steps on the card against the CPU at FG_CHECK_CAP
+    tables."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.datasets.dataset import create_dataloader
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    seconds, out = {}, {"batch": DEEPFM_BATCH, "capped_at": CRITEO_CAP}
+    capped = [min(n, CRITEO_CAP) for n in CRITEO_RAW]
+    t0 = time.perf_counter()
+    raw = fg_criteo_cols(FG_CRITEO_BATCHES * DEEPFM_BATCH, 31)
+    cfg = parse_pipeline_config(fg_criteo_text(capped))
+    features = port_main._create_features(cfg)
+    # the encoded columns of the same rows, for the FG_NONE loader
+    parsed = DataParser(features).parse(raw)
+    enc = dict(raw)
+    for i in range(26):
+        # an empty C cell has no id: a null in the encoded column
+        p = parsed[f"cat_{i}"]
+        ids = np.zeros(len(p.lengths), np.int64)
+        ids[p.lengths == 1] = p.values
+        enc[f"cat_{i}"] = pa.array(ids, mask=p.lengths == 0)
+    for i in range(13):
+        enc[f"int_{i}"] = pa.array(parsed[f"int_{i}"].values[:, 0])
+    path = os.path.join(tmp, "criteo_raw.parquet")
+    pq.write_table(pa.table(enc), path, row_group_size=DEEPFM_BATCH)
+    seconds["data"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    table = pq.read_table(path)
+    batches = [{c: table[c].slice(i * DEEPFM_BATCH, DEEPFM_BATCH)
+                .combine_chunks() for c in table.column_names}
+               for i in range(FG_PARSE_BATCHES)]
+    out["host_ms_per_batch"] = fg_host_ms(features, batches)
+    seconds["host_ms"] = time.perf_counter() - t0
+
+    # the loader alone: FG and FG_NONE (the same rows, encoded)
+    t0 = time.perf_counter()
+    none_cfg = parse_pipeline_config(fg_criteo_text(capped, fg=False))
+    out["loader_alone"] = {}
+    for kind, c in (("fg", cfg), ("fg_none", none_cfg)):
+        dl = create_dataloader(c.data_config, port_main._create_features(c),
+                               path, mode="train", device="cuda")
+        out["loader_alone"][kind] = loader_alone(dl, FG_CRITEO_BATCHES)
+    seconds["loader_alone"] = time.perf_counter() - t0
+
+    # the loader-fed step over worker processes, and the resident step;
+    # the workers start up while the model is built
+    t0 = time.perf_counter()
+    wcfg = parse_pipeline_config(fg_criteo_text(capped, workers=LOADER_WORKERS))
+    dl = create_dataloader(wcfg.data_config, features, path, mode="train",
+                           device="cuda")
+    if dl.mp_workers != LOADER_WORKERS:
+        raise AssertionError(f"train_fg: {dl.mp_workers} loader workers")
+    it = dl()
+    model, _, _, state, step = build_trainer(cfg)
+    written = fg_written_groups(model)
+    write_rows.launches = 0
+    steps = [0]
+
+    def run(n):
+        nonlocal state
+        last = None
+        for b, _ in itertools.islice(it, n):
+            state, _ = step(state, b)
+            steps[0] += 1
+            last = b
+        return last
+
+    try:
+        resident = run(LOADER_WARMUP)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        run(FG_FED_STEPS)
+        torch.cuda.synchronize()
+        fed_ms = (time.perf_counter() - w0) * 1e3 / FG_FED_STEPS
+        profile = profile_forward(lambda: run(FG_PROFILED_STEPS))
+    finally:
+        it.close()
+    losses, res_ms, res_window = timed_steps(
+        step, state, resident, DEEPFM_WARMUP, FG_RESIDENT_STEPS)
+    steps[0] += DEEPFM_WARMUP + 2 * FG_RESIDENT_STEPS
+    launches = write_rows.launches
+    if steps[0] != FG_CRITEO_BATCHES + DEEPFM_WARMUP + 2 * FG_RESIDENT_STEPS:
+        raise AssertionError(f"train_fg: {steps[0]} steps")
+    if launches != steps[0] * len(written) or not written:
+        raise AssertionError(f"train_fg: row_write launched {launches} times"
+                             f" in {steps[0]} steps of {written}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train_fg: non-finite losses {losses}")
+    out["loader_fed_4_workers"] = {
+        "window_step_ms": fed_ms,
+        "examples_per_s": DEEPFM_BATCH / fed_ms * 1e3,
+        "idle_share_profiled_steps": profile.get("device_idle_share"),
+        "busy_ms_per_step": (profile.get("device_busy_ms", 0.0)
+                             / FG_PROFILED_STEPS),
+        "step_profile": profile}
+    out["resident"] = {"step_ms_median": float(np.median(res_ms)),
+                       "step_ms_range": [min(res_ms), max(res_ms)],
+                       "window_step_ms": res_window,
+                       "examples_per_s": DEEPFM_BATCH / res_window * 1e3}
+    out["row_write"] = {"launches": launches, "steps": steps[0],
+                        "written_packed_groups": written}
+    del model, state, step, dl, resident
+    torch.cuda.empty_cache()
+    seconds["fed_and_resident"] = time.perf_counter() - t0
+
+    # 3 fp32 steps on the card against the CPU, at FG_CHECK_CAP tables
+    t0 = time.perf_counter()
+    check_caps = [min(n, FG_CHECK_CAP) for n in CRITEO_RAW]
+    text = fg_criteo_text(check_caps, fp32=True)
+    cparser = DataParser(port_main._create_features(
+        parse_pipeline_config(text)), labels=["label"])
+    out["card_vs_cpu"] = zoo_rest_card_vs_cpu(
+        "train_fg criteo", text, None,
+        [cparser.parse_to_batch(b) for b in batches])
+    out["card_vs_cpu"]["tables_capped_at"] = FG_CHECK_CAP
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out, launches
+
+
+def fg_din_files(tmp) -> dict:
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.benchmark import fg_synth
+
+    paths = {"vocab": fg_synth.write_city_vocab(os.path.join(tmp, "v.txt")),
+             "spm": fg_synth.write_spm_model(os.path.join(tmp, "s.model"))}
+    for name, n, seed, per_user in (
+            ("train", FG_DIN_STEPS * FG_DIN_BATCH, 41, 1),
+            ("eval", FG_DIN_EVAL_ROWS, 42, 1),
+            ("req", FG_REQUESTS * FG_REQUEST_ITEMS, 43, FG_REQUEST_ITEMS)):
+        paths[name] = os.path.join(tmp, f"fg_{name}.parquet")
+        pq.write_table(pa.table(fg_synth.fg_raw_cols(
+            n, seed, rows_per_user=per_user)), paths[name])
+    return paths
+
+
+def fg_din_text(paths, model_dir, fp32_eps=False) -> str:
+    from torcheasyrec_tpu_torch.benchmark import fg_synth
+
+    text = fg_synth.fg_din_config_text(
+        paths["train"], paths["eval"], model_dir, paths["vocab"],
+        paths["spm"], FG_DIN_BATCH, emb=FG_DIN_EMB, hidden=FG_DIN_HIDDEN)
+    if fp32_eps:
+        text = (text.replace("adam_optimizer { lr: 0.002 }",
+                             "adam_optimizer { lr: 0.002 eps: 1e-4 }")
+                .replace("rowwise_adagrad_optimizer { lr: 0.02 }",
+                         "rowwise_adagrad_optimizer { lr: 0.02 eps: 1e-4 }"))
+    return text
+
+
+def fg_kind_ms(features, cols) -> dict:
+    """Host ms of each feature kind's parses on one batch (Python parse of
+    each feature, summed by class), and the parser's whole batch."""
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+
+    by_kind, names = {}, {}
+    parsed = {}
+    for f in features:
+        if type(f).__name__ == "CombineFeature":
+            continue
+        t0 = time.perf_counter()
+        parsed[f.name] = f.parse(cols)
+        ms = (time.perf_counter() - t0) * 1e3
+        kind = type(f).__name__
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        names.setdefault(kind, []).append(f.name)
+    for f in features:
+        if type(f).__name__ == "CombineFeature":
+            t0 = time.perf_counter()
+            parsed[f.name] = f.combine(parsed)
+            by_kind["CombineFeature"] = (by_kind.get("CombineFeature", 0.0)
+                                         + (time.perf_counter() - t0) * 1e3)
+            names.setdefault("CombineFeature", []).append(f.name)
+    parser = DataParser(features, labels=["label"])
+    t0 = time.perf_counter()
+    got = parser.parse(cols)
+    dag_ms = (time.perf_counter() - t0) * 1e3
+    n = fg_parsed_equal("train_fg din", {k: got[k] for k in parsed}, parsed)
+    return {"plain_ms_by_kind": by_kind, "features_by_kind": names,
+            "plain_ms": sum(by_kind.values()), "dag_batch_ms": dag_ms,
+            "dag_features": sorted(f.name for f in parser.fg_dag.native),
+            "dag_handbacks": dict(parser.fg_dag.handbacks),
+            "dag_routed": dict(parser.fg_dag.routed),
+            "features_compared_bit_for_bit": n,
+            "rows": len(cols["label"])}
+
+
+def fg_requests(port_main, export_dir, paths) -> dict:
+    """(c): ``predict`` of the artifact on FG_REQUESTS requests of one user
+    and FG_REQUEST_ITEMS items, with INPUT_TILE=2 and without: bit-equal
+    outputs; then each request alone through the artifact's model
+    (parse, copy, forward), timed, tiled and untiled (bit-equal), with
+    the user-side features' rows recorded: one a request with tiling."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.features import feature as feature_mod
+    from torcheasyrec_tpu_torch.utils import checkpoint_util, config_util
+
+    outs = {}
+    for tile in ("", "2"):
+        os.environ["INPUT_TILE"] = tile
+        out = os.path.join(os.path.dirname(export_dir), f"pred{tile}.parquet")
+        n = port_main.predict(paths["req"], out, export_dir,
+                              batch_size=FG_REQUEST_ITEMS, device="cuda")
+        if n != FG_REQUESTS * FG_REQUEST_ITEMS:
+            raise AssertionError(f"train_fg: predicted {n} rows")
+        outs[tile] = pq.read_table(out)
+    os.environ.pop("INPUT_TILE")
+    for k in outs[""].column_names:
+        if not np.array_equal(np.asarray(outs["2"][k]),
+                              np.asarray(outs[""][k])):
+            raise AssertionError(f"train_fg: INPUT_TILE's {k} differs")
+
+    cfg = config_util.load_pipeline_config(
+        os.path.join(export_dir, "pipeline.config"))
+    model, features = port_main._artifact_model(cfg, torch.device("cuda"))
+    checkpoint_util.restore_model(os.path.join(export_dir, "model"), model)
+    table = pq.read_table(paths["req"])
+    user_side = sorted(f.name for f in features if f.is_user_side)
+    seen = []
+    real_parse = feature_mod.BaseFeature.parse
+
+    def recording(self, data, is_training=False):
+        if self.is_user_side:
+            seen.append(len(data[self.inputs[0]]))
+        return real_parse(self, data, is_training)
+
+    times, untiled = {}, []
+    feature_mod.BaseFeature.parse = recording
+    try:
+        for tile in (False, True):
+            parser = DataParser(features, input_tile=tile)
+            ms, seen[:] = [], []
+            for i in range(FG_REQUESTS):
+                part = table.slice(i * FG_REQUEST_ITEMS, FG_REQUEST_ITEMS)
+                cols = {c: part[c].combine_chunks()
+                        for c in part.column_names}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    probs = model(parser.parse_to_batch(cols).to("cuda"))[
+                        "probs"]
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if not tile:
+                    untiled.append(probs.cpu())
+                elif not torch.equal(probs.cpu(), untiled[i]):
+                    raise AssertionError("train_fg: a tiled request's probs "
+                                         "differ from the untiled ones")
+            if tile and seen != [1] * (FG_REQUESTS * len(user_side)):
+                raise AssertionError(f"train_fg: tiled requests parsed the "
+                                     f"user-side features over rows {seen}")
+            times["tiled" if tile else "untiled"] = {
+                "request_ms_median": float(np.median(ms)),
+                "request_ms_range": [min(ms), max(ms)]}
+    finally:
+        feature_mod.BaseFeature.parse = real_parse
+    del model
+    torch.cuda.empty_cache()
+    return {"requests": FG_REQUESTS, "items_per_request": FG_REQUEST_ITEMS,
+            "user_side_features": user_side,
+            "user_side_rows_parsed_per_request": 1,
+            "predict_tiled_equals_untiled": "bit for bit", **times}
+
+
+def fg_din(tmp) -> tuple:
+    """(b) and (c): the MultiTowerDIN with every feature kind
+    (``benchmark/fg_synth.py``) at FG_DIN_EMB / FG_DIN_HIDDEN, fp32:
+    each kind's host ms; 3 steps on the card against the CPU (1e-4);
+    FG_DIN_STEPS steps of FG_DIN_BATCH through ``train_and_evaluate``
+    with kernel #3 once per written packed group and step, the AUC within
+    FG_CPU_BOUND of a CPU run from the same weights; export, INPUT_TILE
+    serving (``fg_requests``) and the artifact's fg.json against
+    ``tools/create_fg_json``'s."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.benchmark import fg_synth
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.tools.create_fg_json import write_fg_json
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    seconds, out = {}, {"batch": FG_DIN_BATCH, "steps": FG_DIN_STEPS,
+                        "embedding_dim": FG_DIN_EMB,
+                        "hidden_units": list(FG_DIN_HIDDEN)}
+    t0 = time.perf_counter()
+    fg_synth.register_fg_ops()
+    paths = fg_din_files(tmp)
+    seconds["data"] = time.perf_counter() - t0
+    model_dir = os.path.join(tmp, "fg_din")
+    src = write_text(os.path.join(tmp, "fg_din.config"),
+                     fg_din_text(paths, model_dir))
+    cfg = parse_pipeline_config(open(src).read())
+    features = port_main._create_features(cfg)
+    out["feature_kinds"] = sorted({type(f).__name__ for f in features})
+    if len(out["feature_kinds"]) != 12:
+        raise AssertionError(f"train_fg: kinds {out['feature_kinds']}")
+    table = pq.read_table(paths["train"])
+    cols_list = [{c: table[c].slice(i * FG_DIN_BATCH, FG_DIN_BATCH)
+                  .combine_chunks() for c in table.column_names}
+                 for i in range(3)]
+    t0 = time.perf_counter()
+    out["host_ms"] = fg_kind_ms(features, cols_list[0])
+    seconds["host_ms"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    text = fg_din_text(paths, "unused", fp32_eps=True)
+    parser = DataParser(port_main._create_features(
+        parse_pipeline_config(text)), labels=["label"])
+    out["card_vs_cpu"] = zoo_rest_card_vs_cpu(
+        "train_fg din", text, None,
+        [parser.parse_to_batch(c) for c in cols_list])
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    init = cpu_init(src, os.path.join(tmp, "fg_din_init.pt"))
+    probe, _ = port_main.build_model(cfg, "cpu")
+    written = fg_written_groups(probe)
+    del probe
+    write_rows.launches = 0
+    result = port_main.train_and_evaluate(src, fine_tune_checkpoint=init,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    launches = write_rows.launches
+    seconds["train"] = time.perf_counter() - t0
+    if (result["step"] != FG_DIN_STEPS or not written
+            or launches != FG_DIN_STEPS * len(written)):
+        raise AssertionError(f"train_fg din: {result['step']} steps, "
+                             f"{launches} row writes for {written}")
+    t0 = time.perf_counter()
+    cpu = port_main.train_and_evaluate(
+        write_text(os.path.join(tmp, "fg_din_cpu.config"),
+                   fg_din_text(paths, model_dir + "_cpu")),
+        fine_tune_checkpoint=init, device="cpu")
+    seconds["train_cpu"] = time.perf_counter() - t0
+    dist = result["auc"] - cpu["auc"]
+    if not abs(dist) <= FG_CPU_BOUND:
+        raise AssertionError(f"train_fg din: auc {result['auc']} on the card"
+                             f" is {dist:+.4f} from {cpu['auc']}")
+    out["train"] = {"result": result, "row_write_launches": launches,
+                    "written_packed_groups": written,
+                    "cpu_reference": {"auc": cpu["auc"],
+                                      "card_minus_cpu": dist,
+                                      "bound": FG_CPU_BOUND}}
+
+    t0 = time.perf_counter()
+    export_dir = os.path.join(tmp, "fg_din_export")
+    port_main.export(os.path.join(model_dir, "pipeline.config"), export_dir,
+                     device="cuda")
+    seconds["export"] = time.perf_counter() - t0
+    with open(os.path.join(export_dir, "fg.json")) as a, open(write_fg_json(
+            src, os.path.join(tmp, "fg_tool"))) as b:
+        if json.load(a) != json.load(b):
+            raise AssertionError("train_fg: the artifact's fg.json is not "
+                                 "tools/create_fg_json's")
+    out["fg_json_equals_tool"] = True
+    t0 = time.perf_counter()
+    out["input_tile"] = fg_requests(port_main, export_dir, paths)
+    seconds["input_tile"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out, launches
+
+
+def phase_train_fg(smi):
+    """Feature generation from raw columns: the Criteo DeepFM at full
+    width fed raw log columns (``fg_criteo``), and a MultiTowerDIN with
+    every feature kind, its export and INPUT_TILE serving (``fg_din``).
+    Returns kernel #3's launches."""
+    from torcheasyrec_tpu_torch import fg
+
+    t0 = time.perf_counter()
+    lib = fg.build()
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        criteo, criteo_launches = fg_criteo(tmp)
+        emit({"phase": "train_fg_criteo", "nvidia_smi": smi, **criteo})
+        din, din_launches = fg_din(tmp)
+        emit({"phase": "train_fg_din", "nvidia_smi": smi, **din})
+    h = criteo["host_ms_per_batch"]
+    la = criteo["loader_alone"]
+    emit({"phase": "train_fg", "nvidia_smi": smi,
+          "fg_library": os.path.basename(lib), "fg_build_s": build_s,
+          "summary": {
+              "criteo_fg_host_ms_per_8192_rows": {
+                  k: h[k] for k in ("dag_ms_threads_1", "dag_ms_threads_4",
+                                    "plain_ms")},
+              "criteo_dag_handbacks": h["dag_handbacks"],
+              "criteo_loader_examples_per_s": {
+                  k: v["examples_per_s"] for k, v in la.items()},
+              "criteo_loader_fed_4_workers_step_ms":
+                  criteo["loader_fed_4_workers"]["window_step_ms"],
+              "criteo_resident_step_ms": criteo["resident"]["window_step_ms"],
+              "criteo_idle_share_loader_fed":
+                  criteo["loader_fed_4_workers"]["idle_share_profiled_steps"],
+              "criteo_card_vs_cpu_max_rel_err":
+                  criteo["card_vs_cpu"]["max_rel_err"],
+              "din_host_ms_by_kind": din["host_ms"]["plain_ms_by_kind"],
+              "din_card_vs_cpu_max_rel_err": din["card_vs_cpu"]["max_rel_err"],
+              "din_auc": din["train"]["result"]["auc"],
+              "din_auc_card_minus_cpu":
+                  din["train"]["cpu_reference"]["card_minus_cpu"],
+              "request_ms_median": {
+                  k: din["input_tile"][k]["request_ms_median"]
+                  for k in ("tiled", "untiled")},
+              "row_write_launches": criteo_launches + din_launches}})
+    return criteo_launches + din_launches
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8497,6 +9088,8 @@ def main() -> int:
                          SHARDED_AUC.get("world_2"))
     torch.cuda.empty_cache()
     sid_launches = timed("train_sid", phase_train_sid, smi)
+    torch.cuda.empty_cache()
+    fg_launches = timed("train_fg", phase_train_fg, smi)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -8569,7 +9162,7 @@ def main() -> int:
                    + lane_off_launches + options_writes
                    + gr_launches["row_write"] + zoo_rest_launches
                    + export_writes + tdm_launches + sharded["row_write"]
-                   + zch_launches + sid_launches,
+                   + zch_launches + sid_launches + fg_launches,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -8584,7 +9177,8 @@ def main() -> int:
                        "train_tdm": tdm_launches,
                        "train_sharded": sharded["row_write"],
                        "train_zch": zch_launches,
-                       "train_sid": sid_launches}),
+                       "train_sid": sid_launches,
+                       "train_fg": fg_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

@@ -205,9 +205,9 @@ def test_unported_rank_options_raise(text, match, tmp_path):
     package): each case's config builds with its module. So do an MLP
     dense embedding and a vocab file, the next two cases' until they were
     ported (tests/test_torch_port_dense_emb.py holds them against the JAX
-    package). Options still unported raise NotImplementedError: a Kafka
-    input and fg_mode FG_NORMAL (host-offloaded tables, the first case's
-    until they were ported, are held in
+    package), and fg_mode FG_NORMAL since it was ported. Options still
+    unported raise NotImplementedError: a Kafka input (host-offloaded
+    tables, the first case's until they were ported, are held in
     tests/test_torch_port_host_offload.py)."""
     _, model, _, _ = _port_model(text)
     if match == "variational_dropout":
@@ -236,9 +236,11 @@ def test_unported_rank_options_raise(text, match, tmp_path):
             create_reader("topic", 8,
                           dataset_type=data_pb2.DatasetType.KafkaDataset)
         return
-    with pytest.raises(NotImplementedError, match="FG_NONE"):
-        _port_model(deepfm_config_text().replace(
-            "fg_mode: FG_NONE", "fg_mode: FG_NORMAL"))
+    # FG_NORMAL is ported (tests/test_torch_port_fg_*.py hold it against
+    # the JAX package): the config builds in FG_NORMAL mode
+    _, _, features, _ = _port_model(deepfm_config_text().replace(
+        "fg_mode: FG_NONE", "fg_mode: FG_NORMAL"))
+    assert all(f._fg_mode == 2 and f.inputs == [f.name] for f in features)
 
 
 def test_dense_feature_in_wide_group_raises():

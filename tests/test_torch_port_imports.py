@@ -8,6 +8,7 @@ import inspect
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 from google.protobuf import text_format
@@ -59,7 +60,10 @@ for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "modules.sid.quantizer", "models.sid_models",
              "utils.sid.collision", "utils.sid.quality",
              "tools.sid.resolve_sid_collisions",
-             "tools.sid.evaluate_sid_quality"):
+             "tools.sid.evaluate_sid_quality", "fg", "fg.dag",
+             "features.other_features", "features.spiece",
+             "benchmark.fg_synth", "tools.create_fg_json",
+             "tools.create_online_infer_data"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)
@@ -123,6 +127,11 @@ DEEPFM_SLICE_MODULES = [
     "tools.tdm.retrieval",
     # training over several ranks
     "utils.dist_util", "parallel.mesh", "parallel.planner",
+    # feature generation from raw columns
+    "fg", "fg.dag", "features.feature", "features.id_feature",
+    "features.raw_feature", "features.other_features", "features.spiece",
+    "datasets.data_parser", "benchmark.fg_synth", "tools.create_fg_json",
+    "tools.create_online_infer_data",
 ]
 
 
@@ -144,6 +153,22 @@ def test_row_write_kernel_source_ships_with_the_package():
     src = (cuda_build.CSRC_DIR / "row_write.cu").read_text()
     assert 'extern "C" int row_write(' in src
     assert "long long k, long long p" in src and "size_t" in src
+
+
+def test_fg_ops_source_ships_with_the_package():
+    """The FG library builds from the port's own ``fg/csrc/fg_ops.cc``
+    into the port's build directory; its task layout is the one
+    ``fg/dag.py`` declares (the DAG and the sequence split-hash entry
+    points among it)."""
+    from torcheasyrec_tpu_torch import fg
+
+    assert fg.CSRC.parent.parent == Path(fg.__file__).resolve().parent
+    src = fg.CSRC.read_text()
+    for entry in ("int fg_run_dag(FgTask* tasks", "fg_seq_split_hash(",
+                  "int64_t fg_split_hash(", "void fg_hash64_ints_mod("):
+        assert entry in src, entry
+    assert fg.library_path().parent.name == "build"
+    assert fg.library_path().parent.parent.name == "torcheasyrec_tpu_torch"
 
 
 def test_chip_smoke_imports_no_jax():

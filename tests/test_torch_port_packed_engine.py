@@ -237,6 +237,37 @@ def test_packed_lookup_equals_jax(dense_lane, monkeypatch):
             assert (pout[k].numpy() == ref).all(), k
 
 
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_f10_jagged_pooling_is_a_segment_sum_that_ignores_padding(
+        combiner):
+    """A jagged field's pooling equals ``index_add_`` over the segment
+    ids bit for bit, and reads none of the padding rows after the last
+    segment (here filled with values that would show)."""
+    peng = EmbeddingEngine([TableSpec("big_b", 301, 8)],
+                           [LookupSpec("big_b:f_j", "f_j", "big_b", combiner)],
+                           SparseOptimizer("sgd", CFGS["sgd"]), packed=True)
+    tables = peng.init_tables(torch.Generator().manual_seed(0))
+    batch = {"f_j": _batch(3)["f_j"]}
+    out, res = peng.lookup(tables, _fields(batch, SparseField,
+                                           torch.from_numpy))
+    (gk, (flat_ids, plan)), = res.items()
+    g = peng.groups[gk]
+    rows = peng._gather(g, tables[gk], flat_ids)
+    e, = plan
+    b = e.lengths.shape[0]
+    n_real = int(e.lengths.sum())
+    assert n_real < rows.shape[0]  # the field has padding slots
+    ref = rows.new_zeros(b + 1, g.dim).index_add_(0, e.seg, rows)[:b]
+    if combiner == "mean":
+        ref = ref / e.lengths.float().clamp(min=1.0)[:, None]
+    assert torch.equal(out["big_b:f_j"], ref)
+    noisy = rows.clone()
+    noisy[n_real:] = 1e30
+    again = {}
+    peng._emit_outputs(g, plan, noisy, again)
+    assert torch.equal(again["big_b:f_j"], ref)
+
+
 @pytest.mark.parametrize("dense_lane", [0, DENSE_LANE])
 @pytest.mark.parametrize("kind", PORTED_KINDS)
 def test_packed_update_matches_jax_over_3_steps(kind, dense_lane,

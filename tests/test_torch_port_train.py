@@ -270,7 +270,8 @@ def test_unported_training_options_raise():
     in the JAX package. So does variational dropout (held against the JAX
     package in tests/test_torch_port_zoo_rest.py): DLRM-HSTU's one
     non-sequence group has a single feature, so it gates nothing, as in
-    the JAX package. fg_mode FG_NORMAL still raises."""
+    the JAX package. So does fg_mode FG_NORMAL since it was ported
+    (tests/test_torch_port_fg_*.py hold it against the JAX package)."""
     text = hstu_synth_train_config_text(BATCH)
     model, _, tx, _, _ = _port_trainer(text)
     sched = {"fn": lambda *a: 1.0, "by_epoch": False}
@@ -282,8 +283,9 @@ def test_unported_training_options_raise():
         "model_config {", "model_config {\n  variational_dropout {}", 1))[0]
     assert vd_model._base_model_config.HasField("variational_dropout")
     assert not vd_model.variational_dropout
-    with pytest.raises(NotImplementedError, match="FG_NONE"):
-        _port_trainer(text.replace("fg_mode: FG_NONE", "fg_mode: FG_NORMAL"))
+    _, features, _, _, _ = _port_trainer(
+        text.replace("fg_mode: FG_NONE", "fg_mode: FG_NORMAL"))
+    assert all(f._fg_mode == 2 for f in features)
 
 
 def test_train_and_evaluate_checkpoint_round_trip(tmp_path):

@@ -521,10 +521,10 @@ def test_unported_multi_task_options_raise(extra, match, tmp_path):
     package): each case's config builds. So do a dense embedding
     (AutoDis) and a vocab file, one a case, until they were ported
     (tests/test_torch_port_dense_emb.py holds them against the JAX
-    package). Options still unported raise NotImplementedError: fg_mode
-    FG_NORMAL and a Kafka input, one a case (host-offloaded tables, the
-    second case's until they were ported, are held in
-    tests/test_torch_port_host_offload.py)."""
+    package). So does fg_mode FG_NORMAL since it was ported. Options
+    still unported raise NotImplementedError: a Kafka input
+    (host-offloaded tables, the second case's until they were ported,
+    are held in tests/test_torch_port_host_offload.py)."""
     text = zoo_config_text("mmoe")
     if "pareto" in extra:
         text = text.replace("model_config {", "model_config {\n" + extra, 1)
@@ -541,9 +541,13 @@ def test_unported_multi_task_options_raise(extra, match, tmp_path):
         _, model, _, _ = _port_model(ported)
         assert type(model.embedding_group.dense_emb["int_0"]).__name__ == (
             "AutoDisEmbedding")
-        with pytest.raises(NotImplementedError, match="FG_NONE"):
-            _port_model(zoo_config_text("mmoe").replace(
-                "fg_mode: FG_NONE", "fg_mode: FG_NORMAL"))
+        # FG_NORMAL is ported (tests/test_torch_port_fg_*.py hold it
+        # against the JAX package): the config builds, its features in
+        # FG_NORMAL mode read the columns of their names
+        _, _, features, _ = _port_model(zoo_config_text("mmoe").replace(
+            "fg_mode: FG_NONE", "fg_mode: FG_NORMAL"))
+        assert all(f._fg_mode == 2 and f.inputs == [f.name]
+                   for f in features)
         return
     assert [t.tower_name for t in model._task_tower_cfgs
             if t.task_space_indicator_label] == ["x"]

@@ -10,8 +10,17 @@ A label named ``{sequence_name}__{column}`` after a grouped sequence
 feature, or a list-valued label, parses as a padded [B, L] float array
 (``_parse_jagged_label``: the sequence's delimiter and length, keeping
 the last steps). The tensors are built on the CPU; ``Batch.to(device)``
-moves them. The JAX parser's vectorised shortcut for plain id columns,
-the native FG DAG and INPUT_TILE serving are not ported.
+moves them.
+
+Feature generation (FG_NORMAL, FG_DAG): the native FG DAG
+(``fg/dag.py``, ``fg_threads`` workers) parses the features it takes in
+one C++ call, then the others parse in Python, then each
+``CombineFeature`` combines its upstream features' parses. Under
+INPUT_TILE (predict with ``INPUT_TILE`` 2 or 3: a request holds one
+user's rows) the user-side features parse the first row only, and
+``batch.tile_size`` carries the batch's row count, to which the
+embedding group tiles them on the device. The JAX parser's vectorised
+shortcut for plain id columns is not ported.
 """
 
 from typing import Any, Dict, List, Optional
@@ -29,6 +38,7 @@ from torcheasyrec_tpu_torch.datasets.utils import (
     pad_jagged_np,
 )
 from torcheasyrec_tpu_torch.features.feature import (
+    FG_NONE,
     BaseFeature,
     DenseData,
     SequenceDenseData,
@@ -43,8 +53,25 @@ class DataParser:
         features: List[BaseFeature],
         labels: Optional[List[str]] = None,
         sample_weights: Optional[List[str]] = None,
+        is_training: bool = False,
+        input_tile: bool = False,
+        fg_threads: int = 1,
     ) -> None:
+        from torcheasyrec_tpu_torch.features.other_features import (
+            CombineFeature,
+        )
+        from torcheasyrec_tpu_torch.fg.dag import FgDag
+
         self._features = features
+        self._is_training = is_training
+        self._input_tile = input_tile
+        fg = [f for f in features if f._fg_mode != FG_NONE]
+        self._combine = [f for f in fg if isinstance(f, CombineFeature)]
+        # the native FG DAG over the FG features (not those INPUT_TILE
+        # parses from one row)
+        self.fg_dag = FgDag(
+            [f for f in fg if not (input_tile and f.is_user_side)],
+            threads=fg_threads)
         self._labels = labels or []
         self._sample_weights = sample_weights or []
         # features that produced a multi-valued row once stay jagged, so
@@ -62,9 +89,19 @@ class DataParser:
 
     def parse(self, input_data: Dict[str, pa.Array]) -> Dict[str, Any]:
         """Run every feature's parse; returns name -> parsed numpy data."""
-        out: Dict[str, Any] = {}
+        out: Dict[str, Any] = self.fg_dag.parse(input_data,
+                                                self._is_training)
+        combine = {f.name for f in self._combine}
         for feature in self._features:
-            out[feature.name] = feature.parse(input_data)
+            if feature.name in out or feature.name in combine:
+                continue
+            data = input_data
+            if self._input_tile and feature.is_user_side:
+                data = {c: input_data[c].slice(0, 1)
+                        for c in feature.inputs if c in input_data}
+            out[feature.name] = feature.parse(data, self._is_training)
+        for feature in self._combine:
+            out[feature.name] = feature.combine(out)
         for label in self._labels:
             if label in input_data:
                 arr = _combined(input_data[label])
@@ -136,6 +173,14 @@ class DataParser:
                 batch.sample_weights[w] = torch.from_numpy(
                     parsed[key].astype(np.float32)
                 )
+        if self._input_tile:
+            sizes = [int(f.values.shape[0] if f.lengths is None
+                         else f.lengths.shape[0])
+                     for f in list(batch.sparse_features.values())
+                     + list(batch.sequence_sparse_features.values())]
+            sizes += [int(d.values.shape[0])
+                      for d in batch.dense_features.values()]
+            batch.tile_size = max(sizes) if sizes else 1
         return batch
 
     def parse_to_batch(self, input_data: Dict[str, pa.Array]) -> Batch:

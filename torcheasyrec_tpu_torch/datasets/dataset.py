@@ -198,10 +198,12 @@ class BaseDataset:
     """Iterable over (Batch, BatchInfo) of one input shard: worker
     ``worker_id`` of ``num_workers`` reads a disjoint part of the input.
 
-    The parser takes labels outside predict only. The JAX parser's
-    ``is_training`` steers only the FG DAG (not ported, as FG_NORMAL is
-    not), and its ``force_base_data_group`` is stored and never read, so
-    neither reaches this parser. A ``sampler`` (``create_sampler``)
+    The parser takes labels outside predict only, ``is_training`` in
+    train mode, ``data_config.fg_threads`` for the FG DAG, and INPUT_TILE
+    in predict mode where the environment's ``INPUT_TILE`` is 2 or 3 (a
+    request's user-side features are parsed once). The JAX parser's
+    ``force_base_data_group`` is stored and never read, so it does not
+    reach this parser. A ``sampler`` (``create_sampler``)
     appends its negatives to each batch's columns before the parse; the
     hard negatives' indices go to ``batch.additional``."""
 
@@ -226,6 +228,10 @@ class BaseDataset:
             features,
             labels=list(data_config.label_fields) if mode != "predict" else [],
             sample_weights=list(data_config.sample_weight_fields),
+            is_training=mode == "train",
+            input_tile=(mode == "predict" and os.environ.get(
+                "INPUT_TILE", "") in ("2", "3")),
+            fg_threads=int(data_config.fg_threads or 1),
         )
 
     def __iter__(self) -> Iterator[Tuple[Batch, BatchInfo]]:

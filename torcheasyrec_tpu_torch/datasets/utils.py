@@ -49,15 +49,15 @@ def bucketize_size(n: int, minimum: int = 16) -> int:
 
 
 def _map(obj, fn: Callable[[Any], Any]):
-    """``obj`` (a field dataclass, a dict of them or of tensors, a tensor
-    or None) with ``fn`` applied to every tensor (or numpy array, where
-    ``to_numpy`` put one)."""
-    if obj is None:
-        return None
+    """``obj`` (a field dataclass, a dict of them or of tensors, a tensor,
+    a plain value or None) with ``fn`` applied to every tensor (or numpy
+    array, where ``to_numpy`` put one)."""
     if isinstance(obj, (torch.Tensor, np.ndarray)):
         return fn(obj)
     if isinstance(obj, dict):
         return {k: _map(v, fn) for k, v in obj.items()}
+    if not dataclasses.is_dataclass(obj):
+        return obj  # None, or Batch.tile_size
     return type(obj)(*(_map(getattr(obj, f.name), fn)
                        for f in dataclasses.fields(obj)))
 
@@ -123,6 +123,9 @@ class Batch:
     additional: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict
     )
+    # INPUT_TILE serving: the rows the user-side features (parsed from a
+    # request's first row, [1, ...]) are tiled to; None otherwise
+    tile_size: Optional[int] = None
 
     def to(self, device, non_blocking: bool = False) -> "Batch":
         """The batch on ``device``; with ``non_blocking`` the copies from

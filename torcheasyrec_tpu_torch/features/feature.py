@@ -1,17 +1,24 @@
-"""Feature layer: BaseFeature, its registry and the fg-encoded parsers.
+"""Feature layer: BaseFeature, its registry and the parsers.
 
-Counterpart of torcheasyrec_tpu/features/feature.py, cut to what id and
-raw features (plain and sequence) need in FG_NONE mode, where the input
-columns are already encoded. Host-side only (pyarrow/numpy): it turns
-Arrow columns into numpy ids, lengths and dense values, and marks the
-features a negative sampler appends rows to (``data_group``). A grouped
-``sequence_feature`` config expands into one feature per sub-feature,
-named ``{sequence_name}__{sub_name}``, each with the group's delimiter,
-length and pk. The raw ids of ``zch`` and ``dynamicemb`` features pass
-unbounded (the model remaps them, ``parallel/zch.py``); their table has
-``zch_size`` or ``max_capacity`` rows; a ``vocab_file`` sizes its
-feature's table (the ids arrive encoded). FG_NORMAL feature generation
-is not ported and raises NotImplementedError.
+Counterpart of torcheasyrec_tpu/features/feature.py. Host-side only
+(pyarrow/numpy): it turns Arrow columns into numpy ids, lengths and
+dense values, and marks the features a negative sampler appends rows to
+(``data_group``). In FG_NONE mode a feature's input column is its own
+name and arrives encoded. In FG_NORMAL (and FG_DAG) mode feature
+generation runs here: a feature reads the columns of its
+``expression``s (``side:column``, side "user", "item" or "context"),
+hashes (FNV-1a, ``fg/``), maps through a vocab, bucketizes and
+normalizes them, with the JAX package's results bit for bit; the native
+FG DAG (``fg/dag.py``) runs the features it can take in one C++ call
+before the others' Python parses. A grouped ``sequence_feature`` config
+expands into one feature per sub-feature, named
+``{sequence_name}__{sub_name}``, each with the group's delimiter,
+length and pk (its sequence-typed inputs read the column
+``{sequence_name}__{column}``). The raw ids of ``zch`` and
+``dynamicemb`` features pass unbounded (the model remaps them,
+``parallel/zch.py``); their table has ``zch_size`` or ``max_capacity``
+rows. ``is_user_side`` features (all inputs on the user side) are parsed
+from a request's first row under INPUT_TILE serving.
 """
 
 import dataclasses
@@ -284,6 +291,56 @@ def _parse_fg_encoded_sequence_dense(
 
 
 # ---------------------------------------------------------------------------
+# FG transforms (FG_NORMAL)
+# ---------------------------------------------------------------------------
+
+
+def stable_hash64(tokens) -> np.ndarray:
+    """64-bit FNV-1a of each token's UTF-8 bytes (``str(t)``), uint64 [n]:
+    the hash the ids of both packages come from at training and at
+    serving time (not pyfg's)."""
+    from torcheasyrec_tpu_torch.fg import fnv1a64
+
+    return np.asarray([fnv1a64(str(t).encode("utf-8")) for t in tokens],
+                      np.uint64).reshape(-1)
+
+
+def parse_normalizer(spec: Optional[str]):
+    """A raw feature's normalizer, "method=log10,threshold=1e-10,
+    default=-10" (also ``zscore`` with ``mean`` and
+    ``standard_deviation``, ``minmax`` with ``min`` and ``max``, and
+    ``expression``, which passes values through), as a function of the
+    values; None without a spec."""
+    if not spec:
+        return None
+    kv = {}
+    for part in spec.split(","):
+        if "=" in part:
+            k, v = part.split("=", 1)
+            kv[k.strip()] = v.strip()
+    method = kv.get("method", "")
+
+    def _apply(x: np.ndarray) -> np.ndarray:
+        if method == "log10":
+            threshold = float(kv.get("threshold", 1e-10))
+            default = float(kv.get("default", -10))
+            return np.where(
+                x >= threshold, np.log10(np.maximum(x, threshold)), default
+            ).astype(np.float32)
+        if method == "zscore":
+            mean = float(kv.get("mean", 0.0))
+            std = float(kv.get("standard_deviation", kv.get("std", 1.0)))
+            return ((x - mean) / max(std, 1e-12)).astype(np.float32)
+        if method == "minmax":
+            mn = float(kv.get("min", 0.0))
+            mx = float(kv.get("max", 1.0))
+            return ((x - mn) / max(mx - mn, 1e-12)).astype(np.float32)
+        return x
+
+    return _apply
+
+
+# ---------------------------------------------------------------------------
 # BaseFeature
 # ---------------------------------------------------------------------------
 
@@ -307,7 +364,9 @@ def _has_field_safe(msg, name: str) -> bool:
 
 
 class BaseFeature(metaclass=_meta_cls):
-    """One feature column family (FG_NONE input)."""
+    """One feature column family. Subclasses say whether it is sparse and
+    implement ``_parse_fg``, their FG_NORMAL parse; the FG_NONE parse of
+    encoded columns is this class's."""
 
     def __init__(
         self,
@@ -315,10 +374,7 @@ class BaseFeature(metaclass=_meta_cls):
         fg_mode: int = FG_NONE,
         fg_encoded_multival_sep: Optional[str] = None,
     ) -> None:
-        if fg_mode != FG_NONE:
-            raise NotImplementedError(
-                "only fg_mode FG_NONE (pre-encoded input) is ported"
-            )
+        self._fg_mode = fg_mode
         self._feature_config = feature_config
         oneof = feature_config.WhichOneof("feature")
         self.config = getattr(feature_config, oneof)
@@ -335,6 +391,8 @@ class BaseFeature(metaclass=_meta_cls):
         self._id_bound_cache = None
         self._data_group = BASE_DATA_GROUP
         self._vocab_cache: Optional[Dict[str, int]] = None
+        # (sorted keys, their ids) of the vocab, for _map_vocab
+        self._vocab_arr_cache = None
 
     # -- identity ----------------------------------------------------------
 
@@ -365,6 +423,22 @@ class BaseFeature(metaclass=_meta_cls):
     @property
     def value_dim(self) -> int:
         return int(getattr(self.config, "value_dim", 0) or 0)
+
+    @property
+    def output_dim(self) -> int:
+        """Per-sample width after embedding (sparse) or as it is (dense)."""
+        if self.is_sparse:
+            return int(self.config.embedding_dim)
+        return max(self.value_dim, 1)
+
+    @property
+    def dense_emb_kind(self) -> Optional[str]:
+        """"autodis" or "mlp" where the config embeds its dense values,
+        else None (also for the classes without that option)."""
+        try:
+            return self.config.WhichOneof("dense_emb")
+        except ValueError:
+            return None
 
     # -- embedding table config -------------------------------------------
 
@@ -451,20 +525,61 @@ class BaseFeature(metaclass=_meta_cls):
     # -- input wiring ------------------------------------------------------
 
     @property
-    def inputs(self) -> List[str]:
-        """In FG_NONE mode the input column is the feature name itself."""
-        return [self.name]
+    def expressions(self) -> List[str]:
+        """The config's ``expression``s (one or a list)."""
+        expr = getattr(self.config, "expression", None)
+        if isinstance(expr, str):
+            return [expr] if expr else []
+        return list(expr or [])
+
+    # the classes whose single input is sequence-typed inside a grouped
+    # sequence
+    _SINGLE_INPUT_SEQ_CLASSES = (
+        "IdFeature", "RawFeature", "TokenizeFeature", "CombineFeature",
+    )
+
+    def _is_sequence_input(self, side: str, col: str) -> bool:
+        """Whether an input column of a sequence feature is sequence-typed:
+        ``sequence_fields`` lists them where set; else every non-"feature"
+        input of a single-input class; else the item-side inputs."""
+        if not self.is_sequence:
+            return False
+        sf = list(getattr(self.config, "sequence_fields", []))
+        if sf:
+            return col in sf
+        if type(self).__name__ in self._SINGLE_INPUT_SEQ_CLASSES:
+            return side != "feature"
+        return side == "item"
 
     @property
     def side_inputs(self) -> List[Tuple[str, str]]:
-        """[(side, column)] of the config's ``expression``s, written
-        ``side:column`` (side "user", "item" or "context"; "" where the
-        expression names a column alone)."""
-        expr = getattr(self.config, "expression", None)
-        exprs = ([expr] if expr else []) if isinstance(expr, str) else list(
-            expr or [])
-        return [tuple(e.split(":", 1)) if ":" in e else ("", e)
-                for e in exprs]
+        """[(side, column)] of the ``expressions``, written ``side:column``
+        (side "user", "item", "context" or "feature"; "" where the
+        expression names a column alone). A grouped-sequence sub-feature's
+        sequence-typed inputs read ``{sequence_name}__{column}``."""
+        out = []
+        for e in self.expressions:
+            side, col = e.split(":", 1) if ":" in e else ("", e)
+            if self.sequence_name and self._is_sequence_input(side, col):
+                col = f"{self.sequence_name}__{col}"
+            out.append((side, col))
+        return out
+
+    @property
+    def inputs(self) -> List[str]:
+        """The input columns: the feature's own name in FG_NONE mode (the
+        column arrives encoded), else the expressions' columns."""
+        if self._fg_mode == FG_NONE:
+            return [self.name]
+        return [c for _, c in self.side_inputs] or [self.name]
+
+    @property
+    def is_user_side(self) -> bool:
+        """Every input is on the user side (a feature that mixes user and
+        item inputs varies by row, and INPUT_TILE must not parse it
+        once)."""
+        sides = [s for s, _ in self.side_inputs]
+        return bool(sides) and all(s == "user" for s in sides)
 
     @property
     def is_item_side(self) -> bool:
@@ -478,6 +593,17 @@ class BaseFeature(metaclass=_meta_cls):
 
     def set_data_group(self, group: str) -> None:
         self._data_group = group
+
+    def encoded(self) -> "BaseFeature":
+        """This feature built anew under FG_NONE (it reads its encoded
+        columns), in the same sequence group and data group."""
+        feat = type(self)(self._feature_config, FG_NONE, self._multival_sep)
+        feat.sequence_name = self.sequence_name
+        feat.sequence_delim = self.sequence_delim
+        feat.sequence_length = self.sequence_length
+        feat.sequence_pk = self.sequence_pk
+        feat.set_data_group(self.data_group)
+        return feat
 
     @property
     def effective_sequence_delim(self) -> str:
@@ -494,8 +620,20 @@ class BaseFeature(metaclass=_meta_cls):
 
     # -- parse -------------------------------------------------------------
 
-    def parse(self, input_data: Dict[str, pa.Array]) -> Any:
-        """Arrow columns -> parsed numpy data."""
+    def parse(self, input_data: Dict[str, pa.Array],
+              is_training: bool = False) -> Any:
+        """Arrow columns -> parsed numpy data: the encoded column in FG_NONE
+        mode, else feature generation (``_parse_fg``)."""
+        if self._fg_mode == FG_NONE:
+            return self._parse_fg_encoded(input_data)
+        return self._parse_fg(input_data, is_training)
+
+    def _parse_fg(self, input_data: Dict[str, pa.Array],
+                  is_training: bool) -> Any:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no FG_NORMAL parse")
+
+    def _parse_fg_encoded(self, input_data: Dict[str, pa.Array]) -> Any:
         feat = self._input_column(input_data)
         default = self._fg_encoded_default()
         if self.is_sequence:
@@ -559,6 +697,78 @@ class BaseFeature(metaclass=_meta_cls):
             v = np.where(v >= n, n - 1, v)
         return dataclasses.replace(parsed, values=v)
 
+    # -- vocab and bucketize helpers of the FG parses ----------------------
+
+    def vocab_table_and_oov(self):
+        """(token -> id table, oov id) where the feature maps through a
+        vocab (list, dict or file), else None. A ``vocab_list`` without
+        ``default_bucketize_value`` maps the default value to 0, OOV to 1
+        and the i-th token to i + 2; with it, tokens to their positions and
+        OOV to it. A ``vocab_dict`` maps the default value to 0 and OOV to
+        1 unless ``default_bucketize_value`` is set; a ``vocab_file`` takes
+        the file's indices, OOV ``default_bucketize_value`` (else 1)."""
+        c = self.config
+        has_dbv = _has_field_safe(c, "default_bucketize_value")
+        default_bkt = int(getattr(c, "default_bucketize_value", 0) or 0)
+        dv = str(getattr(c, "default_value", "") or "")
+        if len(getattr(c, "vocab_list", [])):
+            if has_dbv:
+                return {t: i for i, t in enumerate(c.vocab_list)}, default_bkt
+            table = {t: i + 2 for i, t in enumerate(c.vocab_list)}
+            if dv:
+                table.setdefault(dv, 0)
+            return table, 1
+        if len(getattr(c, "vocab_dict", {})):
+            table = dict(c.vocab_dict)
+            if has_dbv:
+                return table, default_bkt
+            if dv:
+                table[dv] = 0
+            return table, 1
+        if getattr(c, "vocab_file", ""):
+            return self._load_vocab_file(), default_bkt if has_dbv else 1
+        return None
+
+    def _vocab_to_ids(self, tokens) -> np.ndarray:
+        """Token ids: through the vocab, else hashed mod
+        ``hash_bucket_size``, else ``int(token)`` clipped to
+        ``num_buckets`` ("" and "None" read 0)."""
+        from torcheasyrec_tpu_torch import fg as fg_native
+
+        c = self.config
+        got = self.vocab_table_and_oov()
+        if got is not None:
+            return self._map_vocab(got[0], tokens, got[1])
+        if getattr(c, "hash_bucket_size", 0):
+            return fg_native.hash_strings_mod(tokens, int(c.hash_bucket_size))
+        if getattr(c, "num_buckets", 0):
+            arr = np.asarray(
+                [int(t) if str(t) not in ("", "None") else 0 for t in tokens],
+                dtype=np.int64)
+            return np.clip(arr, 0, int(c.num_buckets) - 1)
+        raise ValueError(f"feature {self.name}: no id-mapping config")
+
+    def _map_vocab(self, table, tokens, oov: int) -> np.ndarray:
+        """``table.get(str(t), oov)`` for each token, by binary search over
+        the sorted keys (cached: the table is the config's)."""
+        if self._vocab_arr_cache is None:
+            keys = np.array([str(k) for k in table], dtype=np.str_)
+            vals = np.array(list(table.values()), dtype=np.int64)
+            order = np.argsort(keys)
+            self._vocab_arr_cache = (keys[order], vals[order])
+        keys, vals = self._vocab_arr_cache
+        if not len(tokens) or not len(keys):
+            return np.full((len(tokens),), oov, np.int64)
+        toks = np.asarray(tokens).astype(np.str_)
+        pos = np.minimum(np.searchsorted(keys, toks), len(keys) - 1)
+        return np.where(keys[pos] == toks, vals[pos], oov)
+
+    def _bucketize(self, vals: np.ndarray) -> np.ndarray:
+        from torcheasyrec_tpu_torch import fg as fg_native
+
+        return fg_native.bucketize(
+            vals, np.asarray(list(self.config.boundaries), np.float64))
+
     # -- fg.json: the serving contract ---------------------------------------
 
     def fg_json(self) -> Dict[str, Any]:
@@ -566,7 +776,9 @@ class BaseFeature(metaclass=_meta_cls):
         it: a grouped sub-feature keeps its bare name (the group carries
         the prefix); a standalone sequence feature keeps its ``sequence_``
         type, delimiter and length; sequence features get a default of
-        "0"; the config's serve-time fields follow."""
+        "0"; the config's serve-time fields follow (the expressions as the
+        class reads them: a lookup's ``map`` and ``key``, a match's
+        nested map and keys)."""
         c = self.config
         out: Dict[str, Any] = {
             "feature_name": (c.feature_name if self.sequence_name
@@ -583,9 +795,7 @@ class BaseFeature(metaclass=_meta_cls):
         if out["feature_type"] == "expr_feature":
             out["expression"] = getattr(c, "expression", "")
         else:
-            expr = getattr(c, "expression", None)
-            exprs = (([expr] if expr else []) if isinstance(expr, str)
-                     else list(expr or []))
+            exprs = self.expressions
             if len(exprs) == 1:
                 out["expression"] = exprs[0]
             elif exprs:

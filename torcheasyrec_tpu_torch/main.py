@@ -1366,12 +1366,15 @@ class _FlatServe(torch.nn.Module):
 def serving_batch(pipeline_config, features, device) -> Tuple[int, Batch]:
     """(rows, batch) the serving program is traced over: a mock table
     (``utils/test_util``, seed 0) of ``eval_batch_size`` (else
-    ``batch_size``) rows, parsed as the loader parses, on ``device``."""
+    ``batch_size``) rows, parsed as the loader parses, on ``device``.
+    The program takes parsed batches, so FG features are mocked by their
+    encoded (FG_NONE) form."""
     from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
     from torcheasyrec_tpu_torch.utils.test_util import generate_mock_table
 
     dc = pipeline_config.data_config
     bs = int(dc.eval_batch_size or dc.batch_size)
+    features = [f.encoded() for f in features]
     tbl = generate_mock_table(features, bs, [], seed=0)
     batch = DataParser(features, labels=[]).parse_to_batch(
         {name: tbl.column(i) for i, name in enumerate(tbl.schema.names)})

@@ -40,7 +40,10 @@ computed by ``dense_emb.<feature>`` (``AutoDisEmbedding``,
 host-offloaded table (``embedding_constraints {
 sharding_types: "host_offload" }``) lives in host memory, outside the
 module's buffers (``model.to`` leaves it there); its rows reach the
-device per batch (``parallel/emb_engine.py``).
+device per batch (``parallel/emb_engine.py``). Under INPUT_TILE serving
+(``batch.tile_size`` set) a user-side feature arrives with one row; its
+slot (and a user-side sequence's lengths) is broadcast on the device to
+``tile_size`` rows in ``assemble``.
 
 ZCH (the counterpart of the JAX EmbeddingGroup's ``remap_zch`` and its
 spill tier): a ``zch`` or ``dynamicemb`` feature's raw ids are remapped
@@ -105,6 +108,8 @@ class EmbeddingGroup(nn.Module):
         super().__init__()
         plan = plan or {}
         self._name_to_feature = {f.name: f for f in features}
+        # features INPUT_TILE parses from a request's first row
+        self._user_side = {f.name for f in features if f.is_user_side}
         shapes: Dict[str, Tuple[int, int]] = {}
         table_specs: Dict[str, TableSpec] = {}
         lookups: Dict[str, LookupSpec] = {}
@@ -115,7 +120,7 @@ class EmbeddingGroup(nn.Module):
         def _dense_slot(feat: BaseFeature) -> Slot:
             """A dense (raw) feature's slot of its ``output_dim``; a dense
             embedding's module is built once per feature."""
-            which = feat.config.WhichOneof("dense_emb")
+            which = feat.dense_emb_kind
             if which is not None and feat.name not in dense_emb:
                 d = int(feat.config.embedding_dim)
                 if which == "autodis":
@@ -661,16 +666,25 @@ class EmbeddingGroup(nn.Module):
         are cast to ``compute_dtype``. ``groups`` assembles those groups
         only."""
         gset = None if groups is None else set(groups)
+        tile = batch.tile_size
+
+        def _tiled(v: torch.Tensor, fname: str) -> torch.Tensor:
+            # INPUT_TILE: a user-side feature's one row, broadcast on the
+            # device to the batch's rows
+            if tile is not None and fname in self._user_side and (
+                    v.shape[0] == 1):
+                return v.expand(tile, *v.shape[1:])
+            return v
 
         def _slot_value(slot: Slot) -> torch.Tensor:
             kind, key, _ = slot
             if kind == "emb":
-                return emb_out[key].to(compute_dtype)
+                return _tiled(emb_out[key].to(compute_dtype),
+                              key.split(":")[1])
             if kind == "seq_dense":
-                return batch.sequence_dense_features[key].values.to(
-                    compute_dtype
-                )
-            return self._dense_value(slot, batch, compute_dtype)
+                return _tiled(batch.sequence_dense_features[key].values.to(
+                    compute_dtype), key)
+            return _tiled(self._dense_value(slot, batch, compute_dtype), key)
 
         result: Dict[str, torch.Tensor] = {}
         for name, sg in self._seq_groups.items():
@@ -681,6 +695,7 @@ class EmbeddingGroup(nn.Module):
                 lengths = batch.sequence_sparse_features[lf].lengths
             else:
                 lengths = batch.sequence_dense_features[lf].lengths
+            lengths = _tiled(lengths, lf)
             if sg["query"]:
                 result[f"{name}.query"] = torch.cat(
                     [_slot_value(s) for s in sg["query"]], dim=-1

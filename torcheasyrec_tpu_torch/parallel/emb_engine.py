@@ -791,7 +791,12 @@ class EmbeddingEngine:
             if e.weights is not None:
                 r = r * e.weights[:, None]
             if e.seg is not None:
-                pooled = r.new_zeros(b + 1, g.dim).index_add_(0, e.seg, r)[:b]
+                # the rows lie in row order, padding last: a segment sum
+                # adds each row's values in one order (atomic adds would
+                # let two equal rows differ on the card); unchecked, it
+                # reads no row past the last segment's
+                pooled = torch.segment_reduce(
+                    r, "sum", lengths=e.lengths, axis=0, unsafe=True)
             else:
                 pooled = r.reshape(b, -1, g.dim).sum(dim=1)
             if e.lk.combiner == "mean":
