@@ -158,9 +158,10 @@ one JSON line each:
    the loader, an eval pass at the end), with the
    row-write count set to 0 just before and read just after; ``evaluate``
    and ``predict_checkpoint`` (the first 2 eval batches) of its
-   checkpoint; then its step on a resident batch (median of 10
-   synchronised steps after 5 of warm-up, a 10-step window, the idle
-   share of 5 profiled steps, peak memory). Checks: exactly 64 steps and
+   checkpoint; then its step on a resident batch (median of 6
+   synchronised steps after 3 of warm-up, a 6-step window, the idle
+   share of 3 profiled steps, peak memory; 10, 5, 10 and 5 before
+   train_zch_ranks and train_stream joined). Checks: exactly 64 steps and
    one row-write launch a step per packed group with tables past the
    dense lane (2 for Wide&Deep, 0 for DSSM, 1 for the others), the timed
    steps too; finite losses; every AUC of the config's pinned labels
@@ -255,14 +256,14 @@ one JSON line each:
    a domain group, PPNet towers 512-256-128 gated by priors, Pareto loss
    weights) and DC2VR (a Dice bottom, MMoE of 4 experts, the cvr tower
    intervened by the ctr tower within its task space). Each config first
-   3 fp32 steps on the card against the CPU from the same CPU-drawn
+   2 fp32 steps on the card against the CPU from the same CPU-drawn
    weights and batches, the variational-dropout noise given to both:
    losses, predictions, dense gradients, and after the steps every
    tensor of the state dict (batch-norm statistics and tables included)
    and the row state, within 1e-4 of each tensor's CPU max. Then as the
    zoo's configs: an epoch through ``train_and_evaluate`` from the
-   default seed's CPU-drawn weights (xDeepFM's cut to 8 steps, its CPU
-   epoch taking minutes; WuKong's and PEPNet's to 8, DC2VR's to 16), each AUC within
+   default seed's CPU-drawn weights (xDeepFM's cut to 4 steps, its CPU
+   epoch taking minutes; WuKong's and PEPNet's to 4, DC2VR's to 8), each AUC within
    0.02 of a CPU run of the same config from them, exactly one row write a step per written
    packed group (two for xDeepFM), ``evaluate`` and ``predict_checkpoint``,
    the resident step; xDeepFM's real step's row writes bit-equal to the
@@ -284,7 +285,7 @@ one JSON line each:
    HSTU-Match (whose user tower program holds the attention operator,
    fp32 at head dim 16): each tower's embeddings from its artifact
    against the whole model's on the same rows (1e-4 of the max).
-   criteo_synth deepfm trained 8 steps with the delta dump every 4 (row
+   criteo_synth deepfm trained 4 steps with the delta dump every 2 (row
    writes counted): every shard's ids equal to the ids its batches look
    up (parsed on the host), its rows equal to the step's checkpoint;
    then its fp32 and INT8 artifacts: the INT8 tables bit-equal to a CPU
@@ -296,13 +297,13 @@ one JSON line each:
    not in the repository): the tree of the 2 000 items (``init_tree``,
    4 001 nodes, leaves at depth 11); ``TDMSampler.process`` timed on the
    host (a batch of 1 024 rows becomes ~46 800 pairs); the sampler's
-   shared table on a synthetic item table of 4 M items (cut to half of
+   shared table on a synthetic item table of 2 M items (cut to half of
    /dev/shm's free space): the build, the segment's bytes, and the
-   memory of 4 spawned workers that attach against one that unpickles a
+   memory of 2 spawned workers that attach against one that unpickles a
    private copy (each worker's own growth, and the host's MemAvailable
    while they hold their mappings: the attached workers' growth must be
    under a quarter of the copy's, by the workers' own counters where
-   they separate shared memory, else by the host's). 3 fp32 steps on the
+   they separate shared memory, else by the host's). 2 fp32 steps on the
    card against
    the CPU from the same CPU-drawn weights and sampled batches, as
    ``train_zoo_rest``'s (1e-4 of each tensor's max, the card's PReLU
@@ -368,7 +369,7 @@ one JSON line each:
    1's to 1e-6 and within 0.02 of the pinned AUC, the checkpoint
    restored at world size 1 bit for bit.
 
-Phase ``train_zch`` (last before the timeline): criteo_synth DeepFM at
+Phase ``train_zch``: criteo_synth DeepFM at
 its published width with eight of its 100 000-bucket features as 32 768
 slot ZCH (lfu, lru, distance_lfu) and dynamicemb tables (the host spill
 tier, frequency admission) and four tables host-offloaded
@@ -378,14 +379,15 @@ bit-equal, tables, row state and dense parameters within 1e-4 of each
 tensor's max, untouched rows bit-equal, the host tables within 1e-5 of a
 run with them on the card; an epoch cut to ZCH_STEPS through
 ``train_and_evaluate`` (BF16) with kernel #3 once per written packed
-group and step, spills and restores, its AUC within 0.02 of a CPU run
+group and step (and once per spill restore into it), spills and
+restores, its AUC within 0.02 of a CPU run
 from the same weights, its loop's step times, ``evaluate`` and
 ``predict_checkpoint``; a resume bit-equal to the straight run; the export's ``predict`` in a
 fresh process and its loaded program bit-equal; the TensorBoard tags; the
 step, its host work and the remap's device time beside the same config
 without ZCH.
 
-Phase ``train_sid`` (last before the timeline): semantic-ID generation
+Phase ``train_sid``: semantic-ID generation
 at the widths of TIGER's RQ-VAE (Rajput et al., "Recommender Systems
 with Generative Retrieval", NeurIPS 2023: 768-d item content vectors,
 an encoder 512-256-128 to a latent of 32, 3 levels of 256 codes, batch
@@ -411,7 +413,7 @@ kernel #3 once per written packed group and step and the AUC within
 0.02 of a CPU run, one real step's row writes bit-equal to the plain
 version, and the CSV loader's examples/s beside the parquet loader's.
 
-Phase ``train_fg`` (last before the timeline): feature generation from
+Phase ``train_fg``: feature generation from
 raw columns. The FG library (``fg/csrc/fg_ops.cc``) is built with g++
 beside the CUDA kernels. (a) The Criteo DeepFM at full width (tables
 capped at 10 M, BF16, batch 8 192) fed raw log columns: C1..C26 as
@@ -431,6 +433,34 @@ and step and the AUC within 0.02 of a CPU run from the same weights.
 ``tools/create_fg_json``'s) and ``predict`` on requests of 1 user x 512
 items with INPUT_TILE=2, bit-equal to predict without it, the user-side
 features parsed once a request, the request times tiled and untiled.
+
+Phase ``train_zch_ranks``: ZCH and dynamicemb tables over two ranks on
+the one card (gloo, as ``train_sharded``). criteo_synth DeepFM with four
+of its 100 000-bucket features as dynamicemb tables of 1 048 576 slots,
+``row_wise`` and packed (``zr_text``), 3 steps of global batches of
+4 096 (2 048 a rank): the ZCH mappings bit-equal on both ranks, to a CPU
+remap of the global batches and to a one-rank card run; every table's
+touched rows within 1e-5 of each table's max of that run, whose products
+take the ranks' row blocks (``row_blocks``); kernel #3 once per packed
+block, rank and step; the checkpoint (its save checks the mappings equal
+on the ranks) evaluated at world sizes 2 and 1; a resume from it at
+world size 2 bit-equal to the trained model's next step; the step at
+world sizes 2 and 1; and a restore probe (``zr_restore_probe``): a key
+written into an 8-slot ``row_wise`` packed table, flooded out, stored by
+the rank that holds its slot, readmitted and written back by kernel #3,
+read back bit for bit.
+
+Phase ``train_stream`` (last before the timeline): the criteo_synth
+DeepFM fed from Kafka, an in-memory broker standing in for
+``confluent_kafka`` (no broker, no network; printed): two partitions of
+the synthetic Criteo rows as JSON messages. 16 steps on the card through
+``train_and_evaluate`` with kernel #3 once per written group and step,
+the AUC within 0.02 of a CPU run from the same weights and broker; a
+resume at step 8 that continues each partition at offset + 1, bit-equal
+to the straight run; the loop's step beside the same steps fed from the
+parquet file. Then a TF-EasyRec DeepFM config over the Criteo columns
+through ``tools/convert_easyrec_config``, 4 steps on the card (kernel #3
+counted) and its checkpoint listed whole by ``tools/list_ckpt_param``.
 
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
@@ -2784,7 +2814,8 @@ ZOO_AUC_BOUND = 0.02  # the JAX package's bound for a run off the TPU
 ZOO_PREDICT_BATCHES = 2
 # the resident step's timing: 20 timed and 10 profiled steps until
 # train_sid joined the script
-ZOO_WARMUP, ZOO_TIMED_STEPS, ZOO_PROFILED_STEPS = 5, 10, 5
+# 5, 10 and 5 before train_zch_ranks and train_stream joined
+ZOO_WARMUP, ZOO_TIMED_STEPS, ZOO_PROFILED_STEPS = 3, 6, 3
 ZOO_BATCH = 4096
 ZOO_SUMMARY = ("metrics", "step_ms_median", "examples_per_s",
                "idle_share_profiled_steps", "max_memory_allocated_gb",
@@ -4492,12 +4523,16 @@ ZOO_REST_METRICS = {"xdeepfm": ("auc", "grouped_auc_cat_10"),
 # keep the whole script near 900 s once phase train_sharded joined it
 # dc2vr cut from its epoch of 64 steps (33 s there), for train_zch's time,
 # then to 16 for train_sid's
-ZOO_REST_STEPS = {"xdeepfm": 8, "wukong": 8, "pepnet": 8, "dc2vr": 16}
+# halved for the time of train_zch_ranks and train_stream: 8, 8, 8 and
+# 16 before
+ZOO_REST_STEPS = {"xdeepfm": 4, "wukong": 4, "pepnet": 4, "dc2vr": 8}
 # the rows its data holds: enough for DC2VR's 16 steps; the eval set cut
 # from 65 536 (the CPU reference's eval of xDeepFM) to 16 384 for
 # train_sid's time, then to 8 192 (two predict batches) for train_fg's
 ZOO_REST_ROWS = (65_536, 8_192)
-ZOO_REST_CHECK_STEPS = 3  # fp32 steps on the card against the CPU
+# fp32 steps on the card against the CPU (3 before train_zch_ranks and
+# train_stream joined; TDM takes it too)
+ZOO_REST_CHECK_STEPS = 2
 ZOO_REST_CARD_TOL = 1e-4  # max abs error over the CPU's max abs, per tensor
 # a linear's bias before a batch norm has a gradient of 0 up to rounding
 ZOO_REST_ZERO_GRAD = 1e-5
@@ -4857,8 +4892,8 @@ def phase_train_zoo_rest():
 
 
 # --- export: artifacts, the loaded program, the delta dump, cached decode --
-EXPORT_F8_STEPS = 8
-EXPORT_F8_INTERVAL = 4
+EXPORT_F8_STEPS = 4  # two dumps, as 8 at interval 4 gave before
+EXPORT_F8_INTERVAL = 2
 EXPORT_PREDICT_ROWS = 4096
 EXPORT_QUANT_TOL = 0.05  # INT8 probs against fp32's: the JAX test's bound
 EXPORT_TIMED_FORWARDS = 5
@@ -5343,16 +5378,16 @@ TDM_LAYERS = (0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6)  # negatives by depth
 # needs 5)
 TDM_STEPS = 5
 TDM_RETRAIN_STEPS = 5  # on the rebuilt tree (cut from 32, then 8)
-TDM_EVAL_ROWS = 512  # cut from 4 096, then 1 024 (for train_fg's time)
+TDM_EVAL_ROWS = 256  # cut from 4 096, then 1 024, then 512
 TDM_WORKERS = 4
-TDM_SAMPLER_BATCHES = 5
-TDM_SHM_ITEMS = 4_000_000  # the shared item table, cut to fit /dev/shm
-TDM_SHM_WORKERS = 4
-TDM_LOADER_STEPS = 8  # the loader-fed window after LOADER_WARMUP (was 16)
+TDM_SAMPLER_BATCHES = 3  # was 5
+TDM_SHM_ITEMS = 2_000_000  # the shared item table (4 M before)
+TDM_SHM_WORKERS = 2  # 4 before
+TDM_LOADER_STEPS = 4  # the loader-fed window after LOADER_WARMUP (16, 8)
 TDM_RECALL_NUM, TDM_N_CLUSTER = 50, 2
-TDM_RETRIEVAL_USERS = 128  # cut from 1 024, then 256: the CPU's time
+TDM_RETRIEVAL_USERS = 64  # cut from 1 024, then 256, 128: the CPU's time
 TDM_CPU_BOUND = 0.02  # AUC and recall@50 on the card against the CPU's
-TDM_PREDICT_ROWS = 512  # within TDM_EVAL_ROWS (cut from 4 096, then 1 024)
+TDM_PREDICT_ROWS = 256  # within TDM_EVAL_ROWS (4 096, 1 024, 512 before)
 # the node predict from the embedding artifact, in a process of its own
 TDM_NODE_PREDICT = r"""
 import sys
@@ -5680,8 +5715,8 @@ def tdm_shared_table(tmp) -> dict:
         check = "each attached worker's own growth < 1/4 of the copy's"
         ok = max(own) < 0.25 * copy_own
     elif host_copy >= 0.5 * seg:
-        check = ("the host's growth for the 4 attached workers < 1/4 of "
-                 "the copy's")
+        check = (f"the host's growth for the {TDM_SHM_WORKERS} attached "
+                 "workers < 1/4 of the copy's")
         ok = host_attached < 0.25 * host_copy
     else:
         check, ok = "not measured", True
@@ -5968,7 +6003,7 @@ def tdm_retrieve(users, cfg_path) -> dict:
 
 def phase_train_tdm(smi):
     """TDM end to end (``tdm_text``): the tree, the sampler's host cost and
-    its shared table, 3 fp32 steps on the card against the CPU, an epoch
+    its shared table, 2 fp32 steps on the card against the CPU, an epoch
     cut to TDM_STEPS through ``train_and_evaluate`` with 4 loader workers
     against a CPU run from the same weights, the resident and loader-fed
     step, export and the artifacts' predict, ``cluster_tree`` over the
@@ -7238,7 +7273,7 @@ def _touched_rows(eg, batches, restores) -> dict:
                 v = src[lk.feature_name].values.reshape(-1).long()
                 rows[lk.table_name].append(v[v >= 0].cpu())
     for r in restores:
-        for t, (slots, _) in r.items():
+        for t, (slots, *_) in r.items():
             rows[t].append(torch.as_tensor(slots, dtype=torch.long))
     return {t: torch.unique(torch.cat(v)) if v else torch.zeros(0, dtype=
             torch.long) for t, v in rows.items()}
@@ -7315,8 +7350,8 @@ def zch_card_vs_cpu(paths, tmp) -> dict:
                 counts["evicted"] += int((rec["evicted_keys"] >= 0).sum())
             if set(plog.restores[i]) != set(clog.restores[i]):
                 raise AssertionError("train_zch: restores of other tables")
-            for t, (slots, rows) in plog.restores[i].items():
-                cs, cr = clog.restores[i][t]
+            for t, (slots, rows, *_) in plog.restores[i].items():
+                cs, cr = clog.restores[i][t][:2]
                 if not np.array_equal(cs, slots):
                     raise AssertionError(f"train_zch: {t}'s restored slots "
                                          "differ on the card")
@@ -7649,6 +7684,36 @@ def zch_tb_tags(model_dir) -> dict:
     return {t: len(acc.Scalars(t)) for t in acc.Tags()["scalars"]}
 
 
+class restore_writes:
+    """Counts, inside the block, the row writes (kernel #3 launches) that
+    ``write_logical_rows`` makes: the spill restores into packed
+    groups."""
+
+    def __enter__(self):
+        from torcheasyrec_tpu_torch.ops.row_write import write_rows
+        from torcheasyrec_tpu_torch.parallel.emb_engine import (
+            EmbeddingEngine,
+        )
+
+        self._cls, self._real = EmbeddingEngine, EmbeddingEngine.__dict__[
+            "write_logical_rows"]
+        self.counts = {"launches": 0, "calls": 0}
+        real, counts = self._real, self.counts
+
+        def counted(engine, *args, **kwargs):
+            before = write_rows.launches
+            real(engine, *args, **kwargs)
+            counts["launches"] += write_rows.launches - before
+            counts["calls"] += 1
+
+        EmbeddingEngine.write_logical_rows = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        self._cls.write_logical_rows = self._real
+        return False
+
+
 def phase_train_zch(smi, sharded_auc=None):
     """ZCH, dynamic embeddings and host-offloaded tables on criteo_synth
     DeepFM (``zch_text``): card against CPU (``zch_card_vs_cpu``), an
@@ -7693,7 +7758,7 @@ def phase_train_zch(smi, sharded_auc=None):
         edits = json.dumps({"train_config.num_steps": ZCH_STEPS})
         write_rows.launches = 0
         t0 = time.perf_counter()
-        with step_clock(port_main) as stamps:
+        with step_clock(port_main) as stamps, restore_writes() as restored:
             result = port_main.train_and_evaluate(
                 src, fine_tune_checkpoint=init, edit_config_json=edits,
                 device="cuda")
@@ -7708,11 +7773,14 @@ def phase_train_zch(smi, sharded_auc=None):
                          .items() if g.packed and any(
                              t.name not in g.dense_tables for t in g.specs))
         del probe
+        # one row write a written group and step, and one a spill restore
+        # into a packed group
         if result["step"] != ZCH_STEPS or launches != ZCH_STEPS * len(
-                written):
+                written) + restored["launches"]:
             raise AssertionError(
                 f"train_zch: {result['step']} steps, {launches} row writes "
-                f"for the written packed groups {written}")
+                f"for the written packed groups {written} and "
+                f"{restored['launches']} restores")
         ck = torch.load(checkpoint_util.latest_checkpoint(model_dir),
                         map_location="cpu", weights_only=True)
         spill = {t: dict(zip(("clock", "stored", "restored", "dropped"),
@@ -7752,7 +7820,8 @@ def phase_train_zch(smi, sharded_auc=None):
                                  f"card is {dist:+.4f} from {cpu['auc']}")
         out["train"] = {
             "result": result, "steps": ZCH_STEPS, "row_write_launches":
-            launches, "written_packed_groups": written, "spill": spill,
+            launches, "restore_row_writes": restored["launches"],
+            "written_packed_groups": written, "spill": spill,
             "occupied_slots": occupied, "predict_rows": n_pred,
             "cpu_reference": {"auc": cpu["auc"], "card_minus_cpu": dist,
                               "bound": ZCH_CPU_BOUND},
@@ -9032,6 +9101,693 @@ def phase_train_fg(smi):
     return criteo_launches + din_launches
 
 
+# --- phase train_zch_ranks: ZCH and dynamic embeddings over two ranks ------
+
+ZR_SLOTS = 1 << 20  # each dynamicemb table's capacity: 1 048 576 slots
+ZR_FEATURES = ("cat_0", "cat_9", "cat_20", "cat_21")  # 100 000 ids each
+ZR_STEPS = 3
+ZR_BATCH = 4096  # the global batch: 2 048 rows a rank
+ZR_EVAL_ROWS = 2 * ZR_BATCH
+ZR_TOL = LAYOUT_TOL  # tables against the row-blocked one-rank run
+ZR_EVAL_TOL = 1e-4  # AUC at world size 1 against 2 (BF16 at another shape)
+ZR_TIMED_STEPS = 3
+ZR_PROBE_WAVES = 40
+
+
+def zr_text(paths, model_dir) -> str:
+    """criteo_synth DeepFM with ``ZR_FEATURES`` as dynamicemb tables of
+    ``ZR_SLOTS`` slots (the spill tier on), kept ``row_wise`` (packed:
+    kernel #3 writes their rows); the planner lays out the rest."""
+    spec = (f'dynamicemb {{ max_capacity: {ZR_SLOTS} score_strategy: "STEP" '
+            '} embedding_constraints { sharding_types: "row_wise" }')
+    return criteo_text("deepfm", model_dir, paths, replace=[
+        (f'feature_name: "{f}" num_buckets: 100000 ',
+         f'feature_name: "{f}" {spec} ') for f in ZR_FEATURES])
+
+
+def zr_zch_numpy(model) -> dict:
+    return {f"{t}.{k}": v.cpu().numpy().copy() for t, st in
+            model.embedding_group.zch_states().items() for k, v in st.items()}
+
+
+def zr_restore_probe(shard) -> dict:
+    """A dynamicemb table of 8 slots, ``row_wise`` and packed, over the
+    ranks on the card: key A admitted and its row written, flooded out
+    (stored by the rank that holds its slot), readmitted (its row sent
+    to the rank that holds its new slot, written by kernel #3) and read
+    back. Each rank's view."""
+    from google.protobuf import text_format
+
+    from torcheasyrec_tpu_torch.datasets.utils import Batch, SparseField
+    from torcheasyrec_tpu_torch.features import create_features
+    from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.protos import feature_pb2, model_pb2
+
+    dim, key = 8, 777_001
+    feats = create_features([text_format.Parse(
+        f"id_feature {{ feature_name: 'dyn' embedding_dim: {dim} "
+        "dynamicemb { max_capacity: 8 score_strategy: 'LFU' } }",
+        feature_pb2.FeatureConfig())])
+    mc = text_format.Parse('feature_groups { group_name: "deep" '
+                           'feature_names: "dyn" group_type: DEEP }',
+                           model_pb2.ModelConfig())
+    eg = EmbeddingGroup(feats, list(mc.feature_groups),
+                        torch.Generator(device=shard.device), shard=shard,
+                        plan={"dyn_emb": "row_wise"})
+    eng = eg.engine
+    gk, off, _ = eng.table_rows("dyn_emb")
+    g = eng.groups[gk]
+    sent = []
+
+    def step(ids, i):
+        ids = torch.tensor(ids, dtype=torch.int32)
+        per = ids.shape[0] // shard.world
+        mine = ids[shard.rank * per:(shard.rank + 1) * per]
+        batch = Batch(sparse_features={"dyn": SparseField(
+            mine[:, None].to(shard.device))})
+        nb, sp = eg.remap_zch(batch, i, True, collect_spill=True)
+        got = eg.spill_step(eg.gather_spill_rows(sp))
+        sent.extend(int(s) for r in got.values() for s in r[0])
+        return eg._global_ids([nb.sparse_features["dyn"].values],
+                              shard)[0][0]
+
+    def anywhere(flag) -> bool:
+        return any(int(f) for f in shard.all_gather_list(
+            torch.tensor([int(flag)])))
+
+    v = torch.linspace(3.0, 4.0, dim)
+    slot = int(step([key] * 8, 1)[0])
+    eng.write_logical_rows(eg.engine_tables()[gk], g,
+                           torch.tensor([off + slot]), v[None])
+    store, i, held = eg.spill.stores["dyn_emb"], 2, None
+    for wave in range(ZR_PROBE_WAVES):
+        for _ in range(3):
+            step([5000 + 16 * wave + j for j in range(16)], i)
+            i += 1
+        if anywhere(key in store):
+            held = store.get(key) if key in store else None
+            break
+    launches = write_rows.launches
+    new_slot = -1
+    for _ in range(30):
+        s = int(step([key] * 8, i)[0])
+        i += 1
+        if not anywhere(key in store) and s >= 0:
+            new_slot = s
+            break
+    got = eng.read_rows(eg.engine_tables(), "dyn_emb",
+                        torch.tensor([max(new_slot, 0)]))[0].cpu()
+    owner = lambda s: (off + s) // g.local_rows  # noqa: E731
+    return {"rank": shard.rank, "packed_row_wise": g.packed
+            and g.sharding == "row_wise", "first_slot": slot,
+            "first_owner": owner(slot), "stored_here": held is not None,
+            "stored_row_equal": held is not None and bool(
+                np.array_equal(held, v.numpy())),
+            "new_slot": new_slot, "new_owner": owner(max(new_slot, 0)),
+            "restores_sent": len(sent),
+            "restore_row_writes": write_rows.launches - launches,
+            "read_back_equal": bool(torch.equal(got, v))}
+
+
+def zr_rank(shard, text, cfg_path, cols_list, touched, ckpt_dir):
+    """Rank side of ``phase_train_zch_ranks`` at world size 2."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+
+    model, features, tx, state, step = sharded_trainer(text, shard)
+    eng = model.embedding_group.engine
+    zgroups = {t: eng.groups[eng.table_rows(f"{t}_emb")[0]]
+               for t in ZR_FEATURES}
+    out = {"rank": shard.rank, "plan": model.sharding_plan,
+           "zch_groups": {t: {"sharding": g.sharding, "packed": g.packed,
+                              "local_rows": g.local_rows}
+                          for t, g in zgroups.items()}}
+    batches = [parse_batch(features, rank_rows(c, shard, ZR_BATCH),
+                           ["label"]) for c in cols_list]
+    sync()
+    write_rows.launches = 0
+    with restore_writes() as restored:
+        for b in batches[:ZR_STEPS]:
+            with deterministic():
+                state, _ = step(state, b)
+    sync()
+    out["row_write_launches"] = write_rows.launches
+    out["restore_row_writes"] = restored["launches"]
+    want = ZR_STEPS * packed_written_groups(model) + restored["launches"]
+    if out["row_write_launches"] != want:
+        raise AssertionError(
+            f"train_zch_ranks rank {shard.rank}: {write_rows.launches} row "
+            f"writes in {ZR_STEPS} steps, {want} expected")
+    rows = read_table_rows(model, touched)
+    out["zch_digest"] = model.embedding_group.zch_digest()
+    zch = zr_zch_numpy(model) if shard.rank == 0 else None
+    path = checkpoint_util.save_checkpoint(ckpt_dir, model, tx, state)
+    t0 = time.perf_counter()
+    out["evaluate"] = port_main.evaluate(cfg_path, checkpoint_path=path,
+                                         device=SHARDED_DEVICE, shard=shard)
+    out["evaluate_s"] = time.perf_counter() - t0
+    # the resume: a fresh world-2 model from the checkpoint and the
+    # trained one take the next step alike
+    model2, _, tx2, state2, step2 = sharded_trainer(text, shard)
+    restored_state = checkpoint_util.restore_checkpoint(path, model2, tx2)
+    state2.update({k: v for k, v in restored_state.items()
+                   if k != "dataloader_state"})
+    with deterministic():
+        state, _ = step(state, batches[ZR_STEPS])
+        state2, _ = step2(state2, batches[ZR_STEPS])
+    a, b = (read_table_rows(m, touched) for m in (model, model2))
+    out["resume_bit_equal"] = (
+        all(torch.equal(a[t], b[t]) for t in a)
+        and model.embedding_group.zch_digest()
+        == model2.embedding_group.zch_digest()
+        and dense_digest(model) == dense_digest(model2))
+    del model2, tx2, state2, step2
+    # the step at world size 2 (not counted)
+    kept = write_rows.launches
+    _, step_ms, window_ms = timed_steps(step, state, batches[0], 1,
+                                        ZR_TIMED_STEPS)
+    write_rows.launches = kept
+    out["step_ms_median"] = float(np.median(step_ms))
+    out["window_ms_per_step"] = window_ms
+    out["probe"] = zr_restore_probe(shard)
+    return out, ((rows, zch) if shard.rank == 0 else None)
+
+
+def phase_train_zch_ranks(smi):
+    """ZCH and dynamicemb tables over two ranks (``zr_text``: four
+    dynamicemb tables of ZR_SLOTS slots, ``row_wise`` and packed), the
+    ranks on the one card through gloo as in ``train_sharded``: ZR_STEPS
+    steps of the global batches. Checks: the ZCH mappings equal, bit for
+    bit, on both ranks, to a CPU remap of the global batches and to a
+    one-rank card run; the touched rows of every table (the slots the
+    remap gave, the other tables' ids) within ZR_TOL of each table's max
+    of that one-rank run, whose products are formed over the ranks' row
+    blocks (``row_blocks``); kernel #3 once per packed block, rank and
+    step; the world-2 checkpoint's mappings equal on the ranks at the
+    save, its ``evaluate`` at world size 2 and at 1 within ZR_EVAL_TOL;
+    a resume from it at world size 2 bit-equal to the trained model's
+    next step; the restore probe (``zr_restore_probe``): the key stored
+    by the rank that holds its slot, restored into its new slot by
+    kernel #3 and read back bit for bit. Returns kernel #3's launches of
+    the counted steps, summed over the ranks."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    import pyarrow.parquet as pq
+
+    out, seconds = {"phase": "train_zch_ranks", "nvidia_smi": smi}, {}
+    what, backend = sharded_backend()
+    out["ranks_on"] = what
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = synthetic.ensure_dataset(tmp, (ZR_STEPS + 1) * ZR_BATCH,
+                                         ZR_EVAL_ROWS)
+        # each rank evaluates a file of its own
+        text = zr_text(dict(paths, eval=split_file(
+            paths["eval"], SHARDED_WORLD, tmp, "zr_eval")),
+            os.path.join(tmp, "zr"))
+        cfg_path = write_text(os.path.join(tmp, "zr.config"), text)
+        cfg = parse_pipeline_config(text)
+        table = pq.read_table(paths["train"])
+        cols_list = [{c: table[c].slice(i * ZR_BATCH, ZR_BATCH)
+                      .combine_chunks() for c in table.column_names}
+                     for i in range(ZR_STEPS + 1)]
+        seconds["data"] = time.perf_counter() - t0
+
+        # the CPU remap of the global batches: the slots each table's
+        # rows took, and the mappings
+        t0 = time.perf_counter()
+        cpu_model, features = port_main.build_model(cfg, "cpu")
+        eg = cpu_model.embedding_group
+        parser = DataParser(features, labels=["label"])
+        touched = {}
+        for i, cols in enumerate(cols_list[:ZR_STEPS]):
+            nb, _ = eg.remap_zch(parser.parse_to_batch(cols), i, True)
+            for lks in eg.engine._lookups_by_group.values():
+                for lk in lks:
+                    v = nb.sparse_features[lk.feature_name].values
+                    touched.setdefault(lk.table_name, []).append(
+                        v.reshape(-1).long())
+        touched = {t: torch.unique(torch.cat(v)).numpy()
+                   for t, v in touched.items()}
+        touched = {t: v[v >= 0] for t, v in touched.items()}
+        cpu_zch = zr_zch_numpy(cpu_model)
+        del cpu_model, eg
+        seconds["cpu_remap"] = time.perf_counter() - t0
+
+        # the one-rank card run, its products over the ranks' row blocks
+        t0 = time.perf_counter()
+        model, feats, tx, state, step = sharded_trainer(text)
+        for cols in cols_list[:ZR_STEPS]:
+            with deterministic(), row_blocks(SHARDED_WORLD):
+                state, _ = step(state, parse_batch(feats, cols, ["label"]))
+        ref_rows = read_table_rows(model, touched)
+        ref_zch = zr_zch_numpy(model)
+        _, ref_step_ms, ref_window = timed_steps(
+            step, state, parse_batch(feats, cols_list[0], ["label"]), 1,
+            ZR_TIMED_STEPS)
+        del model, tx, state, step
+        torch.cuda.empty_cache()
+        seconds["world_1"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        ckpt_dir = os.path.join(tmp, "zr_ckpt")
+        os.makedirs(ckpt_dir)
+        ranks = run_ranks(zr_rank, SHARDED_WORLD,
+                          (text, cfg_path, cols_list, touched, ckpt_dir),
+                          backend, tmp)
+        seconds["world_2"] = time.perf_counter() - t0
+        rows, zch = ranks[0][1]
+        reports = [r[0] for r in ranks]
+
+        t0 = time.perf_counter()
+        ckpt = os.path.join(ckpt_dir, f"model.ckpt-{ZR_STEPS}.pt")
+        one = port_main.evaluate(cfg_path, checkpoint_path=ckpt,
+                                 device="cuda")
+        seconds["evaluate_world_1"] = time.perf_counter() - t0
+
+    failures = []
+    for name, z in (("world 2 rank 0", zch), ("world 1 card", ref_zch)):
+        bad = [k for k, v in cpu_zch.items() if not np.array_equal(z[k], v)]
+        if bad:
+            failures.append(f"{name}: ZCH state differs from the CPU remap "
+                            f"of the global batch: {bad}")
+    if len({r["zch_digest"] for r in reports}) != 1:
+        failures.append("the ZCH mappings differ between the ranks")
+    tables = rel_report(rows, ref_rows)
+    if not tables["max_err"] <= ZR_TOL:
+        failures.append(f"tables at world size 2 against 1: {tables}")
+    for r in reports:
+        for t, g in r["zch_groups"].items():
+            if not (g["sharding"] == "row_wise" and g["packed"]):
+                failures.append(f"rank {r['rank']} {t}: {g}")
+        if not r["resume_bit_equal"]:
+            failures.append(f"rank {r['rank']}: the resumed step differs")
+    auc2 = reports[0]["evaluate"]["auc"]
+    if reports[1]["evaluate"]["auc"] != auc2 or not abs(
+            one["auc"] - auc2) <= ZR_EVAL_TOL:
+        failures.append(f"evaluate: world 2 {[r['evaluate']['auc'] for r in reports]}, "
+                        f"world 1 {one['auc']}")
+    probes = [r["probe"] for r in reports]
+    holders = [p["rank"] for p in probes if p["stored_here"]]
+    if not (all(p["packed_row_wise"] and p["read_back_equal"]
+                and p["new_slot"] >= 0 for p in probes)
+            and holders == [probes[0]["first_owner"]]
+            and probes[holders[0]]["stored_row_equal"]
+            and sum(p["restores_sent"] for p in probes) >= 1
+            and probes[probes[0]["new_owner"]]["restore_row_writes"] >= 1):
+        failures.append(f"restore probe: {probes}")
+    out.update({
+        "slots": ZR_SLOTS, "features": list(ZR_FEATURES), "steps": ZR_STEPS,
+        "global_batch": ZR_BATCH, "touched_rows": {
+            t: int(len(v)) for t, v in touched.items() if t.startswith(
+                tuple(f"{f}_emb" for f in ZR_FEATURES))},
+        "zch_bit_equal_ranks_cpu_world_1": not any(
+            "ZCH" in f for f in failures),
+        "tables_world_2_vs_1": tables, "bound": ZR_TOL,
+        "evaluate_auc": {"world_2": auc2, "world_1": one["auc"],
+                         "bound": ZR_EVAL_TOL},
+        "row_write_launches_per_rank": [r["row_write_launches"]
+                                        for r in reports],
+        "restore_row_writes_per_rank": [r["restore_row_writes"]
+                                        for r in reports],
+        "step_ms_median": {"world_2_ranks": [r["step_ms_median"]
+                                             for r in reports],
+                           "world_1": float(np.median(ref_step_ms))},
+        "window_ms_per_step": {"world_2_ranks": [r["window_ms_per_step"]
+                                                 for r in reports],
+                               "world_1": ref_window},
+        "probe": probes, "plan": reports[0]["plan"], "seconds": seconds,
+        "failures": failures})
+    emit(out)
+    if failures:
+        raise AssertionError(f"train_zch_ranks: {failures}")
+    return sum(r["row_write_launches"] + r["probe"]["restore_row_writes"]
+               for r in reports)
+
+
+# --- phase train_stream: a Kafka-fed DeepFM, a converted EasyRec config -----
+
+STREAM_STEPS = 16
+STREAM_RESUME_AT = 8
+STREAM_BATCH = 4096
+STREAM_PARTITIONS = 2
+STREAM_TOPIC = "criteo_stream"
+STREAM_CPU_BOUND = 0.02  # the AUC against a CPU run's from the same weights
+CONVERTED_STEPS = 4
+# a TF-EasyRec DeepFM over the Criteo columns (hash buckets of criteo_synth's
+# deepfm.config), for tools/convert_easyrec_config
+EASYREC_DEEPFM = """
+train_config {
+  optimizer_config {
+    adam_optimizer { learning_rate { constant_learning_rate {
+      learning_rate: 0.001 } } }
+  }
+  num_steps: 4
+}
+data_config { batch_size: 4096 label_fields: "label" input_type: ParquetInput }
+feature_config {
+%s}
+model_config {
+  model_class: "DeepFM"
+  feature_groups { group_name: "wide" %s wide_deep: WIDE }
+  feature_groups { group_name: "deep" %s %s wide_deep: DEEP }
+  deepfm { dnn { hidden_units: [512, 256, 128] }
+           final_dnn { hidden_units: [128, 64] } wide_output_dim: 4 }
+}
+"""
+
+
+def easyrec_deepfm_text() -> str:
+    import re
+
+    with open(os.path.join(zoo_config_dir(), "criteo_synth",
+                           "deepfm.config")) as f:
+        buckets = [int(b) for b in re.findall(
+            r'feature_name: "cat_\d+" num_buckets: (\d+)', f.read())]
+    feats = "".join(
+        f'  features {{ input_names: "cat_{i}" feature_type: IdFeature '
+        f"embedding_dim: 16 hash_bucket_size: {b} }}\n"
+        for i, b in enumerate(buckets))
+    feats += "".join(f'  features {{ input_names: "int_{i}" '
+                     "feature_type: RawFeature }\n" for i in range(13))
+    cats = " ".join(f'feature_names: "cat_{i}"' for i in range(len(buckets)))
+    ints = " ".join(f'feature_names: "int_{i}"' for i in range(13))
+    return EASYREC_DEEPFM % (feats, cats, cats, ints)
+
+
+class _StreamMessage:
+    def __init__(self, partition, offset, ts_ms, value):
+        self._p, self._o, self._ts, self._v = partition, offset, ts_ms, value
+
+    def error(self):
+        return None
+
+    def value(self):
+        return self._v
+
+    def timestamp(self):
+        return (1, self._ts)
+
+    def partition(self):
+        return self._p
+
+    def offset(self):
+        return self._o
+
+
+class _StreamTopicPartition:
+    def __init__(self, topic, partition, offset=-1001):
+        self.topic, self.partition, self.offset = topic, partition, offset
+
+
+class _StreamConsumer:
+    """An in-memory broker's consumer: {topic: {partition: [(offset,
+    time ms, value)]}}, each assigned partition read in turn; an empty
+    poll waits a little, as a broker's waits up to its timeout."""
+
+    topics: dict = {}
+
+    def __init__(self, conf):
+        self._cursors = {}
+
+    def list_topics(self, topic, timeout=None):
+        import types
+
+        parts = {p: None for p in type(self).topics[topic]}
+        return types.SimpleNamespace(
+            topics={topic: types.SimpleNamespace(partitions=parts)})
+
+    def offsets_for_times(self, tps, timeout=None):
+        out = []
+        for tp in tps:
+            msgs = type(self).topics[tp.topic][tp.partition]
+            out.append(_StreamTopicPartition(tp.topic, tp.partition, next(
+                (o for o, ts, _ in msgs if ts >= tp.offset),
+                msgs[-1][0] + 1)))
+        return out
+
+    def assign(self, tps):
+        for tp in tps:
+            msgs = type(self).topics[tp.topic][tp.partition]
+            pos = 0 if tp.offset == -1001 else next(
+                (i for i, (o, _, _) in enumerate(msgs) if o >= tp.offset),
+                len(msgs))
+            self._cursors[(tp.topic, tp.partition)] = pos
+
+    def consume(self, num_messages, timeout=None):
+        out = []
+        for (topic, part), pos in sorted(self._cursors.items()):
+            msgs = type(self).topics[topic][part]
+            take = msgs[pos:pos + num_messages - len(out)]
+            self._cursors[(topic, part)] = pos + len(take)
+            out.extend(_StreamMessage(part, o, ts, v) for o, ts, v in take)
+            if len(out) >= num_messages:
+                break
+        if not out:
+            time.sleep(0.005)
+        return out
+
+    def close(self):
+        pass
+
+
+@contextlib.contextmanager
+def in_memory_broker(topic: str, table):
+    """``confluent_kafka`` replaced, inside the block, by an in-memory
+    broker whose ``topic`` holds ``table``'s rows as JSON messages, in
+    STREAM_PARTITIONS partitions of consecutive rows (no broker, no
+    network)."""
+    import types
+
+    cols = {c: table[c].to_pylist() for c in table.column_names
+            if c == "label" or c.startswith(("cat_", "int_"))}
+    n = table.num_rows
+    per = n // STREAM_PARTITIONS
+    parts = {}
+    for p in range(STREAM_PARTITIONS):
+        msgs = []
+        for j, i in enumerate(range(p * per, (p + 1) * per)):
+            msgs.append((j, 1_700_000_000_000 + i * 10, json.dumps(
+                {c: v[i] for c, v in cols.items()}).encode()))
+        parts[p] = msgs
+    mod = types.ModuleType("confluent_kafka")
+    mod.Consumer, mod.TopicPartition = _StreamConsumer, _StreamTopicPartition
+    kept = sys.modules.get("confluent_kafka")
+    sys.modules["confluent_kafka"] = mod
+    _StreamConsumer.topics = {topic: parts}
+    try:
+        yield {p: len(m) for p, m in parts.items()}
+    finally:
+        _StreamConsumer.topics = {}
+        if kept is None:
+            sys.modules.pop("confluent_kafka", None)
+        else:
+            sys.modules["confluent_kafka"] = kept
+
+
+def stream_text(paths, model_dir, kafka=True) -> str:
+    text = criteo_text("deepfm", model_dir, paths, replace=[
+        ("save_checkpoints_steps: 100000",
+         f"save_checkpoints_steps: {STREAM_RESUME_AT}")])
+    if kafka:
+        text = text.replace(f'train_input_path: "{paths["train"]}"',
+                            f'train_input_path: "kafka://local/{STREAM_TOPIC}"')
+    return text
+
+
+def written_groups(cfg) -> list:
+    """The packed groups a train step writes with kernel #3 (those with a
+    table past the dense lane), of a model built on the CPU."""
+    from torcheasyrec_tpu_torch import main as port_main
+
+    probe, _ = port_main.build_model(cfg, "cpu")
+    out = sorted(gk for gk, g in probe.embedding_group.engine.groups.items()
+                 if g.packed and any(t.name not in g.dense_tables
+                                     for t in g.specs))
+    del probe
+    return out
+
+
+def phase_train_stream(smi):
+    """The criteo_synth DeepFM fed from a Kafka topic: an in-memory broker
+    (``in_memory_broker``) stands in for ``confluent_kafka``, its topic
+    two partitions of the synthetic Criteo rows as JSON. STREAM_STEPS
+    steps on the card through ``train_and_evaluate`` (the loop's steps
+    timed), beside a CPU run from the same weights and broker (AUC within
+    STREAM_CPU_BOUND) and the same steps fed from the parquet file; a
+    resume at STREAM_RESUME_AT that continues each partition at offset +
+    1, bit-equal to the straight run; kernel #3 once per written group
+    and step. Then a TF-EasyRec DeepFM config through
+    ``tools/convert_easyrec_config``, trained CONVERTED_STEPS steps on the
+    card, its checkpoint listed by ``tools/list_ckpt_param``. Returns
+    kernel #3's launches of the two counted card runs."""
+    import pyarrow.parquet as pq
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.benchmark import synthetic
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+    from torcheasyrec_tpu_torch.tools import convert_easyrec_config
+    from torcheasyrec_tpu_torch.tools import list_ckpt_param
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+    from torcheasyrec_tpu_torch.utils.config_util import (
+        parse_pipeline_config,
+        save_message,
+    )
+
+    emit({"phase": "train_stream", "note": "an in-memory broker stands in "
+          "for confluent_kafka (no broker and no network here): topic "
+          f"{STREAM_TOPIC}, {STREAM_PARTITIONS} partitions of synthetic "
+          "Criteo rows as JSON messages"})
+    out, seconds = {"phase": "train_stream", "nvidia_smi": smi}, {}
+    failures = []
+    edits = json.dumps({"train_config.num_steps": STREAM_STEPS})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = synthetic.ensure_dataset(tmp, STREAM_STEPS * STREAM_BATCH,
+                                         2 * STREAM_BATCH)
+        table = pq.read_table(paths["train"])
+
+        def run(name, kafka=True, device="cuda", **kw):
+            src = write_text(os.path.join(tmp, f"{name}.config"),
+                             stream_text(paths, os.path.join(tmp, name),
+                                         kafka))
+            return src, port_main.train_and_evaluate(
+                src, device=device, **kw)
+
+        with in_memory_broker(STREAM_TOPIC, table) as sizes:
+            seconds["data"] = time.perf_counter() - t0
+            init = cpu_init(write_text(os.path.join(tmp, "init.config"),
+                                       stream_text(paths, "unused")),
+                            os.path.join(tmp, "stream_init.pt"))
+            written = written_groups(parse_pipeline_config(
+                stream_text(paths, "unused")))
+            t0 = time.perf_counter()
+            write_rows.launches = 0
+            with step_clock(port_main) as stamps:
+                _, card = run("card", fine_tune_checkpoint=init,
+                              edit_config_json=edits)
+            torch.cuda.synchronize()
+            launches = write_rows.launches
+            seconds["card"] = time.perf_counter() - t0
+            kafka_steps = epoch_steps(stamps)
+            if card["step"] != STREAM_STEPS or launches != (
+                    STREAM_STEPS * len(written)):
+                failures.append(f"{card['step']} steps, {launches} row "
+                                f"writes for the written groups {written}")
+            t0 = time.perf_counter()
+            kept = write_rows.launches
+            rsrc, _ = run("resumed", fine_tune_checkpoint=init,
+                          edit_config_json=json.dumps(
+                              {"train_config.num_steps": STREAM_RESUME_AT}))
+            mid = torch.load(checkpoint_util.latest_checkpoint(
+                os.path.join(tmp, "resumed")), map_location="cpu",
+                weights_only=True)["dataloader_state"]
+            port_main.train_and_evaluate(rsrc, continue_train=True,
+                                         edit_config_json=edits,
+                                         device="cuda")
+            write_rows.launches = kept
+            seconds["resume"] = time.perf_counter() - t0
+            a, b = (torch.load(checkpoint_util.latest_checkpoint(
+                os.path.join(tmp, d)), map_location="cpu", weights_only=True)
+                for d in ("card", "resumed"))
+            same = [k for k in a["model"]
+                    if torch.equal(a["model"][k], b["model"][k])]
+            resume = {"at": STREAM_RESUME_AT, "watermark_at": mid,
+                      "watermark_end": a["dataloader_state"],
+                      "state_dict_bit_equal": len(same) == len(a["model"])}
+            if not (resume["state_dict_bit_equal"] and a["step"] == b["step"]
+                    and a["dataloader_state"] == b["dataloader_state"]):
+                failures.append(f"the resumed run differs: {resume}, "
+                                f"{sorted(set(a['model']) - set(same))[:8]}")
+            # the watermark is the real offsets: partition 0's rows come
+            # first, STREAM_RESUME_AT batches of them
+            if mid != {0: STREAM_RESUME_AT * STREAM_BATCH - 1}:
+                failures.append(f"the watermark at the resume: {mid}")
+            del a, b
+            t0 = time.perf_counter()
+            _, cpu = run("cpu", device="cpu", fine_tune_checkpoint=init,
+                         edit_config_json=edits)
+            seconds["cpu"] = time.perf_counter() - t0
+        dist = card["auc"] - cpu["auc"]
+        if not abs(dist) <= STREAM_CPU_BOUND:
+            failures.append(f"auc {card['auc']} on the card is {dist:+.4f} "
+                            f"from the CPU's {cpu['auc']}")
+        t0 = time.perf_counter()
+        kept = write_rows.launches
+        with step_clock(port_main) as stamps:
+            _, pq_fed = run("parquet", kafka=False,
+                            fine_tune_checkpoint=init,
+                            edit_config_json=edits)
+        write_rows.launches = kept
+        seconds["parquet"] = time.perf_counter() - t0
+        parquet_steps = epoch_steps(stamps)
+
+        # the converted TF-EasyRec DeepFM
+        t0 = time.perf_counter()
+        converted, warnings = convert_easyrec_config.convert(
+            easyrec_deepfm_text())
+        cfg = parse_pipeline_config(converted)
+        cfg.train_input_path, cfg.eval_input_path = (paths["train"],
+                                                     paths["eval"])
+        cfg.model_dir = os.path.join(tmp, "converted")
+        cfg.train_config.num_steps = CONVERTED_STEPS
+        cpath = os.path.join(tmp, "converted.config")
+        save_message(cfg, cpath)
+        cwritten = written_groups(cfg)
+        before = write_rows.launches
+        conv = port_main.train_and_evaluate(cpath, device="cuda")
+        torch.cuda.synchronize()
+        conv_launches = write_rows.launches - before
+        ckpt = checkpoint_util.latest_checkpoint(cfg.model_dir)
+        listed = list_ckpt_param.list_params(ckpt)
+        raw = torch.load(ckpt, map_location="cpu", weights_only=True)
+        n_tensors = 0
+
+        def count(node):
+            nonlocal n_tensors
+            if isinstance(node, dict):
+                for v in node.values():
+                    count(v)
+            elif isinstance(node, (list, tuple)):
+                for v in node:
+                    count(v)
+            elif isinstance(node, torch.Tensor):
+                n_tensors += 1
+
+        count(raw)
+        del raw
+        seconds["converted"] = time.perf_counter() - t0
+        if not (conv["step"] == CONVERTED_STEPS and np.isfinite(conv["auc"])
+                and conv_launches == CONVERTED_STEPS * len(cwritten)
+                and len(listed) == n_tensors and n_tensors > 0):
+            failures.append(f"converted DeepFM: {conv}, {conv_launches} row "
+                            f"writes for {cwritten}, {len(listed)} of "
+                            f"{n_tensors} tensors listed")
+    out.update({
+        "partitions": sizes, "steps": STREAM_STEPS, "batch": STREAM_BATCH,
+        "auc": {"card": card["auc"], "cpu": cpu["auc"],
+                "card_minus_cpu": dist, "bound": STREAM_CPU_BOUND,
+                "parquet_fed_card": pq_fed["auc"]},
+        "resume": resume, "row_write_launches": launches,
+        "written_packed_groups": written,
+        "kafka_fed_step": kafka_steps, "parquet_fed_step": parquet_steps,
+        "converted": {"warnings": warnings, "result": conv,
+                      "row_write_launches": conv_launches,
+                      "written_packed_groups": cwritten,
+                      "tensors_listed": len(listed),
+                      "first_listed": listed[:3]},
+        "seconds": seconds, "failures": failures})
+    emit(out)
+    if failures:
+        raise AssertionError(f"train_stream: {failures}")
+    return launches + conv_launches
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -9090,6 +9846,10 @@ def main() -> int:
     sid_launches = timed("train_sid", phase_train_sid, smi)
     torch.cuda.empty_cache()
     fg_launches = timed("train_fg", phase_train_fg, smi)
+    torch.cuda.empty_cache()
+    zch_ranks_launches = timed("train_zch_ranks", phase_train_zch_ranks, smi)
+    torch.cuda.empty_cache()
+    stream_launches = timed("train_stream", phase_train_stream, smi)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -9162,7 +9922,8 @@ def main() -> int:
                    + lane_off_launches + options_writes
                    + gr_launches["row_write"] + zoo_rest_launches
                    + export_writes + tdm_launches + sharded["row_write"]
-                   + zch_launches + sid_launches + fg_launches,
+                   + zch_launches + sid_launches + fg_launches
+                   + zch_ranks_launches + stream_launches,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -9178,7 +9939,9 @@ def main() -> int:
                        "train_sharded": sharded["row_write"],
                        "train_zch": zch_launches,
                        "train_sid": sid_launches,
-                       "train_fg": fg_launches}),
+                       "train_fg": fg_launches,
+                       "train_zch_ranks": zch_ranks_launches,
+                       "train_stream": stream_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

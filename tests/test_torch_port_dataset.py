@@ -242,17 +242,26 @@ def test_sampler_raises():
 
 def test_csv_input_raises():
     """CSV input is ported (tests/test_torch_port_csv.py holds it against
-    the JAX package); the readers still unported, Kafka and ODPS, raise."""
+    the JAX package), and so is Kafka (tests/test_torch_port_kafka.py),
+    which raises ImportError without ``confluent_kafka``; ODPS is a stub
+    in both packages and raises NotImplementedError."""
+    import sys
+    from unittest import mock
+
     from torcheasyrec_tpu_torch.datasets.csv_dataset import CsvReader
     from torcheasyrec_tpu_torch.protos import data_pb2
 
     with pytest.raises(FileNotFoundError, match="no csv files"):
         port_dataset.create_reader("missing_dir/*.csv", 8)
     assert port_dataset._READER_CLASS_MAP["CsvReader"] is CsvReader
-    for kind in ("KafkaDataset", "OdpsDataset"):
-        with pytest.raises(NotImplementedError, match=kind):
+    with mock.patch.dict(sys.modules, {"confluent_kafka": None}):
+        with pytest.raises(ImportError, match="confluent-kafka"):
             port_dataset.create_reader(
-                "in", 8, dataset_type=data_pb2.DatasetType.Value(kind))
+                "kafka://b/t", 8,
+                dataset_type=data_pb2.DatasetType.Value("KafkaDataset"))
+    with pytest.raises(NotImplementedError, match="OdpsDataset"):
+        port_dataset.create_reader(
+            "in", 8, dataset_type=data_pb2.DatasetType.Value("OdpsDataset"))
 
 
 # --- one test per fault of the port's old parquet reading ---------------------

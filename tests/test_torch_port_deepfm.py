@@ -15,6 +15,8 @@ utils/convert.py).
   equal tables and row state."""
 
 import os
+import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -205,10 +207,11 @@ def test_unported_rank_options_raise(text, match, tmp_path):
     package): each case's config builds with its module. So do an MLP
     dense embedding and a vocab file, the next two cases' until they were
     ported (tests/test_torch_port_dense_emb.py holds them against the JAX
-    package), and fg_mode FG_NORMAL since it was ported. Options still
-    unported raise NotImplementedError: a Kafka input (host-offloaded
-    tables, the first case's until they were ported, are held in
-    tests/test_torch_port_host_offload.py)."""
+    package), and fg_mode FG_NORMAL since it was ported. A Kafka input is
+    ported too (it raises ImportError here, without confluent_kafka); an
+    ODPS input, a stub in both packages, raises NotImplementedError
+    (host-offloaded tables, the first case's until they were ported, are
+    held in tests/test_torch_port_host_offload.py)."""
     _, model, _, _ = _port_model(text)
     if match == "variational_dropout":
         assert sorted(model.variational_dropout) == ["deep", "fm", "wide"]
@@ -232,9 +235,16 @@ def test_unported_rank_options_raise(text, match, tmp_path):
         from torcheasyrec_tpu_torch.datasets.dataset import create_reader
         from torcheasyrec_tpu_torch.protos import data_pb2
 
-        with pytest.raises(NotImplementedError, match="KafkaDataset"):
+        # Kafka is ported (tests/test_torch_port_kafka.py): without
+        # confluent_kafka its reader raises ImportError; ODPS is a stub in
+        # both packages
+        with mock.patch.dict(sys.modules, {"confluent_kafka": None}):
+            with pytest.raises(ImportError, match="confluent-kafka"):
+                create_reader("kafka://b/topic", 8,
+                              dataset_type=data_pb2.DatasetType.KafkaDataset)
+        with pytest.raises(NotImplementedError, match="OdpsDataset"):
             create_reader("topic", 8,
-                          dataset_type=data_pb2.DatasetType.KafkaDataset)
+                          dataset_type=data_pb2.DatasetType.OdpsDataset)
         return
     # FG_NORMAL is ported (tests/test_torch_port_fg_*.py hold it against
     # the JAX package): the config builds in FG_NORMAL mode

@@ -63,7 +63,10 @@ for name in ("benchmark.synthetic", "models.dbmtl", "modules.mmoe",
              "tools.sid.evaluate_sid_quality", "fg", "fg.dag",
              "features.other_features", "features.spiece",
              "benchmark.fg_synth", "tools.create_fg_json",
-             "tools.create_online_infer_data"):
+             "tools.create_online_infer_data", "datasets.kafka_dataset",
+             "datasets.odps_dataset", "tools.convert_easyrec_config",
+             "tools.add_feature_info_to_config", "tools.list_ckpt_param",
+             "tools.create_faiss_index"):
     assert pkg.__name__ + "." + name in names, name
 for name in names:
     importlib.import_module(name)

@@ -8,7 +8,8 @@ against the JAX package:
 - features sharing an ``embedding_name`` share one mapping;
 - ids of 2^31 and more wrap at the parse's int32 cast, as in the JAX
   package (ROADMAP §3, known behaviours);
-- ZCH over two ranks and ZCH on a host-offloaded table raise;
+- ZCH on a host-offloaded table raises, and so does a host-offloaded
+  table beside ZCH over two ranks;
 - ``evaluate`` and ``predict_checkpoint`` of a DeepFM with ZCH (three
   policies), dynamicemb (frequency admission) and a host-offloaded
   table, from a JAX checkpoint (the JAX init, its ZCH mappings advanced
@@ -171,15 +172,25 @@ def test_ids_past_int32_wrap_as_in_jax():
 
 
 def test_zch_over_two_ranks_raises():
+    """A ZCH table builds over two ranks (one mapping over the global
+    batch: tests/test_torch_port_zch_ranks.py); beside a host-offloaded
+    table, which runs on one rank only, the build still raises."""
     from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
     from torcheasyrec_tpu_torch.parallel.mesh import ShardContext
 
-    feats, groups = _group([
-        "id_feature { feature_name: 'a' embedding_dim: 8 "
-        "dynamicemb { max_capacity: 64 } }"], ["a"])
-    with pytest.raises(NotImplementedError, match="item 7's remainder"):
-        EmbeddingGroup(feats, groups, torch.Generator(),
-                       shard=ShardContext(0, 2, torch.device("cpu")),
+    zch = ("id_feature { feature_name: 'a' embedding_dim: 8 "
+           "dynamicemb { max_capacity: 64 } }")
+    shard = ShardContext(0, 2, torch.device("cpu"))
+    feats, groups = _group([zch], ["a"])
+    eg = EmbeddingGroup(feats, groups, torch.Generator(), shard=shard,
+                        build_tables=False)
+    assert eg.has_zch and eg.has_host_spill
+    feats, groups = _group([zch, (
+        "id_feature { feature_name: 'h' embedding_dim: 8 num_buckets: 50 "
+        "embedding_constraints { sharding_types: 'host_offload' } }")],
+        ["a", "h"])
+    with pytest.raises(NotImplementedError, match="one rank"):
+        EmbeddingGroup(feats, groups, torch.Generator(), shard=shard,
                        build_tables=False)
 
 

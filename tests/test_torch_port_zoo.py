@@ -30,6 +30,8 @@ the port does not merge) and its dense lane takes the tables of at most
 
 import json
 import os
+import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -521,10 +523,11 @@ def test_unported_multi_task_options_raise(extra, match, tmp_path):
     package): each case's config builds. So do a dense embedding
     (AutoDis) and a vocab file, one a case, until they were ported
     (tests/test_torch_port_dense_emb.py holds them against the JAX
-    package). So does fg_mode FG_NORMAL since it was ported. Options
-    still unported raise NotImplementedError: a Kafka input
-    (host-offloaded tables, the second case's until they were ported,
-    are held in tests/test_torch_port_host_offload.py)."""
+    package). So does fg_mode FG_NORMAL since it was ported. A Kafka
+    input is ported too (it raises ImportError here, without
+    confluent_kafka); an ODPS input, a stub in both packages, raises
+    NotImplementedError (host-offloaded tables, the second case's until
+    they were ported, are held in tests/test_torch_port_host_offload.py)."""
     text = zoo_config_text("mmoe")
     if "pareto" in extra:
         text = text.replace("model_config {", "model_config {\n" + extra, 1)
@@ -562,6 +565,13 @@ def test_unported_multi_task_options_raise(extra, match, tmp_path):
     from torcheasyrec_tpu_torch.datasets.dataset import create_reader
     from torcheasyrec_tpu_torch.protos import data_pb2
 
-    with pytest.raises(NotImplementedError, match="KafkaDataset"):
+    # Kafka is ported (tests/test_torch_port_kafka.py): without
+    # confluent_kafka its reader raises ImportError; ODPS is a stub in
+    # both packages
+    with mock.patch.dict(sys.modules, {"confluent_kafka": None}):
+        with pytest.raises(ImportError, match="confluent-kafka"):
+            create_reader("kafka://b/topic", 8,
+                          dataset_type=data_pb2.DatasetType.KafkaDataset)
+    with pytest.raises(NotImplementedError, match="OdpsDataset"):
         create_reader("topic", 8,
-                      dataset_type=data_pb2.DatasetType.KafkaDataset)
+                      dataset_type=data_pb2.DatasetType.OdpsDataset)

@@ -4,6 +4,8 @@ the JAX references). Each function takes the rank's ``ShardContext``
 first, as ``dist_util.spawn_ranks`` calls it, and returns numpy arrays.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -235,3 +237,328 @@ def whole_file_rank(shard, train_cases, cfg_path, more_steps, cfg_texts):
     return (train_cases_rank(shard, train_cases),
             entry_points_rank(shard, cfg_path, more_steps),
             refusals_rank(shard, cfg_texts))
+
+
+# --- ZCH over ranks ------------------------------------------------------------
+
+# the rows of each global batch that rank 0 takes (rank 1 the rest)
+ZCH_SPLIT = 0.625
+
+
+def zch_rows(n: int, rank: int) -> slice:
+    cut = int(n * ZCH_SPLIT)
+    return slice(0, cut) if rank == 0 else slice(cut, n)
+
+
+def zch_remap_group(zch_text: str, shard=None):
+    """An EmbeddingGroup of two features sharing one ZCH table: ``a``
+    (two ids a row) and ``b`` (a jagged list)."""
+    from google.protobuf import text_format
+
+    from torcheasyrec_tpu_torch.features import create_features
+    from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
+    from torcheasyrec_tpu_torch.protos import feature_pb2, model_pb2
+
+    feats = create_features([text_format.Parse(
+        f"id_feature {{ feature_name: '{n}' embedding_dim: 8 "
+        f"embedding_name: 'ab_emb' {zch_text} }}",
+        feature_pb2.FeatureConfig()) for n in ("a", "b")])
+    mc = text_format.Parse(
+        'feature_groups { group_name: "g" feature_names: "a" '
+        'feature_names: "b" group_type: DEEP }', model_pb2.ModelConfig())
+    return EmbeddingGroup(feats, list(mc.feature_groups), torch.Generator(),
+                          shard=shard)
+
+
+def zch_remap_batch(step_batch, rows: slice):
+    """A Batch of this rank's rows of one global batch ({"a": [B, 2],
+    "b": (values, lengths)})."""
+    from torcheasyrec_tpu_torch.datasets.utils import Batch, SparseField
+
+    a = step_batch["a"][rows]
+    bv, bl = step_batch["b"]
+    ends = np.concatenate([[0], np.cumsum(bl)])
+    lo, hi = ends[rows.start], ends[rows.stop]
+    return Batch(sparse_features={
+        "a": SparseField(torch.from_numpy(a.astype(np.int32))),
+        "b": SparseField(torch.from_numpy(bv[lo:hi].astype(np.int32)),
+                         lengths=torch.from_numpy(bl[rows].astype(np.int32))),
+    })
+
+
+def zch_remap_case(shard, zch_text, batches, train_flags):
+    """Per step: (this rank's slots of ``a`` and ``b``, the spill record
+    of the table or None); then the final mapping."""
+    eg = zch_remap_group(zch_text, shard)
+    out = []
+    for i, (b, training) in enumerate(zip(batches, train_flags)):
+        n = b["a"].shape[0]
+        batch = zch_remap_batch(b, zch_rows(n, shard.rank))
+        nb, rec = eg.remap_zch(batch, i, training,
+                               collect_spill=eg.has_host_spill)
+        out.append((nb.sparse_features["a"].values.numpy(),
+                    nb.sparse_features["b"].values.numpy(),
+                    {k: v.numpy() for k, v in rec.get("ab_emb", {}).items()}
+                    or None))
+    final = {k: v.numpy().copy()
+             for k, v in eg.zch_states()["ab_emb"].items()}
+    return out, final
+
+
+def zch_deepfm_steps(shard, cfg_text, plan, canon, steps_cols, eval_cols,
+                     ckpt_dir):
+    """The ZCH DeepFM: 3 train steps from ``canon`` on this rank's rows
+    of each global batch, then the world-2 checkpoint, the predictions
+    of ``eval_cols`` (all rows, on every rank), and the round trips:
+    rank 0 alone restores the world-2 checkpoint at world size 1,
+    predicts and saves it again; both ranks restore that at world size 2
+    and predict. Returns (state_dict, spill state, losses, [predictions
+    at world 2, at 1 (rank 0), at 2 after 1], per step and table the
+    restores this rank took from its store and how many of them went to
+    a slot another rank holds)."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(cfg_text)
+    model, features, sparse_sched = port_main._build_model_and_optim(
+        cfg, "cpu", for_train=True, shard=shard, plan=plan)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in canon.items()})
+    tx, dense_sched = port_main._dense_optimizer(model, cfg.train_config)
+    state = port_main._init_state(model, tx)
+    step = port_main.make_train_step(model, tx, sparse_sched, dense_sched)
+    eg = model.embedding_group
+    restores, spill_step = [], eg.spill_step
+
+    def counted(rec):
+        got = spill_step(rec)
+        held = {}
+        for t, r in got.items():
+            gk, off, _ = eg.engine.table_rows(t)
+            g = eg.engine.groups[gk]
+            rows = np.asarray(r[0]) + off
+            held[t] = (len(rows), int(((rows < g.row_lo) | (
+                rows >= g.row_lo + g.local_rows)).sum()))
+        restores.append(held)
+        return got
+
+    eg.spill_step = counted
+    parser = DataParser(features, labels=["label"])
+    losses = []
+    for cols in steps_cols:
+        n = len(cols["label"])
+        rows = zch_rows(n, shard.rank)
+        local = {k: v.slice(rows.start, rows.stop - rows.start)
+                 for k, v in cols.items()}
+        state, metrics = step(state, parser.parse_to_batch(local))
+        losses.append(float(metrics["total_loss"]))
+    sd = {k: v.detach().float().numpy() for k, v in model.state_dict().items()}
+    spill = eg.spill_state_dict()
+    for sub in ("/w2", "/w1"):
+        os.makedirs(ckpt_dir + sub, exist_ok=True)
+    path_a = checkpoint_util.save_checkpoint(ckpt_dir + "/w2", model, tx,
+                                             state)
+
+    def predict(m):
+        m.eval()
+        with torch.no_grad():
+            preds = port_main.make_eval_step(m, with_loss=False)(
+                DataParser(features, labels=[]).parse_to_batch(eval_cols))
+        return preds[0] if isinstance(preds, tuple) else preds
+
+    def as_np(preds):
+        return {k: v.float().numpy() for k, v in preds.items()
+                if isinstance(v, torch.Tensor)}
+
+    preds = [as_np(predict(model))]
+    if shard.rank == 0:
+        one, _, _ = port_main._build_model_and_optim(cfg, "cpu",
+                                                     for_train=True)
+        tx1, _ = port_main._dense_optimizer(one, cfg.train_config)
+        st1 = checkpoint_util.restore_checkpoint(path_a, one, tx1)
+        preds.append(as_np(predict(one)))
+        checkpoint_util.save_checkpoint(ckpt_dir + "/w1", one, tx1, st1)
+    shard.barrier()
+    two, _, _ = port_main._build_model_and_optim(
+        cfg, "cpu", for_train=True, shard=shard, plan=plan)
+    tx2, _ = port_main._dense_optimizer(two, cfg.train_config)
+    checkpoint_util.restore_checkpoint(
+        checkpoint_util.latest_checkpoint(ckpt_dir + "/w1"), two, tx2)
+    preds.append(as_np(predict(two)))
+    return sd, spill, losses, preds, restores, two.embedding_group.spill_state_dict()
+
+
+def zch_spill_mirror(shard, waves: int = 40):
+    """The JAX package's ``test_spill_restore_row_wise_mesh`` over two
+    ranks: a dynamicemb table of 8 slots, ``row_wise`` and packed. Key A
+    is admitted, its row written, flooded out, stored and readmitted.
+    Returns (packed and row_wise, A's first slot, the table's first row,
+    rows a rank holds, [(wave, A in this rank's store, its stored row)],
+    A's new slot, its row read back, the restores this rank sent)."""
+    from torcheasyrec_tpu_torch.datasets.utils import Batch, SparseField
+    from google.protobuf import text_format
+
+    from torcheasyrec_tpu_torch.features import create_features
+    from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
+    from torcheasyrec_tpu_torch.protos import feature_pb2, model_pb2
+
+    dim = 8
+    feats = create_features([text_format.Parse(
+        f"id_feature {{ feature_name: 'dyn' embedding_dim: {dim} "
+        "dynamicemb { max_capacity: 8 score_strategy: 'LFU' } }",
+        feature_pb2.FeatureConfig())])
+    mc = text_format.Parse('feature_groups { group_name: "deep" '
+                           'feature_names: "dyn" group_type: DEEP }',
+                           model_pb2.ModelConfig())
+    eg = EmbeddingGroup(feats, list(mc.feature_groups), torch.Generator(),
+                        shard=shard, plan={"dyn_emb": "row_wise"})
+    gk, off, _ = eg.engine.table_rows("dyn_emb")
+    g = eg.engine.groups[gk]
+    sent = []
+
+    def step(ids, i):
+        ids = np.asarray(ids)
+        mine = ids[zch_rows(len(ids), shard.rank)]
+        batch = Batch(sparse_features={"dyn": SparseField(
+            torch.tensor(mine, dtype=torch.int32)[:, None])})
+        nb, spills = eg.remap_zch(batch, i, True, collect_spill=True)
+        got = eg.spill_step(eg.gather_spill_rows(spills))
+        sent.extend(int(s) for r in got.values() for s in r[0])
+        # every rank's slots: the global batch's
+        return eg._global_ids([nb.sparse_features["dyn"].values],
+                              shard)[0][0]
+
+    key = 777_001
+    v = torch.linspace(3.0, 4.0, dim)
+    slot = int(step([key] * 8, 1)[0])
+    eg.engine.write_logical_rows(eg.engine_tables()[gk], g,
+                                 torch.tensor([off + slot]), v[None])
+    store = eg.spill.stores["dyn_emb"]
+    seen, i = [], 2
+    for wave in range(waves):
+        for _ in range(3):
+            step([5000 + 16 * wave + j for j in range(16)], i)
+            i += 1
+        here = key in store
+        flags = eg.engine.shard.all_gather_list(torch.tensor([int(here)]))
+        seen.append((wave, here, store.get(key) if here else None))
+        if any(int(f) for f in flags):
+            break
+    new_slot = -1
+    for _ in range(30):
+        s = int(step([key] * 8, i)[0])
+        i += 1
+        gone = eg.engine.shard.all_gather_list(
+            torch.tensor([int(key in store)]))
+        if not any(int(f) for f in gone) and s >= 0:
+            new_slot = s
+            break
+    got = eg.engine.read_rows(eg.engine_tables(), "dyn_emb",
+                              torch.tensor([max(new_slot, 0)]))[0].numpy()
+    return (g.packed and g.sharding == "row_wise", slot, off, g.local_rows,
+            g.row_lo, seen, new_slot, got, sent)
+
+
+def zch_entry_points(shard, cfg_path, half_steps):
+    """``train_and_evaluate`` of the ZCH DeepFM to step ``half_steps``,
+    a ``continue_train`` to twice that, ``evaluate`` of the result."""
+    import json
+
+    from torcheasyrec_tpu_torch import main as port_main
+
+    first = port_main.train_and_evaluate(
+        cfg_path, device="cpu", shard=shard, edit_config_json=json.dumps(
+            {"train_config.num_steps": half_steps}))
+    again = port_main.train_and_evaluate(cfg_path, device="cpu", shard=shard,
+                                         continue_train=True)
+    ev = port_main.evaluate(cfg_path, device="cpu", shard=shard)
+    return first, again, ev
+
+
+def zch_restore_routing(shard):
+    """``apply_spill_restores`` of a row_wise packed dynamicemb table of
+    16 slots: rank r restores (from its own store) rows into slots of
+    the other rank's block, rank 0 two into one slot at positions 5 and
+    rank 1 one into it at position 3. Returns (the rows read back at the
+    slots, the rows expected: the highest position's for the shared
+    slot)."""
+    from google.protobuf import text_format
+
+    from torcheasyrec_tpu_torch.features import create_features
+    from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
+    from torcheasyrec_tpu_torch.protos import feature_pb2, model_pb2
+
+    feats = create_features([text_format.Parse(
+        "id_feature { feature_name: 'dyn' embedding_dim: 8 "
+        "dynamicemb { max_capacity: 16 score_strategy: 'LFU' } }",
+        feature_pb2.FeatureConfig())])
+    mc = text_format.Parse('feature_groups { group_name: "deep" '
+                           'feature_names: "dyn" group_type: DEEP }',
+                           model_pb2.ModelConfig())
+    eg = EmbeddingGroup(feats, list(mc.feature_groups), torch.Generator(),
+                        shard=shard, plan={"dyn_emb": "row_wise"})
+    g = eg.engine.groups[eg.engine.table_rows("dyn_emb")[0]]
+    assert g.packed and g.local_rows < 16
+    rows = {r: np.full((3, 8), 10.0 * r + 1, np.float32)
+            + np.arange(3, dtype=np.float32)[:, None] for r in range(2)}
+    # rank 0: slots 14, 15 (rank 1's) at positions 0, 5; rank 1: slot 1
+    # (rank 0's) at position 2 and slot 15 at position 3
+    plan = {0: ([14, 15, 0], [0, 5, 9]), 1: ([1, 15, 2], [2, 3, 7])}
+    slots, pos = plan[shard.rank]
+    eg.apply_spill_restores({"dyn_emb": (
+        np.asarray(slots, np.int32), rows[shard.rank],
+        np.asarray(pos, np.int64))})
+    probe = torch.tensor([14, 15, 0, 1, 2])
+    got = eg.engine.read_rows(eg.engine_tables(), "dyn_emb", probe).numpy()
+    want = np.stack([rows[0][0], rows[0][1], rows[0][2], rows[1][0],
+                     rows[1][2]])
+    return got, want
+
+
+def zch_ranks_rank(shard, remap_cases, deepfm, entry, writes):
+    """Everything of tests/test_torch_port_zch_ranks.py in one spawn."""
+    return ([zch_remap_case(shard, *c) for c in remap_cases],
+            zch_deepfm_steps(shard, *deepfm), zch_spill_mirror(shard),
+            zch_entry_points(shard, *entry),
+            write_logical_rows_case(shard, *writes),
+            zch_restore_routing(shard))
+
+
+WRITE_LAYOUTS = ("row_wise", "column_wise", "table_wise", "data_parallel")
+
+
+def write_logical_rows_case(shard, canon, ids, rows):
+    """Per layout (packed where it packs): the engine tables after every
+    rank passes the same ``write_logical_rows`` of logical rows ``ids``
+    of table ``t_a`` (each rank writes what it holds), gathered whole;
+    and this rank's kernel #3 calls (the plain row write on the CPU)."""
+    from torcheasyrec_tpu_torch.ops import row_write
+
+    calls = []
+    real = row_write.write_rows
+
+    def counted(table, i, r):
+        calls.append(int(i.shape[0]))
+        return real(table, i, r)
+
+    out = {}
+    row_write.write_rows = counted
+    try:
+        for layout in WRITE_LAYOUTS:
+            eng = port_engine("rowwise_adagrad", {"lr": 0.1}, layout, True,
+                              shard)
+            tables = eng.init_tables(torch.Generator().manual_seed(0))
+            for name, w in canon.items():
+                eng.write_table(tables, name, torch.from_numpy(w))
+            gk, off, _ = eng.table_rows("t_a")
+            del calls[:]
+            eng.write_logical_rows(tables[gk], eng.groups[gk],
+                                   torch.from_numpy(ids) + off,
+                                   torch.from_numpy(rows))
+            out[layout] = ({n: eng.extract_table(tables, n).numpy()
+                            for n, _, _ in ENGINE_TABLES},
+                           eng.groups[gk].packed, list(calls))
+    finally:
+        row_write.write_rows = real
+    return out

@@ -54,6 +54,10 @@ PREFETCH = 4
 class BaseReader(metaclass=_reader_meta):
     """Buffered reader over one or more input sources."""
 
+    # whether ``worker_id`` of ``num_workers`` reads a disjoint part of
+    # the input (a stream that every reader reads whole is not)
+    splittable = True
+
     def __init__(
         self,
         input_path: str,
@@ -77,9 +81,16 @@ class BaseReader(metaclass=_reader_meta):
         self._batch_cost_size = int(batch_cost_size or 0)
         # resume state: source_id -> the last row index already consumed
         self._resume_state: Dict[int, int] = {}
+        # set by ``stop``: a reader that waits on its source returns
+        self._stopping = threading.Event()
 
     def load_state(self, state: Dict[int, int]) -> None:
         self._resume_state = dict(state or {})
+
+    def stop(self) -> None:
+        """Ask a running ``to_batches`` to end at its next wait on the
+        source (a stream's empty poll); the next ``to_batches`` runs."""
+        self._stopping.set()
 
     def schema(self) -> pa.Schema:
         raise NotImplementedError
@@ -131,6 +142,7 @@ class BaseReader(metaclass=_reader_meta):
                     for i, name in enumerate(head.schema.names)
                 }
 
+        self._stopping.clear()
         # resume positions apply only to the first pass after a restore;
         # later epochs replay every row
         resume, self._resume_state = self._resume_state, {}
@@ -304,8 +316,10 @@ class PrefetchIterator:
     ``__next__``."""
 
     def __init__(self, iterable, prefetch: int = PREFETCH,
-                 copy: Optional[_DeviceCopy] = None) -> None:
+                 copy: Optional[_DeviceCopy] = None,
+                 on_close: Optional[Callable[[], None]] = None) -> None:
         self._copy = copy
+        self._on_close = on_close
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._done = object()
         self._err: Optional[BaseException] = None
@@ -340,8 +354,12 @@ class PrefetchIterator:
 
     def close(self) -> None:
         """Stop the thread and drop queued batches. Safe on an abandoned
-        iterator: the thread never blocks on a full queue for good."""
+        iterator: the thread never blocks on a full queue for good, and
+        ``on_close`` (the reader's ``stop``) ends a reader that waits on
+        a stream."""
         self._stop.set()
+        if self._on_close is not None:
+            self._on_close()
         try:
             while True:
                 self._q.get_nowait()
@@ -452,10 +470,16 @@ def create_reader(
 ) -> BaseReader:
     from torcheasyrec_tpu_torch.datasets import (  # noqa: F401
         csv_dataset,
+        kafka_dataset,
+        odps_dataset,
         parquet_dataset,
     )
     from torcheasyrec_tpu_torch.protos import data_pb2
 
+    if input_path.startswith("kafka://"):
+        # a stream's path names its reader whatever the config's type (a
+        # Kafka-fed run keeps its parquet eval files)
+        dataset_type = data_pb2.DatasetType.KafkaDataset
     name = data_pb2.DatasetType.Name(dataset_type or _infer_type(input_path))
     cls = _READER_CLASS_MAP.get(name.replace("Dataset", "Reader"))
     if cls is None:
@@ -469,6 +493,7 @@ def create_writer(output_path: str, writer_type: str,
                   **kwargs: Any) -> BaseWriter:
     from torcheasyrec_tpu_torch.datasets import (  # noqa: F401
         csv_dataset,
+        odps_dataset,
         parquet_dataset,
     )
 
@@ -613,6 +638,11 @@ def create_dataloader(
                           worker_id=worker_id, num_workers=num_workers,
                           reserved_columns=reserved_columns, sampler=sampler)
     mp_workers = num_loader_workers(data_config, mode)
+    if mp_workers > 1 and not reader.splittable:
+        raise ValueError(
+            f"{type(reader).__name__} cannot split its input between "
+            f"{mp_workers} loader workers (each would read all of it); "
+            "set data_config.num_workers to 1 or 0")
     dev = torch.device(device) if device is not None else torch.device("cpu")
     resumed_epoch_pending = [bool(resume_state) and mp_workers > 1]
 
@@ -631,7 +661,8 @@ def create_dataloader(
                 sampler.prepare_shared()
             return _LoaderIter(loader, copy, sampler)
         resumed_epoch_pending[0] = False
-        return PrefetchIterator(iter(dataset), prefetch=PREFETCH, copy=copy)
+        return PrefetchIterator(iter(dataset), prefetch=PREFETCH, copy=copy,
+                                on_close=reader.stop)
 
     _make_iter.dataset = dataset
     _make_iter.reader = reader

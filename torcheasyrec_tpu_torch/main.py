@@ -22,9 +22,10 @@ embedding dump (``utils/delta_embedding_dump.py``) and TensorBoard
 summaries (``use_tensorboard``, default on: ``<model_dir>/tb``, the
 losses and the sparse learning rate every ``log_step_count_steps``
 steps, the last eval at the end; ``utils/summary_util.py``);
-``steps_per_dispatch`` > 1 runs as single steps.
+``steps_per_dispatch`` > 1 runs as single steps and
+``sparse_dist_overlap`` unpipelined, each with a warning.
 
-ZCH and dynamic embeddings (one rank): the train step remaps the raw ids
+ZCH and dynamic embeddings: the train step remaps the raw ids
 of ``zch``/``dynamicemb`` features before the lookup at the state's
 step (``EmbeddingGroup.remap_zch``), gathers the rows that the remap
 evicted from spill tables before the sparse update writes the tables in
@@ -33,6 +34,10 @@ rows of readmitted keys, before the next step. Eval, predict and the
 serving program remap read-only. Host-offloaded tables: the step gathers
 the batch's rows on the host from the loader's host copy of its ids,
 into page-locked memory, and applies their row gradients on the host.
+Over several ranks the train remap runs on the global batch (every rank
+advances the same mappings; ``modules/embedding.py``), the spill stores
+are per rank, and host-offloaded tables are refused, as in the JAX
+package.
 
 Several ranks (``torch.distributed.run --nproc_per_node N``, or a
 ``shard`` the caller made with ``utils/dist_util.init_distributed``):
@@ -792,6 +797,11 @@ def _train_and_evaluate(pipeline_config_path, train_input_path,
         logger.warning(
             f"steps_per_dispatch {train_config.steps_per_dispatch}: the "
             "steps of one dispatch run as single steps (the same numbers)")
+    if train_config.sparse_dist_overlap:
+        logger.warning(
+            "sparse_dist_overlap: the next batch's embedding exchange is "
+            "not overlapped with the step; the step runs unpipelined (the "
+            "same numbers)")
     ckpt_manager = checkpoint_util.CheckpointManager(
         model_dir,
         save_checkpoints_steps=train_config.save_checkpoints_steps,

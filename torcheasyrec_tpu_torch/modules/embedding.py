@@ -56,15 +56,31 @@ picks the policy (LFU, NO_EVICTION -> lfu; STEP, TIMESTAMP -> lru) and
 ``frequency_admission_strategy`` the admission counter; its tables get
 the host spill tier (``parallel/host_spill.py``; ``TZREC_HOST_SPILL=0``
 turns it off), whose stores are ``spill``. The train step remaps with
-``remap_zch(training=True)``; ``forward`` remaps read-only. ZCH under
-several ranks, and on a host-offloaded table, raise.
+``remap_zch(training=True)``; ``forward`` remaps read-only. A ZCH table
+on the host tier raises.
+
+ZCH over several ranks (a ``shard`` of world size N), as the JAX step
+remaps on a mesh: the train remap gathers every ZCH feature's ids from
+all ranks and runs the insert on their concatenation in rank order, the
+global batch, so that the mappings, their scores and the admission
+counters advance alike on every rank (``zch_digest`` checks it); each
+rank keeps its own slice of the slots. The read-only remap of eval and
+predict reads the state alone, id by id, so each rank remaps its own
+ids. The spill records are then the same on every rank. Of a table
+whose rows are sharded a rank stores the evicted keys whose rows it
+holds and sends a readmitted key's row to the rank holding its new slot
+(``apply_spill_restores``); of a column-wise or replicated table every
+rank stores whole rows. ``spill_state_dict`` merges the ranks' stores
+into one world-size-free state and ``load_spill_state_dict`` splits it
+again by row ownership.
 """
 
-import os
-
 import dataclasses
+import hashlib
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -75,6 +91,8 @@ from torcheasyrec_tpu_torch.modules.module import linear, linear_apply
 from torcheasyrec_tpu_torch.modules.sequence import create_seq_encoder
 from torcheasyrec_tpu_torch.parallel import zch as zch_mod
 from torcheasyrec_tpu_torch.parallel.emb_engine import (
+    _ROW_SHARDED,
+    COLUMN_WISE,
     DATA_PARALLEL,
     HOST_OFFLOAD,
     ROW_WISE,
@@ -333,12 +351,6 @@ class EmbeddingGroup(nn.Module):
             self._zch_cfgs.setdefault(table, cfg)
         if not self._zch_cfgs:
             return
-        if shard is not None and shard.world > 1:
-            raise NotImplementedError(
-                f"ZCH/dynamicemb tables {sorted(self._zch_cfgs)} over "
-                f"{shard.world} ranks are not ported (ROADMAP item 7's "
-                "remainder: each rank would evolve its own mapping from its "
-                "shard of the batch)")
         for t in self._zch_cfgs:
             gk = self.engine._table_group.get(t)
             if gk and self.engine.groups[gk].sharding == HOST_OFFLOAD:
@@ -368,30 +380,43 @@ class EmbeddingGroup(nn.Module):
         next; with ``training`` the buffers take the final state. With
         ``collect_spill`` the records of the spill tables
         ({table: {evicted_keys, fresh_keys, slots}}, concatenated over
-        the table's features), else {}."""
+        the table's features), else {}. Over several ranks a train remap
+        runs on the global batch (``_global_ids``): the records are the
+        global batch's, the same on every rank."""
         if not self._zch_cfgs:
             return batch, {}
         bufs = self.zch_states()
         states = {t: dict(st) for t, st in bufs.items()}
         sparse = dict(batch.sparse_features)
         seq_sparse = dict(batch.sequence_sparse_features)
+        fields = [(fname, table, container)
+                  for fname, table in self._zch_features.items()
+                  for container in (sparse, seq_sparse)
+                  if fname in container]
+        shard = self.engine.shard
+        glob = None
+        if training and fields and shard is not None and shard.world > 1:
+            glob = self._global_ids(
+                [container[f].values for f, _, container in fields], shard)
         spills: Dict[str, Dict[str, list]] = {}
-        for fname, table in self._zch_features.items():
+        for i, (fname, table, container) in enumerate(fields):
             cfg = self._zch_cfgs[table]
             want = collect_spill and table in self._spill_tables
-            for container in (sparse, seq_sparse):
-                if fname not in container:
-                    continue
-                field = container[fname]
-                out = zch_mod.lookup_insert(states[table], cfg, field.values,
-                                            step, training,
-                                            collect_spill=want)
-                states[table] = out[1]
-                if want:
-                    acc = spills.setdefault(table, {k: [] for k in out[2]})
-                    for k, v in out[2].items():
-                        acc[k].append(v)
-                container[fname] = dataclasses.replace(field, values=out[0])
+            field = container[fname]
+            ids = field.values if glob is None else glob[i][0]
+            out = zch_mod.lookup_insert(states[table], cfg, ids, step,
+                                        training, collect_spill=want)
+            states[table] = out[1]
+            if want:
+                acc = spills.setdefault(table, {k: [] for k in out[2]})
+                for k, v in out[2].items():
+                    acc[k].append(v)
+            slots = out[0]
+            if glob is not None:
+                lo = glob[i][1]
+                slots = slots.reshape(-1)[lo:lo + field.values.numel()
+                                          ].reshape(field.values.shape)
+            container[fname] = dataclasses.replace(field, values=slots)
         if training:
             for t, st in states.items():
                 for k, v in st.items():
@@ -403,51 +428,190 @@ class EmbeddingGroup(nn.Module):
                          for k, v in rec.items()}
                      for t, rec in spills.items()}
 
+    @staticmethod
+    def _global_ids(values: List[torch.Tensor], shard: ShardContext
+                    ) -> List[Tuple[torch.Tensor, int]]:
+        """Per field: (every rank's ids of it, flattened and concatenated
+        in rank order: the global batch's; where this rank's start in
+        it). Two collectives for all fields: the per-field counts, then
+        the ids, padded to the largest rank's."""
+        flat = [v.reshape(-1).long() for v in values]
+        sizes = torch.tensor([f.numel() for f in flat], dtype=torch.int64)
+        per_rank = torch.stack(shard.all_gather_list(sizes)).tolist()
+        mine = torch.cat(flat)
+        padded = mine.new_zeros(max(sum(row) for row in per_rank))
+        padded[:mine.shape[0]] = mine
+        gathered = shard.all_gather_list(padded)
+        parts = [[] for _ in flat]
+        for r, row in enumerate(per_rank):
+            pos = 0
+            for i, n in enumerate(row):
+                parts[i].append(gathered[r][pos:pos + n])
+                pos += n
+        return [(torch.cat(p), sum(per_rank[r][i]
+                                   for r in range(shard.rank)))
+                for i, p in enumerate(parts)]
+
     def _remap_read_only(self, batch: Batch) -> Batch:
         return self.remap_zch(batch, 0, False)[0] if self._zch_cfgs \
             else batch
+
+    def _spill_sharded(self, table: str) -> bool:
+        """Whether the rows of spill table ``table`` are split over the
+        ranks (each rank then stores only the keys whose rows it holds)."""
+        g = self.engine.groups[self.engine.table_rows(table)[0]]
+        return self.engine.num_shards > 1 and g.sharding in _ROW_SHARDED
 
     @torch.no_grad()
     def gather_spill_rows(self, spills: Dict[str, Dict[str, torch.Tensor]]
                           ) -> Dict[str, Dict[str, torch.Tensor]]:
         """Each record with ``evicted_rows`` [N, dim] fp32: the evicted
         keys' trained rows (else 0). Read the tables BEFORE the step's
-        update writes them."""
+        update writes them. Over several ranks, of a table whose rows
+        are sharded each rank reads the rows it holds, marked ``held``;
+        of a column-wise table every rank reads whole rows (a
+        collective); a replicated one reads its own copy."""
         fused = self.engine_tables()
+        eng = self.engine
         out = {}
         for t, rec in spills.items():
-            gk, off, _ = self.engine.table_rows(t)
+            gk, off, _ = eng.table_rows(t)
+            g = eng.groups[gk]
             ids = torch.where(rec["evicted_keys"] >= 0,
                               rec["slots"].long() + off,
                               rec["slots"].new_full((), -1).long())
-            rows = self.engine._gather(self.engine.groups[gk], fused[gk], ids)
-            out[t] = dict(rec, evicted_rows=rows.float())
+            extra = {}
+            if self._spill_sharded(t):
+                held = (ids >= g.row_lo) & (ids < g.row_lo + g.local_rows)
+                rows = eng._gather(g, fused[gk], torch.where(
+                    held, ids - g.row_lo, ids.new_full((), -1)))
+                extra["held"] = held
+            elif eng.num_shards > 1 and g.sharding == COLUMN_WISE:
+                rows = eng._sharded_gather(g, fused[gk], ids)[0]
+            else:
+                rows = eng._gather(g, fused[gk], ids)
+            out[t] = dict(rec, evicted_rows=rows.float(), **extra)
         return out
 
     @torch.no_grad()
-    def apply_spill_restores(self, restores: Dict[str, Tuple[Any, Any]]
+    def apply_spill_restores(self, restores: Dict[str, Tuple[Any, ...]]
                              ) -> None:
-        """Write readmitted keys' stored rows ({table: (slots, rows)},
-        ``SpillManager.process``'s) into the tables, weight columns only."""
+        """Write readmitted keys' stored rows ({table: (slots, rows[,
+        positions])}, ``SpillManager.process``'s) into the tables, weight
+        columns only. Over several ranks, a table whose rows are sharded
+        first gathers every rank's restores (each rank's come from its
+        store), in the order of their positions in the record, and each
+        rank writes those of its rows: every rank calls this each step."""
         fused = self.engine_tables()
-        for t, (slots, rows) in restores.items():
+        for t in sorted(self._spill_tables):
             gk, off, _ = self.engine.table_rows(t)
+            got = restores.get(t)
+            if self._spill_sharded(t):
+                got = self._gather_restores(t, got)
+            if got is None:
+                continue
+            slots, rows = got[0], got[1]
             self.engine.write_logical_rows(
                 fused[gk], self.engine.groups[gk],
                 torch.as_tensor(slots, dtype=torch.long) + off,
                 torch.as_tensor(rows))
 
+    def _gather_restores(self, table: str, got) -> Optional[Tuple[Any, Any]]:
+        """Every rank's restores of ``table`` as one (slots, rows), by
+        their positions in the (replicated) record: the order of one
+        rank's writes. Packed into one float64 tensor [n, 2 + dim] of
+        (position, slot, row): one gather of counts, one of rows."""
+        dim = self.spill.stores[table].dim
+        if got is None:
+            mine = torch.zeros(0, 2 + dim, dtype=torch.float64)
+        else:
+            slots, rows, pos = (torch.as_tensor(x, dtype=torch.float64)
+                                for x in got)
+            mine = torch.cat([pos[:, None], slots[:, None], rows], 1)
+        allr, _ = self.engine.shard.all_gather_var(mine)
+        if allr.shape[0] == 0:
+            return None
+        allr = allr[torch.argsort(allr[:, 0], stable=True)]
+        return allr[:, 1].long(), allr[:, 2:].float()
+
     def spill_step(self, spill_rec: Dict[str, Dict[str, torch.Tensor]]
-                   ) -> Dict[str, Tuple[Any, Any]]:
+                   ) -> Dict[str, Tuple[Any, ...]]:
         """The host half of the spill tier after a step: the records
         (``gather_spill_rows``') to the host, evicted rows stored,
-        readmitted rows popped and written back. Returns the restores."""
+        readmitted rows popped and written back. Returns this rank's
+        restores."""
         host = {t: {k: v.cpu().numpy() for k, v in rec.items()}
                 for t, rec in spill_rec.items()}
         restores = self.spill.process(host)
-        if restores:
+        if restores or self.engine.num_shards > 1:
             self.apply_spill_restores(restores)
         return restores
+
+    def zch_digest(self) -> str:
+        """A digest of every ZCH mapping (keys, scores, admission
+        counters): equal on every rank while the mappings are."""
+        h = hashlib.sha256()
+        for t, st in sorted(self.zch_states().items()):
+            for k, v in sorted(st.items()):
+                h.update(f"{t}.{k}".encode())
+                h.update(v.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def spill_state_dict(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """The spill stores as one world-size-free state (a collective
+        over the ranks; rank 0's result is the whole one): a sharded
+        table's parts merged (keys, rows, stamps and homes concatenated,
+        the clock shared, the counters summed), else rank 0's store."""
+        own = self.spill.state_dict()
+        shard = self.engine.shard
+        if shard is None or shard.world <= 1:
+            return own
+        from torcheasyrec_tpu_torch.utils import dist_util
+
+        parts = dist_util.gather_host_objects(shard, {
+            t: sd for t, sd in own.items() if self._spill_sharded(t)})
+        out = {}
+        for t, sd in own.items():
+            if not self._spill_sharded(t):
+                out[t] = sd
+                continue
+            ps = [p[t] for p in parts]
+            merged = {k: np.concatenate([p[k] for p in ps])
+                      for k in ("keys", "rows", "stamps", "homes")}
+            metas = np.stack([p["meta"] for p in ps])
+            merged["meta"] = np.concatenate(
+                [metas[:, :1].max(0), metas[:, 1:].sum(0)])
+            out[t] = merged
+        return out
+
+    def load_spill_state_dict(self, sd: Dict[str, Dict[str, np.ndarray]]
+                              ) -> None:
+        """Inverse of ``spill_state_dict`` at this world size and layout:
+        a sharded table's rank keeps the entries whose home row it holds
+        (an entry without a home goes to rank 0) and rank 0 the
+        counters; every rank keeps a replicated table's whole state."""
+        mine = {}
+        for t, part in sd.items():
+            if t not in self.spill.stores:
+                continue
+            part = {k: np.asarray(v) for k, v in part.items()}
+            if self._spill_sharded(t):
+                gk, off, _ = self.engine.table_rows(t)
+                g = self.engine.groups[gk]
+                homes = part.get("homes")
+                if homes is None:
+                    homes = np.full(part["keys"].shape, -1, np.int64)
+                row = homes + off
+                keep = np.where(homes >= 0, (row >= g.row_lo)
+                                & (row < g.row_lo + g.local_rows),
+                                self.engine.rank == 0)
+                part = dict({k: part[k][keep] for k in ("keys", "rows",
+                                                        "stamps")},
+                            homes=homes[keep], meta=part["meta"].copy())
+                if self.engine.rank:
+                    part["meta"][1:] = 0
+            mine[t] = part
+        self.spill.load_state_dict(mine)
 
     # -- tables ------------------------------------------------------------
 

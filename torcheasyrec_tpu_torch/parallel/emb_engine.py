@@ -886,16 +886,23 @@ class EmbeddingEngine:
         ``flat_ids[i]`` of the group, in place, under any layout; id -1
         is dropped, of duplicates the last wins. Weight columns only:
         the in-row optimizer state of a packed group stays (a restored
-        key restarts its optimizer state). One rank only."""
-        if self.num_shards > 1:
-            raise NotImplementedError(
-                "write_logical_rows runs on one rank (ZCH over several "
-                "ranks is not ported)")
+        key restarts its optimizer state). A packed group's touched
+        physical rows are gathered, their slots set and written back by
+        the row write (kernel #3). Under a ShardContext each rank writes
+        what it holds of the given rows: of a row-sharded group the rows
+        in its block, of a column-wise one its columns of every row, of
+        a replicated one all (not a collective: a caller whose ranks hold
+        different rows routes them first)."""
         flat_ids = flat_ids.long().to(weight.device)
         rows = rows.to(weight.device)
         keep = flat_ids >= 0
-        ids, rows = flat_ids[keep], rows[keep]
-        if ids.numel() == 0:
+        if g.sharding in _ROW_SHARDED:
+            keep &= (flat_ids >= g.row_lo) & (
+                flat_ids < g.row_lo + g.local_rows)
+        ids, rows = flat_ids[keep] - g.row_lo, rows[keep]
+        if g.sharding == COLUMN_WISE:
+            rows = rows[:, g.col_lo:g.col_lo + g.local_dim]
+        if ids.numel() == 0 or rows.shape[1] == 0:
             return
         uids, inv = torch.unique(ids, return_inverse=True)
         last = torch.full((uids.shape[0],), -1, dtype=torch.long,
@@ -904,8 +911,14 @@ class EmbeddingEngine:
         vals = rows[last]
         d = vals.shape[1]
         if g.packed:
+            from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
             pid, lane, _ = self._packed_phys(g, uids)
-            _slots(weight, g)[pid, lane, :d] = vals.to(weight.dtype)
+            upid, pinv = torch.unique_consecutive(pid, return_inverse=True)
+            phys = weight[upid]
+            _slots(phys, g)[pinv, lane, :d] = vals.to(weight.dtype)
+            # the scratch row stays out of the view, as in the update
+            write_rows(weight[:g.p_rows - 1], upid, phys)
         else:
             weight[uids, :d] = vals.to(weight.dtype)
 

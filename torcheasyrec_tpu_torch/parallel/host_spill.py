@@ -22,6 +22,15 @@ key's last row wins; within one ``take`` a duplicate key's first
 position wins; taken rows are removed (tombstones). ``state_dict`` and
 ``load_state_dict`` carry a store through a checkpoint, which the JAX
 package does not (its resume starts the stores empty).
+
+Over several ranks (``modules/embedding.py``) the mapping is replicated,
+so every rank sees the same spill records. A store then keeps, beside
+each key, its home: the table slot it was evicted from. Where the rows
+of a table are sharded, rank r stores only the keys whose home row it
+holds (``store(..., keep=)``), with the stamps and clock that one store
+of the whole record would give, so that the ranks' stores are the parts
+of a world-size-1 store; a checkpoint merges them, a restore splits them
+again by the homes.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -63,6 +72,7 @@ class HostSpillStore:
         self._k = np.full(cap, _EMPTY, np.int64)
         self._rows = np.zeros((cap, self.dim), np.float32)
         self._stamp = np.zeros(cap, np.int64)
+        self._home = np.full(cap, -1, np.int64)
         self._tombs = 0
 
     def __len__(self) -> int:
@@ -93,15 +103,15 @@ class HostSpillStore:
 
     def _rehash(self, newcap: int) -> None:
         occ = np.nonzero(self._k >= 0)[0]
-        keys, rows, stamps = (
-            self._k[occ], self._rows[occ], self._stamp[occ]
+        keys, rows, stamps, homes = (
+            self._k[occ], self._rows[occ], self._stamp[occ], self._home[occ]
         )
         self._alloc(newcap)
         self._size = 0
         if keys.size:
-            self._insert(keys, rows, stamps)
+            self._insert(keys, rows, stamps, homes)
 
-    def _insert(self, q, rows, stamps) -> None:
+    def _insert(self, q, rows, stamps, homes) -> None:
         """Insert UNIQUE keys (update-in-place on existing)."""
         slots = self._lookup(q)
         upd = slots >= 0
@@ -109,6 +119,7 @@ class HostSpillStore:
             s = slots[upd]
             self._rows[s] = rows[upd]
             self._stamp[s] = stamps[upd]
+            self._home[s] = homes[upd]
         need = np.nonzero(~upd)[0]
         if not need.size:
             return
@@ -133,6 +144,7 @@ class HostSpillStore:
                 self._k[wslots] = q[widx]
                 self._rows[wslots] = rows[widx]
                 self._stamp[wslots] = stamps[widx]
+                self._home[wslots] = homes[widx]
                 keep = np.ones(pending.size, bool)
                 keep[wpos] = False
                 pending = pending[keep]
@@ -148,24 +160,36 @@ class HostSpillStore:
         s = int(self._lookup(np.asarray([int(key)], np.int64))[0])
         return self._rows[s].copy() if s >= 0 else None
 
-    def store(self, keys: np.ndarray, rows: np.ndarray) -> int:
-        """Store rows[i] under keys[i] for keys[i] >= 0; returns count."""
+    def store(self, keys: np.ndarray, rows: np.ndarray,
+              homes: Optional[np.ndarray] = None,
+              keep: Optional[np.ndarray] = None) -> int:
+        """Store rows[i] under keys[i] for keys[i] >= 0 (with ``homes[i]``,
+        the slot it left, where given); returns count. With ``keep`` only
+        the entries it marks are stored, with the stamps that storing all
+        of them would give (a rank's part of a replicated record)."""
         keys = np.asarray(keys, np.int64).ravel()
         rows = np.asarray(rows, np.float32).reshape(keys.size, self.dim)
+        homes = (np.full(keys.size, -1, np.int64) if homes is None
+                 else np.asarray(homes, np.int64).ravel())
         valid = keys >= 0
-        n = int(valid.sum())
-        if not n:
+        if not valid.any():
             return 0
-        q, r = keys[valid], rows[valid]
+        if keep is None:
+            keep = np.ones(keys.size, bool)
+        keep = np.asarray(keep, bool).ravel()[valid]
+        q, r, h = keys[valid], rows[valid], homes[valid]
+        n = int(keep.sum())
         # duplicate keys in one batch: LAST write wins (dict semantics)
         rev_first = np.unique(q[::-1], return_index=True)[1]
         sel = np.sort(q.size - 1 - rev_first)
-        q, r = q[sel], r[sel]
+        q, r, h, keep = q[sel], r[sel], h[sel], keep[sel]
         self._clock += 1
         stamps = (
             np.int64(self._clock) << _SUB_BITS
         ) + np.arange(q.size, dtype=np.int64)
-        self._insert(q, r, stamps)
+        if not n:
+            return 0
+        self._insert(q[keep], r[keep], stamps[keep], h[keep])
         self.stored += n
         if self.max_items and self._size > self.max_items:
             k = self._size - self.max_items
@@ -184,12 +208,18 @@ class HostSpillStore:
         occ = np.nonzero(self._k >= 0)[0]
         return {"keys": self._k[occ].copy(), "rows": self._rows[occ].copy(),
                 "stamps": self._stamp[occ].copy(),
+                "homes": self._home[occ].copy(),
                 "meta": np.asarray([self._clock, self.stored,
                                     self.restored, self.dropped], np.int64)}
 
     def load_state_dict(self, sd: Dict[str, np.ndarray]) -> None:
-        """Inverse of ``state_dict``: the same keys, rows and LRU order."""
+        """Inverse of ``state_dict``: the same keys, rows and LRU order (a
+        state without ``homes``, written before homes were kept, loads
+        with none)."""
         keys = np.asarray(sd["keys"], np.int64)
+        homes = sd.get("homes")
+        homes = (np.full(keys.size, -1, np.int64) if homes is None
+                 else np.asarray(homes, np.int64))
         cap = self._cap
         while keys.size * 2 > cap:
             cap *= 2
@@ -197,7 +227,7 @@ class HostSpillStore:
         self._size = 0
         if keys.size:
             self._insert(keys, np.asarray(sd["rows"], np.float32),
-                         np.asarray(sd["stamps"], np.int64))
+                         np.asarray(sd["stamps"], np.int64), homes)
         (self._clock, self.stored, self.restored,
          self.dropped) = (int(x) for x in np.asarray(sd["meta"]))
 
@@ -245,24 +275,30 @@ class SpillManager:
 
     def process(
         self, spill_out: Dict[str, Dict[str, np.ndarray]]
-    ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    ) -> Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Consume one step's device spill record (already device_get):
         store evictions, pop readmission hits. Returns per-table
         (slots [M] int32, rows [M, dim] float32) restores to scatter
         into the device tables (slots are table-LOCAL row indices; the
-        caller offsets into its megatable layout)."""
-        restores: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        caller offsets into its megatable layout), and the positions of
+        the restored keys in the record (the order in which a one-rank
+        write would take them). A record's ``held`` marks the entries
+        this rank stores (all where it has none)."""
+        restores: Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
         for tname, rec in spill_out.items():
             st = self.stores[tname]
             ek = np.asarray(rec["evicted_keys"])
             if (ek >= 0).any():
-                st.store(ek, np.asarray(rec["evicted_rows"]))
+                st.store(ek, np.asarray(rec["evicted_rows"]),
+                         homes=np.asarray(rec["slots"]),
+                         keep=rec.get("held"))
             fk = np.asarray(rec["fresh_keys"])
             idx, rows = st.take(fk)
             if idx:
                 slots = np.asarray(rec["slots"])[idx].astype(np.int32)
                 restores[tname] = (
-                    slots, np.asarray(rows, np.float32)
+                    slots, np.asarray(rows, np.float32),
+                    np.asarray(idx, np.int64),
                 )
         return restores
 

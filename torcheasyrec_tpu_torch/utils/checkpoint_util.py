@@ -11,7 +11,11 @@ where the train state has them the accumulated dense gradients
 mappings (``state["zch"]``) are buffers of the model and travel in its
 ``state_dict``; the host spill stores, where the model has them, travel
 as ``zch_spill`` (the JAX package starts them empty on a resume), so a
-resumed run continues as the straight run would.
+resumed run continues as the straight run would. Over several ranks the
+mappings are replicated and saved once; every save first checks that
+they are equal, bit for bit, on every rank. ``zch_spill`` is then the
+ranks' stores merged into one (``EmbeddingGroup.spill_state_dict``), and
+a restore splits it again by row ownership at the restoring world size.
 
 Over several ranks (a model whose engine has a ``ShardContext``) the
 checkpoint is the same file: every rank takes part in gathering each
@@ -76,11 +80,17 @@ def save_checkpoint(model_dir: str, model, tx, state: Dict[str, Any],
             "epoch": state.get("epoch", 0),
             "dataloader_state": loader_state,
             **{k: state[k] for k in _OPTIONAL_STATE if k in state}}
-    spill = model.embedding_group.spill
-    if spill is not None:
+    eg = model.embedding_group
+    if eg.has_zch and shard is not None and shard.world > 1:
+        digests = dist_util.gather_host_objects(shard, eg.zch_digest())
+        if len(set(digests)) != 1:
+            raise RuntimeError(
+                f"ZCH mappings differ between the ranks at step "
+                f"{state['step']}: {digests}")
+    if eg.spill is not None:
         ckpt["zch_spill"] = {
             t: {k: torch.from_numpy(v) for k, v in part.items()}
-            for t, part in spill.state_dict().items()}
+            for t, part in eg.spill_state_dict().items()}
     if dist_util.is_main_process(shard):
         # written aside and renamed: a restore may hold the old file of
         # this step mapped, which truncating it in place would break
@@ -141,7 +151,7 @@ def restore_checkpoint(path: str, model, tx=None, strict: bool = True
         tx.load_state_dict(_to_device(ckpt["dense_opt"], dev))
     eg = model.embedding_group
     if eg.spill is not None and "zch_spill" in ckpt:
-        eg.spill.load_state_dict({
+        eg.load_spill_state_dict({
             t: {k: v.cpu().numpy() for k, v in part.items()}
             for t, part in ckpt["zch_spill"].items()})
     if strict or "sparse_opt" in ckpt:
