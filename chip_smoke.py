@@ -227,7 +227,7 @@ one JSON line each:
    distance to the pinned threshold printed), ``evaluate`` equal to the
    trainer's metrics, ``predict_checkpoint`` of the first 2 eval batches
    equal to the eval step's outputs bit for bit. Then three models at
-   that width, each 3 fp32 steps on the card and on the CPU from the same
+   that width, each 2 fp32 steps on the card and on the CPU from the same
    CPU-drawn weights and loader batches, the training-mode loss, every
    prediction and every dense gradient within 1e-4 of the CPU's max
    before each step (a structural zero gradient must be zero on the
@@ -256,7 +256,7 @@ one JSON line each:
    a domain group, PPNet towers 512-256-128 gated by priors, Pareto loss
    weights) and DC2VR (a Dice bottom, MMoE of 4 experts, the cvr tower
    intervened by the ctr tower within its task space). Each config first
-   2 fp32 steps on the card against the CPU from the same CPU-drawn
+   1 fp32 step on the card against the CPU from the same CPU-drawn
    weights and batches, the variational-dropout noise given to both:
    losses, predictions, dense gradients, and after the steps every
    tensor of the state dict (batch-norm statistics and tables included)
@@ -297,7 +297,7 @@ one JSON line each:
    not in the repository): the tree of the 2 000 items (``init_tree``,
    4 001 nodes, leaves at depth 11); ``TDMSampler.process`` timed on the
    host (a batch of 1 024 rows becomes ~46 800 pairs); the sampler's
-   shared table on a synthetic item table of 2 M items (cut to half of
+   shared table on a synthetic item table of 1 M items (cut to half of
    /dev/shm's free space): the build, the segment's bytes, and the
    memory of 2 spawned workers that attach against one that unpickles a
    private copy (each worker's own growth, and the host's MemAvailable
@@ -373,7 +373,7 @@ Phase ``train_zch``: criteo_synth DeepFM at
 its published width with eight of its 100 000-bucket features as 32 768
 slot ZCH (lfu, lru, distance_lfu) and dynamicemb tables (the host spill
 tier, frequency admission) and four tables host-offloaded
-(``zch_text``). 3 fp32 steps on the card against the CPU after a shared
+(``zch_text``). 2 fp32 steps on the card against the CPU after a shared
 warm ZCH state: remapped slots, ZCH state, spill keys and restored slots
 bit-equal, tables, row state and dense parameters within 1e-4 of each
 tensor's max, untouched rows bit-equal, the host tables within 1e-5 of a
@@ -391,7 +391,7 @@ Phase ``train_sid``: semantic-ID generation
 at the widths of TIGER's RQ-VAE (Rajput et al., "Recommender Systems
 with Generative Retrieval", NeurIPS 2023: 768-d item content vectors,
 an encoder 512-256-128 to a latent of 32, 3 levels of 256 codes, batch
-1 024) on 32 768 synthetic clustered items (``sid_items``). 3 fp32
+1 024) on 32 768 synthetic clustered items (``sid_items``). 2 fp32
 steps on the card against the CPU from the same CPU-drawn weights and
 batches, the CPU's codes replayed on the card where its two least
 distances lie within SID_TIE_GAP (``CodeReplay``, flips counted): loss,
@@ -448,9 +448,10 @@ world size 2 bit-equal to the trained model's next step; the step at
 world sizes 2 and 1; and a restore probe (``zr_restore_probe``): a key
 written into an 8-slot ``row_wise`` packed table, flooded out, stored by
 the rank that holds its slot, readmitted and written back by kernel #3,
-read back bit for bit.
+read back bit for bit. Its ranks then run phase ``train_pipelined``'s
+part (a), whose phase checks and prints it.
 
-Phase ``train_stream`` (last before the timeline): the criteo_synth
+Phase ``train_stream``: the criteo_synth
 DeepFM fed from Kafka, an in-memory broker standing in for
 ``confluent_kafka`` (no broker, no network; printed): two partitions of
 the synthetic Criteo rows as JSON messages. 16 steps on the card through
@@ -461,6 +462,29 @@ to the straight run; the loop's step beside the same steps fed from the
 parquet file. Then a TF-EasyRec DeepFM config over the Criteo columns
 through ``tools/convert_easyrec_config``, 4 steps on the card (kernel #3
 counted) and its checkpoint listed whole by ``tools/list_ckpt_param``.
+
+Phase ``train_pipelined`` (last before the timeline): the training
+loop's two overlaps, each against the loop without it from the same
+weights and input. (a) ``sparse_dist_overlap`` over two ranks on the
+card (gloo, as ``train_sharded``): criteo_synth deepfm.config at its
+published widths, BF16, packed, every cat table ``row_wise``, global
+batch 4 096 from a train file a rank, ``PIPE_STEPS`` steps through
+``train_and_evaluate`` once unpipelined (a rank's first run is slower
+throughout: not timed against), then pipelined (the next batch's id
+exchange staged on the side group while the step runs) and unpipelined
+in turns, twice each, on the ranks of ``train_zch_ranks`` after their
+own work where that phase ran (``PIPE_DONE``; a spawned rank's first
+``train_and_evaluate`` pays ~15 s of start-up), else on ranks of its
+own: results, eval
+and the checkpoint (tables, row and dense optimizer state) 0.0 apart,
+every step staging the next batch's route; each run's step median, the
+main thread's routing or staged-route wait a step, kernel #3's launches
+a rank. (b) The host-offloaded ZCH DeepFM of ``train_zch`` (``zch_text``)
+with the host-row prefetcher off and on in turns, twice each
+(``TZREC_HOST_PREFETCH``): results and checkpoints 0.0 apart, the
+prefetch serving every step but
+the first; each run's step median and the host wait a step (the rows'
+gather or the prefetch's join, the host apply, the repair).
 
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
@@ -2366,7 +2390,9 @@ LOADER_WARMUP = LOADER_WORKERS + 1
 PROFILED_STEPS = 10
 EVAL_FILE_ROWS = (9_000, 8_000)
 EVAL_BATCH = 6_000  # eval_batch_size, not the train batch: 3 eval batches
-RESUME_STEPS, RESUME_AT, SAVE_STEPS, KEEP_MAX = 10, 4, 4, 2
+# two checkpoint writes of ~4.8 GB fewer than at 10, 4, 4, 2 (for
+# train_pipelined's time); pruning, the resume and its watermark as before
+RESUME_STEPS, RESUME_AT, SAVE_STEPS, KEEP_MAX = 8, 4, 5, 1
 
 
 def write_criteo_dir(directory, sizes, buckets, seed: int,
@@ -2685,10 +2711,10 @@ def phase_train_loader():
             "resumed steps": (resumed["step"], RESUME_STEPS),
             "resumed step and adam count": ((b["step"], b["dense_opt"][
                 "count"]), (RESUME_STEPS, RESUME_STEPS)),
-            "straight kept": (kept(straight_dir), [8, 10]),
-            "resumed kept": (kept(resumed_dir), [8, 10]),
-            "straight evals": (eval_steps(straight_dir), [4, 8, 10]),
-            "resumed evals": (eval_steps(resumed_dir), [4, 4, 8, 10]),
+            "straight kept": (kept(straight_dir), [8]),
+            "resumed kept": (kept(resumed_dir), [8]),
+            "straight evals": (eval_steps(straight_dir), [5, 8]),
+            "resumed evals": (eval_steps(resumed_dir), [4, 5, 8]),
             "watermark at the end": (b["dataloader_state"],
                                      a["dataloader_state"]),
             # step 4 stops inside the first file (36 001 rows)
@@ -3954,7 +3980,7 @@ GR_TRAIN_ROWS, GR_EVAL_ROWS = 20_480, 4_096  # ensure_hstu_dataset's sizes
 GR_BATCH, GR_EPOCHS = 128, 2
 GR_STEPS = GR_EPOCHS * GR_TRAIN_ROWS // GR_BATCH
 GR_PREDICT_BATCHES = 2
-GR_CHECK_STEPS = 3  # card against CPU, each model
+GR_CHECK_STEPS = 2  # card against CPU, each model (3 before train_pipelined)
 GR_CARD_TOL = 1e-4  # fp32: max abs error over the CPU's max abs, per tensor
 # a gradient below this share of the largest one on the CPU is a
 # structural zero (interleaved targets' action tokens reach no output):
@@ -4524,15 +4550,15 @@ ZOO_REST_METRICS = {"xdeepfm": ("auc", "grouped_auc_cat_10"),
 # dc2vr cut from its epoch of 64 steps (33 s there), for train_zch's time,
 # then to 16 for train_sid's
 # halved for the time of train_zch_ranks and train_stream: 8, 8, 8 and
-# 16 before
-ZOO_REST_STEPS = {"xdeepfm": 4, "wukong": 4, "pepnet": 4, "dc2vr": 8}
+# 16 before; dc2vr halved again for train_pipelined's (8 before)
+ZOO_REST_STEPS = {"xdeepfm": 4, "wukong": 4, "pepnet": 4, "dc2vr": 4}
 # the rows its data holds: enough for DC2VR's 16 steps; the eval set cut
 # from 65 536 (the CPU reference's eval of xDeepFM) to 16 384 for
 # train_sid's time, then to 8 192 (two predict batches) for train_fg's
 ZOO_REST_ROWS = (65_536, 8_192)
 # fp32 steps on the card against the CPU (3 before train_zch_ranks and
-# train_stream joined; TDM takes it too)
-ZOO_REST_CHECK_STEPS = 2
+# train_stream joined, 2 before train_pipelined; TDM takes it too)
+ZOO_REST_CHECK_STEPS = 1
 ZOO_REST_CARD_TOL = 1e-4  # max abs error over the CPU's max abs, per tensor
 # a linear's bias before a batch norm has a gradient of 0 up to rounding
 ZOO_REST_ZERO_GRAD = 1e-5
@@ -5381,7 +5407,7 @@ TDM_RETRAIN_STEPS = 5  # on the rebuilt tree (cut from 32, then 8)
 TDM_EVAL_ROWS = 256  # cut from 4 096, then 1 024, then 512
 TDM_WORKERS = 4
 TDM_SAMPLER_BATCHES = 3  # was 5
-TDM_SHM_ITEMS = 2_000_000  # the shared item table (4 M before)
+TDM_SHM_ITEMS = 1_000_000  # the shared item table (4 M, then 2 M before)
 TDM_SHM_WORKERS = 2  # 4 before
 TDM_LOADER_STEPS = 4  # the loader-fed window after LOADER_WARMUP (16, 8)
 TDM_RECALL_NUM, TDM_N_CLUSTER = 50, 2
@@ -6137,8 +6163,8 @@ def phase_train_tdm(smi):
 SHARDED_WORLD = 2
 SHARDED_STEPS = 3
 SHARDED_TIMEOUT_S = 600  # each spawn's limit: a rank that hangs fails it
-SHARDED_TIMED_STEPS = 10
-SHARDED_PROFILE_STEPS = 5
+SHARDED_TIMED_STEPS = 6  # 10 before train_pipelined joined
+SHARDED_PROFILE_STEPS = 3  # 5 before
 SHARDED_UNTOUCHED = 2048  # untouched rows sampled a table
 SHARDED_TRAP_TOL = 1e-4
 SHARDED_LAYOUTS = ("row_wise", "column_wise", "table_wise", "table_row_wise",
@@ -6454,7 +6480,7 @@ def deepfm_sharded_rank(shard, cfg_text, cols_list, touched, untouched):
         def steps():
             for _ in range(SHARDED_PROFILE_STEPS):
                 step(state, batches[0])
-        out["profile_5_steps"] = profile_forward(steps)
+        out["profile_steps"] = profile_forward(steps)
     write_rows.launches = kept
     out["losses_finite"] = bool(np.isfinite(losses).all())
     return out, (rows if shard.rank == 0 else None)
@@ -7191,7 +7217,7 @@ ZCH_RESUME_AT = 6
 # update) of the train file's first batches, so that they evict, spill
 # and restore
 ZCH_WARM_STEPS = 16
-ZCH_CHECK_STEPS = 3
+ZCH_CHECK_STEPS = 2  # 3 before train_pipelined joined
 ZCH_TRAIN_ROWS = (ZCH_WARM_STEPS + ZCH_CHECK_STEPS + 1) * 4096  # > ZCH_STEPS
 ZCH_EVAL_ROWS = 2 * 4096
 ZCH_CARD_TOL = 1e-4  # tables, row state, dense: of each tensor's max
@@ -7906,7 +7932,7 @@ SID_BATCH = 1024
 SID_ITEMS = 32_768  # synthetic items, 32 steps an epoch
 SID_EVAL_ITEMS = 4_096
 SID_CLUSTERS = 256
-SID_CHECK_STEPS = 3
+SID_CHECK_STEPS = 2  # 3 before train_pipelined joined
 SID_CARD_TOL = 1e-4  # fp32: max abs error over the CPU's max abs, per tensor
 # a code on the card may differ from the CPU's only where the CPU's two
 # least distances lie within this share of the batch's largest distance
@@ -9357,10 +9383,18 @@ def phase_train_zch_ranks(smi):
         t0 = time.perf_counter()
         ckpt_dir = os.path.join(tmp, "zr_ckpt")
         os.makedirs(ckpt_dir)
-        ranks = run_ranks(zr_rank, SHARDED_WORLD,
-                          (text, cfg_path, cols_list, touched, ckpt_dir),
-                          backend, tmp)
-        seconds["world_2"] = time.perf_counter() - t0
+        # the ranks go on to train_pipelined's part (a) (``PIPE_DONE``)
+        cfgs = pipelined_configs()
+        both = run_ranks(zr_then_pipelined, SHARDED_WORLD,
+                         ((text, cfg_path, cols_list, touched, ckpt_dir),
+                          cfgs), backend, tmp)
+        ranks = [r[0] for r in both]
+        pipe = [r[1] for r in both]
+        PIPE_DONE.update(cfgs=cfgs, ranks=pipe,
+                         seconds=max(sum(p[n]["seconds"] for n, _ in PIPE_RUNS)
+                                     for p in pipe))
+        seconds["world_2"] = time.perf_counter() - t0 - PIPE_DONE["seconds"]
+        seconds["train_pipelined_part_a"] = PIPE_DONE["seconds"]
         rows, zch = ranks[0][1]
         reports = [r[0] for r in ranks]
 
@@ -9788,6 +9822,369 @@ def phase_train_stream(smi):
     return launches + conv_launches
 
 
+# --- train_pipelined: the training loop's two overlaps -------------------
+PIPE_STEPS = 8  # steps a run, each overlap and each way
+PIPE_SKIP = 2  # the loop's first steps left out of the step median
+
+
+@contextlib.contextmanager
+def host_waits(port_main):
+    """Sums the main thread's host work of a run with host-offloaded
+    tables: the rows' gather (the prefetcher's ``rows_for``: a gather now
+    or the join of the prefetch), the host apply and the repair; counts
+    the steps the prefetch served. Yields the dict."""
+    from torcheasyrec_tpu_torch.parallel.emb_engine import EmbeddingEngine
+
+    ms = {"rows_for": 0.0, "host_apply": 0.0, "repair": 0.0, "served": 0,
+          "steps": 0}
+    pre = port_main._HostRowPrefetcher
+    real = {"rows_for": pre.rows_for, "repair": pre.repair,
+            "host_apply": EmbeddingEngine._host_apply}
+
+    def timed(key, fn):
+        def run(self, *a):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a)
+            finally:
+                ms[key] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    def rows_for(self, batch):
+        ms["steps"] += 1
+        ms["served"] += int(self._batch is batch and (
+            self._out is not None or self._thread is not None))
+        return timed("rows_for", real["rows_for"])(self, batch)
+
+    pre.rows_for, pre.repair = rows_for, timed("repair", real["repair"])
+    EmbeddingEngine._host_apply = timed("host_apply", real["host_apply"])
+    try:
+        yield ms
+    finally:
+        pre.rows_for, pre.repair = real["rows_for"], real["repair"]
+        EmbeddingEngine._host_apply = real["host_apply"]
+
+
+@contextlib.contextmanager
+def route_waits():
+    """Sums the main thread's owner routing of a run (``_owner_route``
+    inline) and its waits for staged routes (``StagedRoutes.wait``);
+    counts the routes staged. Yields the dict."""
+    import threading
+
+    from torcheasyrec_tpu_torch.parallel import emb_engine
+
+    ms = {"inline_route": 0.0, "staged_wait": 0.0, "staged": 0}
+    eng, handle = emb_engine.EmbeddingEngine, emb_engine.StagedRoutes
+    real_route, real_wait, real_init = (eng._owner_route, handle.wait,
+                                        handle.__init__)
+
+    def route(self, *a, **k):
+        if threading.current_thread() is not threading.main_thread():
+            return real_route(self, *a, **k)
+        t0 = time.perf_counter()
+        try:
+            return real_route(self, *a, **k)
+        finally:
+            ms["inline_route"] += (time.perf_counter() - t0) * 1e3
+
+    def wait(self):
+        t0 = time.perf_counter()
+        try:
+            return real_wait(self)
+        finally:
+            ms["staged_wait"] += (time.perf_counter() - t0) * 1e3
+
+    def init(self, *a, **k):
+        ms["staged"] += 1
+        real_init(self, *a, **k)
+
+    eng._owner_route, handle.wait, handle.__init__ = route, wait, init
+    try:
+        yield ms
+    finally:
+        eng._owner_route, handle.wait, handle.__init__ = (
+            real_route, real_wait, real_init)
+
+
+def checkpoint_diff(a_dir, b_dir) -> dict:
+    """The latest checkpoints of two model dirs: the largest |a - b| over
+    the weights, the sparse and the dense optimizer state, and whether
+    step, epoch and watermark agree."""
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+
+    a, b = (torch.load(checkpoint_util.latest_checkpoint(d),
+                       map_location="cpu", weights_only=True)
+            for d in (a_dir, b_dir))
+    pairs = [(a["model"][k], b["model"][k]) for k in b["model"]]
+    pairs += [(a["sparse_opt"][t][k], v) for t, st in b["sparse_opt"].items()
+              for k, v in st.items()]
+    pairs += [(sa[k], v) for sa, sb in zip(a["dense_opt"]["state"],
+                                           b["dense_opt"]["state"])
+              for k, v in sb.items()]
+    worst = 0.0
+    for x, y in pairs:
+        if x.shape != y.shape:
+            return {"max_abs": float("inf"), "shapes_differ": True}
+        if y.numel():
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return {"max_abs": worst, "tensors": len(pairs),
+            "keys_equal": a["model"].keys() == b["model"].keys(),
+            "position_equal": (a["step"], a["epoch"], a["dataloader_state"])
+            == (b["step"], b["epoch"], b["dataloader_state"])}
+
+
+def pipelined_rank(shard, cfg_paths):
+    """Rank side of (a): ``train_and_evaluate`` of each config in turn,
+    its loop's steps stamped, kernel #3
+    counted from 0 just before the run and read just after, the main
+    thread's routing timed."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
+    out = {"rank": shard.rank, "backend": shard.backend}
+    for name, path in cfg_paths.items():
+        sync()
+        t0 = time.perf_counter()
+        write_rows.launches = 0
+        with step_clock(port_main) as stamps, route_waits() as ms, \
+                deterministic():
+            result = port_main.train_and_evaluate(
+                path, device=SHARDED_DEVICE, shard=shard)
+        sync()
+        launches = write_rows.launches
+        steps = int(result["step"])
+        out[name] = {"result": result, "launches": launches,
+                     "seconds": time.perf_counter() - t0,
+                     "staged": ms["staged"],
+                     "inline_route_ms_per_step": ms["inline_route"] / steps,
+                     "staged_wait_ms_per_step": ms["staged_wait"] / steps,
+                     **epoch_steps(stamps, PIPE_SKIP)}
+    return out
+
+
+# (run, overlap on): a rank's first run of the loop is slower throughout
+# (seen on the CPU and the card), so it goes first, unpipelined, held to
+# the same numbers but not timed against; then the two modes in turns
+PIPE_RUNS = (("first", False), ("pipelined", True), ("unpipelined", False),
+             ("unpipelined_2", False), ("pipelined_2", True))
+# (run, TZREC_HOST_PREFETCH), in turns
+PREFETCH_RUNS = (("prefetch_off", "0"), ("prefetch_on", "1"),
+                 ("prefetch_on_2", "1"), ("prefetch_off_2", "0"))
+
+
+def runs_in_turns(runs: dict, on: dict) -> dict:
+    """Each mode's step medians over its runs in ``runs`` ({name: run},
+    ``on`` {name: overlap on}, the first run left out), side by side."""
+    out = {}
+    for mode, want in (("overlap_on", True), ("overlap_off", False)):
+        names = [n for n, v in on.items() if v == want and n != "first"]
+        out[mode] = {n: runs[n]["step_ms_median"] for n in names}
+    return out
+
+
+def pipelined_configs() -> dict:
+    """(a)'s configs, {run: config path}, in a directory that lasts the
+    run (the criteo_synth data's): the same deepfm.config in each, every
+    cat table ``row_wise``, the overlap on or off, a model dir each."""
+    from torcheasyrec_tpu_torch.utils import config_util
+
+    paths = criteo_synth_data(ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
+    root = os.path.join(_DATA_ROOT[0].name, "pipelined")
+    os.makedirs(root, exist_ok=True)
+    src = os.path.join(zoo_config_dir(), "criteo_synth", "deepfm.config")
+    with open(src) as f:
+        text = f.read()
+    text = text.replace(
+        "embedding_dim: 16 }",
+        'embedding_dim: 16 embedding_constraints { sharding_types: '
+        '"row_wise" } }')
+    if text.count('sharding_types: "row_wise"') != 26:
+        raise AssertionError("criteo_synth deepfm's cat features moved")
+    train = split_file(paths["train"], SHARDED_WORLD, root, "pipe_train")
+    evals = split_file(paths["eval"], SHARDED_WORLD, root, "pipe_eval")
+    cfgs = {}
+    for name, overlap in PIPE_RUNS:
+        cfg = config_util.parse_pipeline_config(text)
+        config_util.edit_config(cfg, {
+            "model_dir": os.path.join(root, f"pipe_{name}"),
+            "train_input_path": train, "eval_input_path": evals,
+            "data_config.batch_size": ZOO_BATCH // SHARDED_WORLD,
+            "train_config.num_steps": PIPE_STEPS,
+            "train_config.use_tensorboard": False,
+            "eval_config.num_steps": 2})
+        cfg.train_config.sparse_dist_overlap = overlap
+        cfgs[name] = os.path.join(root, f"pipe_{name}.config")
+        config_util.save_message(cfg, cfgs[name])
+    return cfgs
+
+
+# (a)'s rank results where the ranks of ``train_zch_ranks`` ran it after
+# their own work: a spawned rank's first ``train_and_evaluate`` pays
+# ~15 s of start-up that warm ranks do not
+PIPE_DONE = {}
+
+
+def zr_then_pipelined(shard, zr_args, cfgs):
+    """``zr_rank``, then (a)'s runs (``pipelined_rank``) on the same,
+    warm, ranks."""
+    return zr_rank(shard, *zr_args), pipelined_rank(shard, cfgs)
+
+
+def pipelined_ranks(backend) -> dict:
+    """(a): the ranks' runs (``PIPE_DONE``'s, else a spawn of their own)
+    and the checks. Returns the report with its ``failures``."""
+    if PIPE_DONE:
+        cfgs, ranks = PIPE_DONE["cfgs"], PIPE_DONE["ranks"]
+        t0 = time.perf_counter() - PIPE_DONE["seconds"]
+        spawn = "the ranks of train_zch_ranks, after their own work"
+    else:
+        cfgs = pipelined_configs()
+        t0 = time.perf_counter()
+        ranks = run_ranks(pipelined_rank, SHARDED_WORLD, (cfgs,), backend,
+                          os.path.dirname(cfgs["first"]))
+        spawn = "a spawn of their own"
+    root = os.path.dirname(cfgs["first"])
+    out = {"world_2_s": time.perf_counter() - t0, "ranks_of": spawn,
+           "ranks": ranks}
+    on = dict(PIPE_RUNS)
+    checks = {}
+    for r in ranks:
+        key = f"rank_{r['rank']}"
+        runs = {n: r[n] for n in on}
+        out[f"{key}_step_ms_in_turns"] = runs_in_turns(runs, on)
+        checks[f"{key}_results_equal"] = all(
+            v["result"] == runs["first"]["result"] for v in runs.values())
+        checks[f"{key}_steps"] = runs["first"]["result"]["step"] == PIPE_STEPS
+        # every step stages the next batch's route (the run stops inside
+        # the epoch: the last step's, for a batch it never steps on, is
+        # dropped)
+        checks[f"{key}_staged"] = all(
+            v["staged"] == (PIPE_STEPS if on[n] else 0)
+            for n, v in runs.items())
+        launches = {v["launches"] for v in runs.values()}
+        checks[f"{key}_row_writes"] = (
+            len(launches) == 1 and min(launches) > 0
+            and min(launches) % PIPE_STEPS == 0)
+    for name in on:
+        if name == "pipelined":
+            continue
+        diff = checkpoint_diff(os.path.join(root, "pipe_pipelined"),
+                               os.path.join(root, f"pipe_{name}"))
+        out[f"checkpoint_pipelined_vs_{name}"] = diff
+        checks[f"checkpoint_vs_{name}_0.0"] = (
+            diff["max_abs"] == 0.0 and diff["keys_equal"]
+            and diff["position_equal"])
+    out["checks"] = checks
+    out["failures"] = [k for k, ok in checks.items() if not ok]
+    out["row_write_launches_pipelined"] = sum(
+        r[n]["launches"] for r in ranks for n, v in on.items() if v)
+    return out
+
+
+def prefetch_runs(tmp) -> dict:
+    """(b): the host-offloaded ZCH DeepFM with the prefetcher off and on,
+    in turns, from the same weights; kernel #3 counted from 0 just before
+    each run and read just after. Returns the report with its
+    ``failures``."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
+    paths = criteo_synth_data(ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
+    out, runs = {}, {}
+    edits = json.dumps({"train_config.num_steps": PIPE_STEPS,
+                        "data_config.batch_size": ZOO_BATCH,
+                        "train_config.save_checkpoints_steps": 10 ** 6,
+                        "train_config.use_tensorboard": False,
+                        "eval_config.num_steps": 2})
+    init = None
+    for name, env in PREFETCH_RUNS:
+        model_dir = os.path.join(tmp, name)
+        src = write_text(os.path.join(tmp, f"{name}.config"),
+                         zch_text(paths, model_dir))
+        init = init or cpu_init(src, os.path.join(tmp, "prefetch_init.pt"))
+        os.environ["TZREC_HOST_PREFETCH"] = env
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write_rows.launches = 0
+        try:
+            with step_clock(port_main) as stamps, host_waits(port_main) as ms, \
+                    restore_writes() as restored, deterministic():
+                result = port_main.train_and_evaluate(
+                    src, fine_tune_checkpoint=init, edit_config_json=edits,
+                    device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("TZREC_HOST_PREFETCH", None)
+        steps = int(result["step"])
+        runs[name] = {"result": result, "launches": write_rows.launches,
+                      "restore_launches": restored["launches"],
+                      "seconds": time.perf_counter() - t0,
+                      "prefetch_served": ms["served"],
+                      "host_ms_per_step": {
+                          k: ms[k] / steps
+                          for k in ("rows_for", "host_apply", "repair")},
+                      "host_wait_ms_per_step": sum(
+                          ms[k] for k in ("rows_for", "host_apply",
+                                          "repair")) / steps,
+                      **epoch_steps(stamps, PIPE_SKIP)}
+    out.update(runs)
+    on = {n: env == "1" for n, env in PREFETCH_RUNS}
+    out["step_ms_in_turns"] = runs_in_turns(runs, on)
+    checks = {
+        "results_equal": all(v["result"] == runs["prefetch_off"]["result"]
+                             for v in runs.values()),
+        "steps": runs["prefetch_off"]["result"]["step"] == PIPE_STEPS,
+        # one epoch: every step's rows but the first come from the prefetch
+        "prefetch_served": all(
+            v["prefetch_served"] == (PIPE_STEPS - 1 if on[n] else 0)
+            for n, v in runs.items()),
+        "row_writes": len({v["launches"] for v in runs.values()}) == 1
+        and runs["prefetch_off"]["launches"] > 0,
+    }
+    for name in on:
+        if name == "prefetch_off":
+            continue
+        diff = checkpoint_diff(os.path.join(tmp, name),
+                               os.path.join(tmp, "prefetch_off"))
+        out[f"checkpoint_{name}_vs_prefetch_off"] = diff
+        checks[f"checkpoint_{name}_0.0"] = (
+            diff["max_abs"] == 0.0 and diff["keys_equal"]
+            and diff["position_equal"])
+    out["checks"] = checks
+    out["failures"] = [k for k, ok in checks.items() if not ok]
+    out["row_write_launches_prefetching"] = sum(
+        runs[n]["launches"] for n, v in on.items() if v)
+    return out
+
+
+def phase_train_pipelined(smi):
+    """The training loop's two overlaps (docstring, phase
+    ``train_pipelined``). Returns kernel #3's launches on the overlaps'
+    main paths: the pipelined runs' on both ranks and the prefetching
+    runs'. Every check's result is printed before a failure raises."""
+    mode, backend = sharded_backend()
+    out = {"phase": "train_pipelined", "ranks_on": mode, "card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["sparse_dist_overlap"] = pipelined_ranks(backend)
+        out["sparse_dist_overlap_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["host_prefetch"] = prefetch_runs(tmp)
+        out["host_prefetch_s"] = time.perf_counter() - t0
+    failures = (out["sparse_dist_overlap"].pop("failures")
+                + out["host_prefetch"].pop("failures"))
+    launches = (out["sparse_dist_overlap"]["row_write_launches_pipelined"]
+                + out["host_prefetch"]["row_write_launches_prefetching"])
+    out["launches_main_path"] = {"row_write": launches}
+    out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError(f"train_pipelined: {failures}")
+    return launches
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -9850,6 +10247,8 @@ def main() -> int:
     zch_ranks_launches = timed("train_zch_ranks", phase_train_zch_ranks, smi)
     torch.cuda.empty_cache()
     stream_launches = timed("train_stream", phase_train_stream, smi)
+    torch.cuda.empty_cache()
+    pipelined_launches = timed("train_pipelined", phase_train_pipelined, smi)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -9923,7 +10322,8 @@ def main() -> int:
                    + gr_launches["row_write"] + zoo_rest_launches
                    + export_writes + tdm_launches + sharded["row_write"]
                    + zch_launches + sid_launches + fg_launches
-                   + zch_ranks_launches + stream_launches,
+                   + zch_ranks_launches + stream_launches
+                   + pipelined_launches,
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -9941,7 +10341,8 @@ def main() -> int:
                        "train_sid": sid_launches,
                        "train_fg": fg_launches,
                        "train_zch_ranks": zch_ranks_launches,
-                       "train_stream": stream_launches}),
+                       "train_stream": stream_launches,
+                       "train_pipelined": pipelined_launches}),
     ]})
     print(smi, flush=True)
     emit(device_record())

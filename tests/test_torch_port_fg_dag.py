@@ -18,8 +18,16 @@ from torcheasyrec_tpu_torch.benchmark import fg_synth
 from torcheasyrec_tpu_torch.features import create_features
 from torcheasyrec_tpu_torch.fg.dag import FgDag
 from torcheasyrec_tpu_torch.protos import feature_pb2
+from torch_port_helpers import ready_jax_fg_native
 
 FG_NORMAL = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_fg_native():
+    """The JAX package's FG natives, loaded whole before any test here
+    (``torch_port_helpers.ready_jax_fg_native``)."""
+    ready_jax_fg_native()
 
 
 def _both(texts, **kw):

@@ -22,9 +22,17 @@ from torcheasyrec_tpu_torch.benchmark import fg_synth
 from torcheasyrec_tpu_torch.features import create_features, create_fg_json
 from torcheasyrec_tpu_torch.features.feature import stable_hash64
 from torcheasyrec_tpu_torch.protos import feature_pb2
+from torch_port_helpers import ready_jax_fg_native
 
 FG_NONE, FG_NORMAL = 1, 2
 N = 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_fg_native():
+    """The JAX package's FG natives, loaded whole before any test here
+    (``torch_port_helpers.ready_jax_fg_native``)."""
+    ready_jax_fg_native()
 
 
 def _both(texts, mode):

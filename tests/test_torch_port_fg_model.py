@@ -17,7 +17,11 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
 
-from torch_port_helpers import PairedTrainers, assert_close_to_max
+from torch_port_helpers import (
+    PairedTrainers,
+    assert_close_to_max,
+    ready_jax_fg_native,
+)
 from torcheasyrec_tpu_torch import main as port_main
 from torcheasyrec_tpu_torch.benchmark import fg_synth
 from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
@@ -26,6 +30,13 @@ from torcheasyrec_tpu_torch.features import feature as feature_mod
 BATCH = 64
 DENSE_LANE = 100
 TOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_fg_native():
+    """The JAX package's FG natives, loaded whole before any test here
+    (``torch_port_helpers.ready_jax_fg_native``)."""
+    ready_jax_fg_native()
 
 
 @pytest.fixture(scope="module")

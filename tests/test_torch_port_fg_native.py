@@ -12,8 +12,17 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
+from torch_port_helpers import ready_jax_fg_native
 from torcheasyrec_tpu import fg as jax_fg
 from torcheasyrec_tpu_torch import fg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_fg_native():
+    """The JAX package's FG natives, loaded whole before any test here
+    (``torch_port_helpers.ready_jax_fg_native``)."""
+    ready_jax_fg_native()
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKENS = ["beijing", "shanghai", "", "新疆", "x" * 300, "123", "é中文 ",

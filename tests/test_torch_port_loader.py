@@ -100,11 +100,15 @@ def test_worker_shards_equal_jax_shards(data_dir):
 
 def test_worker_error_raises_in_the_consumer(data_dir, tmp_path):
     """A file that is not parquet fails its worker's read; the consumer
-    raises it, well inside the DataLoader's timeout."""
+    raises it, well inside the DataLoader's timeout. The file sorts first:
+    each worker reads the input's schema from it before anything else, so
+    the first item the consumer asks for is the error, with no batch of
+    either worker before it (the error no longer waits on a worker's
+    progress through other files)."""
     d = str(tmp_path)
     for name in os.listdir(data_dir):
         os.symlink(os.path.join(data_dir, name), os.path.join(d, name))
-    with open(os.path.join(d, "part-9.parquet"), "wb") as f:
+    with open(os.path.join(d, "bad-0.parquet"), "wb") as f:
         f.write(b"not parquet at all")
     it = _port_dl(_text(num_workers=2), d)()
     t0 = time.perf_counter()

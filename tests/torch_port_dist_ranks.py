@@ -562,3 +562,246 @@ def write_logical_rows_case(shard, canon, ids, rows):
     finally:
         row_write.write_rows = real
     return out
+
+
+# --- the training loop's overlaps over ranks ---------------------------------
+
+
+def staged_lookup_case(shard, canon, steps, packed):
+    """``run_engine``'s steps on an all-``row_wise`` engine twice: inline,
+    then with each step's lookup taking the route that the step before
+    staged for it (``stage_route`` of the next batch, between the lookup
+    and the update, as the train step calls it). Returns (inline result,
+    staged result, the groups staged at each step, the owner routes the
+    staged run's lookups computed themselves)."""
+    import threading
+
+    half = ENGINE_B // shard.world
+    rows = slice(shard.rank * half, (shard.rank + 1) * half)
+    out = []
+    staged_groups, inline_routes = [], []
+    for staging in (False, True):
+        eng = port_engine("adagrad", {"lr": 0.1}, "row_wise", packed, shard)
+        if staging:
+            real_route = eng._owner_route
+
+            def route(g, flat_ids, sh=None):
+                if threading.current_thread() is threading.main_thread():
+                    inline_routes.append(int(flat_ids.shape[0]))
+                return real_route(g, flat_ids, sh)
+
+            eng._owner_route = route
+        tables = eng.init_tables(torch.Generator().manual_seed(0))
+        for name, w in canon.items():
+            eng.write_table(tables, name, torch.from_numpy(w))
+        state = eng.init_opt_state()
+        outs, pending = [], None
+        for i, (batch, grads) in enumerate(steps):
+            sparse, seq = port_fields(batch, rows)
+            o, res = eng.lookup(tables, sparse, seq, staged=pending)
+            pending = None
+            if staging and i + 1 < len(steps):
+                pending = eng.stage_route(*port_fields(steps[i + 1][0], rows))
+                staged_groups.append(sorted(pending.wait()))
+            outs.append({k: v.float().numpy() for k, v in o.items()})
+            eng.update(tables, state, res,
+                       {k: torch.from_numpy(g[rows]) for k, g in grads.items()},
+                       0.5)
+        weights = {n: eng.extract_table(tables, n).numpy()
+                   for n, _, _ in ENGINE_TABLES}
+        st = {n: {k: v.numpy() for k, v in
+                  eng.extract_table_state(tables, state, n).items()}
+              for n, _, _ in ENGINE_TABLES}
+        out.append((outs, weights, st))
+    groups = {gk: (g.sharding, g.packed) for gk, g in eng.groups.items()}
+    return out[0], out[1], staged_groups, groups, len(inline_routes)
+
+
+def zch_stage_case(shard):
+    """An EmbeddingGroup of a ZCH feature (dim 8) and a plain one (dim
+    16), both ``row_wise``: the groups ``stage_route`` stages, the group
+    of each table, and the lookup with the staged route against the
+    inline one after the remap."""
+    from google.protobuf import text_format
+
+    from torcheasyrec_tpu_torch.datasets.utils import Batch, SparseField
+    from torcheasyrec_tpu_torch.features import create_features
+    from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
+    from torcheasyrec_tpu_torch.protos import feature_pb2, model_pb2
+
+    feats = create_features([text_format.Parse(t, feature_pb2.FeatureConfig())
+                             for t in (
+        "id_feature { feature_name: 'z' embedding_dim: 8 "
+        "zch { zch_size: 64 lfu {} } }",
+        "id_feature { feature_name: 'p' num_buckets: 300 "
+        "embedding_dim: 16 }")])
+    mc = text_format.Parse('feature_groups { group_name: "g" '
+                           'feature_names: "z" feature_names: "p" '
+                           'group_type: DEEP }', model_pb2.ModelConfig())
+    eg = EmbeddingGroup(feats, list(mc.feature_groups), torch.Generator(),
+                        shard=shard, plan={"z_emb": "row_wise",
+                                           "p_emb": "row_wise"})
+    r = np.random.default_rng(5 + shard.rank)
+    batch = Batch(sparse_features={
+        "z": SparseField(torch.from_numpy(
+            r.integers(0, 10 ** 6, (6, 1)).astype(np.int64))),
+        "p": SparseField(torch.from_numpy(
+            r.integers(0, 300, (6, 2)).astype(np.int32)))})
+    staged = eg.stage_route(batch)
+    remapped, _ = eg.remap_zch(batch, 0, True)
+    out_s, _ = eg.lookup(remapped, staged=staged)
+    out_i, _ = eg.lookup(remapped)
+    tables = {t: eg.engine._table_group[t] for t in ("z_emb", "p_emb")}
+    return (sorted(staged.wait()), tables,
+            {k: v.numpy() for k, v in out_s.items()},
+            {k: v.numpy() for k, v in out_i.items()})
+
+
+def pipelined_train_case(shard, cfg_text, canon, steps_cols, labels, plan):
+    """``train_case``'s steps through the loop's ``train_epoch``, once
+    unpipelined and once pipelined (each step given the next batch).
+    Returns per run (state_dict, sparse optimizer state per table, losses
+    per step, whether each step staged a route)."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.datasets.utils import BatchInfo
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+
+    cfg = parse_pipeline_config(cfg_text)
+    out = []
+    for pipelined in (False, True):
+        model, features, sparse_sched = port_main._build_model_and_optim(
+            cfg, "cpu", for_train=True, shard=shard, plan=plan)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in canon.items()})
+        tx, dense_sched = port_main._dense_optimizer(model, cfg.train_config)
+        state = port_main._init_state(model, tx)
+        eg = model.embedding_group
+        staged, real_stage = [], eg.stage_route
+
+        def stage(batch):
+            handle = real_stage(batch)
+            staged.append(handle is not None)
+            return handle
+
+        eg.stage_route = stage
+        step = port_main.make_train_step(model, tx, sparse_sched, dense_sched)
+        losses = []
+
+        def recorded(state, *batches):
+            state, metrics = step(state, *batches)
+            losses.append(float(metrics["total_loss"]))
+            return state, metrics
+
+        parser = DataParser(features, labels=labels)
+        items = [(parser.parse_to_batch(_local_cols(c, shard.rank,
+                                                    shard.world)),
+                  BatchInfo(batch_size=len(c[labels[0]]) // shard.world))
+                 for c in steps_cols]
+        state, _, _ = port_main.train_epoch(recorded, state, items, {},
+                                            shard=shard, pipelined=pipelined)
+        sd = {k: v.detach().float().numpy()
+              for k, v in model.state_dict().items()}
+        opt = {n: {k: v.float().numpy() for k, v in st.items()}
+               for n, st in eg.opt_state_dict(state["sparse_opt"]).items()}
+        out.append((sd, opt, losses, staged))
+    return out
+
+
+def overlap_loop_rank(shard, cfg_paths, resume_at):
+    """``train_and_evaluate`` of each config ({name: path}); a name ending
+    in ``_resumed`` runs to step ``resume_at``, then ``continue_train``
+    to its end. Returns {name: results}, and per name the calls to
+    ``EmbeddingGroup.stage_route`` that staged a route."""
+    import json
+
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.modules.embedding import EmbeddingGroup
+
+    real = EmbeddingGroup.stage_route
+    staged = []
+
+    def counted(self, batch):
+        handle = real(self, batch)
+        staged.append(handle is not None)
+        return handle
+
+    EmbeddingGroup.stage_route = counted
+    out, stages = {}, {}
+    try:
+        for name, path in cfg_paths.items():
+            del staged[:]
+            if name.endswith("_resumed"):
+                first = port_main.train_and_evaluate(
+                    path, device="cpu", shard=shard,
+                    edit_config_json=json.dumps(
+                        {"train_config.num_steps": resume_at}))
+                again = port_main.train_and_evaluate(
+                    path, device="cpu", shard=shard, continue_train=True)
+                out[name] = (first, again)
+            else:
+                out[name] = port_main.train_and_evaluate(path, device="cpu",
+                                                         shard=shard)
+            stages[name] = list(staged)
+    finally:
+        EmbeddingGroup.stage_route = real
+    return out, stages
+
+
+class _StubEvalModel:
+    """What ``_run_eval_ranks`` reads of a model: one AUC metric over the
+    rows of the batches fed to it."""
+
+    def init_metrics(self):
+        from torcheasyrec_tpu_torch.metrics import AUC
+
+        return [{"name": "auc", "metric": AUC()}]
+
+    def update_metrics(self, metrics, preds, batch):
+        metrics[0]["metric"].update(preds["p"], batch["y"])
+
+    def compute_metrics(self, metrics):
+        return {m["name"]: m["metric"].compute() for m in metrics}
+
+
+class _ListLoader:
+    def __init__(self, items):
+        self._it = iter(items)
+
+    def __next__(self):
+        return next(self._it)
+
+    def close(self):
+        pass
+
+
+def eval_decision_rank(shard, batches_per_rank):
+    """``main._run_eval_ranks`` with a stub model and eval step, rank r
+    fed ``batches_per_rank[case][r]`` ({"p", "y"} arrays) for each case.
+    Returns per case (steps run, the result)."""
+    from torcheasyrec_tpu_torch import main as port_main
+
+    out = []
+    for per_rank in batches_per_rank:
+        mine = per_rank[shard.rank]
+        steps = []
+
+        def eval_step(batch):
+            steps.append(1)
+            return {"p": batch["p"]}, {"l": torch.tensor(0.5)}
+
+        result = port_main._run_eval_ranks(
+            _StubEvalModel(), eval_step,
+            lambda: _ListLoader([(b, None) for b in mine]), 0, shard)
+        out.append((len(steps), result))
+    return out
+
+
+def pipeline_file_rank(shard, engine, train, loop, decisions):
+    """Everything of tests/test_torch_port_pipeline.py that runs on the
+    ranks, in one spawn."""
+    canon, steps = engine
+    return ([staged_lookup_case(shard, canon, steps, p) for p in (True, False)],
+            zch_stage_case(shard), pipelined_train_case(shard, *train),
+            overlap_loop_rank(shard, *loop),
+            eval_decision_rank(shard, decisions))

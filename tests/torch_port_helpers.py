@@ -12,6 +12,56 @@ CONFIG_PATH = "torcheasyrec_tpu/benchmark/configs/hstu_synth/dlrm_hstu.config"
 N_USERS, VOCAB, MAX_SEQ, N_CAND = 2000, 5000, 32, 10
 
 
+def ready_jax_fg_native() -> None:
+    """Load the JAX package's native FG library into this process, or
+    raise. The package builds ``libfg_ops.so`` in place at first use and
+    latches its first failure for the process: a test process that loads
+    the file while another one is still writing it has no natives for
+    the rest of its run (its DAG routes every feature to Python, and its
+    hashes take the numpy path). Here one process builds a copy of the
+    library under an ``fcntl`` lock, to a name of its own that
+    ``os.replace`` puts into place whole, keyed by the source's hash in
+    the temporary directory; each process then resets the latch and
+    loads that copy."""
+    import fcntl
+    import hashlib
+    import os
+    import subprocess
+    import tempfile
+
+    from torcheasyrec_tpu import fg as jax_fg
+
+    if jax_fg._LIB is not None:
+        return
+    with open(jax_fg._SRC, "rb") as f:
+        key = hashlib.sha256(f.read()).hexdigest()[:16]
+    root = tempfile.gettempdir()
+    path = os.path.join(root, f"tzrec_jax_fg_ops-{key}.so")
+    with open(os.path.join(root, "tzrec_jax_fg_ops.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path) or (os.path.getmtime(path)
+                                            < os.path.getmtime(jax_fg._SRC)):
+                part = f"{path}.{os.getpid()}.part"
+                subprocess.run(
+                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                     "-pthread", jax_fg._SRC, "-o", part],
+                    check=True, capture_output=True, timeout=300)
+                os.replace(part, path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    with jax_fg._LOCK:
+        in_place, jax_fg._SO = jax_fg._SO, path
+        jax_fg._TRIED = False
+    try:
+        lib = jax_fg._load()
+    finally:
+        jax_fg._SO = in_place
+    if lib is None:
+        raise RuntimeError(f"the JAX package's FG library did not load "
+                           f"from {path}")
+
+
 def hstu_synth_config_text(batch_size: int = 8, kernel: str = "") -> str:
     """The hstu_synth DLRM-HSTU config (E=128, 32-dim heads, 3 layers,
     seq 32) at ``batch_size``, optionally with ``model_config.kernel``."""

@@ -22,8 +22,19 @@ embedding dump (``utils/delta_embedding_dump.py``) and TensorBoard
 summaries (``use_tensorboard``, default on: ``<model_dir>/tb``, the
 losses and the sparse learning rate every ``log_step_count_steps``
 steps, the last eval at the end; ``utils/summary_util.py``);
-``steps_per_dispatch`` > 1 runs as single steps and
-``sparse_dist_overlap`` unpipelined, each with a warning.
+``steps_per_dispatch`` > 1 runs as single steps, with a warning.
+
+Two overlaps, each the same numbers as the loop without it: over
+several ranks, ``sparse_dist_overlap`` exchanges the next batch's
+embedding ids with their owners while the step runs
+(``EmbeddingGroup.stage_route``; the TrainPipelineSparseDist analogue),
+on where the ranks are more than one and no table is host-offloaded,
+else the loop runs unpipelined with a warning; with host-offloaded
+tables the next batch's rows are gathered on a thread while the step
+runs and repaired after its host update (``_HostRowPrefetcher``; on
+unless ``TZREC_HOST_PREFETCH=0``). The loop then hands each step the
+next batch (``_paired``). A staged route is never saved, and dropped at
+an epoch's end; the evals are not pipelined.
 
 ZCH and dynamic embeddings: the train step remaps the raw ids
 of ``zch``/``dynamicemb`` features before the lookup at the state's
@@ -74,6 +85,7 @@ import glob
 import json
 import logging
 import os
+import threading
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -97,6 +109,7 @@ from torcheasyrec_tpu_torch.optim.optimizer_builder import (
     create_sparse_optimizer,
 )
 from torcheasyrec_tpu_torch.parallel import planner
+from torcheasyrec_tpu_torch.parallel.emb_engine import HOST_OFFLOAD
 from torcheasyrec_tpu_torch.parallel.mesh import ShardContext
 from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
 from torcheasyrec_tpu_torch.utils import checkpoint_util, config_util, dist_util
@@ -329,19 +342,31 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
     gathered before the sparse update and handed to the host spill tier
     after it (``EmbeddingGroup.spill_step``), which writes readmitted
     keys' rows back. Host-offloaded tables: the step gathers the batch's
-    rows on the host (``EmbeddingGroup.host_gather``)."""
+    rows on the host (``EmbeddingGroup.host_gather``).
+
+    ``train_step(state, batch, next_batch)``: with the batch the loop
+    will step on next, its work starts during this step. Host-offloaded
+    tables: its rows are gathered on a thread (``_HostRowPrefetcher``),
+    repaired after this step's host update. Several ranks: its owner
+    routes are exchanged (``EmbeddingGroup.stage_route``) and kept as
+    ``state["staged"]``, which the next step's lookup takes."""
     eg = model.embedding_group
     shard = model.shard
     params = tx.params
     use_scaler = uses_grad_scaler(model, grad_scaler_cfg)
     k_accum = max(int(grad_accum_steps or 1), 1)
     want_preds = bool(model.init_train_metrics())
+    host_pipe = (_HostRowPrefetcher(eg) if eg.engine.has_host_groups
+                 else None)
 
-    def train_step(state: Dict[str, Any], batch: Batch):
+    def train_step(state: Dict[str, Any], batch: Batch,
+                   next_batch: Optional[Batch] = None):
         model.train()
         step, epoch = state["step"], state.get("epoch")
-        host_rows = (eg.host_gather(batch) if eg.engine.has_host_groups
-                     else None)
+        staged = state.pop("staged", None)
+        host_rows = None
+        if host_pipe is not None:
+            host_rows = host_pipe.rows_for(batch)
         spill_rec = None
         if eg.has_zch:
             batch, spills = eg.remap_zch(batch, step, training=True,
@@ -350,7 +375,8 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
                 # the evicted keys' rows before this step's update
                 spill_rec = eg.gather_spill_rows(spills)
         with torch.no_grad():
-            emb_out, residuals = eg.lookup(batch, host_rows=host_rows)
+            emb_out, residuals = eg.lookup(batch, host_rows=host_rows,
+                                           staged=staged)
         keys = list(emb_out)
         leaves = [emb_out[k].requires_grad_(True) for k in keys]
         grouped, vd_losses = model.build_input(
@@ -368,6 +394,15 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
         else:
             # a loss that reaches no weight (RQ-KMeans' logged error)
             grads = [None] * (len(params) + len(leaves))
+        if next_batch is not None:
+            # the next batch's work starts once this step's device work is
+            # queued, beside its first waits for the card (the gradients'
+            # exchange, the host update): a thread that ran beside the
+            # forward's launches would slow them
+            if host_pipe is not None:
+                host_pipe.start(next_batch)
+            else:
+                state["staged"] = eg.stage_route(next_batch)
         if scale is not None:
             inv = 1.0 / scale
             grads = [None if g is None else g * inv for g in grads]
@@ -402,6 +437,10 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
             lr_scale = torch.where(finite, scale.new_tensor(lr_scale), zero)
         eg.engine.update(eg.engine_tables(), state["sparse_opt"], residuals,
                          emb_grads, lr_scale)
+        if host_pipe is not None:
+            host_pipe.repair({gk: r[2] for gk, r in residuals.items()
+                              if eg.engine.groups[gk].sharding
+                              == HOST_OFFLOAD})
         if spill_rec is not None:
             eg.spill_step(spill_rec)
         mult = dense_sched["fn"](step, epoch)
@@ -438,6 +477,62 @@ def make_train_step(model: BaseModel, tx: DenseOptimizer, sparse_sched,
         return state, metrics
 
     return train_step
+
+
+class _HostRowPrefetcher:
+    """The overlapped gather of host-offloaded rows, exact. The rows of
+    the next batch are gathered on a thread while the step runs; after
+    the step's host update, the rows of the ids that update touched are
+    read again (``engine.host_refresh``): a row the thread read before or
+    during the update is one of those, every other row was never
+    written. So the rows equal a gather after the update, bit for bit.
+    ``TZREC_HOST_PREFETCH=0`` turns it off (every step gathers its own
+    rows)."""
+
+    def __init__(self, eg) -> None:
+        self.eg = eg
+        self.enabled = os.environ.get("TZREC_HOST_PREFETCH", "1") != "0"
+        self._thread: Optional[threading.Thread] = None
+        self._batch: Optional[Batch] = None
+        self._out: Optional[Dict[str, Any]] = None
+
+    def start(self, batch: Optional[Batch]) -> None:
+        """Begin gathering ``batch``'s rows on a thread."""
+        if not self.enabled or batch is None:
+            return
+
+        def run():
+            self._out = self.eg.host_gather(batch)
+
+        self._batch, self._out = batch, None
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def _join(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+            if self._out is None:  # the gather raised on its thread
+                self._batch = None
+
+    def repair(self, touched: Dict[str, torch.Tensor]) -> None:
+        """After the host update of ids ``touched`` ({group: ids}): the
+        prefetched rows of those ids read again."""
+        self._join()
+        if self._out is not None:
+            self.eg.engine.host_refresh(self.eg.engine_tables(), self._out,
+                                        touched)
+
+    def rows_for(self, batch: Batch) -> Dict[str, Any]:
+        """{host group: (rows, ids)} of ``batch``: the repaired prefetch
+        where it was made for this batch, else a gather now."""
+        self._join()
+        if self._batch is batch and self._out is not None:
+            out = self._out
+        else:
+            out = self.eg.host_gather(batch)
+        self._batch, self._out = None, None
+        return out
 
 
 def _mean_over_ranks(grads: List[Optional[torch.Tensor]],
@@ -509,6 +604,7 @@ def train_epoch(
     shard: Optional[ShardContext] = None,
     tb=None,
     lr_fn: Optional[Callable[[int], Any]] = None,
+    pipelined: bool = False,
 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor], bool]:
     """The body of the training loop over one epoch's (batch, info)
     items: a train step per batch, the step's predictions into the
@@ -527,11 +623,17 @@ def train_epoch(
     the ranks' least (the event-time quorum of the checkpoints). With
     ``tb`` (``utils/summary_util.SummaryWriter``) each log step also
     writes the losses and ``lr_fn(step)``, the sparse learning-rate
-    multiplier."""
+    multiplier. With ``pipelined`` the loop reads one batch ahead
+    (``_paired``) and steps with ``train_step(state, batch,
+    next_batch)``."""
     metrics: Dict[str, torch.Tensor] = {}
     t0, examples = time.perf_counter(), 0
-    for batch, info in _in_step(batches, shard):
-        state, metrics = train_step(state, batch)
+    items = _in_step(batches, shard)
+    for batch, info, next_batch in (
+            _paired(items) if pipelined
+            else ((b, i, None) for b, i in items)):
+        state, metrics = (train_step(state, batch, next_batch) if pipelined
+                          else train_step(state, batch))
         if hasattr(model, "collect_from_batch"):
             model.collect_from_batch(batch)
         preds = metrics.pop("__preds", None)
@@ -579,6 +681,28 @@ def _in_step(batches, shard: Optional[ShardContext]):
         info.data_timestamp = dist_util.global_min_int(
             shard, info.data_timestamp)
         yield batch, info
+
+
+def _paired(items):
+    """(batch, info) items -> (batch, info, the next item's batch, None
+    for the last): one item read ahead, for the overlaps. Over several
+    ranks ``items`` are ``_in_step``'s, so every rank reads ahead at the
+    same point and meets the last item at the same step."""
+    it = iter(items)
+    cur = next(it, None)
+    while cur is not None:
+        nxt = next(it, None)
+        yield cur[0], cur[1], None if nxt is None else nxt[0]
+        cur = nxt
+
+
+def _drop_staged(state: Dict[str, Any]) -> None:
+    """The route staged for a batch the loop will not step on (the
+    epoch's, or the run's, end), waited for and dropped: every rank
+    issued it, and the side group's next exchange must not meet it."""
+    staged = state.pop("staged", None)
+    if staged is not None:
+        staged.wait()
 
 
 def _run_eval(model: BaseModel, eval_step, eval_dl, num_steps: int = 0,
@@ -797,11 +921,18 @@ def _train_and_evaluate(pipeline_config_path, train_input_path,
         logger.warning(
             f"steps_per_dispatch {train_config.steps_per_dispatch}: the "
             "steps of one dispatch run as single steps (the same numbers)")
-    if train_config.sparse_dist_overlap:
+    has_host = model.embedding_group.engine.has_host_groups
+    # sparse-input-dist overlap (TrainPipelineSparseDist analogue): the
+    # next batch's id exchange runs while the step does
+    sparse_overlap = (bool(train_config.sparse_dist_overlap) and multi
+                      and (train_config.steps_per_dispatch or 1) == 1
+                      and not has_host)
+    if train_config.sparse_dist_overlap and not sparse_overlap:
         logger.warning(
-            "sparse_dist_overlap: the next batch's embedding exchange is "
-            "not overlapped with the step; the step runs unpipelined (the "
-            "same numbers)")
+            "sparse_dist_overlap requires several ranks, per-batch "
+            "stepping and no host_offload groups; running unpipelined")
+    if sparse_overlap:
+        shard.side()  # the staging group, made by every rank here
     ckpt_manager = checkpoint_util.CheckpointManager(
         model_dir,
         save_checkpoints_steps=train_config.save_checkpoints_steps,
@@ -896,8 +1027,11 @@ def _train_and_evaluate(pipeline_config_path, train_input_path,
                 train_step, state, batches, dataloader_state, num_steps,
                 after_step, train_config.log_step_count_steps, model,
                 train_metrics, delta_dumper, shard, tb,
-                lambda t: sparse_sched["fn"](t))
+                lambda t: sparse_sched["fn"](t),
+                pipelined=sparse_overlap or has_host)
+            _drop_staged(state)
         finally:
+            state.pop("staged", None)
             batches.close()
         metrics = epoch_metrics or metrics
         # done, or the input is empty (a resumed epoch may have no rows

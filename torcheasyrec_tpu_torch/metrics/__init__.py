@@ -25,7 +25,10 @@ import numpy as np
 
 
 class _RowState:
-    """A metric that keeps its rows: ``sync`` gathers every rank's."""
+    """A metric that keeps its rows: ``sync`` gathers every rank's. Where
+    no rank had a row, each list holds one empty array, as the JAX
+    package's ``sync`` leaves it, so that ``compute`` gives its value
+    over no rows (an AUC's NaN) and does not raise."""
 
     _lists = ("_preds", "_labels")
 
@@ -34,7 +37,8 @@ class _RowState:
 
         for name in self._lists:
             parts = gather_host_objects(shard, getattr(self, name))
-            setattr(self, name, [a for part in parts for a in part])
+            rows = [a for part in parts for a in part]
+            setattr(self, name, rows or [np.zeros((0,), np.float32)])
 
 
 class _SumState:

@@ -765,7 +765,7 @@ class EmbeddingGroup(nn.Module):
     # -- forward -----------------------------------------------------------
 
     def lookup(self, batch: Batch, groups: Optional[List[str]] = None,
-               host_rows: Optional[Dict[str, Any]] = None
+               host_rows: Optional[Dict[str, Any]] = None, staged=None
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """Engine lookup only (no ZCH remap): (emb_out, residuals).
         emb_out holds fp32
@@ -775,14 +775,28 @@ class EmbeddingGroup(nn.Module):
         up those groups' features only. Host groups read ``host_rows``
         (``host_gather``'s) where given, else gather from the batch's host
         copy (``batch.host``, which the loader keeps; a batch on the host
-        is its own; else its ids are copied off the device)."""
+        is its own; else its ids are copied off the device). ``staged``
+        is ``stage_route``'s of this batch."""
         return self.engine.lookup(
             self.engine_tables(), batch.sparse_features,
             batch.sequence_sparse_features,
             feature_filter=(None if groups is None
                             else set(self.features_for_groups(groups))),
             host_rows=host_rows, host_fields=self.host_fields(batch),
+            staged=staged,
         )
+
+    def stage_route(self, batch: Batch):
+        """Start the batch's owner routes ahead of its step
+        (``engine.stage_route``; None where nothing routes). The groups
+        of ZCH and dynamicemb tables are skipped: their ids exist only
+        after the step's remap, and a route of the raw ids would serve
+        the wrong rows."""
+        skip = {self.engine._table_group[t] for t in self._zch_cfgs
+                if t in self.engine._table_group}
+        return self.engine.stage_route(batch.sparse_features,
+                                       batch.sequence_sparse_features,
+                                       skip_groups=skip)
 
     def host_fields(self, batch: Batch):
         """(sparse, sequence sparse) fields of the batch on the host where

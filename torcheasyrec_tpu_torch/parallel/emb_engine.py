@@ -91,11 +91,30 @@ cover its rows. The canonical
 accessors (``extract_table``, ``write_table``, ``extract_table_state``,
 ``write_table_state``, ``read_rows``) are collective under a ``shard``:
 every rank calls them in the same order.
+
+The staged route (``stage_route``, the training loop's
+``sparse_dist_overlap``): the owner route of the next batch (its split
+sizes, then its ids) is exchanged while the current step runs, on a
+thread of its own over a process group of its own
+(``ShardContext.side``), and the next step's ``lookup(...,
+staged=...)`` waits for it and uses the received ids in place of
+routing them again. Only ids travel ahead: the rows are gathered at the
+lookup, after the step before it wrote the tables, so the outputs, the
+gradients' route back and the optimizer's sums are those of the inline
+route, bit for bit. Row-sharded groups are staged, packed or not;
+replicated, column-wise and host groups have no owner route, and the
+caller skips the groups whose ids the step remaps (ZCH).
+
+Host groups' overlapped gather: ``host_gather`` may run on a thread for
+the next batch while the current step runs; ``host_refresh`` then
+re-reads, after the step's host update, the rows of the ids that update
+touched, so that the rows are those of a gather made after it.
 """
 
 import math
 import dataclasses
 import logging
+import threading
 import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -251,6 +270,63 @@ def _slots(t: torch.Tensor, g: _Group) -> torch.Tensor:
     [p, s] is the slot of logical row ``p * spr + s``."""
     return torch.as_strided(t, (t.shape[0], g.spr, g.slot),
                             (t.stride(0), g.slot, 1), t.storage_offset())
+
+
+class StagedRoutes:
+    """The owner routes of one batch, computed and exchanged on a thread
+    of their own (``EmbeddingEngine.stage_route``). ``wait`` joins the
+    thread and returns {group: (id count, route)}, or raises what the
+    thread raised. On a card the thread's kernels and copies run on a
+    stream of their own, after an event that the caller's stream recorded
+    once the ids were flattened: the thread's waits for the card (the
+    split sizes, gloo's host staging) then wait for its own small work,
+    not for the step queued before it. ``wait`` makes the caller's stream
+    wait for that stream and marks the route's tensors as used on it."""
+
+    _streams: Dict[torch.device, Any] = {}
+
+    def __init__(self, route, inputs: List[torch.Tensor],
+                 device: torch.device) -> None:
+        self._out: Optional[Dict[str, Any]] = None
+        self._err: Optional[BaseException] = None
+        self._stream = ready = None
+        if device.type == "cuda":
+            if device not in StagedRoutes._streams:
+                StagedRoutes._streams[device] = torch.cuda.Stream(device)
+            self._stream = StagedRoutes._streams[device]
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+        self._thread = threading.Thread(
+            target=self._run, args=(route, inputs, device, ready),
+            daemon=True)
+        self._thread.start()
+
+    def _run(self, route, inputs, device, ready) -> None:
+        try:
+            if self._stream is None:
+                self._out = route()
+                return
+            torch.cuda.set_device(device)
+            with torch.cuda.stream(self._stream):
+                self._stream.wait_event(ready)
+                for t in inputs:
+                    t.record_stream(self._stream)
+                self._out = route()
+        except BaseException as e:  # noqa: BLE001 - raised by wait
+            self._err = e
+
+    def wait(self) -> Dict[str, Any]:
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        if self._stream is not None:
+            cur = torch.cuda.current_stream(self._stream.device)
+            cur.wait_stream(self._stream)
+            for _, route in self._out.values():
+                for t in route:
+                    if isinstance(t, torch.Tensor):
+                        t.record_stream(cur)
+        return self._out
 
 
 class EmbeddingEngine:
@@ -636,6 +712,7 @@ class EmbeddingEngine:
         feature_filter: Optional[set] = None,
         host_rows: Optional[Dict[str, Any]] = None,
         host_fields=None,
+        staged: Optional["StagedRoutes"] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """(outputs, residuals). outputs[key]: [B, dim] pooled, or
         [B, L, dim] for sequence lookups, in the table's storage dtype
@@ -648,10 +725,13 @@ class EmbeddingEngine:
         Host groups read ``host_rows`` ({group: (device rows, host ids)},
         ``host_gather``'s) where given, else gather now from
         ``host_fields`` ((sparse, sequence sparse) on the host; without
-        them the batch's ids are copied off the device)."""
+        them the batch's ids are copied off the device). ``staged``
+        (``stage_route``'s, of these fields) is waited for here; its
+        groups use the routes it received."""
         sequence_sparse = sequence_sparse or {}
         outputs: Dict[str, torch.Tensor] = {}
         residuals: Dict[str, Any] = {}
+        routes = staged.wait() if staged is not None else {}
         for gk, lks in self._lookups_by_group.items():
             if feature_filter is not None:
                 lks = [lk for lk in lks if lk.feature_name in feature_filter]
@@ -673,7 +753,8 @@ class EmbeddingEngine:
                 rows = self._gather(g, tables[gk], flat_ids)
                 residuals[gk] = (flat_ids, plan)
             else:
-                rows, route = self._sharded_gather(g, tables[gk], flat_ids)
+                rows, route = self._sharded_gather(g, tables[gk], flat_ids,
+                                                   routes.get(gk))
                 residuals[gk] = (flat_ids, plan, route)
             self._emit_outputs(g, plan, rows, outputs)
         return outputs, residuals
@@ -694,11 +775,13 @@ class EmbeddingEngine:
             valid = flat_ids >= 0
         return torch.where(valid[:, None], rows, rows.new_zeros(()))
 
-    def _owner_route(self, g: _Group, flat_ids: torch.Tensor):
-        """The ids of a row-sharded group sent to their owners:
-        (positions of the valid ids in owner order, the owner-ordered
-        ids, split sizes sent, split sizes received, the ids received)."""
-        sh = self.shard
+    def _owner_route(self, g: _Group, flat_ids: torch.Tensor,
+                     sh: Optional[ShardContext] = None):
+        """The ids of a row-sharded group sent to their owners over ``sh``
+        (default: the engine's): (positions of the valid ids in owner
+        order, split sizes sent, split sizes received, the ids
+        received)."""
+        sh = sh or self.shard
         valid = flat_ids >= 0
         owner = torch.where(valid, torch.div(flat_ids, g.local_rows,
                                              rounding_mode="floor"),
@@ -712,9 +795,11 @@ class EmbeddingEngine:
         return order, send, recv, rids
 
     def _sharded_gather(self, g: _Group, weight: torch.Tensor,
-                        flat_ids: torch.Tensor):
+                        flat_ids: torch.Tensor, staged=None):
         """(rows of ``flat_ids`` as ``_gather`` gives them on one rank,
-        the route ``update`` sends the gradients back along)."""
+        the route ``update`` sends the gradients back along). ``staged``
+        ((id count, ``_owner_route``'s route) of these ids, exchanged
+        ahead) replaces the owner route of a row-sharded group."""
         sh = self.shard
         if g.sharding == DATA_PARALLEL:
             return self._gather(g, weight, flat_ids), None
@@ -728,12 +813,52 @@ class EmbeddingEngine:
             rows = back.reshape(self.num_shards, n, g.local_dim).permute(
                 1, 0, 2).reshape(n, g.dim)
             return rows, (ids_all, counts)
-        order, send, recv, rids = self._owner_route(g, flat_ids)
+        if staged is None:
+            order, send, recv, rids = self._owner_route(g, flat_ids)
+        else:
+            n, (order, send, recv, rids) = staged
+            if n != flat_ids.shape[0]:
+                raise ValueError(
+                    f"the staged route holds {n} ids, the batch "
+                    f"{flat_ids.shape[0]}: it was staged for another batch")
         local = self._gather(g, weight, rids - g.row_lo)
         back = sh.all_to_all(local, recv, send)
         rows = back.new_zeros((flat_ids.shape[0], g.dim))
         rows[order] = back
         return rows, (order, send, recv, rids)
+
+    def stage_route(self, sparse: Dict[str, SparseField],
+                    sequence_sparse: Optional[Dict[str, SparseField]] = None,
+                    skip_groups: Optional[set] = None
+                    ) -> Optional["StagedRoutes"]:
+        """Start the owner route of a batch's ids ahead of its lookup: for
+        every row-sharded group not in ``skip_groups``, the split sizes
+        and then the ids, exchanged over ``ShardContext.side`` on a
+        thread. Every rank calls it at the same point of its loop (the
+        first call makes the side group, collectively). Returns the
+        handle to pass as ``lookup(..., staged=...)`` with the same
+        fields, or None where no group routes (one rank, or no
+        row-sharded group)."""
+        if self.shard is None or self.num_shards <= 1:
+            return None
+        todo = []
+        for gk, lks in self._lookups_by_group.items():
+            g = self.groups[gk]
+            if g.sharding not in _ROW_SHARDED or gk in (skip_groups or ()):
+                continue
+            flat, _ = self._flatten_group_ids(g, lks, sparse,
+                                              sequence_sparse or {})
+            todo.append((gk, g, flat))
+        if not todo:
+            return None
+        side = self.shard.side()
+
+        def route():
+            return {gk: (flat.shape[0], self._owner_route(g, flat, side))
+                    for gk, g, flat in todo}
+
+        return StagedRoutes(route, [flat for _, _, flat in todo],
+                            side.device)
 
     def _flatten_group_ids(self, g, lks, sparse, sequence_sparse):
         """All features' ids, offset into the fused table (-1 stays
@@ -868,6 +993,26 @@ class EmbeddingEngine:
                 rows = rows.pin_memory()
             out[gk] = (rows, flat)
         return out
+
+    def host_refresh(self, tables: Dict[str, torch.Tensor],
+                     gathered: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                     touched: Dict[str, torch.Tensor]) -> None:
+        """Re-read, in place, the rows of ``gathered`` (``host_gather``'s)
+        whose ids ``touched`` ({host group: ids}) holds, from the host
+        tables: the repair of a gather that may have run while a host
+        update wrote those rows. Rows of other ids were not written, so
+        the rows are then those of a gather made after the update."""
+        for gk, (rows, flat) in gathered.items():
+            t = touched.get(gk)
+            if t is None:
+                continue
+            t = t[t >= 0]
+            if not t.numel():
+                continue
+            hit = (flat >= 0) & torch.isin(flat, t)
+            if bool(hit.any()):
+                rows[hit] = self._gather(self.groups[gk], tables[gk],
+                                         flat[hit]).to(rows.dtype)
 
     def _host_apply(self, table, state, ids, grads, lr) -> None:
         """The optimizer on a host group's touched rows, on the host, by

@@ -37,6 +37,9 @@ class ShardContext:
     group: Optional[object] = None  # a ProcessGroup; None = the default
     backend: str = "gloo"
     sent_bytes: int = 0
+    # ``side()``'s context, made at its first call
+    _side: Optional["ShardContext"] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def _count(self, t: torch.Tensor) -> None:
         self.sent_bytes += t.numel() * t.element_size()
@@ -107,6 +110,21 @@ class ShardContext:
         dist.all_to_all_single(out, src, list(map(int, recv)),
                                list(map(int, send)), group=self.group)
         return out.view(t.dtype).to(t.device)
+
+    def side(self) -> "ShardContext":
+        """A context over the same ranks on a process group of its own,
+        for collectives that a thread issues beside the ones of the
+        thread that runs the step (the staged id route): two groups never
+        match one group's collectives against the other's. Made at the
+        first call, which is collective: every rank calls it at the same
+        point. Its ``sent_bytes`` count apart."""
+        if self._side is None:
+            ranks = (None if self.group is None
+                     else dist.get_process_group_ranks(self.group))
+            group = dist.new_group(ranks, backend=self.backend)
+            self._side = dataclasses.replace(self, group=group, sent_bytes=0,
+                                             _side=None)
+        return self._side
 
     def barrier(self) -> None:
         # an all_reduce, not ``dist.barrier``: NCCL's barrier guesses the
