@@ -454,16 +454,16 @@ part (a), whose phase checks and prints it.
 Phase ``train_stream``: the criteo_synth
 DeepFM fed from Kafka, an in-memory broker standing in for
 ``confluent_kafka`` (no broker, no network; printed): two partitions of
-the synthetic Criteo rows as JSON messages. 16 steps on the card through
+the synthetic Criteo rows as JSON messages. 8 steps on the card through
 ``train_and_evaluate`` with kernel #3 once per written group and step,
 the AUC within 0.02 of a CPU run from the same weights and broker; a
-resume at step 8 that continues each partition at offset + 1, bit-equal
+resume at step 4 that continues each partition at offset + 1, bit-equal
 to the straight run; the loop's step beside the same steps fed from the
 parquet file. Then a TF-EasyRec DeepFM config over the Criteo columns
 through ``tools/convert_easyrec_config``, 4 steps on the card (kernel #3
 counted) and its checkpoint listed whole by ``tools/list_ckpt_param``.
 
-Phase ``train_pipelined`` (last before the timeline): the training
+Phase ``train_pipelined``: the training
 loop's two overlaps, each against the loop without it from the same
 weights and input. (a) ``sparse_dist_overlap`` over two ranks on the
 card (gloo, as ``train_sharded``): criteo_synth deepfm.config at its
@@ -485,6 +485,27 @@ with the host-row prefetcher off and on in turns, twice each
 prefetch serving every step but
 the first; each run's step median and the host wait a step (the rows'
 gather or the prefetch's join, the host apply, the repair).
+
+Phase ``train_global_reductions`` (last before the timeline): the
+reductions over the global batch at world size 2 (gloo, as
+``train_sharded``; its ranks those of ``train_zch_ranks`` after their
+other work, ``GRS_DONE``, else a spawn of its own) against one rank on
+the card over the same global batches (products over the ranks' row
+blocks, ``row_blocks``; both ``deterministic``), GRS_STEPS steps each.
+Through ``train_and_evaluate``: criteo_synth dbmtl_jrc.config (BF16,
+packed, every cat table ``row_wise``: jrc_loss's session matrix over the
+global batch), TIGER's RQ-VAE with Sinkhorn and with the contrastive loss
+and RQ-KMeans (the fit on the ranks' samples in global batch order, the
+cap inside the last step), and criteo_synth deepfm.config ``row_wise``
+with a delta dump every 2 steps: the checkpoints, the dump files' names
+and ids equal and their rows. Through the train step: MIND at the
+mind_concat widths and HSTU-Match at the JAX integration config (fp32,
+D = V = 16: kernels #1 and #2), a rank's batch [its positives | its
+GRS_NEG negatives]: the states. Each within GRS_TOL (1e-5; HSTU-Match
+1e-4) of each tensor's max. Kernels #1 and #2 are held against
+their plain versions at HSTU-Match's first attention call cut to a rank's
+rows, kernel #3 at each rank's first two writes of dbmtl_jrc's packed
+blocks; the three kernels' launches on the ranks are counted.
 
 Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
 card's name and power limit as nvidia-smi
@@ -7210,9 +7231,10 @@ ZCH_SPECS = {
 }
 ZCH_HOST = ("cat_2", "cat_4", "cat_14", "cat_23")
 # an epoch is 64 steps of 4 096; cut to 12 (both on the card and the
-# CPU's reference run: the phase's 60 s set the cut)
-ZCH_STEPS = 12
-ZCH_RESUME_AT = 6
+# CPU's reference run: the phase's 60 s set the cut), then to 8 when
+# train_global_reductions joined
+ZCH_STEPS = 8
+ZCH_RESUME_AT = 4
 # the fp32 card-against-CPU steps start after ZCH_WARM_STEPS remaps (no
 # update) of the train file's first batches, so that they evict, spill
 # and restore
@@ -9384,17 +9406,25 @@ def phase_train_zch_ranks(smi):
         ckpt_dir = os.path.join(tmp, "zr_ckpt")
         os.makedirs(ckpt_dir)
         # the ranks go on to train_pipelined's part (a) (``PIPE_DONE``)
+        # and to train_global_reductions' runs (``GRS_DONE``)
         cfgs = pipelined_configs()
+        t1 = time.perf_counter()
+        grs_cfgs = grs_configs()
+        seconds["train_global_reductions_data"] = time.perf_counter() - t1
         both = run_ranks(zr_then_pipelined, SHARDED_WORLD,
                          ((text, cfg_path, cols_list, touched, ckpt_dir),
-                          cfgs), backend, tmp)
+                          cfgs, grs_cfgs), backend, tmp)
         ranks = [r[0] for r in both]
         pipe = [r[1] for r in both]
         PIPE_DONE.update(cfgs=cfgs, ranks=pipe,
                          seconds=max(sum(p[n]["seconds"] for n, _ in PIPE_RUNS)
                                      for p in pipe))
-        seconds["world_2"] = time.perf_counter() - t0 - PIPE_DONE["seconds"]
+        GRS_DONE.update(cfgs=grs_cfgs, ranks=[r[2] for r in both])
+        grs_s = max(r[2]["seconds"]["all"] for r in both)
+        seconds["world_2"] = (time.perf_counter() - t0 - PIPE_DONE["seconds"]
+                              - grs_s - seconds["train_global_reductions_data"])
         seconds["train_pipelined_part_a"] = PIPE_DONE["seconds"]
+        seconds["train_global_reductions_world_2"] = grs_s
         rows, zch = ranks[0][1]
         reports = [r[0] for r in ranks]
 
@@ -9466,8 +9496,8 @@ def phase_train_zch_ranks(smi):
 
 # --- phase train_stream: a Kafka-fed DeepFM, a converted EasyRec config -----
 
-STREAM_STEPS = 16
-STREAM_RESUME_AT = 8
+STREAM_STEPS = 8  # 16 before train_global_reductions joined
+STREAM_RESUME_AT = 4
 STREAM_BATCH = 4096
 STREAM_PARTITIONS = 2
 STREAM_TOPIC = "criteo_stream"
@@ -10025,12 +10055,6 @@ def pipelined_configs() -> dict:
 PIPE_DONE = {}
 
 
-def zr_then_pipelined(shard, zr_args, cfgs):
-    """``zr_rank``, then (a)'s runs (``pipelined_rank``) on the same,
-    warm, ranks."""
-    return zr_rank(shard, *zr_args), pipelined_rank(shard, cfgs)
-
-
 def pipelined_ranks(backend) -> dict:
     """(a): the ranks' runs (``PIPE_DONE``'s, else a spawn of their own)
     and the checks. Returns the report with its ``failures``."""
@@ -10185,6 +10209,524 @@ def phase_train_pipelined(smi):
     return launches
 
 
+# --- phase train_global_reductions: the reductions over the global batch ---
+# Each configuration at world size 2 (the ranks of ``train_zch_ranks``
+# after their other work, ``GRS_DONE``, else a spawn of its own) against
+# one rank on the card over the same global batches, the one-rank run's
+# products over the ranks' row blocks (``row_blocks``), both under
+# ``deterministic``. Through ``train_and_evaluate`` (each rank a train file
+# of its own; the one-rank run a file of the ranks' batches side by side):
+# criteo_synth dbmtl_jrc.config (BF16, packed, every cat table
+# ``row_wise``), TIGER's RQ-VAE of ``train_sid`` with Sinkhorn and with the
+# contrastive loss, RQ-KMeans at ``train_sid``'s widths (its sample cap
+# inside the last step) and criteo_synth deepfm.config ``row_wise`` with a
+# delta dump every 2 steps. Through the train step (two ranks' samplers
+# draw other negatives than one's, so the loop's batches cannot match):
+# MIND at tests/test_torch_port_match.py's mind_concat widths and
+# HSTU-Match at the JAX integration config, each rank's batch [its
+# positives | its GRS_NEG negatives].
+GRS_STEPS = 3
+GRS_TOL = LAYOUT_TOL  # of each tensor's max: fp32 and BF16 compute
+GRS_HSTU_TOL = SHARDED_TRAP_TOL  # HSTU-Match
+GRS_NEG = 32  # a rank's sampled negatives (HSTU-Match's num_sample)
+GRS_MIND_BATCH = 256  # the global batch: 128 rows a rank
+GRS_HSTU_BATCH = 32  # HSTU-Match's config: 16 rows a rank
+GRS_KMEANS_CAP = 2 * SID_BATCH + SID_BATCH // 2  # inside step 3's rows
+GRS_MIND = (
+    'mind { user_tower { input: "user" history_input: "hist" '
+    "user_mlp { hidden_units: [12] } user_seq_combine: CONCAT "
+    f"capsule_config {{ max_k: 3 max_seq_len: {MATCH_ON_CARD_SEQ} "
+    "high_dim: 8 } concat_mlp { hidden_units: [16] } } "
+    'item_tower { input: "item" mlp { hidden_units: [16] } } '
+    "output_dim: 8 simi_pow: 10 temperature: 0.2 }")
+GRS_ROW_WISE = ('embedding_dim: 16 embedding_constraints { sharding_types: '
+                '"row_wise" } }')
+GRS_DONE = {}
+
+
+def grs_split(path, root, name, batch, steps, world=SHARDED_WORLD) -> tuple:
+    """(the ranks' train files, comma-joined; the one-rank file): the first
+    ``steps`` global batches of ``batch`` rows of a parquet file, rank r
+    taking row block r of each, the one-rank file each batch whole."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    t = pq.read_table(path).slice(0, steps * batch)
+    per = batch // world
+    ranks = []
+    for r in range(world):
+        p = os.path.join(root, f"{name}_rank_{r}.parquet")
+        pq.write_table(pa.concat_tables(
+            [t.slice(s * batch + r * per, per) for s in range(steps)]), p)
+        ranks.append(p)
+    one = os.path.join(root, f"{name}_world_1.parquet")
+    pq.write_table(t, one)
+    return ",".join(ranks), one
+
+
+def grs_loop_config(text, root, name, files, batch) -> dict:
+    """{"world_2", "world_1": config path} of one config: GRS_STEPS
+    steps, no eval, a model dir each."""
+    from torcheasyrec_tpu_torch.utils import config_util
+
+    out = {}
+    for run, train in zip(("world_2", "world_1"), files):
+        cfg = config_util.parse_pipeline_config(text)
+        config_util.edit_config(cfg, {
+            "model_dir": os.path.join(root, f"{name}_{run}"),
+            "train_input_path": train, "eval_input_path": "",
+            "data_config.batch_size": batch // (SHARDED_WORLD
+                                                if run == "world_2" else 1),
+            "train_config.num_steps": GRS_STEPS,
+            "train_config.num_epochs": 1,
+            "train_config.save_checkpoints_steps": 10 ** 6,
+            "train_config.use_tensorboard": False})
+        out[run] = os.path.join(root, f"{name}_{run}.config")
+        config_util.save_message(cfg, out[run])
+    return out
+
+
+def grs_sid_pairs(path, n, seed) -> str:
+    """``sid_items`` with a pair vector near each item and a 0/1 pair
+    flag (the contrastive loss's groups)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    sid_items(path, n, seed)
+    t = pq.read_table(path)
+    x = np.asarray(t.column("item_emb").combine_chunks().flatten(),
+                   np.float32).reshape(n, SID_DIM)
+    r = np.random.default_rng(seed + 1)
+    px = (x + 0.2 * r.normal(size=x.shape)).astype(np.float32)
+    t = t.append_column("pair_emb", pa.ListArray.from_arrays(
+        pa.array(np.arange(0, n * SID_DIM + 1, SID_DIM, dtype=np.int32)),
+        pa.array(px.reshape(-1))))
+    t = t.append_column("pair_flag", pa.array(
+        (r.random(n) < 0.7).astype(np.float32)))
+    pq.write_table(t, path)
+    return path
+
+
+def grs_sid_text(kind) -> str:
+    """``sid_text``'s RQ-VAE with Sinkhorn or the contrastive loss, or its
+    RQ-KMeans with the sample cap GRS_KMEANS_CAP (paths set later)."""
+    paths = {"train": "unused", "eval": ""}
+    if kind == "rqkmeans":
+        return sid_text(paths, "unused", "rqkmeans").replace(
+            f"train_sample_size: {SID_ITEMS}",
+            f"train_sample_size: {GRS_KMEANS_CAP}")
+    text = sid_text(paths, "unused", "rqvae")
+    codebook = f"codebook: {list(SID_CODEBOOK)}"
+    if kind == "sinkhorn":
+        return text.replace(codebook,
+                            codebook + " sinkhorn_config { iters: 3 }")
+    text = text.replace(codebook, codebook + (
+        ' contrastive_config { pair_feature_group: "pair"'
+        ' pair_flag_feature_group: "flag" }'))
+    # adam's eps 1e-4, as tests/test_torch_port_sid.py's configs: the
+    # in-batch product's rounding differs at another row count (a rank's
+    # [B / 2, B] against one rank's [B, B]) and adam at eps 1e-8 turns a
+    # gradient at rounding level into a step of the learning rate's size
+    # (ROADMAP section 3)
+    text = text.replace("adam_optimizer { lr: 0.001 }",
+                        "adam_optimizer { lr: 0.001 eps: 1e-4 }")
+    text = text.replace(
+        "model_config {\n",
+        f'feature_configs {{ raw_feature {{ feature_name: "pair_emb" '
+        f"value_dim: {SID_DIM} }} }}\n"
+        'feature_configs { raw_feature { feature_name: "pair_flag" } }\n'
+        "model_config {\n"
+        '  feature_groups { group_name: "pair" feature_names: "pair_emb" '
+        "group_type: DEEP }\n"
+        '  feature_groups { group_name: "flag" feature_names: "pair_flag" '
+        "group_type: DEEP }\n")
+    return text
+
+
+def grs_negatives(cols, n_items, seed, cluster=None) -> dict:
+    """A global batch's columns with every rank's GRS_NEG negatives after
+    its positives (the item-side columns): [B positives | rank 0's | rank
+    1's ...]. ``cluster``: (column, divisor) of the item's cluster id."""
+    import pyarrow as pa
+
+    neg = np.random.default_rng(seed).integers(0, n_items,
+                                               SHARDED_WORLD * GRS_NEG)
+    out = dict(cols)
+    if cluster is None:  # HSTU-Match: one-item candidate sequences
+        out["cand_seq__video_id"] = pa.concat_arrays([
+            cols["cand_seq__video_id"], pa.array([str(i) for i in neg])])
+        return out
+    out["item_id"] = pa.concat_arrays([cols["item_id"], pa.array(neg)])
+    out[cluster[0]] = pa.concat_arrays([cols[cluster[0]],
+                                        pa.array(neg // cluster[1])])
+    return out
+
+
+def grs_rank_cols(cols, rank, n_global, neg_cols) -> dict:
+    """This rank's columns of a global batch: row block ``rank`` of the
+    user side; of the item side its positives, then its negatives."""
+    import pyarrow as pa
+
+    per = n_global // SHARDED_WORLD
+    return {k: (pa.concat_arrays([v.slice(rank * per, per),
+                                  v.slice(n_global + rank * GRS_NEG,
+                                          GRS_NEG)])
+                if k in neg_cols else v.slice(rank * per, per))
+            for k, v in cols.items()}
+
+
+def grs_configs() -> dict:
+    """The phase's configs and batches in a directory that lasts the run:
+    {"loop": {name: {"world_2", "world_1"}}, "steps": {name: {"text",
+    "plan", "labels", "batches" (global), "n_global", "neg"}}}."""
+    import pyarrow.parquet as pq
+
+    paths = criteo_synth_data(ZOO_TRAIN_ROWS, ZOO_EVAL_ROWS)
+    root = os.path.join(_DATA_ROOT[0].name, "global_reductions")
+    os.makedirs(root, exist_ok=True)
+    loop = {}
+    for name, src in (("dbmtl_jrc", "dbmtl_jrc.config"),
+                      ("deepfm_dump", "deepfm.config")):
+        with open(os.path.join(zoo_config_dir(), "criteo_synth", src)) as f:
+            text = f.read()
+        text = text.replace("embedding_dim: 16 }", GRS_ROW_WISE)
+        if name == "deepfm_dump":
+            text = text.replace("train_config {", "train_config {\n"
+                                "  delta_embedding_dump_config "
+                                "{ dump_interval_steps: 2 }", 1)
+        if text.count('sharding_types: "row_wise"') != 26:
+            raise AssertionError(f"criteo_synth {src}'s cat features moved")
+        files = grs_split(paths["train"], root, name, ZOO_BATCH, GRS_STEPS)
+        loop[name] = grs_loop_config(text, root, name, files, ZOO_BATCH)
+    items = {
+        "sinkhorn": sid_items(os.path.join(root, "sid_items.parquet"),
+                              GRS_STEPS * SID_BATCH, 11),
+        "contrastive": grs_sid_pairs(os.path.join(root, "sid_pairs.parquet"),
+                                     GRS_STEPS * SID_BATCH, 12)}
+    items["rqkmeans"] = items["sinkhorn"]
+    for kind, path in items.items():
+        files = grs_split(path, root, f"sid_{kind}", SID_BATCH, GRS_STEPS)
+        loop[f"sid_{kind}"] = grs_loop_config(
+            grs_sid_text(kind), root, f"sid_{kind}", files, SID_BATCH)
+
+    steps = {}
+    mpaths = match_on_card_files(root)
+    mcfg = match_on_card_config(_MATCH_SAMPLER_FOR_GRS, GRS_MIND, mpaths)
+    # mind_concat's optimizers (tests/test_torch_port_match.py): eps 1e-4,
+    # where adagrad and adam do not turn a gradient at rounding level
+    # into a step of the learning rate's size (ROADMAP section 3)
+    mcfg.train_config.sparse_optimizer.adagrad_optimizer.eps = 1e-4
+    mcfg.train_config.dense_optimizer.adam_optimizer.eps = 1e-4
+    mind_rows = pq.read_table(mpaths["data"])
+    steps["mind"] = {
+        "text": str(mcfg), "labels": ["pos_label"],
+        "plan": {t: "row_wise" for t in ("user_taste_emb", "item_id_emb",
+                                         "item_cluster_emb")},
+        "n_global": GRS_MIND_BATCH, "neg": ("item_id", "item_cluster"),
+        "batches": [grs_negatives(
+            {c: mind_rows.column(c).slice(s * GRS_MIND_BATCH, GRS_MIND_BATCH)
+             .combine_chunks() for c in mind_rows.column_names},
+            MATCH_ON_CARD_ITEMS, SEED + s, ("item_cluster", 40))
+            for s in range(GRS_STEPS)]}
+    hpaths = gr_match_files(root)
+    htext = gr_match_text(hpaths, os.path.join(root, "hstu_match"), 0.0)
+    hrows = pq.read_table(hpaths["train"])
+    steps["hstu_match"] = {
+        "text": htext, "labels": ["cand_seq__action_weight"],
+        "plan": {t: "row_wise" for t in ("user_id_emb", "user_degree_emb",
+                                         "video_emb")},
+        "n_global": GRS_HSTU_BATCH, "neg": ("cand_seq__video_id",),
+        "batches": [grs_negatives(
+            {c: hrows.column(c).slice(s * GRS_HSTU_BATCH, GRS_HSTU_BATCH)
+             .combine_chunks() for c in hrows.column_names},
+            GR_MATCH_ITEMS, SEED + 10 + s) for s in range(GRS_STEPS)]}
+    return {"loop": loop, "steps": steps, "root": root}
+
+
+# the sampler block of MIND's config: parsed for the item-side features'
+# data group; the phase feeds the negatives itself
+_MATCH_SAMPLER_FOR_GRS = MATCH_ON_CARD["mind"][0]
+
+
+@contextlib.contextmanager
+def first_writes(n: int):
+    """Captures (table before, targets, rows, table after) of the first
+    ``n`` ``write_rows`` calls inside the block (they count as
+    launches); yields the list."""
+    from torcheasyrec_tpu_torch.ops import row_write
+
+    calls, real = [], row_write.write_rows
+
+    def capture(table, ids, rows):
+        if len(calls) >= n:
+            return real(table, ids, rows)
+        before = table.clone()
+        real(table, ids, rows)  # counts on the module's name, ``capture``
+        calls.append((before, ids.clone(), rows.clone(), table.clone()))
+        return table
+
+    capture.launches = real.launches
+    row_write.write_rows = capture
+    try:
+        yield calls
+    finally:
+        row_write.write_rows = real
+        real.launches = capture.launches
+
+
+def grs_state(model) -> dict:
+    """The model's state_dict on the host (tables canonical: collective
+    over the ranks)."""
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+
+
+def grs_rank(shard, cfgs):
+    """Rank side: every loop config's ``train_and_evaluate`` at world size
+    2, then every step config's GRS_STEPS steps on this rank's rows; the
+    counts of kernels #1, #2 and #3 set to 0 just before and read just
+    after; the first two row writes (dbmtl_jrc's packed ``row_wise``
+    blocks) held against the plain version on this rank afterwards."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.ops import hstu
+    from torcheasyrec_tpu_torch.ops.row_write import write_rows
+
+    out = {"rank": shard.rank, "results": {}, "states": {}, "losses": {},
+           "seconds": {}}
+    sync()
+    t_all = time.perf_counter()
+    write_rows.launches = 0
+    hstu.hstu_attention_fwd.launches = 0
+    hstu.hstu_attention_bwd.launches = 0
+    with first_writes(2) as calls, deterministic():
+        for name, c in cfgs["loop"].items():
+            t0 = time.perf_counter()
+            out["results"][name] = port_main.train_and_evaluate(
+                c["world_2"], device=SHARDED_DEVICE, shard=shard)
+            sync()
+            out["seconds"][name] = time.perf_counter() - t0
+        for name, c in cfgs["steps"].items():
+            t0 = time.perf_counter()
+            model, features, _, state, step = sharded_trainer(
+                c["text"], shard, c["plan"])
+            losses = []
+            for cols in c["batches"]:
+                state, m = step(state, parse_batch(
+                    features, grs_rank_cols(cols, shard.rank, c["n_global"],
+                                            c["neg"]), c["labels"]))
+                losses.append(float(m["total_loss"]))
+            out["states"][name] = grs_state(model)
+            out["losses"][name] = losses
+            del model, state, step
+            sync()
+            out["seconds"][name] = time.perf_counter() - t0
+    sync()
+    out["launches"] = {"row_write": write_rows.launches,
+                       "hstu_attention_fwd": hstu.hstu_attention_fwd.launches,
+                       "hstu_attention_bwd": hstu.hstu_attention_bwd.launches}
+    out["seconds"]["all"] = time.perf_counter() - t_all
+    out["row_write_checked"] = [tuple(c[1].shape) for c in calls]
+    check_step_writes(f"train_global_reductions rank {shard.rank}", calls)
+    return out
+
+
+def grs_ckpt_report(a_dir, b_dir) -> dict:
+    """The latest checkpoints of two model dirs: the largest |a - b| of
+    each weight relative to its max in ``b``, the worst tensor, and
+    whether the keys agree."""
+    from torcheasyrec_tpu_torch.utils import checkpoint_util
+
+    a, b = (torch.load(checkpoint_util.latest_checkpoint(d),
+                       map_location="cpu", weights_only=True)["model"]
+            for d in (a_dir, b_dir))
+    if a.keys() != b.keys():
+        return {"max_err": float("inf"), "keys_equal": False}
+    return rel_report({k: v.float() for k, v in a.items()},
+                      {k: v.float() for k, v in b.items()})
+
+
+def grs_dump_report(a_dir, b_dir) -> dict:
+    """Two delta dump dirs: the same files with the same ids, and the
+    rows' largest distance relative to each file's max."""
+    import pyarrow.parquet as pq
+
+    def read(d):
+        out = {}
+        for name in sorted(os.listdir(d)):
+            t = pq.read_table(os.path.join(d, name))
+            out[name] = (t.column("id").to_numpy(), torch.tensor(
+                np.asarray(t.column("embedding").to_pylist(), np.float32)))
+        return out
+
+    a, b = read(a_dir), read(b_dir)
+    same_ids = a.keys() == b.keys() and all(
+        np.array_equal(a[k][0], b[k][0]) for k in b)
+    rows = (rel_report({k: v[1] for k, v in a.items()},
+                       {k: v[1] for k, v in b.items()})
+            if a.keys() == b.keys() else {"max_err": float("inf")})
+    return {"files": len(b), "names_and_ids_equal": same_ids,
+            "ids": int(sum(len(v[0]) for v in b.values())), "rows": rows}
+
+
+@contextlib.contextmanager
+def first_attention_call():
+    """The arguments of the first call of kernel #1 inside the block."""
+    from torcheasyrec_tpu_torch.ops import hstu
+
+    seen, real = [], hstu.hstu_attention_fwd
+
+    def capture(*args):
+        if not seen:
+            seen.append(tuple(a.detach().clone() if torch.is_tensor(a)
+                              else a for a in args))
+        return real(*args)
+
+    capture.launches = real.launches
+    hstu.hstu_attention_fwd = capture
+    try:
+        yield seen
+    finally:
+        hstu.hstu_attention_fwd = real
+        real.launches = capture.launches
+
+
+def grs_attention_check(args) -> dict:
+    """Kernels #1 and #2 against their plain versions at HSTU-Match's
+    captured call, cut to one rank's rows; these launches do not count."""
+    from torcheasyrec_tpu_torch.ops import hstu
+
+    per = args[0].shape[0] // SHARDED_WORLD
+    q, k, v, lengths = (a[:per] for a in args[:4])
+    targets = None if args[4] is None else args[4][:per]
+    rest = args[5:]
+    do = slice_upstream_grad(v)
+    kept = (hstu.hstu_attention_fwd.launches,
+            hstu.hstu_attention_bwd.launches)
+    got = hstu.hstu_attention_fwd(q, k, v, lengths, targets, *rest)
+    ref = hstu._torch_hstu_mha(q, k, v, lengths, rest[0], rest[1], targets,
+                               *rest[2:])
+    fwd_err = check("train_global_reductions attention fwd", got, ref,
+                    FP32_TOL)
+    grads = hstu.hstu_attention_bwd(q, k, v, do, lengths, targets, *rest)
+    refs = hstu._torch_hstu_mha_bwd(q, k, v, do, lengths, rest[0], rest[1],
+                                    targets, *rest[2:])
+    bwd_err = max(check(f"train_global_reductions attention bwd {n}", g, r,
+                        FP32_TOL) for n, g, r in zip("qkv", grads, refs))
+    hstu.hstu_attention_fwd.launches, hstu.hstu_attention_bwd.launches = kept
+    return {"shape": list(q.shape) + [v.shape[-1]], "dtype": str(q.dtype),
+            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err}
+
+
+def zr_then_pipelined(shard, zr_args, cfgs, grs_cfgs):
+    """``zr_rank``, then (a)'s runs (``pipelined_rank``) and
+    ``train_global_reductions``' (``grs_rank``) on the same, warm,
+    ranks."""
+    return (zr_rank(shard, *zr_args), pipelined_rank(shard, cfgs),
+            grs_rank(shard, grs_cfgs))
+
+
+def phase_train_global_reductions(smi):
+    """The reductions over the global batch at world size 2 (docstring,
+    phase ``train_global_reductions``). Returns the launches of kernels
+    #1, #2 and #3 on the ranks' main paths, summed over the ranks. Every
+    check's result is printed before a failure raises."""
+    from torcheasyrec_tpu_torch import main as port_main
+
+    mode, backend = sharded_backend()
+    out = {"phase": "train_global_reductions", "ranks_on": mode,
+           "card": smi}
+    seconds, failures = {}, []
+    if GRS_DONE:
+        cfgs, ranks = GRS_DONE["cfgs"], GRS_DONE["ranks"]
+        out["ranks_of"] = "the ranks of train_zch_ranks, after their own work"
+    else:
+        t0 = time.perf_counter()
+        cfgs = grs_configs()
+        seconds["data"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_ranks(grs_rank, SHARDED_WORLD, (cfgs,), backend,
+                          cfgs["root"])
+        seconds["world_2_spawned"] = time.perf_counter() - t0
+        out["ranks_of"] = "a spawn of their own"
+    seconds["world_2_by_config"] = ranks[0]["seconds"]
+    models = {}
+    for name, c in cfgs["loop"].items():
+        t0 = time.perf_counter()
+        with deterministic(), row_blocks(SHARDED_WORLD):
+            one = port_main.train_and_evaluate(c["world_1"],
+                                               device=SHARDED_DEVICE)
+        sync()
+        seconds[f"world_1_{name}"] = time.perf_counter() - t0
+        dirs = [os.path.join(cfgs["root"], f"{name}_world_{w}")
+                for w in (2, 1)]
+        rep = grs_ckpt_report(*dirs)
+        rep["steps"] = ([int(r["results"][name]["step"]) for r in ranks]
+                        + [int(one["step"])])
+        models[name] = rep
+        if not rep["max_err"] <= GRS_TOL:
+            failures.append(f"{name} at world 2 vs 1: {rep['max_err']} "
+                            f"({rep.get('table')})")
+        if set(rep["steps"]) != {GRS_STEPS}:
+            failures.append(f"{name}: steps {rep['steps']}")
+        if name == "deepfm_dump":
+            dump = grs_dump_report(*(os.path.join(d, "delta_embedding_dump")
+                                     for d in dirs))
+            rep["dump"] = dump
+            if not (dump["files"] and dump["names_and_ids_equal"]
+                    and dump["rows"]["max_err"] <= GRS_TOL):
+                failures.append(f"delta dump at world 2 vs 1: {dump}")
+    attention = None
+    for name, c in cfgs["steps"].items():
+        t0 = time.perf_counter()
+        model, features, _, state, step = sharded_trainer(c["text"])
+        losses = []
+        with deterministic(), row_blocks(SHARDED_WORLD), \
+                first_attention_call() as seen:
+            for cols in c["batches"]:
+                state, m = step(state, parse_batch(features, cols,
+                                                   c["labels"]))
+                losses.append(float(m["total_loss"]))
+        ref = grs_state(model)
+        del model, state, step
+        if seen:
+            attention = grs_attention_check(seen[0])
+        sync()
+        seconds[f"world_1_{name}"] = time.perf_counter() - t0
+        tol = GRS_HSTU_TOL if name == "hstu_match" else GRS_TOL
+        rep = rel_report(ranks[0]["states"][name], ref)
+        rep["losses"] = {"world_2": ranks[0]["losses"][name],
+                         "world_1": losses}
+        models[name] = rep
+        if not rep["max_err"] <= tol:
+            failures.append(f"{name} at world 2 vs 1: {rep['max_err']} "
+                            f"({rep.get('table')}), bound {tol}")
+        if not np.allclose(rep["losses"]["world_2"], losses, rtol=tol * 10):
+            failures.append(f"{name} losses: {rep['losses']}")
+    out["models"] = models
+    for name in list(cfgs["loop"]) + list(cfgs["steps"]):
+        digests = {digest(r["states"][name].values()) for r in ranks
+                   if name in r["states"]}
+        if len(digests) > 1:
+            failures.append(f"{name}: the ranks' states differ")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    out["launches_main_path"] = launches
+    out["row_write_checked_on_ranks"] = [r["row_write_checked"]
+                                         for r in ranks]
+    out["attention_check"] = attention
+    if attention is None or not (launches["hstu_attention_fwd"] > 0
+                                 and launches["hstu_attention_bwd"] > 0):
+        failures.append(f"kernels #1/#2 on the ranks: {launches}")
+    if not (launches["row_write"] > 0
+            and all(r["row_write_checked"] for r in ranks)):
+        failures.append(f"kernel #3 on the ranks: {launches}")
+    out["seconds"] = seconds
+    out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError(f"train_global_reductions: {failures}")
+    return launches
+
+
 def device_record() -> dict:
     return {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -10249,6 +10791,9 @@ def main() -> int:
     stream_launches = timed("train_stream", phase_train_stream, smi)
     torch.cuda.empty_cache()
     pipelined_launches = timed("train_pipelined", phase_train_pipelined, smi)
+    torch.cuda.empty_cache()
+    grs_launches = timed("train_global_reductions",
+                         phase_train_global_reductions, smi)
     emit({"phase": "timeline", "seconds": seconds,
           "total_s": time.perf_counter() - start})
 
@@ -10282,7 +10827,8 @@ def main() -> int:
         # bound_ms are bf16's; fp16 has its own beside them
         kernel_row("hstu_attention_fwd", "hstu_attention.py:114",
                    serve_launches + train_fwd_launches + fp16_fwd_launches
-                   + gr_fwd + export_fwd + sharded["hstu_attention_fwd"],
+                   + gr_fwd + export_fwd + sharded["hstu_attention_fwd"]
+                   + grs_launches["hstu_attention_fwd"],
                    fwd_err, fwd_timing,
                    launches_by_path={"serving": serve_launches,
                                      "training": train_fwd_launches,
@@ -10290,25 +10836,32 @@ def main() -> int:
                                      "train_gr": gr_fwd,
                                      "export": export_fwd,
                                      "train_sharded":
-                                         sharded["hstu_attention_fwd"]},
+                                         sharded["hstu_attention_fwd"],
+                                     "train_global_reductions":
+                                         grs_launches["hstu_attention_fwd"]},
                    launches_by_dtype={
                        "bf16": serve_launches + train_fwd_launches,
                        "fp16": fp16_fwd_launches,
-                       "fp32": gr_fwd + sharded["hstu_attention_fwd"],
+                       "fp32": gr_fwd + sharded["hstu_attention_fwd"]
+                       + grs_launches["hstu_attention_fwd"],
                        "export (bf16, and fp32 HSTU-Match)": export_fwd},
                    fp16=fp16_row(fwd16),
                    hstu_synth_fp32=gr_row("hstu_attention_fwd")),
         kernel_row("hstu_attention_bwd", "hstu_attention.py:207",
                    bwd_launches + fp16_bwd_launches + gr_bwd
-                   + sharded["hstu_attention_bwd"], bwd_err, bwd_timing,
+                   + sharded["hstu_attention_bwd"]
+                   + grs_launches["hstu_attention_bwd"], bwd_err, bwd_timing,
                    launches_by_path={"training": bwd_launches,
                                      "train_options": fp16_bwd_launches,
                                      "train_gr": gr_bwd,
                                      "train_sharded":
-                                         sharded["hstu_attention_bwd"]},
+                                         sharded["hstu_attention_bwd"],
+                                     "train_global_reductions":
+                                         grs_launches["hstu_attention_bwd"]},
                    launches_by_dtype={
                        "bf16": bwd_launches, "fp16": fp16_bwd_launches,
-                       "fp32": gr_bwd + sharded["hstu_attention_bwd"]},
+                       "fp32": gr_bwd + sharded["hstu_attention_bwd"]
+                       + grs_launches["hstu_attention_bwd"]},
                    fp16=fp16_row(bwd16),
                    hstu_synth_fp32=gr_row("hstu_attention_bwd")),
         # at the real step's dim-16 targets, through the table less its
@@ -10323,7 +10876,7 @@ def main() -> int:
                    + export_writes + tdm_launches + sharded["row_write"]
                    + zch_launches + sid_launches + fg_launches
                    + zch_ranks_launches + stream_launches
-                   + pipelined_launches,
+                   + pipelined_launches + grs_launches["row_write"],
                    write_err, write_timing, write_library_ms,
                    slice_ms=write_slice_ms,
                    launches_by_path={
@@ -10342,7 +10895,8 @@ def main() -> int:
                        "train_fg": fg_launches,
                        "train_zch_ranks": zch_ranks_launches,
                        "train_stream": stream_launches,
-                       "train_pipelined": pipelined_launches}),
+                       "train_pipelined": pipelined_launches,
+                       "train_global_reductions": grs_launches["row_write"]}),
     ]})
     print(smi, flush=True)
     emit(device_record())

@@ -29,9 +29,9 @@ AUC of a world-1 ``evaluate`` of the same checkpoint (to 1e-6); a
 ``continue_train`` at world size 2 reuses the saved plan; the world-2
 checkpoint restores at world size 1 bit for bit.
 
-Refusals (one spawn): each model whose reduction over the batch the
-port does not compute over several ranks raises NotImplementedError at
-world size 2 and names it.
+Builds (one spawn): RQ-VAE builds at world size 2 without raising. The
+models whose reductions span the global batch are held at world size 2
+in tests/test_torch_port_global_reductions.py.
 """
 
 import json
@@ -71,7 +71,6 @@ from torch_port_helpers import (  # noqa: E402
     deepfm_table_names,
     hstu_synth_train_config_text,
     synth_cols,
-    zoo_config_text,
 )
 
 TOL = 1e-5
@@ -246,11 +245,11 @@ def _jax_steps(setup, steps_cols, labels, table_names):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """One spawn of two ranks for the whole file: the train steps of
-    every case, the entry points and the refusals. The JAX steps run
+    every case, the entry points and the builds. The JAX steps run
     while the ranks do. Returns ({case: (JAX result, [rank results])},
-    (config path, model dir, [entry results]), [refusals])."""
+    (config path, model dir, [entry results]), [builds])."""
     cfg_path, model_dir = _entry_files(tmp_path_factory.mktemp("entry"))
-    texts = _refused_texts(tmp_path_factory.mktemp("refused"))
+    texts = _built_texts()
     os.environ["TZREC_TABLE_MERGE"] = "0"
     try:
         setups, rank_cases = {}, []
@@ -415,59 +414,22 @@ def test_world_2_checkpoint_restores_at_world_1(entry_run):
             assert torch.equal(opt[n][k].reshape(v.shape), v), (n, k)
 
 
-# --- refusals --------------------------------------------------------------
-
-REFUSED = {
-    "dbmtl_jrc": ("DBMTL", "jrc_loss"),
-    "deepfm_jrc": ("DeepFM", "jrc_loss"),
-    "mind": ("MIND", "MIND"),
-    "hstu_match": ("HSTUMatch", "HSTU-Match"),
-    "sid_sinkhorn": ("SidRqvae", "Sinkhorn"),
-    "sid_contrastive": ("SidRqvae", "contrastive"),
-    "sid_rqkmeans": ("SidRqkmeans", "k-means"),
-}
+# --- builds ---------------------------------------------------------------
 
 
-def _refused_texts(root):
-    from test_torch_port_match import match_config_text
-    from test_hstu_match import CONFIG as HSTU_MATCH_CONFIG
-    from test_torch_port_sid import CONTRASTIVE, RQVAE, sid_config_text
+def _built_texts():
+    from test_torch_port_sid import RQVAE, sid_config_text
 
-    deepfm_jrc = deepfm_config_text().replace(
-        "  num_class: 1\n  losses { binary_cross_entropy {} }",
-        '  num_class: 2\n  losses { jrc_loss { session_name: "cat_2" } }')
-    return {
-        "dbmtl_jrc": zoo_config_text("dbmtl_jrc"),
-        "deepfm_jrc": deepfm_jrc,
-        "mind": match_config_text(
-            "mind_concat", {"items": "x", "pos": "x", "hard": "x"}),
-        "hstu_match": HSTU_MATCH_CONFIG.format(
-            train="x", eval="x", model_dir=str(root), item_table="x"),
-        "sid_sinkhorn": sid_config_text(RQVAE.replace(
-            "codebook: [16, 16]",
-            "codebook: [16, 16] sinkhorn_config { iters: 3 }")),
-        "sid_contrastive": sid_config_text(CONTRASTIVE, pair="flag"),
-        "sid_rqkmeans": sid_config_text("sid_rqkmeans { codebook: [8, 8] }"),
-        "sid_rqvae": sid_config_text(RQVAE),
-    }
+    return {"sid_rqvae": sid_config_text(RQVAE)}
 
 
 @pytest.fixture(scope="module")
-def refusals(runs):
+def builds(runs):
     return runs[2]
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_unported_reduction_raises_at_world_2(name, refusals):
-    model, what = REFUSED[name]
-    for out in refusals:
-        msg = out[name]
-        assert msg is not None, name
-        assert model in msg and what in msg and "world size 2" in msg, msg
-
-
-def test_rqvae_builds_at_world_2(refusals):
+def test_rqvae_builds_at_world_2(builds):
     """RQ-VAE without Sinkhorn or the contrastive loss reduces over the
     batch only in its losses' means, which span the ranks: it builds."""
-    for out in refusals:
+    for out in builds:
         assert out["sid_rqvae"] is None

@@ -184,7 +184,7 @@ def train_cases_rank(shard, cases):
     return [train_case(shard, *case) for case in cases]
 
 
-# --- entry points and refusals ------------------------------------------------
+# --- entry points and builds ------------------------------------------------
 
 
 def entry_points_rank(shard, cfg_path, more_steps):
@@ -232,7 +232,7 @@ def refusals_rank(shard, cfg_texts):
 
 
 def whole_file_rank(shard, train_cases, cfg_path, more_steps, cfg_texts):
-    """The train-step cases, the entry points and the refusals, in one
+    """The train-step cases, the entry points and the builds, in one
     spawn."""
     return (train_cases_rank(shard, train_cases),
             entry_points_rank(shard, cfg_path, more_steps),
@@ -805,3 +805,102 @@ def pipeline_file_rank(shard, engine, train, loop, decisions):
             zch_stage_case(shard), pipelined_train_case(shard, *train),
             overlap_loop_rank(shard, *loop),
             eval_decision_rank(shard, decisions))
+
+
+# --- reductions over the global batch ------------------------------------------
+
+
+def reduction_case(shard, cfg_text, canon, steps_cols, labels, plan,
+                   eval_cols=None, dump_dir=None):
+    """The train steps of the port from the state_dict ``canon``, each on
+    this process's columns of a global batch (``steps_cols``: one rank's,
+    or the whole batch without ``shard``); a model that collects samples
+    collects each batch and fits at the end. With ``eval_cols`` the eval
+    metrics of that batch, gathered from the ranks; with ``dump_dir`` a
+    delta dump every 2 steps and at the end. Returns (state_dict, sparse
+    optimizer state per table, losses per step, eval metrics)."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.metrics import sync_metrics
+    from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
+    from torcheasyrec_tpu_torch.utils.delta_embedding_dump import (
+        DeltaEmbeddingDumper,
+    )
+
+    cfg = parse_pipeline_config(cfg_text)
+    model, features, sparse_sched = port_main._build_model_and_optim(
+        cfg, "cpu", for_train=True, shard=shard, plan=plan)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in canon.items()})
+    tx, dense_sched = port_main._dense_optimizer(model, cfg.train_config)
+    state = port_main._init_state(model, tx)
+    step = port_main.make_train_step(model, tx, sparse_sched, dense_sched)
+    parser = DataParser(features, labels=labels)
+    dumper = None if dump_dir is None else DeltaEmbeddingDumper(
+        dump_dir, model.embedding_group, 2)
+    losses = []
+    for cols in steps_cols:
+        batch = parser.parse_to_batch(cols)
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["total_loss"]))
+        if hasattr(model, "collect_from_batch"):
+            model.collect_from_batch(batch)
+        if dumper is not None:
+            dumper.observe(batch)
+            dumper.maybe_dump(state["step"],
+                              model.embedding_group.engine_tables())
+    if dumper is not None:
+        dumper.dump(state["step"], model.embedding_group.engine_tables())
+    if hasattr(model, "on_train_end"):
+        model.on_train_end()
+    result = {}
+    if eval_cols is not None:
+        batch = parser.parse_to_batch(eval_cols)
+        preds, _ = port_main.make_eval_step(model)(batch)
+        ms = model.init_metrics()
+        model.update_metrics(ms, preds, batch)
+        sync_metrics(ms, shard)
+        result = model.compute_metrics(ms)
+    sd = {k: v.detach().float().numpy() for k, v in model.state_dict().items()}
+    opt = {n: {k: v.float().numpy() for k, v in st.items()}
+           for n, st in model.embedding_group.opt_state_dict(
+               state["sparse_opt"]).items()}
+    return sd, opt, losses, result
+
+
+def mesh_helpers_case(shard, x, parts):
+    """``mesh.logsumexp_rows`` of this rank's rows of ``x`` (an even split
+    of the global rows) with the gradient of the sum of its outputs
+    weighted by row, and ``mesh.gather_host_steps`` of this rank's
+    ``parts`` (``parts[rank]``: its buffers step by step)."""
+    from torcheasyrec_tpu_torch.parallel import mesh
+
+    per = x.shape[0] // shard.world
+    xt = torch.from_numpy(x[shard.rank * per:(shard.rank + 1) * per].copy())
+    xt.requires_grad_(True)
+    lse = mesh.logsumexp_rows(xt, shard)
+    w = torch.arange(1, lse.shape[1] + 1, dtype=lse.dtype)
+    (lse * w).sum().backward()
+    return (lse.detach().numpy(), xt.grad.numpy(),
+            mesh.gather_host_steps(parts[shard.rank], shard))
+
+
+def dump_loop_rank(shard, cfg_path):
+    """``train_and_evaluate`` with a delta dump, on this rank's file."""
+    from torcheasyrec_tpu_torch import main as port_main
+
+    return port_main.train_and_evaluate(cfg_path, device="cpu", shard=shard)
+
+
+def global_reductions_rank(shard, cases, helpers, loop_cfg):
+    """Everything of tests/test_torch_port_global_reductions.py that runs
+    on the ranks, in one spawn: each case's ``reduction_case`` on this
+    rank's columns, the mesh helpers and the loop with the dump."""
+    out = {}
+    for name, (text, canon, per_rank, labels, plan, evals, dump) in \
+            cases.items():
+        out[name] = reduction_case(
+            shard, text, canon, per_rank[shard.rank], labels, plan,
+            None if evals is None else evals[shard.rank],
+            None if dump is None else f"{dump}/rank_{shard.rank}")
+    return (out, mesh_helpers_case(shard, *helpers),
+            dump_loop_rank(shard, loop_cfg))

@@ -3,13 +3,20 @@
 Counterpart of torcheasyrec_tpu/losses/__init__.py. All return
 per-sample losses [B], in fp32; the reduction (with sample weights)
 happens in the model base. ``jrc_loss`` also reads each sample's
-session id, which the models pass as ``session_ids``.
+session id, which the models pass as ``session_ids``, and over several
+ranks the model's ``shard``.
 """
 
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+
+from torcheasyrec_tpu_torch.parallel.mesh import (
+    all_gather_with_grad,
+    gather_rows,
+    row_offset,
+)
 
 
 def binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -55,35 +62,51 @@ def binary_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def jrc_loss(logits: torch.Tensor, labels: torch.Tensor,
-             session_ids: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
+             session_ids: torch.Tensor, alpha: float = 0.5,
+             shard=None) -> torch.Tensor:
     """Joint Ranking and Calibration loss on two-class logits [B, 2]:
     alpha times the two-class CE plus (1 - alpha) times the session-wise
     listwise term. In the listwise term each sample competes, per class,
     with itself and with the samples of the same session and of the
     other label; it is the log-softmax of the class's logit over that
-    set, read at the sample. Builds [B, B] fp32 tensors."""
+    set, read at the sample. Builds [B, B] fp32 tensors.
+
+    Over several ranks (``shard``, a ``parallel/mesh.ShardContext``) the
+    competitors are the global batch's: each rank builds its rows
+    [B_local, B_global] against every rank's logits (gathered with their
+    gradients), labels and session ids, its own samples from its first
+    global row on, so that its per-sample losses are the global batch's
+    at its rows."""
     logits = logits.float()
     labels_i = labels.long()
     ce = softmax_cross_entropy(logits, labels_i)
-    same_sess = session_ids[:, None] == session_ids[None, :]
-    eye = torch.eye(logits.shape[0], dtype=torch.bool, device=logits.device)
+    b = logits.shape[0]
+    cols = all_gather_with_grad(logits, shard)
+    col_labels = gather_rows(labels_i, shard).float()
+    same_sess = session_ids[:, None] == gather_rows(session_ids,
+                                                    shard)[None, :]
+    off = row_offset(b, shard)
+    own = (torch.arange(cols.shape[0], device=logits.device)[None, :]
+           == torch.arange(off, off + b, device=logits.device)[:, None])
     y = labels_i.float()
 
-    def listwise(sample_logits, indicator, other_class):
-        allow = same_sess & (eye | (other_class[None, :] > 0))
-        masked = torch.where(allow, sample_logits[None, :],
-                             sample_logits.new_full((), float("-inf")))
-        diag = torch.log_softmax(masked, dim=-1).diagonal()
+    def listwise(col_logits, indicator, other_class):
+        allow = same_sess & (own | (other_class[None, :] > 0))
+        masked = torch.where(allow, col_logits[None, :],
+                             col_logits.new_full((), float("-inf")))
+        diag = torch.log_softmax(masked, dim=-1).diagonal(off)
         return -(diag * indicator)
 
-    ge = listwise(logits[:, 1], y, 1.0 - y) + listwise(logits[:, 0], 1.0 - y, y)
+    ge = (listwise(cols[:, 1], y, 1.0 - col_labels)
+          + listwise(cols[:, 0], 1.0 - y, col_labels))
     return alpha * ce + (1 - alpha) * ge
 
 
 def create_loss_fn(loss_config) -> Dict[str, Any]:
     """LossConfig proto -> {name, num_class, fn(logits or preds, labels,
     **kw)}; ``jrc_loss`` also names its ``session_name`` feature, whose
-    values the model passes to ``fn`` as ``session_ids``."""
+    values the model passes to ``fn`` as ``session_ids``, with the
+    model's ``shard`` over several ranks."""
     which = loss_config.WhichOneof("loss")
     cfg = getattr(loss_config, which)
     if which == "binary_cross_entropy":
@@ -105,6 +128,6 @@ def create_loss_fn(loss_config) -> Dict[str, Any]:
         a = cfg.alpha
         return {"name": which, "num_class": 2,
                 "session_name": cfg.session_name,
-                "fn": lambda x, y, session_ids, **kw: jrc_loss(
-                    x, y, session_ids, a)}
+                "fn": lambda x, y, session_ids, shard=None, **kw: jrc_loss(
+                    x, y, session_ids, a, shard)}
     raise ValueError(f"unsupported loss {which}")

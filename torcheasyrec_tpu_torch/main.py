@@ -62,8 +62,9 @@ global batch's mean (``models/model.BaseModel._reduce``); the ranks stop
 together when one runs out of input; the eval runs the ranks in step
 (a rank out of rows repeats its last batch without counting it) and
 gathers the metrics; rank 0 writes canonical checkpoints, which load at
-any world size and plan. The delta embedding dump, export and predict
-run on one rank only.
+any world size and plan; the delta embedding dump writes, from rank 0,
+the files of the global batch's touched rows. Export and predict run on
+one rank only.
 
 An export artifact holds the weights (``model/model.pt``), the
 ``pipeline.config``, ``fg.json`` and the serving program: a
@@ -982,11 +983,7 @@ def _train_and_evaluate(pipeline_config_path, train_input_path,
     eval_result: Dict[str, float] = {}
     delta_dumper = None
     if train_config.HasField("delta_embedding_dump_config"):
-        if multi:
-            raise NotImplementedError(
-                "delta_embedding_dump_config under several ranks is not "
-                "ported (the JAX package refuses it under several "
-                "processes too)")
+        # over several ranks its dumps are collective and rank 0 writes
         dcfg = train_config.delta_embedding_dump_config
         delta_dumper = DeltaEmbeddingDumper(
             dcfg.output_dir or os.path.join(model_dir,

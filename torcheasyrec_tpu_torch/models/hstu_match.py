@@ -19,7 +19,11 @@ Two candidate modes:
   similarity of [B * Lc, 1 + M (+ hard columns)] with a mask over the
   real positives; the loss is the masked mean of the softmax cross
   entropy, and the metrics read the real positives' rows. In-batch
-  negatives are refused in this mode.
+  negatives are refused in this mode. Over several ranks a rank keeps
+  its own positives and hard-negative slots and scores its users
+  against every rank's shared negatives (gathered with their gradients
+  in rank order), as the JAX package's one program scores the global
+  batch's M = world x S negatives.
 """
 
 from typing import Dict, List, Optional
@@ -28,7 +32,10 @@ import torch
 
 from torcheasyrec_tpu_torch.datasets.utils import Batch
 from torcheasyrec_tpu_torch.losses import softmax_cross_entropy
-from torcheasyrec_tpu_torch.parallel.mesh import batch_mean
+from torcheasyrec_tpu_torch.parallel.mesh import (
+    all_gather_with_grad,
+    batch_mean,
+)
 from torcheasyrec_tpu_torch.models.match_model import (
     HARD_SLOT_FILL,
     MatchModel,
@@ -172,9 +179,6 @@ class HSTUMatch(MatchModel):
             user_emb = l2_normalize(user_emb)
         return user_emb
 
-    def unsharded_reduction(self):
-        return "HSTU-Match's similarity over the batch's item blocks"
-
     def predict_tower(self, grouped: Dict[str, torch.Tensor], batch: Batch,
                       tower: str) -> torch.Tensor:
         if tower == "item":
@@ -210,9 +214,13 @@ class HSTUMatch(MatchModel):
         blocks = [torch.einsum("bd,bcd->bc", uf,
                                item_tok[:b].float())[..., None]]
         n_simple = neg_rows.shape[0] - n_hard
-        if n_simple > 0:
-            blocks.append((uf @ neg_rows[:n_simple].T)[:, None, :].expand(
-                b, lc, n_simple))
+        shared = neg_rows[:n_simple]
+        if self.shard is not None:
+            # every rank's shared negatives, in rank order
+            shared = all_gather_with_grad(shared, self.shard)
+        if shared.shape[0] > 0:
+            blocks.append((uf @ shared.T)[:, None, :].expand(
+                b, lc, shared.shape[0]))
         if n_hard:
             # each hard negative against its own user, in its user's row
             # and column; the empty slots' row B is cut off after the

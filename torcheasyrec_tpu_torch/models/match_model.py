@@ -24,7 +24,10 @@ from torcheasyrec_tpu_torch.losses import softmax_cross_entropy
 from torcheasyrec_tpu_torch.models.model import BaseModel
 from torcheasyrec_tpu_torch.modules.mlp import mlp_from_config
 from torcheasyrec_tpu_torch.modules.module import linear, linear_apply
-from torcheasyrec_tpu_torch.parallel.mesh import all_gather_with_grad
+from torcheasyrec_tpu_torch.parallel.mesh import (
+    all_gather_with_grad,
+    row_offset,
+)
 from torcheasyrec_tpu_torch.protos import simi_pb2
 from torcheasyrec_tpu_torch.utils.config_util import config_to_kwargs
 
@@ -163,10 +166,7 @@ class MatchModel(BaseModel):
     def in_batch_offset(self, b: int) -> int:
         """The global row of this rank's first user: the users of the
         ranks before it (0 on one rank)."""
-        if self.shard is None:
-            return 0
-        counts = self.shard.all_gather_list(torch.tensor([b]))
-        return int(sum(int(c) for c in counts[:self.shard.rank]))
+        return row_offset(b, self.shard)
 
     def _two_tower_predict(self, user_emb, item_emb, batch: Batch
                            ) -> Dict[str, torch.Tensor]:

@@ -9,7 +9,11 @@ package), then ``concat_mlp`` and the output linear ``user_out``, and
 the COSINE normalization where configured: [B, K, output_dim]. The item
 side is a ``MatchTower``. A user scores an item by label-aware
 attention: a softmax over the user's active interests of ``simi_pow``
-times their scores weights those scores.
+times their scores weights those scores. Over several ranks a rank's
+users score every rank's item rows, gathered with their gradients in the
+layout of ``MatchModel._sim``'s in-batch negatives ([every rank's
+positives | every rank's sampled negatives]), as the JAX package's one
+program scores the global batch's.
 """
 
 from typing import Dict, Tuple
@@ -21,6 +25,7 @@ from torcheasyrec_tpu_torch.models.match_model import MatchModel, l2_normalize
 from torcheasyrec_tpu_torch.modules.capsule import _MASKED, CapsuleLayer
 from torcheasyrec_tpu_torch.modules.mlp import mlp_from_config
 from torcheasyrec_tpu_torch.modules.module import linear, linear_apply
+from torcheasyrec_tpu_torch.parallel.mesh import all_gather_with_grad
 from torcheasyrec_tpu_torch.protos import simi_pb2
 from torcheasyrec_tpu_torch.utils.config_util import config_to_kwargs
 
@@ -114,26 +119,36 @@ class MIND(MatchModel):
                                    self.compute_dtype)
         raise ValueError(f"unknown tower {tower!r}")
 
-    def unsharded_reduction(self):
-        return "MIND's interest attention over the batch's item rows"
-
     def predict(self, grouped: Dict[str, torch.Tensor],
                 batch: Batch) -> Dict[str, torch.Tensor]:
         interests, cap_mask = self._interests(grouped)
         item_emb = self.predict_tower(grouped, batch, "item")
         b = interests.shape[0]
-        scores = interests.float() @ item_emb.float().T  # [B, K, B + S]
+        pos_rows, neg_rows = item_emb[:b].float(), item_emb[b:].float()
+        off = 0
+        if self.shard is not None:
+            # every rank's item rows, as the JAX package's one program
+            # sees them: [every rank's positives | every rank's negatives]
+            pos_rows = all_gather_with_grad(pos_rows, self.shard)
+            neg_rows = all_gather_with_grad(neg_rows, self.shard)
+            off = self.in_batch_offset(b)
+        n_pos = pos_rows.shape[0]
+        items = torch.cat([pos_rows, neg_rows])
+        scores = interests.float() @ items.T  # [B, K, B + S] (global)
         masked = torch.where(cap_mask[:, :, None], scores,
                              scores.new_full((), _MASKED))
         attn = torch.softmax(self._simi_pow * masked, dim=1)
         sim_all = (attn * masked).sum(1)  # [B, B + S]
-        # the positive is the user's own item (the diagonal)
-        pos = sim_all.diagonal()[:, None]
-        if sim_all.shape[1] > b:
-            sim = torch.cat([pos, sim_all[:, b:]], dim=1)
+        # the positive is the user's own item (the diagonal, from the
+        # rank's first global row)
+        pos = sim_all.diagonal(off)[:, None]
+        if sim_all.shape[1] > n_pos:
+            sim = torch.cat([pos, sim_all[:, n_pos:]], dim=1)
         else:
             sim = sim_all if self._in_batch_negative else pos
         preds = self._sim_to_prediction(sim)
+        if self._in_batch_negative and self.shard is not None:
+            preds["__in_batch_offset"] = torch.tensor(off)
         preds["user_interests"] = interests
         preds["item_tower_emb"] = item_emb
         return preds

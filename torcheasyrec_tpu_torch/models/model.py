@@ -181,24 +181,11 @@ class BaseModel(nn.Module, metaclass=_meta):
         return batch_mean(x.sum(), torch.tensor(float(x.numel())),
                           self.shard)
 
-    def unsharded_reduction(self) -> Optional[str]:
-        """The reduction over the batch this model computes that the port
-        does not compute over several ranks, else None."""
-        return None
-
     def attach_shard(self) -> None:
         """Give the batch norms the ranks (their batch statistics span
-        them); the model's own reductions read ``self.shard``. Raises
-        NotImplementedError, naming the reduction, for a model whose
-        ``unsharded_reduction`` would give a per-rank answer."""
+        them); the model's own reductions read ``self.shard``."""
         from torcheasyrec_tpu_torch.modules.module import BatchNorm
 
-        if self.shard is not None:
-            why = self.unsharded_reduction()
-            if why:
-                raise NotImplementedError(
-                    f"{type(self).__name__} at world size {self.shard.world}:"
-                    f" {why} is not computed over the global batch")
         for m in self.modules():
             if isinstance(m, BatchNorm):
                 m.shard = self.shard

@@ -101,12 +101,6 @@ class MultiTaskRank(RankModel):
                 t, linear_apply(out, h, dt)))
         return preds
 
-    def unsharded_reduction(self):
-        if any(lf["name"] == "jrc_loss" for fns in
-               self._task_loss_fns.values() for lf in fns):
-            return "jrc_loss's [B, B] session matrix"
-        return None
-
     def loss(self, predictions: Dict[str, torch.Tensor],
              batch: Batch) -> Dict[str, torch.Tensor]:
         losses = {}
@@ -122,7 +116,8 @@ class MultiTaskRank(RankModel):
                            + float(t.out_task_space_weight) * (1.0 - ind))
             for lf in self._task_loss_fns[t.tower_name]:
                 losses[f"{lf['name']}_{t.tower_name}"] = task_w * self._reduce(
-                    lf["fn"](logits, label, **loss_kwargs(lf, batch)), batch,
+                    lf["fn"](logits, label,
+                             **loss_kwargs(lf, batch, self.shard)), batch,
                     getattr(t, "sample_weight_name", "") or None, extra_w)
         if self._use_pareto and len(losses) > 1:
             # the weights come from the global losses: over several ranks

@@ -60,11 +60,6 @@ class RankModel(BaseModel):
             preds[f"y{suffix}"] = output[..., 0]
         return preds
 
-    def unsharded_reduction(self):
-        if any(lf["name"] == "jrc_loss" for lf in self._loss_fns):
-            return "jrc_loss's [B, B] session matrix"
-        return None
-
     def loss(self, predictions: Dict[str, torch.Tensor],
              batch: Batch) -> Dict[str, torch.Tensor]:
         losses = {}
@@ -75,7 +70,8 @@ class RankModel(BaseModel):
             if name == "l2_loss":
                 inp = predictions.get("y", predictions["probs"])
             losses[name] = self._reduce(
-                lf["fn"](inp, label, **loss_kwargs(lf, batch)), batch,
+                lf["fn"](inp, label, **loss_kwargs(lf, batch, self.shard)),
+                batch,
                 self._sample_weight_name)
         return losses
 
@@ -85,11 +81,13 @@ class RankModel(BaseModel):
 SOFTMAX_LOSSES = ("softmax_cross_entropy", "jrc_loss")
 
 
-def loss_kwargs(lf: Dict[str, Any], batch: Batch) -> Dict[str, Any]:
+def loss_kwargs(lf: Dict[str, Any], batch: Batch,
+                shard=None) -> Dict[str, Any]:
     """The keyword arguments of a loss beside logits and labels: JRC's
-    session ids."""
+    session ids and the ranks its listwise term spans."""
     if lf["name"] == "jrc_loss":
-        return {"session_ids": _grouping_value_dev(batch, lf["session_name"])}
+        return {"session_ids": _grouping_value_dev(batch, lf["session_name"]),
+                "shard": shard}
     return {}
 
 

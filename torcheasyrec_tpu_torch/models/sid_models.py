@@ -22,11 +22,16 @@ are ``unique_ratio`` (distinct code tuples over rows) and ``rel_loss``
 float64 on the host.
 
 Sinkhorn's column normalisation, the contrastive loss's in-batch
-negatives and RQ-KMeans' sample buffer reduce over the whole batch; at
-world size > 1 those configurations raise NotImplementedError.
+negatives and RQ-KMeans' sample buffer reduce over the whole batch, and
+over several ranks they span the global batch as the JAX package's one
+program does: Sinkhorn's column logsumexp and row count over every
+rank's rows, the contrastive loss against every rank's pair latents
+(gathered with their gradients, the mean over the global batch), and
+the k-means fit on every rank's samples in global batch order, rank 0's
+codebooks on every rank.
 """
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -36,6 +41,12 @@ from torcheasyrec_tpu_torch.metrics import _RowState, _SumState
 from torcheasyrec_tpu_torch.models.model import BaseModel
 from torcheasyrec_tpu_torch.modules.mlp import MLP
 from torcheasyrec_tpu_torch.modules.sid.quantizer import ResidualQuantizer
+from torcheasyrec_tpu_torch.parallel.mesh import (
+    all_gather_with_grad,
+    batch_mean,
+    gather_host_steps,
+    row_offset,
+)
 
 _KMEANS_ITERS = 20
 
@@ -143,12 +154,11 @@ class SidRqvae(_SidModel):
                 mc.contrastive_config.pair_feature_group,
                 mc.contrastive_config.pair_flag_feature_group)
 
-    def unsharded_reduction(self) -> Optional[str]:
-        if self._sinkhorn_iters > 0:
-            return "Sinkhorn's balanced assignment over the batch"
-        if self._contrastive_groups:
-            return "the contrastive loss's in-batch negatives"
-        return None
+    def attach_shard(self) -> None:
+        """The batch norms' ranks, and Sinkhorn's in each quantizer."""
+        super().attach_shard()
+        for vq in self.rq.layers():
+            vq.shard = self.shard
 
     def predict(self, grouped: Dict[str, torch.Tensor],
                 batch: Batch) -> Dict[str, Any]:
@@ -195,15 +205,18 @@ class SidRqvae(_SidModel):
                       + 1e-12)
             pn = pz / (torch.linalg.vector_norm(pz, dim=-1, keepdim=True)
                        + 1e-12)
+            # every rank's pair latents are the in-batch negatives; this
+            # rank's pairs start at its first global row
+            pn = all_gather_with_grad(pn, self.shard)
             logp = torch.log_softmax(zn @ pn.T / 0.1, dim=-1)
-            per = -logp.diagonal()
+            per = -logp.diagonal(row_offset(zn.shape[0], self.shard))
             flag = predictions.get("__pair_flag")
             if flag is not None:
                 w = (flag > 0).float()
-                losses["contrastive_loss"] = (
-                    (per * w).sum() / torch.clamp(w.sum(), min=1.0))
+                losses["contrastive_loss"] = batch_mean(
+                    (per * w).sum(), w.sum(), self.shard, eps=1.0)
             else:
-                losses["contrastive_loss"] = per.mean()
+                losses["contrastive_loss"] = mean(per)
         return losses
 
 
@@ -257,9 +270,6 @@ class SidRqkmeans(_SidModel):
         self.rq = ResidualQuantizer(dim, self._codebooks, self._generator,
                                     normalize_residuals=self._normalize)
 
-    def unsharded_reduction(self) -> Optional[str]:
-        return "the k-means fit over one process's sample buffer"
-
     def predict(self, grouped: Dict[str, torch.Tensor],
                 batch: Batch) -> Dict[str, Any]:
         x = grouped[self._main_group()].float()
@@ -293,12 +303,15 @@ class SidRqkmeans(_SidModel):
     def on_train_end(self) -> None:
         """Fit the codebooks level by level on the buffered samples (at
         most ``train_sample_size``), on the model's device; each level
-        fits the residual the previous levels leave."""
-        if not self._buffer:
+        fits the residual the previous levels leave. Over several ranks
+        (collective) the samples are every rank's in global batch order,
+        the JAX package's buffer of global batches, and every rank takes
+        rank 0's codebooks."""
+        samples = gather_host_steps(self._buffer, self.shard)
+        if not len(samples):
             return
         dev = self.rq.vq_0.codebook.device
-        x = torch.from_numpy(
-            np.concatenate(self._buffer)[: self._sample_cap]).to(dev)
+        x = torch.from_numpy(samples[: self._sample_cap]).to(dev)
         residual = x
         for i, (vq, k) in enumerate(zip(self.rq.layers(), self._codebooks)):
             r_in = residual
@@ -306,6 +319,8 @@ class SidRqkmeans(_SidModel):
                 r_in = r_in / (torch.linalg.vector_norm(
                     r_in, dim=1, keepdim=True) + 1e-12)
             cb = lloyd_kmeans(r_in, k, seed=i)
+            if self.shard is not None:
+                cb = self.shard.all_gather_list(cb)[0]
             vq.codebook.copy_(cb)
             d = ((r_in * r_in).sum(1, keepdim=True) + (cb * cb).sum(1)
                  - 2 * (r_in @ cb.T))

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from torcheasyrec_tpu_torch.parallel.mesh import global_count, logsumexp_rows
+
 
 def pairwise_dist(x: torch.Tensor, codebook: torch.Tensor,
                   distance_type: str) -> torch.Tensor:
@@ -34,17 +36,20 @@ def pairwise_dist(x: torch.Tensor, codebook: torch.Tensor,
 
 
 def sinkhorn_assign(dist: torch.Tensor, iters: int = 5,
-                    epsilon: float = 10.0) -> torch.Tensor:
+                    epsilon: float = 10.0, shard=None) -> torch.Tensor:
     """Balanced soft assignment [B, K] by Sinkhorn iterations over
     -dist / epsilon: rows normalised, then columns to B / K each. The
-    column step reduces over the whole batch."""
+    column step reduces over the whole batch: over several ranks
+    (``shard``) ``dist`` is this rank's rows, the columns' logsumexp
+    spans every rank's and B is the global row count."""
     log_p = -dist / epsilon
     b, k = dist.shape
+    if shard is not None:
+        b = int(global_count(b, shard))
     log_ratio = float(np.log(np.float32(b) / np.float32(k)))
     for _ in range(iters):
         log_p = log_p - torch.logsumexp(log_p, dim=1, keepdim=True)
-        log_p = (log_p - torch.logsumexp(log_p, dim=0, keepdim=True)
-                 + log_ratio)
+        log_p = log_p - logsumexp_rows(log_p, shard) + log_ratio
     return torch.exp(log_p)
 
 
@@ -55,7 +60,11 @@ def gumbel_uniform(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 class VectorQuantizer(nn.Module):
-    """One codebook ``codebook`` [K, D], drawn from N(0, 1/D)."""
+    """One codebook ``codebook`` [K, D], drawn from N(0, 1/D). ``shard``
+    (the model's ranks, set by ``SidRqvae.attach_shard``) is what
+    Sinkhorn's column step spans."""
+
+    shard = None
 
     def __init__(self, dim: int, codebook_size: int,
                  generator: torch.Generator, forward_mode: str = "ste",
@@ -80,7 +89,8 @@ class VectorQuantizer(nn.Module):
         dist = pairwise_dist(xf, codebook, self.distance_type)
         if self.training and self.sinkhorn_iters > 0:
             codes = torch.argmax(sinkhorn_assign(
-                dist, self.sinkhorn_iters, self.sinkhorn_epsilon), dim=-1)
+                dist, self.sinkhorn_iters, self.sinkhorn_epsilon,
+                self.shard), dim=-1)
         else:
             codes = torch.argmin(dist, dim=-1)
         if self.forward_mode == "gumbel_softmax" and self.training:

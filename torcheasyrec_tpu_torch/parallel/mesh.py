@@ -24,6 +24,7 @@ metric.
 import dataclasses
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -182,6 +183,67 @@ def all_gather_with_grad(x: torch.Tensor,
     if shard is None or shard.world <= 1:
         return x
     return _AllGatherRows.apply(x, shard)
+
+
+def gather_rows(x: torch.Tensor,
+                shard: Optional[ShardContext]) -> torch.Tensor:
+    """Every rank's rows of ``x`` (any counts) in rank order, without a
+    gradient (labels, session ids); ``x`` itself at world size 1."""
+    if shard is None or shard.world <= 1:
+        return x
+    return shard.all_gather_var(x.detach())[0]
+
+
+def row_offset(n: int, shard: Optional[ShardContext]) -> int:
+    """The global row of this rank's first row, given its ``n`` rows: the
+    rows of the ranks before it (0 at world size 1)."""
+    if shard is None or shard.world <= 1:
+        return 0
+    counts = shard.all_gather_list(torch.tensor([n]))
+    return int(sum(int(c) for c in counts[:shard.rank]))
+
+
+def logsumexp_rows(x: torch.Tensor,
+                   shard: Optional[ShardContext]) -> torch.Tensor:
+    """``torch.logsumexp(x, dim=0, keepdim=True)`` over the global batch
+    (the rows of every rank), differentiable: the columns' max is
+    all-reduced first, then the shifted sums of exponentials."""
+    if shard is None or shard.world <= 1:
+        return torch.logsumexp(x, dim=0, keepdim=True)
+    top = shard.all_reduce(x.detach().amax(dim=0, keepdim=True),
+                           op=dist.ReduceOp.MAX)
+    top = torch.where(torch.isfinite(top), top, top.new_zeros(()))
+    total = all_reduce_with_grad((x - top).exp().sum(dim=0, keepdim=True),
+                                 shard)
+    return top + total.log()
+
+
+def gather_host_steps(parts: Sequence[np.ndarray],
+                      shard: Optional[ShardContext]) -> np.ndarray:
+    """Host buffers that each rank filled one step at a time (``parts[j]``
+    its rows of step j, every rank's of the same width), as one array in
+    global batch order: step 0's rows of rank 0, of rank 1, ..., then step
+    1's. A rank may hold fewer steps than another. The parts concatenated
+    at world size 1."""
+    if not parts:
+        return np.zeros((0, 0), np.float32)
+    local = np.concatenate(parts)
+    if shard is None or shard.world <= 1:
+        return local
+    rows, _ = shard.all_gather_var(torch.from_numpy(local))
+    step_counts, per_rank = shard.all_gather_var(
+        torch.tensor([len(p) for p in parts], dtype=torch.int64))
+    rows, step_counts = rows.numpy(), step_counts.tolist()
+    blocks, pos = [], 0
+    for n_steps in per_rank:
+        mine = []
+        for c in step_counts[:n_steps]:
+            mine.append(rows[pos:pos + c])
+            pos += c
+        step_counts = step_counts[n_steps:]
+        blocks.append(mine)
+    return np.concatenate([b[j] for j in range(max(per_rank))
+                           for b in blocks if j < len(b)])
 
 
 def global_count(x, shard: Optional[ShardContext]) -> torch.Tensor:

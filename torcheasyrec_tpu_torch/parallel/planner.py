@@ -242,7 +242,8 @@ def create_plan(
     (plan_cost() is the public wrapper).
     """
     if not specs:
-        return {}
+        # a model without tables (the SID models' raw vectors)
+        return ({}, 0.0, {}) if _return_cost else {}
     reserve = _env("STORAGE_RESERVE_PERCENT")
     budget = (
         hbm_budget if hbm_budget is not None else _env("HBM_CAPACITY")

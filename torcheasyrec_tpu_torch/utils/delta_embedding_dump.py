@@ -11,6 +11,12 @@ step). Features that share a table share its shard.
 The ids are marked on the device, one flag per table row (the batches
 are already there), so a step adds no wait for the host; a dump reads
 the flags and the touched rows back.
+
+Over several ranks (the engine's ``shard``) a dump is collective: the
+ranks' touched ids are gathered into the global batch's union, each
+rank fills the rows it holds of those ids (``engine.read_rows``: only
+the touched rows travel, never a whole table) and rank 0 alone writes
+the files, the same files under every layout.
 """
 
 import os
@@ -22,6 +28,7 @@ import pyarrow.parquet as pq
 import torch
 
 from torcheasyrec_tpu_torch.datasets.utils import Batch
+from torcheasyrec_tpu_torch.parallel.mesh import gather_rows
 
 
 class DeltaEmbeddingDumper:
@@ -69,17 +76,24 @@ class DeltaEmbeddingDumper:
 
     def dump(self, step: int, tables: Dict[str, torch.Tensor]) -> None:
         """Write the touched rows of ``tables`` (the engine's group
-        storage) and forget them."""
+        storage) and forget them. Collective over several ranks: every
+        rank calls it at the same step."""
         engine = self._eg.engine
-        for table, flags in self._touched.items():
-            ids = torch.nonzero(flags[:-1]).reshape(-1)
+        shard = engine.shard
+        # every table in one order on every rank: the gathers pair up
+        for table in sorted(self._rows):
+            flags = self._touched.get(table)
+            ids = (torch.nonzero(flags[:-1]).reshape(-1) if flags is not None
+                   else torch.zeros(0, dtype=torch.long))
+            ids = torch.unique(gather_rows(ids, shard))
             if ids.numel() == 0:
                 continue
-            rows = engine.extract_table(tables, table)[ids]
-            emb = rows.float().cpu().numpy()
+            rows = engine.read_rows(tables, table, ids)
+            if shard is not None and shard.rank != 0:
+                continue
             pq.write_table(pa.table({
                 "id": pa.array(ids.cpu().numpy().astype(np.int64)),
-                "embedding": pa.array(list(emb)),
+                "embedding": pa.array(list(rows.cpu().numpy())),
             }), os.path.join(self._dir,
                              f"{self._prefix}-{table}-{step}.parquet"))
         self._touched.clear()
