@@ -13,7 +13,9 @@ Criteo-shaped data (the config of the repo's train benchmark, bench.py:
 26 id features at dim 16 plus their WIDE copies at dim 4, 13 dense
 features, batch 8192, deep 512-256-128, final 128-64, BF16, sparse
 rowwise_adagrad and dense adam at lr 0.001) with the tables at the
-reference's real bucket sizes, uncapped, fp32 and packed; and the
+reference's real bucket sizes, uncapped, fp32 and packed, each feature's
+WIDE and DEEP tables merged into one (the co-keyed table merge, on by
+default as in the JAX engine); and the
 Criteo ranking, multi-task and retrieval zoo: the port's copies of
 twelve of the JAX package's criteo_synth quality-benchmark configs
 (Wide&Deep, DLRM, DCN-v2, MaskNet, MMoE, PLE, DBMTL; batch 4096, 26
@@ -103,15 +105,25 @@ one JSON line each:
    kernel it replaced), and a profile of one forward and of one train step
    by device kernel.
 6. train_deepfm: warm-up and 30 timed steps on a resident batch through
-   ``make_train_step`` at the uncapped sizes (19.1 GB of packed tables
-   with their in-row accumulators), the same with the dense lane off;
+   ``make_train_step`` at the uncapped sizes (20.9 GB of packed tables
+   with their in-row accumulators: one merged group, d20_s16.4, 22-lane
+   slots, 5 a physical row), the same with the dense lane off; the
+   merge check (``merge_check``): the merged model beside one built with
+   ``TZREC_TABLE_MERGE=0`` (groups d16 and d4) from the same seed, equal
+   at the start, 3 steps on the same batches: every table and its row
+   state within 1e-5 of its max after step 1 and within the 3-step floor
+   below after step 3, each step's logits bit-equal at step 1 and within
+   that floor after, 1 dedup and 1 row write a step against 2 and 2; the
+   merged model's first write held against the plain version (the
+   written rows bit-equal, nothing else written) and timed at its shape
+   beside the plain version, ``index_copy_`` and the bound;
    then, with the five 40 M-row tables capped at 10 M so that several
    models fit side by side and the checkpoint stays at 5 GB, 3 steps over
    distinct batches from a parquet file, an eval pass and the checkpoint
    through ``train_and_evaluate``, ``evaluate`` of that checkpoint, and a
    restore into a fresh model. The row-write launch count is set to 0
    before the driven steps and read after them. Checks: finite losses;
-   the loss on the repeated batch falls; exactly 2 row-write launches
+   the loss on the repeated batch falls; exactly 1 row-write launch
    per step; sampled physical rows that the batch did not touch keep
    their bits and touched ones change; in fp32 steps from the same
    weights and batches the packed engine agrees with the unpacked one,
@@ -128,17 +140,26 @@ one JSON line each:
 7. train_loader: the uncapped DeepFM trained from a directory of nine
    parquet files of uneven row counts (330 811 rows, row groups of
    10 000, ids drawn below the 10 M cap) through the port's loader and
-   the training loop's body (``main.train_epoch``): two epochs with the
-   thread prefetch, two with 4 worker processes (one with a synchronise
-   after every step for the median, one timed as a window). It prints
-   the loader alone (examples/s, batches only read, parsed, pinned and
-   copied), one batch's host-to-device copy (per tensor as the loader
-   copies, from pageable memory, and as one coalesced buffer of the same
-   bytes), the loader-fed and the resident-batch step of the same model,
+   the training loop's body (``main.train_epoch``): with the thread
+   prefetch, the loader's packed copy and the per-leaf copy it replaced
+   (``PerLeafThread``) in turns, packed, per leaf, per leaf, packed (the
+   first two with a synchronise after every step for the median, the
+   last two timed as a window); with 4 worker processes, packed, per
+   leaf (``PerLeafWorkers``), packed (the first synchronised, the other
+   two windows of 33 steps, each with the median of its unsynchronised
+   step intervals). It prints
+   the loader alone (examples/s, batches only read, parsed, packed and
+   copied), one batch's host-to-device copy (per tensor, from pageable
+   memory, as one coalesced buffer of the same bytes, and as the loader
+   copies it: one packed wire, ``pack_check``, whose unpacked batch on
+   the card and rebuilt host batch must equal the host batch but for
+   the dense features' bf16 rounding, its host ms beside the per-leaf
+   copy's), the loader-fed steps of both arms and the resident-batch
+   step of the same model,
    and the device's idle share over 10 profiled loader-fed steps.
    Checks: each epoch consumes every row once but each shard's final
    remainder (by a row-id column carried as a reserved column), exactly
-   2 row-write launches a step. Then, at the capped tables,
+   1 row-write launch a step. Then, at the capped tables,
    ``train_and_evaluate`` for 10 steps with a save and an eval every 4
    steps, 2 checkpoints kept, a glob as the eval input and an
    ``eval_batch_size`` of 6 000; a second model dir trains 4 steps
@@ -203,13 +224,15 @@ one JSON line each:
    the loss falling. (b) criteo_synth DeepFM at its published width
    (buckets capped at 100 000, batch 4096, fp32 compute so that card and
    CPU can be held close) under each of the six new sparse kinds, with
-   rowwise adagrad (the slot-17 reference) and with BF16 and FP16 tables:
+   rowwise adagrad (the slot-22 reference: each feature's WIDE and DEEP
+   tables merged, 20 weights and 2 accumulators) and with BF16 and FP16
+   tables:
    each group's (slot, rows per physical row), 5 steps with one row write
    a step per packed group, one real step's writes bit-equal to the plain
    version, the tables after step 1 within 1e-5 of each table's max of a
    CPU step from the same weights (one unit in the last place for BF16
-   and FP16 tables); the row write timed at the slot-48 layout (lamb)
-   beside the slot-17 one. (c) criteo_synth DBMTL through
+   and FP16 tables); the row write timed at the slot-60 layout (lamb,
+   merged) beside the slot-22 one. (c) criteo_synth DBMTL through
    ``train_and_evaluate`` for one epoch (8 batches of 4096) with part
    optimizers on its towers, train metrics (logged), every eval metric
    kind (a third tower of 3 classes for those that read [B, C]) and a
@@ -507,8 +530,9 @@ their plain versions at HSTU-Match's first attention call cut to a rank's
 rows, kernel #3 at each rank's first two writes of dbmtl_jrc's packed
 blocks; the three kernels' launches on the ranks are counted.
 
-Then a ``timeline`` line (each phase's seconds), a ``kernels`` line, the
-card's name and power limit as nvidia-smi
+Then a ``timeline`` line (each phase's seconds), a ``kernels`` line
+(the row write's times at the main path's shape, the merged DeepFM
+write; its dim-16 times beside them), the card's name and power limit as nvidia-smi
 prints them, and as the last line the device record. Any failure raises
 and exits non-zero; without CUDA it exits non-zero before any result.
 """
@@ -1755,10 +1779,12 @@ COLD_BYTES = 100e6
 
 
 def deepfm_engine(buckets=CRITEO_RAW, lookups=()):
-    """The embedding engine of the DeepFM lane (its layout only, no table
-    is allocated): one packed group per dim, dim 16 (slot 17, 7 logical
-    rows per physical row) and the WIDE dim 4 (slot 5, 25 per row), the
-    Criteo tables uncapped, the dense lane at its 32768 rows."""
+    """The embedding engine of the DeepFM lane unmerged (its layout only,
+    no table is allocated): one packed group per dim, dim 16 (slot 17, 7
+    logical rows per physical row) and the WIDE dim 4 (slot 5, 25 per
+    row), the Criteo tables uncapped, the dense lane at its 32768 rows.
+    The layout the step had before the co-keyed merge, kept as kernel
+    #3's dim-16 reference shape (``merge_check`` times the merged one)."""
     from torcheasyrec_tpu_torch.parallel.emb_engine import (
         EmbeddingEngine,
         TableSpec,
@@ -1768,15 +1794,17 @@ def deepfm_engine(buckets=CRITEO_RAW, lookups=()):
     return EmbeddingEngine(
         [TableSpec(f"cat_{i}_dim{d}", n, d) for d in (DEEPFM_DIM, 4)
          for i, n in enumerate(buckets)],
-        lookups, SparseOptimizer("rowwise_adagrad", {"lr": 0.001}))
+        lookups, SparseOptimizer("rowwise_adagrad", {"lr": 0.001}),
+        merge=False)
 
 
 def step_row_write_targets(buckets=CRITEO_RAW, batch=DEEPFM_BATCH,
                            device="cuda"):
-    """{dim: (physical rows, targets)} of the DeepFM step's two row writes,
-    built as ``EmbeddingEngine._packed_update`` builds them from the seeded
-    batch that phase train_deepfm trains on (``criteo_cols(CRITEO_RAW,
-    0)``): the ids of the tables above the dense lane, offset into the
+    """{dim: (physical rows, targets)} of the unmerged DeepFM step's two
+    row writes (``deepfm_engine``), built as
+    ``EmbeddingEngine._packed_update`` builds them from the seeded batch
+    that phase train_deepfm trains on (``criteo_cols(CRITEO_RAW, 0)``):
+    the ids of the tables above the dense lane, offset into the
     group, deduplicated in sorted order; the first id of each physical row
     targets that row, every later one the scratch row (the last)."""
     cols = criteo_cols(buckets, 0, batch)
@@ -2139,6 +2167,246 @@ def timed_steps(train_step, state, batch, n_warmup, n_steps):
     return losses, step_ms, window_ms
 
 
+# the merge check: steps of the merged and the unmerged uncapped DeepFM
+MERGE_STEPS = 3
+MERGE_TIMED = 10  # steps of each model timed in turns after the check
+MERGED_GROUP = "d20_s16.4"  # 26 x (16 + 4) columns, slot 22, 5 a row
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    """``os.environ[name] = value`` inside the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+@contextlib.contextmanager
+def counted_dedups():
+    """Counts the engine's sorted dedups (``EmbeddingEngine._dedup``: one
+    per packed or unpacked group update past the dense lane) inside the
+    block; yields [count]."""
+    from torcheasyrec_tpu_torch.parallel.emb_engine import EmbeddingEngine
+
+    real = EmbeddingEngine.__dict__["_dedup"]
+    count = [0]
+
+    def counted(ids, grads, rows):
+        count[0] += 1
+        return real.__func__(ids, grads, rows)
+
+    EmbeddingEngine._dedup = staticmethod(counted)
+    try:
+        yield count
+    finally:
+        EmbeddingEngine._dedup = real
+
+
+@contextlib.contextmanager
+def merged_write_check(report: dict):
+    """The first ``write_rows`` call inside the block (the merged group's
+    write of a step) held against the plain version in place: the kernel
+    writes, its rows are kept, the targeted rows restored, the plain
+    version writes them again; the two must be bit-equal, and the sum of
+    the whole table's bits must move by exactly the targeted rows' change
+    (no write outside them). ``report`` gets the call's targets and rows
+    (for the timing) and the results. The call counts as the step's
+    launch."""
+    from torcheasyrec_tpu_torch.ops import row_write
+
+    real = row_write.write_rows
+
+    def bits(t):
+        # by chunks of 2^20 rows: a sum of an int32 view of the whole
+        # table makes an int64 copy of it first
+        v = t.view(torch.int32)
+        return sum(int(v[i:i + (1 << 20)].sum())
+                   for i in range(0, v.shape[0], 1 << 20))
+
+    def capture(table, ids, rows):
+        if "ids" in report:
+            return real(table, ids, rows)
+        live = ids[ids < table.shape[0]]
+        before = table[live]
+        s0 = bits(table)
+        real(table, ids, rows)  # counts on the module's name, ``capture``
+        got = table[live]
+        moved = bits(table) - s0
+        table[live] = before
+        row_write._torch_write_rows(table, ids, rows)
+        ref = table[live]
+        report.update(
+            ids=ids.clone(), rows=rows.clone(), table=table,
+            targets=int(ids.shape[0]), rows_written=int(live.shape[0]),
+            bit_equal=bool(torch.equal(got, ref)),
+            nothing_else_written=moved == bits(got) - bits(before),
+            max_abs_err=float((got - ref).abs().max()))
+        table[live] = got
+        return table
+
+    capture.launches = real.launches
+    row_write.write_rows = capture
+    try:
+        yield report
+    finally:
+        row_write.write_rows = real
+        real.launches = capture.launches
+
+
+def merge_check(cfg, features) -> dict:
+    """The uncapped DeepFM as the port trains it by default, each of its 26
+    WIDE (dim 4) and DEEP (dim 16) table pairs merged into one dim-20
+    table of group MERGED_GROUP (slot 22: 20 weights and an accumulator
+    per member; 5 a physical row), against the same model with
+    ``TZREC_TABLE_MERGE=0`` (groups d16, slot 17, and d4, slot 5) from
+    the same seed's weights, MERGE_STEPS steps on the same batches. Holds:
+    the weights equal at the start (every table, the dense parameters);
+    every original table and its row state within LAYOUT_TOL of its max
+    after step 1 and within the 3-step floor after the last (at most
+    LAYOUT_TOL of the elements beyond LAYOUT_TOL); each step's logits
+    (the eval step's at the weights the step reads) bit-equal at step 1,
+    within the 3-step floor after; one dedup and one kernel #3 launch a
+    step merged, two unmerged. The merged model's first write is held
+    against the plain version (``merged_write_check``) and kernel #3 is
+    timed at its shape."""
+    from torcheasyrec_tpu_torch import main as port_main
+    from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+    from torcheasyrec_tpu_torch.ops.row_write import (
+        _torch_write_rows,
+        write_rows,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with env_set("TZREC_TABLE_MERGE", "0"):
+        um, _, _, ust, ustep = build_trainer(cfg)
+    mm, _, _, mst, mstep = build_trainer(cfg)
+    me, ue = mm.embedding_group.engine, um.embedding_group.engine
+    g = me.groups.get(MERGED_GROUP)
+    if (set(me.groups) != {MERGED_GROUP} or not g.packed
+            or (g.slot, g.spr, len(g.specs)) != (22, 5, 26)
+            or {k: v.slot for k, v in ue.groups.items()} != {
+                "d16": 17, "d4": 5}):
+        raise AssertionError(
+            f"merged groups {[(k, v.slot, v.spr) for k, v in me.groups.items()]}"
+            f", unmerged {[(k, v.slot) for k, v in ue.groups.items()]}")
+    layouts = {name: {gk: {"slot": x.slot, "rows_per_physical_row": x.spr,
+                           "physical_rows": x.p_rows,
+                           "gb": x.p_rows * 512 / 1e9}
+                      for gk, x in e.groups.items()}
+               for name, e in (("merged", me), ("unmerged", ue))}
+    names = list(me._specs)
+    fm, fu = mm.embedding_group.engine_tables(), um.embedding_group.engine_tables()
+
+    def tables_err():
+        worst, beyond, total = 0.0, 0, 0
+        for name in names:
+            sm = me.extract_table_state(fm, mst["sparse_opt"], name)
+            su = ue.extract_table_state(fu, ust["sparse_opt"], name)
+            if set(sm) != set(su):
+                raise AssertionError(f"{name}: row state names differ")
+            pairs = [(me.extract_table(fm, name), ue.extract_table(fu, name))]
+            pairs += [(sm[k], su[k]) for k in su]
+            for a, b in pairs:
+                diff = (a.float() - b.float()).abs()
+                scale = max(float(b.float().abs().max()), 1e-30)
+                worst = max(worst, float(diff.max()) / scale)
+                beyond += int((diff > LAYOUT_TOL * scale).sum())
+                total += diff.numel()
+                del diff
+        return worst, beyond / total
+
+    init_err, _ = tables_err()
+    dense_equal = all(torch.equal(a, b) for a, b in zip(
+        mm.parameters(), um.parameters()))
+    if init_err != 0.0 or not dense_equal:
+        raise AssertionError(f"merged and unmerged start apart: tables "
+                             f"{init_err}, dense equal {dense_equal}")
+    peak_both_gb = torch.cuda.max_memory_allocated() / 1e9
+    parser = DataParser(features, labels=["label"])
+    batches = [parser.parse_to_batch(criteo_cols(CRITEO_RAW, 40 + i)).to(
+        "cuda") for i in range(MERGE_STEPS)]
+    eval_m, eval_u = port_main.make_eval_step(mm), port_main.make_eval_step(um)
+    per_step, write = [], {}
+    for i, b in enumerate(batches):
+        lm, lu = eval_m(b)[0]["logits"], eval_u(b)[0]["logits"]
+        logit_err = float((lm.float() - lu.float()).abs().max()) / max(
+            float(lu.float().abs().max()), 1e-30)
+        counts = {}
+        for name, step, st in (("merged", mstep, mst), ("unmerged", ustep,
+                                                          ust)):
+            before = write_rows.launches
+            with counted_dedups() as dedups, (
+                    merged_write_check(write) if name == "merged" and i == 0
+                    else contextlib.nullcontext()):
+                step(st, b)
+                torch.cuda.synchronize()
+            counts[name] = {"dedups": dedups[0],
+                            "row_writes": write_rows.launches - before}
+        if counts != {"merged": {"dedups": 1, "row_writes": 1},
+                      "unmerged": {"dedups": 2, "row_writes": 2}}:
+            raise AssertionError(f"merge check step {i + 1}: {counts}")
+        entry = {"step": i + 1, "logits_err": logit_err, "counts": counts}
+        if i in (0, MERGE_STEPS - 1):
+            entry["tables_err"], entry["share_beyond_1e-5"] = tables_err()
+            limit = LAYOUT_TOL if i == 0 else LAYOUT_TOL_3_STEPS
+            if not (entry["tables_err"] <= limit
+                    and entry["share_beyond_1e-5"] <= LAYOUT_TOL):
+                raise AssertionError(f"merged vs unmerged after step {i + 1}:"
+                                     f" {entry} (limit {limit})")
+        # step 1 reads equal weights; later steps read tables an ulp or so
+        # apart, which BF16's rounding of the lookups can widen
+        limit = 0.0 if i == 0 else LAYOUT_TOL_3_STEPS
+        if not logit_err <= limit:
+            raise AssertionError(f"merged vs unmerged logits at step "
+                                 f"{i + 1}: {logit_err} (limit {limit})")
+        per_step.append(entry)
+    if not (write.get("bit_equal") and write.get("nothing_else_written")):
+        raise AssertionError(f"kernel #3 at the merged shape: {write}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the two resident steps in turns (merged, unmerged, merged, unmerged):
+    # median ms of MERGE_TIMED synchronised steps after 2, and a window
+    turns = {"merged": [], "unmerged": []}
+    for name in ("merged", "unmerged", "merged", "unmerged"):
+        step, st = (mstep, mst) if name == "merged" else (ustep, ust)
+        _, ms, window = timed_steps(step, st, batches[0], 2, MERGE_TIMED)
+        turns[name].append({"step_ms_median": float(np.median(ms)),
+                            "window_step_ms": window})
+    del um, ust, ustep, fu, eval_u
+    torch.cuda.empty_cache()
+
+    # kernel #3 at the merged write's shape (the step's targets and rows,
+    # through the view less the scratch row); the writes land on rows the
+    # later steps moved, and the model is dropped after
+    live, ids, rows = write.pop("table"), write.pop("ids"), write.pop("rows")
+    kept = write_rows.launches
+    keep = ids < live.shape[0]
+    lib_ids, lib_rows = ids[keep], rows[keep]
+    nbytes = row_write_bytes(live, ids)
+    timing = {
+        "kernel_ms": device_ms(lambda: write_rows(live, ids, rows), 50),
+        "plain_ms": cuda_ms(lambda: _torch_write_rows(live, ids, rows), 20),
+        "library_ms": device_ms(
+            lambda: live.index_copy_(0, lib_ids, lib_rows), 50),
+        "bytes": nbytes, "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+        "bound_by": "bytes", "table": [live.shape[0] + 1, 128],
+        "table_gb": (live.shape[0] + 1) * 512 / 1e9}
+    write_rows.launches = kept  # timing does not count
+    del mm, mst, mstep, fm, eval_m, live, ids, rows, lib_ids, lib_rows
+    del batches
+    torch.cuda.empty_cache()
+    return {"layouts": layouts, "steps": per_step,
+            "peak_both_models_gb": peak_both_gb, "peak_gb": peak_gb,
+            "resident_step_in_turns": turns,
+            "merged_write": {**write, **timing}}
+
+
 def phase_train_deepfm():
     import pyarrow as pa
     import pyarrow.parquet as pq
@@ -2163,6 +2431,9 @@ def phase_train_deepfm():
               for gk, g in eg.engine.groups.items()}
     if not all(g.packed for g in eg.engine.groups.values()):
         raise AssertionError("a DeepFM group did not pack")
+    if set(eg.engine.groups) != {MERGED_GROUP}:
+        raise AssertionError(f"DeepFM groups {sorted(eg.engine.groups)}: "
+                             f"the merge gives {MERGED_GROUP} alone")
     batch = DataParser(features, labels=["label"]).parse_to_batch(
         criteo_cols(CRITEO_RAW, 0)).to("cuda")
 
@@ -2191,10 +2462,10 @@ def phase_train_deepfm():
         train_step, state, batch, DEEPFM_WARMUP, DEEPFM_STEPS)
     n_driven = DEEPFM_WARMUP + 2 * DEEPFM_STEPS
     step_launches = write_rows.launches
-    if step_launches != 2 * n_driven:
+    if step_launches != n_driven:
         raise AssertionError(
             f"row_write launched {step_launches} times in {n_driven} steps "
-            "of 2 packed groups")
+            "of the merged packed group")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"DeepFM losses on the repeated batch: {losses}")
     sample_report = {}
@@ -2218,7 +2489,8 @@ def phase_train_deepfm():
         train_step(state, batch)
     step_profile = profile_forward(one_step)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del model, state, train_step, eg
+    # the closure and the loops' ``store`` hold the model's tables
+    del model, state, train_step, eg, one_step, store
     torch.cuda.empty_cache()
 
     # the same steps with the dense lane off (every table's ids sorted)
@@ -2228,7 +2500,10 @@ def phase_train_deepfm():
         step_off, state_off, batch, DEEPFM_WARMUP, DEEPFM_STEPS // 2)
     del model_off, state_off, step_off
     torch.cuda.empty_cache()
-    main_launches = write_rows.launches  # lane off: 2 a step as well
+    # merged against unmerged (the unmerged model's launches count too:
+    # both are the main path's engine, the merge switched off in one)
+    merge = merge_check(cfg, features)
+    main_launches = write_rows.launches  # lane off: 1 a step as well
 
     # --- capped sizes: several models side by side --------------------------
     capped = [min(n, CRITEO_CAP) for n in CRITEO_RAW]
@@ -2340,7 +2615,7 @@ def phase_train_deepfm():
         restored = checkpoint_util.restore_checkpoint(ckpt, fresh, tx)
         saved = torch.load(ckpt, map_location="cuda", weights_only=True)
         reload_s = time.perf_counter() - t0
-    if file_launches != 2 * 3 or result["step"] != 3:
+    if file_launches != 3 or result["step"] != 3:
         raise AssertionError(
             f"train_and_evaluate: {result}, {file_launches} row-write "
             "launches for 3 steps")
@@ -2395,13 +2670,15 @@ def phase_train_deepfm():
           "checkpoint_gb": ckpt_gb, "evaluate_auc": again["auc"],
           "evaluate_and_restore_s": reload_s,
           "restored_bit_equal_tables": len(table_names),
+          "merge_check": merge,
           "row_write_launches": launches})
-    return launches, step_median
+    return launches, step_median, merge["merged_write"]
 
 
 # --- phase train_loader: DeepFM from a directory of parquet files -----------
-# uneven files (none a multiple of the batch) of about 40 batches in all;
-# row groups of 10 000 rows, so a batch spans row groups and files
+# uneven files (none a multiple of the batch) of about 40 batches in all
+# (the workers' rate window then spans 33 steps); row groups of 10 000
+# rows, so a batch spans row groups and files
 LOADER_FILE_ROWS = (36_001, 41_377, 29_513, 38_211, 45_055, 30_307, 36_919,
                     42_229, 31_199)
 LOADER_ROW_GROUP = 10_000
@@ -2409,6 +2686,13 @@ LOADER_WORKERS = 4
 # batches before a rate window opens: one from each worker, and one more
 LOADER_WARMUP = LOADER_WORKERS + 1
 PROFILED_STEPS = 10
+# the loader-fed epochs of each mode, the packed copy and the per-leaf
+# one in turns: (arm, synchronised after each step, else a rate window)
+LOADER_ARMS = {"thread": (("packed", True), ("per_leaf", True),
+                          ("per_leaf", False), ("packed", False)),
+               # one per-leaf epoch: each costs the workers' start-up
+               "workers": (("packed", True), ("per_leaf", False),
+                           ("packed", False))}
 EVAL_FILE_ROWS = (9_000, 8_000)
 EVAL_BATCH = 6_000  # eval_batch_size, not the train batch: 3 eval batches
 # two checkpoint writes of ~4.8 GB fewer than at 10, 4, 4, 2 (for
@@ -2465,21 +2749,26 @@ def loader_epoch(port_main, train_step, state, dl, synced: bool,
     consumed, per-step ms with a synchronise after each step when
     ``synced``, else the ms per step of the window from step
     LOADER_WARMUP (every worker has started) to the last, synchronised at
-    both ends). The loop stops at the last batch, so the workers' exit
+    both ends, and the ms between the steps' ends in that window, not
+    synchronised). The loop stops at the last batch, so the workers' exit
     stays out of the window."""
     rids, step_ms, marks = [], [], []
     t = [time.perf_counter()]
 
     def after_step(st, info):
         rids.append(info.reserved["rid"].to_numpy())
+        now = time.perf_counter()
         if synced:
             torch.cuda.synchronize()
             now = time.perf_counter()
             step_ms.append((now - t[0]) * 1e3)
-            t[0] = now
         elif len(rids) == LOADER_WARMUP:
             torch.cuda.synchronize()
-            marks.append(time.perf_counter())
+            now = time.perf_counter()
+            marks.append(now)
+        elif len(rids) > LOADER_WARMUP:
+            step_ms.append((now - t[0]) * 1e3)
+        t[0] = now
 
     batches = dl()
     try:
@@ -2491,8 +2780,149 @@ def loader_epoch(port_main, train_step, state, dl, synced: bool,
     finally:
         batches.close()
     if not synced:
-        step_ms = [(end - marks[0]) * 1e3 / (len(rids) - LOADER_WARMUP)]
+        step_ms = ([(end - marks[0]) * 1e3 / (len(rids) - LOADER_WARMUP)],
+                   step_ms)
     return state, rids, step_ms
+
+
+class PerLeafCopy:
+    """The plain version of the loader's packed copy: a pinned batch
+    moved leaf by leaf on a side stream, each copied tensor recorded on
+    the compute stream, the pinned batch kept as ``host``."""
+
+    def __init__(self) -> None:
+        self.stream = torch.cuda.Stream()
+
+    def __call__(self, pinned):
+        compute = torch.cuda.current_stream()
+        with torch.cuda.stream(self.stream):
+            out = pinned.to("cuda", non_blocking=True)
+        compute.wait_stream(self.stream)
+        for t in out.tensors():
+            t.record_stream(compute)
+        out.host = pinned
+        return out
+
+
+class PerLeafThread:
+    """One epoch of ``dataset`` moved leaf by leaf: a thread parses and
+    pins each batch, PREFETCH ahead, where the loader's thread parses and
+    packs it; ``__next__`` copies it with ``PerLeafCopy``."""
+
+    def __init__(self, dataset, on_close) -> None:
+        import queue
+        import threading
+
+        from torcheasyrec_tpu_torch.datasets.dataset import PREFETCH
+
+        self._q = queue.Queue(maxsize=PREFETCH)
+        self._stop = threading.Event()
+        self._on_close = on_close
+        self._copy = PerLeafCopy()
+        self._err = None
+
+        def put(item) -> None:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.2)
+                    return
+                except queue.Full:
+                    continue
+
+        def produce() -> None:
+            try:
+                for batch, info in dataset:
+                    put((batch.pin_memory(), info))
+            except BaseException as e:  # noqa: BLE001 - raised by __next__
+                self._err = e
+            finally:
+                put(None)
+
+        self._t = threading.Thread(target=produce, daemon=True)
+        self._t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is None:
+            self._q.put(None)
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        batch, info = item
+        return self._copy(batch), info
+
+    def close(self) -> None:
+        import queue
+
+        self._stop.set()
+        self._on_close()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._t.join()
+
+
+class PerLeafShards(torch.utils.data.IterableDataset):
+    """The port's loader-worker shards (``shards``, its
+    ``_WorkerShards``) handed over leaf by leaf: each batch as numpy
+    arrays, pinned leaf by leaf by the ``DataLoader``'s pin-memory
+    thread, where the port's workers hand over one packed wire."""
+
+    def __init__(self, shards) -> None:
+        super().__init__()
+        self.shards = shards
+
+    def __iter__(self):
+        for batch, info in self.shards.shard():
+            yield batch.to_numpy(), info
+
+
+class PerLeafWorkers:
+    """One epoch of ``PerLeafShards`` from LOADER_WORKERS spawned
+    workers, as the port's loader runs its pool; ``__next__`` copies each
+    batch with ``PerLeafCopy``."""
+
+    def __init__(self, shards) -> None:
+        from torcheasyrec_tpu_torch.datasets.dataset import (
+            PREFETCH,
+            WORKER_TIMEOUT_S,
+        )
+
+        self._it = iter(torch.utils.data.DataLoader(
+            PerLeafShards(shards), batch_size=None,
+            num_workers=LOADER_WORKERS, pin_memory=True,
+            timeout=WORKER_TIMEOUT_S, multiprocessing_context="spawn",
+            prefetch_factor=PREFETCH))
+        self._copy = PerLeafCopy()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch, info = next(self._it)
+        return self._copy(batch), info
+
+    def close(self) -> None:
+        self._it._shutdown_workers()
+
+
+def per_leaf_loader(dl, data_config, features, data_dir, workers: bool):
+    """A factory of ``dl``'s epochs with the batches moved leaf by leaf
+    (the same files, shards and order)."""
+    from torcheasyrec_tpu_torch.datasets import dataset as ds
+
+    if not workers:
+        return lambda: PerLeafThread(dl.dataset, dl.reader.stop)
+    shards = ds._WorkerShards(
+        data_config, features, data_dir, "train", ["rid"],
+        ds._selected_columns(data_config, features, "train", ["rid"]),
+        DEEPFM_BATCH, 0, 1)
+    return lambda: PerLeafWorkers(shards)
 
 
 def loader_alone(dl, n_batches: int) -> dict:
@@ -2516,12 +2946,61 @@ def loader_alone(dl, n_batches: int) -> dict:
             "seconds": seconds}
 
 
+def pack_check(batch_cpu, host_ms) -> dict:
+    """The single-buffer batch copy (``datasets/pack.py``) as the one-rank
+    loader runs it under BF16 (dense features as bf16): the batch the
+    loader's ``_DeviceCopy`` unpacks on the card against the host batch
+    (ints, labels and weights bit-equal and of their dtypes, dense
+    features equal to their bf16 rounding), the copy's host batch, rebuilt
+    from the pinned wire, equal to it too; and its host ms beside the
+    per-leaf copy of the same pinned batch (``PerLeafCopy``): the
+    producer's pack (the loader's thread or worker) and the consumer's
+    copy and unpack."""
+    import torch.utils._pytree as pytree
+
+    from torcheasyrec_tpu_torch.datasets.dataset import _DeviceCopy
+    from torcheasyrec_tpu_torch.datasets.pack import pack_batch
+
+    copy = _DeviceCopy(torch.device("cuda"))
+    packed = pack_batch(batch_cpu, dense_bf16=True, pin=True)
+    got = copy(packed)
+    torch.cuda.synchronize()
+    dense = {id(f.values) for f in batch_cpu.dense_features.values()}
+    want, spec = pytree.tree_flatten(batch_cpu)
+    leaves, got_spec = pytree.tree_flatten(got)
+    host, host_spec = pytree.tree_flatten(got.host)
+    if got_spec != spec or host_spec != spec:
+        raise AssertionError("pack: the unpacked batch's structure differs")
+    for a, h, b in zip(leaves, host, want):
+        ref = b.to(torch.bfloat16).float() if id(b) in dense else b
+        if a.device.type != "cuda" or not torch.equal(a.cpu(), ref):
+            raise AssertionError("pack: an unpacked leaf differs from the "
+                                 "host batch")
+        if h.device.type != "cpu" or not torch.equal(h, ref):
+            raise AssertionError("pack: a leaf of the copy's host batch "
+                                 "differs from the host batch")
+    pinned = batch_cpu.pin_memory()
+    per_leaf = PerLeafCopy()
+    return {
+        "wire_bytes": packed.nbytes, "leaves": len(want),
+        "pinned_bytes_per_leaf_copy": pinned.nbytes(),
+        "kinds": sorted({m[0] for m in packed.spec[1]}),
+        "unpacked_equal": True,
+        "pack_host_ms": host_ms(
+            lambda: pack_batch(batch_cpu, dense_bf16=True, pin=True)),
+        "copy_unpack_host_ms": host_ms(lambda: copy(packed)),
+        "per_leaf_copy_host_ms": host_ms(lambda: per_leaf(pinned)),
+        "copy_unpack_device_ms": cuda_ms(lambda: copy(packed), 20),
+        "per_leaf_copy_device_ms": cuda_ms(lambda: per_leaf(pinned), 20),
+    }
+
+
 def copy_times(batch_cpu) -> dict:
     """One batch's host-to-device copy: from pinned memory one tensor at a
-    time as the loader copies it (device ms from CUDA events, and the
-    host's ms to issue the copies), from pageable memory, and as one
-    coalesced pinned buffer of the same bytes (what ``pack.py`` does for
-    the TPU)."""
+    time (device ms from CUDA events, and the host's ms to issue the
+    copies), from pageable memory, as one coalesced pinned buffer of the
+    same bytes, and as the loader copies it on one rank (``pack_check``:
+    one narrow wire, unpacked on the card)."""
     pinned = batch_cpu.pin_memory()
     nbytes = pinned.nbytes()
     flat = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
@@ -2548,6 +3027,7 @@ def copy_times(batch_cpu) -> dict:
         "coalesced_copy_ms": cuda_ms(coalesced, 20),
         "coalesced_copy_host_ms": host_ms(coalesced),
         "copy_gb_per_s": nbytes / cuda_ms(per_tensor, 20) / 1e6,
+        "packed": pack_check(batch_cpu, host_ms),
     }
 
 
@@ -2611,9 +3091,11 @@ def phase_train_loader():
                  "workers": with_workers.data_config}
 
         def loader(data_config, **kw):
+            # one narrow wire a batch, its dense features bf16: the
+            # one-rank training loop's transfer (main._dense_bf16)
             return create_dataloader(data_config, features, data_dir,
                                      mode="train", reserved_columns=["rid"],
-                                     device="cuda", **kw)
+                                     device="cuda", dense_bf16=True, **kw)
 
         dls = {m: loader(dc) for m, dc in modes.items()}
         if [dl.mp_workers for dl in dls.values()] != [0, LOADER_WORKERS]:
@@ -2631,19 +3113,31 @@ def phase_train_loader():
         write_rows.launches = 0
         fed, steps = {}, 0
         for m, dl in dls.items():
-            runs = {}
-            for synced in (True, False):
+            arms = {"packed": dl, "per_leaf": per_leaf_loader(
+                dl, modes[m], features, data_dir, m == "workers")}
+            runs = {"packed": {}, "per_leaf": {}}
+            for arm, synced in LOADER_ARMS[m]:
                 state, rids, ms = loader_epoch(port_main, train_step, state,
-                                               dl, synced, n_batches[m])
-                check_rids(f"{m} loader", rids, wants[m])
-                runs[synced] = ms
+                                               arms[arm], synced,
+                                               n_batches[m])
+                check_rids(f"{m} loader, {arm}", rids, wants[m])
                 steps += len(rids)
+                if synced:
+                    runs[arm].update({
+                        "step_ms_median": float(np.median(ms)),
+                        "step_ms_range": [min(ms), max(ms)]})
+                else:
+                    runs[arm].update({
+                        "window_step_ms": ms[0][0],
+                        "examples_per_s": DEEPFM_BATCH / ms[0][0] * 1e3,
+                        "window_steps": len(ms[1]),
+                        "window_interval_ms_median": float(np.median(
+                            ms[1]))})
             fed[m] = {"steps_per_epoch": n_batches[m],
-                      "rows_per_epoch": len(wants[m]),
-                      "step_ms_median": float(np.median(runs[True])),
-                      "step_ms_range": [min(runs[True]), max(runs[True])],
-                      "window_step_ms": runs[False][0],
-                      "examples_per_s": DEEPFM_BATCH / runs[False][0] * 1e3}
+                      "rows_per_epoch": len(wants[m]), **runs["packed"],
+                      "per_leaf": runs["per_leaf"],
+                      "order": [f"{a}{'' if s else ' window'}"
+                                for a, s in LOADER_ARMS[m]]}
         out["loader_fed"] = fed
 
         # the device's idle share over loader-fed steps (thread loader)
@@ -2662,7 +3156,7 @@ def phase_train_loader():
         finally:
             batches.close()
         launches = write_rows.launches
-        if launches != 2 * steps:
+        if launches != steps:  # the merged group's one write a step
             raise AssertionError(f"row_write launched {launches} times in "
                                  f"{steps} loader-fed steps")
         out["row_write_launches_per_step"] = launches / steps
@@ -2741,7 +3235,7 @@ def phase_train_loader():
             # step 4 stops inside the first file (36 001 rows)
             "watermark at the resume": (mid["dataloader_state"],
                                         {0: RESUME_AT * DEEPFM_BATCH - 1}),
-            "row_write launches": (trainer_launches, 2 * 2 * RESUME_STEPS),
+            "row_write launches": (trainer_launches, 2 * RESUME_STEPS),
         }
         # the rows the resumed run reads: those of the straight run's steps
         # after RESUME_AT, read with the checkpoint's watermark
@@ -2838,8 +3332,10 @@ ZOO_CONFIGS = ["wide_and_deep", "dlrm", "dcn_v2", "masknet", "mmoe", "ple",
                "dbmtl", "multi_tower_din", "mmoe_has_sequence",
                "rocket_launching", "dbmtl_jrc", "dssm"]
 # packed groups with tables past the dense lane, each one row write a
-# step; dssm's three tables (at most 2 000 rows) all take the dense lane
-ZOO_WRITTEN_GROUPS = {"wide_and_deep": 2, "xdeepfm": 2, "dssm": 0}
+# step; dssm's three tables (at most 2 000 rows) all take the dense lane.
+# Wide&Deep's and xDeepFM's WIDE and DEEP tables merge into one group
+# (d20_s16.4), as in the JAX engine: one write a step, as every model's
+ZOO_WRITTEN_GROUPS = {"dssm": 0}
 # one real step's writes held bit for bit against the plain version
 # (xdeepfm: train_zoo_rest's)
 ZOO_CAPTURED = ("dlrm", "multi_tower_din", "xdeepfm")
@@ -3464,16 +3960,17 @@ OPTIONS_KINDS = {
 # card against CPU tables after 1 step (fp32 compute), relative to each
 # table's max: 1e-5 for fp32 tables; for BF16 and FP16 tables one unit in
 # the last place at the max (a flip of the rounding to nearest where the
-# two fp32 updates differ by an ulp); the slot-17 run (rowwise adagrad,
+# two fp32 updates differ by an ulp); the slot-22 run (rowwise adagrad,
 # the row write's timing reference) is not compared: its first update
 # divides each row by its own gradient's norm, which lifts the two
 # devices' rounding far above 1e-5 of the max where a row's gradient
 # nearly cancels (the run prints the distance)
 OPTIONS_CPU_TOL = {"BF16_tables": 2.0 ** -7, "FP16_tables": 2.0 ** -10,
-                   "rowwise_adagrad_slot_17": None}
+                   "rowwise_adagrad_slot_22": None}
 OPTIONS_CPU_TOL_FP32 = 1e-5
-# the row write timed at the slot-48 layout beside the slot-17 one
-SLOT_TIMED = ("lamb", "rowwise_adagrad_slot_17")
+# the row write timed at the slot-60 layout (lamb, 20 weights and two
+# moments of 20, merged) beside the slot-22 one
+SLOT_TIMED = ("lamb", "rowwise_adagrad_slot_22")
 # every eval metric kind: on the binary ctr tower, and on a third tower of
 # 3 classes (softmax) for the ones that read [B, C] predictions
 _CTR_METRICS = (
@@ -3791,7 +4288,7 @@ def deepfm_kind_run(label, text, batches_cpu) -> dict:
                                          "err_rel_to_max": errs[worst],
                                          "tol_rel": tol},
            "losses": losses}
-    if label in SLOT_TIMED:  # the dim-16 group's write, for its timing
+    if label in SLOT_TIMED:  # the largest group's write, for its timing
         out["slot_write"] = max(calls, key=lambda c: c[0].shape[0])[:3]
     del calls, model, cpu_model, state, cpu_state, batches
     torch.cuda.empty_cache()
@@ -3957,7 +4454,7 @@ def phase_train_options():
         sparse_line = ("rowwise_adagrad_optimizer { lr: 0.01 }")
         variants = [(k, base.replace(sparse_line, v))
                     for k, v in OPTIONS_KINDS.items()]
-        variants += [("rowwise_adagrad_slot_17", base)]
+        variants += [("rowwise_adagrad_slot_22", base)]
         variants += [(f"{dt}_tables", base.replace(
             "embedding_dim: 16 }", f'embedding_dim: 16 data_type: "{dt}" }}'))
             for dt in ("BF16", "FP16")]
@@ -3968,8 +4465,8 @@ def phase_train_options():
             emit({"phase": "train_options_deepfm", "variant": label,
                   **{k: v for k, v in runs[label].items()
                      if k != "slot_write"}})
-        # the row write at the slot-48 layout (lamb) beside the slot-17 one
-        # (rowwise adagrad) at one real step's targets of the dim-16 group
+        # the row write at the slot-60 layout (lamb) beside the slot-22 one
+        # (rowwise adagrad) at one real step's targets of the merged group
         slot_ms = {}
         for label in SLOT_TIMED:
             table, tgt, rows = runs[label].pop("slot_write")
@@ -6184,8 +6681,8 @@ def phase_train_tdm(smi):
 SHARDED_WORLD = 2
 SHARDED_STEPS = 3
 SHARDED_TIMEOUT_S = 600  # each spawn's limit: a rank that hangs fails it
-SHARDED_TIMED_STEPS = 6  # 10 before train_pipelined joined
-SHARDED_PROFILE_STEPS = 3  # 5 before
+SHARDED_TIMED_STEPS = 4  # 10 before train_pipelined joined, then 6
+SHARDED_PROFILE_STEPS = 2  # 5, then 3 before
 SHARDED_UNTOUCHED = 2048  # untouched rows sampled a table
 SHARDED_TRAP_TOL = 1e-4
 SHARDED_LAYOUTS = ("row_wise", "column_wise", "table_wise", "table_row_wise",
@@ -6583,6 +7080,15 @@ def sharded_deepfm(tmp, backend) -> dict:
             failures.append(f"{t}: the sharded init differs from world "
                             "size 1's")
     out["untouched_rows_checked"] = sum(len(v) for v in untouched.values())
+    # the co-keyed merge over ranks: pairs that the plan puts row_wise on
+    # both sides merge into one row-sharded group (the world-1 run holds
+    # every pair in one group), held above with the rest
+    merged_rw = sorted(gk for gk, g in ranks[0][0]["groups"].items()
+                       if "_s16.4" in gk and g["sharding"] == "row_wise")
+    out["merged_row_wise_groups"] = merged_rw
+    if not merged_rw:
+        failures.append(f"no merged row_wise group at world size 2: "
+                        f"{sorted(ranks[0][0]['groups'])}")
     if len({r[0]["dense_digest"] for r in ranks}) != 1:
         failures.append("the dense parameters differ across ranks")
     out["ranks"] = [r[0] for r in ranks]
@@ -7313,13 +7819,12 @@ def _touched_rows(eg, batches, restores) -> dict:
     """{table: sorted rows} the batches' lookups (after the remap) and the
     restores reached."""
     rows = {t: [] for t in eg.engine._specs}
-    for lks in eg.engine._lookups_by_group.values():
-        for lk in lks:
-            for b in batches:
-                src = (b.sequence_sparse_features if lk.is_sequence
-                       else b.sparse_features)
-                v = src[lk.feature_name].values.reshape(-1).long()
-                rows[lk.table_name].append(v[v >= 0].cpu())
+    for lk in eg.engine.lookups:  # by original table names
+        for b in batches:
+            src = (b.sequence_sparse_features if lk.is_sequence
+                   else b.sparse_features)
+            v = src[lk.feature_name].values.reshape(-1).long()
+            rows[lk.table_name].append(v[v >= 0].cpu())
     for r in restores:
         for t, (slots, *_) in r.items():
             rows[t].append(torch.as_tensor(slots, dtype=torch.long))
@@ -9375,11 +9880,10 @@ def phase_train_zch_ranks(smi):
         touched = {}
         for i, cols in enumerate(cols_list[:ZR_STEPS]):
             nb, _ = eg.remap_zch(parser.parse_to_batch(cols), i, True)
-            for lks in eg.engine._lookups_by_group.values():
-                for lk in lks:
-                    v = nb.sparse_features[lk.feature_name].values
-                    touched.setdefault(lk.table_name, []).append(
-                        v.reshape(-1).long())
+            for lk in eg.engine.lookups:  # by original table names
+                v = nb.sparse_features[lk.feature_name].values
+                touched.setdefault(lk.table_name, []).append(
+                    v.reshape(-1).long())
         touched = {t: torch.unique(torch.cat(v)).numpy()
                    for t, v in touched.items()}
         touched = {t: v[v >= 0] for t, v in touched.items()}
@@ -10767,7 +11271,8 @@ def main() -> int:
     bwd_timing = timed("timing_train", phase_timing_train, trainer, step_ms)
     del trainer
     torch.cuda.empty_cache()
-    deepfm_launches, _ = timed("train_deepfm", phase_train_deepfm)
+    deepfm_launches, _, merged_write = timed("train_deepfm",
+                                             phase_train_deepfm)
     loader_launches, _ = timed("train_loader", phase_train_loader)
     zoo_launches, lane_off_launches = timed("train_zoo", phase_train_zoo)
     (fp16_fwd_launches, fp16_bwd_launches), (fwd16, bwd16), options_writes = (
@@ -10864,11 +11369,12 @@ def main() -> int:
                        + grs_launches["hstu_attention_bwd"]},
                    fp16=fp16_row(bwd16),
                    hstu_synth_fp32=gr_row("hstu_attention_bwd")),
-        # at the real step's dim-16 targets, through the table less its
-        # scratch row as the engine calls it; library_ms: index_copy_ of
-        # the same writes (the scratch entries taken out beforehand);
-        # slice_ms: the slice's shape over the whole table, as the kernel
-        # was first timed
+        # at the main path's shape: the uncapped DeepFM's merged write of
+        # one step (d20_s16.4, 22-lane slots, 5 a row), through the table
+        # less its scratch row as the engine calls it; library_ms:
+        # index_copy_ of the same writes (the scratch entries taken out
+        # beforehand). dim16: the unmerged dim-16 step's targets, as PR
+        # 3-21 timed it; slice_ms: the slice's shape over the whole table
         kernel_row("row_write", "row_write.py:35",
                    deepfm_launches + loader_launches + zoo_launches
                    + lane_off_launches + options_writes
@@ -10877,7 +11383,15 @@ def main() -> int:
                    + zch_launches + sid_launches + fg_launches
                    + zch_ranks_launches + stream_launches
                    + pipelined_launches + grs_launches["row_write"],
-                   write_err, write_timing, write_library_ms,
+                   max(write_err, merged_write["max_abs_err"]),
+                   (merged_write["kernel_ms"], merged_write["plain_ms"],
+                    merged_write["bound_ms"], "bytes"),
+                   merged_write["library_ms"],
+                   merged_shape={k: merged_write[k] for k in (
+                       "targets", "rows_written", "table", "bytes")},
+                   dim16={"ms": write_timing[0], "plain_ms": write_timing[1],
+                          "bound_ms": write_timing[2],
+                          "library_ms": write_library_ms},
                    slice_ms=write_slice_ms,
                    launches_by_path={
                        "train_deepfm": deepfm_launches,

@@ -95,9 +95,13 @@ def test_deepfm_builds_wide_and_deep_tables(deepfm_pair):
         assert eg.group_dims(group) == jeg.group_dims(group)
     assert set(eg.tables) == set(TABLES)
     assert eg.tables["cat_0_emb__wide"].shape == (DEEPFM_BUCKETS[0], 4)
-    # rowwise_adagrad: slot 9 and 5, both groups pack
+    # rowwise_adagrad: each feature's WIDE (dim 4) and DEEP (dim 8) tables
+    # merge into one dim-12 table, as in the JAX engine; its slot holds 12
+    # weights and an accumulator per segment
     assert {gk: (g.packed, g.slot) for gk, g in eg.engine.groups.items()} == {
-        "d4": (True, 5), "d8": (True, 9)}
+        "d12_s8.4": (True, 14)}
+    assert {gk.replace("_data_parallel", "")
+            for gk in jeg.engine.groups} == set(eg.engine.groups)
     for gk, store in eg.engine_tables().items():
         assert store.shape == (eg.engine.groups[gk].p_rows, 128)
 
@@ -464,7 +468,8 @@ def test_checkpoint_crosses_between_packed_and_unpacked(trained, tmp_path):
     assert_holds_checkpoint(packed_model, packed_state)
     unpacked_model, unpacked_state = restored(False)
     assert_holds_checkpoint(unpacked_model, unpacked_state)
-    assert unpacked_state["sparse_opt"]["d8"]["acc"].shape[1] == 1
+    # the merged WIDE+DEEP group keeps one accumulator per member table
+    assert unpacked_state["sparse_opt"]["d12_s8.4"]["acc"].shape[1] == 2
     # and back: the unpacked model's checkpoint into a packed model
     tx, _ = create_dense_optimizer(
         parse_pipeline_config(text).train_config.dense_optimizer,

@@ -60,9 +60,6 @@ def test_f8_delta_embedding_dump_matches_jax(tmp_path, monkeypatch):
         return path, text
 
     monkeypatch.setattr(jax_main, "maybe_mesh", lambda: None)
-    # the JAX engine's co-keyed merge would name its shards after the
-    # merged tables; the port has no merge (ROADMAP §3)
-    monkeypatch.setenv("TZREC_TABLE_MERGE", "0")
     jax_cfg, text = config("jax")
     jax_main.train_and_evaluate(jax_cfg)
     init = str(tmp_path / "init.pt")
@@ -72,17 +69,31 @@ def test_f8_delta_embedding_dump_matches_jax(tmp_path, monkeypatch):
                                  device="cpu")
     jdir = tmp_path / "jax" / "delta_embedding_dump"
     pdir = tmp_path / "port" / "delta_embedding_dump"
-    names = sorted(os.listdir(jdir))
-    assert sorted(os.listdir(pdir)) == names
+    names = sorted(os.listdir(pdir))
     steps = {int(n.rsplit("-", 1)[1].split(".")[0]) for n in names}
     assert steps == {2, 4, 5}
     # one table a feature, as the JAX dumper keys its ids by feature: the
     # WIDE copies of DeepFM's id features get no shard (ROADMAP §3)
     assert {n.split("-")[1] for n in names} == {
         f"cat_{i}_emb" for i in range(len(deepfm_table_names()) // 2)}
+    # both engines merge each feature's WIDE and DEEP tables; the JAX
+    # dumper names the shard after the merged table and writes its whole
+    # rows, the port names it after the table and writes its columns
+    merged = port_main._build_model_and_optim(
+        parse_pipeline_config(text), "cpu")[0].embedding_group.engine._merged
+    assert merged
+
+    def jax_name(name):
+        prefix, table, step = name.split("-")
+        return "-".join((prefix, merged[table][0], step))
+
+    assert sorted(os.listdir(jdir)) == sorted(jax_name(n) for n in names)
     for name in names:
-        got, ref = pq.read_table(pdir / name), pq.read_table(jdir / name)
+        got = pq.read_table(pdir / name)
+        ref = pq.read_table(jdir / jax_name(name))
         np.testing.assert_array_equal(got["id"].to_numpy(),
                                       ref["id"].to_numpy(), err_msg=name)
-        g, r = _column(got, "embedding"), _column(ref, "embedding")
+        _, c0, width = merged[name.split("-")[1]]
+        g = _column(got, "embedding")
+        r = _column(ref, "embedding")[:, c0:c0 + width]
         assert np.abs(g - r).max() <= 1e-5 * np.abs(r).max(), name

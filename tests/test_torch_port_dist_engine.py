@@ -18,10 +18,19 @@ and row state (through ``extract_table[_state]``) within 1e-5 of each
 tensor's max; replicated and gathered tables equal on both ranks. The
 same spawn draws every layout's init from one seed, the small tables
 from the model's generator and the large ones by chunk: each rank's rows
-equal, bit for bit, what one rank draws.
+equal, bit for bit, what one rank draws. It also runs the co-keyed merge
+over the ranks: a WIDE/DEEP pair merged into one group (``d20_<layout>
+_s16.4``, rowwise adagrad, packed) in the ``row_wise``, ``table_wise``,
+``table_row_wise`` and ``data_parallel`` layouts, each with the group
+keys of the JAX engine on a 2-device mesh with its merge on (its
+default), within 1e-5 of that engine and of the merged one-rank run;
+and the ``row_wise`` run's per-table state (what a checkpoint holds)
+restored exactly into an unmerged one-rank engine.
 """
 
+import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -140,6 +149,31 @@ def test_plan_defaults_are_the_h100s(monkeypatch):
     assert port_planner._env("HOST_LINK_BANDWIDTH") == 6.4e10
 
 
+def test_f13_save_plan_is_never_read_half_written(tmp_path):
+    """F13: a rank loading ``sharding_plan.json`` while rank 0 rewrites it
+    (a continued run) read a truncated file; ``save_plan`` now renames a
+    whole file into place, so every load sees the whole plan."""
+    import threading
+
+    plan = {f"table_{i}": "row_wise" for i in range(2000)}
+    port_planner.save_plan(plan, str(tmp_path))
+    stop = threading.Event()
+
+    def rewrite():
+        while not stop.is_set():
+            port_planner.save_plan(plan, str(tmp_path))
+
+    writer = threading.Thread(target=rewrite)
+    writer.start()
+    try:
+        for _ in range(300):
+            assert port_planner.load_plan(str(tmp_path)) == plan
+    finally:
+        stop.set()
+        writer.join()
+    assert os.listdir(tmp_path) == ["sharding_plan.json"]
+
+
 # --- engine: two ranks against the JAX mesh and one rank -------------------
 
 
@@ -164,26 +198,51 @@ def ranks(tmp_path_factory):
              for n, rows, d in R.ENGINE_TABLES}
     steps = _steps()
     job = dist_util.start_ranks(
-        R.engine_and_init_rank, 2, (CASES, canon, steps, INIT_CASES),
+        R.engine_and_init_rank, 2, (CASES, canon, steps, INIT_CASES,
+                                    _merge_inputs()),
         store_dir=str(tmp_path_factory.mktemp("store")), device="cpu",
         timeout_s=120)
+    # the JAX engines built one by one (they read the environment), then
+    # run in threads, one a case, so that their compiles overlap
+    merge_canon, merge_steps = _merge_inputs()
     with pytest.MonkeyPatch.context() as mp:
-        refs = [(_jax_case(l, k, c, p, canon, steps, mp),
-                 R.run_engine(R.port_engine(k, c, l, p), canon, steps))
+        jengs = [_jax_engine(l, k, c, p, mp) for l, k, c, p in CASES]
+        merged = [_jax_engine(l, *R.MERGE_OPT, True, mp, R.MERGE_TABLES,
+                              R.MERGE_LOOKUPS, merge=True)
+                  for l in R.MERGE_LAYOUTS]
+    with ThreadPoolExecutor(len(CASES) + len(merged)) as pool:
+        jax_refs = [pool.submit(_jax_case, jeng, canon, steps)
+                    for jeng in jengs]
+        jax_merged = [pool.submit(_jax_case, jeng, merge_canon, merge_steps,
+                                  R.MERGE_TABLES) for jeng in merged]
+        ones = [R.run_engine(R.port_engine(k, c, l, p), canon, steps)
                 for l, k, c, p in CASES]
-    return job.wait(), refs
+        one_merged = [R.run_engine(R.merge_engine(layout=l), merge_canon,
+                                   merge_steps, tables=R.MERGE_TABLES)
+                      for l in R.MERGE_LAYOUTS]
+        refs = [(f.result(), one) for f, one in zip(jax_refs, ones)]
+        merged_refs = {l: (sorted(jeng.groups), f.result(), one)
+                       for l, jeng, f, one in zip(
+                           R.MERGE_LAYOUTS, merged, jax_merged, one_merged)}
+    return job.wait(), refs, merged_refs
 
 
-def _jax_case(layout, kind, cfg, packed, canon, steps, monkeypatch):
-    monkeypatch.setenv("TZREC_TABLE_MERGE", "0")
+def _jax_engine(layout, kind, cfg, packed, monkeypatch,
+                tables=R.ENGINE_TABLES, lookups=R.ENGINE_LOOKUPS,
+                merge=False):
+    """The JAX engine of a case on a 2-device mesh, unmerged (the layout
+    comparison is of plain groups) unless ``merge``."""
+    monkeypatch.setenv("TZREC_TABLE_MERGE", "1" if merge else "0")
     monkeypatch.setenv("TZREC_PACKED", "1" if packed else "0")
     mesh = create_mesh(jax.devices()[:2])
-    jeng = jax_engine.EmbeddingEngine(
+    return jax_engine.EmbeddingEngine(
         [jax_engine.TableSpec(n, r, d, sharding=layout)
-         for n, r, d in R.ENGINE_TABLES],
-        [jax_engine.LookupSpec(k, f, t, c, s)
-         for k, f, t, c, s in R.ENGINE_LOOKUPS],
+         for n, r, d in tables],
+        [jax_engine.LookupSpec(k, f, t, c, s) for k, f, t, c, s in lookups],
         mesh=mesh, optimizer=JaxSparseOptimizer(kind, cfg))
+
+
+def _jax_case(jeng, canon, steps, specs=R.ENGINE_TABLES):
     # zero tables (the optimizers' fills are 0), overwritten from
     # ``canon``: the engine's own init compiles a generator per group
     tables = {gk: jeng._device_put_table(
@@ -199,18 +258,18 @@ def _jax_case(layout, kind, cfg, packed, canon, steps, monkeypatch):
     for batch, grads in steps:
         sparse = {k: JaxField(jnp.asarray(v.astype(np.int32)))
                   for k, (v, _) in batch.items() if k != "f_s"}
-        v, lengths = batch["f_s"]
-        seq = {"f_s": JaxField(jnp.asarray(v.astype(np.int32)),
-                               lengths=jnp.asarray(lengths))}
+        seq = {k: JaxField(jnp.asarray(v.astype(np.int32)),
+                           lengths=jnp.asarray(lengths))
+               for k, (v, lengths) in batch.items() if k == "f_s"}
         out, res = look(tables, sparse, seq)
         outs.append({k: np.asarray(o) for k, o in out.items()})
         tables, state = upd(tables, state, res,
                             {k: jnp.asarray(g) for k, g in grads.items()})
     weights = {n: np.asarray(jeng.extract_table(tables, n))
-               for n, _, _ in R.ENGINE_TABLES}
+               for n, _, _ in specs}
     st = {n: {k: np.asarray(v) for k, v in
               jeng.extract_table_state(tables, state, n).items()}
-          for n, _, _ in R.ENGINE_TABLES}
+          for n, _, _ in specs}
     return outs, weights, st
 
 
@@ -235,7 +294,7 @@ def _assert_result(got_ranks, ref, name):
 
 @pytest.mark.parametrize("case", range(len(CASES)), ids=CASE_IDS)
 def test_layout_matches_jax_mesh_and_one_rank(case, ranks):
-    out, refs = ranks
+    out, refs, _ = ranks
     got = [rank_out[0][case] for rank_out in out]
     jax_ref, one_rank = refs[case]
     _assert_result(got, jax_ref, f"jax {CASE_IDS[case]}")
@@ -246,7 +305,7 @@ def test_layout_matches_jax_mesh_and_one_rank(case, ranks):
 def test_read_rows_and_row_state_equal_the_extracted(case, ranks):
     """``read_rows`` and ``read_row_state`` at some rows, on every rank
     of every layout, equal those rows of the gathered table and state."""
-    out, _ = ranks
+    out, _, _ = ranks
     for rank_out in out:
         _, w, st, reads = rank_out[0][case]
         for n, rows, _ in R.ENGINE_TABLES:
@@ -299,10 +358,77 @@ def test_duplicate_sums_run_left_to_right_in_id_order():
     assert empty[0].shape == (0,) and empty[1].shape == (0, 3)
 
 
+def _merge_inputs():
+    """(canon, steps) of the merge case."""
+    r = np.random.default_rng(4)
+    canon = {n: (r.random((rows, d), np.float32) - 0.5)
+             for n, rows, d in R.MERGE_TABLES}
+    steps = []
+    for i in range(3):
+        batch = R.merge_batch(300 + i)
+        steps.append((batch, R.engine_grads(
+            {"md": (R.ENGINE_B, 16), "mw": (R.ENGINE_B, 4),
+             "c": (R.ENGINE_B, 8)}, 400 + i)))
+    return canon, steps
+
+
+def test_merged_row_wise_matches_the_merged_one_rank_run(ranks):
+    out, _, merged_refs = ranks
+    for rank_out in out:
+        assert rank_out[2]["row_wise"][1]["d20_row_wise_s16.4"] == "row_wise"
+    _assert_result([rank_out[2]["row_wise"][0] for rank_out in out],
+                   merged_refs["row_wise"][2], "merged row_wise")
+
+
+@pytest.mark.parametrize("layout", R.MERGE_LAYOUTS)
+def test_merged_layout_matches_jax_mesh_and_one_rank(layout, ranks):
+    """The merge case in ``layout`` at world size 2: the JAX mesh
+    engine's group keys (the WIDE/DEEP pair in one ``_s16.4`` group of
+    the resolved layout), and
+    lookups, tables and row state within TOL of that engine (merge on)
+    and of the merged one-rank run."""
+    out, _, merged_refs = ranks
+    jax_keys, jax_ref, one_rank = merged_refs[layout]
+    for rank_out in out:
+        keys = rank_out[2][layout][1]
+        assert sorted(keys) == jax_keys
+        merged = [k for k in keys if k.endswith("_s16.4")]
+        assert merged == [f"d20_{keys[merged[0]]}_s16.4"], keys
+    got = [rank_out[2][layout][0] for rank_out in out]
+    _assert_result(got, jax_ref, f"jax merged {layout}")
+    _assert_result(got, one_rank, f"world 1 merged {layout}")
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_merged_checkpoint_restores_into_an_unmerged_one_rank_engine(
+        packed, ranks):
+    """Rank 0's gathered tables and row state after the world-2 merged
+    run, as a checkpoint holds them by original name, written into an
+    unmerged one-rank engine read back bit for bit."""
+    out, _, _ = ranks
+    _, weights, st, _ = out[0][2]["row_wise"][0]
+    eng = R.merge_engine(merge=False, packed=packed)
+    assert not eng._merged
+    tables = eng.init_tables(torch.Generator().manual_seed(9))
+    state = eng.init_opt_state()
+    for n, _, _ in R.MERGE_TABLES:
+        eng.write_table(tables, n, torch.from_numpy(weights[n]))
+        eng.write_table_state(tables, state, n, {
+            k: torch.from_numpy(np.asarray(v)) for k, v in st[n].items()})
+    for n, rows, d in R.MERGE_TABLES:
+        np.testing.assert_array_equal(eng.extract_table(tables, n).numpy(),
+                                      weights[n])
+        got = eng.extract_table_state(tables, state, n)
+        assert set(got) == set(st[n])
+        for k, v in st[n].items():
+            assert got[k].shape == (rows, 1)
+            np.testing.assert_array_equal(got[k].numpy(), v)
+
+
 @pytest.mark.parametrize("case", INIT_CASES, ids=[f"{l}-{c}"
                                                   for l, c in INIT_CASES])
 def test_sharded_init_equals_one_rank(case, ranks):
-    out, _ = ranks
+    out, _, _ = ranks
     ref = R.init_tables_of(*case)
     for n, _, _ in R.ENGINE_TABLES:
         for rank_out in out:

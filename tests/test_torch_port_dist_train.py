@@ -245,31 +245,44 @@ def _jax_steps(setup, steps_cols, labels, table_names):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """One spawn of two ranks for the whole file: the train steps of
-    every case, the entry points and the builds. The JAX steps run
-    while the ranks do. Returns ({case: (JAX result, [rank results])},
-    (config path, model dir, [entry results]), [builds])."""
+    every case, the entry points and the builds. The JAX references run
+    in threads, one a case, so that their compiles overlap, while the
+    ranks run. Returns ({case: (JAX result, [rank
+    results])}, (config path, model dir, [entry results]), [builds])."""
+    from concurrent.futures import ThreadPoolExecutor
+
     cfg_path, model_dir = _entry_files(tmp_path_factory.mktemp("entry"))
     texts = _built_texts()
-    os.environ["TZREC_TABLE_MERGE"] = "0"
-    try:
-        setups, rank_cases = {}, []
-        for name, (text, plan, cols_fn, labels, on_mesh, _) in \
-                TRAIN_CASES.items():
-            names = list(port_main._build_model_and_optim(
-                parse_pipeline_config(text), "cpu")[0]
-                .embedding_group.engine._specs)
-            n = 8 if name == "dlrm_hstu" else GLOBAL_B
-            steps_cols = [cols_fn(n, 10 + i) for i in range(3)]
-            setup, canon0 = _jax_init(text, plan, on_mesh, names)
-            setups[name] = (setup, steps_cols, labels, names)
-            rank_cases.append((text, canon0, steps_cols, labels, plan))
-        job = dist_util.start_ranks(
-            R.whole_file_rank, 2, (rank_cases, cfg_path, 2, texts),
-            store_dir=str(tmp_path_factory.mktemp("store")), device="cpu",
-            timeout_s=240)
-        refs = {name: _jax_steps(*args) for name, args in setups.items()}
-    finally:
-        os.environ.pop("TZREC_TABLE_MERGE", None)
+    cases = {}
+    for name, (text, plan, cols_fn, labels, on_mesh, _) in \
+            TRAIN_CASES.items():
+        names = list(port_main._build_model_and_optim(
+            parse_pipeline_config(text), "cpu")[0]
+            .embedding_group.engine._specs)
+        n = 8 if name == "dlrm_hstu" else GLOBAL_B
+        cases[name] = (text, plan, on_mesh, names,
+                       [cols_fn(n, 10 + i) for i in range(3)], labels)
+    # the ranks start first (their entry points need no JAX weights); each
+    # case's initial weights reach them through a file, written once its
+    # JAX setup has them
+    canon_dir = tmp_path_factory.mktemp("canon")
+    rank_cases = [(text, str(canon_dir / f"{name}.npz"), steps_cols, labels,
+                   plan) for name, (text, plan, _, _, steps_cols, labels)
+                  in cases.items()]
+    job = dist_util.start_ranks(
+        R.whole_file_rank, 2, (rank_cases, cfg_path, 2, texts),
+        store_dir=str(tmp_path_factory.mktemp("store")), device="cpu",
+        timeout_s=240)
+
+    def jax_case(name):
+        text, plan, on_mesh, names, steps_cols, labels = cases[name]
+        setup, canon0 = _jax_init(text, plan, on_mesh, names)
+        R.write_arrays(str(canon_dir / f"{name}.npz"), canon0)
+        return _jax_steps(setup, steps_cols, labels, names)
+
+    with ThreadPoolExecutor(len(cases)) as pool:
+        refs = {name: pool.submit(jax_case, name) for name in cases}
+        refs = {name: f.result() for name, f in refs.items()}
     out = job.wait()
     train = {name: (refs[name], [o[0][i] for o in out])
              for i, name in enumerate(TRAIN_CASES)}

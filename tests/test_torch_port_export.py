@@ -172,14 +172,35 @@ def test_deepfm_export_predict_matches_jax(deepfm, monkeypatch):
                                    err_msg=k, **PRED_TOL)
 
 
+def test_merged_and_unmerged_exports_predict_alike(deepfm, tmp_path,
+                                                   monkeypatch):
+    """One checkpoint exported from the merged engine (the default: each
+    feature's WIDE and DEEP tables one table) and from an unmerged one
+    (``TZREC_TABLE_MERGE=0``): the two programs predict the same numbers
+    bit for bit (the lookups gather the same values)."""
+    root, cfg_path, eval_path, init = deepfm
+    preds = {}
+    for merge in ("1", "0"):
+        monkeypatch.setenv("TZREC_TABLE_MERGE", merge)
+        out_dir = str(tmp_path / f"export_{merge}")
+        port_main.export(cfg_path, out_dir, checkpoint_path=init,
+                         device="cpu")
+        out = str(tmp_path / f"preds_{merge}.parquet")
+        assert port_main.predict(eval_path, out, out_dir, device="cpu") == 256
+        preds[merge] = _read(out)
+    for k in ("probs", "logits"):
+        np.testing.assert_array_equal(preds["1"][k].to_numpy(),
+                                      preds["0"][k].to_numpy(), err_msg=k)
+
+
 def test_deepfm_int8_export_matches_jax(deepfm, monkeypatch):
     """QUANT_EMB=INT8: the quantized tables bit-equal to the JAX
-    package's (its co-keyed table merge off, so both group alike), the
+    package's (both merge each feature's WIDE and DEEP tables into one
+    dim-12 group, so both group alike), the
     predictions within 1e-5 of its quantized ones and within 0.05 of the
     fp32 artifact's, as the JAX test bounds them; no program."""
     root, cfg_path, eval_path, init = deepfm
     monkeypatch.setattr(jax_main, "maybe_mesh", lambda: None)
-    monkeypatch.setenv("TZREC_TABLE_MERGE", "0")
     monkeypatch.setenv("QUANT_EMB", "INT8")
     jax_dir = os.path.join(root, "jax_int8")
     jax_main.export(cfg_path, jax_dir)
@@ -194,11 +215,12 @@ def test_deepfm_int8_export_matches_jax(deepfm, monkeypatch):
         jmeta = json.load(f)
     assert meta["dtype"] == jmeta["dtype"] == "INT8"
 
-    # the port's group "d<dim>" is the JAX group "d<dim>_<sharding>"
+    # the port's group "d<dim>_s8.4" is the JAX group
+    # "d<dim>_<sharding>_s8.4"
     def by_dim(groups):
         return {v["dim"]: (k, v["rows"]) for k, v in groups.items()}
 
-    assert sorted(by_dim(meta["groups"])) == [4, 8]
+    assert sorted(by_dim(meta["groups"])) == [12]
     for dim, (gk, rows) in by_dim(meta["groups"]).items():
         jgk, jrows = by_dim(jmeta["groups"])[dim]
         assert rows == jrows

@@ -65,7 +65,6 @@ def _text(paths, model_dir="unused", **kw):
 
 
 def test_two_train_steps_match_jax(fg_files, monkeypatch):
-    monkeypatch.setenv("TZREC_TABLE_MERGE", "0")
     monkeypatch.setenv("TZREC_DENSE_LANE", str(DENSE_LANE))
     monkeypatch.setenv("TZREC_PACKED", "1")
     text = _text(fg_files, with_combine=False)

@@ -55,6 +55,7 @@ from torcheasyrec_tpu.utils.delta_embedding_dump import (
 from torcheasyrec_tpu_torch import main as port_main
 from torcheasyrec_tpu_torch.parallel import mesh
 from torcheasyrec_tpu_torch.utils import dist_util
+from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
 
 sys.path.insert(0, str(Path(__file__).parent))
 import torch_port_dist_ranks as R  # noqa: E402
@@ -410,7 +411,6 @@ def runs(tmp_path_factory):
     cases = _cases(tmp)
     loop_cfgs = _loop_files(tmp_path_factory.mktemp("loop"))
     helpers = _helper_inputs()
-    os.environ["TZREC_TABLE_MERGE"] = "0"
     batches, dumps = {}, {}
     for name, (_, _, cols_fn, _, _, _, _, evals, dump) in cases.items():
         n = _n(name)
@@ -426,10 +426,13 @@ def runs(tmp_path_factory):
     own = sorted((name for name in cases if name not in SHARED_REF),
                  key=lambda n: not n.startswith("sid"))
     canon = {name: Future() for name in own}
+    # the ranks start at once: a case's initial weights reach them through
+    # a file, written once its JAX setup has them
+    canon_dir = tmp_path_factory.mktemp("canon")
 
     def jax_case(name):
-        """The JAX setup (its initial weights to ``canon``), then its
-        steps; in a thread: the compiles of the cases overlap."""
+        """The JAX setup (its initial weights to ``canon`` and its file),
+        then its steps; in a thread: the compiles of the cases overlap."""
         text, plan, _, labels, tables = cases[name][:5]
         try:
             setup, canon0 = _jax_setup(text, plan, tables)
@@ -437,40 +440,38 @@ def runs(tmp_path_factory):
             canon[name].set_exception(e)
             raise
         canon[name].set_result(canon0)
+        R.write_arrays(str(canon_dir / f"{name}.npz"), canon0)
         return _jax_run(setup, batches[name][0], labels, tables,
                         batches[name][1], dumps.get(name, {}).get("jax"))
 
-    try:
-        with ThreadPoolExecutor(len(own)) as pool:
-            jax_refs = {name: pool.submit(jax_case, name) for name in own}
-            rank_cases = {}
-            for name, (text, plan, _, labels, _, neg, _, _, dump) in \
-                    cases.items():
-                steps_cols, eval_cols = batches[name]
-                rank_cases[name] = (
-                    text, canon[SHARED_REF.get(name, name)].result(),
-                    list(zip(*[_halves(c, neg, N_NEG) for c in steps_cols])),
-                    labels, plan,
-                    None if eval_cols is None
-                    else _halves(eval_cols, neg, N_NEG),
-                    dumps[name]["port"] if dump else None)
-            job = dist_util.start_ranks(
-                R.global_reductions_rank, WORLD, (rank_cases, helpers,
-                                                  loop_cfgs[0]),
-                store_dir=str(tmp_path_factory.mktemp("store")),
-                device="cpu", timeout_s=240)
-            # the port's one-rank runs meanwhile
-            ones = {name: R.reduction_case(
-                None, cases[name][0], canon[name].result(),
-                batches[name][0], cases[name][3], cases[name][1],
-                batches[name][1], dumps.get(name, {}).get("one"))
-                for name in own}
-            loop_one = port_main.train_and_evaluate(loop_cfgs[1],
-                                                    device="cpu")
-            refs = {name: (f.result(), ones[name])
-                    for name, f in jax_refs.items()}
-    finally:
-        os.environ.pop("TZREC_TABLE_MERGE", None)
+    with ThreadPoolExecutor(len(own)) as pool:
+        jax_refs = {name: pool.submit(jax_case, name) for name in own}
+        rank_cases = {}
+        for name, (text, plan, _, labels, _, neg, _, _, dump) in \
+                cases.items():
+            steps_cols, eval_cols = batches[name]
+            rank_cases[name] = (
+                text, str(canon_dir / f"{SHARED_REF.get(name, name)}.npz"),
+                list(zip(*[_halves(c, neg, N_NEG) for c in steps_cols])),
+                labels, plan,
+                None if eval_cols is None
+                else _halves(eval_cols, neg, N_NEG),
+                dumps[name]["port"] if dump else None)
+        job = dist_util.start_ranks(
+            R.global_reductions_rank, WORLD, (rank_cases, helpers,
+                                              loop_cfgs[0]),
+            store_dir=str(tmp_path_factory.mktemp("store")),
+            device="cpu", timeout_s=240)
+        # the port's one-rank runs meanwhile
+        ones = {name: R.reduction_case(
+            None, cases[name][0], canon[name].result(),
+            batches[name][0], cases[name][3], cases[name][1],
+            batches[name][1], dumps.get(name, {}).get("one"))
+            for name in own}
+        loop_one = port_main.train_and_evaluate(loop_cfgs[1],
+                                                device="cpu")
+        refs = {name: (f.result(), ones[name])
+                for name, f in jax_refs.items()}
     out = job.wait()
     train = {name: (*refs[SHARED_REF.get(name, name)],
                     [o[0][name] for o in out]) for name in cases}
@@ -554,9 +555,23 @@ def _assert_dump_steps(files):
                for v in steps.values()), sorted(files)
 
 
-def _assert_same_dump(got, ref, what):
-    assert set(got) == set(ref), what
-    for name, (ids, rows) in ref.items():
+def _assert_same_dump(got, ref, what, merged):
+    """The port's shards equal the JAX dumper's. Both engines merge each
+    feature's WIDE and DEEP tables (``merged``: the port's map of them);
+    the JAX dumper names such a shard after the merged table and writes
+    its whole rows, the port names it after the table and writes the
+    table's columns."""
+    pairs = {}
+    for name in got:
+        prefix, table, step = name.split("-")
+        m = merged.get(table)
+        jname = "-".join((prefix, m[0], step)) if m else name
+        pairs[name] = (jname, m) if jname in ref else (name, None)
+    assert sorted(j for j, _ in pairs.values()) == sorted(ref), what
+    for name, (jname, m) in pairs.items():
+        ids, rows = ref[jname]
+        if m is not None:
+            rows = rows[:, m[1]:m[1] + m[2]]
         np.testing.assert_array_equal(got[name][0], ids, err_msg=name)
         assert_close_to_max(got[name][1], rows, f"{what} {name}", TOL)
 
@@ -569,10 +584,14 @@ def test_delta_dump_at_world_2_writes_the_jax_files(case, runs):
     # files at both dump steps, a table a feature (the dumper keys its
     # ids by feature: a feature's last lookup names the table)
     _assert_dump_steps(ref)
-    _assert_same_dump(_read_dump(os.path.join(dirs["port"], "rank_0")), ref,
-                      "world 2")
+    merged = port_main._build_model_and_optim(
+        parse_pipeline_config(runs[1][case][0]), "cpu")[0] \
+        .embedding_group.engine._merged
+    got = _read_dump(os.path.join(dirs["port"], "rank_0"))
+    _assert_dump_steps(got)
+    _assert_same_dump(got, ref, "world 2", merged)
     assert not _read_dump(os.path.join(dirs["port"], "rank_1"))
-    _assert_same_dump(_read_dump(dirs["one"]), ref, "world 1")
+    _assert_same_dump(_read_dump(dirs["one"]), ref, "world 1", merged)
     jax_ref, _, ranks = runs[0][case]
     _assert_state(ranks[0], jax_ref, TOL, case)
 
@@ -585,7 +604,8 @@ def test_train_and_evaluate_dump_at_world_2_equals_world_1(runs):
             for p, name in zip(cfgs, ("world_2", "world_1"))]
     got, ref = _read_dump(dirs[0]), _read_dump(dirs[1])
     _assert_dump_steps(ref)
-    _assert_same_dump(got, ref, "train_and_evaluate world 2")
+    # both the port's: the same table names
+    _assert_same_dump(got, ref, "train_and_evaluate world 2", {})
 
 
 @pytest.mark.parametrize("world", [1, 2])

@@ -137,20 +137,20 @@ def runs(tmp_path_factory):
     names = list(port_main._build_model_and_optim(
         parse_pipeline_config(text), "cpu")[0].embedding_group.engine._specs)
     steps_cols = [cols_fn(32, 10 + i) for i in range(3)]
-    os.environ["TZREC_TABLE_MERGE"] = "0"
-    try:
-        setup, canon0 = _jax_init(text, plan, True, names)
-        loop = _loop_configs(tmp_path_factory.mktemp("loop"))
-        decisions = _decision_feeds()
-        job = dist_util.start_ranks(
-            R.pipeline_file_rank, 2,
-            ((canon, steps), (text, canon0, steps_cols, labels, plan),
-             (loop, RESUME_AT), decisions),
-            store_dir=str(tmp_path_factory.mktemp("store")), device="cpu",
-            timeout_s=300)
-        ref = _jax_steps(setup, steps_cols, labels, names)
-    finally:
-        os.environ.pop("TZREC_TABLE_MERGE", None)
+    loop = _loop_configs(tmp_path_factory.mktemp("loop"))
+    decisions = _decision_feeds()
+    # the ranks start first; the JAX model's initial weights reach their
+    # train case through a file, written once the JAX setup has them
+    canon_path = str(tmp_path_factory.mktemp("canon") / "canon0.npz")
+    job = dist_util.start_ranks(
+        R.pipeline_file_rank, 2,
+        ((canon, steps), (text, canon_path, steps_cols, labels, plan),
+         (loop, RESUME_AT), decisions),
+        store_dir=str(tmp_path_factory.mktemp("store")), device="cpu",
+        timeout_s=300)
+    setup, canon0 = _jax_init(text, plan, True, names)
+    R.write_arrays(canon_path, canon0)
+    ref = _jax_steps(setup, steps_cols, labels, names)
     return job.wait(), ref, loop, decisions
 
 

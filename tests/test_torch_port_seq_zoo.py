@@ -92,7 +92,6 @@ CONFIG_COPIES = {"multi_tower_din": "MultiTowerDIN",
 @pytest.fixture(scope="module")
 def jax_engine_env():
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("TZREC_TABLE_MERGE", "0")
         mp.setenv("TZREC_DENSE_LANE", str(ZOO_DENSE_LANE))
         mp.setenv("TZREC_PACKED", "1")
         yield

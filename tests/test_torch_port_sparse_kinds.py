@@ -96,7 +96,6 @@ def test_deepfm_three_steps_match_jax(kind, packed):
 
 @pytest.mark.parametrize("kind", sorted(LAYOUTS))
 def test_packed_layouts_match_jax(kind, monkeypatch):
-    monkeypatch.setenv("TZREC_TABLE_MERGE", "0")
     monkeypatch.setenv("TZREC_PACKED", "1")
     specs = [("a", 1000, 16), ("b", 700, 4), ("c", 90, 64)]
     jeng = jax_engine.EmbeddingEngine(

@@ -158,7 +158,6 @@ model_config {{
 @pytest.fixture(scope="module")
 def jax_engine_env():
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("TZREC_TABLE_MERGE", "0")
         mp.setenv("TZREC_DENSE_LANE", str(ZOO_DENSE_LANE))
         mp.setenv("TZREC_PACKED", "1")
         yield

@@ -24,9 +24,10 @@ both; the JAX weights cross through utils/convert.py).
 - ``synthetic.generate`` writes the JAX package's rows; the seven config
   copies equal the JAX originals but for their paths.
 
-The JAX engine's co-keyed table merge is off (``TZREC_TABLE_MERGE=0``:
-the port does not merge) and its dense lane takes the tables of at most
-``ZOO_DENSE_LANE`` rows, as the port's."""
+Both engines merge co-keyed tables, as they do by default (Wide&Deep's
+WIDE and DEEP tables of a feature become one table), and the JAX
+engine's dense lane takes the tables of at most ``ZOO_DENSE_LANE`` rows,
+as the port's."""
 
 import json
 import os
@@ -99,7 +100,6 @@ CONFIG_COPIES = ["wide_and_deep", "dlrm", "dcn_v2", "masknet", "mmoe", "ple",
 @pytest.fixture(scope="module")
 def jax_engine_env():
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("TZREC_TABLE_MERGE", "0")
         mp.setenv("TZREC_DENSE_LANE", str(ZOO_DENSE_LANE))
         mp.setenv("TZREC_PACKED", "1")
         yield

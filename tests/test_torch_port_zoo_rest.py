@@ -104,7 +104,6 @@ VD_LOW, VD_HIGH = 1e-6, 1 - 1e-6  # the JAX package's noise range
 @pytest.fixture(scope="module")
 def jax_engine_env():
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("TZREC_TABLE_MERGE", "0")
         mp.setenv("TZREC_DENSE_LANE", str(ZOO_DENSE_LANE))
         mp.setenv("TZREC_PACKED", "1")
         yield

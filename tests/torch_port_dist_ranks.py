@@ -5,6 +5,7 @@ first, as ``dist_util.spawn_ranks`` calls it, and returns numpy arrays.
 """
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -20,6 +21,38 @@ ENGINE_LOOKUPS = [("a", "f_a", "t_a", "sum", False),
                   ("d", "f_d", "t_d", "sum", False),
                   ("s", "f_s", "t_a", "none", True)]
 ENGINE_B = 16  # the global batch; each of 2 ranks takes 8 rows
+# the co-keyed merge over ranks: a WIDE/DEEP pair read by one feature
+# (merged into one d20 table) beside a table of its own, all in one
+# layout, run in each of these
+MERGE_LAYOUTS = ("row_wise", "table_wise", "table_row_wise", "data_parallel")
+MERGE_TABLES = [("m_deep", 200, 16), ("m_wide", 200, 4), ("t_c", 30, 8)]
+MERGE_LOOKUPS = [("md", "f_m", "m_deep", "sum", False),
+                 ("mw", "f_m", "m_wide", "sum", False),
+                 ("c", "f_c", "t_c", "mean", False)]
+MERGE_OPT = ("rowwise_adagrad", {"lr": 0.1})
+
+
+def write_arrays(path: str, arrays) -> None:
+    """{name: array} to the ``.npz`` file ``path``, whole or not at all
+    (the ranks may be waiting for it: ``arrays_from``)."""
+    tmp = path + ".part.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def arrays_from(src, timeout_s: float = 600.0):
+    """``src`` itself where it is a dict, else the arrays of the ``.npz``
+    file ``src``, waited for: the parent writes it while the ranks run
+    (``write_arrays``), so that their start overlaps its own setup."""
+    if not isinstance(src, str):
+        return src
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(src):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{src} was not written")
+        time.sleep(0.05)
+    with np.load(src) as f:
+        return {k: f[k] for k in f.files}
 
 
 def engine_batch(seed: int):
@@ -35,6 +68,47 @@ def engine_batch(seed: int):
             "f_c": (r.integers(0, 30, (b, 1)), None), "f_d": (f_d, None),
             "f_s": (r.integers(-1, 120, (b, 4)),
                     r.integers(0, 5, b).astype(np.int32))}
+
+
+def merge_batch(seed: int):
+    """{feature: (ids, None)} of the merge case: ids of every shard,
+    duplicates across the ranks, -1 padding."""
+    r = np.random.default_rng(seed)
+    f_m = r.integers(0, 200, (ENGINE_B, 3))
+    f_m[ENGINE_B // 2] = f_m[0]
+    f_m[r.random((ENGINE_B, 3)) < 0.2] = -1
+    return {"f_m": (f_m, None), "f_c": (r.integers(0, 30, (ENGINE_B, 2)),
+                                        None)}
+
+
+def merge_engine(shard=None, merge=True, packed=True, layout="row_wise"):
+    """The merge case's engine (all tables in ``layout``), merged unless
+    ``merge`` is False."""
+    from torcheasyrec_tpu_torch.parallel.emb_engine import (
+        EmbeddingEngine,
+        LookupSpec,
+        TableSpec,
+    )
+    from torcheasyrec_tpu_torch.parallel.sparse_optim import SparseOptimizer
+
+    return EmbeddingEngine(
+        [TableSpec(n, r, d, sharding=layout) for n, r, d in MERGE_TABLES],
+        [LookupSpec(*x) for x in MERGE_LOOKUPS],
+        SparseOptimizer(*MERGE_OPT), packed=packed, shard=shard, merge=merge)
+
+
+def merged_rank(shard, canon, steps):
+    """The merge case in each of MERGE_LAYOUTS on this rank's half of
+    every step's batch: {layout: (the ``run_engine`` results, this rank's
+    group keys and layouts)}."""
+    half = ENGINE_B // shard.world
+    rows = slice(shard.rank * half, (shard.rank + 1) * half)
+    out = {}
+    for layout in MERGE_LAYOUTS:
+        eng = merge_engine(shard, layout=layout)
+        out[layout] = (run_engine(eng, canon, steps, rows, MERGE_TABLES),
+                       {gk: g.sharding for gk, g in eng.groups.items()})
+    return out
 
 
 def engine_grads(outputs_shapes, seed: int):
@@ -69,32 +143,34 @@ def port_engine(kind, cfg, layout, packed, shard=None):
         SparseOptimizer(kind, cfg), packed=packed, shard=shard)
 
 
-def run_engine(eng, canon, steps, rows=slice(None)):
+def run_engine(eng, canon, steps, rows=slice(None), tables=ENGINE_TABLES):
     """Write ``canon`` ({table: [rows, dim]}), then per step a lookup of
     the step's batch rows and an update from the step's gradient rows.
     Returns (outputs per step, {table: weights}, {table: {state:
     array}}, {table: (``read_rows``, ``read_row_state``) at every third
     row})."""
     gen = torch.Generator().manual_seed(0)
-    tables = eng.init_tables(gen)
+    store = eng.init_tables(gen)
     for name, w in canon.items():
-        eng.write_table(tables, name, torch.from_numpy(w))
+        eng.write_table(store, name, torch.from_numpy(w))
     state = eng.init_opt_state()
     outs = []
     for batch, grads in steps:
         sparse, seq = port_fields(batch, rows)
-        out, res = eng.lookup(tables, sparse, seq)
+        out, res = eng.lookup(store, sparse, seq)
         outs.append({k: v.float().numpy() for k, v in out.items()})
-        eng.update(tables, state, res,
+        eng.update(store, state, res,
                    {k: torch.from_numpy(g[rows]) for k, g in grads.items()},
                    0.5)
+    specs = tables
+    tables = store
     weights = {n: eng.extract_table(tables, n).float().numpy()
-               for n, _, _ in ENGINE_TABLES}
+               for n, _, _ in specs}
     st = {n: {k: np.asarray(v.float().numpy())
               for k, v in eng.extract_table_state(tables, state, n).items()}
-          for n, _, _ in ENGINE_TABLES}
+          for n, _, _ in specs}
     reads = {}
-    for n, r, _ in ENGINE_TABLES:
+    for n, r, _ in specs:
         probe = torch.arange(0, r, 3)
         reads[n] = (eng.read_rows(tables, n, probe).numpy(),
                     {k: v.numpy() for k, v in
@@ -136,9 +212,11 @@ def init_rank(shard, cases):
     return {case: init_tables_of(*case, shard=shard) for case in cases}
 
 
-def engine_and_init_rank(shard, cases, canon, steps, layouts):
-    return engine_cases_rank(shard, cases, canon, steps), init_rank(
-        shard, layouts)
+def engine_and_init_rank(shard, cases, canon, steps, layouts, merged):
+    """The engine cases, the init cases and the merge case (``merged``:
+    its (canon, steps))."""
+    return (engine_cases_rank(shard, cases, canon, steps),
+            init_rank(shard, layouts), merged_rank(shard, *merged))
 
 
 # --- train steps -------------------------------------------------------------
@@ -159,6 +237,7 @@ def train_case(shard, cfg_text, canon, steps_cols, labels, plan):
     from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
     from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
 
+    canon = arrays_from(canon)
     cfg = parse_pipeline_config(cfg_text)
     model, features, sparse_sched = port_main._build_model_and_optim(
         cfg, "cpu", for_train=True, shard=shard, plan=plan)
@@ -232,8 +311,9 @@ def refusals_rank(shard, cfg_texts):
 
 
 def whole_file_rank(shard, train_cases, cfg_path, more_steps, cfg_texts):
-    """The train-step cases, the entry points and the builds, in one
-    spawn."""
+    """The train-step cases (their initial weights waited for as the
+    parent writes them, ``arrays_from``), the entry points and the
+    builds, in one spawn."""
     return (train_cases_rank(shard, train_cases),
             entry_points_rank(shard, cfg_path, more_steps),
             refusals_rank(shard, cfg_texts))
@@ -668,6 +748,7 @@ def pipelined_train_case(shard, cfg_text, canon, steps_cols, labels, plan):
     from torcheasyrec_tpu_torch.utils.config_util import parse_pipeline_config
 
     cfg = parse_pipeline_config(cfg_text)
+    canon = arrays_from(canon)
     out = []
     for pipelined in (False, True):
         model, features, sparse_sched = port_main._build_model_and_optim(
@@ -830,6 +911,7 @@ def reduction_case(shard, cfg_text, canon, steps_cols, labels, plan,
     cfg = parse_pipeline_config(cfg_text)
     model, features, sparse_sched = port_main._build_model_and_optim(
         cfg, "cpu", for_train=True, shard=shard, plan=plan)
+    canon = arrays_from(canon)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in canon.items()})
     tx, dense_sched = port_main._dense_optimizer(model, cfg.train_config)
     state = port_main._init_state(model, tx)

@@ -10,8 +10,11 @@ parses each batch into a ``Batch`` of CPU tensors and a ``BatchInfo``.
 The loader produces them either on a background thread
 (``PrefetchIterator``) or, when ``data_config.num_workers`` asks for it,
 in ``torch.utils.data.DataLoader`` worker processes, each reading a
-disjoint shard; on a CUDA device it pins every batch and copies it to
-the card on a side stream.
+disjoint shard. The producers pack each batch into one narrow wire
+buffer (``datasets/pack.py``: the thread loader pinned where the batches
+go to a card, a worker as a numpy array the parent pins), which moves
+to the card in one copy on a side stream and is unpacked there; on the
+CPU it is unpacked on the host.
 """
 
 import os
@@ -26,6 +29,12 @@ import pyarrow as pa
 import torch
 
 from torcheasyrec_tpu_torch.datasets.data_parser import DataParser
+from torcheasyrec_tpu_torch.datasets.pack import (
+    PackedBatch,
+    pack_batch,
+    unify_spec,
+    unpack_batch,
+)
 from torcheasyrec_tpu_torch.datasets.utils import (
     CKPT_ROW_IDX,
     CKPT_SOURCE_ID,
@@ -283,41 +292,58 @@ class BaseDataset:
 
 
 class _DeviceCopy:
-    """Copies a pinned host batch to a CUDA device on a side stream: the
-    copy of batch N+1 runs under step N, the compute stream waits for it
-    on an event, and each copied tensor is recorded on the compute stream
-    so the allocator keeps its memory until the step that reads it is
-    done. Runs on the consumer's thread, as the JAX loader's device_put
-    does: issuing copies from the producer thread would queue them behind
-    its parsing under the interpreter lock. The copy keeps the pinned host
-    batch as ``host``: the host-offloaded tables read its ids, with no
-    copy back from the device."""
+    """Copies a packed batch's pinned wire to a CUDA device on a side
+    stream, in one transfer, and unpacks it there: the copy of batch N+1
+    runs under step N, the compute stream waits for it on an event, and
+    each unpacked storage is recorded on the compute stream so the
+    allocator keeps its memory until the step that reads it is done. Runs
+    on the consumer's thread, as the JAX loader's device_put does: issuing
+    copies from the producer thread would queue them behind its parsing
+    under the interpreter lock. The pinned wire is not reused before the
+    copy has read it (the caching host allocator records the copy's event
+    on it, and the host batch holds it). The copy's ``host`` is the batch
+    rebuilt from the pinned wire at its first read: the host-offloaded
+    tables read its ids, with no copy back from the device."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
         self._stream = torch.cuda.Stream(device)
 
-    def __call__(self, batch: Batch) -> Batch:
+    def __call__(self, packed: PackedBatch) -> Batch:
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._stream):
-            out = batch.to(self.device, non_blocking=True)
+            out = unpack_batch(packed, packed.wire.to(self.device,
+                                                      non_blocking=True))
         compute.wait_stream(self._stream)
+        # once per storage: an unpacked batch's leaves are views of a few
+        seen = set()
         for t in out.tensors():
-            t.record_stream(compute)
-        out.host = batch
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in seen:
+                seen.add(ptr)
+                t.record_stream(compute)
+        out.set_host(lambda: unpack_batch(packed))
         return out
+
+
+def _deliver(packed: PackedBatch, copy: Optional[_DeviceCopy]) -> Batch:
+    """The batch on the card through ``copy``, else unpacked on the
+    host."""
+    return unpack_batch(packed) if copy is None else copy(packed)
 
 
 class PrefetchIterator:
     """(Batch, BatchInfo) items produced on a background thread, which
-    reads and parses (pyarrow and numpy release the interpreter lock) and,
-    with ``copy`` set, pins each batch; ``copy`` moves it to the device at
-    ``__next__``. A failure in the thread is raised at the consumer's next
+    reads and parses (pyarrow and numpy release the interpreter lock) and
+    packs each batch (``dense_bf16``: ``pack_batch``'s), pinned where
+    ``copy`` is set; ``copy`` moves it to the device at ``__next__``. A
+    failure in the thread is raised at the consumer's next
     ``__next__``."""
 
     def __init__(self, iterable, prefetch: int = PREFETCH,
                  copy: Optional[_DeviceCopy] = None,
-                 on_close: Optional[Callable[[], None]] = None) -> None:
+                 on_close: Optional[Callable[[], None]] = None,
+                 dense_bf16: bool = False) -> None:
         self._copy = copy
         self._on_close = on_close
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
@@ -339,8 +365,7 @@ class PrefetchIterator:
         def _worker() -> None:
             try:
                 for batch, info in iterable:
-                    if pin:
-                        batch = batch.pin_memory()
+                    batch = pack_batch(batch, dense_bf16, pin=pin)
                     if not _put((batch, info)):
                         return
             except BaseException as e:  # noqa: BLE001 - re-raised by __next__
@@ -380,9 +405,7 @@ class PrefetchIterator:
                 raise self._err
             raise StopIteration
         batch, info = item
-        if self._copy is not None:
-            batch = self._copy(batch)
-        return batch, info
+        return _deliver(batch, self._copy), info
 
 
 class _WorkerShards(torch.utils.data.IterableDataset):
@@ -393,7 +416,7 @@ class _WorkerShards(torch.utils.data.IterableDataset):
 
     def __init__(self, data_config, features, input_path, mode,
                  reserved_columns, selected_cols, batch_size, base_wid,
-                 base_nw, sampler=None) -> None:
+                 base_nw, sampler=None, dense_bf16: bool = False) -> None:
         super().__init__()
         self.data_config = data_config
         self.features = features
@@ -405,23 +428,25 @@ class _WorkerShards(torch.utils.data.IterableDataset):
         self.base_wid = base_wid
         self.base_nw = base_nw
         self.sampler = sampler
+        self.dense_bf16 = dense_bf16
 
-    def __iter__(self) -> Iterator[Tuple[Batch, BatchInfo]]:
+    def shard(self) -> BaseDataset:
+        """This worker's dataset (called in the worker)."""
         info = torch.utils.data.get_worker_info()
         w, k = (0, 1) if info is None else (info.id, info.num_workers)
         reader = _reader_for(self.data_config, self.input_path,
                              self.batch_size, self.selected_cols, self.mode)
-        dataset = BaseDataset(
+        return BaseDataset(
             self.data_config, self.features, reader, self.mode,
             worker_id=self.base_wid * k + w, num_workers=self.base_nw * k,
             reserved_columns=self.reserved_columns, sampler=self.sampler)
-        # numpy arrays reach the parent pickled through the worker's pipe,
-        # a batch in one piece; tensors would go as one shared-memory file
-        # descriptor each, fetched over a socket connection per descriptor,
-        # which for the 40 small tensors of a Criteo batch cost the worker
-        # more than parsing the batch did
-        for batch, batch_info in dataset:
-            yield batch.to_numpy(), batch_info
+
+    def __iter__(self) -> Iterator[Tuple[PackedBatch, BatchInfo]]:
+        # a numpy wire reaches the parent pickled through the worker's
+        # pipe; a tensor would go as a shared-memory file descriptor,
+        # fetched over a socket connection per descriptor
+        for batch, batch_info in self.shard():
+            yield pack_batch(batch, self.dense_bf16).to_numpy(), batch_info
 
 
 class _LoaderIter:
@@ -439,16 +464,17 @@ class _LoaderIter:
             self._close_sampler()
             raise
         self._copy = copy
+        # the wire kinds seen so far: each worker keeps envelopes of its own
+        self._kinds: Dict[Any, List[str]] = {}
 
     def __iter__(self):
         return self
 
     def __next__(self) -> Tuple[Batch, BatchInfo]:
         batch, info = next(self._it)
-        batch = batch.from_numpy()  # pinned tensors already, on CUDA
-        if self._copy is not None:
-            batch = self._copy(batch)
-        return batch, info
+        # a pinned tensor already, on CUDA
+        batch = unify_spec(batch.from_numpy(), self._kinds)
+        return _deliver(batch, self._copy), info
 
     def close(self) -> None:
         try:
@@ -592,6 +618,7 @@ def create_dataloader(
     worker_id: Optional[int] = None,
     num_workers: Optional[int] = None,
     device=None,
+    dense_bf16: bool = False,
 ) -> Callable[[], Iterator[Tuple[Batch, BatchInfo]]]:
     """A zero-argument factory of one epoch's iterator over
     (Batch, BatchInfo), carrying ``.dataset``, ``.reader`` and
@@ -601,8 +628,12 @@ def create_dataloader(
     The input shard is ``worker_id`` of ``num_workers``; by default this
     rank's of the ranks of ``torch.distributed`` (the whole input outside
     a process group), as the JAX package defaults to its process. Rank r
-    of N with K loader workers: worker w reads shard r * K + w of N * K. With ``device`` on CUDA the batches arrive there, copied
-    from pinned memory on a side stream; else they stay on the CPU.
+    of N with K loader workers: worker w reads shard r * K + w of N * K.
+    Every batch travels as one narrow wire buffer (``datasets/pack.py``;
+    with ``dense_bf16`` its dense features as bf16, arriving as fp32 of
+    the rounded values). With ``device`` on CUDA the batches arrive
+    there, the wire copied from pinned memory on a side stream in one
+    transfer and unpacked there; else they are unpacked on the CPU.
     ``resume_state`` ({source_id: last row consumed}) skips those rows in
     the first epoch only.
 
@@ -652,7 +683,8 @@ def create_dataloader(
             loader = torch.utils.data.DataLoader(
                 _WorkerShards(data_config, features, input_path, mode,
                               list(reserved_columns or []), selected_cols,
-                              batch_size, worker_id, num_workers, sampler),
+                              batch_size, worker_id, num_workers, sampler,
+                              dense_bf16),
                 batch_size=None, num_workers=mp_workers,
                 pin_memory=copy is not None, timeout=WORKER_TIMEOUT_S,
                 multiprocessing_context="spawn", prefetch_factor=PREFETCH)
@@ -662,7 +694,7 @@ def create_dataloader(
             return _LoaderIter(loader, copy, sampler)
         resumed_epoch_pending[0] = False
         return PrefetchIterator(iter(dataset), prefetch=PREFETCH, copy=copy,
-                                on_close=reader.stop)
+                                on_close=reader.stop, dense_bf16=dense_bf16)
 
     _make_iter.dataset = dataset
     _make_iter.reader = reader

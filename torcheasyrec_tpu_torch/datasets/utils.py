@@ -127,6 +127,28 @@ class Batch:
     # request's first row, [1, ...]) are tiled to; None otherwise
     tile_size: Optional[int] = None
 
+    @property
+    def host(self) -> Optional["Batch"]:
+        """The host batch this one was copied from (None where it was not
+        copied); where the copy was of a packed wire, rebuilt from the
+        wire at the first read."""
+        h = self.__dict__.get("_host")
+        if callable(h):
+            h = self.__dict__["_host"] = h()
+        return h
+
+    @host.setter
+    def host(self, value: Optional["Batch"]) -> None:
+        self.__dict__["_host"] = value
+
+    def set_host(self, thunk: Callable[[], "Batch"]) -> None:
+        """``host`` built by ``thunk`` at its first read."""
+        self.__dict__["_host"] = thunk
+
+    def keep_host(self, other: "Batch") -> None:
+        """``other``'s host batch as this one's, still unbuilt if it is."""
+        self.__dict__["_host"] = other.__dict__.get("_host")
+
     def to(self, device, non_blocking: bool = False) -> "Batch":
         """The batch on ``device``; with ``non_blocking`` the copies from
         pinned memory are queued on the current stream."""

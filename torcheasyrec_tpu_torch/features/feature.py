@@ -354,6 +354,7 @@ class EmbConfig:
     embedding_dim: int
     init_fn: Optional[str] = None
     sharding_types: Tuple[str, ...] = ()
+    trainable: bool = True
 
 
 def _has_field_safe(msg, name: str) -> bool:
@@ -520,6 +521,7 @@ class BaseFeature(metaclass=_meta_cls):
             embedding_dim=int(self.config.embedding_dim),
             init_fn=getattr(self.config, "init_fn", "") or None,
             sharding_types=constraints,
+            trainable=bool(getattr(self.config, "trainable", True)),
         )
 
     # -- input wiring ------------------------------------------------------

@@ -213,6 +213,14 @@ def _build_model_and_optim(pipeline_config, device="cuda", for_train=True,
     return model.train(for_train), features, sparse_sched
 
 
+def _dense_bf16(model: BaseModel, shard: Optional[ShardContext]) -> bool:
+    """Whether the loader's wire carries dense features as bf16, as the
+    JAX loop's ``_to_device`` packs them: on one rank under BF16; over
+    ranks the JAX mesh path puts them as they are."""
+    return ((shard is None or shard.world <= 1)
+            and model.compute_dtype == torch.bfloat16)
+
+
 def plan_tables(specs, shard: ShardContext, pipeline_config,
                 optimizer_kind: str,
                 host_excluded: Optional[set] = None) -> Dict[str, str]:
@@ -961,13 +969,16 @@ def _train_and_evaluate(pipeline_config_path, train_input_path,
                                  os.path.join(model_dir, "pipeline.config"))
 
     # each rank reads its shard of the input (create_dataloader's default)
+    dense_bf16 = _dense_bf16(model, shard)
     train_dl = create_dataloader(
         data_config, features, pipeline_config.train_input_path,
-        mode="train", resume_state=dataloader_state, device=dev)
+        mode="train", resume_state=dataloader_state, device=dev,
+        dense_bf16=dense_bf16)
     eval_dl = None
     if eval_path:
         eval_dl = create_dataloader(data_config, features, eval_path,
-                                    mode="eval", device=dev)
+                                    mode="eval", device=dev,
+                                    dense_bf16=dense_bf16)
     train_step = make_train_step(model, tx, sparse_sched, dense_sched,
                                  grad_accum, scaler_cfg)
     eval_step = make_eval_step(model)
@@ -1124,7 +1135,8 @@ def _evaluate(pipeline_config_path, checkpoint_path, eval_input_path,
             "step", 0))
     eval_dl = create_dataloader(
         pipeline_config.data_config, features,
-        pipeline_config.eval_input_path, mode="eval", device=dev)
+        pipeline_config.eval_input_path, mode="eval", device=dev,
+        dense_bf16=_dense_bf16(model, shard))
     result = _run_eval(model, make_eval_step(model), eval_dl,
                        pipeline_config.eval_config.num_steps or 0, None, step,
                        shard)

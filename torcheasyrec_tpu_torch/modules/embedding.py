@@ -113,6 +113,12 @@ _DP_ROWS_THRESHOLD = 8192
 Slot = Tuple[str, str, int]
 
 
+def _buffer_name(gk: str) -> str:
+    """The buffer of a group's storage (a merged group's key, d20_s16.4,
+    holds a dot, which a buffer name may not)."""
+    return "group_" + gk.replace(".", "_")
+
+
 class EmbeddingGroup(nn.Module):
     def __init__(self, features: List[BaseFeature], feature_groups: List[Any],
                  generator: torch.Generator,
@@ -176,7 +182,8 @@ class EmbeddingGroup(nn.Module):
                        or "FP32").upper(),
                 init_fn=init_override or cfg.init_fn or None,
                 sharding=sharding,
-                sharding_types=tuple(cfg.sharding_types)))
+                sharding_types=tuple(cfg.sharding_types),
+                trainable=cfg.trainable))
             return name
 
         def _emb_slot(feat: BaseFeature, suffix: str, is_sequence: bool,
@@ -274,10 +281,15 @@ class EmbeddingGroup(nn.Module):
         self.encoders = nn.ModuleDict(encoders)
         self.dense_emb = nn.ModuleDict(dense_emb)
 
+        # ZCH and dynamicemb tables never merge: their ids are remapped in
+        # the step, and a merged gather would feed the remapped slots to a
+        # co-keyed plain table (a name also excludes its suffixed twins)
         self.engine = EmbeddingEngine(
             list(table_specs.values()),
             list(lookups.values()), optimizer=sparse_optimizer,
             packed=packed, dense_lane_rows=dense_lane_rows, shard=shard,
+            no_merge_tables={f.embedding_name for f in features
+                             if f.is_sparse and f.is_zch} or None,
         )
         self._build_zch(features, shard)
         self.device = generator.device
@@ -291,7 +303,8 @@ class EmbeddingGroup(nn.Module):
             if self.engine.groups[gk].sharding == HOST_OFFLOAD:
                 self._host_stores[gk] = store
             else:
-                self.register_buffer(f"group_{gk}", store, persistent=False)
+                self.register_buffer(_buffer_name(gk), store,
+                                     persistent=False)
         self.zch = nn.ModuleDict({
             t: _ZchBuffers(zch_mod.init_state(
                 cfg.size, cfg.counter_size if cfg.admit_threshold > 0 else 0,
@@ -423,7 +436,7 @@ class EmbeddingGroup(nn.Module):
                     bufs[t][k].copy_(v)
         new = dataclasses.replace(batch, sparse_features=sparse,
                                   sequence_sparse_features=seq_sparse)
-        new.host = getattr(batch, "host", None)
+        new.keep_host(batch)
         return new, {t: {k: torch.cat(v) if len(v) > 1 else v[0]
                          for k, v in rec.items()}
                      for t, rec in spills.items()}
@@ -619,7 +632,8 @@ class EmbeddingGroup(nn.Module):
         """{group key: the group's storage}, as the engine takes them (a
         host group's on the host)."""
         return {gk: self._host_stores[gk] if gk in self._host_stores
-                else getattr(self, f"group_{gk}") for gk in self.engine.groups}
+                else getattr(self, _buffer_name(gk))
+                for gk in self.engine.groups}
 
     @property
     def tables(self) -> Dict[str, torch.Tensor]:

@@ -46,9 +46,29 @@ the storage dtype on write; their row state is fp32. A table's
 ``init_fn`` (a torch-style init string) replaces the default init.
 
 The engine is a descriptor: tables and optimizer state are dicts of
-tensors, keyed by group, that the caller holds. Not ported: co-keyed
-table merge. Packed and unpacked layouts agree to about 1 ulp per
-touched lane and step (the packed merge adds a rounded difference).
+tensors, keyed by group, that the caller holds. Packed and unpacked
+layouts agree to about 1 ulp per touched lane and step (the packed
+merge adds a rounded difference).
+
+The co-keyed table merge (on unless ``TZREC_TABLE_MERGE=0``, as in the
+JAX engine; ``merge_cokeyed_tables``): tables read by exactly the same
+id streams (same rows, dtype, trainable flag and resolved layout) are
+fused column by column into one stored table ``__merged__a+b`` (members
+in name order) of dim Σd, so one gather serves every member's output
+(``LookupSpec.col_outputs``) and one dedup and one optimizer pass apply
+every gradient: a Wide&Deep pair (a dim-4 WIDE and a dim-16 DEEP table
+of one feature) becomes one dim-20 table. Its group's key carries the
+segment widths (``d20_s16.4``) and the optimizer's row-wise state runs
+per segment (``sparse_optim``'s ``col_segments``), so each logical
+table's math is its unmerged one: rowwise adagrad keeps one accumulator
+column per member, and the packed slot is Σd plus those widths (22 for
+the pair). ZCH and dynamicemb tables (``no_merge_tables``, by name or
+prefix), column-wise and host tables and a table looked up twice by one
+stream never merge. Every per-table accessor (``extract_table[_state]``,
+``write_table[_state]``, ``read_rows``, ``read_row_state``,
+``tables_for_features``) takes and returns the original names, and a
+member's values are drawn as they are unmerged, so checkpoints and
+initial values do not depend on the merge.
 
 Host-offloaded tables (``host_offload``, one rank only): a group of its
 own per dim, ``d<dim>_host_offload``, unpacked fp32 in host memory with
@@ -114,6 +134,7 @@ touched, so that the rows are those of a gather made after it.
 import math
 import dataclasses
 import logging
+import os
 import threading
 import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -163,6 +184,10 @@ class TableSpec:
     sharding: str = ROW_WISE  # used under a ShardContext only
     # embedding_constraints.sharding_types: the planner's options
     sharding_types: Tuple[str, ...] = ()
+    trainable: bool = True
+    # co-keyed merge: the logical tables fused into this spec's columns,
+    # in column order; () for a table of its own
+    merged_from: Tuple["TableSpec", ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +199,9 @@ class LookupSpec:
     table_name: str
     combiner: str = "sum"  # sum | mean | none (none = sequence per-position)
     is_sequence: bool = False
+    # a merged table's lookup: (output key, first column, width) of each
+    # member; () for one output of the whole row under ``key``
+    col_outputs: Tuple[Tuple[str, int, int], ...] = ()
 
 
 @dataclasses.dataclass
@@ -201,6 +229,12 @@ class _Group:
     local_rows: int = 0
     col_lo: int = 0
     local_dim: int = 0
+    # the members' widths of a group of merged tables; () otherwise
+    col_segments: Tuple[int, ...] = ()
+
+    @property
+    def segs(self) -> Optional[Tuple[int, ...]]:
+        return self.col_segments or None
 
     @property
     def store_dtype(self) -> torch.dtype:
@@ -225,9 +259,82 @@ _STORE_DTYPES = {"FP32": torch.float32, "BF16": torch.bfloat16,
                  "FP16": torch.float16}
 
 
-def _group_key(dim: int, dtype: str = "FP32", sharding: str = "") -> str:
+def _group_key(dim: int, dtype: str = "FP32", sharding: str = "",
+               segs: Tuple[int, ...] = ()) -> str:
     base = f"d{dim}_{sharding}" if sharding else f"d{dim}"
-    return base if dtype.upper() == "FP32" else f"{base}_{dtype.lower()}"
+    if dtype.upper() != "FP32":
+        base = f"{base}_{dtype.lower()}"
+    if len(segs) > 1:
+        # merged tables group apart: their row-wise optimizer state runs
+        # per segment
+        base = f"{base}_s" + ".".join(str(w) for w in segs)
+    return base
+
+
+def merge_cokeyed_tables(
+    tables: Sequence[TableSpec],
+    lookups: Sequence[LookupSpec],
+    resolved: Dict[str, str],
+    no_merge: Optional[set] = None,
+) -> Tuple[List[TableSpec], List[LookupSpec], Dict[str, Tuple[str, int, int]]]:
+    """Fuse tables that are looked up by exactly the same id streams, as
+    the JAX engine's ``merge_cokeyed_tables``: same rows, dtype, trainable
+    flag, resolved layout (``resolved``) and stream signature {(feature,
+    combiner, is_sequence)}. Never merged: column-wise and host tables, a
+    table looked up twice by one (feature, is_sequence) stream, and a
+    table named in ``no_merge`` or starting with one of its names (ZCH
+    and dynamicemb tables, whose ids the step remaps). Returns (tables,
+    lookups, {original name: (merged name, first column, dim)})."""
+    by_table: Dict[str, List[LookupSpec]] = {}
+    for lk in lookups:
+        by_table.setdefault(lk.table_name, []).append(lk)
+    clusters: Dict[Any, List[TableSpec]] = {}
+    for t in tables:
+        lks = by_table.get(t.name, [])
+        if not lks or t.merged_from:
+            continue
+        if no_merge and any(t.name == z or t.name.startswith(z)
+                            for z in no_merge):
+            continue
+        sharding = resolved.get(t.name, t.sharding)
+        if sharding in (COLUMN_WISE, HOST_OFFLOAD):
+            continue
+        streams = tuple(sorted((lk.feature_name, lk.combiner, lk.is_sequence)
+                               for lk in lks))
+        if len({(f, q) for f, _, q in streams}) != len(streams):
+            continue
+        key = (t.rows, t.dtype.upper(), t.trainable, sharding, streams)
+        clusters.setdefault(key, []).append(t)
+
+    merged: Dict[str, Tuple[str, int, int]] = {}
+    new_tables: List[TableSpec] = []
+    new_lookups: List[LookupSpec] = []
+    for key, members in sorted(clusters.items(),
+                               key=lambda kv: kv[1][0].name):
+        if len(members) < 2:
+            continue
+        members = sorted(members, key=lambda t: t.name)
+        rows, dtype, trainable, sharding, streams = key
+        name = "__merged__" + "+".join(m.name for m in members)
+        col, offs = 0, {}
+        for m in members:
+            offs[m.name] = col
+            merged[m.name] = (name, col, m.dim)
+            col += m.dim
+        new_tables.append(TableSpec(
+            name, rows, col, dtype=dtype, sharding=sharding,
+            trainable=trainable, merged_from=tuple(members)))
+        lk_by = {(lk.table_name, lk.feature_name, lk.is_sequence): lk
+                 for m in members for lk in by_table[m.name]}
+        for feat, comb, is_seq in streams:
+            new_lookups.append(LookupSpec(
+                f"{name}:{feat}" + (":seq" if is_seq else ""), feat, name,
+                comb, is_seq, col_outputs=tuple(
+                    (lk_by[(m.name, feat, is_seq)].key, offs[m.name], m.dim)
+                    for m in members)))
+    new_tables += [t for t in tables if t.name not in merged]
+    new_lookups += [lk for lk in lookups if lk.table_name not in merged]
+    return new_tables, new_lookups, merged
 
 
 def _chunk_seed(base: int, table: str, chunk: int) -> int:
@@ -342,7 +449,12 @@ class EmbeddingEngine:
                  lookups: Sequence[LookupSpec],
                  optimizer: Optional[SparseOptimizer] = None,
                  packed: bool = True, dense_lane_rows: int = 32768,
-                 shard: Optional[ShardContext] = None) -> None:
+                 shard: Optional[ShardContext] = None,
+                 no_merge_tables: Optional[set] = None,
+                 merge: Optional[bool] = None) -> None:
+        """``merge``: the co-keyed table merge; None reads
+        ``TZREC_TABLE_MERGE`` ("0" turns it off), as the JAX engine
+        does."""
         self.optimizer = optimizer or SparseOptimizer("adagrad", {"lr": 0.001})
         self._packed = bool(packed)
         self.shard = shard
@@ -358,25 +470,46 @@ class EmbeddingEngine:
         while spg > 1 and self.num_shards % spg:
             spg -= 1
         self.shards_per_host = max(spg, 1)
+        # the logical tables and lookups, by their original names
         self._specs = {t.name: t for t in tables}
-        self.groups: Dict[str, _Group] = {}
-        self._table_group: Dict[str, str] = {}
+        self.lookups = list(lookups)
+        layout = {}
         for t in tables:
             if self._is_host(t):
-                sharding, dtype = self._check_host(t), "FP32"
+                layout[t.name] = (self._check_host(t), "FP32")
             else:
-                sharding = (self._resolve_sharding(t) if shard is not None
-                            else "")
-                dtype = t.dtype
-            gk = _group_key(t.dim, dtype, sharding)
+                layout[t.name] = (self._resolve_sharding(t)
+                                  if shard is not None else "", t.dtype)
+        if merge is None:
+            merge = os.environ.get("TZREC_TABLE_MERGE", "1") != "0"
+        # original name -> (merged name, first column, dim)
+        self._merged: Dict[str, Tuple[str, int, int]] = {}
+        stored, stored_lookups = list(tables), list(lookups)
+        if merge:
+            m_tables, m_lookups, self._merged = merge_cokeyed_tables(
+                tables, lookups, {n: v[0] for n, v in layout.items()},
+                no_merge=no_merge_tables)
+            if self._merged:
+                stored, stored_lookups = m_tables, m_lookups
+        # the tables as stored: merged ones and those of their own
+        self._store_specs = {t.name: t for t in stored}
+        self.groups: Dict[str, _Group] = {}
+        # group of every stored and every original table
+        self._table_group: Dict[str, str] = {}
+        for t in stored:
+            sharding, dtype = layout[(t.merged_from or (t,))[0].name]
+            segs = tuple(m.dim for m in t.merged_from)
+            gk = _group_key(t.dim, dtype, sharding, segs)
             g = self.groups.setdefault(
-                gk, _Group(t.dim, dtype, {}, 0, sharding=sharding))
+                gk, _Group(t.dim, dtype, {}, 0, sharding=sharding,
+                           col_segments=segs))
             g.specs.append(t)
-            self._table_group[t.name] = gk
+            for m in (t, *t.merged_from):
+                self._table_group[m.name] = gk
         for g in self.groups.values():
             self._finalize_group(g)
         self._lookups_by_group: Dict[str, List[LookupSpec]] = {}
-        for lk in lookups:
+        for lk in stored_lookups:
             gk = self._table_group[lk.table_name]
             self._lookups_by_group.setdefault(gk, []).append(lk)
 
@@ -432,7 +565,7 @@ class EmbeddingEngine:
             # as in the JAX engine: column shards and replicas keep
             # [rows, dim]
             return None
-        widths = tuple(self.optimizer.row_state_widths(g.dim))
+        widths = tuple(self.optimizer.row_state_widths(g.dim, g.segs))
         slot = g.dim + sum(w for _, w in widths)
         if slot > 128:
             return None
@@ -575,7 +708,7 @@ class EmbeddingEngine:
     def _owned(self, g: _Group, table_name: str) -> Tuple[int, int, int]:
         """(first row within the table, rows, first local logical row) of
         the part of a table this rank holds; rows 0 when it holds none."""
-        off, rows = g.offsets[table_name], self._specs[table_name].rows
+        off, rows = g.offsets[table_name], self._store_specs[table_name].rows
         lo = max(off, g.row_lo)
         hi = min(off + rows, g.row_lo + g.local_rows)
         if hi <= lo:
@@ -584,18 +717,20 @@ class EmbeddingEngine:
 
     def _one_rank_draws(self):
         """(table spec, [(shape, dtype)]) of every table of at most
-        ``_INIT_CHUNK`` rows, in the order, shapes and dtypes in which a
-        one-rank engine of these tables (this engine's ``packed`` and
-        dense lane) draws them: a packed table's whole physical rows as
-        [n, spr, dim], then its last slots as [rem, dim]; an unpacked
-        one as [rows, dim] in its storage dtype."""
-        # host tables draw as device tables would: offloading a table
-        # changes no table's values and no dense weight
+        ``_INIT_CHUNK`` rows, in the order, shapes and dtypes in which an
+        unmerged one-rank engine of these tables (this engine's
+        ``packed`` and dense lane) draws them: a packed table's whole
+        physical rows as [n, spr, dim], then its last slots as [rem,
+        dim]; an unpacked one as [rows, dim] in its storage dtype."""
+        # host tables draw as device tables would, and merged ones as
+        # unmerged ones: offloading or merging a table changes no table's
+        # values and no dense weight
         eng = self if self.shard is None and not self.has_host_groups \
-            else EmbeddingEngine(
+            and not self._merged else EmbeddingEngine(
                 [dataclasses.replace(t, sharding=ROW_WISE) if self._is_host(t)
                  else t for t in self._specs.values()], [], self.optimizer,
-                packed=self._packed, dense_lane_rows=self._one_rank_lane)
+                packed=self._packed, dense_lane_rows=self._one_rank_lane,
+                merge=False)
         for g in eng.groups.values():
             for t in g.specs:
                 if t.rows > self._INIT_CHUNK:
@@ -630,7 +765,8 @@ class EmbeddingEngine:
         gen_dev = generator.device
         out: Dict[str, torch.Tensor] = {}
         fills = self.optimizer.row_state_init()
-        replay = self.shard is not None or self.has_host_groups
+        replay = (self.shard is not None or self.has_host_groups
+                  or bool(self._merged))
         for gk, g in self.groups.items():
             if g.sharding == HOST_OFFLOAD:
                 out[gk] = torch.zeros(g.local_rows, g.dim)
@@ -645,17 +781,18 @@ class EmbeddingEngine:
                 out[gk] = torch.zeros(g.local_rows, g.local_dim,
                                       device=device, dtype=g.store_dtype)
 
-        def put(g, store, t, first, vals):
-            """Rows [first, first + len(vals)) of table t, where this rank
-            holds them."""
-            a, n, s0 = self._owned(g, t.name)
+        def put(store, t, first, vals):
+            """Rows [first, first + len(vals)) of logical table t, where
+            this rank holds them."""
+            g, sname, c0, width, _ = self._locate(t.name)
+            a, n, s0 = self._owned(g, sname)
             lo, hi = max(first, a), min(first + vals.shape[0], a + n)
             if hi > lo:
                 self._fill_views(
-                    self._range_views(g, store, s0 + lo - a, hi - lo, 0,
-                                      g.local_dim),
+                    self._range_views(g, store, s0 + lo - a, hi - lo, c0,
+                                      width),
                     vals[lo - first:hi - first,
-                         g.col_lo:g.col_lo + g.local_dim].to(store))
+                         g.col_lo:g.col_lo + width].to(store))
 
         for t, shapes in self._one_rank_draws():
             init = parse_init_fn(t.init_fn) or default_emb_init
@@ -671,24 +808,26 @@ class EmbeddingEngine:
                 v = torch.empty(shape, device=gen_dev, dtype=dtype)
                 init(v, generator, t.rows)
                 parts.append(v.reshape(-1, t.dim))
-            put(g, store, t, 0, torch.cat(parts) if len(parts) > 1
+            put(store, t, 0, torch.cat(parts) if len(parts) > 1
                 else parts[0])
         base = generator.initial_seed()
         for gk, g in self.groups.items():
-            for t in g.specs:
-                if t.rows <= self._INIT_CHUNK:
+            for st in g.specs:
+                if st.rows <= self._INIT_CHUNK:
                     continue
-                init = parse_init_fn(t.init_fn) or default_emb_init
-                a, n, _ = self._owned(g, t.name)
-                for c, p0 in enumerate(range(0, t.rows, self._INIT_CHUNK)):
-                    cn = min(self._INIT_CHUNK, t.rows - p0)
-                    if min(p0 + cn, a + n) <= max(p0, a):
-                        continue
-                    gen = torch.Generator(device=gen_dev)
-                    gen.manual_seed(_chunk_seed(base, t.name, c))
-                    vals = torch.empty(cn, t.dim, device=gen_dev)
-                    init(vals, gen, t.rows)
-                    put(g, out[gk], t, p0, vals)
+                a, n, _ = self._owned(g, st.name)
+                for t in (st.merged_from or (st,)):
+                    init = parse_init_fn(t.init_fn) or default_emb_init
+                    for c, p0 in enumerate(range(0, t.rows,
+                                                 self._INIT_CHUNK)):
+                        cn = min(self._INIT_CHUNK, t.rows - p0)
+                        if min(p0 + cn, a + n) <= max(p0, a):
+                            continue
+                        gen = torch.Generator(device=gen_dev)
+                        gen.manual_seed(_chunk_seed(base, t.name, c))
+                        vals = torch.empty(cn, t.dim, device=gen_dev)
+                        init(vals, gen, t.rows)
+                        put(out[gk], t, p0, vals)
         return out
 
     def init_opt_state(self, device=None) -> Dict[str, Any]:
@@ -698,7 +837,8 @@ class EmbeddingEngine:
             gk: (self.optimizer.scalar_state_init(device) if g.packed
                  else self.optimizer.init_state(
                      g.local_rows, g.local_dim,
-                     "cpu" if g.sharding == HOST_OFFLOAD else device))
+                     "cpu" if g.sharding == HOST_OFFLOAD else device,
+                     g.segs))
             for gk, g in self.groups.items()
         }
 
@@ -904,13 +1044,17 @@ class EmbeddingEngine:
     def _emit_outputs(self, g, plan, rows, outputs) -> None:
         for e in plan:
             r = rows[e.start:e.start + e.count]
+            # a merged lookup's one gather, sliced into its members' outputs
+            outs = e.lk.col_outputs or ((e.lk.key, 0, g.dim),)
             if e.kind == "seq":
                 if len(e.shape) == 3:
                     # multi-value steps: sum-pool the K id slots
                     b, length, k = e.shape
-                    outputs[e.lk.key] = r.reshape(b, length, k, g.dim).sum(2)
+                    full = r.reshape(b, length, k, g.dim).sum(2)
                 else:
-                    outputs[e.lk.key] = r.reshape(*e.shape, g.dim)
+                    full = r.reshape(*e.shape, g.dim)
+                for key, c0, w in outs:
+                    outputs[key] = full[..., c0:c0 + w]
                 continue
             b = e.lengths.shape[0]
             if e.weights is not None:
@@ -926,7 +1070,8 @@ class EmbeddingEngine:
                 pooled = r.reshape(b, -1, g.dim).sum(dim=1)
             if e.lk.combiner == "mean":
                 pooled = pooled / e.lengths.float().clamp(min=1.0)[:, None]
-            outputs[e.lk.key] = pooled
+            for key, c0, w in outs:
+                outputs[key] = pooled[:, c0:c0 + w]
 
     # -- backward: fused sparse updates --------------------------------------
 
@@ -961,7 +1106,7 @@ class EmbeddingEngine:
                                     grads, lr, plan)
             else:
                 self._dedup_apply(tables[gk], opt_state[gk], flat_ids, grads,
-                                  lr)
+                                  lr, segs=g.segs)
         return tables, opt_state
 
     # -- host-offloaded groups -------------------------------------------------
@@ -1025,10 +1170,11 @@ class EmbeddingEngine:
 
     @torch.no_grad()
     def write_logical_rows(self, weight: torch.Tensor, g: _Group,
-                           flat_ids: torch.Tensor,
-                           rows: torch.Tensor) -> None:
-        """``rows[i]`` ([N, d]) into columns [0, d) of logical row
-        ``flat_ids[i]`` of the group, in place, under any layout; id -1
+                           flat_ids: torch.Tensor, rows: torch.Tensor,
+                           col_off: int = 0) -> None:
+        """``rows[i]`` ([N, d]) into columns [col_off, col_off + d) of
+        logical row ``flat_ids[i]`` of the group (a merged member's
+        columns: ``table_columns``), in place, under any layout; id -1
         is dropped, of duplicates the last wins. Weight columns only:
         the in-row optimizer state of a packed group stays (a restored
         key restarts its optimizer state). A packed group's touched
@@ -1061,11 +1207,12 @@ class EmbeddingEngine:
             pid, lane, _ = self._packed_phys(g, uids)
             upid, pinv = torch.unique_consecutive(pid, return_inverse=True)
             phys = weight[upid]
-            _slots(phys, g)[pinv, lane, :d] = vals.to(weight.dtype)
+            _slots(phys, g)[pinv, lane, col_off:col_off + d] = vals.to(
+                weight.dtype)
             # the scratch row stays out of the view, as in the update
             write_rows(weight[:g.p_rows - 1], upid, phys)
         else:
-            weight[uids, :d] = vals.to(weight.dtype)
+            weight[uids, col_off:col_off + d] = vals.to(weight.dtype)
 
     def _sharded_update(self, g: _Group, table, state, flat_ids, grads, lr,
                         route) -> None:
@@ -1080,7 +1227,8 @@ class EmbeddingEngine:
             ids_all, _ = sh.all_gather_var(flat_ids)
             grads_all, _ = sh.all_gather_var(grads)
             # every replica applies the same sums (``_sorted_segment_sum``)
-            self._dedup_apply(table, state, ids_all, grads_all, lr)
+            self._dedup_apply(table, state, ids_all, grads_all, lr,
+                              segs=g.segs)
             return
         if g.sharding == COLUMN_WISE:
             ids_all, counts = route
@@ -1097,14 +1245,27 @@ class EmbeddingEngine:
         if g.packed:
             self._packed_update(g, table, state, local_ids, rg, lr, [])
         else:
-            self._dedup_apply(table, state, local_ids, rg, lr)
+            self._dedup_apply(table, state, local_ids, rg, lr, segs=g.segs)
 
     def _flat_row_grads(self, g, plan, out_grads):
         """[n_flat, dim] gradient of every looked-up row slot, from the
         gradients of the outputs; None when no output has one."""
         pieces, any_grad = [], False
         for e in plan:
-            og = out_grads.get(e.lk.key)
+            if e.lk.col_outputs:
+                # a merged lookup: its members' output gradients side by
+                # side (a missing one is zero)
+                parts = [out_grads.get(key) for key, _, _ in e.lk.col_outputs]
+                og = None
+                if any(p is not None for p in parts):
+                    lead = next(p for p in parts if p is not None).shape[:-1]
+                    og = torch.cat([
+                        p.float() if p is not None else torch.zeros(
+                            (*lead, w), device=e.lengths.device)
+                        for p, (_, _, w) in zip(parts, e.lk.col_outputs)],
+                        dim=-1)
+            else:
+                og = out_grads.get(e.lk.key)
             if og is None:
                 pieces.append(torch.zeros((e.count, g.dim),
                                           device=e.lengths.device))
@@ -1146,12 +1307,14 @@ class EmbeddingEngine:
         return uids, _sorted_segment_sum(grads, order, counts)
 
     def _dedup_apply(self, weight, state, ids, grads, lr, dim_reduce=None,
-                     full_dim=None):
+                     full_dim=None, segs=None):
         """Sum the gradients of duplicate ids, then apply the optimizer to
-        the unique rows of an unpacked group."""
+        the unique rows of an unpacked group (per segment where ``segs``
+        holds a merged group's widths)."""
         uids, gsum = self._dedup(ids, grads, weight.shape[0])
         return self.optimizer.apply(weight, state, uids, gsum, lr,
-                                    dim_reduce=dim_reduce, full_dim=full_dim)
+                                    dim_reduce=dim_reduce, full_dim=full_dim,
+                                    col_segments=segs)
 
     def _split_slot(self, g: _Group, rowv: torch.Tensor):
         """[K, slot] -> (weights [K, dim], {name: row state [K, width]})."""
@@ -1164,7 +1327,7 @@ class EmbeddingEngine:
         new scalar state)."""
         w_rows, srows = self._split_slot(g, rowv)
         new_rows, new_srows, new_scalar = self.optimizer.apply_rows(
-            w_rows, srows, gsum, lr, scalar_state)
+            w_rows, srows, gsum, lr, scalar_state, col_segments=g.segs)
         parts = [new_rows] + [new_srows[nm] for nm, _ in g.state_widths]
         return (torch.cat(parts, dim=1) if len(parts) > 1 else new_rows,
                 new_scalar)
@@ -1250,11 +1413,32 @@ class EmbeddingEngine:
     # -- per-table access ------------------------------------------------------
 
     def tables_for_features(self, feature_names) -> set:
-        """Names of the tables the given features look up (the tables a
-        tower artifact keeps)."""
+        """Original names of the tables the given features look up (the
+        tables a tower artifact keeps)."""
         names = set(feature_names)
-        return {lk.table_name for lks in self._lookups_by_group.values()
-                for lk in lks if lk.feature_name in names}
+        return {lk.table_name for lk in self.lookups
+                if lk.feature_name in names}
+
+    def _locate(self, table_name: str):
+        """(group, stored table holding it, first column, width, segment
+        index) of a logical table: a merged member's columns of its
+        merged table; [0, local dim) of a table of its own."""
+        if table_name in self._merged:
+            sname, c0, d = self._merged[table_name]
+            seg = [m.name for m in self._store_specs[sname].merged_from
+                   ].index(table_name)
+            return self.groups[self._table_group[sname]], sname, c0, d, seg
+        g = self.groups[self._table_group[table_name]]
+        return g, table_name, 0, g.local_dim, 0
+
+    def _state_cols(self, key: str, width: int, table_name: str):
+        """(first column, width) of a logical table's part of the row-state
+        array ``key`` of ``width`` columns: a merged member's columns of
+        a per-column state, its segment's column of a row-wise one."""
+        if table_name not in self._merged:
+            return 0, width
+        _, _, c0, d, seg = self._locate(table_name)
+        return (c0, d) if key in self._per_dim_state() else (seg, 1)
 
     def export_weight_matrices(self, tables: Dict[str, torch.Tensor]
                                ) -> Dict[str, np.ndarray]:
@@ -1299,10 +1483,16 @@ class EmbeddingEngine:
                 "several ranks are not ported")
 
     def table_rows(self, table_name: str) -> Tuple[str, int, int]:
-        """(group key, first logical row, rows) of one table."""
-        gk = self._table_group[table_name]
-        return (gk, self.groups[gk].offsets[table_name],
-                self._specs[table_name].rows)
+        """(group key, first logical row, rows) of one table (of a merged
+        member: of its merged table, whose columns ``table_columns``
+        gives)."""
+        g, sname, _, _, _ = self._locate(table_name)
+        return (self._table_group[sname], g.offsets[sname],
+                self._store_specs[sname].rows)
+
+    def table_columns(self, table_name: str) -> Tuple[int, int]:
+        """(first column, width) of one table in its group's rows."""
+        return self._locate(table_name)[2:4]
 
     def _range_views(self, g: _Group, store: torch.Tensor, start: int,
                      n: int, lo: int, width: int) -> List[torch.Tensor]:
@@ -1383,12 +1573,12 @@ class EmbeddingEngine:
         unpacked group of one rank, a copy out of a packed one (its rows
         are no 2-D view) and out of a sharded one (gathered from every
         rank: every rank calls it). Write through ``write_table``."""
-        gk = self._table_group[table_name]
-        g = self.groups[gk]
+        g, sname, c0, width, _ = self._locate(table_name)
+        gk = self._table_group[sname]
         if self.shard is None and not g.packed:
-            off, rows = g.offsets[table_name], self._specs[table_name].rows
-            return tables[gk][off:off + rows]
-        part = self._local_part(g, tables[gk], table_name, 0, g.local_dim)
+            off, rows = g.offsets[sname], self._store_specs[sname].rows
+            return tables[gk][off:off + rows, c0:c0 + width]
+        part = self._local_part(g, tables[gk], sname, c0, width)
         return self._canonical(g, part, True)
 
     @torch.no_grad()
@@ -1398,14 +1588,14 @@ class EmbeddingEngine:
         storage in place, under any layout (each rank writes the rows and
         columns it holds; no collective). In-row optimizer state is left
         as it is."""
-        gk = self._table_group[table_name]
-        g = self.groups[gk]
-        a, n, s0 = self._owned(g, table_name)
+        g, sname, c0, width, _ = self._locate(table_name)
+        gk = self._table_group[sname]
+        a, n, s0 = self._owned(g, sname)
         if n == 0:
             return
-        vals = values[a:a + n, g.col_lo:g.col_lo + g.local_dim]
+        vals = values[a:a + n, g.col_lo:g.col_lo + width]
         self._fill_views(
-            self._range_views(g, tables[gk], s0, n, 0, g.local_dim),
+            self._range_views(g, tables[gk], s0, n, c0, width),
             vals.to(tables[gk]))
 
     @torch.no_grad()
@@ -1414,14 +1604,13 @@ class EmbeddingEngine:
         """[len(rows), dim] canonical rows of one table, fp32, whatever the
         layout: each rank fills the rows it holds and the parts are
         summed over the ranks (collective under a ShardContext)."""
-        gk = self._table_group[table_name]
-        g = self.groups[gk]
-        store = tables[gk]
-        a, n, s0 = self._owned(g, table_name)
+        g, sname, c0, width, _ = self._locate(table_name)
+        store = tables[self._table_group[sname]]
+        a, n, s0 = self._owned(g, sname)
         rows = rows.long().to(store.device)
         mine = (rows >= a) & (rows < a + n)
         local = torch.where(mine, rows - a + s0, rows.new_full((), -1))
-        part = self._gather(g, store, local).float()
+        part = self._gather(g, store, local).float()[:, c0:c0 + width]
         if self.shard is None or g.sharding == DATA_PARALLEL:
             return part
         if g.sharding == COLUMN_WISE:
@@ -1436,10 +1625,10 @@ class EmbeddingEngine:
         ``rows``, fp32, whatever the layout (``read_rows``' counterpart
         for the optimizer's row state; collective under a
         ShardContext)."""
-        gk = self._table_group[table_name]
-        g = self.groups[gk]
+        g, sname, _, _, _ = self._locate(table_name)
+        gk = self._table_group[sname]
         store = tables[gk]
-        a, n, s0 = self._owned(g, table_name)
+        a, n, s0 = self._owned(g, sname)
         rows = rows.long().to(store.device)
         mine = (rows >= a) & (rows < a + n)
         local = torch.where(mine, rows - a + s0, rows.new_zeros(()))
@@ -1453,6 +1642,8 @@ class EmbeddingEngine:
         out = {}
         for k, v in arrays.items():
             v = v.float().reshape(rows.shape[0], -1)
+            c0, w = self._state_cols(k, v.shape[1], table_name)
+            v = v[:, c0:c0 + w]
             v = torch.where(mine[:, None], v, v.new_zeros(()))
             if self.shard is None or g.sharding == DATA_PARALLEL:
                 out[k] = v
@@ -1466,13 +1657,23 @@ class EmbeddingEngine:
         return out
 
     def _state_arrays(self, g: _Group, store, st, table_name):
-        """{name: this rank's rows of each row-state array of one table}."""
+        """{name: this rank's rows of each row-state array of one logical
+        table} (of a merged member: its columns, ``_state_cols``)."""
+        sname = self._locate(table_name)[1]
         if g.packed:
-            return {name: self._local_part(g, store, table_name, lo, width)
-                    for name, lo, width in self._state_lanes(g)}
-        _, n, s0 = self._owned(g, table_name)
-        return {k: v[s0:s0 + n] for k, v in st.items()
-                if v.dim() >= 1 and v.shape[0] == g.local_rows}
+            out = {}
+            for name, lo, width in self._state_lanes(g):
+                c0, w = self._state_cols(name, width, table_name)
+                out[name] = self._local_part(g, store, sname, lo + c0, w)
+            return out
+        _, n, s0 = self._owned(g, sname)
+        out = {}
+        for k, v in st.items():
+            if v.dim() >= 1 and v.shape[0] == g.local_rows:
+                v = v[s0:s0 + n]
+                c0, w = self._state_cols(k, v.shape[1], table_name)
+                out[k] = v[:, c0:c0 + w]
+        return out
 
     def extract_table_state(self, tables: Dict[str, torch.Tensor],
                             opt_state: Dict[str, Any],
@@ -1481,8 +1682,8 @@ class EmbeddingEngine:
         rows of every row-state array (out of the rows of a packed
         group, out of ``opt_state`` otherwise; gathered from every rank
         under a ShardContext) and the group's scalars as they are."""
-        gk = self._table_group[table_name]
-        g = self.groups[gk]
+        g, sname, _, _, _ = self._locate(table_name)
+        gk = self._table_group[sname]
         st = (opt_state or {}).get(gk, {})
         arrays = self._state_arrays(g, tables[gk], st, table_name)
         per_dim = self._per_dim_state()
@@ -1505,9 +1706,9 @@ class EmbeddingEngine:
         table's rows (packed) or its slice of ``opt_state`` (unpacked),
         in place, each rank its own rows and columns; scalars replace the
         group's."""
-        gk = self._table_group[table_name]
-        g = self.groups[gk]
-        a, n, s0 = self._owned(g, table_name)
+        g, sname, _, _, _ = self._locate(table_name)
+        gk = self._table_group[sname]
+        a, n, s0 = self._owned(g, sname)
         rows = self._specs[table_name].rows
         lanes = {name: (lo, width) for name, lo, width in self._state_lanes(g)}
         for key, val in table_state.items():
@@ -1523,10 +1724,12 @@ class EmbeddingEngine:
                 val = val[a:a + n]
                 if g.packed and key in lanes:
                     lo, width = lanes[key]
+                    c0, w = self._state_cols(key, width, table_name)
                     self._fill_views(
-                        self._range_views(g, tables[gk], s0, n, lo, width),
+                        self._range_views(g, tables[gk], s0, n, lo + c0, w),
                         val.to(tables[gk]))
                 else:
-                    cur[s0:s0 + n] = val.to(cur)
+                    c0, w = self._state_cols(key, cur.shape[1], table_name)
+                    cur[s0:s0 + n, c0:c0 + w] = val.to(cur)
             else:
                 opt_state[gk][key] = val.to(tables[gk].device)

@@ -375,8 +375,15 @@ def plan_cost(specs: Sequence[TableSpec], **kw):
 
 
 def save_plan(plan: Dict[str, str], model_dir: str) -> None:
-    with open(os.path.join(model_dir, "sharding_plan.json"), "w") as f:
+    """Write ``sharding_plan.json`` whole: written under a name of the
+    process's own and renamed into place, so that another rank's
+    ``load_plan`` never reads it half written (rank 0 rewrites the plan
+    it loaded when a run continues)."""
+    path = os.path.join(model_dir, "sharding_plan.json")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
         json.dump(plan, f, indent=2)
+    os.replace(tmp, path)
 
 
 def load_plan(model_dir: str) -> Optional[Dict[str, str]]:

@@ -17,8 +17,15 @@ and lars's norms) run over the ``dim`` weight lanes of a row only, never
 over its state lanes. Under a column-wise layout a rank holds some of a
 row's columns: ``dim_reduce`` (an ``all_reduce`` over the ranks) sums
 those reductions over the ranks and ``full_dim`` is the whole row's
-width, as the JAX package's ``dim_psum_axis`` and ``full_dim``. Column
-segments of merged tables are not ported.
+width, as the JAX package's ``dim_psum_axis`` and ``full_dim``.
+
+Column segments (``col_segments``, the widths of the logical tables that
+the engine's co-keyed merge fused into one row): the row-wise reductions
+then run per segment, each over its own columns, and the row-wise state
+keeps one column per segment, so that every logical table's optimizer
+math is the one it has unmerged (the JAX package's ``_dim_sum`` with
+``segs``). A merged table is never column-wise: segments and
+``dim_reduce`` never meet.
 """
 
 from typing import Any, Dict, List, Tuple
@@ -37,20 +44,49 @@ _DECAY_KINDS = ("adam", "lamb", "partial_rowwise_lamb", "partial_rowwise_adam",
                 "lars_sgd", "adadelta", "rmsprop")
 
 
-def _row_norm(x: torch.Tensor, dim_reduce=None) -> torch.Tensor:
+def _segmented(segs) -> bool:
+    return segs is not None and len(segs) > 1
+
+
+def _per_segment(x: torch.Tensor, segs, fn) -> torch.Tensor:
+    """[K, n_seg]: ``fn`` of each segment's columns of ``x`` [K, dim]."""
+    out, off = [], 0
+    for w in segs:
+        out.append(fn(x[:, off:off + w]))
+        off += w
+    return torch.cat(out, dim=1)
+
+
+def _row_norm(x: torch.Tensor, dim_reduce=None, segs=None) -> torch.Tensor:
     """[K, 1] L2 norm of each row (of the whole row, under
-    ``dim_reduce``)."""
+    ``dim_reduce``); [K, n_seg] of each segment's columns."""
+    if _segmented(segs):
+        return _per_segment(
+            x, segs, lambda c: (c * c).sum(dim=-1, keepdim=True).sqrt())
     s = (x * x).sum(dim=-1, keepdim=True)
     return (s if dim_reduce is None else dim_reduce(s)).sqrt()
 
 
-def _row_mean(x: torch.Tensor, dim_reduce=None,
-              full_dim=None) -> torch.Tensor:
+def _row_mean(x: torch.Tensor, dim_reduce=None, full_dim=None,
+              segs=None) -> torch.Tensor:
     """[K, 1] mean of each row (of the whole row of ``full_dim``
-    columns, under ``dim_reduce``)."""
+    columns, under ``dim_reduce``); [K, n_seg] of each segment's
+    columns."""
+    if _segmented(segs):
+        return _per_segment(x, segs, lambda c: c.mean(dim=-1, keepdim=True))
     if dim_reduce is None:
         return x.mean(dim=-1, keepdim=True)
     return dim_reduce(x.sum(dim=-1, keepdim=True)) / float(full_dim)
+
+
+def _seg_expand(s: torch.Tensor, segs) -> torch.Tensor:
+    """[K, n_seg] per-segment values -> [K, dim], each repeated over its
+    segment's columns (unchanged when unsegmented)."""
+    if not _segmented(segs):
+        return s
+    return torch.repeat_interleave(
+        s, torch.tensor(segs, device=s.device), dim=1,
+        output_size=sum(segs))
 
 
 class SparseOptimizer:
@@ -65,17 +101,20 @@ class SparseOptimizer:
 
     # -- state -------------------------------------------------------------
 
-    def row_state_widths(self, dim: int) -> List[Tuple[str, int]]:
+    def row_state_widths(self, dim: int, col_segments=None
+                         ) -> List[Tuple[str, int]]:
         """Per-row state columns as (name, width); the order is the in-row
-        layout of packed tables."""
+        layout of packed tables. With ``col_segments`` the row-wise state
+        keeps one column per segment."""
+        ns = len(col_segments) if col_segments else 1
         return {
             "sgd": [],
             "adagrad": [("acc", dim)],
-            "rowwise_adagrad": [("acc", 1)],
+            "rowwise_adagrad": [("acc", ns)],
             "adam": [("m", dim), ("v", dim)],
-            "partial_rowwise_adam": [("m", dim), ("v", 1)],
+            "partial_rowwise_adam": [("m", dim), ("v", ns)],
             "lamb": [("m", dim), ("v", dim)],
-            "partial_rowwise_lamb": [("m", dim), ("v", 1)],
+            "partial_rowwise_lamb": [("m", dim), ("v", ns)],
             "lars_sgd": [("mom", dim)],
             "adadelta": [("acc", dim), ("delta_acc", dim)],
             "rmsprop": [("sq", dim)],
@@ -94,10 +133,11 @@ class SparseOptimizer:
             return {"step": torch.zeros((), dtype=torch.int32, device=device)}
         return {}
 
-    def init_state(self, rows: int, dim: int, device=None) -> Params:
+    def init_state(self, rows: int, dim: int, device=None,
+                   col_segments=None) -> Params:
         out: Params = dict(self.scalar_state_init(device))
         fills = self.row_state_init()
-        for name, width in self.row_state_widths(dim):
+        for name, width in self.row_state_widths(dim, col_segments):
             out[name] = torch.full((rows, width), fills.get(name, 0.0),
                                    dtype=torch.float32, device=device)
         return out
@@ -113,9 +153,16 @@ class SparseOptimizer:
         scalar_state: Params,  # {"step": ...} for the adam and lamb kinds
         dim_reduce=None,       # column-wise: sum over the ranks
         full_dim=None,         # column-wise: the whole row's width
+        col_segments=None,     # merged tables: the segments' widths
     ) -> Tuple[torch.Tensor, Params, Params]:
         """Pure row-level update: (new_rows, new_srows, new_scalar_state).
         No table access."""
+        segs = col_segments
+        if _segmented(segs) and dim_reduce is not None:
+            raise ValueError(
+                "merged (column-segmented) tables cannot be column-wise: "
+                "per-segment reductions do not compose with a reduction "
+                "over the ranks")
         c = self.cfg
         k = self.kind
         if c.get("gradient_clipping", False):
@@ -137,8 +184,9 @@ class SparseOptimizer:
         if k == "rowwise_adagrad":
             eps = float(c.get("eps", 1e-10))
             acc = srows["acc"] + _row_mean(grads * grads, dim_reduce,
-                                           full_dim)
-            return w_rows - lr * grads / (acc.sqrt() + eps), {"acc": acc}, {}
+                                           full_dim, segs)
+            return (w_rows - lr * grads / (_seg_expand(acc, segs).sqrt()
+                                           + eps), {"acc": acc}, {})
 
         if k in _STEP_KINDS:
             lamb = k in ("lamb", "partial_rowwise_lamb")
@@ -149,29 +197,31 @@ class SparseOptimizer:
             m = b1 * srows["m"] + (1 - b1) * grads
             g2 = grads * grads
             if k.startswith("partial_rowwise"):
-                g2 = _row_mean(g2, dim_reduce, full_dim)
+                g2 = _row_mean(g2, dim_reduce, full_dim, segs)
             v = b2 * srows["v"] + (1 - b2) * g2
             t = step.float()
             mh = m / (1 - b1 ** t)
             vh = v / (1 - b2 ** t)
+            if k.startswith("partial_rowwise"):
+                vh = _seg_expand(vh, segs)
             upd = mh / (vh.sqrt() + eps)
             if lamb:
-                w_norm = _row_norm(w_rows, dim_reduce)
-                u_norm = _row_norm(upd, dim_reduce)
+                w_norm = _row_norm(w_rows, dim_reduce, segs)
+                u_norm = _row_norm(upd, dim_reduce, segs)
                 trust = torch.where((w_norm > 0) & (u_norm > 0),
                                     w_norm / (u_norm + 1e-12),
                                     w_norm.new_ones(()))
-                upd = trust * upd
+                upd = _seg_expand(trust, segs) * upd
             return w_rows - lr * upd, {"m": m, "v": v}, {"step": step}
 
         if k == "lars_sgd":
             momentum = float(c.get("momentum", 0.9))
             eta = float(c.get("eta", 0.001))
-            w_norm = _row_norm(w_rows, dim_reduce)
-            g_norm = _row_norm(grads, dim_reduce)
-            local_lr = torch.where((w_norm > 0) & (g_norm > 0),
-                                   eta * w_norm / (g_norm + 1e-12),
-                                   w_norm.new_ones(()))
+            w_norm = _row_norm(w_rows, dim_reduce, segs)
+            g_norm = _row_norm(grads, dim_reduce, segs)
+            local_lr = _seg_expand(torch.where(
+                (w_norm > 0) & (g_norm > 0), eta * w_norm / (g_norm + 1e-12),
+                w_norm.new_ones(())), segs)
             mom = momentum * srows["mom"] + local_lr * lr * grads
             return w_rows - mom, {"mom": mom}, {}
 
@@ -201,6 +251,7 @@ class SparseOptimizer:
         lr,
         dim_reduce=None,
         full_dim=None,
+        col_segments=None,
     ) -> Tuple[torch.Tensor, Params]:
         """Update the rows ``uids`` of ``weight`` and of the row state in
         place; every other row keeps its bits. Ids outside [0, rows) are
@@ -209,12 +260,13 @@ class SparseOptimizer:
         valid = (uids >= 0) & (uids < rows)
         uids = uids[valid].long()
         grads = grads[valid].float()
-        widths = self.row_state_widths(dim)
+        widths = self.row_state_widths(dim, col_segments)
         names = {n for n, _ in widths}
         srows = {n: state[n][uids] for n in names}
         scalar = {k: v for k, v in state.items() if k not in names}
         new_rows, new_srows, new_scalar = self.apply_rows(
-            weight[uids], srows, grads, lr, scalar, dim_reduce, full_dim)
+            weight[uids], srows, grads, lr, scalar, dim_reduce, full_dim,
+            col_segments)
         weight.index_copy_(0, uids, new_rows.to(weight.dtype))
         for n in names:
             state[n].index_copy_(0, uids, new_srows[n])

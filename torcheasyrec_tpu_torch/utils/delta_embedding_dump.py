@@ -6,7 +6,9 @@ same files: every ``dump_interval_steps`` steps and once at the end of
 training, each table whose rows a batch looked up since the last dump
 gets ``<file_prefix>-<table>-<step>.parquet`` with columns ``id``
 (int64, ascending) and ``embedding`` (list<float32>, the row after that
-step). Features that share a table share its shard.
+step). Features that share a table share its shard. Tables are named
+as configured whether or not the engine merged them (the JAX dumper
+names a merged table's shard after the merged table).
 
 The ids are marked on the device, one flag per table row (the batches
 are already there), so a step adds no wait for the host; a dump reads
@@ -41,9 +43,9 @@ class DeltaEmbeddingDumper:
         self._interval = dump_interval_steps
         self._prefix = file_prefix
         engine = embedding_group.engine
-        self._feature_to_table = {
-            lk.feature_name: lk.table_name
-            for lks in engine._lookups_by_group.values() for lk in lks}
+        # by original table names: merged tables dump as their members
+        self._feature_to_table = {lk.feature_name: lk.table_name
+                                  for lk in engine.lookups}
         self._rows = {name: engine.table_rows(name)[2]
                       for name in set(self._feature_to_table.values())}
         # per table: a flag per row and a last one that out-of-range and
